@@ -1,0 +1,18 @@
+"""Config registry of the port: the three archs the paged serving path takes."""
+from repro_torch.configs import phi3_medium_14b, qwen2_5_3b, smollm_135m
+from repro_torch.configs.base import ModelConfig, smoke_variant
+
+ARCHS = {
+    "smollm-135m": smollm_135m.CONFIG,
+    "qwen2.5-3b": qwen2_5_3b.CONFIG,
+    "phi3-medium-14b": phi3_medium_14b.CONFIG,
+}
+
+
+def get_arch(name: str) -> ModelConfig:
+    if name in ARCHS:
+        return ARCHS[name]
+    raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
+
+
+__all__ = ["ARCHS", "ModelConfig", "get_arch", "smoke_variant"]

@@ -1,0 +1,115 @@
+"""Core building blocks, ported from ``repro.models.layers``.
+
+Parameters are plain nested dicts of tensors with the JAX package's key
+names. Every function keeps the layout of its JAX counterpart so the tests
+compare like with like.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+
+def dense_init(generator: torch.Generator, shape, dtype, device,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """Normal(0, scale) weights of ``shape`` (..., d_in, d_out), drawn in
+    float32 from ``generator`` on its own device, then cast and moved.
+    ``scale`` defaults to 1/sqrt(d_in), as ``repro``'s ``dense_init``."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(shape[-2])
+    w = torch.randn(tuple(shape), generator=generator, dtype=torch.float32,
+                    device=generator.device) * scale
+    return w.to(device=device, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# normalization (accumulate in f32, cast back)
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x, scale, eps: float = 1e-5):
+    if x.dtype == torch.float32:
+        var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+        return x * torch.rsqrt(var + eps) * scale
+    # low-precision path: the variance accumulates in f32, the product is
+    # taken in the input dtype (the bf16 contract of the JAX function)
+    xf = x.float()
+    var = torch.einsum("...d,...d->...", xf, xf) / x.shape[-1]
+    inv = torch.rsqrt(var + eps)[..., None].to(x.dtype)
+    return x * inv * scale.to(x.dtype)
+
+
+def layer_norm(x, scale, bias, eps: float = 1e-5):
+    dtype = x.dtype
+    x = x.float()
+    mean = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mean), dim=-1, keepdim=True)
+    x = (x - mean) * torch.rsqrt(var + eps)
+    return (x * scale.float() + bias.float()).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None):
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def rope_tables(positions, head_dim: int, theta: float):
+    """(cos, sin), each (B, S, 1, head_dim/2) float32, for positions (B, S)
+    or (S,). A step computes them once and every layer reuses them."""
+    freqs = rope_frequencies(head_dim, theta, positions.device)   # (hd/2,)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    angles = positions[..., None].float() * freqs                 # (B, S, hd/2)
+    return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+
+
+def apply_rope_tables(x, cos, sin):
+    """Rotate x (B, S, H, hd) by precomputed ``rope_tables``."""
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (B, S, H, hd); positions: (B, S) or (S,) integer."""
+    return apply_rope_tables(x, *rope_tables(positions, x.shape[-1], theta))
+
+
+# ---------------------------------------------------------------------------
+# feed-forward
+# ---------------------------------------------------------------------------
+
+
+def apply_mlp(params, x, act: str):
+    if act == "silu":
+        h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+        return h @ params["w_down"]
+    # jax.nn.gelu defaults to the tanh approximation
+    h = F.gelu(x @ params["w_up"] + params["b_up"], approximate="tanh")
+    return h @ params["w_down"] + params["b_down"]
+
+
+# ---------------------------------------------------------------------------
+# embedding / unembedding
+# ---------------------------------------------------------------------------
+
+
+def embed_tokens(params, tokens):
+    return params["table"][tokens.long()]
+
+
+def unembed(params_embed, params_head, x, tied: bool):
+    if tied:
+        return x @ params_embed["table"].T
+    return x @ params_head["w"]

@@ -1,0 +1,216 @@
+"""Layer stacks of the paged serving path, ported from
+``repro.models.transformer``.
+
+Parameters of a period-1 stack are stacked over the L layer groups, as
+``transformer._stack_layers`` does in the JAX package: every leaf of
+``blocks[0]`` carries a leading axis of ``num_layers``. Where JAX scans the
+stack with ``lax.scan``, the port loops over the layer index ``g`` in
+Python and hands each layer the ``g``-th slice of every leaf.
+
+The KV pools are (G, n_blocks, bs, KVH, hd) tensors. Each layer writes its
+new K/V entries into its slice ``pool[g]`` IN PLACE before attending; JAX
+instead returns new pools from the scan. What is the same for every layer
+of a step — the rope tables, the pool slots the new entries go to, the
+attention lengths — the stack computes once and hands to each layer (XLA
+hoists the same values out of the JAX scan).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs.base import (
+    ATTN_FULL,
+    MIXER_RWKV6,
+    ModelConfig,
+)
+from repro_torch.kernels.decode_attention import (
+    paged_chunk_attention,
+    paged_decode_attention,
+)
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (
+    apply_mlp,
+    apply_rope_tables,
+    dense_init,
+    layer_norm,
+    rms_norm,
+    rope_tables,
+)
+from repro_torch.serving.paged_cache import decode_slots, packed_slots, scatter_slots
+
+# ---------------------------------------------------------------------------
+# layer-kind resolution
+# ---------------------------------------------------------------------------
+
+
+def period(cfg: ModelConfig) -> int:
+    return cfg.global_layer_every if cfg.global_layer_every else 1
+
+
+def layer_kind(cfg: ModelConfig, layer: int) -> Dict[str, Any]:
+    return {
+        "attn_type": cfg.layer_attn_type(layer),
+        "moe": cfg.layer_is_moe(layer),
+        "cross": cfg.is_encoder_decoder,
+    }
+
+
+def _uses_layernorm(cfg: ModelConfig) -> bool:
+    return cfg.attn_type == MIXER_RWKV6 or cfg.is_encoder_decoder
+
+
+def init_norm(cfg, dtype, device, lead=()):
+    """Norm params; ``lead`` prepends the stacked layer-group axis."""
+    shape = (*lead, cfg.d_model)
+    if _uses_layernorm(cfg):
+        return {"scale": torch.ones(shape, dtype=dtype, device=device),
+                "bias": torch.zeros(shape, dtype=dtype, device=device)}
+    return {"scale": torch.ones(shape, dtype=dtype, device=device)}
+
+
+def apply_norm(cfg, p, x):
+    if "bias" in p:
+        return layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
+    return rms_norm(x, p["scale"], cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# init (dense GQA stacks)
+# ---------------------------------------------------------------------------
+
+
+def _check_dense_gqa(cfg: ModelConfig) -> None:
+    kind = layer_kind(cfg, 0)
+    if period(cfg) != 1 or kind["attn_type"] != ATTN_FULL or kind["moe"] \
+            or kind["cross"] or cfg.act != "silu":
+        raise NotImplementedError(
+            "the port covers full-attention dense GQA stacks with SwiGLU only")
+
+
+def init_layer(generator, cfg: ModelConfig, dtype, device, lead=()):
+    """One dense GQA layer's params (``lead`` = stacked group axis), with
+    the init scales of the JAX package: 1/sqrt(d_in) for every projection,
+    zero QKV biases, unit norm scales."""
+    _check_dense_gqa(cfg)
+    D, F, q_dim, kv_dim = cfg.d_model, cfg.d_ff, cfg.q_dim, cfg.kv_dim
+    mk = lambda d_in, d_out: dense_init(generator, (*lead, d_in, d_out), dtype, device)
+    a = {"wq": mk(D, q_dim), "wk": mk(D, kv_dim), "wv": mk(D, kv_dim),
+         "wo": mk(q_dim, D)}
+    if cfg.qkv_bias:
+        for name, n in (("bq", q_dim), ("bk", kv_dim), ("bv", kv_dim)):
+            a[name] = torch.zeros((*lead, n), dtype=dtype, device=device)
+    mlp = {"w_gate": mk(D, F), "w_up": mk(D, F), "w_down": mk(F, D)}
+    return {"norm1": init_norm(cfg, dtype, device, lead), "attn": a,
+            "norm2": init_norm(cfg, dtype, device, lead), "mlp": mlp}
+
+
+def _stack_layers(generator, cfg: ModelConfig, dtype, device):
+    """Decoder layers stacked into period groups: a list of one tree whose
+    leaves carry a leading axis of ``num_layers``."""
+    return [init_layer(generator, cfg, dtype, device, lead=(cfg.num_layers,))]
+
+
+def layer_slice(tree, g: int):
+    """Layer ``g``'s params: the ``g``-th slice (a view) of every leaf."""
+    if isinstance(tree, dict):
+        return {k: layer_slice(v, g) for k, v in tree.items()}
+    return tree[g]
+
+
+# ---------------------------------------------------------------------------
+# paged serving layers
+# ---------------------------------------------------------------------------
+
+
+def _finish_layer(cfg, lp, x, a_out):
+    """Output projection, residual, norm2 and the MLP."""
+    B, S = x.shape[:2]
+    x = x + a_out.reshape(B, S, cfg.num_heads * cfg.head_dim) @ lp["attn"]["wo"]
+    xn = apply_norm(cfg, lp["norm2"], x)
+    return x + apply_mlp(lp["mlp"], xn, cfg.act)
+
+
+def _attn_inputs(cfg, lp, x, rope):
+    """norm1 -> QKV (with bias) -> rope; returns q, k, v (B, S, heads, hd)."""
+    xn = apply_norm(cfg, lp["norm1"], x)
+    q, k, v = attn.qkv_project(lp["attn"], xn, cfg.num_heads,
+                               cfg.num_kv_heads, cfg.head_dim)
+    if rope is not None:
+        q = apply_rope_tables(q, *rope)
+        k = apply_rope_tables(k, *rope)
+    return q, k, v
+
+
+def _rope(cfg, positions):
+    return rope_tables(positions, cfg.head_dim, cfg.rope_theta) if cfg.use_rope else None
+
+
+def apply_layer_paged(cfg, lp, x, k_slice, v_slice, tables, row_of, slots,
+                      p_end, s_start, *, rope, dest):
+    """Ragged fused-step layer: T packed tokens (decode rows and prefill
+    chunks back to back) read and write one layer's pool slice directly.
+
+    x: (1, T, D); k/v_slice: (n_blocks, bs, KVH, hd), updated in place;
+    tables: (B, mb) int32 RAW; row_of/slots/p_end/s_start: (T,) int32 owning
+    row (-1 = pad), cache slot and span; ``rope``: the step's rope tables of
+    the tokens' positions; ``dest``: the step's ``packed_slots``. The
+    tokens' K/V are written before attention, so each token sees its own
+    entry and every earlier packed token of its row. Returns the new x."""
+    q, k, v = _attn_inputs(cfg, lp, x, rope)
+    scatter_slots(k_slice, dest, k[0])
+    scatter_slots(v_slice, dest, v[0])
+    a_out = paged_chunk_attention(q[0], k_slice, v_slice, tables, row_of,
+                                  slots, p_end, s_start)
+    return _finish_layer(cfg, lp, x, a_out)
+
+
+def run_stack_paged(cfg, blocks, x, k_pool, v_pool, tables, row_of, slots,
+                    positions, p_end, s_start, *, block_size, null_block):
+    """Run the stack in ragged fused-step mode: x (1, T, D) packed tokens
+    against the full pools (G, n_blocks, bs, KVH, hd), which are updated in
+    place layer by layer. Returns x."""
+    if period(cfg) != 1:
+        raise NotImplementedError("ragged paged path requires period-1 stacks")
+    rope = _rope(cfg, positions[None])
+    dest = packed_slots(tables, row_of, slots, block_size, null_block)
+    for g in range(k_pool.shape[0]):
+        x = apply_layer_paged(
+            cfg, layer_slice(blocks[0], g), x, k_pool[g], v_pool[g], tables,
+            row_of, slots, p_end, s_start, rope=rope, dest=dest,
+        )
+    return x
+
+
+def apply_layer_decode_paged(cfg, lp, x, k_slice, v_slice, tables, lengths,
+                             *, rope, dest):
+    """Paged decode layer: write each row's new K/V at its ``dest`` slot of
+    the pool slice (in place), then attend the row's chain with
+    ``paged_decode_attention``. x: (B, 1, D); tables: (B, mb); lengths:
+    (B,) int32 = pos + 1; ``rope``/``dest``: the step's rope tables and
+    ``decode_slots``. Returns the new x."""
+    q, k, v = _attn_inputs(cfg, lp, x, rope)
+    scatter_slots(k_slice, dest, k[:, 0])
+    scatter_slots(v_slice, dest, v[:, 0])
+    a_out = paged_decode_attention(q[:, 0].contiguous(), k_slice, v_slice,
+                                   tables, lengths)
+    return _finish_layer(cfg, lp, x, a_out)
+
+
+def run_stack_decode_paged(cfg, blocks, x, k_pool, v_pool, tables, pos, *,
+                           block_size, null_block):
+    """Run the stack in paged-decode mode: x (B, 1, D), pools updated in
+    place layer by layer, per-row positions (B,) int32, table-backed (the
+    plan allocates before it decodes). Returns x."""
+    if period(cfg) != 1:
+        raise NotImplementedError("paged decode requires period-1 stacks")
+    rope = _rope(cfg, pos[:, None])
+    dest = decode_slots(tables, pos, block_size, null_block)
+    lengths = pos + 1
+    for g in range(k_pool.shape[0]):
+        x = apply_layer_decode_paged(
+            cfg, layer_slice(blocks[0], g), x, k_pool[g], v_pool[g], tables,
+            lengths, rope=rope, dest=dest,
+        )
+    return x

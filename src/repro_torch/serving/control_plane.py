@@ -1,0 +1,409 @@
+"""Host-side control plane: immutable per-step plans for the device runtime.
+
+A copy of ``repro.serving.control_plane`` for the port, without the padded
+("fused") batch layout, which the port does not have yet: mixed steps are
+always packed ("ragged").
+
+Admission, block allocation, chunk grants and the bookkeeping of a step
+are host work; this module keeps them off the device's critical path. It is
+the host half of the split (the device half is ``serving.device_runner``):
+
+* ``StepPlan`` — an immutable snapshot of ONE engine step: which rows
+  decode, which mid-prefill rows got how much of the token budget, the
+  fully-assembled batch arrays (tokens/cursors/block tables/segment spans),
+  and which rows' sampled token will be delivered. Everything the device
+  needs, nothing it has to ask the host for mid-step.
+
+* ``ControlPlane`` — builds plans entirely host-side: admission in policy
+  order (with prefix-leader deferral), decode-capacity preemption, token-
+  budget grants, batch assembly, and the *build-time* bookkeeping (cursor
+  advances, ``kv.lengths``, prefix publication, count-based completion →
+  slot/block release). Because bookkeeping that affects the NEXT plan is
+  applied at build time, the plan sequence is identical whether the engine
+  materializes each step eagerly (sync oracle) or one step late (pipelined)
+  — which is what makes pipelined mode token-exact by construction.
+
+* ``CopyEngine`` — a bounded host-side queue of deferred device<->host
+  copies (swap-set fills, warm-block demotions, write-through publishes).
+  A copy op captures its source when enqueued; only the blocking host
+  materialization is deferred off the critical path. ``sync(tag)`` gives
+  readers (swap-in) a happens-before edge against their own pending writes.
+  The port's engine enqueues no copies until the host tier is ported.
+
+Completion bookkeeping splits across the two timelines: the *plan* decides
+a request is finishing (its ``planned`` count hit ``max_new``) and releases
+its blocks immediately — device program order guarantees the released
+blocks' last writes land before any later plan reuses them — while the
+emission side effects (``out_tokens``, timestamps, stream writes, the
+``done`` flag) happen when the sampled tokens materialize, one step later
+in pipelined mode.
+"""
+from __future__ import annotations
+
+from collections import deque
+from dataclasses import dataclass
+from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from repro_torch.core.streaming import streaming_chunk_policy
+
+
+@dataclass(frozen=True, eq=False)
+class StepPlan:
+    """One engine step, fully decided host-side. Arrays are plain numpy —
+    the runner uploads them; nothing here holds device state."""
+
+    plan_id: int
+    kind: str                # "ragged" (packed mixed batch) | "decode"
+    tokens: np.ndarray       # ragged: (T,) flat packed tokens; decode: (B, 1)
+    starts: np.ndarray       # (B,) int32 per-row cursor / decode position
+    temps: np.ndarray        # (B,) float32 sampling temperatures
+    tables: np.ndarray       # (B, view_blocks | max_blocks) int32 block
+    #                          tables — RAW (-1 holes) for ragged plans,
+    #                          scratch-filled for decode
+    # rows whose decode token must be substituted with the PREVIOUS plan's
+    # device-resident sampled token (-1 = feed the host-provided token)
+    prev_slots: np.ndarray   # (B,) int32
+    # rows whose sampled token is delivered: (request, row, finishing)
+    emit_rows: Tuple[Tuple[Any, int, bool], ...]
+    n_tokens: int            # valid tokens this step (per-token calibration)
+    n_valid: Optional[np.ndarray] = None     # mixed only: (B,) valid counts
+    positions: Optional[np.ndarray] = None   # mixed only: (T,) rope positions
+    p_end: Optional[np.ndarray] = None       # mixed only: attention span ends
+    s_start: Optional[np.ndarray] = None     # mixed only: span starts
+    # ragged layout only: the packed batch's row-offset arrays
+    row_of: Optional[np.ndarray] = None      # (T,) owning batch row, -1 = pad
+    slots: Optional[np.ndarray] = None       # (T,) absolute cache slot
+    decode_idx: Optional[np.ndarray] = None  # (B,) flat index of the row's
+    #                                          decode token (-1 = not decoding)
+    last_idx: Optional[np.ndarray] = None    # (B,) flat index of the row's
+    #                                          last valid token (0 = unused row)
+
+
+class CopyEngine:
+    """Bounded FIFO of deferred host<->device copy closures.
+
+    Each op is a zero-arg callable whose expensive part is a blocking
+    ``np.asarray`` (device→host) or scatter (host→device); the device-side
+    gather was already dispatched when the op was enqueued, so draining is
+    pure host/transfer work that the engine schedules BETWEEN dispatches.
+    Ordering is FIFO — a demotion enqueued after a write-through of the same
+    block drains after it, so the host tier always converges to the latest
+    publication. ``submit`` force-drains the oldest ops past ``max_pending``
+    (bounded memory: each pending op pins one gathered array)."""
+
+    def __init__(self, max_pending: int = 32):
+        self.max_pending = max_pending
+        self._q: Deque[Tuple[Any, Callable[[], None]]] = deque()
+        self.submitted = 0
+        self.drained = 0
+        self.forced = 0   # ops drained early by the bound, not by schedule
+        # optional analysis.kvsan.KVSanitizer: tracks per-tag pending copies
+        # so the shadow can enforce the sync(tag) happens-before edge (a
+        # swap-set restore must not read ahead of its deferred fill)
+        self.sanitizer: Optional[Any] = None
+
+    @property
+    def backlog(self) -> int:
+        return len(self._q)
+
+    def submit(self, op: Callable[[], None], tag: Any = None) -> None:
+        if self.sanitizer is not None:
+            self.sanitizer.copy_submit(tag)
+        self._q.append((tag, op))
+        self.submitted += 1
+        while len(self._q) > self.max_pending:
+            self.forced += 1
+            self._run_one()
+
+    def _run_one(self) -> None:
+        tag, op = self._q.popleft()
+        self.drained += 1
+        if self.sanitizer is not None:
+            self.sanitizer.copy_drained(tag)
+        op()
+
+    def drain(self, budget: Optional[int] = None) -> int:
+        """Run up to ``budget`` pending ops (all of them when None)."""
+        n = len(self._q) if budget is None else min(budget, len(self._q))
+        for _ in range(n):
+            self._run_one()
+        return n
+
+    def sync(self, tag: Any) -> None:
+        """Drain (in order) until no pending op carries ``tag`` — the
+        happens-before edge a reader needs against its own deferred writes
+        (e.g. swap-in after a deferred swap-set fill)."""
+        while any(t == tag for t, _ in self._q):
+            self._run_one()
+
+
+class ControlPlane:
+    """Builds ``StepPlan``s for one engine: admission, capacity, grants,
+    batch assembly, and build-time bookkeeping. Owns no device state."""
+
+    def __init__(self, engine):
+        self.eng = engine
+        self._next_plan_id = 0
+        self.plans_built = 0
+        self.last_load = 0.0
+        self.last_chunk_size: Optional[int] = None
+
+    # ------------------------------------------------------------ admission
+    def admit(self) -> None:
+        """Fill free slots from the waiting queue in policy order, allocating
+        blocks only — prefill itself runs inside later plans via the
+        request's cursor."""
+        eng = self.eng
+        free = [s for s in range(eng.max_batch) if eng.slots[s] is None]
+        while free and eng.waiting:
+            i = eng.scheduler.select(eng.waiting)
+            req = eng.waiting[i]
+            if not req.swapped and eng._prefix_pending(req):
+                break  # leader still prefilling this prefix; wait to share it
+            was_swapped = req.swapped  # _try_admit clears it on restore
+            if not eng._try_admit(req):
+                if req.done:  # unfittable request failed out; try the next
+                    eng.waiting.pop(i)
+                    continue
+                break  # the policy's head-of-line waits for blocks
+            eng.waiting.pop(i)
+            slot = free.pop(0)
+            if not was_swapped:
+                cap = eng._prompt_cap(req)
+                req.truncated = cap < len(req.prompt)
+                req.prefill_cap = cap
+                req.prefill_pos = 0
+                eng._advance_cursor(req)  # shared blocks already carry K/V
+            # a swap-restored request keeps its cursor/position state: it
+            # resumes mid-prefill or mid-decode exactly where swap-out left it
+            req.slot = slot
+            eng.slots[slot] = req
+
+    # ----------------------------------------------------------- chunk knob
+    def _apply_chunk_policy(self, active: List) -> None:
+        """Load-driven streaming granularity (paper §3.3.1): fine-grained
+        chunks at low load overlap delivery with downstream work; coarse
+        chunks at high load keep flush work off the busy engine."""
+        eng = self.eng
+        load = min(1.0, (len(active) + len(eng.waiting)) / max(eng.max_batch, 1))
+        size = streaming_chunk_policy(load)
+        self.last_load = load
+        self.last_chunk_size = size
+        for r in active:
+            if r.stream is not None:
+                r.stream.set_chunk_size(size)
+
+    # ------------------------------------------------------------- planning
+    def build_plan(self) -> Optional[StepPlan]:
+        """One step's decisions, host-side only. Returns None when there is
+        nothing to run (no active slots after admission)."""
+        eng = self.eng
+        self.admit()
+        eng._ensure_decode_capacity()
+        active = [r for r in eng.slots if r is not None]
+        self._apply_chunk_policy(active)
+        if not active:
+            return None
+        plan_id = self._next_plan_id
+        self._next_plan_id += 1
+        self.plans_built += 1
+
+        prefill_rows = sorted((r for r in active if r.prefilling),
+                              key=lambda r: r.req_id)
+        decode_rows = [r for r in active if not r.prefilling]
+        B = eng.max_batch
+        prev_slots = np.full((B,), -1, np.int32)
+
+        if prefill_rows:
+            plan = self._assemble_ragged(plan_id, active, prefill_rows,
+                                         decode_rows, prev_slots)
+        else:
+            plan = self._assemble_decode(plan_id, active, prev_slots)
+
+        # build-time completion: finishing rows release slot + blocks NOW so
+        # the next plan can admit into them; emission happens at materialize
+        for req, _row, finishing in plan.emit_rows:
+            if finishing:
+                eng._retire_slot(req)
+        return plan
+
+    def _grants(self, prefill_rows, decode_rows) -> Dict[int, int]:
+        """Token-budget grants: decode rows reserve one token each; the
+        remaining budget goes to mid-prefill rows in policy order (always
+        at least one token, so prefill can never fully starve)."""
+        eng = self.eng
+        budget = max(eng.token_budget - len(decode_rows), 1)
+        grants: Dict[int, int] = {}
+        for r in eng.scheduler.order(prefill_rows):
+            if budget <= 0:
+                break
+            c = min(eng._max_grant(r, eng.prefill_chunk_size), budget)
+            grants[r.req_id] = c
+            budget -= c
+        return grants
+
+    def _mixed_bookkeeping(self, plan_id, prefill_rows, decode_rows, grants):
+        """Build-time bookkeeping for one mixed step (the state the NEXT
+        plan reads): cursor/position advances, kv lengths, prefix
+        publication, and the emit list."""
+        eng = self.eng
+        emit: List[Tuple[Any, int, bool]] = []
+        n_tok = 0
+        for r in decode_rows:
+            r.pos += 1
+            eng.kv.lengths[r.req_id] = r.pos
+            n_tok += 1
+            emit.append(self._mark_sampled(r, plan_id))
+        for r in prefill_rows:
+            c = grants.get(r.req_id, 0)
+            if c == 0:
+                continue  # no budget this step; cursor holds
+            r.prefill_pos += c
+            eng.prefill_tokens += c
+            n_tok += c
+            eng._advance_cursor(r)  # skip cache-served spans for free
+            eng.kv.lengths[r.req_id] = r.prefill_pos
+            if r.prefill_pos >= r.prefill_cap:
+                # prefill complete: publish prompt blocks; the first token
+                # samples from this plan's last-valid-position logits
+                eng.kv.register_prefix(
+                    r.req_id, np.asarray(r.prompt[: r.prefill_cap], np.int32),
+                    r.layout,
+                )
+                r.pos = r.prefill_cap
+                emit.append(self._mark_sampled(r, plan_id))
+        return emit, n_tok
+
+    def _assemble_ragged(self, plan_id, active, prefill_rows, decode_rows,
+                         prev_slots) -> StepPlan:
+        """Packed mixed batch: one flat token buffer, rows back to back in
+        slot order — a decode row occupies ONE slot instead of a chunk-width
+        slab, so padding is only the tail alignment (``eng.pack_align``).
+        Tables stay RAW (-1 holes): the attention masks unbacked pages
+        instead of rerouting them to the scratch block."""
+        eng = self.eng
+        grants = self._grants(prefill_rows, decode_rows)
+
+        B = eng.max_batch
+        toks: List[np.ndarray] = []
+        row_l: List[np.ndarray] = []
+        slot_l: List[np.ndarray] = []
+        pos_l: List[np.ndarray] = []
+        pend_l: List[np.ndarray] = []
+        sstart_l: List[np.ndarray] = []
+        starts = np.zeros((B,), np.int32)
+        n_valid = np.zeros((B,), np.int32)
+        temps = np.zeros((B,), np.float32)
+        decode_idx = np.full((B,), -1, np.int32)
+        last_idx = np.zeros((B,), np.int32)
+        tables = np.full((B, eng._view_blocks), -1, np.int32)
+        # ragged tables ship to the device RAW; the attention masks blk < 0
+        rows = eng.kv.pool.table_array([r.req_id for r in active],
+                                       eng._view_blocks)
+        cursor = 0
+        for i, r in enumerate(active):   # slot order (eng.slots scan order)
+            tables[r.slot] = rows[i]
+            temps[r.slot] = r.temperature
+            if r.prefilling:
+                c = grants.get(r.req_id, 0)
+                starts[r.slot] = r.prefill_pos
+                n_valid[r.slot] = c
+                if c == 0:
+                    continue  # no budget: the row contributes no tokens
+                p0 = r.prefill_pos
+                toks.append(np.asarray(r.prompt[p0 : p0 + c], np.int32))
+                row_l.append(np.full(c, r.slot, np.int32))
+                slot_l.append(np.arange(p0, p0 + c, dtype=np.int32))
+                lay = r.layout
+                pos_l.append(np.asarray(lay.pos_ids[p0 : p0 + c], np.int32))
+                pend_l.append(np.asarray(lay.attn_p_end[p0 : p0 + c], np.int32))
+                sstart_l.append(np.asarray(lay.attn_s_start[p0 : p0 + c], np.int32))
+            else:
+                toks.append(np.array([self._decode_token(r, prev_slots)], np.int32))
+                row_l.append(np.array([r.slot], np.int32))
+                slot_l.append(np.array([r.pos], np.int32))
+                pos_l.append(np.array([r.pos], np.int32))
+                pend_l.append(np.zeros(1, np.int32))
+                sstart_l.append(np.zeros(1, np.int32))
+                starts[r.slot] = r.pos
+                n_valid[r.slot] = 1
+                decode_idx[r.slot] = cursor
+            last_idx[r.slot] = cursor + len(toks[-1]) - 1
+            cursor += len(toks[-1])
+
+        # tail-align the flat buffer so the set of packed lengths stays
+        # bounded (warmup covers each); pad tokens carry row_of = -1
+        T = max(cursor, 1)
+        T_pad = -(-T // eng.pack_align) * eng.pack_align
+
+        def flat(parts, fill=0):
+            out = np.full((T_pad,), fill, np.int32)
+            if parts:
+                cat = np.concatenate(parts)
+                out[: len(cat)] = cat
+            return out
+
+        emit, n_tok = self._mixed_bookkeeping(
+            plan_id, prefill_rows, decode_rows, grants
+        )
+        eng.fused_slot_tokens += T_pad
+        eng.fused_valid_tokens += cursor
+        return StepPlan(
+            plan_id=plan_id, kind="ragged", tokens=flat(toks),
+            starts=starts, temps=temps, tables=tables, prev_slots=prev_slots,
+            emit_rows=tuple(emit), n_tokens=n_tok, n_valid=n_valid,
+            positions=flat(pos_l), p_end=flat(pend_l),
+            s_start=flat(sstart_l),
+            row_of=flat(row_l, fill=-1),
+            slots=flat(slot_l), decode_idx=decode_idx, last_idx=last_idx,
+        )
+
+    def _assemble_decode(self, plan_id, active, prev_slots) -> StepPlan:
+        eng = self.eng
+        B = eng.max_batch
+        tokens = np.zeros((B, 1), np.int32)
+        starts = np.zeros((B,), np.int32)
+        temps = np.zeros((B,), np.float32)
+        tables = np.full((B, eng.max_blocks), eng._null_block, np.int32)
+        rows = eng.kv.batch_tables([r.req_id for r in active])
+        for i, r in enumerate(active):
+            valid = rows[i] >= 0
+            tables[r.slot, valid] = rows[i][valid]
+            tokens[r.slot, 0] = self._decode_token(r, prev_slots)
+            starts[r.slot] = r.pos
+            temps[r.slot] = r.temperature
+        emit: List[Tuple[Any, int, bool]] = []
+        for r in active:
+            r.pos += 1
+            eng.kv.lengths[r.req_id] = r.pos
+            emit.append(self._mark_sampled(r, plan_id))
+        return StepPlan(
+            plan_id=plan_id, kind="decode", tokens=tokens, starts=starts,
+            temps=temps, tables=tables, prev_slots=prev_slots,
+            emit_rows=tuple(emit), n_tokens=len(active),
+        )
+
+    # ------------------------------------------------------------- helpers
+    def _decode_token(self, r, prev_slots: np.ndarray) -> int:
+        """Decode-row input token. If the request's previous token was
+        sampled by the plan the runner dispatched LAST, it is still device-
+        resident — mark the row for on-device substitution (no host
+        roundtrip, possibly not even materialized yet). Otherwise (fresh
+        admission, swap-in, or a flushed pipeline) feed the host value."""
+        src_plan, src_row = r._tok_src
+        if src_plan >= 0 and src_plan == self.eng.runner.last_plan_id:
+            prev_slots[r.slot] = src_row
+            return 0  # placeholder; the runner substitutes on device
+        return r.out_tokens[-1] if r.out_tokens else 0
+
+    def _mark_sampled(self, r, plan_id: int) -> Tuple[Any, int, bool]:
+        """Account one sampled token at BUILD time: bump the planned count,
+        remember where the device will hold it, and decide completion by
+        count (eos is checked at materialize; with the engine's default
+        eos=-1 it never fires and completion is exact here)."""
+        r.planned += 1
+        r._tok_src = (plan_id, r.slot)
+        finishing = r.planned >= r.max_new or r.pos >= self.eng.max_seq - 1
+        return (r, r.slot, finishing)

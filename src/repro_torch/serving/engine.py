@@ -1,0 +1,664 @@
+"""Generation engine: continuous batching on the paged KV cache, ported
+from ``repro.serving.engine``.
+
+The serving loop of the JAX package's main path —
+``GenerationEngine(backend="paged", interleave=True, ragged=True,
+pipeline=True)`` — on PyTorch:
+
+    submit(prompt) -> admission (prefix sharing) -> one StepPlan per step
+    (decode rows + prefill chunks packed in one flat token buffer, bounded
+    by a token budget) -> device step -> sample -> stream tokens out.
+
+A host-side ``ControlPlane`` builds an immutable ``StepPlan`` per step and a
+``DeviceRunner`` dispatches it: mixed steps run ``models.prefill_packed``
+(attention through ``kernels.paged_chunk_attention``), decode-only steps run
+``models.decode_step_paged`` (``kernels.paged_decode_attention``).
+``pipeline=True`` materializes sampled tokens one plan late, so plan N+1 is
+built while step N runs on the card; ``pipeline=False`` is the eager
+oracle, greedy-token-identical. Pool exhaustion preempts the youngest
+request by recompute: its blocks are released and its continuation
+re-queued. Token delivery is out of band through per-request
+``StreamingObject``s and one shared ``PriorityFlusher``.
+
+The engine runs on ``cuda`` unless ``device="cpu"`` is passed. The
+attention wrappers launch the CUDA kernels for CUDA tensors and run their
+plain PyTorch versions for CPU tensors; ``stats()["kernel"]`` says which.
+Arguments of later slices — meshes and pool layouts, an injected cache,
+swap/cost preemption, the host tier, int8 pools, the sequential and padded
+oracles, the dense backend and the sanitizer — raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import copy
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.scheduler import QueuePolicy, make_policy
+from repro_torch.core.streaming import PriorityFlusher, StreamingObject
+from repro_torch.models import (
+    decode_step_paged,
+    init_params,
+    paged_cache_supported,
+    prefill_packed,
+)
+from repro_torch.serving.control_plane import ControlPlane, CopyEngine
+from repro_torch.serving.device_runner import (
+    DeviceRunner,
+    PlanExec,
+    _substitute_packed,
+)
+from repro_torch.serving.paged_cache import PagedKVCache
+from repro_torch.serving.segments import KIND_DOC, SegmentedPrompt, build_layout
+
+_NULL_SEQ = -1  # owner of the reserved scratch block
+
+
+@dataclass
+class Request:
+    req_id: int
+    prompt: np.ndarray
+    max_new: int
+    temperature: float = 0.0
+    priority: float = 0.0            # predicted slack (EDF); smaller = more urgent
+    out_tokens: List[int] = field(default_factory=list)
+    slot: int = -1
+    pos: int = 0
+    prefill_pos: int = 0             # cache slots already populated (computed/shared)
+    prefill_cap: int = 0             # effective prompt length (post-truncation)
+    done: bool = False
+    truncated: bool = False          # prompt exceeded engine capacity
+    shared_prefix_tokens: int = 0    # prompt tokens served from shared blocks
+    session_shared_tokens: int = 0   # session-history subset of shared tokens
+    segprompt: Optional[SegmentedPrompt] = None  # retrieval-aware structure
+    layout: Any = None               # SegmentLayout (built at admission)
+    probe_layout: Any = None         # residency-probe layout (pre-admission)
+    shared_spans: List = field(default_factory=list)  # token ranges served from cache
+    swapped: bool = False            # always False until swap preemption is ported
+    queued_steps: int = 0            # engine steps spent waiting for admission
+    submitted_at: float = 0.0
+    first_token_at: Optional[float] = None
+    last_token_at: Optional[float] = None
+    finished_at: Optional[float] = None
+    token_gaps: List[float] = field(default_factory=list)  # inter-token intervals
+    max_token_gap: float = 0.0       # worst inter-token stall (decode SLO signal)
+    planned: int = 0                 # tokens scheduled by plans (>= len(out_tokens))
+    _tok_src: tuple = (-1, -1)       # (plan_id, row) holding the last sampled token
+    stream: Optional[StreamingObject] = None       # out-of-band token delivery
+    delivered: List[int] = field(default_factory=list)  # tokens flushed downstream
+
+    @property
+    def prefilling(self) -> bool:
+        return self.slot >= 0 and self.prefill_pos < self.prefill_cap
+
+
+def normalize_spans(spans) -> List:
+    """Sorted, disjoint, coalesced ``[lo, hi)`` spans (empties dropped) —
+    the normal form the cursor/grant helpers below assume."""
+    out: List = []
+    for lo, hi in sorted((int(s), int(e)) for s, e in spans if e > s):
+        if out and lo <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], hi))
+        else:
+            out.append((lo, hi))
+    return out
+
+
+def _advance_cursor(req: Request) -> None:
+    """Skip the prefill cursor over cache-served spans (shared blocks
+    already hold the K/V); never past an uncached gap."""
+    for s, e in req.shared_spans:
+        if s <= req.prefill_pos < e:
+            req.prefill_pos = e
+        elif s > req.prefill_pos:
+            break
+    req.prefill_pos = min(req.prefill_pos, req.prefill_cap)
+
+
+def _max_grant(req: Request, limit: int) -> int:
+    """Largest prefill chunk startable at the cursor: clipped by the chunk
+    size, the prompt end, and the next shared span (shared blocks are
+    immutable — a chunk must never write into them)."""
+    c = min(limit, req.prefill_cap - req.prefill_pos)
+    for s, _e in req.shared_spans:
+        if s > req.prefill_pos:
+            c = min(c, s - req.prefill_pos)
+            break
+    return max(c, 0)
+
+
+class GenerationEngine:
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        params=None,
+        max_batch: int = 4,
+        max_seq: int = 256,
+        seed: int = 0,
+        eos_token: int = -1,
+        backend: str = "paged",
+        block_size: int = 16,
+        prefill_chunk_size: int = 64,
+        n_blocks: Optional[int] = None,
+        prefix_sharing: bool = True,
+        interleave: bool = True,
+        token_budget: Optional[int] = None,
+        scheduler: Any = "fifo",
+        max_finished: int = 10_000,
+        mesh: Any = None,
+        pool_layout: Any = None,
+        kv: Any = None,
+        preempt: str = "recompute",
+        host_store: Any = None,
+        host_blocks: Optional[int] = None,
+        pipeline: bool = True,
+        flusher: Optional[PriorityFlusher] = None,
+        copy_budget: int = 4,
+        ragged: bool = True,
+        pack_align: int = 4,
+        kv_dtype: Optional[str] = None,
+        sanitize: bool = False,
+        device=None,
+    ):
+        """``device`` is where the pools, weights and steps live: ``cuda``
+        by default (raises without a GPU), ``"cpu"`` for the plain versions.
+        ``params`` (the ``init_params`` tree, e.g. from
+        ``params.params_from_numpy``) default to ``init_params`` drawn from a
+        ``torch.Generator`` seeded with ``seed``; sampled rows draw from a
+        generator seeded with ``seed + 1``. The other arguments mean what
+        they mean in the JAX engine."""
+        later = {"mesh": mesh, "pool_layout": pool_layout, "kv": kv,
+                 "host_store": host_store, "host_blocks": host_blocks,
+                 "kv_dtype": kv_dtype}
+        for name, value in later.items():
+            if value is not None:
+                raise NotImplementedError(f"GenerationEngine({name}=...) is not ported yet")
+        if backend != "paged":
+            raise NotImplementedError("the dense backend is not ported yet")
+        if preempt in ("swap", "cost"):
+            raise NotImplementedError(f"preempt={preempt!r} is not ported yet")
+        if preempt != "recompute":
+            raise ValueError(f"unknown preempt strategy {preempt!r}")
+        if not interleave or not ragged:
+            raise NotImplementedError(
+                "only the interleaved, ragged (packed) step is ported")
+        if sanitize or cfg.kv_cache_quant:
+            raise NotImplementedError("the sanitizer and int8 pools are not ported yet")
+        if not paged_cache_supported(cfg):
+            raise NotImplementedError(
+                f"{cfg.name} is outside the paged path; the dense backend is "
+                "not ported yet")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = init_params(cfg, gen, self.device)
+        self.params = params
+        self.max_batch = max_batch
+        self.max_seq = max_seq
+        self.eos_token = eos_token
+        self.backend = "paged"
+        self.interleave = True
+        self.ragged = True
+        self.kernel = "cuda" if self.device.type == "cuda" else "plain"
+        self.scheduler: QueuePolicy = make_policy(scheduler)
+        # never mutate a caller-supplied policy: bind residency into a copy
+        if isinstance(scheduler, QueuePolicy):
+            self.scheduler = copy.copy(self.scheduler)
+        self.scheduler.bind_residency(self._residency)
+        self.slots: List[Optional[Request]] = [None] * max_batch
+        self.waiting: List[Request] = []
+        # rolling window of completed requests backing latency_summary()
+        self.finished: List[Request] = []
+        self.max_finished = max_finished
+        self._next_id = 0
+        self._generator = torch.Generator(device=self.device).manual_seed(seed + 1)
+        self.steps = 0
+        self.tokens_out = 0
+        self.prefill_tokens = 0
+        self.preemptions = 0
+        self.preempt = preempt
+        self.pack_align = max(int(pack_align), 1)
+        # fused-batch occupancy: device slots dispatched vs slots holding a
+        # real token (1 - valid/slot is the padded fraction)
+        self.fused_slot_tokens = 0
+        self.fused_valid_tokens = 0
+        self.pipeline = bool(pipeline)
+        self.flusher = flusher if flusher is not None else PriorityFlusher()
+        self.copy_budget = copy_budget
+        self._copy = CopyEngine()
+        self._inflight: Optional[PlanExec] = None
+        self._build_emitted: Optional[Dict[int, List[int]]] = None
+
+        self.block_size = block_size
+        self.max_blocks = -(-max_seq // block_size)
+        self.prefill_chunk_size = prefill_chunk_size
+        # budget for one step's valid tokens (decode rows + prefill chunks)
+        self.token_budget = token_budget or (max_batch + prefill_chunk_size)
+        self._view_blocks = self.max_blocks + -(-prefill_chunk_size // block_size)
+        if n_blocks is None:
+            # full provisioning: every slot can reach max_seq (+ slack), +1 scratch
+            n_blocks = max_batch * (self.max_blocks + 1) + 1
+        self.kv = PagedKVCache(cfg, n_blocks, block_size, self.max_blocks,
+                               prefix_sharing=prefix_sharing, device=self.device)
+        # reserved scratch block: swallows pad-token and unbacked writes
+        self._null_block = self.kv.pool.allocate(_NULL_SEQ, 1)[0]
+        self.control = ControlPlane(self)
+        self.runner = DeviceRunner(self)
+
+    # ------------------------------------------------------------------ API
+    def submit(self, prompt, max_new: int = 16, temperature: float = 0.0,
+               priority: float = 0.0) -> Request:
+        """``prompt`` is a flat token array, or a ``SegmentedPrompt`` whose
+        per-document segments enable order-independent KV reuse."""
+        segprompt = prompt if isinstance(prompt, SegmentedPrompt) else None
+        if segprompt is not None:
+            prompt = segprompt.tokens
+        prompt = np.atleast_1d(np.asarray(prompt, np.int32))
+        if prompt.size == 0:
+            prompt = np.zeros(1, np.int32)  # empty prompt: decode from pad token
+            segprompt = None
+        req = Request(self._next_id, prompt, max_new, temperature, priority)
+        req.segprompt = segprompt
+        req.submitted_at = time.monotonic()
+        # out-of-band delivery through the shared PriorityFlusher, EDF order
+        req.stream = StreamingObject(priority=priority)
+        req.stream.on_chunk(self._make_chunk_cb(req))
+        self._next_id += 1
+        self.waiting.append(req)
+        return req
+
+    def _make_chunk_cb(self, req: Request):
+        def cb(chunk):
+            if chunk is None:
+                return  # EOS marker: nothing left to transport
+            self.flusher.submit(req.stream, chunk, req.delivered.extend)
+        return cb
+
+    @property
+    def pending(self) -> bool:
+        """True while a dispatched plan's tokens await materialization."""
+        return self._inflight is not None
+
+    def run_until_done(self, max_steps: int = 10_000) -> None:
+        while (self.waiting or any(self.slots) or self.pending) and max_steps:
+            self.step()
+            max_steps -= 1
+        self._drain_copies(full=True)
+        self.flusher.flush()
+
+    def stats(self) -> Dict[str, Any]:
+        s: Dict[str, Any] = {
+            "backend": self.backend,
+            "interleave": self.interleave,
+            "pipeline": self.pipeline,
+            "steps": self.steps,
+            "tokens_out": self.tokens_out,
+            "prefill_tokens": self.prefill_tokens,
+            "preemptions": self.preemptions,
+            "stream_backlog": self.flusher.backlog,
+            "utilization": self.kv.utilization(),
+            "prefix_hit_tokens": self.kv.shared_token_hits,
+            "session_shared_tokens": self.kv.session_token_hits,
+            "free_blocks": self.kv.pool.n_free,
+            "measured_hit_rate": self.measured_hit_rate(),
+            "preempt": self.preempt,
+            "kv_dtype": str(self.kv.k.dtype).replace("torch.", ""),
+            "kernel": self.kernel,
+            "device": str(self.device),
+            "ragged": self.ragged,
+            "fused_slot_tokens": self.fused_slot_tokens,
+            "fused_valid_tokens": self.fused_valid_tokens,
+            "padded_token_fraction": (
+                1.0 - self.fused_valid_tokens / self.fused_slot_tokens
+                if self.fused_slot_tokens else 0.0
+            ),
+            "copy_backlog": self._copy.backlog,
+            "copy_ops_drained": self._copy.drained,
+            "stream_chunk_size": self.control.last_chunk_size,
+        }
+        s.update(self.runner.summary())
+        return s
+
+    @torch.no_grad()
+    def warmup_step_variants(self) -> int:
+        """Run every packed fused-step length once, off the serving clock:
+        the first call builds the CUDA kernels, and each length warms the
+        caching allocator for its shapes. The packed length is bounded by
+        the token budget (+1 floor grant) and by B * C. Each call packs only
+        pad tokens (``row_of = -1``), whose K/V writes land in the scratch
+        block, so no request state changes. Returns the number of lengths
+        run."""
+        B, C = self.max_batch, self.prefill_chunk_size
+        cap = min(max(self.token_budget + 1, B + 1), B * C)
+        cap_pad = -(-cap // self.pack_align) * self.pack_align
+        dev = self.device
+        tables = torch.full((B, self._view_blocks), -1, dtype=torch.int32, device=dev)
+        last = torch.zeros((B,), dtype=torch.int32, device=dev)
+        no_slot = torch.full((B,), -1, dtype=torch.int32, device=dev)
+        n = 0
+        for T in range(self.pack_align, cap_pad + 1, self.pack_align):
+            z = torch.zeros((T,), dtype=torch.int32, device=dev)
+            pad = torch.full((T,), -1, dtype=torch.int32, device=dev)
+            toks = _substitute_packed(z, last, no_slot, last)
+            self._ragged_step(tables, toks, pad, z, z, z, z, last)
+            n += 1
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return n
+
+    # token-weighted windows below this many prompt tokens are "cold"
+    hit_rate_min_tokens: int = 64
+    cold_start_hit_rate: float = 0.0
+
+    # cursor helpers shared with the control plane
+    _advance_cursor = staticmethod(_advance_cursor)
+    _max_grant = staticmethod(_max_grant)
+
+    def measured_hit_rate(self, window: int = 256,
+                          min_tokens: Optional[int] = None,
+                          default: Optional[float] = None) -> float:
+        """Rolling token-weighted prefix hit rate over recently finished
+        requests; below ``min_tokens`` prompt tokens in the window, returns
+        ``default`` (or the cold-start rate)."""
+        done = [r for r in (self.finished[-window:] if window > 0 else [])
+                if r.prefill_cap > 0]
+        total = sum(r.prefill_cap for r in done)
+        lo = self.hit_rate_min_tokens if min_tokens is None else min_tokens
+        if total < max(lo, 1):
+            return self.cold_start_hit_rate if default is None else default
+        return sum(r.shared_prefix_tokens for r in done) / total
+
+    def latency_summary(self) -> Dict[str, float]:
+        """TTFT/TPOT/e2e percentiles (seconds) over finished requests, the
+        prefix hit rate, and the measured host gap — wall time the device
+        sat idle between the end of one dispatched step and the next
+        dispatch (total and per-dispatch mean)."""
+        done = [r for r in self.finished
+                if r.first_token_at is not None and r.finished_at is not None]
+        out: Dict[str, float] = {"n_finished": float(len(done))}
+        rs = self.runner.summary()
+        out["host_gap_total_s"] = float(rs["host_gap_s"])
+        out["host_gap_mean_s"] = float(rs["host_gap_mean_s"])
+        out["dispatches"] = float(rs["dispatches"])
+        if not done:
+            return out
+        ttft = [r.first_token_at - r.submitted_at for r in done]
+        e2e = [r.finished_at - r.submitted_at for r in done]
+        tpot = [g for r in done for g in r.token_gaps]
+        gaps = [r.max_token_gap for r in done if len(r.out_tokens) > 1]
+        for name, xs in (("ttft", ttft), ("tpot", tpot), ("e2e", e2e), ("gap", gaps)):
+            if xs:
+                out[f"{name}_p50"] = float(np.percentile(xs, 50))
+                out[f"{name}_p95"] = float(np.percentile(xs, 95))
+        out["ttft_mean"] = float(np.mean(ttft))
+        capped = [r for r in done if r.prefill_cap > 0]
+        if capped:
+            out["prefix_hit_rate"] = float(
+                sum(r.shared_prefix_tokens for r in capped)
+                / sum(r.prefill_cap for r in capped)
+            )
+        return out
+
+    def _residency(self, req: Request) -> float:
+        """Eviction-aware admission signal: fraction of a waiting request's
+        prompt whose keyed blocks are in the prefix index."""
+        if not self.kv.prefix_sharing:
+            return 0.0
+        lay = req.layout if req.layout is not None else req.probe_layout
+        if lay is None:
+            lay = build_layout(
+                req.segprompt if req.segprompt is not None else req.prompt,
+                self.block_size, self._prompt_cap(req),
+            )
+            req.probe_layout = lay
+        tok = sum(self.block_size for key in lay.block_keys
+                  if key is not None and key in self.kv._prefix_index)
+        return tok / max(lay.n_tokens, 1)
+
+    # ------------------------------------------------------------ admission
+    def _prompt_cap(self, req: Request) -> int:
+        # a full-length prompt samples one token from the last-position
+        # logits and finishes before any decode write could overflow
+        return min(len(req.prompt), self.max_seq)
+
+    def _try_admit(self, req: Request) -> bool:
+        cap = self._prompt_cap(req)
+        if self.kv.pool.blocks_needed(cap + self.block_size) > self.kv.pool.n_owned - 1:
+            # can never fit, even with the whole pool free: fail the request
+            # instead of wedging the queue
+            req.done = True
+            req.truncated = True
+            req.finished_at = time.monotonic()
+            self.finished.append(req)
+            if req.stream is not None and not req.stream.closed:
+                req.stream.close()
+            return False
+        layout = build_layout(
+            req.segprompt if req.segprompt is not None else req.prompt,
+            self.block_size, cap,
+        )
+        adm = self.kv.admit_tokens(req.req_id, req.prompt[:cap], layout)
+        if adm is None:
+            return False  # backpressure: stays queued until blocks free up
+        req.layout = layout
+        req.shared_spans = normalize_spans(adm.shared_spans)
+        req.shared_prefix_tokens = adm.n_shared
+        req.session_shared_tokens = adm.n_shared_session
+        return True
+
+    # ---------------------------------------------------------- step programs
+    def _ragged_step(self, tables, tokens, row_of, slots, positions, p_end,
+                     s_start, last_idx):
+        """One ragged fused step: T packed tokens read and write the pools
+        in place through RAW block tables (``models.prefill_packed``).
+        Returns each row's last-valid-token logits (gathered by
+        ``last_idx``), so the sampler keeps its (B,) contract."""
+        logits = prefill_packed(
+            self.cfg, self.params, self.kv.k, self.kv.v, tables, tokens,
+            row_of, slots, positions, p_end, s_start,
+            block_size=self.block_size, null_block=self._null_block,
+        )
+        return logits[last_idx.long()]
+
+    def _decode_step(self, tables, tokens, pos):
+        """Batched paged decode: each row's new K/V is scattered in place and
+        its block chain streams through ``paged_decode_attention``."""
+        return decode_step_paged(
+            self.cfg, self.params, self.kv.k, self.kv.v, tables, tokens, pos,
+            block_size=self.block_size, null_block=self._null_block,
+        )
+
+    # ----------------------------------------------------------- preemption
+    def _preempt(self, victim: Request):
+        """Recompute preemption: release the victim's blocks and re-queue its
+        continuation (prompt + generated tokens); re-admission re-prefills,
+        reusing any of its own prefix blocks that survived in the warm
+        cache. A mid-prefill victim restarts its cursor from scratch."""
+        # the continuation must be complete: land any inflight plan first
+        self._sync_inflight()
+        self.kv.release(victim.req_id)
+        if victim.slot >= 0 and self.slots[victim.slot] is victim:
+            self.slots[victim.slot] = None
+        victim.slot = -1
+        if victim.segprompt is not None:
+            victim.segprompt = victim.segprompt.extended(victim.out_tokens)
+        victim.prompt = np.concatenate(
+            [np.asarray(victim.prompt, np.int32),
+             np.asarray(victim.out_tokens, np.int32)]
+        )
+        victim.shared_prefix_tokens = 0
+        victim.session_shared_tokens = 0
+        victim.shared_spans = []
+        victim.layout = None
+        victim.probe_layout = None  # continuation content changed
+        victim.prefill_pos = 0
+        victim.prefill_cap = 0
+        self.waiting.insert(0, victim)
+        self.preemptions += 1
+
+    def _ensure_decode_capacity(self):
+        """Every decode-phase slot needs a block backing its next write
+        position; preempt youngest-first when the pool runs dry."""
+        for r in [r for r in self.slots if r is not None]:
+            if r.slot < 0 or self.slots[r.slot] is not r:
+                continue  # already preempted this round
+            if r.prefilling:
+                continue
+            while True:
+                try:
+                    self.kv.pool.extend_for(r.req_id, r.pos + 1)
+                    break
+                except MemoryError:
+                    active = [x for x in self.slots if x is not None]
+                    victim = max(active, key=lambda x: x.req_id)
+                    self._preempt(victim)
+                    if victim is r:
+                        break
+
+    # ------------------------------------------------------------- stepping
+    def step(self) -> Dict[int, List[int]]:
+        """One engine iteration: the control plane builds one StepPlan and
+        the device runner dispatches it; sampled tokens materialize this
+        step (``pipeline=False``) or next step (``pipeline=True``). Returns
+        the tokens whose emission LANDED this step."""
+        for r in self.waiting:
+            r.queued_steps += 1
+        emitted: Dict[int, List[int]] = {}
+        # preemption inside build may have to sync the inflight plan; its
+        # emissions land in this step's result
+        self._build_emitted = emitted
+        try:
+            self.runner.probe_idle()
+            plan = self.control.build_plan()
+        finally:
+            self._build_emitted = None
+        ex = self.runner.dispatch(plan) if plan is not None else None
+        if ex is not None:
+            self.steps += 1
+        self._drain_copies(full=ex is None)
+        prev, self._inflight = self._inflight, ex
+        if prev is not None:
+            _merge_emitted(emitted, self._materialize(prev))
+        if self._inflight is not None and (not self.pipeline or self.eos_token >= 0):
+            # sync oracle — or eos enabled: completion must be observed
+            # before the next plan is built, so pipelining degenerates
+            cur, self._inflight = self._inflight, None
+            _merge_emitted(emitted, self._materialize(cur))
+        self.flusher.flush()
+        return emitted
+
+    def _materialize(self, ex: PlanExec) -> Dict[int, List[int]]:
+        """Land a dispatched plan's emissions: pull the sampled tokens to the
+        host, write them to out_tokens + streams, finalize finishing rows."""
+        toks = self.runner.materialize(ex)
+        emitted: Dict[int, List[int]] = {}
+        for req, row, finishing in ex.plan.emit_rows:
+            tok = int(toks[row])
+            self._emit_token(req, tok)
+            emitted.setdefault(req.req_id, []).append(tok)
+            if finishing or tok == self.eos_token:
+                self._finalize(req)
+        return emitted
+
+    def _sync_inflight(self) -> None:
+        """Materialize the inflight plan NOW (mid-build): preemption must see
+        complete out_tokens before capturing a victim's continuation."""
+        if self._inflight is None:
+            return
+        ex, self._inflight = self._inflight, None
+        out = self._materialize(ex)
+        if self._build_emitted is not None:
+            _merge_emitted(self._build_emitted, out)
+
+    def _retire_slot(self, req: Request) -> None:
+        """Build-time completion: free the slot and release the block chain
+        as soon as the plan decides the request is done, so the next plan
+        can reuse both. Stream order guarantees the released blocks' final
+        writes land before any later step touches them."""
+        if req.slot >= 0 and self.slots[req.slot] is req:
+            self.slots[req.slot] = None
+        self.kv.release(req.req_id)
+
+    def _drain_copies(self, full: bool = False) -> None:
+        """Advance the async copy engine: the whole backlog when ``full``,
+        else up to ``copy_budget`` ops."""
+        self._copy.drain(None if full else self.copy_budget)
+
+    def _prefix_pending(self, req: Request) -> bool:
+        """True while an active request is still mid-prefill on content this
+        request could share (the same first block, or a shareable document
+        segment): deferring admission until the leader publishes its blocks
+        lets a same-context RAG burst reuse them."""
+        if not self.kv.prefix_sharing:
+            return False
+        bs = self.block_size
+        docs = _shareable_doc_heads(req.segprompt, bs)
+        if docs:
+            for r in self.slots:
+                if (r is not None and r.prefilling
+                        and docs & _shareable_doc_heads(r.segprompt, bs)):
+                    return True
+        if len(req.prompt) <= bs:
+            return False
+        head = np.asarray(req.prompt[:bs])
+        for r in self.slots:
+            if (r is not None and r.prefilling and len(r.prompt) >= bs
+                    and np.array_equal(np.asarray(r.prompt[:bs]), head)):
+                return True
+        return False
+
+    def _emit_token(self, req: Request, tok: int):
+        """Emission side effects of one materialized token: timestamps,
+        out_tokens, counters, and the out-of-band stream write."""
+        now = time.monotonic()
+        if req.first_token_at is None:
+            req.first_token_at = now
+        elif req.last_token_at is not None:
+            req.token_gaps.append(now - req.last_token_at)
+            req.max_token_gap = max(req.max_token_gap, now - req.last_token_at)
+        req.last_token_at = now
+        req.out_tokens.append(tok)
+        self.tokens_out += 1
+        if req.stream is not None:
+            req.stream.write(tok)
+
+    def _finalize(self, req: Request):
+        """Completion side effects (idempotent): done flag, finished window,
+        stream close, and slot/block release where the plan did not already
+        retire the request (eos hits)."""
+        if req.done:
+            return
+        req.done = True
+        req.finished_at = (req.last_token_at if req.last_token_at is not None
+                           else time.monotonic())
+        self.finished.append(req)
+        if len(self.finished) > self.max_finished:
+            del self.finished[: -self.max_finished]
+        if req.slot >= 0 and self.slots[req.slot] is req:
+            self.slots[req.slot] = None
+        self.kv.release(req.req_id)  # no-op if already released
+        if req.stream is not None and not req.stream.closed:
+            req.stream.close()
+
+
+def _merge_emitted(into: Dict[int, List[int]], more: Dict[int, List[int]]) -> None:
+    for rid, toks in more.items():
+        into.setdefault(rid, []).extend(toks)
+
+
+def _shareable_doc_heads(segprompt, block_size: int) -> set:
+    """Content fingerprints of a prompt's document segments big enough to
+    yield at least one shareable (full) block."""
+    if segprompt is None:
+        return set()
+    return {
+        seg.tokens.tobytes()
+        for seg in segprompt.segments
+        if seg.kind == KIND_DOC and len(seg.tokens) >= block_size
+    }
