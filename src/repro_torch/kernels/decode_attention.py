@@ -207,7 +207,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
            "lengths must be (B,) int32 on q's device")
     from repro_torch.kernels._build import load_library
 
-    lib = load_library().lib
+    lib = load_library("paged_attention").lib
     H, KVH, hd, bs = _launch_args(lib, q, k_pool)
     out = torch.empty_like(q)
     if B == 0:
@@ -255,7 +255,7 @@ def paged_chunk_attention(q, k_pool, v_pool, block_tables, row_of, slots,
                "row_of/slots/p_end/s_start must be (T,) int32 on q's device")
     from repro_torch.kernels._build import load_library
 
-    lib = load_library().lib
+    lib = load_library("paged_attention").lib
     H, KVH, hd, bs = _launch_args(lib, q, k_pool)
     out = torch.empty_like(q)
     if T == 0:

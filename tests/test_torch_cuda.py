@@ -1,6 +1,7 @@
-"""The CUDA kernels against their plain versions, on the card. Marked
-``cuda``: each test skips (from inside a fixture) where no GPU is visible,
-as in this repository's CPU runs. On a GPU machine:
+"""The CUDA kernels (paged attention, top-k retrieval) against their plain
+versions, on the card. Marked ``cuda``: each test skips (from inside a
+fixture) where no GPU is visible, as in this repository's CPU runs. On a GPU
+machine:
 
     python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
 
@@ -11,6 +12,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import decode_attention as ka
+from repro_torch.kernels import topk_retrieval as tk
 
 pytestmark = pytest.mark.cuda
 
@@ -147,3 +149,76 @@ def test_kernels_reject_what_they_do_not_take(gpu):
         ka.paged_decode_attention(q, k, v, tables.cpu(), lengths)
     with pytest.raises(ValueError):      # a float pool in another dtype than q
         ka.paged_decode_attention(q, k.bfloat16(), v.bfloat16(), tables, lengths)
+
+
+# ---------------------------------------------------------------------------
+# topk_retrieval
+# ---------------------------------------------------------------------------
+
+# scores (of unit rows, as the index holds them): the kernel sums each
+# product in another order than the plain version's matrix product; ids:
+# two docs may swap only where the plain version's scores of the two lie
+# within TOPK_SWAP_TOL
+TOPK_ATOL = 1e-4
+TOPK_SWAP_TOL = 1e-5
+
+
+def _check_topk(got, want, q, docs, exact_ids=False):
+    (gs, gi), (ws, wi) = got, want
+    assert gs.dtype == torch.float32 and gi.dtype == torch.int32 and gs.shape == ws.shape
+    torch.testing.assert_close(gs, ws, atol=TOPK_ATOL, rtol=0)
+    if exact_ids:
+        assert torch.equal(gi, wi)
+        return
+    full = q.float() @ docs.float().T
+    diff = gi != wi
+    gap = (full.gather(1, gi.long()) - full.gather(1, wi.long())).abs()
+    assert bool((gap[diff] <= TOPK_SWAP_TOL).all()), gap[diff]
+    assert all(len(set(r.tolist())) == gi.shape[1] for r in gi)   # no id twice
+
+
+@pytest.mark.parametrize("docs_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,d,k", [
+    (1, 1000, 64, 1),        # one query, N not a multiple of the 256-doc tile
+    (5, 4096, 768, 10),
+    (40, 3000, 128, 100),    # more than one 32-query tile
+    (33, 777, 32, 128),      # the largest k
+])
+def test_topk_kernel_matches_plain_version(gpu, docs_dtype, B, N, d, k):
+    g = torch.Generator().manual_seed(B * N + d)
+    unit = lambda x: x / x.norm(dim=1, keepdim=True)   # rows as the index holds them
+    q = unit(torch.randn((B, d), generator=g)).to(gpu)
+    docs = unit(torch.randn((N, d), generator=g)).to(docs_dtype).to(gpu)
+    before = tk.topk_retrieval.launches
+    got = tk.topk_retrieval(q, docs, k)
+    torch.cuda.synchronize()
+    assert tk.topk_retrieval.launches == before + 1
+    _check_topk(got, tk.ref_topk_retrieval(q, docs, k), q, docs)
+
+
+@pytest.mark.parametrize("docs_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 10, 100])
+def test_topk_kernel_breaks_ties_to_the_lower_id(gpu, docs_dtype, k):
+    """Small-integer rows, many duplicated: every product is exact, so equal
+    scores are exactly equal and the ids must match one for one."""
+    g = torch.Generator().manual_seed(k)
+    base = torch.randint(-2, 3, (64, 96), generator=g).float()
+    docs = base[torch.randint(0, 64, (5000,), generator=g)].to(docs_dtype).to(gpu)
+    q = torch.randint(-2, 3, (7, 96), generator=g).float().to(gpu)
+    got = tk.topk_retrieval(q, docs, k)
+    _check_topk(got, tk.ref_topk_retrieval(q, docs, k), q, docs, exact_ids=True)
+
+
+def test_topk_kernel_rejects_what_it_does_not_take(gpu):
+    q = torch.randn((2, 64), device=gpu)
+    docs = torch.randn((500, 64), device=gpu)
+    with pytest.raises(ValueError):      # k above the kernel's 128
+        tk.topk_retrieval(q, docs, 129)
+    with pytest.raises(ValueError):      # k above N
+        tk.topk_retrieval(q, docs[:50], 51)
+    with pytest.raises(ValueError):      # d not a multiple of 8
+        tk.topk_retrieval(q[:, :12].contiguous(), docs[:, :12].contiguous(), 5)
+    with pytest.raises(ValueError):      # a docs dtype the kernel is not built for
+        tk.topk_retrieval(q, docs.half(), 5)
+    with pytest.raises(ValueError):      # mixed devices
+        tk.topk_retrieval(q.cpu(), docs, 5)

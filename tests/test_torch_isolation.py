@@ -22,6 +22,8 @@ def test_imports_with_jax_and_repro_blocked():
         "    sys.modules[name] = None\n"
         "import repro_torch, repro_torch.serving.engine, repro_torch.launch.serve\n"
         "import repro_torch.kernels.decode_attention, repro_torch.kernels._build\n"
+        "import repro_torch.apps, repro_torch.serving.retrieval\n"
+        "import repro_torch.kernels.topk_retrieval, repro_torch.data.workload\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -59,6 +61,10 @@ def test_cuda_path_raises_without_a_gpu(monkeypatch):
         resolve_device(None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         GenerationEngine(smoke_variant(get_arch("smollm-135m")))
+    from repro_torch.serving.retrieval import VectorIndex
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        VectorIndex.build(torch.ones(4, 8), n_clusters=2)
     assert resolve_device("cpu").type == "cpu"
 
 
@@ -72,3 +78,10 @@ def test_later_slices_raise_not_implemented():
                {"sanitize": True}, {"mesh": object()}):
         with pytest.raises(NotImplementedError):
             GenerationEngine(cfg, device="cpu", **kw)
+
+
+def test_pipelines_with_a_host_tier_raise_not_implemented():
+    from repro_torch.launch.serve import serve_pipelines
+
+    with pytest.raises(NotImplementedError):
+        serve_pipelines(host_blocks=8, device="cpu")
