@@ -15,7 +15,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
    on the same values in float32, int8 also with bf16 q; tolerances in
    ``TOL``); then times (CUDA events, L2 flushed between launches, median
    of 30) of the kernel, its plain version and one PyTorch SDPA call on the
-   gathered view, beside the bound the card could reach.
+   gathered view, beside the bound the card could reach, and the kernel's
+   device time alone under torch.profiler (every timed kernel has one).
+2b. The dense backend's kernels against their plain versions on the card at
+   qwen2.5-3b shapes: flash attention (B=1, H=16, KVH=2, hd=128, S in {16,
+   200, 2048}, causal and not) and dense decode attention (B=8, Sc=2048,
+   the lengths of phase 2, and again with the shortest row at length 1),
+   float32 and bfloat16 (bf16 also against the plain version in float32);
+   then the times of the kernel, its plain version and one SDPA call
+   (flash: S=2048 causal; decode: those lengths) beside the bound.
 3. The top-k retrieval kernel against its plain version at B=32 queries,
    N=2^21 docs, d=768, k in {10, 100}: float32 docs (the corpus the index is
    built from), bfloat16 docs, and integer-valued docs with duplicated rows
@@ -24,11 +32,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
 4. Engine parity at smoke width: the same greedy RAG workload on the CPU
    (plain versions) and on the GPU (kernels) gives identical tokens; then
    the same seeded open-loop pipeline trace (vrag + crag, sessions) gives
-   identical driver records and tokens on both.
+   identical pipeline records and tokens on both. The dense backend gives
+   identical greedy tokens on the CPU and on the GPU, and on the GPU the
+   same tokens as the paged backend.
 5. Serve qwen2.5-3b at full width in bfloat16: 10 requests, 128-1536-token
    prompts, half sharing a 512-token document prefix, one segmented prompt,
    32 new tokens each, with both attention kernels' launch counts read
    around the run.
+5b. Serve the same 10 prompts (the segmented one flattened) on the dense
+   backend of qwen2.5-3b bf16 (``max_batch=8``, ``max_seq=2048``): flash
+   attention launches must be 36 x the prefills and dense decode launches
+   36 x the decode steps; greedy agreement with phase 5's paged run on the
+   unsegmented requests is reported (bf16 sums differ in order between
+   the two backends, so it is not required).
 6. RAG requests at full width: a ``VectorIndex`` of 2^21 synthetic 768-d
    passages with 1024 clusters built on the card; recall@10 at n_probe 1,
    8 and 32 (the exact side runs the top-k kernel); 8 queries through
@@ -80,11 +96,15 @@ REPLACES = {
     "paged_chunk_attention": "src/repro/kernels/decode_attention.py:357",
     "paged_decode_attention": "src/repro/kernels/decode_attention.py:191",
     "topk_retrieval": "src/repro/kernels/topk_retrieval.py:51",
+    "flash_attention": "src/repro/kernels/flash_attention.py:69",
+    "decode_attention": "src/repro/kernels/decode_attention.py:90",
 }
 SOURCES = {
     "paged_chunk_attention": "src/repro_torch/csrc/paged_attention.cu",
     "paged_decode_attention": "src/repro_torch/csrc/paged_attention.cu",
     "topk_retrieval": "src/repro_torch/csrc/topk_retrieval.cu",
+    "flash_attention": "src/repro_torch/csrc/dense_attention.cu",
+    "decode_attention": "src/repro_torch/csrc/dense_attention.cu",
 }
 
 
@@ -204,9 +224,12 @@ def check_close(name, got, want, valid, tol):
 
 
 def time_ms(fn, flush, reps=30, warmup=3):
-    """Median device time of one call, each launch timed alone with CUDA
-    events after a write of a buffer larger than the 50 MB L2 (the engine
-    calls the kernels between weight-streaming matmuls, so K/V is cold)."""
+    """Median time of one call, each launch timed alone with CUDA events
+    after a write of a buffer larger than the 50 MB L2 (the engine calls the
+    kernels between weight-streaming matmuls, so K/V is cold). The card
+    waits for the call's host side between the two events, so a short
+    kernel's time includes its wrapper's launch cost (``device_ms`` does
+    not)."""
     for _ in range(warmup):
         fn()
     times = []
@@ -219,6 +242,34 @@ def time_ms(fn, flush, reps=30, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def device_ms(fn, n_kernels, reps=10):
+    """Mean device time of one call: the CUDA kernels' own time under
+    torch.profiler, without the host's launch gaps that ``time_ms`` counts
+    when the card idles between launches (L2 warm: no flush between calls).
+    None ("not measured") unless the trace holds exactly the ``n_kernels``
+    kernels a call that the wrapper launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    seen = sum(e.count for e in events)
+    if seen != n_kernels * reps:
+        print(f"[device_ms] {seen} kernels in {reps} calls, not {n_kernels} a call: "
+              f"{sorted({e.key[:60] for e in events})}; not measured", flush=True)
+        return None
+    return sum(e.self_device_time_total for e in events) / reps / 1e3
+
+
+def fmt_ms(x):
+    return "not measured" if x is None else f"{x:.4f}"
 
 
 def library_call(case, kernel):
@@ -305,6 +356,7 @@ def phase_kernels(ka):
             r = {
                 "name": name, "dtype": dtype_name, "errs": errs,
                 "ms": time_ms(lambda: kern(case), flush),
+                "device_ms": device_ms(lambda: kern(case), 1),
                 "plain_ms": time_ms(lambda: plain(case), flush, reps=20),
                 "library_ms": time_ms(lib, flush) if lib is not None else None,
                 "bound_ms": max(bytes_ms, ops_ms),
@@ -314,15 +366,130 @@ def phase_kernels(ka):
             checks = ", ".join(f"vs {k} {e:.3e} (atol, rtol {TOL[dtype_name][k]})"
                                for k, e in errs.items())
             print(f"[kernels] {name} {dtype_name}: max_abs_err {checks}; "
-                  f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-                  f"library_ms={r['library_ms']} bound_ms={r['bound_ms']:.5f} "
-                  f"({r['bound_by']}: {nbytes} B, {ops} flop)", flush=True)
+                  f"kernel_ms={r['ms']:.4f} device_ms={fmt_ms(r['device_ms'])} "
+                  f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']} "
+                  f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}: {nbytes} B, {ops} flop)",
+                  flush=True)
             rows[(name, dtype_name)] = r
         del case
         other = None
         torch.cuda.empty_cache()
     return rows
 
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: the dense backend's kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+FLASH_S = (16, 200, 2048)                    # 200: no power-of-two tile above 8 divides it
+DECODE_LENGTHS = {"lengths": LENGTHS, "shortest_1": LENGTHS[:-1] + [1]}
+
+
+def dense_work(kernel, q, k, causal=True, lengths=None):
+    """(bytes, flops) the function needs: q, K/V (decode: the slots below
+    each row's length) read once, the output written once; 4*hd flops per
+    query head per (query, valid key) pair."""
+    item = q.element_size()
+    if kernel == "flash_attention":
+        B, S, Hq, hd = q.shape
+        pairs = B * (S * (S + 1) // 2 if causal else S * S)
+        nbytes = (2 * q.numel() + 2 * k.numel()) * item
+    else:
+        B, Hq, hd = q.shape
+        pairs = sum(lengths)
+        nbytes = 2 * q.numel() * item + 2 * pairs * KVH * hd * item + 4 * B
+    return nbytes, 4 * hd * Hq * pairs
+
+
+def phase_dense_kernels(ka, kf):
+    import torch.nn.functional as F
+
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = {}
+    for dtype_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype_name)
+        tol = TOL[dtype_name]
+        for S in FLASH_S:
+            q, k, v = (torch.randn((1, S, n, HD), generator=gen, device="cuda").to(dt)
+                       for n in (H, KVH, KVH))
+            for causal in (True, False):
+                name = f"flash_attention[{dtype_name}, S={S}, causal={causal}]"
+                got = kf.flash_attention(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                every = slice(None)
+                errs = {"plain": check_close(name, got, kf.ref_flash_attention(q, k, v, causal),
+                                             every, tol["plain"])}
+                if dtype_name == "bfloat16":
+                    want = kf.ref_flash_attention(q.float(), k.float(), v.float(), causal)
+                    errs["plain_f32"] = check_close(name + " vs f32", got, want, every,
+                                                    tol["plain_f32"])
+                r = {"errs": errs}
+                if S == FLASH_S[-1] and causal:
+                    # SDPA on the (B, H, S, hd) layout, transposed outside the timing
+                    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+                    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                                 enable_gqa=True)
+                    r.update(timed_row(dense_work("flash_attention", q, k, causal=True),
+                                       dtype_name, flush,
+                                       lambda: kf.flash_attention(q, k, v, causal=True), 1,
+                                       lambda: kf.ref_flash_attention(q, k, v, True), lib))
+                rows[("flash_attention", dtype_name, S, causal)] = r
+                print_dense_row(name, r, tol)
+            del q, k, v
+        for case, lengths in DECODE_LENGTHS.items():
+            q = torch.randn((B, H, HD), generator=gen, device="cuda").to(dt)
+            k, v = (torch.randn((B, 2048, KVH, HD), generator=gen, device="cuda").to(dt)
+                    for _ in range(2))
+            lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+            name = f"decode_attention[{dtype_name}, Sc=2048, {case}]"
+            got = ka.decode_attention(q, k, v, lens)
+            torch.cuda.synchronize()
+            every = slice(None)
+            errs = {"plain": check_close(name, got, ka.ref_decode_attention(q, k, v, lens),
+                                         every, tol["plain"])}
+            if dtype_name == "bfloat16":
+                want = ka.ref_decode_attention(q.float(), k.float(), v.float(), lens)
+                errs["plain_f32"] = check_close(name + " vs f32", got, want, every,
+                                                tol["plain_f32"])
+            r = {"errs": errs}
+            if case == "lengths":
+                qt = q[:, :, None, :]
+                kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+                mask = (torch.arange(2048, device="cuda")[None] < lens.long()[:, None])
+                mask = mask[:, None, None, :]
+                lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                             enable_gqa=True)
+                r.update(timed_row(dense_work("decode_attention", q, k, lengths=lengths),
+                                   dtype_name, flush,
+                                   lambda: ka.decode_attention(q, k, v, lens), 2,
+                                   lambda: ka.ref_decode_attention(q, k, v, lens), lib))
+            rows[("decode_attention", dtype_name, case)] = r
+            print_dense_row(name, r, tol)
+            del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+def timed_row(work, dtype_name, flush, kern, n_kernels, plain, lib):
+    nbytes, ops = work
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    ops_ms = ops / PEAK_OPS_S[dtype_name] * 1e3
+    return {"ms": time_ms(kern, flush), "device_ms": device_ms(kern, n_kernels),
+            "plain_ms": time_ms(plain, flush, reps=10),
+            "library_ms": time_ms(lib, flush), "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
+def print_dense_row(name, r, tol):
+    checks = ", ".join(f"vs {k} {e:.3e} (atol, rtol {tol[k]})" for k, e in r["errs"].items())
+    times = (f"; kernel_ms={r['ms']:.4f} device_ms={fmt_ms(r['device_ms'])} "
+             f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+             f"bound_ms={r['bound_ms']:.5f} "
+             f"({r['bound_by']}: {r['bytes']} B, {r['ops']} flop)") if "ms" in r else ""
+    print(f"[dense kernels] {name}: max_abs_err {checks}{times}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -400,6 +567,7 @@ def phase_topk(tk, corpus, queries):
                        else None)
                 r.update({
                     "ms": time_ms(lambda: tk.topk_retrieval(q, docs, k), flush),
+                    "device_ms": device_ms(lambda: tk.topk_retrieval(q, docs, k), 2, reps=3),
                     "plain_ms": time_ms(lambda: tk.ref_topk_retrieval(q, docs, k), flush,
                                         reps=10),
                     "library_ms": time_ms(lib, flush, reps=10) if lib is not None else None,
@@ -408,7 +576,8 @@ def phase_topk(tk, corpus, queries):
                     "bytes": nbytes, "ops": ops,
                 })
             rows[(case, k)] = r
-            times = (f"; kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            times = (f"; kernel_ms={r['ms']:.4f} device_ms={fmt_ms(r['device_ms'])} "
+                     f"plain_ms={r['plain_ms']:.4f} "
                      f"library_ms={r['library_ms']} bound_ms={r['bound_ms']:.4f} "
                      f"({r['bound_by']}: {r['bytes']} B, {r['ops']} flop)") if "ms" in r else ""
             print(f"[topk] {case} B={N_QUERIES} N={N_DOCS} d={DIM} k={k}: max_abs_err "
@@ -495,6 +664,50 @@ def phase_pipeline_parity():
           flush=True)
 
 
+def phase_dense_parity(ka, kf):
+    """The RAG workload of ``phase_parity`` on the dense backend: identical
+    greedy tokens on the CPU (plain versions) and on the GPU (kernels), and
+    on the GPU identical to the paged backend's. The segmented prompt is
+    submitted flat to all three (the paged backend would otherwise give its
+    documents their own positions, which the dense backend does not)."""
+    from repro_torch.configs import get_arch, smoke_variant
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import GenerationEngine
+    from repro_torch.serving.segments import SegmentedPrompt
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = smoke_variant(get_arch("smollm-135m"))
+    prompts = [p.tokens if isinstance(p, SegmentedPrompt) else p
+               for p in rag_workload(np.random.default_rng(1), cfg.vocab_size, 48, (5, 40),
+                                     3, 2, (10, 90), (16, 48, 32, 9))]
+    out = {}
+    for dev, backend in (("cpu", "dense"), ("cuda", "dense"), ("cuda", "paged")):
+        params = init_params(cfg, torch.Generator().manual_seed(0), dev)
+        eng = GenerationEngine(cfg, params=params, device=dev, backend=backend,
+                               max_batch=4, max_seq=256)
+        ka.reset_launch_counts()
+        kf.reset_launch_counts()
+        reqs = [eng.submit(p, max_new=12) for p in prompts]
+        eng.run_until_done()
+        assert all(len(r.out_tokens) == 12 for r in reqs), (dev, backend)
+        assert eng.stats()["backend"] == backend
+        out[(dev, backend)] = [r.out_tokens for r in reqs]
+        if (dev, backend) == ("cuda", "dense"):
+            launches = (kf.flash_attention.launches, ka.decode_attention.launches)
+            assert launches == (cfg.num_layers * len(prompts),
+                                cfg.num_layers * eng.stats()["steps"]), launches
+    if out[("cpu", "dense")] != out[("cuda", "dense")]:
+        raise AssertionError("dense backend: CPU and GPU greedy tokens differ:\n"
+                             f"{out[('cpu', 'dense')]}\n{out[('cuda', 'dense')]}")
+    if out[("cuda", "dense")] != out[("cuda", "paged")]:
+        raise AssertionError("GPU dense and paged greedy tokens differ:\n"
+                             f"{out[('cuda', 'dense')]}\n{out[('cuda', 'paged')]}")
+    print(f"[parity] dense backend at smoke width f32: {len(prompts)} requests, identical "
+          f"greedy tokens on cpu (plain) and cuda (kernels), and equal to the paged "
+          f"backend's on cuda; flash/decode launches {launches}", flush=True)
+
+
 # ---------------------------------------------------------------------------
 # phase 5: serve qwen2.5-3b at full width
 # ---------------------------------------------------------------------------
@@ -576,6 +789,58 @@ def phase_serve(ka, cfg, params):
                                 null_block=eng._null_block)
     assert tuple(logits.shape) == (n, cfg.padded_vocab)
     assert bool(torch.isfinite(logits.float()).all())
+    return launches, prompts, [r.out_tokens for r in reqs]
+
+
+def phase_dense_serve(ka, kf, cfg, params, prompts, paged_tokens):
+    """Serve phase 5's prompts on the dense backend of ``cfg`` (qwen2.5-3b
+    bf16); returns the two dense kernels' launches."""
+    from repro_torch.models import prefill
+    from repro_torch.serving.engine import GenerationEngine
+    from repro_torch.serving.segments import SegmentedPrompt
+
+    torch.cuda.reset_peak_memory_stats()
+    eng = GenerationEngine(cfg, params=params, device="cuda", backend="dense",
+                           max_batch=8, max_seq=2048)
+    ka.reset_launch_counts()
+    kf.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new=32) for p in prompts]
+    eng.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": kf.flash_attention.launches,
+                "decode_attention": ka.decode_attention.launches}
+    st, lat = eng.stats(), eng.latency_summary()
+    assert st["backend"] == "dense" and st["kernel"] == "cuda", st
+    assert all(len(r.out_tokens) == 32 for r in reqs), [len(r.out_tokens) for r in reqs]
+    assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens)
+    assert launches == {"flash_attention": cfg.num_layers * len(reqs),
+                        "decode_attention": cfg.num_layers * st["steps"]}, (launches, st)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[dense serve] {cfg.name} {cfg.dtype}: {len(reqs)} requests, {st['tokens_out']} "
+          f"tokens out in {wall:.3f}s = {st['tokens_out'] / wall:.1f} tok/s (prefill tokens "
+          f"{st['prefill_tokens']}); mean TTFT {1e3 * lat['ttft_mean']:.1f}ms, p95 TPOT "
+          f"{1e3 * lat.get('tpot_p95', 0):.2f}ms; {st['steps']} decode steps; peak memory "
+          f"{peak:.2f} GiB; launches {launches} ({cfg.num_layers} x {len(reqs)} prefills, "
+          f"{cfg.num_layers} x {st['steps']} decode steps)", flush=True)
+    # for information: the bf16 sums of the two backends differ in order
+    pairs = [(a, r.out_tokens) for p, a, r in zip(prompts, paged_tokens, reqs)
+             if not isinstance(p, SegmentedPrompt)]
+    common = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), len(a))
+              for a, b in pairs]
+    print(f"[dense serve] greedy agreement with the paged run on {len(pairs)} unsegmented "
+          f"requests: {sum(a == b for a, b in pairs)}/{len(pairs)} rows identical, mean "
+          f"common prefix {np.mean(common):.1f} of 32 tokens", flush=True)
+    # the full-width dense stack gives finite logits of the expected shape
+    toks = torch.as_tensor(np.asarray(prompts[0][:40]), dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        last, cache = prefill(cfg, params, {"tokens": toks[None]})
+    assert tuple(last.shape) == (1, cfg.padded_vocab)
+    assert tuple(cache[0]["k"].shape) == (cfg.num_layers, 1, 40, cfg.num_kv_heads, cfg.head_dim)
+    assert bool(torch.isfinite(last.float()).all())
+    del eng
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -756,6 +1021,7 @@ def main() -> int:
     from repro_torch.configs import get_arch
     from repro_torch.data.workload import synthetic_corpus
     from repro_torch.kernels import decode_attention as ka
+    from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import topk_retrieval as tk
     from repro_torch.kernels._build import build_all
     from repro_torch.models import init_params
@@ -774,6 +1040,7 @@ def main() -> int:
               f"{lib.build_s:.2f}s; ptxas: {regs}", flush=True)
 
     rows = timed("paged attention kernels", phase_kernels, ka)
+    dense_rows = timed("dense attention kernels", phase_dense_kernels, ka, kf)
     # the queries are drawn as benchmarks/retrieval_knob.py draws them
     corpus, queries = timed("synthetic_corpus on the host", lambda: (
         synthetic_corpus(N_DOCS, DIM, seed=0), synthetic_corpus(N_QUERIES, DIM, seed=7)))
@@ -783,10 +1050,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed("engine parity", phase_parity)
     timed("pipeline parity", phase_pipeline_parity)
+    timed("dense parity", phase_dense_parity, ka, kf)
 
     cfg = get_arch("qwen2.5-3b").replace(dtype="bfloat16")
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    launches = {"serve": timed("serve", phase_serve, ka, cfg, params)}
+    serve_launches, prompts, paged_tokens = timed("serve", phase_serve, ka, cfg, params)
+    launches = {"serve": serve_launches}
+    launches["dense serve"] = timed("dense serve", phase_dense_serve, ka, kf, cfg, params,
+                                    prompts, paged_tokens)
     launches["rag"] = timed("rag", phase_rag, ka, tk, cfg, params, corpus, queries_gpu)
     launches["pipelines"] = timed("pipelines", phase_pipelines, ka, tk, cfg, params)
 
@@ -796,13 +1067,13 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches["serve"][name],
-            "max_abs_err": r["errs"]["plain"], "ms": r["ms"],
+            "max_abs_err": r["errs"]["plain"], "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             # every check of every dtype: {dtype: {check: max abs err}}
             "max_abs_err_by_check": {d: rows[(name, d)]["errs"]
                                      for d in ("float32", "bfloat16", "int8")},
-            "launches_by_phase": {ph: n[name] for ph, n in launches.items()},
+            "launches_by_phase": {ph: n.get(name, 0) for ph, n in launches.items()},
         })
     # the RAG phase's shape: float32 index, B=32, k=10 (recall_at_k)
     r = topk_rows[("float32", 10)]
@@ -810,14 +1081,30 @@ def main() -> int:
         "name": "topk_retrieval", "route": "cuda", "source": SOURCES["topk_retrieval"],
         "replaces": REPLACES["topk_retrieval"], "launches": launches["rag"]["topk_retrieval"],
         "max_abs_err": max(x["max_abs_err"] for x in topk_rows.values()), "ms": r["ms"],
-        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "device_ms": r["device_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"],
         "library_ms": r["library_ms"],
         "by_case": {f"{c}/k={k}": {key: x.get(key) for key in
-                                   ("max_abs_err", "swapped", "ms", "plain_ms",
+                                   ("max_abs_err", "swapped", "ms", "device_ms", "plain_ms",
                                     "library_ms", "bound_ms")}
                     for (c, k), x in topk_rows.items()},
         "launches_by_phase": {ph: n.get("topk_retrieval", 0) for ph, n in launches.items()},
     })
+    # the dense serve phase's shapes in bf16: flash at S=2048 causal (its
+    # largest bucket), decode over the phase-2 lengths
+    for name, key in (("flash_attention", (FLASH_S[-1], True)), ("decode_attention", ("lengths",))):
+        r = dense_rows[(name, "bfloat16", *key)]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches["dense serve"][name],
+            "max_abs_err": r["errs"]["plain"], "ms": r["ms"], "device_ms": r["device_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "max_abs_err_by_case": {"/".join(map(str, k[1:])): x["errs"]
+                                    for k, x in dense_rows.items() if k[0] == name},
+            "float32": {key2: dense_rows[(name, "float32", *key)][key2]
+                        for key2 in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")},
+        })
     print(json.dumps({"kernels": kernels}))
     print(f"[done] {time.perf_counter() - t_start:.1f}s in all", flush=True)
     print(card)

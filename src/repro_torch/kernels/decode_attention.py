@@ -1,29 +1,34 @@
-"""Paged GQA attention: CUDA kernels for the serving hot loop, and their
+"""GQA decode attention: CUDA kernels for the serving hot loop, and their
 plain PyTorch versions.
 
 ``paged_decode_attention`` (one query token per row over its block chain)
 and ``paged_chunk_attention`` (T packed query tokens, each over its own
 row's chain under the segmented-prompt span mask) port the Pallas kernels of
-``repro.kernels.decode_attention``. On CUDA tensors each wrapper launches
-the hand-written kernel in ``csrc/paged_attention.cu`` (built on first use,
-see ``kernels._build``) on the current stream and counts the launch in its
-``launches`` attribute; on CPU tensors it runs the plain version. There is
-no fallback from one to the other: a CUDA input the kernel does not take
-raises.
+``repro.kernels.decode_attention`` that the paged backend runs;
+``decode_attention`` (one query token per row over a contiguous cache,
+valid below each row's length) ports the one the dense backend runs. On
+CUDA tensors each wrapper launches its hand-written kernel (the paged ones
+in ``csrc/paged_attention.cu``, the dense one in ``csrc/dense_attention.cu``;
+built on first use, see ``kernels._build``) on the current stream and counts
+the launch in its ``launches`` attribute; on CPU tensors it runs the plain
+version. There is no fallback from one to the other: a CUDA input the kernel
+does not take raises.
 
 ``ref_paged_decode_attention`` / ``ref_paged_chunk_attention`` are PyTorch
 ports of the JAX gather oracles: they materialise each query's contiguous
 view from its block table and run masked softmax attention, with the
 scores accumulated in float32 and the probabilities cast to the value dtype
-before the value product, as the oracles do. They are the numerics
-contract the kernels are held against.
+before the value product, as the oracles do. ``ref_decode_attention`` does
+the same on the contiguous cache (``repro.kernels.ref.decode_attention_ref``).
+They are the numerics contract the kernels are held against.
 
-Both kernels and both plain versions take RAW block tables (-1 entries are
-masked) and float32, bfloat16 or int8 pools; int8 pools come with
-per-(block, KV head) float32 scales ``k_scale``/``v_scale`` of shape
+The paged kernels and their plain versions take RAW block tables (-1
+entries are masked) and float32, bfloat16 or int8 pools; int8 pools come
+with per-(block, KV head) float32 scales ``k_scale``/``v_scale`` of shape
 (n_blocks, KVH). The kernels take q in float32 or bfloat16: a float pool in
 q's dtype, an int8 pool with either. A packed pad token (``row_of < 0``)
-gets zeros.
+gets zeros. The dense decode kernel takes q and a cache in one dtype,
+float32 or bfloat16.
 """
 from __future__ import annotations
 
@@ -115,6 +120,16 @@ def ref_paged_chunk_attention(q, k_pool, v_pool, block_tables, row_of, slots,
     V = _gather(v_pool, safe, v_scale)
     out = _masked_attention(q, K, V, backed & span, scale)
     return torch.where((row_of >= 0)[:, None, None], out, torch.zeros_like(out))
+
+
+def ref_decode_attention(q, k_cache, v_cache, lengths, scale=None):
+    """Plain version of ``decode_attention``. q: (B, H, hd); k/v_cache:
+    (B, Sc, KVH, hd); lengths: (B,) valid slots per row (>= 1). Returns
+    (B, H, hd)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    slots = torch.arange(k_cache.shape[1], device=q.device)
+    valid = slots[None] < lengths.long()[:, None]
+    return _masked_attention(q, k_cache, v_cache, valid, scale)
 
 
 # ---------------------------------------------------------------------------
@@ -276,7 +291,74 @@ def paged_chunk_attention(q, k_pool, v_pool, block_tables, row_of, slots,
 paged_chunk_attention.launches = 0
 
 
+# the dense decode kernel splits the cache axis into slices of at least this
+# many slots (one pass of a thread block's eight 16-slot warps)
+_MIN_SPLIT_SLOTS = 128
+
+
+def decode_attention(q, k_cache, v_cache, lengths, *, scale: Optional[float] = None):
+    """Dense-cache decode attention: one query token per row over the row's
+    contiguous cache.
+
+    q: (B, H, hd); k/v_cache: (B, Sc, KVH, hd) in q's dtype (float32 or
+    bfloat16); lengths: (B,) int32 valid slots per row (1 <= lengths <= Sc).
+    Returns (B, H, hd) in q's dtype. CUDA tensors launch the kernel; CPU
+    tensors run the plain version."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return ref_decode_attention(q, k_cache, v_cache, lengths, scale)
+    name = "decode_attention"
+    _check(name, q.is_cuda, f"unsupported device {q.device}")
+    _check(name, q.dim() == 3 and k_cache.dim() == 4, "q must be 3-D, caches 4-D")
+    B, H, hd = q.shape
+    Sc, KVH = k_cache.shape[1], k_cache.shape[2]
+    _check(name, k_cache.shape == v_cache.shape and tuple(k_cache.shape) == (B, Sc, KVH, hd),
+           "k/v caches must be (B, Sc, KVH, hd) with q's B and hd")
+    _check(name, KVH > 0 and H % KVH == 0, "H must be a multiple of KVH")
+    _check(name, q.dtype in (torch.float32, torch.bfloat16)
+           and k_cache.dtype == q.dtype and v_cache.dtype == q.dtype,
+           f"q and the caches must share float32 or bfloat16, got "
+           f"{q.dtype}/{k_cache.dtype}/{v_cache.dtype}")
+    _check(name, hd in _HEAD_DIMS, f"head_dim must be one of {_HEAD_DIMS}, got {hd}")
+    _check(name, lengths.dtype == torch.int32 and tuple(lengths.shape) == (B,)
+           and lengths.is_contiguous(), "lengths must be (B,) int32")
+    for t in (k_cache, v_cache, lengths):
+        _check(name, t.device == q.device, "all tensors must be on q's device")
+    for t in (q, k_cache, v_cache):
+        _check(name, t.is_contiguous() and t.data_ptr() % 16 == 0,
+               "q and the caches must be contiguous and 16-byte aligned")
+    from repro_torch.kernels._build import load_library
+
+    lib = load_library("dense_attention").lib
+    G = H // KVH
+    smem = lib.da_decode_smem_bytes(G, hd)
+    _check(name, smem <= 227 * 1024, f"shared memory per block {smem} B exceeds 227 KB")
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    # enough (split, KV head, row) blocks for two per SM, none shorter than
+    # _MIN_SPLIT_SLOTS
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    n_split = max(1, min(-(-Sc // _MIN_SPLIT_SLOTS), -(-2 * sms // (B * KVH))))
+    part_o = torch.empty((B, KVH, n_split, G, hd), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((B, KVH, n_split, G, 2), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.da_decode_attention(
+            _DTYPE_CODES[q.dtype], q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(),
+            B, H, KVH, hd, Sc, n_split, float(scale), stream,
+        )
+    _raise_on_error(name, err)
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0
+
+
 def reset_launch_counts() -> None:
-    """Zero both wrappers' launch counters."""
+    """Zero the three wrappers' launch counters."""
     paged_decode_attention.launches = 0
     paged_chunk_attention.launches = 0
+    decode_attention.launches = 0

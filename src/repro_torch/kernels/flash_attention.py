@@ -1,0 +1,96 @@
+"""Flash (prefill) attention: a CUDA kernel for the dense backend's prefill,
+and its plain PyTorch version.
+
+``flash_attention`` ports the Pallas kernel of
+``repro.kernels.flash_attention``: GQA attention of q (B, S, H, hd) over
+k/v (B, S, KVH, hd), causal or not. On CUDA tensors the wrapper launches the
+hand-written kernel in ``csrc/dense_attention.cu`` (built on first use, see
+``kernels._build``) on the current stream and counts the launch in its
+``launches`` attribute; on CPU tensors it runs ``ref_flash_attention``.
+There is no fallback from one to the other: a CUDA input the kernel does not
+take raises. The kernel takes float32 or bfloat16 (q, k and v in one dtype),
+head_dim 64 or 128 and any S >= 1, and keeps f32 scores, probabilities and
+sums, as the Pallas kernel does.
+
+``ref_flash_attention`` is the contract of ``repro.kernels.ref.
+flash_attention_ref``: scores in float32, a -1e30 causal mask, and the
+probabilities cast to the value dtype before the value product.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.decode_attention import NEG_INF, _check, _raise_on_error
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (64, 128)   # the head_dim instantiations in csrc/dense_attention.cu
+
+
+def ref_flash_attention(q, k, v, causal: bool = True, scale: Optional[float] = None):
+    """Plain version of ``flash_attention``. q: (B, S, H, hd); k/v:
+    (B, S, KVH, hd). Returns (B, S, H, hd) in q's dtype."""
+    B, S, H, hd = q.shape
+    KVH = k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, S, KVH, H // KVH, hd).float()
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) * scale
+    if causal:
+        future = torch.ones((S, S), dtype=torch.bool, device=q.device).triu(1)
+        s = s.masked_fill(future, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype).float(), v.float())
+    return o.reshape(B, S, H, hd).to(q.dtype)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, scale: Optional[float] = None):
+    """GQA attention of every query over the keys of its row (causal: those
+    at or before it). q: (B, S, H, hd); k/v: (B, S, KVH, hd), all float32 or
+    all bfloat16. Returns (B, S, H, hd) in q's dtype. CUDA tensors launch the
+    kernel; CPU tensors run the plain version."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return ref_flash_attention(q, k, v, causal, scale)
+    name = "flash_attention"
+    _check(name, q.is_cuda, f"unsupported device {q.device}")
+    _check(name, q.dim() == 4 and k.dim() == 4, "q, k and v must be 4-D")
+    B, S, H, hd = q.shape
+    KVH = k.shape[2]
+    _check(name, k.shape == v.shape and tuple(k.shape) == (B, S, KVH, hd),
+           "k and v must be (B, S, KVH, hd) with q's B, S and hd")
+    _check(name, KVH > 0 and H % KVH == 0, "H must be a multiple of KVH")
+    _check(name, q.dtype in _DTYPE_CODES and k.dtype == q.dtype and v.dtype == q.dtype,
+           f"q, k and v must share float32 or bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
+    _check(name, hd in _HEAD_DIMS, f"head_dim must be one of {_HEAD_DIMS}, got {hd}")
+    for t in (k, v):
+        _check(name, t.device == q.device, "all tensors must be on q's device")
+    for t in (q, k, v):
+        _check(name, t.is_contiguous() and t.data_ptr() % 16 == 0,
+               "all tensors must be contiguous and 16-byte aligned")
+    from repro_torch.kernels._build import load_library
+
+    lib = load_library("dense_attention").lib
+    smem = lib.da_flash_smem_bytes(hd)
+    _check(name, smem <= 227 * 1024, f"shared memory per block {smem} B exceeds 227 KB")
+    out = torch.empty_like(q)
+    if B == 0 or S == 0:
+        return out
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.da_flash_attention(
+            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, S, H, KVH, hd, int(causal), float(scale), stream,
+        )
+    _raise_on_error(name, err)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+def reset_launch_counts() -> None:
+    """Zero the wrapper's launch counter."""
+    flash_attention.launches = 0

@@ -1,10 +1,14 @@
-"""Model API of the port (paged serving path)."""
+"""Model API of the port (paged and dense serving paths)."""
 from repro_torch.models.model import (
+    decode_step,
     decode_step_paged,
+    forward,
+    init_cache,
     init_params,
     paged_cache_supported,
+    prefill,
     prefill_packed,
 )
 
-__all__ = ["decode_step_paged", "init_params", "paged_cache_supported",
-           "prefill_packed"]
+__all__ = ["decode_step", "decode_step_paged", "forward", "init_cache", "init_params",
+           "paged_cache_supported", "prefill", "prefill_packed"]

@@ -1,6 +1,15 @@
-"""GQA projections, ported from ``repro.models.attention`` (``qkv_project``
-only: the paged path reads attention through ``kernels.decode_attention``)."""
+"""GQA attention, ported from ``repro.models.attention``: ``qkv_project``,
+and for the dense backend ``blockwise_attention`` (prefill, through the
+``flash_attention`` kernel), ``decode_attention`` (through the dense
+``decode_attention`` kernel) and ``cache_validity``. The paged path reads
+attention through ``kernels.decode_attention`` directly."""
 from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ATTN_CHUNKED_LOCAL, ATTN_FULL, ATTN_SWA
+from repro_torch.kernels.decode_attention import decode_attention as decode_kernel
+from repro_torch.kernels.flash_attention import flash_attention
 
 
 def qkv_project(params, x, num_heads, num_kv_heads, head_dim):
@@ -18,3 +27,40 @@ def qkv_project(params, x, num_heads, num_kv_heads, head_dim):
     k = k.reshape(B, S, num_kv_heads, head_dim)
     v = v.reshape(B, S, num_kv_heads, head_dim)
     return q, k, v
+
+
+def blockwise_attention(q, k, v, *, attn_type: str = ATTN_FULL, causal: bool = True):
+    """q: (B, S, H, hd); k/v: (B, S, KVH, hd) -> (B, S, H, hd). Full
+    attention, causal or not, over keys of the queries' own length (the
+    ``flash_attention`` kernel); windowed and chunked masks and cross
+    attention (S_kv != S) are not ported yet."""
+    if attn_type != ATTN_FULL or k.shape[1] != q.shape[1]:
+        raise NotImplementedError(
+            f"blockwise_attention ports full attention with S_kv == S; got "
+            f"attn_type={attn_type!r}, S={q.shape[1]}, S_kv={k.shape[1]}")
+    return flash_attention(q, k, v, causal=causal)
+
+
+def decode_attention(q, k_cache, v_cache, lengths):
+    """q: (B, 1, H, hd); k/v_cache: (B, Sc, KVH, hd); lengths: (B,) int32
+    valid slots per row -> (B, 1, H, hd). The JAX function takes the (B, Sc)
+    mask of ``cache_validity``; on a full-attention linear cache that mask is
+    ``slot < pos + 1`` for ``pos <= Sc - 1``, so the port passes
+    ``lengths = pos + 1`` to the kernel."""
+    return decode_kernel(q[:, 0].contiguous(), k_cache, v_cache, lengths)[:, None]
+
+
+def cache_validity(attn_type: str, cache_len: int, pos, chunk: int = 0):
+    """Which cache slots a decode query at absolute position ``pos`` may
+    attend: (B, Sc) bool for pos (B,), (1, Sc) for a 0-d pos. Ring caches
+    (SWA) are fully valid once wrapped; chunked-local keeps the current
+    chunk."""
+    slots = torch.arange(cache_len, device=pos.device)
+    p = pos.long().reshape(-1, 1)
+    m = slots <= torch.clamp(p, max=cache_len - 1)   # filled so far (linear fill)
+    if attn_type == ATTN_SWA:
+        m = m | (p + 1 >= cache_len)
+    if attn_type == ATTN_CHUNKED_LOCAL and chunk:
+        age = (p % cache_len - slots) % cache_len
+        m = age < p % chunk + 1
+    return m

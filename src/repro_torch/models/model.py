@@ -1,8 +1,12 @@
-"""Top-level model API of the paged serving path, ported from
-``repro.models.model``: ``init_params``, ``prefill_packed``,
-``decode_step_paged`` and ``paged_cache_supported``.
+"""Top-level model API of the serving paths, ported from
+``repro.models.model``: ``init_params``; for the paged backend
+``prefill_packed``, ``decode_step_paged`` and ``paged_cache_supported``;
+for the dense backend ``forward``, ``prefill``, ``decode_step`` and
+``init_cache``.
 
-Both step functions update the KV pools in place and return the logits.
+The paged step functions update the KV pools in place and return the
+logits; ``decode_step`` updates the dense cache in place and returns it
+with the logits.
 """
 from __future__ import annotations
 
@@ -40,6 +44,68 @@ def _pad_vocab_bias(cfg, logits):
     ids = torch.arange(cfg.padded_vocab, device=logits.device)
     bias = torch.where(ids < cfg.vocab_size, 0.0, -1e30).to(logits.dtype)
     return logits + bias
+
+
+def _embed_inputs(cfg, params, batch):
+    """(B, S, D) token embeddings. The port has the token frontend only:
+    patch and meta-token prefixes, encoder frames and sinusoidal positions
+    are not ported yet."""
+    if (cfg.num_patch_tokens or cfg.num_meta_tokens or cfg.is_encoder_decoder
+            or not cfg.use_rope):
+        raise NotImplementedError(f"{cfg.name}: only the rope token frontend is ported")
+    return embed_tokens(params["embed"], batch["tokens"])
+
+
+def forward(cfg, params, batch, want_cache: bool = False, logits_mode: str = "all"):
+    """batch {"tokens": (B, S) int} -> (logits (B, S, V), aux) or, with
+    ``want_cache``, (logits, aux, caches): the serve cache of the whole
+    sequence, a tuple of one {k, v} entry of (G, B, S, KVH, hd).
+    ``logits_mode="last"`` unembeds the last position only. Pad-vocab
+    logits are masked to -1e30."""
+    x = _embed_inputs(cfg, params, batch)
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    x, caches, aux = tfm.run_stack_seq(cfg, params["blocks"], x, positions)
+    x = tfm.apply_norm(cfg, params["final_norm"], x)
+    if logits_mode == "last":
+        x = x[:, -1:]
+    logits = unembed(params["embed"], params.get("lm_head"), x, cfg.tie_embeddings)
+    logits = _pad_vocab_bias(cfg, logits)
+    if want_cache:
+        return logits, aux, caches
+    return logits, aux
+
+
+def prefill(cfg, params, batch):
+    """Run the prompt through the model: (last-position logits (B, V), the
+    serve cache)."""
+    logits, _, caches = forward(cfg, params, batch, want_cache=True, logits_mode="last")
+    return logits[:, -1], caches
+
+
+def decode_step(cfg, params, caches, tokens, pos):
+    """One dense decode step. tokens: (B, 1) int; pos: (B,) int32 absolute
+    position of each row's new token (<= Sc - 1). Writes the new K/V into
+    ``caches`` in place; returns (logits (B, V), caches). Like the JAX
+    function, it applies no pad-vocab bias."""
+    x = embed_tokens(params["embed"], tokens)
+    x, caches = tfm.run_stack_decode(cfg, params["blocks"], x, caches, pos)
+    x = tfm.apply_norm(cfg, params["final_norm"], x)
+    logits = unembed(params["embed"], params.get("lm_head"), x, cfg.tie_embeddings)
+    return logits[:, 0], caches
+
+
+def init_cache(cfg: ModelConfig, B: int, S: int, device):
+    """Zero-initialised dense serve cache for B rows of S tokens on
+    ``device``: a tuple of one {k, v} entry of (G, B, Sc, KVH, hd) in the
+    config's dtype. The int8 cache (``kv_cache_quant``) is not ported yet."""
+    if cfg.kv_cache_quant:
+        raise NotImplementedError("the int8 dense cache is not ported yet")
+    Sc = tfm.cache_len_for(cfg, tfm.layer_kind(cfg, 0), S)
+    shape = (cfg.num_layers, B, Sc, cfg.num_kv_heads, cfg.head_dim)
+    dtype = torch_dtype(cfg)
+    return ({"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)},)
 
 
 def prefill_packed(cfg, params, k_pool, v_pool, tables, tokens, row_of, slots,

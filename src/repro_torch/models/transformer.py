@@ -1,5 +1,7 @@
-"""Layer stacks of the paged serving path, ported from
-``repro.models.transformer``.
+"""Layer stacks of the serving paths, ported from
+``repro.models.transformer``: the paged stacks (ragged fused step, paged
+decode) and the dense backend's stacks (whole-prompt prefill, contiguous
+per-slot decode cache).
 
 Parameters of a period-1 stack are stacked over the L layer groups, as
 ``transformer._stack_layers`` does in the JAX package: every leaf of
@@ -7,9 +9,10 @@ Parameters of a period-1 stack are stacked over the L layer groups, as
 stack with ``lax.scan``, the port loops over the layer index ``g`` in
 Python and hands each layer the ``g``-th slice of every leaf.
 
-The KV pools are (G, n_blocks, bs, KVH, hd) tensors. Each layer writes its
-new K/V entries into its slice ``pool[g]`` IN PLACE before attending; JAX
-instead returns new pools from the scan. What is the same for every layer
+The KV pools are (G, n_blocks, bs, KVH, hd) tensors, the dense caches
+(G, B, Sc, KVH, hd). Each decoding layer writes its new K/V entries into its
+slice ``pool[g]`` or ``cache[g]`` IN PLACE before attending; JAX instead
+returns new pools and caches from the scan. What is the same for every layer
 of a step — the rope tables, the pool slots the new entries go to, the
 attention lengths — the stack computes once and hands to each layer (XLA
 hoists the same values out of the JAX scan).
@@ -21,7 +24,9 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import (
+    ATTN_CHUNKED_LOCAL,
     ATTN_FULL,
+    ATTN_SWA,
     MIXER_RWKV6,
     ModelConfig,
 )
@@ -55,6 +60,15 @@ def layer_kind(cfg: ModelConfig, layer: int) -> Dict[str, Any]:
         "moe": cfg.layer_is_moe(layer),
         "cross": cfg.is_encoder_decoder,
     }
+
+
+def cache_len_for(cfg: ModelConfig, kind: Dict[str, Any], S: int) -> int:
+    at = kind["attn_type"]
+    if at == ATTN_SWA:
+        return min(S, cfg.window)
+    if at == ATTN_CHUNKED_LOCAL:
+        return min(S, cfg.chunk_size)
+    return S
 
 
 def _uses_layernorm(cfg: ModelConfig) -> bool:
@@ -214,3 +228,76 @@ def run_stack_decode_paged(cfg, blocks, x, k_pool, v_pool, tables, pos, *,
             lengths, rope=rope, dest=dest,
         )
     return x
+
+
+# ---------------------------------------------------------------------------
+# dense serving layers
+# ---------------------------------------------------------------------------
+
+
+def _attn_branch_seq(cfg, lp, x, rope):
+    """norm1 -> QKV -> rope -> full causal attention over the sequence
+    (``blockwise_attention``); returns the attention output and the layer's
+    cache entry {k, v}: (B, Sc, KVH, hd)."""
+    q, k, v = _attn_inputs(cfg, lp, x, rope)
+    S = x.shape[1]
+    Sc = cache_len_for(cfg, layer_kind(cfg, 0), S)
+    return attn.blockwise_attention(q, k, v), {"k": k[:, S - Sc:], "v": v[:, S - Sc:]}
+
+
+def apply_layer_seq(cfg, lp, x, rope):
+    """Sequence-mode layer (whole-prompt prefill): x (B, S, D) -> (x, cache
+    entry)."""
+    a_out, cache = _attn_branch_seq(cfg, lp, x, rope)
+    return _finish_layer(cfg, lp, x, a_out), cache
+
+
+def run_stack_seq(cfg, blocks, x, positions):
+    """Run the stack over a sequence, the serving path: x (B, S, D),
+    positions (B, S). A Python loop over the layers (JAX scans them, with
+    remat and a segmented scan for training, which serving does not need).
+    Returns (x, caches, aux): caches a tuple of one {k, v} entry of (G, B,
+    Sc, KVH, hd); aux the zero auxiliary loss of a stack without MoE."""
+    _check_dense_gqa(cfg)
+    rope = _rope(cfg, positions)
+    ks, vs = [], []
+    for g in range(cfg.num_layers):
+        x, cache = apply_layer_seq(cfg, layer_slice(blocks[0], g), x, rope)
+        ks.append(cache["k"])
+        vs.append(cache["v"])
+    caches = ({"k": torch.stack(ks), "v": torch.stack(vs)},)
+    return x, caches, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _cache_update(c, new, pos):
+    """Write each row's one new entry ``new`` (B, 1, ...) into ``c`` (B, Sc,
+    ...) IN PLACE at slot ``pos[b] % Sc``."""
+    rows = torch.arange(c.shape[0], device=c.device)
+    c[rows, pos.long() % c.shape[1]] = new[:, 0].to(c.dtype)
+
+
+def apply_layer_decode(cfg, lp, x, k_cache, v_cache, pos, *, rope, lengths):
+    """Dense decode layer: write each row's new K/V at slot ``pos`` of the
+    layer's cache (in place), then attend the row's valid slots. x: (B, 1,
+    D); k/v_cache: (B, Sc, KVH, hd); pos: (B,) int32; ``rope``: the step's
+    rope tables; ``lengths`` = pos + 1, which on a full-attention linear
+    cache is what ``cache_validity`` allows. Returns the new x."""
+    q, k, v = _attn_inputs(cfg, lp, x, rope)
+    _cache_update(k_cache, k, pos)
+    _cache_update(v_cache, v, pos)
+    a_out = attn.decode_attention(q, k_cache, v_cache, lengths)
+    return _finish_layer(cfg, lp, x, a_out)
+
+
+def run_stack_decode(cfg, blocks, x, caches, pos):
+    """Run the stack in dense-decode mode: x (B, 1, D), per-row positions
+    pos (B,) int32 (each <= Sc - 1), caches from ``model.init_cache``
+    updated in place layer by layer. Returns (x, caches)."""
+    _check_dense_gqa(cfg)
+    rope = _rope(cfg, pos[:, None])
+    lengths = (pos + 1).to(torch.int32)
+    entry = caches[0]
+    for g in range(cfg.num_layers):
+        x = apply_layer_decode(cfg, layer_slice(blocks[0], g), x, entry["k"][g],
+                               entry["v"][g], pos, rope=rope, lengths=lengths)
+    return x, caches

@@ -1,5 +1,5 @@
-"""Generation engine: continuous batching on the paged KV cache, ported
-from ``repro.serving.engine``.
+"""Generation engine: continuous batching on the paged KV cache or a dense
+per-slot cache, ported from ``repro.serving.engine``.
 
 The serving loop of the JAX package's main path —
 ``GenerationEngine(backend="paged", interleave=True, ragged=True,
@@ -20,12 +20,20 @@ request by recompute: its blocks are released and its continuation
 re-queued. Token delivery is out of band through per-request
 ``StreamingObject``s and one shared ``PriorityFlusher``.
 
+``backend="dense"`` is the JAX package's parity oracle and the fallback for
+architectures outside the paged contract: a contiguous (G, B, max_seq, KVH,
+hd) cache, each admitted request prefilled whole (``models.forward``, its
+attention through ``kernels.flash_attention``) at a power-of-two bucket
+capped at ``max_seq``, then one batched ``models.decode_step`` per step
+(``kernels.decode_attention``). Segmented prompts are served flat.
+
 The engine runs on ``cuda`` unless ``device="cpu"`` is passed. The
 attention wrappers launch the CUDA kernels for CUDA tensors and run their
 plain PyTorch versions for CPU tensors; ``stats()["kernel"]`` says which.
 Arguments of later slices — meshes and pool layouts, an injected cache,
-swap/cost preemption, the host tier, int8 pools, the sequential and padded
-oracles, the dense backend and the sanitizer — raise ``NotImplementedError``.
+swap/cost preemption, the host tier, int8 pools and the int8 dense cache,
+the sequential and padded oracles of the paged backend, the rest of the
+zoo on the dense backend and the sanitizer — raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -42,7 +50,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.scheduler import QueuePolicy, make_policy
 from repro_torch.core.streaming import PriorityFlusher, StreamingObject
 from repro_torch.models import (
+    decode_step,
     decode_step_paged,
+    forward,
+    init_cache,
     init_params,
     paged_cache_supported,
     prefill_packed,
@@ -54,6 +65,7 @@ from repro_torch.serving.device_runner import (
     _substitute_packed,
 )
 from repro_torch.serving.paged_cache import PagedKVCache
+from repro_torch.serving.sampler import sample_tokens
 from repro_torch.serving.segments import KIND_DOC, SegmentedPrompt, build_layout
 
 _NULL_SEQ = -1  # owner of the reserved scratch block
@@ -95,6 +107,13 @@ class Request:
     @property
     def prefilling(self) -> bool:
         return self.slot >= 0 and self.prefill_pos < self.prefill_cap
+
+
+def _bucket(n: int) -> int:
+    b = 16
+    while b < n:
+        b *= 2
+    return b
 
 
 def normalize_spans(spans) -> List:
@@ -178,21 +197,24 @@ class GenerationEngine:
         for name, value in later.items():
             if value is not None:
                 raise NotImplementedError(f"GenerationEngine({name}=...) is not ported yet")
-        if backend != "paged":
-            raise NotImplementedError("the dense backend is not ported yet")
+        if backend not in ("paged", "dense"):
+            raise ValueError(f"unknown backend {backend!r}")
         if preempt in ("swap", "cost"):
             raise NotImplementedError(f"preempt={preempt!r} is not ported yet")
         if preempt != "recompute":
             raise ValueError(f"unknown preempt strategy {preempt!r}")
-        if not interleave or not ragged:
-            raise NotImplementedError(
-                "only the interleaved, ragged (packed) step is ported")
         if sanitize or cfg.kv_cache_quant:
-            raise NotImplementedError("the sanitizer and int8 pools are not ported yet")
-        if not paged_cache_supported(cfg):
             raise NotImplementedError(
-                f"{cfg.name} is outside the paged path; the dense backend is "
-                "not ported yet")
+                "the sanitizer, int8 pools and the int8 dense cache are not ported yet")
+        if not paged_cache_supported(cfg):
+            # JAX serves such archs on the dense backend, whose port covers
+            # the full-attention GQA decoders the paged path takes
+            raise NotImplementedError(
+                f"{cfg.name} is outside the paged contract; the rest of the zoo "
+                "on the dense backend is not ported yet")
+        if backend == "paged" and (not interleave or not ragged):
+            raise NotImplementedError(
+                "only the interleaved, ragged (packed) paged step is ported")
         self.cfg = cfg
         self.device = resolve_device(device)
         if params is None:
@@ -202,9 +224,9 @@ class GenerationEngine:
         self.max_batch = max_batch
         self.max_seq = max_seq
         self.eos_token = eos_token
-        self.backend = "paged"
-        self.interleave = True
-        self.ragged = True
+        self.backend = backend
+        self.interleave = backend == "paged"
+        self.ragged = backend == "paged"
         self.kernel = "cuda" if self.device.type == "cuda" else "plain"
         self.scheduler: QueuePolicy = make_policy(scheduler)
         # never mutate a caller-supplied policy: bind residency into a copy
@@ -228,12 +250,15 @@ class GenerationEngine:
         # real token (1 - valid/slot is the padded fraction)
         self.fused_slot_tokens = 0
         self.fused_valid_tokens = 0
-        self.pipeline = bool(pipeline)
+        self.pipeline = bool(pipeline) and self.interleave
         self.flusher = flusher if flusher is not None else PriorityFlusher()
         self.copy_budget = copy_budget
         self._copy = CopyEngine()
         self._inflight: Optional[PlanExec] = None
         self._build_emitted: Optional[Dict[int, List[int]]] = None
+        if self.backend == "dense":
+            self.cache = init_cache(cfg, max_batch, max_seq, self.device)
+            return
 
         self.block_size = block_size
         self.max_blocks = -(-max_seq // block_size)
@@ -302,6 +327,12 @@ class GenerationEngine:
             "prefill_tokens": self.prefill_tokens,
             "preemptions": self.preemptions,
             "stream_backlog": self.flusher.backlog,
+            "kernel": self.kernel,
+            "device": str(self.device),
+        }
+        if self.backend != "paged":
+            return s
+        s.update({
             "utilization": self.kv.utilization(),
             "prefix_hit_tokens": self.kv.shared_token_hits,
             "session_shared_tokens": self.kv.session_token_hits,
@@ -309,8 +340,6 @@ class GenerationEngine:
             "measured_hit_rate": self.measured_hit_rate(),
             "preempt": self.preempt,
             "kv_dtype": str(self.kv.k.dtype).replace("torch.", ""),
-            "kernel": self.kernel,
-            "device": str(self.device),
             "ragged": self.ragged,
             "fused_slot_tokens": self.fused_slot_tokens,
             "fused_valid_tokens": self.fused_valid_tokens,
@@ -321,7 +350,7 @@ class GenerationEngine:
             "copy_backlog": self._copy.backlog,
             "copy_ops_drained": self._copy.drained,
             "stream_chunk_size": self.control.last_chunk_size,
-        }
+        })
         s.update(self.runner.summary())
         return s
 
@@ -333,7 +362,9 @@ class GenerationEngine:
         the token budget (+1 floor grant) and by B * C. Each call packs only
         pad tokens (``row_of = -1``), whose K/V writes land in the scratch
         block, so no request state changes. Returns the number of lengths
-        run."""
+        run (0 on the dense backend, which has no packed step)."""
+        if self.backend != "paged":
+            return 0
         B, C = self.max_batch, self.prefill_chunk_size
         cap = min(max(self.token_budget + 1, B + 1), B * C)
         cap_pad = -(-cap // self.pack_align) * self.pack_align
@@ -376,16 +407,17 @@ class GenerationEngine:
 
     def latency_summary(self) -> Dict[str, float]:
         """TTFT/TPOT/e2e percentiles (seconds) over finished requests, the
-        prefix hit rate, and the measured host gap — wall time the device
-        sat idle between the end of one dispatched step and the next
-        dispatch (total and per-dispatch mean)."""
+        prefix hit rate, and on the paged backend the measured host gap —
+        wall time the device sat idle between the end of one dispatched step
+        and the next dispatch (total and per-dispatch mean)."""
         done = [r for r in self.finished
                 if r.first_token_at is not None and r.finished_at is not None]
         out: Dict[str, float] = {"n_finished": float(len(done))}
-        rs = self.runner.summary()
-        out["host_gap_total_s"] = float(rs["host_gap_s"])
-        out["host_gap_mean_s"] = float(rs["host_gap_mean_s"])
-        out["dispatches"] = float(rs["dispatches"])
+        if self.backend == "paged":
+            rs = self.runner.summary()
+            out["host_gap_total_s"] = float(rs["host_gap_s"])
+            out["host_gap_mean_s"] = float(rs["host_gap_mean_s"])
+            out["dispatches"] = float(rs["dispatches"])
         if not done:
             return out
         ttft = [r.first_token_at - r.submitted_at for r in done]
@@ -407,8 +439,9 @@ class GenerationEngine:
 
     def _residency(self, req: Request) -> float:
         """Eviction-aware admission signal: fraction of a waiting request's
-        prompt whose keyed blocks are in the prefix index."""
-        if not self.kv.prefix_sharing:
+        prompt whose keyed blocks are in the prefix index (0 on the dense
+        backend, which shares nothing)."""
+        if self.backend != "paged" or not self.kv.prefix_sharing:
             return 0.0
         lay = req.layout if req.layout is not None else req.probe_layout
         if lay is None:
@@ -526,9 +559,15 @@ class GenerationEngine:
         """One engine iteration: the control plane builds one StepPlan and
         the device runner dispatches it; sampled tokens materialize this
         step (``pipeline=False``) or next step (``pipeline=True``). Returns
-        the tokens whose emission LANDED this step."""
+        the tokens whose emission LANDED this step. The dense backend admits
+        (blocking whole-prompt prefill) and then runs one batched decode."""
         for r in self.waiting:
             r.queued_steps += 1
+        if self.backend == "dense":
+            out = self._step_sequential()
+            self._drain_copies(full=True)
+            self.flusher.flush()
+            return out
         emitted: Dict[int, List[int]] = {}
         # preemption inside build may have to sync the inflight plan; its
         # emissions land in this step's result
@@ -642,14 +681,101 @@ class GenerationEngine:
             del self.finished[: -self.max_finished]
         if req.slot >= 0 and self.slots[req.slot] is req:
             self.slots[req.slot] = None
-        self.kv.release(req.req_id)  # no-op if already released
+        if self.backend == "paged":
+            self.kv.release(req.req_id)  # no-op if already released
         if req.stream is not None and not req.stream.closed:
             req.stream.close()
+
+    # ---------------------------------------------------------- dense path
+    def _prefill_one(self, req: Request, slot: int):
+        """Prefill the whole prompt, zero-padded to its bucket (truncated to
+        ``max_seq``), write its cache into row ``slot`` and emit the first
+        token."""
+        Lp = len(req.prompt)
+        bucket = min(_bucket(Lp), self.max_seq)
+        eff = min(Lp, bucket)  # tokens that actually entered the cache
+        req.truncated = eff < Lp
+        toks = np.zeros((1, bucket), np.int32)
+        toks[0, :eff] = req.prompt[:eff]
+        logits, _, pcache = forward(
+            self.cfg, self.params, {"tokens": torch.from_numpy(toks).to(self.device)},
+            want_cache=True)
+        _merge_cache(self.cache, pcache, slot)
+        self.prefill_tokens += eff
+        req.slot = slot
+        req.pos = eff  # NOT Lp: a truncated prompt must not overrun its cache
+        req.prefill_pos = eff
+        req.prefill_cap = eff
+        tok = int(sample_tokens(self._generator, logits[0, eff - 1][None], req.temperature)[0])
+        self._emit(req, tok)
+
+    def _step_sequential(self) -> Dict[int, List[int]]:
+        """Fill free slots from the queue (a free slot is the dense backend's
+        only admission resource), then one batched decode."""
+        for slot in range(self.max_batch):
+            while self.slots[slot] is None and self.waiting:
+                req = self.waiting.pop(self.scheduler.select(self.waiting))
+                self.slots[slot] = req
+                self._prefill_one(req, slot)
+        active = [r for r in self.slots if r is not None]
+        if not active:
+            return {}
+        return self._decode_batch(active)
+
+    def _decode_batch(self, active: List[Request]) -> Dict[int, List[int]]:
+        """One batched decode over every slot; inactive rows decode token 0
+        at position 0 of their own (unused) cache row."""
+        B = self.max_batch
+        tokens = np.zeros((B, 1), np.int32)
+        pos = np.zeros((B,), np.int32)
+        temps = np.zeros((B,), np.float32)
+        for r in active:
+            tokens[r.slot, 0] = r.out_tokens[-1] if r.out_tokens else 0
+            pos[r.slot] = r.pos
+            temps[r.slot] = r.temperature
+        logits, self.cache = decode_step(
+            self.cfg, self.params, self.cache, torch.from_numpy(tokens).to(self.device),
+            torch.from_numpy(pos).to(self.device))
+        self.steps += 1
+        toks = sample_tokens(self._generator, logits, temps).cpu().numpy()
+        emitted: Dict[int, List[int]] = {}
+        for r in list(active):
+            tok = int(toks[r.slot])
+            r.pos += 1
+            self._emit(r, tok)
+            emitted.setdefault(r.req_id, []).append(tok)
+            if r.done:
+                self.slots[r.slot] = None
+        return emitted
+
+    def _emit(self, req: Request, tok: int):
+        """Eager emit (dense path): token side effects plus the completion
+        check applied immediately."""
+        self._emit_token(req, tok)
+        req.planned = len(req.out_tokens)
+        if (
+            len(req.out_tokens) >= req.max_new
+            or tok == self.eos_token
+            or req.pos >= self.max_seq - 1
+        ):
+            self._finalize(req)
 
 
 def _merge_emitted(into: Dict[int, List[int]], more: Dict[int, List[int]]) -> None:
     for rid, toks in more.items():
         into.setdefault(rid, []).extend(toks)
+
+
+def _merge_cache(batch_cache, one_cache, slot: int):
+    """Write a B=1 prefill cache into row ``slot`` of the batch cache, in
+    place; the row's slots past the prefill are zeroed, as the JAX function
+    pads them."""
+    for bc_entry, oc_entry in zip(batch_cache, one_cache):
+        for name, bc in bc_entry.items():
+            oc = oc_entry[name]
+            n = oc.shape[2]
+            bc[:, slot, :n] = oc[:, 0]
+            bc[:, slot, n:] = 0
 
 
 def _shareable_doc_heads(segprompt, block_size: int) -> set:

@@ -1,5 +1,5 @@
-"""The CUDA kernels (paged attention, top-k retrieval) against their plain
-versions, on the card. Marked ``cuda``: each test skips (from inside a
+"""The CUDA kernels (paged attention, dense flash and decode attention,
+top-k retrieval) against their plain versions, on the card. Marked ``cuda``: each test skips (from inside a
 fixture) where no GPU is visible, as in this repository's CPU runs. On a GPU
 machine:
 
@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import decode_attention as ka
+from repro_torch.kernels import flash_attention as kf
 from repro_torch.kernels import topk_retrieval as tk
 
 pytestmark = pytest.mark.cuda
@@ -149,6 +150,73 @@ def test_kernels_reject_what_they_do_not_take(gpu):
         ka.paged_decode_attention(q, k, v, tables.cpu(), lengths)
     with pytest.raises(ValueError):      # a float pool in another dtype than q
         ka.paged_decode_attention(q, k.bfloat16(), v.bfloat16(), tables, lengths)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention and decode_attention (the dense backend)
+# ---------------------------------------------------------------------------
+
+# f32: summation order; bf16: the plain version's bf16 probabilities (the
+# kernels keep f32 ones, so against the plain version in f32 only the
+# output rounding differs: BF16_OUT_TOL)
+DENSE_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [1, 37, 200])       # none a multiple of the 64-row tile
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_kernel_matches_plain_version(gpu, hd, dtype, S, causal):
+    g = torch.Generator().manual_seed(S * hd + causal)
+    q, k, v = (torch.randn((2, S, n, hd), generator=g).to(dtype).to(gpu) for n in (8, 2, 2))
+    before = kf.flash_attention.launches
+    got = kf.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kf.flash_attention.launches == before + 1
+    _close(got, kf.ref_flash_attention(q, k, v, causal), slice(None), DENSE_TOL[dtype])
+    if dtype == torch.bfloat16:
+        want = kf.ref_flash_attention(q.float(), k.float(), v.float(), causal)
+        _close(got, want, slice(None), BF16_OUT_TOL)
+
+
+@pytest.mark.parametrize("Sc,lengths", [
+    (40, [1, 17, 40]),
+    (300, [300, 299, 1, 64, 129]),          # Sc not a multiple of the 16-slot tile
+    (2048, [2048, 1536, 1024, 777, 512, 300, 129, 1]),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_dense_decode_kernel_matches_plain_version(gpu, hd, dtype, Sc, lengths):
+    g = torch.Generator().manual_seed(Sc + hd)
+    B = len(lengths)
+    q = torch.randn((B, 16, hd), generator=g).to(dtype).to(gpu)
+    k, v = (torch.randn((B, Sc, 2, hd), generator=g).to(dtype).to(gpu) for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=gpu)
+    before = ka.decode_attention.launches
+    got = ka.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert ka.decode_attention.launches == before + 1
+    _close(got, ka.ref_decode_attention(q, k, v, lens), slice(None), DENSE_TOL[dtype])
+    if dtype == torch.bfloat16:
+        want = ka.ref_decode_attention(q.float(), k.float(), v.float(), lens)
+        _close(got, want, slice(None), BF16_OUT_TOL)
+
+
+def test_dense_kernels_reject_what_they_do_not_take(gpu):
+    q = torch.randn((1, 16, 4, 64), device=gpu)
+    kv = torch.randn((1, 16, 2, 64), device=gpu)
+    with pytest.raises(ValueError):      # a head_dim the kernels are not built for
+        kf.flash_attention(q[..., :32].contiguous(), kv[..., :32].contiguous(),
+                           kv[..., :32].contiguous())
+    with pytest.raises(ValueError):      # k/v in another dtype than q
+        kf.flash_attention(q, kv.bfloat16(), kv.bfloat16())
+    with pytest.raises(ValueError):      # S_kv != S
+        kf.flash_attention(q, kv[:, :8].contiguous(), kv[:, :8].contiguous())
+    lens = torch.tensor([3], dtype=torch.int32, device=gpu)
+    with pytest.raises(ValueError):      # int64 lengths
+        ka.decode_attention(q[:, 0].contiguous(), kv, kv, lens.long())
+    with pytest.raises(ValueError):      # mixed devices
+        ka.decode_attention(q[:, 0].contiguous(), kv, kv, lens.cpu())
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,7 @@ def test_imports_with_jax_and_repro_blocked():
         "import repro_torch.kernels.decode_attention, repro_torch.kernels._build\n"
         "import repro_torch.apps, repro_torch.serving.retrieval\n"
         "import repro_torch.kernels.topk_retrieval, repro_torch.data.workload\n"
+        "import repro_torch.kernels.flash_attention, repro_torch.models.attention\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -74,10 +75,13 @@ def test_later_slices_raise_not_implemented():
 
     cfg = smoke_variant(get_arch("smollm-135m"))
     for kw in ({"preempt": "swap"}, {"kv_dtype": "int8"}, {"host_blocks": 8},
-               {"interleave": False}, {"ragged": False}, {"backend": "dense"},
+               {"backend": "paged", "interleave": False}, {"ragged": False},
                {"sanitize": True}, {"mesh": object()}):
         with pytest.raises(NotImplementedError):
             GenerationEngine(cfg, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):      # the int8 dense cache
+        GenerationEngine(cfg.replace(kv_cache_quant=True), device="cpu", backend="dense")
+    assert GenerationEngine(cfg, device="cpu", backend="dense").backend == "dense"
 
 
 def test_pipelines_with_a_host_tier_raise_not_implemented():
