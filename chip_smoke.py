@@ -16,7 +16,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``TOL``); then times (CUDA events, L2 flushed between launches, median
    of 30) of the kernel, its plain version and one PyTorch SDPA call on the
    gathered view, beside the bound the card could reach, and the kernel's
-   device time alone under torch.profiler (every timed kernel has one).
+   device time alone (calls queued behind a spin kernel, timed back to back
+   with CUDA events; every timed kernel has one).
 2b. The dense backend's kernels against their plain versions on the card at
    qwen2.5-3b shapes: flash attention (B=1, H=16, KVH=2, hd=128, S in {16,
    200, 2048}, causal and not) and dense decode attention (B=8, Sc=2048,
@@ -37,20 +38,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
    same tokens as the paged backend.
 5. Serve qwen2.5-3b at full width in bfloat16: 10 requests, 128-1536-token
    prompts, half sharing a 512-token document prefix, one segmented prompt,
-   32 new tokens each, with both attention kernels' launch counts read
-   around the run.
+   32 new tokens each, with every ported kernel's launch count read around
+   the run (the dense and top-k kernels' must be 0).
 5b. Serve the same 10 prompts (the segmented one flattened) on the dense
    backend of qwen2.5-3b bf16 (``max_batch=8``, ``max_seq=2048``): flash
    attention launches must be 36 x the prefills and dense decode launches
-   36 x the decode steps; greedy agreement with phase 5's paged run on the
-   unsegmented requests is reported (bf16 sums differ in order between
-   the two backends, so it is not required).
+   36 x the decode steps, and the paged and top-k kernels' 0; greedy
+   agreement with phase 5's paged run on the unsegmented requests is
+   reported (bf16 sums differ in order between the two backends, so it is
+   not required).
 6. RAG requests at full width: a ``VectorIndex`` of 2^21 synthetic 768-d
    passages with 1024 clusters built on the card; recall@10 at n_probe 1,
    8 and 32 (the exact side runs the top-k kernel); 8 queries through
    Retriever -> Reranker -> Augmenter -> the qwen2.5-3b engine, half of
-   them repeating an earlier query's text, with all three kernels' launch
-   counts read around the phase.
+   them repeating an earlier query's text, with every ported kernel's
+   launch count read around the phase (the dense kernels' must be 0).
 7. The open-loop pipelines at full width: ``serve_pipelines`` on
    qwen2.5-3b bfloat16 replays a Poisson trace (4 requests/s for 5
    trace-seconds, 30% sessions) of vrag/crag/srag/planrag with EDF-slack
@@ -244,28 +246,27 @@ def time_ms(fn, flush, reps=30, warmup=3):
     return float(np.median(times))
 
 
-def device_ms(fn, n_kernels, reps=10):
-    """Mean device time of one call: the CUDA kernels' own time under
-    torch.profiler, without the host's launch gaps that ``time_ms`` counts
-    when the card idles between launches (L2 warm: no flush between calls).
-    None ("not measured") unless the trace holds exactly the ``n_kernels``
-    kernels a call that the wrapper launches."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def device_ms(fn, reps=10):
+    """Device time of one call with no host gaps: a spin kernel holds the
+    stream while the host queues ``reps`` calls behind it, so the card runs
+    them back to back, and CUDA events around them give the time (L2 warm:
+    no flush between calls). None ("not measured") if the spin ended before
+    the host had queued every call."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    seen = sum(e.count for e in events)
-    if seen != n_kernels * reps:
-        print(f"[device_ms] {seen} kernels in {reps} calls, not {n_kernels} a call: "
-              f"{sorted({e.key[:60] for e in events})}; not measured", flush=True)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)      # ~50 ms at the H100's 1.98 GHz boost clock
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    if a.query():
+        print(f"[device_ms] the spin ended before {reps} calls were queued; not measured",
+              flush=True)
+        b.synchronize()
         return None
-    return sum(e.self_device_time_total for e in events) / reps / 1e3
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def fmt_ms(x):
@@ -356,7 +357,7 @@ def phase_kernels(ka):
             r = {
                 "name": name, "dtype": dtype_name, "errs": errs,
                 "ms": time_ms(lambda: kern(case), flush),
-                "device_ms": device_ms(lambda: kern(case), 1),
+                "device_ms": device_ms(lambda: kern(case)),
                 "plain_ms": time_ms(lambda: plain(case), flush, reps=20),
                 "library_ms": time_ms(lib, flush) if lib is not None else None,
                 "bound_ms": max(bytes_ms, ops_ms),
@@ -433,7 +434,7 @@ def phase_dense_kernels(ka, kf):
                                                                  enable_gqa=True)
                     r.update(timed_row(dense_work("flash_attention", q, k, causal=True),
                                        dtype_name, flush,
-                                       lambda: kf.flash_attention(q, k, v, causal=True), 1,
+                                       lambda: kf.flash_attention(q, k, v, causal=True),
                                        lambda: kf.ref_flash_attention(q, k, v, True), lib))
                 rows[("flash_attention", dtype_name, S, causal)] = r
                 print_dense_row(name, r, tol)
@@ -463,7 +464,7 @@ def phase_dense_kernels(ka, kf):
                                                              enable_gqa=True)
                 r.update(timed_row(dense_work("decode_attention", q, k, lengths=lengths),
                                    dtype_name, flush,
-                                   lambda: ka.decode_attention(q, k, v, lens), 2,
+                                   lambda: ka.decode_attention(q, k, v, lens),
                                    lambda: ka.ref_decode_attention(q, k, v, lens), lib))
             rows[("decode_attention", dtype_name, case)] = r
             print_dense_row(name, r, tol)
@@ -472,11 +473,11 @@ def phase_dense_kernels(ka, kf):
     return rows
 
 
-def timed_row(work, dtype_name, flush, kern, n_kernels, plain, lib):
+def timed_row(work, dtype_name, flush, kern, plain, lib):
     nbytes, ops = work
     bytes_ms = nbytes / HBM_BYTES_S * 1e3
     ops_ms = ops / PEAK_OPS_S[dtype_name] * 1e3
-    return {"ms": time_ms(kern, flush), "device_ms": device_ms(kern, n_kernels),
+    return {"ms": time_ms(kern, flush), "device_ms": device_ms(kern),
             "plain_ms": time_ms(plain, flush, reps=10),
             "library_ms": time_ms(lib, flush), "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -567,7 +568,7 @@ def phase_topk(tk, corpus, queries):
                        else None)
                 r.update({
                     "ms": time_ms(lambda: tk.topk_retrieval(q, docs, k), flush),
-                    "device_ms": device_ms(lambda: tk.topk_retrieval(q, docs, k), 2, reps=3),
+                    "device_ms": device_ms(lambda: tk.topk_retrieval(q, docs, k)),
                     "plain_ms": time_ms(lambda: tk.ref_topk_retrieval(q, docs, k), flush,
                                         reps=10),
                     "library_ms": time_ms(lib, flush, reps=10) if lib is not None else None,
@@ -713,8 +714,10 @@ def phase_dense_parity(ka, kf):
 # ---------------------------------------------------------------------------
 
 
-def phase_serve(ka, cfg, params):
-    """Serve the RAG workload on ``cfg`` (qwen2.5-3b, bf16, on the card)."""
+def phase_serve(ka, kf, tk, cfg, params):
+    """Serve the RAG workload on ``cfg`` (qwen2.5-3b, bf16, on the card).
+    Returns the five kernels' launches in the run, the prompts and the
+    greedy tokens."""
     from repro_torch.models import prefill_packed
     from repro_torch.serving.engine import GenerationEngine
 
@@ -729,20 +732,20 @@ def phase_serve(ka, cfg, params):
     lens = [len(p) for p in prompts]
     assert min(lens) >= 128 and max(lens) <= 1536, lens
 
-    ka.reset_launch_counts()
+    reset_launches(ka, kf, tk)
     t0 = time.perf_counter()
     reqs = [eng.submit(p, max_new=32) for p in prompts]
     eng.run_until_done()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"paged_chunk_attention": ka.paged_chunk_attention.launches,
-                "paged_decode_attention": ka.paged_decode_attention.launches}
+    launches = read_launches(ka, kf, tk)
 
     st, lat = eng.stats(), eng.latency_summary()
     assert all(len(r.out_tokens) == 32 for r in reqs), [len(r.out_tokens) for r in reqs]
     assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens)
     assert st["kernel"] == "cuda", st["kernel"]
-    assert all(n > 0 for n in launches.values()), launches
+    assert all(launches[n] > 0 for n in PAGED), launches
+    assert all(launches[n] == 0 for n in (*DENSE, "topk_retrieval")), launches
     n_mixed = launches["paged_chunk_attention"] // cfg.num_layers
     n_dec = launches["paged_decode_attention"] // cfg.num_layers
     assert n_mixed + n_dec == st["steps"], (launches, st["steps"])
@@ -792,9 +795,10 @@ def phase_serve(ka, cfg, params):
     return launches, prompts, [r.out_tokens for r in reqs]
 
 
-def phase_dense_serve(ka, kf, cfg, params, prompts, paged_tokens):
+def phase_dense_serve(ka, kf, tk, cfg, params, prompts, paged_tokens):
     """Serve phase 5's prompts on the dense backend of ``cfg`` (qwen2.5-3b
-    bf16); returns the two dense kernels' launches."""
+    bf16); returns the five kernels' launches in the run (the paged and
+    top-k kernels' are 0: the dense path goes through neither)."""
     from repro_torch.models import prefill
     from repro_torch.serving.engine import GenerationEngine
     from repro_torch.serving.segments import SegmentedPrompt
@@ -802,21 +806,21 @@ def phase_dense_serve(ka, kf, cfg, params, prompts, paged_tokens):
     torch.cuda.reset_peak_memory_stats()
     eng = GenerationEngine(cfg, params=params, device="cuda", backend="dense",
                            max_batch=8, max_seq=2048)
-    ka.reset_launch_counts()
-    kf.reset_launch_counts()
+    reset_launches(ka, kf, tk)
     t0 = time.perf_counter()
     reqs = [eng.submit(p, max_new=32) for p in prompts]
     eng.run_until_done()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention": kf.flash_attention.launches,
-                "decode_attention": ka.decode_attention.launches}
+    launches = read_launches(ka, kf, tk)
     st, lat = eng.stats(), eng.latency_summary()
     assert st["backend"] == "dense" and st["kernel"] == "cuda", st
     assert all(len(r.out_tokens) == 32 for r in reqs), [len(r.out_tokens) for r in reqs]
     assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens)
     assert launches == {"flash_attention": cfg.num_layers * len(reqs),
-                        "decode_attention": cfg.num_layers * st["steps"]}, (launches, st)
+                        "decode_attention": cfg.num_layers * st["steps"],
+                        "paged_chunk_attention": 0, "paged_decode_attention": 0,
+                        "topk_retrieval": 0}, (launches, st)
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[dense serve] {cfg.name} {cfg.dtype}: {len(reqs)} requests, {st['tokens_out']} "
           f"tokens out in {wall:.3f}s = {st['tokens_out'] / wall:.1f} tok/s (prefill tokens "
@@ -871,14 +875,22 @@ def step_profile(eng, n):
     return kinds, wall_ms, dev_us / n / 1e3, launches / n
 
 
-def read_launches(ka, tk):
+PAGED = ("paged_chunk_attention", "paged_decode_attention")
+DENSE = ("flash_attention", "decode_attention")
+
+
+def read_launches(ka, kf, tk):
+    """Every ported kernel's launch count since ``reset_launches``."""
     return {"paged_chunk_attention": ka.paged_chunk_attention.launches,
             "paged_decode_attention": ka.paged_decode_attention.launches,
-            "topk_retrieval": tk.topk_retrieval.launches}
+            "topk_retrieval": tk.topk_retrieval.launches,
+            "flash_attention": kf.flash_attention.launches,
+            "decode_attention": ka.decode_attention.launches}
 
 
-def reset_launches(ka, tk):
+def reset_launches(ka, kf, tk):
     ka.reset_launch_counts()
+    kf.reset_launch_counts()
     tk.reset_launch_counts()
 
 
@@ -892,15 +904,15 @@ def pool_is_clean(eng):
 # ---------------------------------------------------------------------------
 
 
-def phase_rag(ka, tk, cfg, params, corpus, queries):
+def phase_rag(ka, kf, tk, cfg, params, corpus, queries):
     """Index the (N_DOCS, DIM) ``corpus`` (numpy) on the card, read recall@10
     at three probe counts, and serve 8 retrieval-augmented requests on
-    ``cfg`` (qwen2.5-3b bf16). Returns the three kernels' launches."""
+    ``cfg`` (qwen2.5-3b bf16). Returns the five kernels' launches."""
     from repro_torch.core.components import Augmenter, Reranker, Retriever
     from repro_torch.serving.engine import GenerationEngine
     from repro_torch.serving.retrieval import DocTokenStore, VectorIndex, recall_at_k
 
-    reset_launches(ka, tk)
+    reset_launches(ka, kf, tk)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     index = VectorIndex.build(corpus, n_clusters=N_CLUSTERS, seed=0, device="cuda")
@@ -947,12 +959,13 @@ def phase_rag(ka, tk, cfg, params, corpus, queries):
         eng.run_until_done()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_all
-    launches = read_launches(ka, tk)
+    launches = read_launches(ka, kf, tk)
     st = eng.stats()
     assert all(len(r.out_tokens) == 32 for r in reqs), [len(r.out_tokens) for r in reqs]
     assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens)
     assert st["prefix_hit_tokens"] > 0 and pool_is_clean(eng), st
-    assert all(n > 0 for n in launches.values()), launches
+    assert all(launches[n] > 0 for n in (*PAGED, "topk_retrieval")), launches
+    assert all(launches[n] == 0 for n in DENSE), launches
     print(f"[rag] 8 requests (prompts {min(len(r.prompt) for r in reqs)}-"
           f"{max(len(r.prompt) for r in reqs)} tokens: system + 4 reranked docs of 256 + "
           f"query) through Retriever(n_probe=8, k=100) -> Reranker(top 4) -> Augmenter -> "
@@ -971,11 +984,11 @@ def phase_rag(ka, tk, cfg, params, corpus, queries):
 APP_MIX = ("vrag", "crag", "srag", "planrag")   # benchmarks/slo_violations.py
 
 
-def phase_pipelines(ka, tk, cfg, params):
+def phase_pipelines(ka, kf, tk, cfg, params):
     from repro_torch.launch.serve import serve_pipelines
 
     torch.cuda.reset_peak_memory_stats()
-    reset_launches(ka, tk)
+    reset_launches(ka, kf, tk)
     t0 = time.perf_counter()
     drv = serve_pipelines(cfg.name, 4.0, 5.0, arrival="poisson", session_fraction=0.3,
                           device="cuda", params=params, dtype=cfg.dtype, apps=APP_MIX,
@@ -983,7 +996,7 @@ def phase_pipelines(ka, tk, cfg, params):
                           token_budget=None, doc_len=256, seed=0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_launches(ka, tk)
+    launches = read_launches(ka, kf, tk)
     eng = drv.engine
     st = eng.stats()
     summary = drv.violation_summary()
@@ -993,6 +1006,7 @@ def phase_pipelines(ka, tk, cfg, params):
                for c in summary.values()), summary
     assert st["session_shared_tokens"] > 0 and pool_is_clean(eng), st
     assert st["kernel"] == "cuda" and launches["paged_chunk_attention"] > 0, launches
+    assert all(launches[n] == 0 for n in DENSE), launches
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[pipelines] {cfg.name} {cfg.dtype}: {len(drv.events)} events "
           f"({sum(e.session_id >= 0 for e in drv.events)} session turns) all completed; "
@@ -1054,12 +1068,13 @@ def main() -> int:
 
     cfg = get_arch("qwen2.5-3b").replace(dtype="bfloat16")
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    serve_launches, prompts, paged_tokens = timed("serve", phase_serve, ka, cfg, params)
+    serve_launches, prompts, paged_tokens = timed("serve", phase_serve, ka, kf, tk, cfg,
+                                                  params)
     launches = {"serve": serve_launches}
-    launches["dense serve"] = timed("dense serve", phase_dense_serve, ka, kf, cfg, params,
+    launches["dense serve"] = timed("dense serve", phase_dense_serve, ka, kf, tk, cfg, params,
                                     prompts, paged_tokens)
-    launches["rag"] = timed("rag", phase_rag, ka, tk, cfg, params, corpus, queries_gpu)
-    launches["pipelines"] = timed("pipelines", phase_pipelines, ka, tk, cfg, params)
+    launches["rag"] = timed("rag", phase_rag, ka, kf, tk, cfg, params, corpus, queries_gpu)
+    launches["pipelines"] = timed("pipelines", phase_pipelines, ka, kf, tk, cfg, params)
 
     kernels = []
     for name in ("paged_chunk_attention", "paged_decode_attention"):
@@ -1073,7 +1088,7 @@ def main() -> int:
             # every check of every dtype: {dtype: {check: max abs err}}
             "max_abs_err_by_check": {d: rows[(name, d)]["errs"]
                                      for d in ("float32", "bfloat16", "int8")},
-            "launches_by_phase": {ph: n.get(name, 0) for ph, n in launches.items()},
+            "launches_by_phase": {ph: n[name] for ph, n in launches.items()},
         })
     # the RAG phase's shape: float32 index, B=32, k=10 (recall_at_k)
     r = topk_rows[("float32", 10)]
@@ -1088,7 +1103,7 @@ def main() -> int:
                                    ("max_abs_err", "swapped", "ms", "device_ms", "plain_ms",
                                     "library_ms", "bound_ms")}
                     for (c, k), x in topk_rows.items()},
-        "launches_by_phase": {ph: n.get("topk_retrieval", 0) for ph, n in launches.items()},
+        "launches_by_phase": {ph: n["topk_retrieval"] for ph, n in launches.items()},
     })
     # the dense serve phase's shapes in bf16: flash at S=2048 causal (its
     # largest bucket), decode over the phase-2 lengths
@@ -1104,6 +1119,7 @@ def main() -> int:
                                     for k, x in dense_rows.items() if k[0] == name},
             "float32": {key2: dense_rows[(name, "float32", *key)][key2]
                         for key2 in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")},
+            "launches_by_phase": {ph: n[name] for ph, n in launches.items()},
         })
     print(json.dumps({"kernels": kernels}))
     print(f"[done] {time.perf_counter() - t_start:.1f}s in all", flush=True)

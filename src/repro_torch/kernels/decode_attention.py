@@ -32,6 +32,7 @@ float32 or bfloat16.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -296,6 +297,30 @@ paged_chunk_attention.launches = 0
 _MIN_SPLIT_SLOTS = 128
 
 
+@functools.lru_cache(maxsize=None)
+def _decode_split(device_index: int, B: int, KVH: int, Sc: int) -> int:
+    """Cache-axis slices of the dense decode kernel: enough (split, KV head,
+    row) blocks for two per SM, none shorter than ``_MIN_SPLIT_SLOTS``."""
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return max(1, min(-(-Sc // _MIN_SPLIT_SLOTS), -(-2 * sms // (B * KVH))))
+
+
+# the dense decode kernel's per-slice partials, (part_o, part_ml) per
+# (device, stream, B, KVH, n_split, G, hd): every layer of every decode step
+# reuses one pair, since launches on one stream run in order and each launch
+# writes every partial before its merge kernel reads them
+_decode_scratch = {}
+
+
+def _decode_partials(device, stream, B, KVH, n_split, G, hd):
+    key = (device, stream, B, KVH, n_split, G, hd)
+    if key not in _decode_scratch:
+        _decode_scratch[key] = (
+            torch.empty((B, KVH, n_split, G, hd), dtype=torch.float32, device=device),
+            torch.empty((B, KVH, n_split, G, 2), dtype=torch.float32, device=device))
+    return _decode_scratch[key]
+
+
 def decode_attention(q, k_cache, v_cache, lengths, *, scale: Optional[float] = None):
     """Dense-cache decode attention: one query token per row over the row's
     contiguous cache.
@@ -336,14 +361,10 @@ def decode_attention(q, k_cache, v_cache, lengths, *, scale: Optional[float] = N
     out = torch.empty_like(q)
     if B == 0:
         return out
-    # enough (split, KV head, row) blocks for two per SM, none shorter than
-    # _MIN_SPLIT_SLOTS
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    n_split = max(1, min(-(-Sc // _MIN_SPLIT_SLOTS), -(-2 * sms // (B * KVH))))
-    part_o = torch.empty((B, KVH, n_split, G, hd), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((B, KVH, n_split, G, 2), dtype=torch.float32, device=q.device)
+    n_split = _decode_split(q.device.index, B, KVH, Sc)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        part_o, part_ml = _decode_partials(q.device, stream, B, KVH, n_split, G, hd)
         err = lib.da_decode_attention(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(),

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ATTN_CHUNKED_LOCAL, ATTN_FULL, ATTN_SWA
+from repro_torch.configs.base import ATTN_FULL
 from repro_torch.kernels.decode_attention import decode_attention as decode_kernel
 from repro_torch.kernels.flash_attention import flash_attention
 
@@ -52,15 +52,11 @@ def decode_attention(q, k_cache, v_cache, lengths):
 
 def cache_validity(attn_type: str, cache_len: int, pos, chunk: int = 0):
     """Which cache slots a decode query at absolute position ``pos`` may
-    attend: (B, Sc) bool for pos (B,), (1, Sc) for a 0-d pos. Ring caches
-    (SWA) are fully valid once wrapped; chunked-local keeps the current
-    chunk."""
+    attend: (B, Sc) bool for pos (B,), (1, Sc) for a 0-d pos. Full attention
+    only (a linear cache, filled so far); the ring caches of SWA and
+    chunked-local layers are not ported yet."""
+    if attn_type != ATTN_FULL:
+        raise NotImplementedError(
+            f"cache_validity ports the full-attention cache; got attn_type={attn_type!r}")
     slots = torch.arange(cache_len, device=pos.device)
-    p = pos.long().reshape(-1, 1)
-    m = slots <= torch.clamp(p, max=cache_len - 1)   # filled so far (linear fill)
-    if attn_type == ATTN_SWA:
-        m = m | (p + 1 >= cache_len)
-    if attn_type == ATTN_CHUNKED_LOCAL and chunk:
-        age = (p % cache_len - slots) % cache_len
-        m = age < p % chunk + 1
-    return m
+    return slots <= torch.clamp(pos.long().reshape(-1, 1), max=cache_len - 1)

@@ -97,12 +97,13 @@ def decode_step(cfg, params, caches, tokens, pos):
 
 def init_cache(cfg: ModelConfig, B: int, S: int, device):
     """Zero-initialised dense serve cache for B rows of S tokens on
-    ``device``: a tuple of one {k, v} entry of (G, B, Sc, KVH, hd) in the
-    config's dtype. The int8 cache (``kv_cache_quant``) is not ported yet."""
+    ``device``: a tuple of one {k, v} entry of (G, B, S, KVH, hd) in the
+    config's dtype (full attention: Sc = S). The int8 cache
+    (``kv_cache_quant``) is not ported yet."""
+    tfm._check_dense_gqa(cfg)
     if cfg.kv_cache_quant:
         raise NotImplementedError("the int8 dense cache is not ported yet")
-    Sc = tfm.cache_len_for(cfg, tfm.layer_kind(cfg, 0), S)
-    shape = (cfg.num_layers, B, Sc, cfg.num_kv_heads, cfg.head_dim)
+    shape = (cfg.num_layers, B, S, cfg.num_kv_heads, cfg.head_dim)
     dtype = torch_dtype(cfg)
     return ({"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)},)

@@ -24,9 +24,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import (
-    ATTN_CHUNKED_LOCAL,
     ATTN_FULL,
-    ATTN_SWA,
     MIXER_RWKV6,
     ModelConfig,
 )
@@ -60,15 +58,6 @@ def layer_kind(cfg: ModelConfig, layer: int) -> Dict[str, Any]:
         "moe": cfg.layer_is_moe(layer),
         "cross": cfg.is_encoder_decoder,
     }
-
-
-def cache_len_for(cfg: ModelConfig, kind: Dict[str, Any], S: int) -> int:
-    at = kind["attn_type"]
-    if at == ATTN_SWA:
-        return min(S, cfg.window)
-    if at == ATTN_CHUNKED_LOCAL:
-        return min(S, cfg.chunk_size)
-    return S
 
 
 def _uses_layernorm(cfg: ModelConfig) -> bool:
@@ -238,11 +227,10 @@ def run_stack_decode_paged(cfg, blocks, x, k_pool, v_pool, tables, pos, *,
 def _attn_branch_seq(cfg, lp, x, rope):
     """norm1 -> QKV -> rope -> full causal attention over the sequence
     (``blockwise_attention``); returns the attention output and the layer's
-    cache entry {k, v}: (B, Sc, KVH, hd)."""
+    cache entry {k, v}: (B, S, KVH, hd), the whole sequence (a full-attention
+    cache)."""
     q, k, v = _attn_inputs(cfg, lp, x, rope)
-    S = x.shape[1]
-    Sc = cache_len_for(cfg, layer_kind(cfg, 0), S)
-    return attn.blockwise_attention(q, k, v), {"k": k[:, S - Sc:], "v": v[:, S - Sc:]}
+    return attn.blockwise_attention(q, k, v), {"k": k, "v": v}
 
 
 def apply_layer_seq(cfg, lp, x, rope):
@@ -257,7 +245,7 @@ def run_stack_seq(cfg, blocks, x, positions):
     positions (B, S). A Python loop over the layers (JAX scans them, with
     remat and a segmented scan for training, which serving does not need).
     Returns (x, caches, aux): caches a tuple of one {k, v} entry of (G, B,
-    Sc, KVH, hd); aux the zero auxiliary loss of a stack without MoE."""
+    S, KVH, hd); aux the zero auxiliary loss of a stack without MoE."""
     _check_dense_gqa(cfg)
     rope = _rope(cfg, positions)
     ks, vs = [], []

@@ -5,8 +5,8 @@ width in float32, on the same numpy inputs and weights.
   ``ref_decode_attention``) against the Pallas kernels in interpret mode
   (``repro.kernels.ops``) and the jnp oracles (``repro.kernels.ref``), at
   ``TOL`` of tests/test_kernel_conformance.py.
-- ``cache_validity`` against JAX's, and against the ``slot < pos + 1``
-  lengths the port's decode passes to its kernel.
+- ``cache_validity`` of a full-attention cache against JAX's, and against
+  the ``slot < pos + 1`` lengths the port's decode passes to its kernel.
 - ``forward(want_cache=True)``, ``prefill``, ``init_cache`` and
   ``decode_step`` against JAX's: logits at 1e-4 (two float32 stacks in
   different summation orders), caches at 1e-5.
@@ -89,22 +89,26 @@ def test_plain_decode_matches_pallas_and_ref(B, Sc, H, KVH, hd, lengths, block):
     np.testing.assert_allclose(got, np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("attn_type", [ATTN_FULL, ATTN_SWA, ATTN_CHUNKED_LOCAL])
-def test_cache_validity_matches_jax(attn_type):
-    Sc, chunk = 24, 8
-    pos = np.asarray([0, 5, 23, 30, 47], np.int32)
-    got = attn.cache_validity(attn_type, Sc, torch.from_numpy(pos), chunk).numpy()
-    want = np.asarray(jax_attn.cache_validity(attn_type, Sc, jnp.asarray(pos), chunk))
+# full attention, the only cache the port has; Sc = 1 and pos far past Sc
+# exercise the clamp
+@pytest.mark.parametrize("attn_type,Sc,pos", [
+    (ATTN_FULL, 24, [0, 5, 23, 30, 47]),
+    (ATTN_FULL, 1, [0, 3]),
+    (ATTN_FULL, 64, [63, 0, 17, 200]),
+], ids=["full", "full-Sc1", "full-Sc64"])
+def test_cache_validity_matches_jax(attn_type, Sc, pos):
+    pos = np.asarray(pos, np.int32)
+    got = attn.cache_validity(attn_type, Sc, torch.from_numpy(pos)).numpy()
+    want = np.asarray(jax_attn.cache_validity(attn_type, Sc, jnp.asarray(pos)))
     np.testing.assert_array_equal(got, want)
-    scalar = attn.cache_validity(attn_type, Sc, torch.tensor(7), chunk).numpy()
+    scalar = attn.cache_validity(attn_type, Sc, torch.tensor(7)).numpy()
     np.testing.assert_array_equal(
-        scalar, np.asarray(jax_attn.cache_validity(attn_type, Sc, jnp.int32(7), chunk)))
-    if attn_type == ATTN_FULL:
-        # the engine keeps pos <= Sc - 1: there the mask is slot < pos + 1,
-        # the lengths the port's decode hands to its kernel
-        inside = pos < Sc
-        lengths = pos[inside] + 1
-        np.testing.assert_array_equal(got[inside], np.arange(Sc)[None] < lengths[:, None])
+        scalar, np.asarray(jax_attn.cache_validity(attn_type, Sc, jnp.int32(7))))
+    # the engine keeps pos <= Sc - 1: there the mask is slot < pos + 1, the
+    # lengths the port's decode hands to its kernel
+    inside = pos < Sc
+    lengths = pos[inside] + 1
+    np.testing.assert_array_equal(got[inside], np.arange(Sc)[None] < lengths[:, None])
 
 
 def test_unported_attention_raises():
@@ -114,6 +118,9 @@ def test_unported_attention_raises():
         attn.blockwise_attention(q, kv, kv, attn_type=ATTN_SWA)
     with pytest.raises(NotImplementedError):       # cross attention: S_kv != S
         attn.blockwise_attention(q, kv[:, :4], kv[:, :4])
+    for attn_type in (ATTN_SWA, ATTN_CHUNKED_LOCAL):      # ring caches
+        with pytest.raises(NotImplementedError):
+            attn.cache_validity(attn_type, 24, torch.tensor([3, 30]), 8)
     cfg = smoke_variant(get_arch("smollm-135m")).replace(kv_cache_quant=True)
     with pytest.raises(NotImplementedError):
         init_cache(cfg, 2, 16, "cpu")
