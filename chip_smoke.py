@@ -57,12 +57,30 @@ Phases, each of which raises on failure (the script then exits non-zero):
    qwen2.5-3b bfloat16 replays a Poisson trace (4 requests/s for 5
    trace-seconds, 30% sessions) of vrag/crag/srag/planrag with EDF-slack
    priorities; every event must complete.
+2c. The RWKV-6 WKV kernel against its plain version on the card at
+   rwkv6-7b shapes (H=64, hd=64) with a nonzero ``state0``: prefill B=1 at
+   S=2048 and S=37, decode B=8 at S=1, the adversarial decay w=0.45 and
+   decays near 0 (w=1e-6), r/k/v in float32 and bfloat16 (tolerance
+   ``WKV_TOL``); then the kernel's and the plain version's times beside the
+   bound (prefill S=2048 and decode). No single PyTorch call computes the
+   recurrence, so there is no library time.
+4b. The RWKV-6 engine at smoke width in float32: identical greedy tokens on
+   the CPU (plain versions) and on the GPU (the kernel), with 2 WKV
+   launches (one per layer) per prefill and per decode step.
+8. Serve rwkv6-7b at full width in bfloat16 on ``GenerationEngine(backend=
+   "paged")``, which falls back to the dense backend: ``max_batch=8``,
+   ``max_seq=2048``, phase 5's ten prompts (the segmented one flattened,
+   tokens taken modulo the 65536-token vocab), 32 new tokens each. The WKV
+   launches must be 32 x (prefills + decode steps) and every other kernel's
+   0 (the earlier phases must show 0 WKV launches). The qwen2.5-3b weights
+   are freed first.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -100,6 +118,7 @@ REPLACES = {
     "topk_retrieval": "src/repro/kernels/topk_retrieval.py:51",
     "flash_attention": "src/repro/kernels/flash_attention.py:69",
     "decode_attention": "src/repro/kernels/decode_attention.py:90",
+    "rwkv6_chunked": "src/repro/kernels/rwkv6_scan.py:76",
 }
 SOURCES = {
     "paged_chunk_attention": "src/repro_torch/csrc/paged_attention.cu",
@@ -107,6 +126,7 @@ SOURCES = {
     "topk_retrieval": "src/repro_torch/csrc/topk_retrieval.cu",
     "flash_attention": "src/repro_torch/csrc/dense_attention.cu",
     "decode_attention": "src/repro_torch/csrc/dense_attention.cu",
+    "rwkv6_chunked": "src/repro_torch/csrc/rwkv6_scan.cu",
 }
 
 
@@ -494,6 +514,88 @@ def print_dense_row(name, r, tol):
 
 
 # ---------------------------------------------------------------------------
+# phase 2c: the RWKV-6 WKV kernel against its plain version
+# ---------------------------------------------------------------------------
+
+WKV_H, WKV_HD = 64, 64                       # rwkv6-7b: d_model 4096, head_dim 64
+# (name, B, S, decay): None draws the realistic Finch decay exp(-exp(z)),
+# z ~ N(0, 0.5), as tests/test_kernels.py does
+WKV_CASES = (("prefill", 1, 2048, None), ("prefill", 1, 37, None), ("decode", 8, 1, None),
+             ("w=0.45", 1, 2048, 0.45), ("w=1e-6", 1, 2048, 1e-6))
+# both sides compute in f32 (bf16 r, k and v widen exactly): summation
+# order only
+WKV_TOL = (1e-4, 1e-4)
+
+
+def wkv_inputs(gen, B, S, dtype, decay):
+    shape = (B, S, WKV_H, WKV_HD)
+    r, k = (0.5 * torch.randn(shape, generator=gen, device="cuda") for _ in range(2))
+    v = torch.randn(shape, generator=gen, device="cuda")
+    if decay is None:
+        w = torch.exp(-torch.exp(0.5 * torch.randn(shape, generator=gen, device="cuda")))
+    else:
+        w = torch.full(shape, decay, device="cuda")
+    u = 0.3 * torch.randn((WKV_H, WKV_HD), generator=gen, device="cuda")
+    state0 = 0.5 * torch.randn((B, WKV_H, WKV_HD, WKV_HD), generator=gen, device="cuda")
+    return r.to(dtype), k.to(dtype), v.to(dtype), w, u, state0
+
+
+def wkv_work(r, state0):
+    """(bytes, flops) of one call: r, k, v (their dtype), w (f32), u and
+    state0 read once, y (f32) and the final state written once; 5 flops per
+    state element per step (the y product 2, the decay and the k v^T
+    update 3), the bonus term's O(hd) per step besides."""
+    B, S, H, hd = r.shape
+    nbytes = (3 * r.numel() * r.element_size() + r.numel() * 4 * 2 + H * hd * 4
+              + 2 * state0.numel() * 4)
+    ops = B * S * H * (5 * hd * hd + 5 * hd)
+    return nbytes, ops
+
+
+def phase_wkv_kernel(kw):
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows = {}
+    for dtype_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype_name)
+        for case, B, S, decay in WKV_CASES:
+            r, k, v, w, u, state0 = wkv_inputs(gen, B, S, dt, decay)
+            name = f"rwkv6_chunked[{dtype_name}, {case}, B={B}, S={S}]"
+            y, st = kw.rwkv6_chunked(r, k, v, w, u, state0)
+            torch.cuda.synchronize()
+            y_ref, st_ref = kw.ref_rwkv6_chunked(r, k, v, w, u, state0)
+            every = slice(None)
+            err = max(check_close(name + " y", y, y_ref, every, WKV_TOL),
+                      check_close(name + " state", st, st_ref, every, WKV_TOL))
+            r_ = {"errs": {"plain": err}}
+            if case in ("prefill", "decode") and (case == "decode" or S == 2048):
+                # the serve phase updates the state in place; here the
+                # output goes to its own buffer, so every call sees the
+                # same state0
+                out = torch.empty_like(state0)
+                kern = lambda: kw.rwkv6_chunked(r, k, v, w, u, state0, state_out=out)
+                nbytes, ops = wkv_work(r, state0)
+                bytes_ms = nbytes / HBM_BYTES_S * 1e3
+                ops_ms = ops / PEAK_OPS_S["float32"] * 1e3
+                r_.update({"ms": time_ms(kern, flush), "device_ms": device_ms(kern),
+                           "plain_ms": time_ms(lambda: kw.ref_rwkv6_chunked(r, k, v, w, u, state0),
+                                               flush, reps=5),
+                           "library_ms": None, "bound_ms": max(bytes_ms, ops_ms),
+                           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                           "bytes": nbytes, "ops": ops})
+            rows[(dtype_name, case, S)] = r_
+            times = (f"; kernel_ms={r_['ms']:.4f} device_ms={fmt_ms(r_['device_ms'])} "
+                     f"plain_ms={r_['plain_ms']:.4f} library_ms=none (no single PyTorch call "
+                     f"computes the recurrence) bound_ms={r_['bound_ms']:.5f} "
+                     f"({r_['bound_by']}: {r_['bytes']} B, {r_['ops']} flop)") if "ms" in r_ else ""
+            print(f"[wkv kernel] {name}: max_abs_err vs plain {err:.3e} (atol, rtol {WKV_TOL}), "
+                  f"finite{times}", flush=True)
+            del r, k, v, w, u, state0, y, st, y_ref, st_ref
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the top-k retrieval kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -665,7 +767,7 @@ def phase_pipeline_parity():
           flush=True)
 
 
-def phase_dense_parity(ka, kf):
+def phase_dense_parity(ka, kf, kw):
     """The RAG workload of ``phase_parity`` on the dense backend: identical
     greedy tokens on the CPU (plain versions) and on the GPU (kernels), and
     on the GPU identical to the paged backend's. The segmented prompt is
@@ -689,6 +791,7 @@ def phase_dense_parity(ka, kf):
                                max_batch=4, max_seq=256)
         ka.reset_launch_counts()
         kf.reset_launch_counts()
+        kw.reset_launch_counts()
         reqs = [eng.submit(p, max_new=12) for p in prompts]
         eng.run_until_done()
         assert all(len(r.out_tokens) == 12 for r in reqs), (dev, backend)
@@ -698,6 +801,7 @@ def phase_dense_parity(ka, kf):
             launches = (kf.flash_attention.launches, ka.decode_attention.launches)
             assert launches == (cfg.num_layers * len(prompts),
                                 cfg.num_layers * eng.stats()["steps"]), launches
+            assert kw.rwkv6_chunked.launches == 0
     if out[("cpu", "dense")] != out[("cuda", "dense")]:
         raise AssertionError("dense backend: CPU and GPU greedy tokens differ:\n"
                              f"{out[('cpu', 'dense')]}\n{out[('cuda', 'dense')]}")
@@ -707,6 +811,45 @@ def phase_dense_parity(ka, kf):
     print(f"[parity] dense backend at smoke width f32: {len(prompts)} requests, identical "
           f"greedy tokens on cpu (plain) and cuda (kernels), and equal to the paged "
           f"backend's on cuda; flash/decode launches {launches}", flush=True)
+
+
+def phase_rwkv_parity(kw):
+    """The RWKV-6 smoke model's engine (``backend="paged"``, which falls
+    back to dense) on the RAG workload of ``phase_parity``, flattened:
+    identical greedy tokens on the CPU (plain versions) and on the GPU (the
+    WKV kernel)."""
+    from repro_torch.configs import get_arch, smoke_variant
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import GenerationEngine
+    from repro_torch.serving.segments import SegmentedPrompt
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = smoke_variant(get_arch("rwkv6-7b"))
+    prompts = [p.tokens if isinstance(p, SegmentedPrompt) else p
+               for p in rag_workload(np.random.default_rng(1), cfg.vocab_size, 48, (5, 40),
+                                     3, 2, (10, 90), (16, 48, 32, 9))]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = init_params(cfg, torch.Generator().manual_seed(0), dev)
+        eng = GenerationEngine(cfg, params=params, device=dev, max_batch=4, max_seq=256)
+        kw.reset_launch_counts()
+        reqs = [eng.submit(p, max_new=12) for p in prompts]
+        eng.run_until_done()
+        st = eng.stats()
+        assert st["backend"] == "dense" and all(len(r.out_tokens) == 12 for r in reqs), dev
+        out[dev] = [r.out_tokens for r in reqs]
+        if dev == "cuda":
+            launches = kw.rwkv6_chunked.launches
+            assert launches == cfg.num_layers * (len(prompts) + st["steps"]), (launches, st)
+    if out["cpu"] != out["cuda"]:
+        raise AssertionError("RWKV-6 engine: CPU and GPU greedy tokens differ:\n"
+                             f"{out['cpu']}\n{out['cuda']}")
+    print(f"[parity] rwkv6-7b smoke engine f32 (backend paged -> dense): {len(prompts)} "
+          f"requests (prompts {min(map(len, prompts))}-{max(map(len, prompts))} tokens), "
+          f"identical greedy tokens on cpu (plain) and cuda (kernel); rwkv6_chunked "
+          f"launches {launches} = {cfg.num_layers} x ({len(prompts)} prefills + "
+          f"{launches // cfg.num_layers - len(prompts)} decode steps)", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -745,7 +888,7 @@ def phase_serve(ka, kf, tk, cfg, params):
     assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens)
     assert st["kernel"] == "cuda", st["kernel"]
     assert all(launches[n] > 0 for n in PAGED), launches
-    assert all(launches[n] == 0 for n in (*DENSE, "topk_retrieval")), launches
+    assert all(launches[n] == 0 for n in (*DENSE, "topk_retrieval", "rwkv6_chunked")), launches
     n_mixed = launches["paged_chunk_attention"] // cfg.num_layers
     n_dec = launches["paged_decode_attention"] // cfg.num_layers
     assert n_mixed + n_dec == st["steps"], (launches, st["steps"])
@@ -820,7 +963,7 @@ def phase_dense_serve(ka, kf, tk, cfg, params, prompts, paged_tokens):
     assert launches == {"flash_attention": cfg.num_layers * len(reqs),
                         "decode_attention": cfg.num_layers * st["steps"],
                         "paged_chunk_attention": 0, "paged_decode_attention": 0,
-                        "topk_retrieval": 0}, (launches, st)
+                        "topk_retrieval": 0, "rwkv6_chunked": 0}, (launches, st)
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[dense serve] {cfg.name} {cfg.dtype}: {len(reqs)} requests, {st['tokens_out']} "
           f"tokens out in {wall:.3f}s = {st['tokens_out'] / wall:.1f} tok/s (prefill tokens "
@@ -881,17 +1024,23 @@ DENSE = ("flash_attention", "decode_attention")
 
 def read_launches(ka, kf, tk):
     """Every ported kernel's launch count since ``reset_launches``."""
+    from repro_torch.kernels import rwkv6_scan as kw
+
     return {"paged_chunk_attention": ka.paged_chunk_attention.launches,
             "paged_decode_attention": ka.paged_decode_attention.launches,
             "topk_retrieval": tk.topk_retrieval.launches,
             "flash_attention": kf.flash_attention.launches,
-            "decode_attention": ka.decode_attention.launches}
+            "decode_attention": ka.decode_attention.launches,
+            "rwkv6_chunked": kw.rwkv6_chunked.launches}
 
 
 def reset_launches(ka, kf, tk):
+    from repro_torch.kernels import rwkv6_scan as kw
+
     ka.reset_launch_counts()
     kf.reset_launch_counts()
     tk.reset_launch_counts()
+    kw.reset_launch_counts()
 
 
 def pool_is_clean(eng):
@@ -965,7 +1114,7 @@ def phase_rag(ka, kf, tk, cfg, params, corpus, queries):
     assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens)
     assert st["prefix_hit_tokens"] > 0 and pool_is_clean(eng), st
     assert all(launches[n] > 0 for n in (*PAGED, "topk_retrieval")), launches
-    assert all(launches[n] == 0 for n in DENSE), launches
+    assert all(launches[n] == 0 for n in (*DENSE, "rwkv6_chunked")), launches
     print(f"[rag] 8 requests (prompts {min(len(r.prompt) for r in reqs)}-"
           f"{max(len(r.prompt) for r in reqs)} tokens: system + 4 reranked docs of 256 + "
           f"query) through Retriever(n_probe=8, k=100) -> Reranker(top 4) -> Augmenter -> "
@@ -1006,7 +1155,7 @@ def phase_pipelines(ka, kf, tk, cfg, params):
                for c in summary.values()), summary
     assert st["session_shared_tokens"] > 0 and pool_is_clean(eng), st
     assert st["kernel"] == "cuda" and launches["paged_chunk_attention"] > 0, launches
-    assert all(launches[n] == 0 for n in DENSE), launches
+    assert all(launches[n] == 0 for n in (*DENSE, "rwkv6_chunked")), launches
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[pipelines] {cfg.name} {cfg.dtype}: {len(drv.events)} events "
           f"({sum(e.session_id >= 0 for e in drv.events)} session turns) all completed; "
@@ -1018,6 +1167,88 @@ def phase_pipelines(ka, kf, tk, cfg, params):
     del drv, eng
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8: serve rwkv6-7b at full width
+# ---------------------------------------------------------------------------
+
+
+def phase_rwkv_serve(ka, kf, tk, prompts):
+    """Serve phase 5's prompts (flattened, tokens modulo the vocab) on
+    rwkv6-7b in bfloat16 with random weights from seed 0, through
+    ``backend="paged"``, which falls back to the dense backend. Returns the
+    six kernels' launches in the run."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params, prefill
+    from repro_torch.serving.engine import GenerationEngine
+    from repro_torch.serving.segments import SegmentedPrompt
+
+    cfg = get_arch("rwkv6-7b").replace(dtype="bfloat16")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    n_params = sum(x.numel() for x in _tensors(params))
+    torch.cuda.synchronize()
+    print(f"[rwkv serve] {cfg.name} {cfg.dtype}: {n_params / 1e9:.3f}B parameters "
+          f"({sum(x.numel() * x.element_size() for x in _tensors(params)) / 2**30:.2f} GiB) "
+          f"drawn on the card in {time.perf_counter() - t0:.1f}s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    eng = GenerationEngine(cfg, params=params, device="cuda", backend="paged",
+                           max_batch=8, max_seq=2048)
+    assert eng.backend == "dense", eng.backend
+    flat = [np.asarray(p.tokens if isinstance(p, SegmentedPrompt) else p) % cfg.vocab_size
+            for p in prompts]
+    reset_launches(ka, kf, tk)
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new=32) for p in flat]
+    eng.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(ka, kf, tk)
+    st, lat = eng.stats(), eng.latency_summary()
+    assert st["backend"] == "dense" and st["kernel"] == "cuda", st
+    assert all(len(r.out_tokens) == 32 for r in reqs), [len(r.out_tokens) for r in reqs]
+    assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens)
+    assert st["prefill_tokens"] == sum(len(p) for p in flat), st   # unpadded prefills
+    want = {n: 0 for n in launches}
+    want["rwkv6_chunked"] = cfg.num_layers * (len(reqs) + st["steps"])
+    assert launches == want, (launches, want, st)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    state = eng.cache[0]["state"]
+    print(f"[rwkv serve] {len(reqs)} requests (prompts {min(map(len, flat))}-"
+          f"{max(map(len, flat))} tokens), {st['tokens_out']} tokens out in {wall:.3f}s = "
+          f"{st['tokens_out'] / wall:.1f} tok/s (prefill tokens {st['prefill_tokens']}, "
+          f"unpadded); mean TTFT {1e3 * lat['ttft_mean']:.1f}ms, p95 TPOT "
+          f"{1e3 * lat.get('tpot_p95', 0):.2f}ms; {st['steps']} decode steps; peak memory "
+          f"{peak:.2f} GiB (state cache {state.numel() * 4 / 2**30:.3f} GiB); launches "
+          f"{launches} ({cfg.num_layers} x ({len(reqs)} prefills + {st['steps']} decode "
+          f"steps))", flush=True)
+    # the full-width stack gives finite logits of the expected shape, and
+    # the engine's first token is the greedy token of the unpadded prefill
+    toks = torch.as_tensor(flat[0], dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        last, cache = prefill(cfg, params, {"tokens": toks[None]})
+    hd = cfg.rwkv_head_dim
+    assert tuple(last.shape) == (1, cfg.padded_vocab)
+    assert tuple(cache[0]["state"].shape) == (cfg.num_layers, 1, cfg.d_model // hd, hd, hd)
+    assert bool(torch.isfinite(last.float()).all())
+    assert bool(torch.isfinite(cache[0]["state"]).all())
+    assert int(last[0].float().argmax()) == reqs[0].out_tokens[0], (
+        int(last[0].float().argmax()), reqs[0].out_tokens[0])
+    del eng, params, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+    else:
+        yield tree
 
 
 def timed(name, fn, *args):
@@ -1036,6 +1267,7 @@ def main() -> int:
     from repro_torch.data.workload import synthetic_corpus
     from repro_torch.kernels import decode_attention as ka
     from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import rwkv6_scan as kw
     from repro_torch.kernels import topk_retrieval as tk
     from repro_torch.kernels._build import build_all
     from repro_torch.models import init_params
@@ -1055,6 +1287,7 @@ def main() -> int:
 
     rows = timed("paged attention kernels", phase_kernels, ka)
     dense_rows = timed("dense attention kernels", phase_dense_kernels, ka, kf)
+    wkv_rows = timed("rwkv6 wkv kernel", phase_wkv_kernel, kw)
     # the queries are drawn as benchmarks/retrieval_knob.py draws them
     corpus, queries = timed("synthetic_corpus on the host", lambda: (
         synthetic_corpus(N_DOCS, DIM, seed=0), synthetic_corpus(N_QUERIES, DIM, seed=7)))
@@ -1064,7 +1297,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed("engine parity", phase_parity)
     timed("pipeline parity", phase_pipeline_parity)
-    timed("dense parity", phase_dense_parity, ka, kf)
+    timed("dense parity", phase_dense_parity, ka, kf, kw)
+    timed("rwkv parity", phase_rwkv_parity, kw)
 
     cfg = get_arch("qwen2.5-3b").replace(dtype="bfloat16")
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
@@ -1075,6 +1309,10 @@ def main() -> int:
                                     prompts, paged_tokens)
     launches["rag"] = timed("rag", phase_rag, ka, kf, tk, cfg, params, corpus, queries_gpu)
     launches["pipelines"] = timed("pipelines", phase_pipelines, ka, kf, tk, cfg, params)
+    del params                       # room for rwkv6-7b's ~15 GB of bf16 weights
+    gc.collect()                     # engines hold reference cycles
+    torch.cuda.empty_cache()
+    launches["rwkv serve"] = timed("rwkv serve", phase_rwkv_serve, ka, kf, tk, prompts)
 
     kernels = []
     for name in ("paged_chunk_attention", "paged_decode_attention"):
@@ -1121,6 +1359,24 @@ def main() -> int:
                         for key2 in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")},
             "launches_by_phase": {ph: n[name] for ph, n in launches.items()},
         })
+    # the rwkv serve phase's shapes in bf16: prefill at S=2048 (the longest
+    # prompt the engine admits), and a decode step at B=8
+    r = wkv_rows[("bfloat16", "prefill", 2048)]
+    kernels.append({
+        "name": "rwkv6_chunked", "route": "cuda", "source": SOURCES["rwkv6_chunked"],
+        "replaces": REPLACES["rwkv6_chunked"], "launches": launches["rwkv serve"]["rwkv6_chunked"],
+        "max_abs_err": r["errs"]["plain"], "ms": r["ms"], "device_ms": r["device_ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes the WKV recurrence",
+        "max_abs_err_by_case": {f"{d}/{c}/S={S}": x["errs"]["plain"]
+                                for (d, c, S), x in wkv_rows.items()},
+        "decode": {key2: wkv_rows[("bfloat16", "decode", 1)][key2]
+                   for key2 in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
+        "float32": {key2: wkv_rows[("float32", "prefill", 2048)][key2]
+                    for key2 in ("ms", "device_ms", "plain_ms", "bound_ms")},
+        "launches_by_phase": {ph: n["rwkv6_chunked"] for ph, n in launches.items()},
+    })
     print(json.dumps({"kernels": kernels}))
     print(f"[done] {time.perf_counter() - t_start:.1f}s in all", flush=True)
     print(card)

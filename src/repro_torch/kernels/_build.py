@@ -48,6 +48,9 @@ ENTRY_POINTS = {
         "da_flash_attention": ([_I] + [_P] * 4 + [_I] * 6 + [_F, _P], _I),
         "da_decode_attention": ([_I] + [_P] * 7 + [_I] * 6 + [_F, _P], _I),
     },
+    "rwkv6_scan": {
+        "wkv_rwkv6": ([_I] + [_P] * 8 + [_I] * 4 + [_P], _I),
+    },
 }
 SOURCES = {name: CSRC / f"{name}.cu" for name in ENTRY_POINTS}
 

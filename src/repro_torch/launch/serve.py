@@ -4,11 +4,13 @@ mixed RAG pipelines on it.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --pipelines --arch smollm-135m --smoke --device cpu
 
 Weights are random, drawn by ``init_params`` from ``--seed``. Runs on
 ``cuda`` unless ``--device cpu`` is given (and raises without a GPU). The
-reference's simulated-cluster mode (``serve_sim``) is not ported yet.
+reference's simulated-cluster mode (``serve_sim``) is not ported yet. An
+arch outside the paged contract (rwkv6-7b) is served on the dense backend.
 """
 from __future__ import annotations
 
@@ -45,15 +47,17 @@ def serve_real(arch: str, n_requests: int = 8, max_new: int = 12,
         print(f"  req {r.req_id}: {len(r.out_tokens)} tokens "
               f"ttft={1e3*(r.first_token_at - r.submitted_at):.0f}ms{chunks}")
     stats = eng.stats()
-    mode = "pipelined" if pipeline else "sync"
-    print(f"[serve:real] {cfg.name}: device={stats['device']} mode={mode} "
-          f"kernel={stats['kernel']} kv={stats['kv_dtype']} "
+    mode = "pipelined" if stats["pipeline"] else "sync"
+    print(f"[serve:real] {cfg.name}: device={stats['device']} backend={stats['backend']} "
+          f"mode={mode} kernel={stats['kernel']} kv={stats.get('kv_dtype', cfg.dtype)} "
           f"{stats['tokens_out']} tokens out")
-    print(f"[serve:real] fused-step padding: "
-          f"{100 * stats['padded_token_fraction']:.1f}% of slot tokens")
-    print(f"[serve:real] host gap: {1e3 * stats['host_gap_s']:.1f}ms total "
-          f"over {stats['dispatches']} dispatches "
-          f"(copy ops drained: {stats['copy_ops_drained']})")
+    if "padded_token_fraction" in stats:
+        print(f"[serve:real] fused-step padding: "
+              f"{100 * stats['padded_token_fraction']:.1f}% of slot tokens")
+    if "host_gap_s" in stats:
+        print(f"[serve:real] host gap: {1e3 * stats['host_gap_s']:.1f}ms total "
+              f"over {stats['dispatches']} dispatches "
+              f"(copy ops drained: {stats['copy_ops_drained']})")
     return eng
 
 
@@ -121,7 +125,7 @@ def serve_pipelines(arch: str = "smollm-135m", rate: float = 10.0,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen2.5-3b",
-                    choices=["smollm-135m", "qwen2.5-3b", "phi3-medium-14b"])
+                    choices=["smollm-135m", "qwen2.5-3b", "phi3-medium-14b", "rwkv6-7b"])
     ap.add_argument("--smoke", action="store_true",
                     help="serve the arch's 2-layer smoke variant")
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],

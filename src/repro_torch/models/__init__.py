@@ -2,6 +2,7 @@
 from repro_torch.models.model import (
     decode_step,
     decode_step_paged,
+    dense_cache_supported,
     forward,
     init_cache,
     init_params,
@@ -10,5 +11,5 @@ from repro_torch.models.model import (
     prefill_packed,
 )
 
-__all__ = ["decode_step", "decode_step_paged", "forward", "init_cache", "init_params",
-           "paged_cache_supported", "prefill", "prefill_packed"]
+__all__ = ["decode_step", "decode_step_paged", "dense_cache_supported", "forward",
+           "init_cache", "init_params", "paged_cache_supported", "prefill", "prefill_packed"]

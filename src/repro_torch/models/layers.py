@@ -21,7 +21,10 @@ def dense_init(generator: torch.Generator, shape, dtype, device,
                scale: Optional[float] = None) -> torch.Tensor:
     """Normal(0, scale) weights of ``shape`` (..., d_in, d_out), drawn in
     float32 from ``generator`` on its own device, then cast and moved.
-    ``scale`` defaults to 1/sqrt(d_in), as ``repro``'s ``dense_init``."""
+    ``scale`` defaults to 1/sqrt(d_in), as ``repro``'s ``dense_init``. On
+    the meta device (shapes only, as ``jax.eval_shape``) nothing is drawn."""
+    if torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[-2])
     w = torch.randn(tuple(shape), generator=generator, dtype=torch.float32,
                     device=generator.device) * scale
@@ -52,6 +55,17 @@ def layer_norm(x, scale, bias, eps: float = 1e-5):
     var = torch.mean(torch.square(x - mean), dim=-1, keepdim=True)
     x = (x - mean) * torch.rsqrt(var + eps)
     return (x * scale.float() + bias.float()).to(dtype)
+
+
+def group_norm(x, scale, num_groups: int, eps: float = 1e-5):
+    """Head-wise group norm (RWKV-6's ``ln_x``), in float32. x: (..., D)."""
+    dtype = x.dtype
+    *lead, d = x.shape
+    x = x.float().reshape(*lead, num_groups, d // num_groups)
+    mean = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mean), dim=-1, keepdim=True)
+    x = ((x - mean) * torch.rsqrt(var + eps)).reshape(*lead, d)
+    return (x * scale.float()).to(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Layer stacks of the serving paths, ported from
 ``repro.models.transformer``: the paged stacks (ragged fused step, paged
 decode) and the dense backend's stacks (whole-prompt prefill, contiguous
-per-slot decode cache).
+per-slot decode cache) of full-attention GQA layers and of RWKV-6 layers.
 
 Parameters of a period-1 stack are stacked over the L layer groups, as
 ``transformer._stack_layers`` does in the JAX package: every leaf of
@@ -10,9 +10,11 @@ stack with ``lax.scan``, the port loops over the layer index ``g`` in
 Python and hands each layer the ``g``-th slice of every leaf.
 
 The KV pools are (G, n_blocks, bs, KVH, hd) tensors, the dense caches
-(G, B, Sc, KVH, hd). Each decoding layer writes its new K/V entries into its
-slice ``pool[g]`` or ``cache[g]`` IN PLACE before attending; JAX instead
-returns new pools and caches from the scan. What is the same for every layer
+(G, B, Sc, KVH, hd); an RWKV-6 stack's cache is its recurrent state (G, B,
+H, hd, hd) float32 and two token-shift vectors (G, B, D). Each decoding
+layer writes its new K/V entries (or its new state) into its slice
+``pool[g]`` or ``cache[g]`` IN PLACE; JAX instead returns new pools and
+caches from the scan. What is the same for every layer
 of a step — the rope tables, the pool slots the new entries go to, the
 attention lengths — the stack computes once and hands to each layer (XLA
 hoists the same values out of the JAX scan).
@@ -33,6 +35,7 @@ from repro_torch.kernels.decode_attention import (
     paged_decode_attention,
 )
 from repro_torch.models import attention as attn
+from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.layers import (
     apply_mlp,
     apply_rope_tables,
@@ -80,23 +83,40 @@ def apply_norm(cfg, p, x):
 
 
 # ---------------------------------------------------------------------------
-# init (dense GQA stacks)
+# init (dense GQA and RWKV-6 stacks)
 # ---------------------------------------------------------------------------
 
 
-def _check_dense_gqa(cfg: ModelConfig) -> None:
+def dense_stack_supported(cfg: ModelConfig) -> bool:
+    """Whether the port has this layer stack: period 1, no MoE, no cross
+    attention, and either full-attention GQA layers with SwiGLU or RWKV-6
+    layers. Hybrid, MLA, SWA and chunked-local stacks are not ported yet."""
     kind = layer_kind(cfg, 0)
-    if period(cfg) != 1 or kind["attn_type"] != ATTN_FULL or kind["moe"] \
-            or kind["cross"] or cfg.act != "silu":
+    if period(cfg) != 1 or kind["moe"] or kind["cross"]:
+        return False
+    if kind["attn_type"] == MIXER_RWKV6:
+        return True
+    return kind["attn_type"] == ATTN_FULL and cfg.act == "silu"
+
+
+def _check_dense_stack(cfg: ModelConfig) -> None:
+    if not dense_stack_supported(cfg):
         raise NotImplementedError(
-            "the port covers full-attention dense GQA stacks with SwiGLU only")
+            "the port covers period-1 stacks of full-attention dense GQA layers "
+            "with SwiGLU or of RWKV-6 layers only")
 
 
 def init_layer(generator, cfg: ModelConfig, dtype, device, lead=()):
-    """One dense GQA layer's params (``lead`` = stacked group axis), with
-    the init scales of the JAX package: 1/sqrt(d_in) for every projection,
-    zero QKV biases, unit norm scales."""
-    _check_dense_gqa(cfg)
+    """One layer's params (``lead`` = stacked group axis), with the init
+    scales of the JAX package. GQA: 1/sqrt(d_in) for every projection,
+    zero QKV biases, unit norm scales. RWKV-6: layer norms with bias, time
+    and channel mixing (``rwkv6.init_rwkv6``/``init_rwkv6_ffn``)."""
+    _check_dense_stack(cfg)
+    if cfg.attn_type == MIXER_RWKV6:
+        return {"norm1": init_norm(cfg, dtype, device, lead),
+                "rwkv": rwkv_mod.init_rwkv6(generator, cfg, dtype, device, lead),
+                "norm2": init_norm(cfg, dtype, device, lead),
+                "rwkv_ffn": rwkv_mod.init_rwkv6_ffn(generator, cfg, dtype, device, lead)}
     D, F, q_dim, kv_dim = cfg.d_model, cfg.d_ff, cfg.q_dim, cfg.kv_dim
     mk = lambda d_in, d_out: dense_init(generator, (*lead, d_in, d_out), dtype, device)
     a = {"wq": mk(D, q_dim), "wk": mk(D, kv_dim), "wv": mk(D, kv_dim),
@@ -233,9 +253,27 @@ def _attn_branch_seq(cfg, lp, x, rope):
     return attn.blockwise_attention(q, k, v), {"k": k, "v": v}
 
 
+def _apply_rwkv_layer(cfg, lp, x, x_prev_att=None, x_prev_ffn=None, state=None,
+                      state_out=None):
+    """An RWKV-6 layer: norm1 -> time mixing -> residual -> norm2 -> channel
+    mixing -> residual. The carried entries default to zeros (a prompt's
+    start); ``state_out`` receives the new WKV state (it may be ``state``).
+    Returns (x, {state, x_prev_att, x_prev_ffn})."""
+    xn = apply_norm(cfg, lp["norm1"], x)
+    out, (xprev_a, state) = rwkv_mod.apply_rwkv6(lp["rwkv"], xn, cfg, x_prev_att, state,
+                                                 state_out=state_out)
+    x = x + out
+    xn2 = apply_norm(cfg, lp["norm2"], x)
+    ffn_out, xprev_f = rwkv_mod.apply_rwkv6_ffn(lp["rwkv_ffn"], xn2, x_prev_ffn)
+    return x + ffn_out, {"state": state, "x_prev_att": xprev_a, "x_prev_ffn": xprev_f}
+
+
 def apply_layer_seq(cfg, lp, x, rope):
     """Sequence-mode layer (whole-prompt prefill): x (B, S, D) -> (x, cache
-    entry)."""
+    entry): {k, v} (B, S, KVH, hd) for attention, {state (B, H, hd, hd),
+    x_prev_att (B, D), x_prev_ffn (B, D)} for RWKV-6."""
+    if cfg.attn_type == MIXER_RWKV6:
+        return _apply_rwkv_layer(cfg, lp, x)
     a_out, cache = _attn_branch_seq(cfg, lp, x, rope)
     return _finish_layer(cfg, lp, x, a_out), cache
 
@@ -244,16 +282,17 @@ def run_stack_seq(cfg, blocks, x, positions):
     """Run the stack over a sequence, the serving path: x (B, S, D),
     positions (B, S). A Python loop over the layers (JAX scans them, with
     remat and a segmented scan for training, which serving does not need).
-    Returns (x, caches, aux): caches a tuple of one {k, v} entry of (G, B,
-    S, KVH, hd); aux the zero auxiliary loss of a stack without MoE."""
-    _check_dense_gqa(cfg)
+    Returns (x, caches, aux): caches a tuple of one entry, {k, v} of (G, B,
+    S, KVH, hd) or, for RWKV-6, {state (G, B, H, hd, hd) float32,
+    x_prev_att, x_prev_ffn (G, B, D)}; aux the zero auxiliary loss of a
+    stack without MoE."""
+    _check_dense_stack(cfg)
     rope = _rope(cfg, positions)
-    ks, vs = [], []
+    entries = []
     for g in range(cfg.num_layers):
         x, cache = apply_layer_seq(cfg, layer_slice(blocks[0], g), x, rope)
-        ks.append(cache["k"])
-        vs.append(cache["v"])
-    caches = ({"k": torch.stack(ks), "v": torch.stack(vs)},)
+        entries.append(cache)
+    caches = ({name: torch.stack([e[name] for e in entries]) for name in entries[0]},)
     return x, caches, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -277,14 +316,30 @@ def apply_layer_decode(cfg, lp, x, k_cache, v_cache, pos, *, rope, lengths):
     return _finish_layer(cfg, lp, x, a_out)
 
 
+def apply_layer_decode_rwkv(cfg, lp, x, state, x_prev_att, x_prev_ffn):
+    """RWKV-6 decode layer: x (B, 1, D) against the layer's carried state
+    (B, H, hd, hd) and token shifts (B, D), all three updated in place.
+    Returns the new x."""
+    x, new = _apply_rwkv_layer(cfg, lp, x, x_prev_att, x_prev_ffn, state, state_out=state)
+    x_prev_att.copy_(new["x_prev_att"])
+    x_prev_ffn.copy_(new["x_prev_ffn"])
+    return x
+
+
 def run_stack_decode(cfg, blocks, x, caches, pos):
     """Run the stack in dense-decode mode: x (B, 1, D), per-row positions
-    pos (B,) int32 (each <= Sc - 1), caches from ``model.init_cache``
-    updated in place layer by layer. Returns (x, caches)."""
-    _check_dense_gqa(cfg)
+    pos (B,) int32 (each <= Sc - 1; an RWKV-6 stack has no positions),
+    caches from ``model.init_cache`` updated in place layer by layer.
+    Returns (x, caches)."""
+    _check_dense_stack(cfg)
+    entry = caches[0]
+    if cfg.attn_type == MIXER_RWKV6:
+        for g in range(cfg.num_layers):
+            x = apply_layer_decode_rwkv(cfg, layer_slice(blocks[0], g), x, entry["state"][g],
+                                        entry["x_prev_att"][g], entry["x_prev_ffn"][g])
+        return x, caches
     rope = _rope(cfg, pos[:, None])
     lengths = (pos + 1).to(torch.int32)
-    entry = caches[0]
     for g in range(cfg.num_layers):
         x = apply_layer_decode(cfg, layer_slice(blocks[0], g), x, entry["k"][g],
                                entry["v"][g], pos, rope=rope, lengths=lengths)

@@ -25,7 +25,12 @@ architectures outside the paged contract: a contiguous (G, B, max_seq, KVH,
 hd) cache, each admitted request prefilled whole (``models.forward``, its
 attention through ``kernels.flash_attention``) at a power-of-two bucket
 capped at ``max_seq``, then one batched ``models.decode_step`` per step
-(``kernels.decode_attention``). Segmented prompts are served flat.
+(``kernels.decode_attention``). Segmented prompts are served flat. An
+RWKV-6 stack (rwkv6-7b; ``backend="paged"`` falls back to it, as in JAX)
+keeps a per-slot recurrent state instead, prefilled at the prompt's own
+length: zero pad tokens would enter the state, so the port does not pad
+where the JAX engine does (ROADMAP §3). Its recurrences run through
+``kernels.rwkv6_scan.rwkv6_chunked``.
 
 The engine runs on ``cuda`` unless ``device="cpu"`` is passed. The
 attention wrappers launch the CUDA kernels for CUDA tensors and run their
@@ -52,6 +57,7 @@ from repro_torch.core.streaming import PriorityFlusher, StreamingObject
 from repro_torch.models import (
     decode_step,
     decode_step_paged,
+    dense_cache_supported,
     forward,
     init_cache,
     init_params,
@@ -207,11 +213,13 @@ class GenerationEngine:
             raise NotImplementedError(
                 "the sanitizer, int8 pools and the int8 dense cache are not ported yet")
         if not paged_cache_supported(cfg):
-            # JAX serves such archs on the dense backend, whose port covers
-            # the full-attention GQA decoders the paged path takes
-            raise NotImplementedError(
-                f"{cfg.name} is outside the paged contract; the rest of the zoo "
-                "on the dense backend is not ported yet")
+            # JAX serves such archs on the dense backend; its port covers
+            # full-attention GQA and RWKV-6 stacks
+            if not dense_cache_supported(cfg):
+                raise NotImplementedError(
+                    f"{cfg.name} is outside the paged contract; the rest of the zoo "
+                    "on the dense backend is not ported yet")
+            backend = "dense"
         if backend == "paged" and (not interleave or not ragged):
             raise NotImplementedError(
                 "only the interleaved, ragged (packed) paged step is ported")
@@ -688,25 +696,33 @@ class GenerationEngine:
 
     # ---------------------------------------------------------- dense path
     def _prefill_one(self, req: Request, slot: int):
-        """Prefill the whole prompt, zero-padded to its bucket (truncated to
-        ``max_seq``), write its cache into row ``slot`` and emit the first
-        token."""
+        """Prefill the whole prompt (truncated to ``max_seq``), write its
+        cache into row ``slot`` and emit the first token. Attention stacks
+        run it zero-padded to its bucket, as the JAX engine does (decode
+        masks the pad slots). An attention-free stack runs it at its own
+        length: its recurrence would carry the pad tokens into the state."""
         Lp = len(req.prompt)
-        bucket = min(_bucket(Lp), self.max_seq)
-        eff = min(Lp, bucket)  # tokens that actually entered the cache
+        if self.cfg.attention_free:
+            eff = min(Lp, self.max_seq)
+            toks, mode = np.asarray(req.prompt[:eff], np.int32)[None], "last"
+        else:
+            bucket = min(_bucket(Lp), self.max_seq)
+            eff = min(Lp, bucket)  # tokens that actually entered the cache
+            toks = np.zeros((1, bucket), np.int32)
+            toks[0, :eff] = req.prompt[:eff]
+            mode = "all"
         req.truncated = eff < Lp
-        toks = np.zeros((1, bucket), np.int32)
-        toks[0, :eff] = req.prompt[:eff]
         logits, _, pcache = forward(
             self.cfg, self.params, {"tokens": torch.from_numpy(toks).to(self.device)},
-            want_cache=True)
+            want_cache=True, logits_mode=mode)
         _merge_cache(self.cache, pcache, slot)
         self.prefill_tokens += eff
         req.slot = slot
         req.pos = eff  # NOT Lp: a truncated prompt must not overrun its cache
         req.prefill_pos = eff
         req.prefill_cap = eff
-        tok = int(sample_tokens(self._generator, logits[0, eff - 1][None], req.temperature)[0])
+        last = logits[0, -1] if mode == "last" else logits[0, eff - 1]
+        tok = int(sample_tokens(self._generator, last[None], req.temperature)[0])
         self._emit(req, tok)
 
     def _step_sequential(self) -> Dict[int, List[int]]:
@@ -724,7 +740,8 @@ class GenerationEngine:
 
     def _decode_batch(self, active: List[Request]) -> Dict[int, List[int]]:
         """One batched decode over every slot; inactive rows decode token 0
-        at position 0 of their own (unused) cache row."""
+        at position 0 of their own (unused) cache row (an RWKV-6 row's state
+        advances on it; admission overwrites the row)."""
         B = self.max_batch
         tokens = np.zeros((B, 1), np.int32)
         pos = np.zeros((B,), np.int32)
@@ -768,11 +785,16 @@ def _merge_emitted(into: Dict[int, List[int]], more: Dict[int, List[int]]) -> No
 
 def _merge_cache(batch_cache, one_cache, slot: int):
     """Write a B=1 prefill cache into row ``slot`` of the batch cache, in
-    place; the row's slots past the prefill are zeroed, as the JAX function
-    pads them."""
+    place. A K/V entry (G, B, Sc, KVH, hd) has a sequence axis at dim 2: the
+    row's slots past the prefill are zeroed, as the JAX function pads them.
+    A recurrent entry (RWKV-6 state and token shifts) has none: the whole
+    row is copied."""
     for bc_entry, oc_entry in zip(batch_cache, one_cache):
         for name, bc in bc_entry.items():
             oc = oc_entry[name]
+            if name not in ("k", "v"):
+                bc[:, slot] = oc[:, 0]
+                continue
             n = oc.shape[2]
             bc[:, slot, :n] = oc[:, 0]
             bc[:, slot, n:] = 0

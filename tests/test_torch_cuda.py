@@ -1,5 +1,6 @@
 """The CUDA kernels (paged attention, dense flash and decode attention,
-top-k retrieval) against their plain versions, on the card. Marked ``cuda``: each test skips (from inside a
+top-k retrieval, the RWKV-6 WKV recurrence) against their plain versions,
+on the card. Marked ``cuda``: each test skips (from inside a
 fixture) where no GPU is visible, as in this repository's CPU runs. On a GPU
 machine:
 
@@ -13,6 +14,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as ka
 from repro_torch.kernels import flash_attention as kf
+from repro_torch.kernels import rwkv6_scan as kw
 from repro_torch.kernels import topk_retrieval as tk
 
 pytestmark = pytest.mark.cuda
@@ -290,3 +292,75 @@ def test_topk_kernel_rejects_what_it_does_not_take(gpu):
         tk.topk_retrieval(q, docs.half(), 5)
     with pytest.raises(ValueError):      # mixed devices
         tk.topk_retrieval(q.cpu(), docs, 5)
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 WKV recurrence
+# ---------------------------------------------------------------------------
+
+# f32 arithmetic on both sides (bf16 r, k and v are widened exactly):
+# summation order only
+WKV_TOL = (1e-4, 1e-4)
+
+
+def _wkv_case(seed, B, S, H, hd, dtype, decay, device):
+    g = torch.Generator().manual_seed(seed)
+    r, k = (0.5 * torch.randn((B, S, H, hd), generator=g) for _ in range(2))
+    v = torch.randn((B, S, H, hd), generator=g)
+    if decay is None:    # realistic Finch decay: w = exp(-exp(z)), z ~ N(0, 0.5)
+        w = torch.exp(-torch.exp(0.5 * torch.randn((B, S, H, hd), generator=g)))
+    else:
+        w = torch.full((B, S, H, hd), decay)
+    u = 0.3 * torch.randn((H, hd), generator=g)
+    state0 = 0.5 * torch.randn((B, H, hd, hd), generator=g)
+    to = lambda x, dt=torch.float32: x.to(dt).to(device)
+    return to(r, dtype), to(k, dtype), to(v, dtype), to(w), to(u), to(state0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,hd,decay", [
+    (1, 2048, 64, 64, None),    # rwkv6-7b prefill
+    (1, 37, 64, 64, None),      # S not a multiple of the 32-step chunk
+    (8, 1, 64, 64, None),       # rwkv6-7b decode, max_batch 8
+    (1, 64, 4, 64, 0.45),       # tests/test_kernels.py:71, adversarial decay
+    (2, 100, 4, 64, 1e-6),      # decays near 0
+    (2, 33, 8, 32, None),       # the smoke variant's head_dim
+], ids=["prefill2048", "prefill37", "decode", "w0.45", "w1e-6", "hd32"])
+def test_wkv_kernel_matches_plain_version(gpu, dtype, B, S, H, hd, decay):
+    r, k, v, w, u, state0 = _wkv_case(S + B, B, S, H, hd, dtype, decay, gpu)
+    before = kw.rwkv6_chunked.launches
+    y, st = kw.rwkv6_chunked(r, k, v, w, u, state0)
+    torch.cuda.synchronize()
+    assert kw.rwkv6_chunked.launches == before + 1
+    y_ref, st_ref = kw.ref_rwkv6_chunked(r, k, v, w, u, state0)
+    assert y.dtype == st.dtype == torch.float32
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())
+    torch.testing.assert_close(y, y_ref, atol=WKV_TOL[0], rtol=WKV_TOL[1])
+    torch.testing.assert_close(st, st_ref, atol=WKV_TOL[0], rtol=WKV_TOL[1])
+    # zero state (no state0), and the state updated in place
+    y0, st0 = kw.rwkv6_chunked(r, k, v, w, u)
+    y0_ref, st0_ref = kw.ref_rwkv6_chunked(r, k, v, w, u)
+    torch.testing.assert_close(y0, y0_ref, atol=WKV_TOL[0], rtol=WKV_TOL[1])
+    torch.testing.assert_close(st0, st0_ref, atol=WKV_TOL[0], rtol=WKV_TOL[1])
+    inplace = state0.clone()
+    y1, st1 = kw.rwkv6_chunked(r, k, v, w, u, inplace, state_out=inplace)
+    torch.cuda.synchronize()
+    assert st1 is inplace
+    torch.testing.assert_close(y1, y, atol=0, rtol=0)
+    torch.testing.assert_close(inplace, st, atol=0, rtol=0)
+
+
+def test_wkv_kernel_rejects_what_it_does_not_take(gpu):
+    r, k, v, w, u, state0 = _wkv_case(0, 1, 8, 2, 64, torch.float32, None, gpu)
+    with pytest.raises(ValueError):      # w in bf16
+        kw.rwkv6_chunked(r, k, v, w.bfloat16(), u)
+    with pytest.raises(ValueError):      # r, k and v in different dtypes
+        kw.rwkv6_chunked(r, k.bfloat16(), v, w, u)
+    with pytest.raises(ValueError):      # a head_dim the kernel is not built for
+        kw.rwkv6_chunked(*(x[..., :48].contiguous() for x in (r, k, v, w)), u[:, :48])
+    with pytest.raises(ValueError):      # a non-contiguous input
+        kw.rwkv6_chunked(r.transpose(1, 2).contiguous().transpose(1, 2), k, v, w, u)
+    with pytest.raises(ValueError):      # a state of another shape
+        kw.rwkv6_chunked(r, k, v, w, u, state0[:, :1].contiguous())
+    with pytest.raises(ValueError):      # mixed devices
+        kw.rwkv6_chunked(r, k, v, w.cpu(), u)
