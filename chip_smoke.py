@@ -994,22 +994,24 @@ def phase_dense_serve(ka, kf, tk, cfg, params, prompts, paged_tokens):
 def step_profile(eng, n):
     """Per engine step, over ``n`` steps each: the mean wall time (profiler
     off, pipelined steps back to back), then the device-busy time and the
-    kernel launches (torch.profiler). Returns the plan kinds stepped too."""
+    kernel launches (torch.profiler). Returns the plan kinds stepped too
+    ("dense" for each step of the dense backend)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    kind = lambda: eng.runner._last.plan.kind if eng.backend == "paged" else "dense"
     kinds = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
         eng.step()
-        kinds.append(eng.runner._last.plan.kind)
+        kinds.append(kind())
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             eng.step()
-            kinds.append(eng.runner._last.plan.kind)
+            kinds.append(kind())
         torch.cuda.synchronize()
     events = prof.key_averages()
     dev_us = sum(e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA)
@@ -1196,6 +1198,7 @@ def phase_rwkv_serve(ka, kf, tk, prompts):
     eng = GenerationEngine(cfg, params=params, device="cuda", backend="paged",
                            max_batch=8, max_seq=2048)
     assert eng.backend == "dense", eng.backend
+    resident = torch.cuda.memory_allocated() / 2**30
     flat = [np.asarray(p.tokens if isinstance(p, SegmentedPrompt) else p) % cfg.vocab_size
             for p in prompts]
     reset_launches(ka, kf, tk)
@@ -1220,9 +1223,22 @@ def phase_rwkv_serve(ka, kf, tk, prompts):
           f"{st['tokens_out'] / wall:.1f} tok/s (prefill tokens {st['prefill_tokens']}, "
           f"unpadded); mean TTFT {1e3 * lat['ttft_mean']:.1f}ms, p95 TPOT "
           f"{1e3 * lat.get('tpot_p95', 0):.2f}ms; {st['steps']} decode steps; peak memory "
-          f"{peak:.2f} GiB (state cache {state.numel() * 4 / 2**30:.3f} GiB); launches "
+          f"{peak:.2f} GiB ({resident:.2f} GiB resident before serving, state cache "
+          f"{state.numel() * 4 / 2**30:.3f} GiB of it); launches "
           f"{launches} ({cfg.num_layers} x ({len(reqs)} prefills + {st['steps']} decode "
           f"steps))", flush=True)
+    # where a decode step's time goes: 8 fresh 300-token requests admitted
+    # (and prefilled) in one step, then three decode steps of 8 rows
+    rng = np.random.default_rng(1)
+    for _ in range(8):
+        eng.submit(rng.integers(0, cfg.vocab_size, 300), max_new=40)
+    eng.step()
+    kinds, wall_ms, dev_ms, n_launch = step_profile(eng, 3)
+    assert set(kinds) == {"dense"} and not eng.waiting, kinds
+    eng.run_until_done()
+    print(f"[rwkv serve] decode step (8 rows): wall {wall_ms:.2f} ms (mean of 3, profiler off); "
+          f"device busy {dev_ms:.2f} ms, {n_launch:.0f} kernel launches (torch.profiler, "
+          f"mean of 3)", flush=True)
     # the full-width stack gives finite logits of the expected shape, and
     # the engine's first token is the greedy token of the unpadded prefill
     toks = torch.as_tensor(flat[0], dtype=torch.int32, device="cuda")

@@ -22,18 +22,26 @@
 //   element per step: the y product, the decay and the k v^T update, on
 //   CUDA cores: the f32 contract rules out TF32 tensor cores), bytes at
 //   decode (S = 1: the f32 state is read and written once, 8.4 MB at B = 8).
-//   Design: a 128-thread block owns 32 value columns of one (row, head); a
-//   thread owns one value column and a quarter of the key axis, so its part
-//   of S (hd / 4 floats) lives in registers for the whole sequence and
-//   y_t[v] needs only a two-step shuffle reduction over the four key
-//   quarters of a column. Value columns are independent, so a head's
-//   columns are split over hd / 32 blocks: B * H * hd / 32 blocks (128 at
-//   prefill with B = 1, H = 64, hd = 64). Time runs in chunks of 32 steps:
-//   r, k and w of a chunk (all hd keys) and v (the block's columns) are
-//   staged in shared memory as f32, each key row padded so that the four
-//   key quarters of a warp read float4s from distinct banks; the bonus
-//   sum_k r_t[k] u[k] k_t[k] of each step is reduced once per block; the
-//   next chunk's loads are in flight in registers while this chunk runs.
+//   Design: a thread owns one value column and four keys of one (row, head):
+//   its part of S (4 floats) lives in registers for the whole sequence, and
+//   the hd / 4 threads of a column leave their partial sums of y_t[v] in
+//   shared memory. A 256-thread block owns 16 value columns (hd 64; all 32
+//   at hd 32), so B * H * hd / 16 blocks run (512 at prefill with B = 1,
+//   H = 64: 16 warps per SM). Latency, not arithmetic, bounds a sequential
+//   recurrence at B = 1: with a quarter of the key axis per thread there
+//   are only 4 warps per SM, one per scheduler, and each step waits on its
+//   own loads, so the key axis is split finer to put four warps on each
+//   scheduler. A warp holds 16
+//   consecutive columns of two key groups: its state loads are 64-byte runs
+//   of a row, its loads of r, k and w broadcast, and its partial-sum stores
+//   hit 32 banks. Time runs in chunks of 32 steps: r, k and w of a chunk
+//   (all hd keys) and v (the block's columns) are staged in shared memory
+//   as f32; the bonus sum_k r_t[k] u[k] k_t[k] of each step is reduced once
+//   per block; the next chunk's loads are in flight in registers (bf16 kept
+//   raw, widened only when staged) while this chunk runs. Nothing waits
+//   inside a step: a thread stores its partial sum and goes on (the state
+//   update is its only dependence across steps); after the chunk a pass
+//   sums the partials of each (t, v) and writes y.
 //   The state is read once at the start and written once at the end, by
 //   the thread that owns each element, so state_out may be state0 itself:
 //   the decode step updates the cache's state slice in place.
@@ -44,25 +52,31 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kThreads = 128;  // 4 warps
-constexpr int kKSplit = 4;     // key quarters per value column
-constexpr int kVB = kThreads / kKSplit;  // 32 value columns per block
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kKK = 4;         // keys per thread
 constexpr int kT = 32;         // time steps per staged chunk
 
 enum DType { kF32 = 0, kBF16 = 1 };
 
-// Four consecutive elements as float: one 16-byte load (f32) or one 8-byte
-// load (bf16); the address must be aligned to that size.
-template <typename T> struct Load4;
-template <> struct Load4<float> {
-  __device__ __forceinline__ static float4 run(const float* p) {
+// Four consecutive elements: one 16-byte load (f32) or one 8-byte load
+// (bf16) into a raw register value, widened to float4 only where it is
+// used, so that a load in flight does not stall the warp. The address must
+// be aligned to the load's size.
+template <typename T> struct Vec4;
+template <> struct Vec4<float> {
+  using Raw = float4;
+  __device__ __forceinline__ static Raw load(const float* p) {
     return *reinterpret_cast<const float4*>(p);
   }
+  __device__ __forceinline__ static float4 widen(Raw x) { return x; }
 };
-template <> struct Load4<__nv_bfloat16> {
-  __device__ __forceinline__ static float4 run(const __nv_bfloat16* p) {
-    const uint2 x = *reinterpret_cast<const uint2*>(p);
-    // little-endian: element 2k in the low half of word k
+template <> struct Vec4<__nv_bfloat16> {
+  using Raw = uint2;
+  __device__ __forceinline__ static Raw load(const __nv_bfloat16* p) {
+    return *reinterpret_cast<const uint2*>(p);
+  }
+  // little-endian: element 2k in the low half of word k
+  __device__ __forceinline__ static float4 widen(Raw x) {
     return make_float4(__uint_as_float(x.x << 16), __uint_as_float(x.x & 0xffff0000u),
                        __uint_as_float(x.y << 16), __uint_as_float(x.y & 0xffff0000u));
   }
@@ -70,14 +84,19 @@ template <> struct Load4<__nv_bfloat16> {
 
 template <int HD>
 struct Layout {
-  static constexpr int KK = HD / kKSplit;    // keys per thread
-  static constexpr int SEG = KK + 4;         // padded key-quarter segment
-  static constexpr int RS = kKSplit * SEG;   // padded key row
-  static constexpr int RG = kT * HD / 4 / kThreads;   // float4 groups per thread: r, k, w
-  static constexpr int VG = kT * kVB / 4 / kThreads;  // float4 groups per thread: v
-  static_assert(KK % 4 == 0 && RG >= 1 && VG >= 1, "unsupported head_dim");
-  // padded offset of key index kk inside a row
-  __device__ __forceinline__ static int pad(int kk) { return (kk / KK) * SEG + kk % KK; }
+  static constexpr int KS = HD / kKK;                  // threads per value column
+  static constexpr int VB = kThreads / KS;             // value columns per block
+  static constexpr int RG = kT * HD / 4 / kThreads;    // float4 groups per thread: r, k, w
+  static constexpr int VGROUPS = kT * VB / 4;          // float4 groups of v per chunk
+  static constexpr int VG = (VGROUPS + kThreads - 1) / kThreads;
+  static constexpr int BT = kThreads / kT;             // bonus: threads per step
+  static constexpr int BK = HD / BT;                   // bonus: keys per thread
+  static_assert(RG >= 1 && BK % 4 == 0 && HD % VB == 0, "unsupported head_dim");
+  // dynamic shared memory, in floats: r, k, w (t, key), v (t, column), the
+  // bonus (t), and the partial sums of y (t, key group, column)
+  static constexpr int SR = 0, SK = kT * HD, SW = 2 * kT * HD, SV = 3 * kT * HD;
+  static constexpr int SB = SV + kT * VB, SY = SB + kT;
+  static constexpr int FLOATS = SY + kT * KS * VB;
 };
 
 template <typename T, int HD>
@@ -86,32 +105,38 @@ wkv_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict
            const float* __restrict__ w, const float* __restrict__ u,
            const float* state0, float* __restrict__ y, float* state_out, int S, int H) {
   using L = Layout<HD>;
-  __shared__ __align__(16) float sr[kT * L::RS];
-  __shared__ __align__(16) float sk[kT * L::RS];
-  __shared__ __align__(16) float sw[kT * L::RS];
-  __shared__ __align__(16) float sv[kT * kVB];
-  __shared__ float sb[kT];
+  using V = Vec4<T>;
+  extern __shared__ __align__(16) float smem[];
+  float* sr = smem + L::SR;
+  float* sk = smem + L::SK;
+  float* sw = smem + L::SW;
+  float* sv = smem + L::SV;
+  float* sb = smem + L::SB;
+  float* sy = smem + L::SY;
 
   const int vblk = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int kq = lane & (kKSplit - 1);                 // key quarter
-  const int vl = warp * (32 / kKSplit) + lane / kKSplit;  // column in the block
-  const int col = vblk * kVB + vl;                     // value column in the head
+  const int tid = threadIdx.x;
+  const int cl = tid % L::VB;          // column in the block
+  const int kq = tid / L::VB;          // key group: keys kq*4 .. kq*4+3
+  const int col = vblk * L::VB + cl;   // value column in the head
   const size_t row_stride = static_cast<size_t>(H) * HD;  // one time step
   const size_t head_off = static_cast<size_t>(b) * S * row_stride + static_cast<size_t>(h) * HD;
 
-  // this thread's part of the state: S[kq*KK + j, col]
-  float s[L::KK];
+  // this thread's part of the state: S[kq*4 + j, col]
+  float s[kKK];
   const size_t st_off = (static_cast<size_t>(b) * H + h) * HD * HD;
 #pragma unroll
-  for (int j = 0; j < L::KK; ++j)
-    s[j] = state0 != nullptr ? state0[st_off + static_cast<size_t>(kq * L::KK + j) * HD + col]
+  for (int j = 0; j < kKK; ++j)
+    s[j] = state0 != nullptr ? state0[st_off + static_cast<size_t>(kq * kKK + j) * HD + col]
                              : 0.f;
-  // u of the keys this lane sums in the bonus reduction (k = lane, lane + 32)
-  const float u0 = u[h * HD + lane];
-  const float u1 = HD > 32 ? u[h * HD + (lane + 32) % HD] : 0.f;
+  // the bonus pass: thread (step tb, key group bg) sums keys bg*BK .. +BK-1
+  const int tb = tid / L::BT, bg = tid % L::BT;
+  float ub[L::BK];
+#pragma unroll
+  for (int j = 0; j < L::BK; ++j) ub[j] = u[h * HD + bg * L::BK + j];
 
-  float4 pr[L::RG], pk[L::RG], pw[L::RG], pv[L::VG];
+  typename V::Raw pr[L::RG], pk[L::RG], pv[L::VG];
+  float4 pw[L::RG];
   // the loads of chunk c into registers (rows past S are left unloaded)
   auto load_chunk = [&](int c) {
     const int t0 = c * kT;
@@ -121,18 +146,18 @@ wkv_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict
       const int t = g / (HD / 4), c4 = (g % (HD / 4)) * 4;
       if (t0 + t < S) {
         const size_t off = head_off + static_cast<size_t>(t0 + t) * row_stride + c4;
-        pr[i] = Load4<T>::run(r + off);
-        pk[i] = Load4<T>::run(k + off);
-        pw[i] = Load4<float>::run(w + off);
+        pr[i] = V::load(r + off);
+        pk[i] = V::load(k + off);
+        pw[i] = Vec4<float>::load(w + off);
       }
     }
 #pragma unroll
     for (int i = 0; i < L::VG; ++i) {
       const int g = tid + i * kThreads;
-      const int t = g / (kVB / 4), c4 = (g % (kVB / 4)) * 4;
-      if (t0 + t < S)
-        pv[i] = Load4<T>::run(v + head_off + static_cast<size_t>(t0 + t) * row_stride +
-                              vblk * kVB + c4);
+      const int t = g / (L::VB / 4), c4 = (g % (L::VB / 4)) * 4;
+      if (g < L::VGROUPS && t0 + t < S)
+        pv[i] = V::load(v + head_off + static_cast<size_t>(t0 + t) * row_stride +
+                        vblk * L::VB + c4);
     }
   };
 
@@ -141,71 +166,98 @@ wkv_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict
   for (int c = 0; c < n_chunks; ++c) {
     const int t0 = c * kT;
     const int nT = min(kT, S - t0);
-    __syncthreads();  // the previous chunk's steps are done with shared memory
+    __syncthreads();  // the previous chunk is done with shared memory
 #pragma unroll
     for (int i = 0; i < L::RG; ++i) {
       const int g = tid + i * kThreads;
-      const int t = g / (HD / 4), c4 = (g % (HD / 4)) * 4;
+      const int t = g / (HD / 4), o = g * 4;  // (t, key) rows are contiguous
       if (t < nT) {
-        const int o = t * L::RS + L::pad(c4);
-        *reinterpret_cast<float4*>(sr + o) = pr[i];
-        *reinterpret_cast<float4*>(sk + o) = pk[i];
+        *reinterpret_cast<float4*>(sr + o) = V::widen(pr[i]);
+        *reinterpret_cast<float4*>(sk + o) = V::widen(pk[i]);
         *reinterpret_cast<float4*>(sw + o) = pw[i];
       }
     }
 #pragma unroll
     for (int i = 0; i < L::VG; ++i) {
       const int g = tid + i * kThreads;
-      const int t = g / (kVB / 4), c4 = (g % (kVB / 4)) * 4;
-      if (t < nT) *reinterpret_cast<float4*>(sv + t * kVB + c4) = pv[i];
+      if (g < L::VGROUPS && g / (L::VB / 4) < nT)
+        *reinterpret_cast<float4*>(sv + g * 4) = V::widen(pv[i]);
     }
     __syncthreads();
-    // bonus_t = sum_k r_t[k] u[k] k_t[k], one warp per step
-    for (int t = warp; t < nT; t += kThreads / 32) {
-      float acc = sr[t * L::RS + L::pad(lane)] * sk[t * L::RS + L::pad(lane)] * u0;
-      if (HD > 32) {
-        const int o = t * L::RS + L::pad(lane + 32);
-        acc = fmaf(sr[o] * sk[o], u1, acc);
+    // bonus_t = sum_k r_t[k] u[k] k_t[k]: BT threads per step, BK keys each
+    {
+      float acc = 0.f;
+      if (tb < nT) {
+#pragma unroll
+        for (int j = 0; j < L::BK; j += 4) {
+          const int o = tb * HD + bg * L::BK + j;
+          const float4 r4 = *reinterpret_cast<const float4*>(sr + o);
+          const float4 k4 = *reinterpret_cast<const float4*>(sk + o);
+          acc = fmaf(r4.x * k4.x, ub[j], acc);
+          acc = fmaf(r4.y * k4.y, ub[j + 1], acc);
+          acc = fmaf(r4.z * k4.z, ub[j + 2], acc);
+          acc = fmaf(r4.w * k4.w, ub[j + 3], acc);
+        }
       }
 #pragma unroll
-      for (int m = 16; m > 0; m >>= 1) acc += __shfl_xor_sync(kFull, acc, m);
-      if (lane == 0) sb[t] = acc;
+      for (int m = 1; m < L::BT; m <<= 1) acc += __shfl_xor_sync(kFull, acc, m);
+      if (bg == 0 && tb < nT) sb[tb] = acc;
     }
     if (c + 1 < n_chunks) load_chunk(c + 1);  // in flight during this chunk's steps
-    __syncthreads();
-
-    float* yp = y + head_off + static_cast<size_t>(t0) * row_stride + col;
+    // the steps read what the staging wrote before the last barrier, and
+    // write only sy, which the previous chunk's final pass is done with
+    const float* rr = sr + kq * kKK;
+    const float* kk = sk + kq * kKK;
+    const float* ww = sw + kq * kKK;
+    float* syp = sy + kq * L::VB + cl;
+#pragma unroll 4
     for (int t = 0; t < nT; ++t) {
-      const float* rr = sr + t * L::RS + kq * L::SEG;
-      const float* kk = sk + t * L::RS + kq * L::SEG;
-      const float* ww = sw + t * L::RS + kq * L::SEG;
-      const float vv = sv[t * kVB + vl];
-      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+      const float4 r4 = *reinterpret_cast<const float4*>(rr + t * HD);
+      const float4 k4 = *reinterpret_cast<const float4*>(kk + t * HD);
+      const float4 w4 = *reinterpret_cast<const float4*>(ww + t * HD);
+      const float vv = sv[t * L::VB + cl];
+      // y reads the state before this step's update
+      const float a = fmaf(r4.x, s[0], r4.y * s[1]) + fmaf(r4.z, s[2], r4.w * s[3]);
+      s[0] = fmaf(s[0], w4.x, k4.x * vv);
+      s[1] = fmaf(s[1], w4.y, k4.y * vv);
+      s[2] = fmaf(s[2], w4.z, k4.z * vv);
+      s[3] = fmaf(s[3], w4.w, k4.w * vv);
+      syp[t * L::KS * L::VB] = a;
+    }
+    __syncthreads();
+    // y_t[v] = the key groups' partial sums + v_t[v] * bonus_t
+    float* yp = y + head_off + static_cast<size_t>(t0) * row_stride + vblk * L::VB;
+    for (int e = tid; e < nT * L::VB; e += kThreads) {
+      const int t = e / L::VB, ce = e % L::VB;
+      const float* p = sy + t * L::KS * L::VB + ce;
+      float acc = 0.f;
 #pragma unroll
-      for (int j = 0; j < L::KK; j += 4) {
-        const float4 r4 = *reinterpret_cast<const float4*>(rr + j);
-        const float4 k4 = *reinterpret_cast<const float4*>(kk + j);
-        const float4 w4 = *reinterpret_cast<const float4*>(ww + j);
-        // y reads the state before this step's update
-        a0 = fmaf(r4.x, s[j], a0);
-        a1 = fmaf(r4.y, s[j + 1], a1);
-        a2 = fmaf(r4.z, s[j + 2], a2);
-        a3 = fmaf(r4.w, s[j + 3], a3);
-        s[j] = fmaf(s[j], w4.x, k4.x * vv);
-        s[j + 1] = fmaf(s[j + 1], w4.y, k4.y * vv);
-        s[j + 2] = fmaf(s[j + 2], w4.z, k4.z * vv);
-        s[j + 3] = fmaf(s[j + 3], w4.w, k4.w * vv);
-      }
-      float acc = (a0 + a1) + (a2 + a3);
-#pragma unroll
-      for (int m = 1; m < kKSplit; m <<= 1) acc += __shfl_xor_sync(kFull, acc, m);
-      if (kq == 0) yp[static_cast<size_t>(t) * row_stride] = fmaf(vv, sb[t], acc);
+      for (int q = 0; q < L::KS; ++q) acc += p[q * L::VB];
+      yp[static_cast<size_t>(t) * row_stride + ce] = fmaf(sv[t * L::VB + ce], sb[t], acc);
     }
   }
 
 #pragma unroll
-  for (int j = 0; j < L::KK; ++j)
-    state_out[st_off + static_cast<size_t>(kq * L::KK + j) * HD + col] = s[j];
+  for (int j = 0; j < kKK; ++j)
+    state_out[st_off + static_cast<size_t>(kq * kKK + j) * HD + col] = s[j];
+}
+
+template <typename T, int HD>
+cudaError_t launch_wkv_hd(const void* r, const void* k, const void* v, const float* w,
+                          const float* u, const float* state0, float* y, float* state_out,
+                          int B, int S, int H, cudaStream_t stream) {
+  using L = Layout<HD>;
+  const int smem = L::FLOATS * static_cast<int>(sizeof(float));
+  auto kernel = wkv_kernel<T, HD>;
+  if (smem > 48 * 1024) {  // above 48 KB dynamic shared memory must be allowed first
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<dim3(HD / L::VB, H, B), kThreads, smem, stream>>>(
+      static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v), w, u,
+      state0, y, state_out, S, H);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -213,19 +265,11 @@ cudaError_t launch_wkv(const void* r, const void* k, const void* v, const float*
                        const float* u, const float* state0, float* y, float* state_out, int B,
                        int S, int H, int hd, cudaStream_t stream) {
   if (B <= 0 || S <= 0 || H <= 0) return cudaErrorInvalidValue;
-  const dim3 grid(hd / kVB, H, B);
-  if (hd == 64) {
-    wkv_kernel<T, 64><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v), w, u,
-        state0, y, state_out, S, H);
-  } else if (hd == 32) {
-    wkv_kernel<T, 32><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v), w, u,
-        state0, y, state_out, S, H);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  if (hd == 64)
+    return launch_wkv_hd<T, 64>(r, k, v, w, u, state0, y, state_out, B, S, H, stream);
+  if (hd == 32)
+    return launch_wkv_hd<T, 32>(r, k, v, w, u, state0, y, state_out, B, S, H, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -31,9 +31,9 @@ _HEAD_DIMS = (32, 64)   # the head_dim instantiations in csrc/rwkv6_scan.cu
 
 
 def ref_rwkv6_chunked(r, k, v, w, u, state0: Optional[torch.Tensor] = None):
-    """Plain version of ``rwkv6_chunked``. r, k, v, w: (B, S, H, hd); u:
-    (H, hd); state0: (B, H, hd, hd) or None (zeros). Returns (y (B, S, H,
-    hd) float32, final state (B, H, hd, hd) float32)."""
+    """Plain version of ``rwkv6_chunked``. r, k, v, w: (B, S, H, hd) with
+    S >= 1; u: (H, hd); state0: (B, H, hd, hd) or None (zeros). Returns (y
+    (B, S, H, hd) float32, final state (B, H, hd, hd) float32)."""
     B, S, H, hd = r.shape
     state = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
              if state0 is None else state0.float())
@@ -44,8 +44,7 @@ def ref_rwkv6_chunked(r, k, v, w, u, state0: Optional[torch.Tensor] = None):
         kv = k[:, t, :, :, None] * v[:, t, :, None, :]          # (B, H, hd, hd)
         ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t], state + u * kv))
         state = w[:, t, :, :, None] * state + kv
-    y = torch.stack(ys, dim=1) if ys else torch.zeros((B, 0, H, hd), device=r.device)
-    return y, state
+    return torch.stack(ys, dim=1), state
 
 
 def rwkv6_chunked(r, k, v, w, u, state0: Optional[torch.Tensor] = None, *,
@@ -66,6 +65,7 @@ def rwkv6_chunked(r, k, v, w, u, state0: Optional[torch.Tensor] = None, *,
     _check(name, r.is_cuda, f"unsupported device {r.device}")
     _check(name, r.dim() == 4, "r, k, v and w must be (B, S, H, hd)")
     B, S, H, hd = r.shape
+    _check(name, B >= 1 and S >= 1, f"B and S must be >= 1, got {B} and {S}")
     for t in (k, v, w):
         _check(name, tuple(t.shape) == (B, S, H, hd), "r, k, v and w must share one shape")
     _check(name, r.dtype in _DTYPE_CODES and k.dtype == r.dtype and v.dtype == r.dtype,
@@ -86,14 +86,6 @@ def rwkv6_chunked(r, k, v, w, u, state0: Optional[torch.Tensor] = None, *,
     y = torch.empty((B, S, H, hd), dtype=torch.float32, device=r.device)
     out = (state_out if state_out is not None
            else torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device))
-    if B == 0 or H == 0:
-        return y, out
-    if S == 0:
-        if state0 is None:
-            out.zero_()
-        elif out is not state0:
-            out.copy_(state0)
-        return y, out
     from repro_torch.kernels._build import load_library
 
     lib = load_library("rwkv6_scan").lib

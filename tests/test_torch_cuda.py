@@ -364,3 +364,5 @@ def test_wkv_kernel_rejects_what_it_does_not_take(gpu):
         kw.rwkv6_chunked(r, k, v, w, u, state0[:, :1].contiguous())
     with pytest.raises(ValueError):      # mixed devices
         kw.rwkv6_chunked(r, k, v, w.cpu(), u)
+    with pytest.raises(ValueError):      # no time steps
+        kw.rwkv6_chunked(*(x[:, :0].contiguous() for x in (r, k, v, w)), u)

@@ -280,26 +280,29 @@ def _prompts(lengths, vocab):
     return [rng.integers(0, vocab, n).astype(np.int32) for n in lengths]
 
 
-_ORACLE = {}
-
-
-def _oracle(jcfg, jparams, prompt):
+@pytest.fixture(scope="module")
+def oracle(weights):
     """Greedy tokens of JAX ``prefill`` on the unpadded prompt, then
-    ``decode_step`` (equal to token-by-token decode from an empty cache)."""
-    key = prompt.tobytes()
-    if key not in _ORACLE:
-        if "fns" not in _ORACLE:
-            _ORACLE["fns"] = (jax.jit(lambda p, t: jax_prefill(jcfg, p, {"tokens": t})),
-                              jax.jit(lambda p, c, t, pos: jax_decode_step(jcfg, p, c, t, pos)))
-        pf, dec = _ORACLE["fns"]
-        logits, cache = pf(jparams, jnp.asarray(prompt[None]))
-        out = [int(jnp.argmax(logits[0]))]
-        for i in range(N_NEW - 1):
-            logits, cache = dec(jparams, cache, jnp.asarray([[out[-1]]], jnp.int32),
-                                jnp.asarray([len(prompt) + i], jnp.int32))
-            out.append(int(jnp.argmax(logits[0])))
-        _ORACLE[key] = out
-    return _ORACLE[key]
+    ``decode_step`` (equal to token-by-token decode from an empty cache),
+    on the module's weights; cached per prompt."""
+    jcfg, jparams, _, _ = weights
+    pf = jax.jit(lambda p, t: jax_prefill(jcfg, p, {"tokens": t}))
+    dec = jax.jit(lambda p, c, t, pos: jax_decode_step(jcfg, p, c, t, pos))
+    done = {}
+
+    def tokens(prompt):
+        key = prompt.tobytes()
+        if key not in done:
+            logits, cache = pf(jparams, jnp.asarray(prompt[None]))
+            out = [int(jnp.argmax(logits[0]))]
+            for i in range(N_NEW - 1):
+                logits, cache = dec(jparams, cache, jnp.asarray([[out[-1]]], jnp.int32),
+                                    jnp.asarray([len(prompt) + i], jnp.int32))
+                out.append(int(jnp.argmax(logits[0])))
+            done[key] = out
+        return done[key]
+
+    return tokens
 
 
 def _serve(eng, prompts):
@@ -309,7 +312,7 @@ def _serve(eng, prompts):
     return [r.out_tokens for r in reqs]
 
 
-def test_engine_matches_unpadded_prefill_oracle(weights):
+def test_engine_matches_unpadded_prefill_oracle(weights, oracle):
     """Prompt lengths off and on the bucket sizes, five prompts through two
     slots (so slots are reused), ``backend="paged"`` falling back."""
     jcfg, jparams, tcfg, tparams = weights
@@ -319,7 +322,7 @@ def test_engine_matches_unpadded_prefill_oracle(weights):
     assert (st["backend"], st["interleave"], st["pipeline"], st["kernel"]) == \
         ("dense", False, False, "plain")
     got = _serve(eng, prompts)
-    assert got == [_oracle(jcfg, jparams, p) for p in prompts]
+    assert got == [oracle(p) for p in prompts]
     assert eng.stats()["prefill_tokens"] == sum(len(p) for p in prompts)
 
 
@@ -340,11 +343,11 @@ def test_engine_matches_jax_dense_engine_at_bucket_lengths(weights):
                    "prefills the prompt padded with token 0 to its power-of-two bucket and "
                    "keeps the pad tokens in the RWKV state")
 @pytest.mark.parametrize("Lp", [5, 23])
-def test_jax_dense_engine_matches_unpadded_prefill_oracle(weights, Lp):
+def test_jax_dense_engine_matches_unpadded_prefill_oracle(weights, oracle, Lp):
     jcfg, jparams, _, _ = weights
     prompt = _prompts((Lp,), jcfg.vocab_size)[0]
     jeng = JaxEngine(jcfg, params=jparams, max_batch=2, max_seq=MAX_SEQ)
-    assert _serve(jeng, [prompt]) == [_oracle(jcfg, jparams, prompt)]
+    assert _serve(jeng, [prompt]) == [oracle(prompt)]
 
 
 def test_truncated_prompt_and_unported_archs():
