@@ -74,6 +74,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
    launches must be 32 x (prefills + decode steps) and every other kernel's
    0 (the earlier phases must show 0 WKV launches). The qwen2.5-3b weights
    are freed first.
+2d. The selective-scan kernel against its plain version on the card at
+   hymba-1.5b shapes (Di=1600, N=16) with a nonzero ``h0``: prefill B=1 at
+   S=1664 (128 meta + 1536 text tokens) and S=37, decode B=8 at S=1, and
+   dt = softplus of extreme values (dt * A down to about -50) at S=1664,
+   dt/x/B/C in float32 and bfloat16 (bf16 also against the plain version in
+   float32; tolerance ``SSM_TOL``); then the kernel's, its device and the
+   plain version's times beside the bound (prefill S=1664 and decode). No
+   single PyTorch call computes the scan, so there is no library time.
+2e. The flash kernel with a sliding window at hymba-1.5b's heads (H=25,
+   KVH=5, hd=64): S=1664 with window 1024 and S=300 with window 64, float32
+   and bfloat16, against the plain version; then its times at S=1664 beside
+   the bound and one SDPA call with the windowed causal mask.
+4c. The hymba engine at smoke width in float32: identical greedy tokens on
+   the CPU (plain versions) and on the GPU (kernels), with 2 scan and 2
+   flash launches per prefill and 2 scan and 2 dense decode launches per
+   decode step.
+9. Serve hymba-1.5b at full width in bfloat16 on ``GenerationEngine(
+   backend="paged")``, which falls back to the dense backend: ``max_batch=8``,
+   ``max_seq=2048``, phase 5's ten prompts (flattened, tokens modulo the
+   32001-token vocab), 32 new tokens each. The scan launches must be 32 x
+   (prefills + decode steps), flash 32 x the prefills, dense decode 32 x the
+   decode steps, and the paged, top-k and WKV kernels' 0; every earlier phase
+   must show 0 scan launches. The rwkv6-7b weights are freed first.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU.
@@ -119,6 +142,7 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:69",
     "decode_attention": "src/repro/kernels/decode_attention.py:90",
     "rwkv6_chunked": "src/repro/kernels/rwkv6_scan.py:76",
+    "ssm_scan": "src/repro/kernels/ssm_scan.py:55",
 }
 SOURCES = {
     "paged_chunk_attention": "src/repro_torch/csrc/paged_attention.cu",
@@ -127,6 +151,7 @@ SOURCES = {
     "flash_attention": "src/repro_torch/csrc/dense_attention.cu",
     "decode_attention": "src/repro_torch/csrc/dense_attention.cu",
     "rwkv6_chunked": "src/repro_torch/csrc/rwkv6_scan.cu",
+    "ssm_scan": "src/repro_torch/csrc/ssm_scan.cu",
 }
 
 
@@ -596,6 +621,168 @@ def phase_wkv_kernel(kw):
 
 
 # ---------------------------------------------------------------------------
+# phase 2d: the selective-scan kernel against its plain version
+# ---------------------------------------------------------------------------
+
+SSM_DI, SSM_N = 1600, 16                     # hymba-1.5b: d_model 1600, ssm_state 16
+# (name, B, S, extreme): dt = softplus(z), z ~ N(-2, 1) as tests/test_kernels.py
+# draws it (dt * A near -0.1 .. -3), or for "extreme" z ~ N(1, 2) clipped to
+# [-10, 3.1] (dt up to ~3.1: dt * A down to about -50 at A = -16)
+SSM_CASES = (("prefill", 1, 1664, False), ("prefill", 1, 37, False), ("decode", 8, 1, False),
+             ("extreme", 1, 1664, True))
+# both sides compute in f32 (bf16 inputs widen exactly); the kernel's exp2 of
+# dt * A * log2(e) against exp(dt * A): a few ulps a step
+SSM_TOL = (1e-4, 1e-4)
+SFU_PER_CLOCK = 16                           # exp2 results per clock per SM (sm_90)
+
+
+def sfu_rate():
+    """Exponentials per second the card can issue: SMs x 16 a clock at the
+    card's maximum SM clock (nvidia-smi)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * SFU_PER_CLOCK * float(out) * 1e6, sms, float(out)
+
+
+def ssm_inputs(gen, B, S, dtype, extreme):
+    shape = (B, S, SSM_DI)
+    z = torch.randn(shape, generator=gen, device="cuda")
+    z = (2.0 * z + 1.0).clamp(-10.0, 3.1) if extreme else z - 2.0
+    dt = torch.nn.functional.softplus(z)
+    x = torch.randn(shape, generator=gen, device="cuda")
+    bm, cm = (0.5 * torch.randn((B, S, SSM_N), generator=gen, device="cuda") for _ in range(2))
+    a_log = torch.log(torch.arange(1, SSM_N + 1, dtype=torch.float32, device="cuda"))
+    a_log = a_log.expand(SSM_DI, SSM_N).contiguous()
+    h0 = 0.5 * torch.randn((B, SSM_DI, SSM_N), generator=gen, device="cuda")
+    return dt.to(dtype), x.to(dtype), bm.to(dtype), cm.to(dtype), a_log, h0
+
+
+def ssm_work(dt, bm, h0):
+    """(bytes, f32 flops, exponentials) of one call: dt, x, B and C (their
+    dtype) read once, a_log and h0 read once, y and the final h (f32)
+    written once; 6 flops per state element per step (dt * A, (dt x) * B,
+    the FMA of h, C * h and its sum) and one exponential."""
+    B, S, Di = dt.shape
+    item = dt.element_size()
+    nbytes = (2 * dt.numel() + 2 * bm.numel()) * item + dt.numel() * 4 + Di * SSM_N * 4 \
+        + 2 * h0.numel() * 4
+    elems = B * S * Di * SSM_N
+    return nbytes, 6 * elems, elems
+
+
+def phase_ssm_kernel(ks):
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    exp_s, sms, clock = sfu_rate()
+    print(f"[ssm kernel] SFU bound: {sms} SMs x {SFU_PER_CLOCK} exp2 a clock x {clock:.0f} MHz "
+          f"(max SM clock) = {exp_s:.4e} exponentials/s", flush=True)
+    rows = {}
+    for dtype_name in ("float32", "bfloat16"):
+        dt_ = getattr(torch, dtype_name)
+        for case, B, S, extreme in SSM_CASES:
+            dt, x, bm, cm, a_log, h0 = ssm_inputs(gen, B, S, dt_, extreme)
+            name = f"ssm_scan[{dtype_name}, {case}, B={B}, S={S}]"
+            y, h = ks.ssm_scan(dt, x, bm, cm, a_log, h0)
+            torch.cuda.synchronize()
+            y_ref, h_ref = ks.ref_ssm_scan(dt, x, bm, cm, a_log, h0)
+            every = slice(None)
+            errs = {"plain": max(check_close(name + " y", y, y_ref, every, SSM_TOL),
+                                 check_close(name + " h", h, h_ref, every, SSM_TOL))}
+            if dtype_name == "bfloat16":
+                y32, h32 = ks.ref_ssm_scan(dt.float(), x.float(), bm.float(), cm.float(),
+                                           a_log, h0)
+                errs["plain_f32"] = max(check_close(name + " y vs f32", y, y32, every, SSM_TOL),
+                                        check_close(name + " h vs f32", h, h32, every, SSM_TOL))
+            r_ = {"errs": errs, "dA_min": float((dt.float().max() * -SSM_N))}
+            if case in ("prefill", "decode") and S != 37:
+                # the serve phase updates h in place; here the output goes
+                # to its own buffer, so every call sees the same h0
+                out = torch.empty_like(h0)
+                kern = lambda: ks.ssm_scan(dt, x, bm, cm, a_log, h0, h_out=out)
+                nbytes, ops, exps = ssm_work(dt, bm, h0)
+                parts = {"bytes": nbytes / HBM_BYTES_S * 1e3,
+                         "operations": max(ops / PEAK_OPS_S["float32"], exps / exp_s) * 1e3}
+                bound_by = max(parts, key=parts.get)
+                r_.update({"ms": time_ms(kern, flush), "device_ms": device_ms(kern),
+                           "plain_ms": time_ms(lambda: ks.ref_ssm_scan(dt, x, bm, cm, a_log, h0),
+                                               flush, reps=5),
+                           "library_ms": None, "bound_ms": parts[bound_by],
+                           "bound_by": bound_by, "bytes": nbytes, "ops": ops, "exps": exps,
+                           "exp_ms": exps / exp_s * 1e3,
+                           "flop_ms": ops / PEAK_OPS_S["float32"] * 1e3})
+            rows[(dtype_name, case, S)] = r_
+            times = (f"; kernel_ms={r_['ms']:.4f} device_ms={fmt_ms(r_['device_ms'])} "
+                     f"plain_ms={r_['plain_ms']:.4f} library_ms=none (no single PyTorch call "
+                     f"computes the scan) bound_ms={r_['bound_ms']:.5f} ({r_['bound_by']}: "
+                     f"{r_['bytes']} B = {r_['bytes'] / HBM_BYTES_S * 1e3:.5f} ms, "
+                     f"{r_['ops']} flop = {r_['flop_ms']:.5f} ms, {r_['exps']} exp = "
+                     f"{r_['exp_ms']:.5f} ms)") if "ms" in r_ else ""
+            checks = ", ".join(f"vs {k} {e:.3e}" for k, e in errs.items())
+            print(f"[ssm kernel] {name}: max_abs_err {checks} (atol, rtol {SSM_TOL}), finite, "
+                  f"min dt*A {r_['dA_min']:.1f}{times}", flush=True)
+            del dt, x, bm, cm, a_log, h0, y, h, y_ref, h_ref
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 2e: the flash kernel with a sliding window
+# ---------------------------------------------------------------------------
+
+SWA_H, SWA_KVH, SWA_HD = 25, 5, 64           # hymba-1.5b's heads
+SWA_CASES = ((1664, 1024), (300, 64))        # (S, window): full width, smoke window
+
+
+def swa_work(q, k, window):
+    """(bytes, flops): q, K, V read once, the output written once; 4*hd
+    flops per query head per (query, key) pair inside the causal window."""
+    B, S, Hq, hd = q.shape
+    pairs = B * sum(min(i + 1, window) for i in range(S))
+    return (2 * q.numel() + 2 * k.numel()) * q.element_size(), 4 * hd * Hq * pairs
+
+
+def phase_swa_kernels(kf):
+    import torch.nn.functional as F
+
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    rows = {}
+    for dtype_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype_name)
+        tol = TOL[dtype_name]
+        for S, window in SWA_CASES:
+            q, k, v = (torch.randn((1, S, n, SWA_HD), generator=gen, device="cuda").to(dt)
+                       for n in (SWA_H, SWA_KVH, SWA_KVH))
+            name = f"flash_attention[{dtype_name}, S={S}, window={window}]"
+            got = kf.flash_attention(q, k, v, window=window)
+            torch.cuda.synchronize()
+            every = slice(None)
+            errs = {"plain": check_close(name, got, kf.ref_flash_attention(q, k, v, window=window),
+                                         every, tol["plain"])}
+            if dtype_name == "bfloat16":
+                want = kf.ref_flash_attention(q.float(), k.float(), v.float(), window=window)
+                errs["plain_f32"] = check_close(name + " vs f32", got, want, every,
+                                                tol["plain_f32"])
+            r = {"errs": errs}
+            if S == SWA_CASES[0][0]:
+                qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+                i = torch.arange(S, device="cuda")
+                mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
+                lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                             enable_gqa=True)
+                r.update(timed_row(swa_work(q, k, window), dtype_name, flush,
+                                   lambda: kf.flash_attention(q, k, v, window=window),
+                                   lambda: kf.ref_flash_attention(q, k, v, window=window), lib))
+            rows[(dtype_name, S, window)] = r
+            print_dense_row(name, r, tol)
+            del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the top-k retrieval kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -852,6 +1039,50 @@ def phase_rwkv_parity(kw):
           f"{launches // cfg.num_layers - len(prompts)} decode steps)", flush=True)
 
 
+def phase_hymba_parity(ka, kf, ks):
+    """The hymba smoke model's engine (``backend="paged"``, which falls back
+    to dense) on the RAG workload of ``phase_parity``, flattened: identical
+    greedy tokens on the CPU (plain versions) and on the GPU (kernels).
+    Its prompts (plus 8 meta tokens) run past the 64-token window."""
+    from repro_torch.configs import get_arch, smoke_variant
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import GenerationEngine
+    from repro_torch.serving.segments import SegmentedPrompt
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = smoke_variant(get_arch("hymba-1.5b"))
+    prompts = [p.tokens if isinstance(p, SegmentedPrompt) else p
+               for p in rag_workload(np.random.default_rng(1), cfg.vocab_size, 48, (5, 40),
+                                     3, 2, (10, 90), (16, 48, 32, 9))]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = init_params(cfg, torch.Generator().manual_seed(0), dev)
+        eng = GenerationEngine(cfg, params=params, device=dev, max_batch=4, max_seq=256)
+        ka.reset_launch_counts()
+        kf.reset_launch_counts()
+        ks.reset_launch_counts()
+        reqs = [eng.submit(p, max_new=12) for p in prompts]
+        eng.run_until_done()
+        st = eng.stats()
+        assert st["backend"] == "dense" and all(len(r.out_tokens) == 12 for r in reqs), dev
+        out[dev] = [r.out_tokens for r in reqs]
+        if dev == "cuda":
+            L, n_pre, n_dec = cfg.num_layers, len(prompts), st["steps"]
+            launches = (ks.ssm_scan.launches, kf.flash_attention.launches,
+                        ka.decode_attention.launches)
+            assert launches == (L * (n_pre + n_dec), L * n_pre, L * n_dec), (launches, st)
+    if out["cpu"] != out["cuda"]:
+        raise AssertionError("hymba engine: CPU and GPU greedy tokens differ:\n"
+                             f"{out['cpu']}\n{out['cuda']}")
+    print(f"[parity] hymba-1.5b smoke engine f32 (backend paged -> dense): {len(prompts)} "
+          f"requests (prompts {min(map(len, prompts))}-{max(map(len, prompts))} tokens + "
+          f"{cfg.num_meta_tokens} meta, window {cfg.window}), identical greedy tokens on cpu "
+          f"(plain) and cuda (kernels); ssm_scan/flash/decode launches {launches} = "
+          f"{cfg.num_layers} x ({len(prompts)} prefills + {n_dec} decode steps), "
+          f"{cfg.num_layers} x {len(prompts)}, {cfg.num_layers} x {n_dec}", flush=True)
+
+
 # ---------------------------------------------------------------------------
 # phase 5: serve qwen2.5-3b at full width
 # ---------------------------------------------------------------------------
@@ -888,7 +1119,8 @@ def phase_serve(ka, kf, tk, cfg, params):
     assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens)
     assert st["kernel"] == "cuda", st["kernel"]
     assert all(launches[n] > 0 for n in PAGED), launches
-    assert all(launches[n] == 0 for n in (*DENSE, "topk_retrieval", "rwkv6_chunked")), launches
+    assert all(launches[n] == 0 for n in (*DENSE, "topk_retrieval", "rwkv6_chunked",
+                                          "ssm_scan")), launches
     n_mixed = launches["paged_chunk_attention"] // cfg.num_layers
     n_dec = launches["paged_decode_attention"] // cfg.num_layers
     assert n_mixed + n_dec == st["steps"], (launches, st["steps"])
@@ -963,7 +1195,8 @@ def phase_dense_serve(ka, kf, tk, cfg, params, prompts, paged_tokens):
     assert launches == {"flash_attention": cfg.num_layers * len(reqs),
                         "decode_attention": cfg.num_layers * st["steps"],
                         "paged_chunk_attention": 0, "paged_decode_attention": 0,
-                        "topk_retrieval": 0, "rwkv6_chunked": 0}, (launches, st)
+                        "topk_retrieval": 0, "rwkv6_chunked": 0,
+                        "ssm_scan": 0}, (launches, st)
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[dense serve] {cfg.name} {cfg.dtype}: {len(reqs)} requests, {st['tokens_out']} "
           f"tokens out in {wall:.3f}s = {st['tokens_out'] / wall:.1f} tok/s (prefill tokens "
@@ -1027,22 +1260,26 @@ DENSE = ("flash_attention", "decode_attention")
 def read_launches(ka, kf, tk):
     """Every ported kernel's launch count since ``reset_launches``."""
     from repro_torch.kernels import rwkv6_scan as kw
+    from repro_torch.kernels import ssm_scan as ks
 
     return {"paged_chunk_attention": ka.paged_chunk_attention.launches,
             "paged_decode_attention": ka.paged_decode_attention.launches,
             "topk_retrieval": tk.topk_retrieval.launches,
             "flash_attention": kf.flash_attention.launches,
             "decode_attention": ka.decode_attention.launches,
-            "rwkv6_chunked": kw.rwkv6_chunked.launches}
+            "rwkv6_chunked": kw.rwkv6_chunked.launches,
+            "ssm_scan": ks.ssm_scan.launches}
 
 
 def reset_launches(ka, kf, tk):
     from repro_torch.kernels import rwkv6_scan as kw
+    from repro_torch.kernels import ssm_scan as ks
 
     ka.reset_launch_counts()
     kf.reset_launch_counts()
     tk.reset_launch_counts()
     kw.reset_launch_counts()
+    ks.reset_launch_counts()
 
 
 def pool_is_clean(eng):
@@ -1116,7 +1353,7 @@ def phase_rag(ka, kf, tk, cfg, params, corpus, queries):
     assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens)
     assert st["prefix_hit_tokens"] > 0 and pool_is_clean(eng), st
     assert all(launches[n] > 0 for n in (*PAGED, "topk_retrieval")), launches
-    assert all(launches[n] == 0 for n in (*DENSE, "rwkv6_chunked")), launches
+    assert all(launches[n] == 0 for n in (*DENSE, "rwkv6_chunked", "ssm_scan")), launches
     print(f"[rag] 8 requests (prompts {min(len(r.prompt) for r in reqs)}-"
           f"{max(len(r.prompt) for r in reqs)} tokens: system + 4 reranked docs of 256 + "
           f"query) through Retriever(n_probe=8, k=100) -> Reranker(top 4) -> Augmenter -> "
@@ -1157,7 +1394,7 @@ def phase_pipelines(ka, kf, tk, cfg, params):
                for c in summary.values()), summary
     assert st["session_shared_tokens"] > 0 and pool_is_clean(eng), st
     assert st["kernel"] == "cuda" and launches["paged_chunk_attention"] > 0, launches
-    assert all(launches[n] == 0 for n in (*DENSE, "rwkv6_chunked")), launches
+    assert all(launches[n] == 0 for n in (*DENSE, "rwkv6_chunked", "ssm_scan")), launches
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[pipelines] {cfg.name} {cfg.dtype}: {len(drv.events)} events "
           f"({sum(e.session_id >= 0 for e in drv.events)} session turns) all completed; "
@@ -1256,6 +1493,96 @@ def phase_rwkv_serve(ka, kf, tk, prompts):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: serve hymba-1.5b at full width
+# ---------------------------------------------------------------------------
+
+
+def phase_hymba_serve(ka, kf, tk, prompts):
+    """Serve phase 5's prompts (flattened, tokens modulo the vocab) on
+    hymba-1.5b in bfloat16 with random weights from seed 0, through
+    ``backend="paged"``, which falls back to the dense backend. Returns the
+    seven kernels' launches in the run."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params, prefill
+    from repro_torch.serving.engine import GenerationEngine
+    from repro_torch.serving.segments import SegmentedPrompt
+
+    cfg = get_arch("hymba-1.5b").replace(dtype="bfloat16")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    n_params = sum(x.numel() for x in _tensors(params))
+    torch.cuda.synchronize()
+    print(f"[hymba serve] {cfg.name} {cfg.dtype}: {n_params / 1e9:.3f}B parameters "
+          f"({sum(x.numel() * x.element_size() for x in _tensors(params)) / 2**30:.2f} GiB) "
+          f"drawn on the card in {time.perf_counter() - t0:.1f}s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    eng = GenerationEngine(cfg, params=params, device="cuda", backend="paged",
+                           max_batch=8, max_seq=2048)
+    assert eng.backend == "dense", eng.backend
+    resident = torch.cuda.memory_allocated() / 2**30
+    cache_gib = sum(x.numel() * x.element_size() for x in eng.cache[0].values()) / 2**30
+    flat = [np.asarray(p.tokens if isinstance(p, SegmentedPrompt) else p) % cfg.vocab_size
+            for p in prompts]
+    reset_launches(ka, kf, tk)
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new=32) for p in flat]
+    eng.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(ka, kf, tk)
+    st, lat = eng.stats(), eng.latency_summary()
+    assert st["backend"] == "dense" and st["kernel"] == "cuda", st
+    assert all(len(r.out_tokens) == 32 for r in reqs), [len(r.out_tokens) for r in reqs]
+    assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens)
+    assert st["prefill_tokens"] == sum(len(p) for p in flat), st   # unpadded prefills
+    want = {n: 0 for n in launches}
+    want["ssm_scan"] = cfg.num_layers * (len(reqs) + st["steps"])
+    want["flash_attention"] = cfg.num_layers * len(reqs)
+    want["decode_attention"] = cfg.num_layers * st["steps"]
+    assert launches == want, (launches, want, st)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[hymba serve] {len(reqs)} requests (prompts {min(map(len, flat))}-"
+          f"{max(map(len, flat))} tokens + {cfg.num_meta_tokens} meta), {st['tokens_out']} "
+          f"tokens out in {wall:.3f}s = {st['tokens_out'] / wall:.1f} tok/s (prefill tokens "
+          f"{st['prefill_tokens']}, unpadded); mean TTFT {1e3 * lat['ttft_mean']:.1f}ms, p95 "
+          f"TPOT {1e3 * lat.get('tpot_p95', 0):.2f}ms; {st['steps']} decode steps; peak memory "
+          f"{peak:.2f} GiB ({resident:.2f} GiB resident before serving, cache {cache_gib:.3f} "
+          f"GiB of it: {eng.cache[0]['k'].shape[2]}-slot K/V rings and the SSM state); launches "
+          f"{launches} (ssm_scan {cfg.num_layers} x ({len(reqs)} prefills + {st['steps']} "
+          f"decode steps), flash {cfg.num_layers} x {len(reqs)}, decode {cfg.num_layers} x "
+          f"{st['steps']})", flush=True)
+    # where a decode step's time goes: 8 fresh 300-token requests admitted
+    # (and prefilled) in one step, then three decode steps of 8 rows
+    rng = np.random.default_rng(1)
+    for _ in range(8):
+        eng.submit(rng.integers(0, cfg.vocab_size, 300), max_new=40)
+    eng.step()
+    kinds, wall_ms, dev_ms, n_launch = step_profile(eng, 3)
+    assert set(kinds) == {"dense"} and not eng.waiting, kinds
+    eng.run_until_done()
+    print(f"[hymba serve] decode step (8 rows): wall {wall_ms:.2f} ms (mean of 3, profiler off); "
+          f"device busy {dev_ms:.2f} ms, {n_launch:.0f} kernel launches (torch.profiler, "
+          f"mean of 3)", flush=True)
+    # the full-width stack gives finite logits of the expected shape, and
+    # the engine's first token is the greedy token of the unpadded prefill
+    toks = torch.as_tensor(flat[0], dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        last, cache = prefill(cfg, params, {"tokens": toks[None]})
+    total = cfg.num_meta_tokens + len(flat[0])
+    assert tuple(last.shape) == (1, cfg.padded_vocab)
+    assert tuple(cache[0]["k"].shape) == (cfg.num_layers, 1, min(total, cfg.window),
+                                          cfg.num_kv_heads, cfg.head_dim)
+    assert tuple(cache[0]["h"].shape) == (cfg.num_layers, 1, cfg.d_model, cfg.ssm_state)
+    assert bool(torch.isfinite(last[:, :cfg.vocab_size].float()).all())
+    assert bool(torch.isfinite(cache[0]["h"]).all())
+    assert int(last[0].float().argmax()) == reqs[0].out_tokens[0], (
+        int(last[0].float().argmax()), reqs[0].out_tokens[0])
+    del eng, params, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1284,6 +1611,7 @@ def main() -> int:
     from repro_torch.kernels import decode_attention as ka
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import rwkv6_scan as kw
+    from repro_torch.kernels import ssm_scan as ks
     from repro_torch.kernels import topk_retrieval as tk
     from repro_torch.kernels._build import build_all
     from repro_torch.models import init_params
@@ -1301,34 +1629,47 @@ def main() -> int:
         print(f"[build] {lib.source.relative_to(ROOT)} -> {lib.path.name} in "
               f"{lib.build_s:.2f}s; ptxas: {regs}", flush=True)
 
-    rows = timed("paged attention kernels", phase_kernels, ka)
-    dense_rows = timed("dense attention kernels", phase_dense_kernels, ka, kf)
-    wkv_rows = timed("rwkv6 wkv kernel", phase_wkv_kernel, kw)
+    def no_scan(name, fn, *args):
+        """A phase of an earlier slice: it must launch no selective scan."""
+        ks.reset_launch_counts()
+        out = timed(name, fn, *args)
+        assert ks.ssm_scan.launches == 0, (name, ks.ssm_scan.launches)
+        return out
+
+    rows = no_scan("paged attention kernels", phase_kernels, ka)
+    dense_rows = no_scan("dense attention kernels", phase_dense_kernels, ka, kf)
+    wkv_rows = no_scan("rwkv6 wkv kernel", phase_wkv_kernel, kw)
+    ssm_rows = timed("ssm scan kernel", phase_ssm_kernel, ks)
+    swa_rows = timed("windowed flash kernel", phase_swa_kernels, kf)
     # the queries are drawn as benchmarks/retrieval_knob.py draws them
-    corpus, queries = timed("synthetic_corpus on the host", lambda: (
+    corpus, queries = no_scan("synthetic_corpus on the host", lambda: (
         synthetic_corpus(N_DOCS, DIM, seed=0), synthetic_corpus(N_QUERIES, DIM, seed=7)))
     corpus_gpu, queries_gpu = torch.from_numpy(corpus).cuda(), torch.from_numpy(queries).cuda()
-    topk_rows = timed("top-k kernel", phase_topk, tk, corpus_gpu, queries_gpu)
+    topk_rows = no_scan("top-k kernel", phase_topk, tk, corpus_gpu, queries_gpu)
     del corpus_gpu
     torch.cuda.empty_cache()
-    timed("engine parity", phase_parity)
-    timed("pipeline parity", phase_pipeline_parity)
-    timed("dense parity", phase_dense_parity, ka, kf, kw)
-    timed("rwkv parity", phase_rwkv_parity, kw)
+    no_scan("engine parity", phase_parity)
+    no_scan("pipeline parity", phase_pipeline_parity)
+    no_scan("dense parity", phase_dense_parity, ka, kf, kw)
+    no_scan("rwkv parity", phase_rwkv_parity, kw)
+    timed("hymba parity", phase_hymba_parity, ka, kf, ks)
 
     cfg = get_arch("qwen2.5-3b").replace(dtype="bfloat16")
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    serve_launches, prompts, paged_tokens = timed("serve", phase_serve, ka, kf, tk, cfg,
-                                                  params)
+    serve_launches, prompts, paged_tokens = no_scan("serve", phase_serve, ka, kf, tk, cfg,
+                                                    params)
     launches = {"serve": serve_launches}
-    launches["dense serve"] = timed("dense serve", phase_dense_serve, ka, kf, tk, cfg, params,
-                                    prompts, paged_tokens)
-    launches["rag"] = timed("rag", phase_rag, ka, kf, tk, cfg, params, corpus, queries_gpu)
-    launches["pipelines"] = timed("pipelines", phase_pipelines, ka, kf, tk, cfg, params)
+    launches["dense serve"] = no_scan("dense serve", phase_dense_serve, ka, kf, tk, cfg, params,
+                                      prompts, paged_tokens)
+    launches["rag"] = no_scan("rag", phase_rag, ka, kf, tk, cfg, params, corpus, queries_gpu)
+    launches["pipelines"] = no_scan("pipelines", phase_pipelines, ka, kf, tk, cfg, params)
     del params                       # room for rwkv6-7b's ~15 GB of bf16 weights
     gc.collect()                     # engines hold reference cycles
     torch.cuda.empty_cache()
-    launches["rwkv serve"] = timed("rwkv serve", phase_rwkv_serve, ka, kf, tk, prompts)
+    launches["rwkv serve"] = no_scan("rwkv serve", phase_rwkv_serve, ka, kf, tk, prompts)
+    gc.collect()                     # rwkv6-7b's weights go before hymba-1.5b's
+    torch.cuda.empty_cache()
+    launches["hymba serve"] = timed("hymba serve", phase_hymba_serve, ka, kf, tk, prompts)
 
     kernels = []
     for name in ("paged_chunk_attention", "paged_decode_attention"):
@@ -1393,6 +1734,34 @@ def main() -> int:
                     for key2 in ("ms", "device_ms", "plain_ms", "bound_ms")},
         "launches_by_phase": {ph: n["rwkv6_chunked"] for ph, n in launches.items()},
     })
+    # the hymba serve phase's shapes in bf16: prefill at S=1664 (128 meta +
+    # the longest prompt, 1536 tokens), and a decode step at B=8
+    r = ssm_rows[("bfloat16", "prefill", 1664)]
+    kernels.append({
+        "name": "ssm_scan", "route": "cuda", "source": SOURCES["ssm_scan"],
+        "replaces": REPLACES["ssm_scan"], "launches": launches["hymba serve"]["ssm_scan"],
+        "max_abs_err": r["errs"]["plain"], "ms": r["ms"], "device_ms": r["device_ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes the selective scan",
+        "bound_parts_ms": {"bytes": r["bytes"] / HBM_BYTES_S * 1e3, "flops": r["flop_ms"],
+                           "exponentials": r["exp_ms"]},
+        "max_abs_err_by_case": {f"{d}/{c}/S={S}": x["errs"] for (d, c, S), x in ssm_rows.items()},
+        "decode": {key2: ssm_rows[("bfloat16", "decode", 1)][key2]
+                   for key2 in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
+        "float32": {key2: ssm_rows[("float32", "prefill", 1664)][key2]
+                    for key2 in ("ms", "device_ms", "plain_ms", "bound_ms")},
+        "launches_by_phase": {ph: n["ssm_scan"] for ph, n in launches.items()},
+    })
+    # the flash kernel's windowed case (hymba serve: S up to 1664, window 1024)
+    flash = next(k for k in kernels if k["name"] == "flash_attention")
+    flash["window"] = {
+        "max_abs_err_by_case": {f"{d}/S={S}/window={w}": x["errs"]
+                                for (d, S, w), x in swa_rows.items()},
+        **{d: {key2: swa_rows[(d, *SWA_CASES[0])][key2]
+               for key2 in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+           for d in ("float32", "bfloat16")},
+    }
     print(json.dumps({"kernels": kernels}))
     print(f"[done] {time.perf_counter() - t_start:.1f}s in all", flush=True)
     print(card)

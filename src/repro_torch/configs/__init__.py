@@ -1,6 +1,6 @@
 """Config registry of the port: the three archs the paged serving path takes,
-and rwkv6-7b, which the dense backend serves."""
-from repro_torch.configs import phi3_medium_14b, qwen2_5_3b, rwkv6_7b, smollm_135m
+and rwkv6-7b and hymba-1.5b, which the dense backend serves."""
+from repro_torch.configs import hymba_1_5b, phi3_medium_14b, qwen2_5_3b, rwkv6_7b, smollm_135m
 from repro_torch.configs.base import ModelConfig, smoke_variant
 
 ARCHS = {
@@ -8,6 +8,7 @@ ARCHS = {
     "qwen2.5-3b": qwen2_5_3b.CONFIG,
     "phi3-medium-14b": phi3_medium_14b.CONFIG,
     "rwkv6-7b": rwkv6_7b.CONFIG,
+    "hymba-1.5b": hymba_1_5b.CONFIG,
 }
 
 

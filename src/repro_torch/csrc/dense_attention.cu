@@ -6,7 +6,10 @@
 //   Replaces the Pallas kernel repro/kernels/flash_attention.py::
 //   flash_attention (body _flash_kernel). q (B, S, H, hd) attends k/v
 //   (B, S, KVH, hd), causal or not, any S >= 1; scores, softmax and the
-//   value product in f32, output in q's dtype.
+//   value product in f32, output in q's dtype. A sliding window (window >
+//   0, hymba's SWA layers) also masks keys at or before row - window, the
+//   mask of repro/models/attention.py::blockwise_attention(ATTN_SWA); the
+//   Pallas kernel has no window.
 //   Bound on the H100: operations. A 64-query tile does 4*hd flops per key
 //   per query against ~hd*4 bytes of K/V per key: hundreds of flops per byte,
 //   well above the ~20 flops per byte at which f32 CUDA-core work stops being
@@ -19,7 +22,8 @@
 //   the row max and sum are reduced over the 16 lanes of a half-warp with
 //   shuffles, and the probabilities reach the value product by shuffles too,
 //   so scores never touch shared memory. Causal blocks stop at the diagonal
-//   tile (the Pallas grid's block skip), and the heaviest query tiles are
+//   tile (the Pallas grid's block skip), windowed blocks start at the first
+//   tile that holds a key of the window, and the heaviest query tiles are
 //   scheduled first. Rows and keys past S are masked, so S need not be a
 //   multiple of the tile. Later work: tensor cores cannot keep the f32
 //   contract; wider register tiles and cp.async/TMA staging can.
@@ -107,7 +111,8 @@ __device__ __forceinline__ void load_tile(float* dst, int dst_stride, const T* _
 template <typename T, int HD>
 __global__ void __launch_bounds__(kFThreads, 2)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ out, int S, int H, int KVH, int causal, float scale) {
+             T* __restrict__ out, int S, int H, int KVH, int causal, int window,
+             float scale) {
   constexpr int QS = HD + 4;      // padded row stride of the Q and K tiles
   constexpr int NG = HD / 64;     // 4-column groups of the output a thread owns
   extern __shared__ __align__(16) float smem[];
@@ -136,9 +141,12 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   }
 
   const int n_kv = (S + kTile - 1) / kTile;
-  // causal: K/V tiles past the diagonal lie wholly in the future
+  // causal: K/V tiles past the diagonal lie wholly in the future; window:
+  // tiles before the first row's first key (q0 - window + 1) lie wholly
+  // before every row's window
   const int kt_end = causal ? min(qt + 1, n_kv) : n_kv;
-  for (int kt = 0; kt < kt_end; ++kt) {
+  const int kt_begin = window > 0 ? max(q0 - window + 1, 0) / kTile : 0;
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous tile's K/V are no longer read (and Q is in)
     load_tile<T, HD>(Ks, QS, kb, k0, S, KVH, kvh);
@@ -180,7 +188,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx + 16 * j;
-        const bool ok = col < S && (!causal || col <= row);
+        const bool ok =
+            col < S && (!causal || col <= row) && (window <= 0 || col > row - window);
         s[i][j] = ok ? s[i][j] * scale : -INFINITY;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -250,7 +259,7 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
 
 template <typename T, int HD>
 cudaError_t launch_flash_hd(const void* q, const void* k, const void* v, void* out, int B,
-                            int S, int H, int KVH, int causal, float scale,
+                            int S, int H, int KVH, int causal, int window, float scale,
                             cudaStream_t stream) {
   const size_t smem = flash_smem_floats(HD) * sizeof(float);
   auto kernel = flash_kernel<T, HD>;
@@ -259,17 +268,18 @@ cudaError_t launch_flash_hd(const void* q, const void* k, const void* v, void* o
   const int nq = (S + kTile - 1) / kTile;
   kernel<<<dim3(nq, H, B), kFThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), S, H, KVH, causal, scale);
+      static_cast<T*>(out), S, H, KVH, causal, window, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_flash(const void* q, const void* k, const void* v, void* out, int B, int S,
-                         int H, int KVH, int hd, int causal, float scale,
+                         int H, int KVH, int hd, int causal, int window, float scale,
                          cudaStream_t stream) {
-  if (hd == 64) return launch_flash_hd<T, 64>(q, k, v, out, B, S, H, KVH, causal, scale, stream);
+  if (hd == 64)
+    return launch_flash_hd<T, 64>(q, k, v, out, B, S, H, KVH, causal, window, scale, stream);
   if (hd == 128)
-    return launch_flash_hd<T, 128>(q, k, v, out, B, S, H, KVH, causal, scale, stream);
+    return launch_flash_hd<T, 128>(q, k, v, out, B, S, H, KVH, causal, window, scale, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -527,9 +537,11 @@ int da_decode_smem_bytes(int G, int hd) {
 }
 
 // Each launcher returns the cudaError_t of its launches (0 on success).
+// window <= 0: no sliding window.
 int da_flash_attention(int dtype, const void* q, const void* k, const void* v, void* out, int B,
-                       int S, int H, int KVH, int hd, int causal, float scale, void* stream) {
-  DA_DISPATCH(launch_flash, q, k, v, out, B, S, H, KVH, hd, causal, scale,
+                       int S, int H, int KVH, int hd, int causal, int window, float scale,
+                       void* stream) {
+  DA_DISPATCH(launch_flash, q, k, v, out, B, S, H, KVH, hd, causal, window, scale,
               static_cast<cudaStream_t>(stream))
 }
 

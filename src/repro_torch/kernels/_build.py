@@ -45,11 +45,14 @@ ENTRY_POINTS = {
     "dense_attention": {
         "da_flash_smem_bytes": ([_I], _I),
         "da_decode_smem_bytes": ([_I, _I], _I),
-        "da_flash_attention": ([_I] + [_P] * 4 + [_I] * 6 + [_F, _P], _I),
+        "da_flash_attention": ([_I] + [_P] * 4 + [_I] * 7 + [_F, _P], _I),
         "da_decode_attention": ([_I] + [_P] * 7 + [_I] * 6 + [_F, _P], _I),
     },
     "rwkv6_scan": {
         "wkv_rwkv6": ([_I] + [_P] * 8 + [_I] * 4 + [_P], _I),
+    },
+    "ssm_scan": {
+        "ssm_selective_scan": ([_I] + [_P] * 8 + [_I] * 4 + [_P], _I),
     },
 }
 SOURCES = {name: CSRC / f"{name}.cu" for name in ENTRY_POINTS}

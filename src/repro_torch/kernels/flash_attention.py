@@ -3,7 +3,9 @@ and its plain PyTorch version.
 
 ``flash_attention`` ports the Pallas kernel of
 ``repro.kernels.flash_attention``: GQA attention of q (B, S, H, hd) over
-k/v (B, S, KVH, hd), causal or not. On CUDA tensors the wrapper launches the
+k/v (B, S, KVH, hd), causal or not, with an optional sliding window (the
+mask of ``repro.models.attention.blockwise_attention(attn_type=ATTN_SWA)``;
+the Pallas kernel has none). On CUDA tensors the wrapper launches the
 hand-written kernel in ``csrc/dense_attention.cu`` (built on first use, see
 ``kernels._build``) on the current stream and counts the launch in its
 ``launches`` attribute; on CPU tensors it runs ``ref_flash_attention``.
@@ -13,8 +15,8 @@ head_dim 64 or 128 and any S >= 1, and keeps f32 scores, probabilities and
 sums, as the Pallas kernel does.
 
 ``ref_flash_attention`` is the contract of ``repro.kernels.ref.
-flash_attention_ref``: scores in float32, a -1e30 causal mask, and the
-probabilities cast to the value dtype before the value product.
+flash_attention_ref``: scores in float32, a -1e30 causal (and window) mask,
+and the probabilities cast to the value dtype before the value product.
 """
 from __future__ import annotations
 
@@ -29,9 +31,11 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)   # the head_dim instantiations in csrc/dense_attention.cu
 
 
-def ref_flash_attention(q, k, v, causal: bool = True, scale: Optional[float] = None):
+def ref_flash_attention(q, k, v, causal: bool = True, scale: Optional[float] = None,
+                        window: int = 0):
     """Plain version of ``flash_attention``. q: (B, S, H, hd); k/v:
-    (B, S, KVH, hd). Returns (B, S, H, hd) in q's dtype."""
+    (B, S, KVH, hd); ``window`` > 0 masks keys at or before query - window.
+    Returns (B, S, H, hd) in q's dtype."""
     B, S, H, hd = q.shape
     KVH = k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
@@ -40,19 +44,24 @@ def ref_flash_attention(q, k, v, causal: bool = True, scale: Optional[float] = N
     if causal:
         future = torch.ones((S, S), dtype=torch.bool, device=q.device).triu(1)
         s = s.masked_fill(future, NEG_INF)
+    if window > 0:
+        past = torch.ones((S, S), dtype=torch.bool, device=q.device).tril(-window)
+        s = s.masked_fill(past, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype).float(), v.float())
     return o.reshape(B, S, H, hd).to(q.dtype)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, scale: Optional[float] = None):
+def flash_attention(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
+                    window: int = 0):
     """GQA attention of every query over the keys of its row (causal: those
-    at or before it). q: (B, S, H, hd); k/v: (B, S, KVH, hd), all float32 or
-    all bfloat16. Returns (B, S, H, hd) in q's dtype. CUDA tensors launch the
-    kernel; CPU tensors run the plain version."""
+    at or before it; ``window`` > 0: only those after query - window). q:
+    (B, S, H, hd); k/v: (B, S, KVH, hd), all float32 or all bfloat16.
+    Returns (B, S, H, hd) in q's dtype. CUDA tensors launch the kernel; CPU
+    tensors run the plain version."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
-        return ref_flash_attention(q, k, v, causal, scale)
+        return ref_flash_attention(q, k, v, causal, scale, window)
     name = "flash_attention"
     _check(name, q.is_cuda, f"unsupported device {q.device}")
     _check(name, q.dim() == 4 and k.dim() == 4, "q, k and v must be 4-D")
@@ -81,7 +90,7 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: Optional[float] = No
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.da_flash_attention(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, S, H, KVH, hd, int(causal), float(scale), stream,
+            B, S, H, KVH, hd, int(causal), max(int(window), 0), float(scale), stream,
         )
     _raise_on_error(name, err)
     flash_attention.launches += 1

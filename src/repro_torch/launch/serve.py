@@ -5,12 +5,13 @@ mixed RAG pipelines on it.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --pipelines --arch smollm-135m --smoke --device cpu
 
 Weights are random, drawn by ``init_params`` from ``--seed``. Runs on
 ``cuda`` unless ``--device cpu`` is given (and raises without a GPU). The
 reference's simulated-cluster mode (``serve_sim``) is not ported yet. An
-arch outside the paged contract (rwkv6-7b) is served on the dense backend.
+arch outside the paged contract (rwkv6-7b, hymba-1.5b) is served on the dense backend.
 """
 from __future__ import annotations
 
@@ -125,7 +126,8 @@ def serve_pipelines(arch: str = "smollm-135m", rate: float = 10.0,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen2.5-3b",
-                    choices=["smollm-135m", "qwen2.5-3b", "phi3-medium-14b", "rwkv6-7b"])
+                    choices=["smollm-135m", "qwen2.5-3b", "phi3-medium-14b", "rwkv6-7b",
+                             "hymba-1.5b"])
     ap.add_argument("--smoke", action="store_true",
                     help="serve the arch's 2-layer smoke variant")
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],

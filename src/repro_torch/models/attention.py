@@ -1,13 +1,13 @@
 """GQA attention, ported from ``repro.models.attention``: ``qkv_project``,
-and for the dense backend ``blockwise_attention`` (prefill, through the
-``flash_attention`` kernel), ``decode_attention`` (through the dense
-``decode_attention`` kernel) and ``cache_validity``. The paged path reads
-attention through ``kernels.decode_attention`` directly."""
+and for the dense backend ``blockwise_attention`` (prefill, full or
+sliding-window, through the ``flash_attention`` kernel), ``decode_attention``
+(through the dense ``decode_attention`` kernel) and ``cache_validity``. The
+paged path reads attention through ``kernels.decode_attention`` directly."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ATTN_FULL
+from repro_torch.configs.base import ATTN_FULL, ATTN_SWA
 from repro_torch.kernels.decode_attention import decode_attention as decode_kernel
 from repro_torch.kernels.flash_attention import flash_attention
 
@@ -29,34 +29,43 @@ def qkv_project(params, x, num_heads, num_kv_heads, head_dim):
     return q, k, v
 
 
-def blockwise_attention(q, k, v, *, attn_type: str = ATTN_FULL, causal: bool = True):
+def blockwise_attention(q, k, v, *, attn_type: str = ATTN_FULL, window: int = 0,
+                        causal: bool = True):
     """q: (B, S, H, hd); k/v: (B, S, KVH, hd) -> (B, S, H, hd). Full
-    attention, causal or not, over keys of the queries' own length (the
-    ``flash_attention`` kernel); windowed and chunked masks and cross
-    attention (S_kv != S) are not ported yet."""
-    if attn_type != ATTN_FULL or k.shape[1] != q.shape[1]:
+    attention, causal or not, or sliding-window attention (``ATTN_SWA``:
+    keys after query - ``window`` only; no window where it is 0), over keys
+    of the queries' own length (the ``flash_attention`` kernel); chunked
+    masks and cross attention (S_kv != S) are not ported yet."""
+    if attn_type not in (ATTN_FULL, ATTN_SWA) or k.shape[1] != q.shape[1]:
         raise NotImplementedError(
-            f"blockwise_attention ports full attention with S_kv == S; got "
-            f"attn_type={attn_type!r}, S={q.shape[1]}, S_kv={k.shape[1]}")
-    return flash_attention(q, k, v, causal=causal)
+            f"blockwise_attention ports full and sliding-window attention with S_kv == S; "
+            f"got attn_type={attn_type!r}, S={q.shape[1]}, S_kv={k.shape[1]}")
+    return flash_attention(q, k, v, causal=causal,
+                           window=window if attn_type == ATTN_SWA else 0)
 
 
 def decode_attention(q, k_cache, v_cache, lengths):
     """q: (B, 1, H, hd); k/v_cache: (B, Sc, KVH, hd); lengths: (B,) int32
     valid slots per row -> (B, 1, H, hd). The JAX function takes the (B, Sc)
-    mask of ``cache_validity``; on a full-attention linear cache that mask is
-    ``slot < pos + 1`` for ``pos <= Sc - 1``, so the port passes
-    ``lengths = pos + 1`` to the kernel."""
+    mask of ``cache_validity``; on a full-attention linear cache, and on an
+    SWA ring of Sc <= window slots, that mask is ``slot < min(pos + 1,
+    Sc)``, so the port passes ``lengths = min(pos + 1, Sc)`` to the
+    kernel."""
     return decode_kernel(q[:, 0].contiguous(), k_cache, v_cache, lengths)[:, None]
 
 
 def cache_validity(attn_type: str, cache_len: int, pos, chunk: int = 0):
     """Which cache slots a decode query at absolute position ``pos`` may
     attend: (B, Sc) bool for pos (B,), (1, Sc) for a 0-d pos. Full attention
-    only (a linear cache, filled so far); the ring caches of SWA and
-    chunked-local layers are not ported yet."""
-    if attn_type != ATTN_FULL:
+    (a linear cache, filled so far) and SWA (a ring, every slot valid once
+    wrapped); the chunked-local ring is not ported yet."""
+    if attn_type not in (ATTN_FULL, ATTN_SWA):
         raise NotImplementedError(
-            f"cache_validity ports the full-attention cache; got attn_type={attn_type!r}")
+            f"cache_validity ports the full-attention and SWA caches; got "
+            f"attn_type={attn_type!r}")
     slots = torch.arange(cache_len, device=pos.device)
-    return slots <= torch.clamp(pos.long().reshape(-1, 1), max=cache_len - 1)
+    p = pos.long().reshape(-1, 1)
+    m = slots <= torch.clamp(p, max=cache_len - 1)
+    if attn_type == ATTN_SWA:
+        m = m | (p + 1 >= cache_len)
+    return m

@@ -6,8 +6,9 @@ for the dense backend ``forward``, ``prefill``, ``decode_step`` and
 
 The paged step functions update the KV pools in place and return the
 logits; ``decode_step`` updates the dense cache in place and returns it
-with the logits. The dense functions take full-attention GQA stacks and
-RWKV-6 stacks (``dense_cache_supported``).
+with the logits. The dense functions take full-attention GQA stacks, RWKV-6
+stacks and Hymba's hybrid stacks with their meta-token prefix
+(``dense_cache_supported``).
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.configs.base import ATTN_FULL, MIXER_RWKV6, ModelConfig
+from repro_torch.configs.base import ATTN_FULL, MIXER_HYBRID, MIXER_RWKV6, ModelConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import dense_init, embed_tokens, unembed
 from repro_torch.params import torch_dtype
@@ -24,9 +25,10 @@ from repro_torch.params import torch_dtype
 def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> Dict[str, Any]:
     """Random weights with the JAX ``init_params`` tree, shapes and scales
     (embedding and lm_head N(0, 0.02), projections N(0, 1/d_in), zero QKV
-    biases, unit norms; RWKV-6 layers as ``rwkv6.init_rwkv6``), drawn from
-    ``generator`` on its own device and placed on ``device``. Dense GQA
-    and RWKV-6 stacks only."""
+    biases, unit norms; RWKV-6 layers as ``rwkv6.init_rwkv6``, hybrid
+    layers' SSM as ``ssm.init_ssm``, meta tokens N(0, 0.02)), drawn from
+    ``generator`` on its own device and placed on ``device``. Dense GQA,
+    RWKV-6 and hybrid stacks only."""
     dtype = torch_dtype(cfg)
     params: Dict[str, Any] = {
         "embed": {"table": dense_init(generator, (cfg.padded_vocab, cfg.d_model),
@@ -37,6 +39,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> Dict[st
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": dense_init(generator, (cfg.d_model, cfg.padded_vocab),
                                              dtype, device, scale=0.02)}
+    if cfg.num_meta_tokens:
+        params["meta_tokens"] = dense_init(generator, (cfg.num_meta_tokens, cfg.d_model),
+                                           dtype, device, scale=0.02)
     return params
 
 
@@ -50,40 +55,50 @@ def _pad_vocab_bias(cfg, logits):
 
 def _token_frontend(cfg) -> bool:
     """The frontends the port has: token embeddings, with rope positions in
-    the layers or (attention-free stacks) no positions at all. Patch and
-    meta-token prefixes, encoder frames and sinusoidal positions are not
-    ported yet."""
-    return not (cfg.num_patch_tokens or cfg.num_meta_tokens or cfg.is_encoder_decoder) \
+    the layers or (attention-free stacks) no positions at all, optionally
+    behind a prefix of learned meta tokens (hymba). Patch prefixes, encoder
+    frames and sinusoidal positions are not ported yet."""
+    return not (cfg.num_patch_tokens or cfg.is_encoder_decoder) \
         and (cfg.use_rope or cfg.attention_free)
 
 
 def _embed_inputs(cfg, params, batch):
-    """(B, S, D) token embeddings; an attention-free stack adds no
-    positions, as the JAX function."""
+    """Returns (x (B, S_total, D), n_prefix): the token embeddings behind
+    the ``num_meta_tokens`` meta tokens where the config has them (n_prefix
+    of them); an attention-free stack adds no positions, as the JAX
+    function."""
     if not _token_frontend(cfg):
         raise NotImplementedError(f"{cfg.name}: only the token frontend is ported")
-    return embed_tokens(params["embed"], batch["tokens"])
+    x = embed_tokens(params["embed"], batch["tokens"])
+    if not cfg.num_meta_tokens:
+        return x, 0
+    meta = params["meta_tokens"].to(x.dtype).expand(x.shape[0], -1, -1)
+    return torch.cat([meta, x], dim=1), cfg.num_meta_tokens
 
 
 def dense_cache_supported(cfg: ModelConfig) -> bool:
     """Whether the port's dense backend serves this architecture: a
-    period-1 stack of full-attention GQA layers or of RWKV-6 layers, with
-    the token frontend."""
+    period-1 stack of full-attention GQA layers, of RWKV-6 layers or of
+    hybrid layers, with the token frontend (and meta tokens)."""
     return tfm.dense_stack_supported(cfg) and _token_frontend(cfg)
 
 
 def forward(cfg, params, batch, want_cache: bool = False, logits_mode: str = "all"):
     """batch {"tokens": (B, S) int} -> (logits (B, S, V), aux) or, with
     ``want_cache``, (logits, aux, caches): the serve cache of the whole
-    sequence, a tuple of one entry ({k, v} of (G, B, S, KVH, hd), or an
-    RWKV-6 stack's state and token shifts, see ``transformer.run_stack_seq``).
-    ``logits_mode="last"`` unembeds the last position only. Pad-vocab
-    logits are masked to -1e30."""
-    x = _embed_inputs(cfg, params, batch)
+    sequence, meta tokens included (a tuple of one entry: {k, v} of (G, B,
+    S, KVH, hd), an RWKV-6 stack's state and token shifts, or a hybrid
+    stack's K/V ring and SSM state, see ``transformer.run_stack_seq``).
+    The logits are those of the text positions (the meta prefix is
+    stripped); ``logits_mode="last"`` unembeds the last position only.
+    Pad-vocab logits are masked to -1e30."""
+    x, n_prefix = _embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
     x, caches, aux = tfm.run_stack_seq(cfg, params["blocks"], x, positions)
     x = tfm.apply_norm(cfg, params["final_norm"], x)
+    if n_prefix:
+        x = x[:, n_prefix:]
     if logits_mode == "last":
         x = x[:, -1:]
     logits = unembed(params["embed"], params.get("lm_head"), x, cfg.tie_embeddings)
@@ -102,22 +117,29 @@ def prefill(cfg, params, batch):
 
 def decode_step(cfg, params, caches, tokens, pos):
     """One dense decode step. tokens: (B, 1) int; pos: (B,) int32 absolute
-    position of each row's new token (<= Sc - 1; unused by RWKV-6). Writes
-    the new K/V (or state) into ``caches`` in place; returns (logits (B, V),
-    caches). Like the JAX function, it applies no pad-vocab bias."""
+    position of each row's new token, meta tokens included (<= Sc - 1 on a
+    full-attention cache; unused by RWKV-6). Writes the new K/V (or state)
+    into ``caches`` in place; returns (logits (B, V), caches). Pad-vocab
+    logits are masked to -1e30, as ``forward`` masks them: hymba's vocab
+    (32001) is the first the dense backend serves that is not a multiple of
+    128. The JAX function omits the mask (ROADMAP §3); for every other arch
+    served the mask is a no-op, so the port still agrees with it there."""
     x = embed_tokens(params["embed"], tokens)
     x, caches = tfm.run_stack_decode(cfg, params["blocks"], x, caches, pos)
     x = tfm.apply_norm(cfg, params["final_norm"], x)
     logits = unembed(params["embed"], params.get("lm_head"), x, cfg.tie_embeddings)
-    return logits[:, 0], caches
+    return _pad_vocab_bias(cfg, logits)[:, 0], caches
 
 
 def init_cache(cfg: ModelConfig, B: int, S: int, device):
-    """Zero-initialised dense serve cache for B rows of S tokens on
-    ``device``: a tuple of one {k, v} entry of (G, B, S, KVH, hd) in the
-    config's dtype (full attention: Sc = S), or for RWKV-6 {state (G, B, H,
-    hd, hd) float32, x_prev_att, x_prev_ffn (G, B, D) in the config's dtype},
-    whatever S. The int8 cache (``kv_cache_quant``) is not ported yet."""
+    """Zero-initialised dense serve cache for B rows of S tokens (meta
+    tokens included) on ``device``: a tuple of one {k, v} entry of (G, B,
+    Sc, KVH, hd) in the config's dtype (full attention: Sc = S; hybrid: a
+    ring of Sc = min(S, window), plus the SSM's conv (G, B, K-1, D) in the
+    config's dtype and h (G, B, D, N) float32), or for RWKV-6 {state (G, B,
+    H, hd, hd) float32, x_prev_att, x_prev_ffn (G, B, D) in the config's
+    dtype}, whatever S. The int8 cache (``kv_cache_quant``) is not ported
+    yet."""
     tfm._check_dense_stack(cfg)
     if cfg.kv_cache_quant:
         raise NotImplementedError("the int8 dense cache is not ported yet")
@@ -129,9 +151,16 @@ def init_cache(cfg: ModelConfig, B: int, S: int, device):
         return ({"state": torch.zeros((G, B, H, hd, hd), dtype=torch.float32, device=device),
                  "x_prev_att": torch.zeros((G, B, cfg.d_model), dtype=dtype, device=device),
                  "x_prev_ffn": torch.zeros((G, B, cfg.d_model), dtype=dtype, device=device)},)
-    shape = (G, B, S, cfg.num_kv_heads, cfg.head_dim)
-    return ({"k": torch.zeros(shape, dtype=dtype, device=device),
-             "v": torch.zeros(shape, dtype=dtype, device=device)},)
+    Sc = tfm.cache_len_for(cfg, tfm.layer_kind(cfg, 0), S)
+    shape = (G, B, Sc, cfg.num_kv_heads, cfg.head_dim)
+    entry = {"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if cfg.attn_type == MIXER_HYBRID:
+        entry["conv"] = torch.zeros((G, B, cfg.ssm_conv - 1, cfg.d_model), dtype=dtype,
+                                    device=device)
+        entry["h"] = torch.zeros((G, B, cfg.d_model, cfg.ssm_state), dtype=torch.float32,
+                                 device=device)
+    return (entry,)
 
 
 def prefill_packed(cfg, params, k_pool, v_pool, tables, tokens, row_of, slots,
@@ -155,8 +184,9 @@ def decode_step_paged(cfg, params, k_pool, v_pool, tables, tokens, pos, *,
                       block_size, null_block):
     """Paged decode: one new token per row attends its block chain in place.
     tokens: (B, 1); pos: (B,) int32. Returns logits (B, V). Like the JAX
-    function, it applies no pad-vocab bias (the archs the paged path takes
-    have vocabularies that are multiples of 128)."""
+    function, it applies no pad-vocab bias, unlike the dense ``decode_step``:
+    the archs the paged path takes have vocabularies that are multiples of
+    128, so there is nothing to mask, and parity with JAX holds as is."""
     x = embed_tokens(params["embed"], tokens)
     x = tfm.run_stack_decode_paged(
         cfg, params["blocks"], x, k_pool, v_pool, tables, pos,

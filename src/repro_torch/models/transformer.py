@@ -1,7 +1,8 @@
 """Layer stacks of the serving paths, ported from
 ``repro.models.transformer``: the paged stacks (ragged fused step, paged
 decode) and the dense backend's stacks (whole-prompt prefill, contiguous
-per-slot decode cache) of full-attention GQA layers and of RWKV-6 layers.
+per-slot decode cache) of full-attention GQA layers, of RWKV-6 layers and of
+Hymba's hybrid layers (sliding-window attention and an SSM side by side).
 
 Parameters of a period-1 stack are stacked over the L layer groups, as
 ``transformer._stack_layers`` does in the JAX package: every leaf of
@@ -11,7 +12,10 @@ Python and hands each layer the ``g``-th slice of every leaf.
 
 The KV pools are (G, n_blocks, bs, KVH, hd) tensors, the dense caches
 (G, B, Sc, KVH, hd); an RWKV-6 stack's cache is its recurrent state (G, B,
-H, hd, hd) float32 and two token-shift vectors (G, B, D). Each decoding
+H, hd, hd) float32 and two token-shift vectors (G, B, D); a hybrid stack's
+is a ring of Sc = min(S, window) K/V slots (position p at slot p % Sc), the
+SSM's convolution tail (G, B, K-1, D) and its state (G, B, D, N) float32.
+Each decoding
 layer writes its new K/V entries (or its new state) into its slice
 ``pool[g]`` or ``cache[g]`` IN PLACE; JAX instead returns new pools and
 caches from the scan. What is the same for every layer
@@ -26,7 +30,10 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import (
+    ATTN_CHUNKED_LOCAL,
     ATTN_FULL,
+    ATTN_SWA,
+    MIXER_HYBRID,
     MIXER_RWKV6,
     ModelConfig,
 )
@@ -36,6 +43,7 @@ from repro_torch.kernels.decode_attention import (
 )
 from repro_torch.models import attention as attn
 from repro_torch.models import rwkv6 as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     apply_mlp,
     apply_rope_tables,
@@ -63,6 +71,19 @@ def layer_kind(cfg: ModelConfig, layer: int) -> Dict[str, Any]:
     }
 
 
+def cache_len_for(cfg: ModelConfig, kind: Dict[str, Any], S: int) -> int:
+    """K/V slots a layer's serve cache holds for a context of S tokens: a
+    ring of ``window`` slots for SWA and hybrid layers (JAX sizes a hybrid
+    layer's cache S, linear: ROADMAP §3), ``chunk_size`` for chunked-local
+    ones, S otherwise."""
+    at = kind["attn_type"]
+    if at in (ATTN_SWA, MIXER_HYBRID):
+        return min(S, cfg.window)
+    if at == ATTN_CHUNKED_LOCAL:
+        return min(S, cfg.chunk_size)
+    return S
+
+
 def _uses_layernorm(cfg: ModelConfig) -> bool:
     return cfg.attn_type == MIXER_RWKV6 or cfg.is_encoder_decoder
 
@@ -83,34 +104,37 @@ def apply_norm(cfg, p, x):
 
 
 # ---------------------------------------------------------------------------
-# init (dense GQA and RWKV-6 stacks)
+# init (dense GQA, RWKV-6 and hybrid stacks)
 # ---------------------------------------------------------------------------
 
 
 def dense_stack_supported(cfg: ModelConfig) -> bool:
     """Whether the port has this layer stack: period 1, no MoE, no cross
-    attention, and either full-attention GQA layers with SwiGLU or RWKV-6
-    layers. Hybrid, MLA, SWA and chunked-local stacks are not ported yet."""
+    attention, and either full-attention GQA layers with SwiGLU, RWKV-6
+    layers, or hybrid layers (SWA attention beside an SSM) with SwiGLU.
+    MLA, SWA-only and chunked-local stacks are not ported yet."""
     kind = layer_kind(cfg, 0)
     if period(cfg) != 1 or kind["moe"] or kind["cross"]:
         return False
     if kind["attn_type"] == MIXER_RWKV6:
         return True
-    return kind["attn_type"] == ATTN_FULL and cfg.act == "silu"
+    return kind["attn_type"] in (ATTN_FULL, MIXER_HYBRID) and cfg.act == "silu"
 
 
 def _check_dense_stack(cfg: ModelConfig) -> None:
     if not dense_stack_supported(cfg):
         raise NotImplementedError(
             "the port covers period-1 stacks of full-attention dense GQA layers "
-            "with SwiGLU or of RWKV-6 layers only")
+            "or hybrid layers with SwiGLU, or of RWKV-6 layers, only")
 
 
 def init_layer(generator, cfg: ModelConfig, dtype, device, lead=()):
     """One layer's params (``lead`` = stacked group axis), with the init
     scales of the JAX package. GQA: 1/sqrt(d_in) for every projection,
     zero QKV biases, unit norm scales. RWKV-6: layer norms with bias, time
-    and channel mixing (``rwkv6.init_rwkv6``/``init_rwkv6_ffn``)."""
+    and channel mixing (``rwkv6.init_rwkv6``/``init_rwkv6_ffn``). Hybrid:
+    the GQA layer plus the SSM (``ssm.init_ssm``) and unit gate scales of
+    the two branches' norms."""
     _check_dense_stack(cfg)
     if cfg.attn_type == MIXER_RWKV6:
         return {"norm1": init_norm(cfg, dtype, device, lead),
@@ -125,8 +149,14 @@ def init_layer(generator, cfg: ModelConfig, dtype, device, lead=()):
         for name, n in (("bq", q_dim), ("bk", kv_dim), ("bv", kv_dim)):
             a[name] = torch.zeros((*lead, n), dtype=dtype, device=device)
     mlp = {"w_gate": mk(D, F), "w_up": mk(D, F), "w_down": mk(F, D)}
-    return {"norm1": init_norm(cfg, dtype, device, lead), "attn": a,
-            "norm2": init_norm(cfg, dtype, device, lead), "mlp": mlp}
+    p = {"norm1": init_norm(cfg, dtype, device, lead), "attn": a}
+    if cfg.attn_type == MIXER_HYBRID:
+        p["ssm"] = ssm_mod.init_ssm(generator, cfg, dtype, device, lead)
+        p["gate_attn"] = torch.ones((*lead, D), dtype=dtype, device=device)
+        p["gate_ssm"] = torch.ones((*lead, D), dtype=dtype, device=device)
+    p["norm2"] = init_norm(cfg, dtype, device, lead)
+    p["mlp"] = mlp
+    return p
 
 
 def _stack_layers(generator, cfg: ModelConfig, dtype, device):
@@ -147,23 +177,44 @@ def layer_slice(tree, g: int):
 # ---------------------------------------------------------------------------
 
 
-def _finish_layer(cfg, lp, x, a_out):
-    """Output projection, residual, norm2 and the MLP."""
+def _out_proj(cfg, lp, x, a_out):
+    """The attention output of x's (B, S) tokens through ``wo``: (B, S, D)
+    (the paged layers hand it (T, H, hd) for x (1, T, D))."""
     B, S = x.shape[:2]
-    x = x + a_out.reshape(B, S, cfg.num_heads * cfg.head_dim) @ lp["attn"]["wo"]
+    return a_out.reshape(B, S, cfg.num_heads * cfg.head_dim) @ lp["attn"]["wo"]
+
+
+def _mlp_residual(cfg, lp, x):
+    """norm2, the MLP and its residual."""
     xn = apply_norm(cfg, lp["norm2"], x)
     return x + apply_mlp(lp["mlp"], xn, cfg.act)
 
 
-def _attn_inputs(cfg, lp, x, rope):
-    """norm1 -> QKV (with bias) -> rope; returns q, k, v (B, S, heads, hd)."""
-    xn = apply_norm(cfg, lp["norm1"], x)
+def _finish_layer(cfg, lp, x, a_out):
+    """Output projection, residual, norm2 and the MLP."""
+    return _mlp_residual(cfg, lp, x + _out_proj(cfg, lp, x, a_out))
+
+
+def _qkv(cfg, lp, xn, rope):
+    """QKV (with bias) of the normed input -> rope; returns q, k, v (B, S,
+    heads, hd)."""
     q, k, v = attn.qkv_project(lp["attn"], xn, cfg.num_heads,
                                cfg.num_kv_heads, cfg.head_dim)
     if rope is not None:
         q = apply_rope_tables(q, *rope)
         k = apply_rope_tables(k, *rope)
     return q, k, v
+
+
+def _attn_inputs(cfg, lp, x, rope):
+    """norm1 -> QKV (with bias) -> rope; returns q, k, v (B, S, heads, hd)."""
+    return _qkv(cfg, lp, apply_norm(cfg, lp["norm1"], x), rope)
+
+
+def _hybrid_mix(cfg, lp, x, a_out, s_out):
+    """The residual of Hymba's two branches, each normed by its gate."""
+    return x + 0.5 * (rms_norm(a_out, lp["gate_attn"], cfg.norm_eps)
+                      + rms_norm(s_out, lp["gate_ssm"], cfg.norm_eps))
 
 
 def _rope(cfg, positions):
@@ -268,12 +319,38 @@ def _apply_rwkv_layer(cfg, lp, x, x_prev_att=None, x_prev_ffn=None, state=None,
     return x + ffn_out, {"state": state, "x_prev_att": xprev_a, "x_prev_ffn": xprev_f}
 
 
+def _ring(t, Sc):
+    """The last Sc entries of t (B, S, ...) with position p at slot p % Sc:
+    JAX keeps them in order (``t[:, S - Sc:]``), a ring cache needs them
+    rolled by S % Sc."""
+    S = t.shape[1]
+    return torch.roll(t[:, S - Sc:], S % Sc, dims=1)
+
+
+def _apply_hybrid_layer_seq(cfg, lp, x, rope):
+    """A hybrid layer over a sequence: norm1 -> sliding-window attention and
+    the SSM side by side (both from the zero state) -> their gated mix ->
+    residual -> norm2 -> MLP. Returns (x, {k, v: the (B, min(S, window),
+    KVH, hd) ring, conv: (B, K-1, D), h: (B, D, N) float32})."""
+    xn = apply_norm(cfg, lp["norm1"], x)
+    q, k, v = _qkv(cfg, lp, xn, rope)
+    a_out = _out_proj(cfg, lp, x, attn.blockwise_attention(q, k, v, attn_type=ATTN_SWA,
+                                                           window=cfg.window))
+    s_out, (conv_tail, h) = ssm_mod.apply_ssm(lp["ssm"], xn, cfg)
+    x = _mlp_residual(cfg, lp, _hybrid_mix(cfg, lp, x, a_out, s_out))
+    Sc = cache_len_for(cfg, {"attn_type": MIXER_HYBRID}, x.shape[1])
+    return x, {"k": _ring(k, Sc), "v": _ring(v, Sc), "conv": conv_tail, "h": h}
+
+
 def apply_layer_seq(cfg, lp, x, rope):
     """Sequence-mode layer (whole-prompt prefill): x (B, S, D) -> (x, cache
     entry): {k, v} (B, S, KVH, hd) for attention, {state (B, H, hd, hd),
-    x_prev_att (B, D), x_prev_ffn (B, D)} for RWKV-6."""
+    x_prev_att (B, D), x_prev_ffn (B, D)} for RWKV-6, and for a hybrid layer
+    a K/V ring of min(S, window) slots with the SSM's {conv, h}."""
     if cfg.attn_type == MIXER_RWKV6:
         return _apply_rwkv_layer(cfg, lp, x)
+    if cfg.attn_type == MIXER_HYBRID:
+        return _apply_hybrid_layer_seq(cfg, lp, x, rope)
     a_out, cache = _attn_branch_seq(cfg, lp, x, rope)
     return _finish_layer(cfg, lp, x, a_out), cache
 
@@ -283,9 +360,11 @@ def run_stack_seq(cfg, blocks, x, positions):
     positions (B, S). A Python loop over the layers (JAX scans them, with
     remat and a segmented scan for training, which serving does not need).
     Returns (x, caches, aux): caches a tuple of one entry, {k, v} of (G, B,
-    S, KVH, hd) or, for RWKV-6, {state (G, B, H, hd, hd) float32,
-    x_prev_att, x_prev_ffn (G, B, D)}; aux the zero auxiliary loss of a
-    stack without MoE."""
+    S, KVH, hd), for RWKV-6 {state (G, B, H, hd, hd) float32, x_prev_att,
+    x_prev_ffn (G, B, D)}, for a hybrid stack {k, v} of (G, B, min(S,
+    window), KVH, hd) with position p at slot p % Sc (JAX's cache rolled by
+    S % Sc), conv (G, B, K-1, D) and h (G, B, D, N) float32; aux the zero
+    auxiliary loss of a stack without MoE."""
     _check_dense_stack(cfg)
     rope = _rope(cfg, positions)
     entries = []
@@ -303,17 +382,38 @@ def _cache_update(c, new, pos):
     c[rows, pos.long() % c.shape[1]] = new[:, 0].to(c.dtype)
 
 
+def _decode_attn(cfg, lp, xn, k_cache, v_cache, pos, rope, lengths):
+    """QKV of the normed input, its K/V written at slot ``pos % Sc`` (in
+    place), attention over the row's valid slots; returns (B, 1, H, hd)."""
+    q, k, v = _qkv(cfg, lp, xn, rope)
+    _cache_update(k_cache, k, pos)
+    _cache_update(v_cache, v, pos)
+    return attn.decode_attention(q, k_cache, v_cache, lengths)
+
+
 def apply_layer_decode(cfg, lp, x, k_cache, v_cache, pos, *, rope, lengths):
     """Dense decode layer: write each row's new K/V at slot ``pos`` of the
     layer's cache (in place), then attend the row's valid slots. x: (B, 1,
     D); k/v_cache: (B, Sc, KVH, hd); pos: (B,) int32; ``rope``: the step's
-    rope tables; ``lengths`` = pos + 1, which on a full-attention linear
-    cache is what ``cache_validity`` allows. Returns the new x."""
-    q, k, v = _attn_inputs(cfg, lp, x, rope)
-    _cache_update(k_cache, k, pos)
-    _cache_update(v_cache, v, pos)
-    a_out = attn.decode_attention(q, k_cache, v_cache, lengths)
+    rope tables; ``lengths`` = min(pos + 1, Sc), which on a full-attention
+    linear cache is what ``cache_validity`` allows. Returns the new x."""
+    xn = apply_norm(cfg, lp["norm1"], x)
+    a_out = _decode_attn(cfg, lp, xn, k_cache, v_cache, pos, rope, lengths)
     return _finish_layer(cfg, lp, x, a_out)
+
+
+def apply_layer_decode_hybrid(cfg, lp, x, k_cache, v_cache, conv, h, pos, *, rope, lengths):
+    """Hybrid decode layer: the new K/V go to ring slot ``pos % Sc`` and the
+    row attends its valid slots (``lengths`` = min(pos + 1, Sc): on a ring of
+    Sc <= window slots that is the sliding window); the SSM steps from the
+    carried convolution tail ``conv`` (B, K-1, D) and state ``h`` (B, D, N),
+    both updated in place. Returns the new x."""
+    xn = apply_norm(cfg, lp["norm1"], x)
+    a_out = _out_proj(cfg, lp, x, _decode_attn(cfg, lp, xn, k_cache, v_cache, pos, rope,
+                                               lengths))
+    s_out, (tail, _) = ssm_mod.apply_ssm(lp["ssm"], xn, cfg, conv_tail=conv, h0=h, h_out=h)
+    conv.copy_(tail)
+    return _mlp_residual(cfg, lp, _hybrid_mix(cfg, lp, x, a_out, s_out))
 
 
 def apply_layer_decode_rwkv(cfg, lp, x, state, x_prev_att, x_prev_ffn):
@@ -328,9 +428,9 @@ def apply_layer_decode_rwkv(cfg, lp, x, state, x_prev_att, x_prev_ffn):
 
 def run_stack_decode(cfg, blocks, x, caches, pos):
     """Run the stack in dense-decode mode: x (B, 1, D), per-row positions
-    pos (B,) int32 (each <= Sc - 1; an RWKV-6 stack has no positions),
-    caches from ``model.init_cache`` updated in place layer by layer.
-    Returns (x, caches)."""
+    pos (B,) int32 (each <= Sc - 1 on a full-attention cache; a ring takes
+    any; an RWKV-6 stack has no positions), caches from ``model.init_cache``
+    updated in place layer by layer. Returns (x, caches)."""
     _check_dense_stack(cfg)
     entry = caches[0]
     if cfg.attn_type == MIXER_RWKV6:
@@ -339,8 +439,14 @@ def run_stack_decode(cfg, blocks, x, caches, pos):
                                         entry["x_prev_att"][g], entry["x_prev_ffn"][g])
         return x, caches
     rope = _rope(cfg, pos[:, None])
-    lengths = (pos + 1).to(torch.int32)
+    lengths = torch.clamp(pos + 1, max=entry["k"].shape[2]).to(torch.int32)
     for g in range(cfg.num_layers):
-        x = apply_layer_decode(cfg, layer_slice(blocks[0], g), x, entry["k"][g],
-                               entry["v"][g], pos, rope=rope, lengths=lengths)
+        lp = layer_slice(blocks[0], g)
+        if cfg.attn_type == MIXER_HYBRID:
+            x = apply_layer_decode_hybrid(cfg, lp, x, entry["k"][g], entry["v"][g],
+                                          entry["conv"][g], entry["h"][g], pos, rope=rope,
+                                          lengths=lengths)
+        else:
+            x = apply_layer_decode(cfg, lp, x, entry["k"][g], entry["v"][g], pos, rope=rope,
+                                   lengths=lengths)
     return x, caches

@@ -30,7 +30,11 @@ RWKV-6 stack (rwkv6-7b; ``backend="paged"`` falls back to it, as in JAX)
 keeps a per-slot recurrent state instead, prefilled at the prompt's own
 length: zero pad tokens would enter the state, so the port does not pad
 where the JAX engine does (ROADMAP §3). Its recurrences run through
-``kernels.rwkv6_scan.rwkv6_chunked``.
+``kernels.rwkv6_scan.rwkv6_chunked``. A hybrid stack (hymba-1.5b) is
+prefilled unpadded too, its meta tokens first: each row keeps a ring of
+min(max_seq + M, window) K/V slots beside its SSM state, and decodes at
+absolute position M + its text position (``kernels.flash_attention`` with a
+window, ``kernels.decode_attention``, ``kernels.ssm_scan.ssm_scan``).
 
 The engine runs on ``cuda`` unless ``device="cpu"`` is passed. The
 attention wrappers launch the CUDA kernels for CUDA tensors and run their
@@ -51,7 +55,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MIXER_HYBRID, ModelConfig
 from repro_torch.core.scheduler import QueuePolicy, make_policy
 from repro_torch.core.streaming import PriorityFlusher, StreamingObject
 from repro_torch.models import (
@@ -265,7 +269,9 @@ class GenerationEngine:
         self._inflight: Optional[PlanExec] = None
         self._build_emitted: Optional[Dict[int, List[int]]] = None
         if self.backend == "dense":
-            self.cache = init_cache(cfg, max_batch, max_seq, self.device)
+            # a row's cache holds its meta tokens too (a hybrid layer's
+            # K/V: a ring of min(max_seq + M, window) slots)
+            self.cache = init_cache(cfg, max_batch, max_seq + cfg.num_meta_tokens, self.device)
             return
 
         self.block_size = block_size
@@ -699,10 +705,11 @@ class GenerationEngine:
         """Prefill the whole prompt (truncated to ``max_seq``), write its
         cache into row ``slot`` and emit the first token. Attention stacks
         run it zero-padded to its bucket, as the JAX engine does (decode
-        masks the pad slots). An attention-free stack runs it at its own
-        length: its recurrence would carry the pad tokens into the state."""
+        masks the pad slots). A stack that carries a recurrent state (RWKV-6,
+        or the SSM of a hybrid stack) runs it at its own length: its
+        recurrence would carry the pad tokens into the state (ROADMAP §3)."""
         Lp = len(req.prompt)
-        if self.cfg.attention_free:
+        if self.cfg.attention_free or self.cfg.attn_type == MIXER_HYBRID:
             eff = min(Lp, self.max_seq)
             toks, mode = np.asarray(req.prompt[:eff], np.int32)[None], "last"
         else:
@@ -718,7 +725,9 @@ class GenerationEngine:
         _merge_cache(self.cache, pcache, slot)
         self.prefill_tokens += eff
         req.slot = slot
-        req.pos = eff  # NOT Lp: a truncated prompt must not overrun its cache
+        # NOT Lp: a truncated prompt must not overrun its cache. pos counts
+        # text tokens, as in JAX; decode adds the meta prefix (_decode_batch)
+        req.pos = eff
         req.prefill_pos = eff
         req.prefill_cap = eff
         last = logits[0, -1] if mode == "last" else logits[0, eff - 1]
@@ -740,15 +749,17 @@ class GenerationEngine:
 
     def _decode_batch(self, active: List[Request]) -> Dict[int, List[int]]:
         """One batched decode over every slot; inactive rows decode token 0
-        at position 0 of their own (unused) cache row (an RWKV-6 row's state
-        advances on it; admission overwrites the row)."""
+        at position 0 of their own (unused) cache row (an RWKV-6 or SSM row's
+        state advances on it; admission overwrites the row). A row's absolute
+        position counts its ``num_meta_tokens`` meta tokens before its text
+        (JAX decodes at the text position: ROADMAP §3)."""
         B = self.max_batch
         tokens = np.zeros((B, 1), np.int32)
         pos = np.zeros((B,), np.int32)
         temps = np.zeros((B,), np.float32)
         for r in active:
             tokens[r.slot, 0] = r.out_tokens[-1] if r.out_tokens else 0
-            pos[r.slot] = r.pos
+            pos[r.slot] = self.cfg.num_meta_tokens + r.pos
             temps[r.slot] = r.temperature
         logits, self.cache = decode_step(
             self.cfg, self.params, self.cache, torch.from_numpy(tokens).to(self.device),
@@ -787,7 +798,10 @@ def _merge_cache(batch_cache, one_cache, slot: int):
     """Write a B=1 prefill cache into row ``slot`` of the batch cache, in
     place. A K/V entry (G, B, Sc, KVH, hd) has a sequence axis at dim 2: the
     row's slots past the prefill are zeroed, as the JAX function pads them.
-    A recurrent entry (RWKV-6 state and token shifts) has none: the whole
+    A hybrid layer's ring keeps position p at slot p % Sc in both caches:
+    the prefill's ring is shorter than the batch's only when it has not
+    wrapped, so its slots go to the same indices. A recurrent entry (RWKV-6
+    state and token shifts, the SSM's conv tail and h) has none: the whole
     row is copied."""
     for bc_entry, oc_entry in zip(batch_cache, one_cache):
         for name, bc in bc_entry.items():

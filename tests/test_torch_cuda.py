@@ -1,5 +1,6 @@
-"""The CUDA kernels (paged attention, dense flash and decode attention,
-top-k retrieval, the RWKV-6 WKV recurrence) against their plain versions,
+"""The CUDA kernels (paged attention, dense flash and decode attention with
+and without a sliding window, top-k retrieval, the RWKV-6 WKV recurrence,
+the selective scan) against their plain versions,
 on the card. Marked ``cuda``: each test skips (from inside a
 fixture) where no GPU is visible, as in this repository's CPU runs. On a GPU
 machine:
@@ -15,6 +16,7 @@ import torch
 from repro_torch.kernels import decode_attention as ka
 from repro_torch.kernels import flash_attention as kf
 from repro_torch.kernels import rwkv6_scan as kw
+from repro_torch.kernels import ssm_scan as ks
 from repro_torch.kernels import topk_retrieval as tk
 
 pytestmark = pytest.mark.cuda
@@ -366,3 +368,99 @@ def test_wkv_kernel_rejects_what_it_does_not_take(gpu):
         kw.rwkv6_chunked(r, k, v, w.cpu(), u)
     with pytest.raises(ValueError):      # no time steps
         kw.rwkv6_chunked(*(x[:, :0].contiguous() for x in (r, k, v, w)), u)
+
+
+@pytest.mark.parametrize("window", [64, 1024])
+@pytest.mark.parametrize("S", [1, 37, 200, 1100])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_windowed_flash_kernel_matches_plain_version(gpu, dtype, S, window):
+    """hymba-1.5b's heads (H 25 over KVH 5, hd 64) with a sliding window;
+    1100 > 1024 crosses the full-width window."""
+    g = torch.Generator().manual_seed(S + window)
+    q = torch.randn((1, S, 25, 64), generator=g).to(dtype).to(gpu)
+    k, v = (torch.randn((1, S, 5, 64), generator=g).to(dtype).to(gpu) for _ in range(2))
+    before = kf.flash_attention.launches
+    got = kf.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert kf.flash_attention.launches == before + 1
+    atol, rtol = TOL[(dtype, dtype)]
+    torch.testing.assert_close(got, kf.ref_flash_attention(q, k, v, window=window),
+                               atol=atol, rtol=rtol)
+    if dtype == torch.bfloat16:
+        want = kf.ref_flash_attention(q.float(), k.float(), v.float(), window=window)
+        torch.testing.assert_close(got.float(), want, atol=BF16_OUT_TOL[0], rtol=BF16_OUT_TOL[1])
+
+
+# ---------------------------------------------------------------------------
+# selective scan
+# ---------------------------------------------------------------------------
+
+# f32 arithmetic on both sides (bf16 inputs are widened exactly); the
+# kernel's exp2 of dt * A * log2(e) against exp(dt * A): a few ulps a step
+SSM_TOL = (1e-4, 1e-4)
+
+
+def _ssm_case(seed, B, S, Di, N, dtype, device, extreme=False):
+    """dt = softplus(z) with z ~ N(-2, 1) (dt * A near -0.1 .. -2), or for
+    ``extreme`` z ~ N(0, 2) (dt up to ~6, dt * A down to about -100)."""
+    g = torch.Generator().manual_seed(seed)
+    z = torch.randn((B, S, Di), generator=g) * (2.0 if extreme else 1.0) - (0.0 if extreme else 2.0)
+    dt = torch.nn.functional.softplus(z)
+    x = torch.randn((B, S, Di), generator=g)
+    bm, cm = (0.5 * torch.randn((B, S, N), generator=g) for _ in range(2))
+    a_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32)).expand(Di, N).contiguous()
+    h0 = 0.5 * torch.randn((B, Di, N), generator=g)
+    to = lambda t, dt_=torch.float32: t.to(dt_).to(device)
+    return to(dt, dtype), to(x, dtype), to(bm, dtype), to(cm, dtype), to(a_log), to(h0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Di,N,extreme", [
+    (1, 1664, 1600, 16, False),   # hymba-1.5b prefill: 128 meta + 1536 text tokens
+    (1, 37, 1600, 16, True),      # S not a multiple of the 64-step chunk; extreme dt
+    (8, 1, 1600, 16, False),      # hymba-1.5b decode, max_batch 8
+    (2, 100, 256, 8, False),      # the smoke variant's width and state
+    (3, 70, 100, 16, True),       # Di not a multiple of the block's 8 channels
+], ids=["prefill1664", "S37", "decode", "smoke", "Di100"])
+def test_ssm_kernel_matches_plain_version(gpu, dtype, B, S, Di, N, extreme):
+    dt, x, bm, cm, a_log, h0 = _ssm_case(S + B, B, S, Di, N, dtype, gpu, extreme)
+    before = ks.ssm_scan.launches
+    y, h = ks.ssm_scan(dt, x, bm, cm, a_log, h0)
+    torch.cuda.synchronize()
+    assert ks.ssm_scan.launches == before + 1
+    y_ref, h_ref = ks.ref_ssm_scan(dt, x, bm, cm, a_log, h0)
+    assert y.dtype == h.dtype == torch.float32
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    torch.testing.assert_close(y, y_ref, atol=SSM_TOL[0], rtol=SSM_TOL[1])
+    torch.testing.assert_close(h, h_ref, atol=SSM_TOL[0], rtol=SSM_TOL[1])
+    # zero h0, a bf16 a_log (the model's dtype), and h updated in place
+    y0, h0_out = ks.ssm_scan(dt, x, bm, cm, a_log.bfloat16())
+    y0_ref, h0_ref = ks.ref_ssm_scan(dt, x, bm, cm, a_log.bfloat16())
+    torch.testing.assert_close(y0, y0_ref, atol=SSM_TOL[0], rtol=SSM_TOL[1])
+    torch.testing.assert_close(h0_out, h0_ref, atol=SSM_TOL[0], rtol=SSM_TOL[1])
+    inplace = h0.clone()
+    y1, h1 = ks.ssm_scan(dt, x, bm, cm, a_log, inplace, h_out=inplace)
+    torch.cuda.synchronize()
+    assert h1 is inplace
+    torch.testing.assert_close(y1, y, atol=0, rtol=0)
+    torch.testing.assert_close(inplace, h, atol=0, rtol=0)
+
+
+def test_ssm_kernel_rejects_what_it_does_not_take(gpu):
+    dt, x, bm, cm, a_log, h0 = _ssm_case(0, 1, 8, 64, 16, torch.float32, gpu)
+    with pytest.raises(ValueError):      # a state size the kernel is not built for
+        ks.ssm_scan(dt, x, bm[..., :12].contiguous(), cm[..., :12].contiguous(), a_log[:, :12])
+    with pytest.raises(ValueError):      # inputs in different dtypes
+        ks.ssm_scan(dt, x.bfloat16(), bm, cm, a_log)
+    with pytest.raises(ValueError):      # a dtype the kernel is not built for
+        ks.ssm_scan(*(t.half() for t in (dt, x, bm, cm)), a_log)
+    with pytest.raises(ValueError):      # a non-contiguous input
+        ks.ssm_scan(dt.transpose(1, 2).contiguous().transpose(1, 2), x, bm, cm, a_log)
+    with pytest.raises(ValueError):      # an h0 of another shape
+        ks.ssm_scan(dt, x, bm, cm, a_log, h0[:, :32].contiguous())
+    with pytest.raises(ValueError):      # an h0 in bf16
+        ks.ssm_scan(dt, x, bm, cm, a_log, h0.bfloat16())
+    with pytest.raises(ValueError):      # mixed devices
+        ks.ssm_scan(dt, x, bm.cpu(), cm, a_log)
+    with pytest.raises(ValueError):      # no time steps
+        ks.ssm_scan(*(t[:, :0].contiguous() for t in (dt, x, bm, cm)), a_log)

@@ -95,7 +95,9 @@ def test_plain_decode_matches_pallas_and_ref(B, Sc, H, KVH, hd, lengths, block):
     (ATTN_FULL, 24, [0, 5, 23, 30, 47]),
     (ATTN_FULL, 1, [0, 3]),
     (ATTN_FULL, 64, [63, 0, 17, 200]),
-], ids=["full", "full-Sc1", "full-Sc64"])
+    (ATTN_SWA, 24, [0, 5, 23, 30, 47]),
+    (ATTN_SWA, 64, [63, 0, 17, 200]),
+], ids=["full", "full-Sc1", "full-Sc64", "swa", "swa-Sc64"])
 def test_cache_validity_matches_jax(attn_type, Sc, pos):
     pos = np.asarray(pos, np.int32)
     got = attn.cache_validity(attn_type, Sc, torch.from_numpy(pos)).numpy()
@@ -104,23 +106,22 @@ def test_cache_validity_matches_jax(attn_type, Sc, pos):
     scalar = attn.cache_validity(attn_type, Sc, torch.tensor(7)).numpy()
     np.testing.assert_array_equal(
         scalar, np.asarray(jax_attn.cache_validity(attn_type, Sc, jnp.int32(7))))
-    # the engine keeps pos <= Sc - 1: there the mask is slot < pos + 1, the
-    # lengths the port's decode hands to its kernel
-    inside = pos < Sc
-    lengths = pos[inside] + 1
-    np.testing.assert_array_equal(got[inside], np.arange(Sc)[None] < lengths[:, None])
+    # the mask is slot < min(pos + 1, Sc), the lengths the port's decode
+    # hands to its kernel (a full-attention engine keeps pos <= Sc - 1; an
+    # SWA ring wraps)
+    lengths = np.minimum(pos + 1, Sc)
+    np.testing.assert_array_equal(got, np.arange(Sc)[None] < lengths[:, None])
 
 
 def test_unported_attention_raises():
     q = torch.zeros((1, 8, 4, 64))
     kv = torch.zeros((1, 8, 2, 64))
     with pytest.raises(NotImplementedError):
-        attn.blockwise_attention(q, kv, kv, attn_type=ATTN_SWA)
+        attn.blockwise_attention(q, kv, kv, attn_type=ATTN_CHUNKED_LOCAL, window=4)
     with pytest.raises(NotImplementedError):       # cross attention: S_kv != S
         attn.blockwise_attention(q, kv[:, :4], kv[:, :4])
-    for attn_type in (ATTN_SWA, ATTN_CHUNKED_LOCAL):      # ring caches
-        with pytest.raises(NotImplementedError):
-            attn.cache_validity(attn_type, 24, torch.tensor([3, 30]), 8)
+    with pytest.raises(NotImplementedError):       # the chunked-local ring
+        attn.cache_validity(ATTN_CHUNKED_LOCAL, 24, torch.tensor([3, 30]), 8)
     cfg = smoke_variant(get_arch("smollm-135m")).replace(kv_cache_quant=True)
     with pytest.raises(NotImplementedError):
         init_cache(cfg, 2, 16, "cpu")

@@ -25,6 +25,7 @@ def test_imports_with_jax_and_repro_blocked():
         "import repro_torch.apps, repro_torch.serving.retrieval\n"
         "import repro_torch.kernels.topk_retrieval, repro_torch.data.workload\n"
         "import repro_torch.kernels.flash_attention, repro_torch.models.attention\n"
+        "import repro_torch.kernels.ssm_scan, repro_torch.models.ssm\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -42,7 +42,7 @@ from repro.models import rwkv6 as jax_rwkv
 from repro.models.layers import group_norm as jax_group_norm
 from repro.serving.engine import GenerationEngine as JaxEngine
 from repro_torch.configs import get_arch, smoke_variant
-from repro_torch.configs.base import ATTN_MLA, ATTN_SWA, MIXER_HYBRID
+from repro_torch.configs.base import ATTN_CHUNKED_LOCAL, ATTN_MLA, ATTN_SWA
 from repro_torch.kernels.rwkv6_scan import ref_rwkv6_chunked, rwkv6_chunked
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.models import (
@@ -358,7 +358,7 @@ def test_truncated_prompt_and_unported_archs():
     assert req.truncated and req.pos <= 32 and len(req.out_tokens) == 1
     assert dense_cache_supported(tcfg)
     base = smoke_variant(get_arch("smollm-135m"))
-    for cfg in (base.replace(attn_type=MIXER_HYBRID, ssm_state=8),
+    for cfg in (base.replace(attn_type=ATTN_CHUNKED_LOCAL, global_layer_every=2),
                 base.replace(attn_type=ATTN_SWA), base.replace(attn_type=ATTN_MLA),
                 base.replace(num_experts=4, num_experts_per_tok=2),
                 tcfg.replace(num_experts=4, num_experts_per_tok=2),
