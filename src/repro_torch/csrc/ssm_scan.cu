@@ -23,15 +23,22 @@
 //   once, h read and written once).
 //   Design: a thread owns one (row, channel, state) element: h lives in a
 //   register for the whole sequence, and the N threads of a channel are N
-//   consecutive lanes of one warp, so y_t is an N-lane shuffle sum. A
-//   128-thread block owns 128 / N channels (8 at N = 16: Di / 8 = 200
-//   blocks at B = 1, Di = 1600). Only h crosses steps, through one FMA a
-//   step; exp(dt * A) and (dt * x) * B do not depend on it, so the unrolled
-//   step loop runs them ahead. Time runs in chunks of 64 steps: dt and x of
-//   the block's channels and B and C of the row are staged in shared memory
-//   as f32, while the next chunk's loads are in flight in registers (kept
-//   raw, widened only when staged); each chunk's y goes through shared
-//   memory so that it leaves in runs of the block's channels.
+//   consecutive lanes of one warp. A 128-thread block owns 128 / N channels
+//   (8 at N = 16: Di / 8 = 200 blocks at B = 1, Di = 1600). At B = 1 that is
+//   only 1-2 warps per scheduler, so a step must not wait on anything but
+//   h. Only h crosses steps, through one FMA a step: the step loop runs in
+//   batches of 8, first the 8 steps' loads, exp(dt * A) and (dt * x) * B,
+//   then the 8 FMAs of h, and each step leaves its h * C_t[n] in shared
+//   memory and goes on (a shuffle sum of y_t inside the step put its
+//   latency on every step); a pass after each chunk sums the N partials of
+//   every (step, channel) into y. Still latency-bound: with ~6 warps an SM
+//   each step's loads, exponential and FMA wait on one another; splitting
+//   the time axis (a chunked scan with a carry pass) is the next step. Time runs in chunks of KT steps (128 at
+//   prefill, 16 when S <= 16, so a decode step stages little): (dt, dt * x)
+//   of the block's channels and (B, C) of the row are staged in shared
+//   memory as f32 pairs (one 8-byte load each a step), while the next
+//   chunk's loads are in flight in registers (kept raw, widened only when
+//   staged); a step past S has dt = 0, which leaves h as it is.
 //   h is read once at the start and written once at the end by the thread
 //   that owns it, so h_out may be h0 itself: the decode step updates the
 //   cache's state slice in place.
@@ -41,9 +48,8 @@
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 128;  // 4 warps
-constexpr int kT = 64;         // time steps per staged chunk
+constexpr int kBatch = 8;      // steps whose loads and exponentials run ahead of h
 constexpr float kLog2e = 1.4426950408889634f;
 
 enum DType { kF32 = 0, kBF16 = 1 };
@@ -57,19 +63,28 @@ template <> __device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
   return __float2bfloat16(0.f);
 }
 
-// The chunk of steps [t0, t0 + kT) that a thread stages: dt and x of the
+// Shared memory of a block (bytes): (dt, dt * x) of KT steps x its channels,
+// (B, C) of KT steps, and the h * C partials of KT steps x its threads (a
+// channel's N partials padded to N + 4 floats, so that the reduction's
+// 16-byte loads of 8 channels fall in 8 different bank groups).
+template <int N, int KT>
+__host__ __device__ constexpr int smem_bytes() {
+  return KT * (kThreads / N) * 8 + KT * N * 8 + KT * (kThreads / N) * (N + 4) * 4;
+}
+
+// The chunk of steps [t0, t0 + KT) that a thread stages: dt and x of the
 // block's channels, B and C of the row, raw, zeros past S and Di.
-template <typename T, int N>
-__device__ __forceinline__ void fetch_chunk(T (&r_dt)[kT / N], T (&r_x)[kT / N],
-                                            T (&r_b)[kT * N / kThreads],
-                                            T (&r_c)[kT * N / kThreads],
+template <typename T, int N, int KT>
+__device__ __forceinline__ void fetch_chunk(T (&r_dt)[KT / N], T (&r_x)[KT / N],
+                                            T (&r_b)[KT * N / kThreads],
+                                            T (&r_c)[KT * N / kThreads],
                                             const T* __restrict__ dt, const T* __restrict__ x,
                                             const T* __restrict__ bm, const T* __restrict__ cm,
                                             size_t row0, int t0, int S, int Di, int d0) {
   constexpr int CH = kThreads / N;
   const int tid = threadIdx.x;
 #pragma unroll
-  for (int i = 0; i < kT / N; ++i) {
+  for (int i = 0; i < KT / N; ++i) {
     const int e = tid + i * kThreads, r = e / CH, c = e % CH;
     r_dt[i] = r_x[i] = zero_of<T>();
     if (t0 + r < S && d0 + c < Di) {
@@ -79,7 +94,7 @@ __device__ __forceinline__ void fetch_chunk(T (&r_dt)[kT / N], T (&r_x)[kT / N],
     }
   }
 #pragma unroll
-  for (int i = 0; i < kT * N / kThreads; ++i) {
+  for (int i = 0; i < KT * N / kThreads; ++i) {
     const int e = tid + i * kThreads, r = e / N, c = e % N;
     r_b[i] = r_c[i] = zero_of<T>();
     if (t0 + r < S) {
@@ -90,15 +105,20 @@ __device__ __forceinline__ void fetch_chunk(T (&r_dt)[kT / N], T (&r_x)[kT / N],
   }
 }
 
-template <typename T, int N>
+template <typename T, int N, int KT>
 __global__ void __launch_bounds__(kThreads)
 ssm_kernel(const T* __restrict__ dt, const T* __restrict__ x, const T* __restrict__ bm,
            const T* __restrict__ cm, const float* __restrict__ a_log, const float* h0,
            float* __restrict__ y, float* h_out, int S, int Di) {
   constexpr int CH = kThreads / N;        // channels of a block
-  constexpr int PD = kT * CH / kThreads;  // dt and x elements a thread stages per chunk
-  constexpr int PB = kT * N / kThreads;   // B and C elements a thread stages per chunk
-  __shared__ float s_dt[kT][CH], s_x[kT][CH], s_b[kT][N], s_c[kT][N], s_y[kT][CH];
+  constexpr int PD = KT * CH / kThreads;  // dt and x elements a thread stages per chunk
+  constexpr int PB = KT * N / kThreads;   // B and C elements a thread stages per chunk
+  static_assert(KT % kBatch == 0 && PD >= 1 && PB >= 1, "chunk shape");
+  constexpr int PR = CH * (N + 4);        // floats of a step's partials
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* s_p = reinterpret_cast<float*>(smem_raw);                  // [KT][CH][N + 4]
+  float2* s_d = reinterpret_cast<float2*>(s_p + KT * PR);           // [KT][CH]: (dt, dt x)
+  float2* s_bc = s_d + KT * CH;                                     // [KT][N]: (B, C)
 
   const int b = blockIdx.y, d0 = blockIdx.x * CH;
   const int tid = threadIdx.x, ch = tid / N, n = tid % N, d = d0 + ch;
@@ -106,60 +126,88 @@ ssm_kernel(const T* __restrict__ dt, const T* __restrict__ x, const T* __restric
   const size_t row0 = static_cast<size_t>(b) * S;  // first time step of row b
   const size_t hi = (static_cast<size_t>(b) * Di + d) * N + n;
   // exp(dt * A) = exp2(dt * A * log2(e)): one SFU instruction a step
+  // (ex2.approx.ftz: a result below 2^-126 becomes 0, which changes h by
+  // less than 1e-37)
   const float a2 = live ? -expf(a_log[static_cast<size_t>(d) * N + n]) * kLog2e : 0.f;
   float h = (live && h0 != nullptr) ? h0[hi] : 0.f;
 
   T r_dt[PD], r_x[PD], r_b[PB], r_c[PB];
-  fetch_chunk<T, N>(r_dt, r_x, r_b, r_c, dt, x, bm, cm, row0, 0, S, Di, d0);
-  for (int t0 = 0; t0 < S; t0 += kT) {
-    const int tc = min(kT, S - t0);
-    __syncthreads();  // the previous chunk's staging and y are no longer read
+  fetch_chunk<T, N, KT>(r_dt, r_x, r_b, r_c, dt, x, bm, cm, row0, 0, S, Di, d0);
+  for (int t0 = 0; t0 < S; t0 += KT) {
+    const int tc = min(KT, S - t0);
+    __syncthreads();  // the previous chunk's staging and partials are no longer read
 #pragma unroll
     for (int i = 0; i < PD; ++i) {
-      const int e = tid + i * kThreads;
-      s_dt[e / CH][e % CH] = to_f32(r_dt[i]);
-      s_x[e / CH][e % CH] = to_f32(r_x[i]);
+      const float dtv = to_f32(r_dt[i]);
+      s_d[tid + i * kThreads] = make_float2(dtv, dtv * to_f32(r_x[i]));
     }
 #pragma unroll
-    for (int i = 0; i < PB; ++i) {
-      const int e = tid + i * kThreads;
-      s_b[e / N][e % N] = to_f32(r_b[i]);
-      s_c[e / N][e % N] = to_f32(r_c[i]);
-    }
+    for (int i = 0; i < PB; ++i)
+      s_bc[tid + i * kThreads] = make_float2(to_f32(r_b[i]), to_f32(r_c[i]));
     __syncthreads();
-    if (t0 + kT < S)  // in flight while this chunk runs
-      fetch_chunk<T, N>(r_dt, r_x, r_b, r_c, dt, x, bm, cm, row0, t0 + kT, S, Di, d0);
+    if (t0 + KT < S)  // in flight while this chunk runs
+      fetch_chunk<T, N, KT>(r_dt, r_x, r_b, r_c, dt, x, bm, cm, row0, t0 + KT, S, Di, d0);
 
-#pragma unroll 4
-    for (int r = 0; r < tc; ++r) {
-      const float dtv = s_dt[r][ch];
-      const float da = exp2f(dtv * a2);
-      const float u = dtv * s_x[r][ch] * s_b[r][n];
-      h = fmaf(da, h, u);
-      float p = h * s_c[r][n];
+    // steps r0 .. r0 + 7 (past tc only inside the chunk: zeros, h unchanged)
+    for (int r0 = 0; r0 < tc; r0 += kBatch) {
+      float da[kBatch], u[kBatch], c[kBatch];
 #pragma unroll
-      for (int w = N / 2; w > 0; w /= 2) p += __shfl_xor_sync(kFull, p, w);
-      if (n == 0) s_y[r][ch] = p;
+      for (int j = 0; j < kBatch; ++j) {
+        const float2 d2 = s_d[(r0 + j) * CH + ch];
+        const float2 bc = s_bc[(r0 + j) * N + n];
+        asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(da[j]) : "f"(d2.x * a2));
+        u[j] = d2.y * bc.x;
+        c[j] = bc.y;
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        h = fmaf(da[j], h, u[j]);
+        s_p[(r0 + j) * PR + ch * (N + 4) + n] = h * c[j];
+      }
     }
     __syncthreads();
+    // y of the chunk: (step r, channel c) sums the N partials of its lanes
 #pragma unroll
     for (int i = 0; i < PD; ++i) {
-      const int e = tid + i * kThreads, r = e / CH, c = e % CH;
-      if (r < tc && d0 + c < Di) y[(row0 + t0 + r) * Di + d0 + c] = s_y[r][c];
+      const int e = tid + i * kThreads, r = e / CH, cc = e % CH;
+      const float4* part = reinterpret_cast<const float4*>(s_p + r * PR + cc * (N + 4));
+      float acc = 0.f;
+#pragma unroll
+      for (int q = 0; q < N / 4; ++q) {
+        const float4 v = part[q];
+        acc += (v.x + v.y) + (v.z + v.w);
+      }
+      if (r < tc && d0 + cc < Di) y[(row0 + t0 + r) * Di + d0 + cc] = acc;
     }
   }
   if (live) h_out[hi] = h;
+}
+
+template <typename T, int N, int KT>
+cudaError_t launch_ssm_nk(const void* dt, const void* x, const void* bm, const void* cm,
+                          const float* a_log, const float* h0, float* y, float* h_out, int B,
+                          int S, int Di, cudaStream_t stream) {
+  constexpr int CH = kThreads / N;
+  constexpr int smem = smem_bytes<N, KT>();
+  auto kernel = ssm_kernel<T, N, KT>;
+  if (smem > 48 * 1024) {  // above 48 KB dynamic shared memory must be allowed first
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<dim3((Di + CH - 1) / CH, B), kThreads, smem, stream>>>(
+      static_cast<const T*>(dt), static_cast<const T*>(x), static_cast<const T*>(bm),
+      static_cast<const T*>(cm), a_log, h0, y, h_out, S, Di);
+  return cudaGetLastError();
 }
 
 template <typename T, int N>
 cudaError_t launch_ssm_n(const void* dt, const void* x, const void* bm, const void* cm,
                          const float* a_log, const float* h0, float* y, float* h_out, int B,
                          int S, int Di, cudaStream_t stream) {
-  constexpr int CH = kThreads / N;
-  ssm_kernel<T, N><<<dim3((Di + CH - 1) / CH, B), kThreads, 0, stream>>>(
-      static_cast<const T*>(dt), static_cast<const T*>(x), static_cast<const T*>(bm),
-      static_cast<const T*>(cm), a_log, h0, y, h_out, S, Di);
-  return cudaGetLastError();
+  if (S <= 16)
+    return launch_ssm_nk<T, N, 16>(dt, x, bm, cm, a_log, h0, y, h_out, B, S, Di, stream);
+  return launch_ssm_nk<T, N, 128>(dt, x, bm, cm, a_log, h0, y, h_out, B, S, Di, stream);
 }
 
 template <typename T>
