@@ -33,12 +33,14 @@
 //   latency on every step); a pass after each chunk sums the N partials of
 //   every (step, channel) into y. Still latency-bound: with ~6 warps an SM
 //   each step's loads, exponential and FMA wait on one another; splitting
-//   the time axis (a chunked scan with a carry pass) is the next step. Time runs in chunks of KT steps (128 at
-//   prefill, 16 when S <= 16, so a decode step stages little): (dt, dt * x)
-//   of the block's channels and (B, C) of the row are staged in shared
-//   memory as f32 pairs (one 8-byte load each a step), while the next
-//   chunk's loads are in flight in registers (kept raw, widened only when
-//   staged); a step past S has dt = 0, which leaves h as it is.
+//   the time axis (a chunked scan with a carry pass) is the next step.
+//   Time runs in chunks of KT steps, 128 at prefill and 16 when S <= 16 (a
+//   128-step chunk's 104 KB of shared memory would leave room for 2 of a
+//   decode step's 1600 blocks an SM): (dt, dt * x) of the block's channels
+//   and (B, C) of the row are staged in shared memory as f32 pairs (one
+//   8-byte load each a step), while the next chunk's loads are in flight in
+//   registers (kept raw, widened only when staged); a step past S has
+//   dt = 0, which leaves h as it is.
 //   h is read once at the start and written once at the end by the thread
 //   that owns it, so h_out may be h0 itself: the decode step updates the
 //   cache's state slice in place.

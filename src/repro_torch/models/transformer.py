@@ -15,13 +15,12 @@ The KV pools are (G, n_blocks, bs, KVH, hd) tensors, the dense caches
 H, hd, hd) float32 and two token-shift vectors (G, B, D); a hybrid stack's
 is a ring of Sc = min(S, window) K/V slots (position p at slot p % Sc), the
 SSM's convolution tail (G, B, K-1, D) and its state (G, B, D, N) float32.
-Each decoding
-layer writes its new K/V entries (or its new state) into its slice
-``pool[g]`` or ``cache[g]`` IN PLACE; JAX instead returns new pools and
-caches from the scan. What is the same for every layer
-of a step — the rope tables, the pool slots the new entries go to, the
-attention lengths — the stack computes once and hands to each layer (XLA
-hoists the same values out of the JAX scan).
+Each decoding layer writes its new K/V entries (or its new state) into its
+slice ``pool[g]`` or ``cache[g]`` IN PLACE; JAX instead returns new pools
+and caches from the scan. What is the same for every layer of a step —
+the rope tables, the pool slots the new entries go to, the attention
+lengths — the stack computes once and hands to each layer (XLA hoists the
+same values out of the JAX scan).
 """
 from __future__ import annotations
 
@@ -30,7 +29,6 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import (
-    ATTN_CHUNKED_LOCAL,
     ATTN_FULL,
     ATTN_SWA,
     MIXER_HYBRID,
@@ -74,13 +72,10 @@ def layer_kind(cfg: ModelConfig, layer: int) -> Dict[str, Any]:
 def cache_len_for(cfg: ModelConfig, kind: Dict[str, Any], S: int) -> int:
     """K/V slots a layer's serve cache holds for a context of S tokens: a
     ring of ``window`` slots for SWA and hybrid layers (JAX sizes a hybrid
-    layer's cache S, linear: ROADMAP §3), ``chunk_size`` for chunked-local
-    ones, S otherwise."""
-    at = kind["attn_type"]
-    if at in (ATTN_SWA, MIXER_HYBRID):
+    layer's cache S, linear: ROADMAP §3), S otherwise (the chunked-local
+    ring is not ported yet)."""
+    if kind["attn_type"] in (ATTN_SWA, MIXER_HYBRID):
         return min(S, cfg.window)
-    if at == ATTN_CHUNKED_LOCAL:
-        return min(S, cfg.chunk_size)
     return S
 
 

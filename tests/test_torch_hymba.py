@@ -417,22 +417,23 @@ def _prompts(lengths, vocab, seed=0):
 
 @pytest.fixture(scope="module")
 def oracle(weights):
-    """``oracle(prompt, tokens)``: whether ``tokens`` are the greedy tokens of
-    the model's own definition with no cache, JAX ``forward`` on the prompt
-    plus the tokens so far (it strips the meta prefix and applies the SWA
-    mask itself). One ``forward`` of the prompt and all but the last token
-    gives, at the prompt's last position and after, the logits that each
-    step of that loop would see."""
+    """``oracle(prompt, tokens)``: how many leading ``tokens`` are the greedy
+    tokens of the model's own definition with no cache, JAX ``forward`` on
+    the prompt plus the tokens so far (it strips the meta prefix and applies
+    the SWA mask itself). One ``forward`` of the prompt and all but the last
+    token gives, at the prompt's last position and after, the logits that
+    each step of that loop would see while the tokens agree."""
     jcfg, jparams, _, _ = weights
     fwd = jax.jit(lambda p, t: jax_forward(jcfg, p, {"tokens": t})[0])
 
-    def check(prompt, tokens):
+    def agree(prompt, tokens):
         seq = np.concatenate([prompt, np.asarray(tokens[:-1], np.int32)])
         logits = np.asarray(fwd(jparams, jnp.asarray(seq[None])))[0]
         greedy = logits[len(prompt) - 1:].argmax(-1)
-        return [int(t) for t in greedy] == [int(t) for t in tokens]
+        same = [int(a) == int(b) for a, b in zip(greedy, tokens)]
+        return same.index(False) if False in same else len(same)
 
-    return check
+    return agree
 
 
 def _serve(eng, prompts, max_new=N_NEW):
@@ -455,7 +456,7 @@ def test_engine_matches_no_cache_oracle(weights, oracle):
     got = _serve(eng, prompts)
     assert all(len(g) == N_NEW for g in got)
     for p, g in zip(prompts, got):
-        assert oracle(p, g), len(p)
+        assert oracle(p, g) == N_NEW, len(p)
     assert eng.stats()["prefill_tokens"] == sum(map(len, prompts))   # unpadded
 
 
@@ -470,7 +471,7 @@ def test_engine_batch_with_idle_rows_matches_oracle(weights, oracle):
     reqs = [eng.submit(p, max_new=n) for p, n in zip(prompts, budgets)]
     eng.run_until_done()
     for p, n, r in zip(prompts, budgets, reqs):
-        assert len(r.out_tokens) == n and oracle(p, r.out_tokens), len(p)
+        assert len(r.out_tokens) == n and oracle(p, r.out_tokens) == n, len(p)
 
 
 def test_engine_truncated_prompt_matches_oracle(weights, oracle):
@@ -483,7 +484,7 @@ def test_engine_truncated_prompt_matches_oracle(weights, oracle):
     req = eng.submit(prompt, max_new=4)
     eng.run_until_done()
     assert req.truncated and req.pos == 64 and len(req.out_tokens) == 1
-    assert oracle(prompt[:64], req.out_tokens)
+    assert oracle(prompt[:64], req.out_tokens) == 1
     assert dense_cache_supported(tcfg)
 
 
@@ -495,7 +496,8 @@ def test_jax_dense_engine_matches_no_cache_oracle(weights, oracle, Lp):
     jcfg, jparams, _, _ = weights
     prompt = _prompts((Lp,), jcfg.vocab_size, seed=3)[0]
     jeng = JaxEngine(jcfg, params=jparams, backend="dense", max_batch=2, max_seq=MAX_SEQ)
-    assert oracle(prompt, _serve(jeng, [prompt])[0])
+    agree = oracle(prompt, _serve(jeng, [prompt])[0])
+    assert agree == N_NEW, f"Lp {Lp}: the first {agree} of {N_NEW} greedy tokens agree"
 
 
 def _jax_decode(weights, logits_at, cache, first_pos):
@@ -525,7 +527,8 @@ def test_jax_bucket_padded_prefill_matches_no_cache_oracle(weights, oracle, Lp):
     logits, _, cache = jax_forward(jcfg, jparams, {"tokens": jnp.asarray(toks)}, want_cache=True)
     assert jcfg.num_meta_tokens + toks.shape[1] + N_NEW <= jcfg.window   # no window fault
     out = _jax_decode(weights, logits[0, Lp - 1], cache, jcfg.num_meta_tokens + Lp)
-    assert oracle(prompt, out)
+    agree = oracle(prompt, out)
+    assert agree == N_NEW, f"Lp {Lp}: the first {agree} of {N_NEW} greedy tokens agree"
 
 
 @pytest.mark.xfail(strict=True, reason="reference fault (ROADMAP §3): a hybrid layer's JAX "
@@ -537,7 +540,8 @@ def test_jax_unpadded_prefill_past_the_window_matches_no_cache_oracle(weights, o
     prompt = _prompts((Lp,), jcfg.vocab_size, seed=3)[0]
     logits, cache = jax_prefill(jcfg, jparams, {"tokens": jnp.asarray(prompt[None])})
     out = _jax_decode(weights, logits[0], cache, jcfg.num_meta_tokens + Lp)
-    assert oracle(prompt, out)
+    agree = oracle(prompt, out)
+    assert agree == N_NEW, f"Lp {Lp}: the first {agree} of {N_NEW} greedy tokens agree"
 
 
 def test_jax_unpadded_prefill_within_the_window_matches_no_cache_oracle(weights, oracle):
@@ -548,7 +552,7 @@ def test_jax_unpadded_prefill_within_the_window_matches_no_cache_oracle(weights,
     prompt = _prompts((23,), jcfg.vocab_size, seed=3)[0]
     logits, cache = jax_prefill(jcfg, jparams, {"tokens": jnp.asarray(prompt[None])})
     out = _jax_decode(weights, logits[0], cache, jcfg.num_meta_tokens + 23)
-    assert oracle(prompt, out)
+    assert oracle(prompt, out) == N_NEW
 
 
 def test_launcher_serves_hymba_smoke_on_cpu(capsys):
