@@ -86,6 +86,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    KVH=5, hd=64): S=1664 with window 1024 and S=300 with window 64, float32
    and bfloat16, against the plain version; then its times at S=1664 beside
    the bound and one SDPA call with the windowed causal mask.
+2f. The dense decode kernel at the hymba serve phase's shapes (B=8, H=25
+   over KVH=5, hd=64, a 1024-slot ring) with lengths that mix full rings
+   with rows of 1, 37 and 300 slots, float32 and bfloat16 (bf16 also
+   against the plain version in float32; tolerances of phase 2b); then its
+   times beside the bound and one SDPA call with the length mask.
 4c. The hymba engine at smoke width in float32: identical greedy tokens on
    the CPU (plain versions) and on the GPU (kernels), with 2 scan and 2
    flash launches per prefill and 2 scan and 2 dense decode launches per
@@ -444,7 +449,7 @@ def dense_work(kernel, q, k, causal=True, lengths=None):
     else:
         B, Hq, hd = q.shape
         pairs = sum(lengths)
-        nbytes = 2 * q.numel() * item + 2 * pairs * KVH * hd * item + 4 * B
+        nbytes = 2 * q.numel() * item + 2 * pairs * k.shape[2] * hd * item + 4 * B
     return nbytes, 4 * hd * Hq * pairs
 
 
@@ -778,6 +783,58 @@ def phase_swa_kernels(kf):
             rows[(dtype_name, S, window)] = r
             print_dense_row(name, r, tol)
             del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 2f: the dense decode kernel at hymba's heads
+# ---------------------------------------------------------------------------
+
+SWA_SC = 1024                                # hymba-1.5b's ring: min(max_seq + 128, window)
+# full rings (every decode step past the window) beside short rows
+SWA_DECODE_LENGTHS = [1024, 1024, 1, 1024, 37, 1024, 300, 1024]
+
+
+def phase_swa_decode_kernel(ka):
+    """``decode_attention`` at the hymba serve phase's shapes (B 8, H 25 over
+    KVH 5, hd 64, a 1024-slot ring, lengths min(pos + 1, 1024)) against its
+    plain version, in f32 and bf16 (bf16 also against the plain version in
+    f32), with the tolerances of phase 2b; then its times beside the bound
+    and a masked SDPA."""
+    import torch.nn.functional as F
+
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    lens = torch.tensor(SWA_DECODE_LENGTHS, dtype=torch.int32, device="cuda")
+    Bd = len(SWA_DECODE_LENGTHS)
+    rows = {}
+    for dtype_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype_name)
+        tol = TOL[dtype_name]
+        q = torch.randn((Bd, SWA_H, SWA_HD), generator=gen, device="cuda").to(dt)
+        k, v = (torch.randn((Bd, SWA_SC, SWA_KVH, SWA_HD), generator=gen, device="cuda").to(dt)
+                for _ in range(2))
+        name = f"decode_attention[{dtype_name}, H={SWA_H}, KVH={SWA_KVH}, hd={SWA_HD}, Sc={SWA_SC}]"
+        got = ka.decode_attention(q, k, v, lens)
+        torch.cuda.synchronize()
+        every = slice(None)
+        errs = {"plain": check_close(name, got, ka.ref_decode_attention(q, k, v, lens),
+                                     every, tol["plain"])}
+        if dtype_name == "bfloat16":
+            want = ka.ref_decode_attention(q.float(), k.float(), v.float(), lens)
+            errs["plain_f32"] = check_close(name + " vs f32", got, want, every, tol["plain_f32"])
+        qt = q[:, :, None, :]
+        kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+        mask = (torch.arange(SWA_SC, device="cuda")[None] < lens.long()[:, None])[:, None, None]
+        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        r = {"errs": errs}
+        r.update(timed_row(dense_work("decode_attention", q, k, lengths=SWA_DECODE_LENGTHS),
+                           dtype_name, flush, lambda: ka.decode_attention(q, k, v, lens),
+                           lambda: ka.ref_decode_attention(q, k, v, lens), lib))
+        rows[dtype_name] = r
+        print_dense_row(name, r, tol)
+        del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     return rows
 
@@ -1640,7 +1697,8 @@ def main() -> int:
     dense_rows = no_scan("dense attention kernels", phase_dense_kernels, ka, kf)
     wkv_rows = no_scan("rwkv6 wkv kernel", phase_wkv_kernel, kw)
     ssm_rows = timed("ssm scan kernel", phase_ssm_kernel, ks)
-    swa_rows = timed("windowed flash kernel", phase_swa_kernels, kf)
+    swa_rows = no_scan("windowed flash kernel", phase_swa_kernels, kf)
+    swa_decode_rows = no_scan("hymba decode kernel", phase_swa_decode_kernel, ka)
     # the queries are drawn as benchmarks/retrieval_knob.py draws them
     corpus, queries = no_scan("synthetic_corpus on the host", lambda: (
         synthetic_corpus(N_DOCS, DIM, seed=0), synthetic_corpus(N_QUERIES, DIM, seed=7)))
@@ -1760,6 +1818,16 @@ def main() -> int:
                                 for (d, S, w), x in swa_rows.items()},
         **{d: {key2: swa_rows[(d, *SWA_CASES[0])][key2]
                for key2 in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+           for d in ("float32", "bfloat16")},
+    }
+    # the decode kernel at the hymba serve phase's shapes
+    dec = next(k for k in kernels if k["name"] == "decode_attention")
+    dec["hymba"] = {
+        "shape": {"B": len(SWA_DECODE_LENGTHS), "H": SWA_H, "KVH": SWA_KVH, "hd": SWA_HD,
+                  "Sc": SWA_SC, "lengths": SWA_DECODE_LENGTHS},
+        **{d: {key2: swa_decode_rows[d][key2]
+               for key2 in ("errs", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+                            "bound_by")}
            for d in ("float32", "bfloat16")},
     }
     print(json.dumps({"kernels": kernels}))

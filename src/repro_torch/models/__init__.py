@@ -4,6 +4,7 @@ from repro_torch.models.model import (
     decode_step_paged,
     dense_cache_supported,
     forward,
+    has_recurrent_state,
     init_cache,
     init_params,
     paged_cache_supported,
@@ -12,4 +13,4 @@ from repro_torch.models.model import (
 )
 
 __all__ = ["decode_step", "decode_step_paged", "dense_cache_supported", "forward",
-           "init_cache", "init_params", "paged_cache_supported", "prefill", "prefill_packed"]
+           "has_recurrent_state", "init_cache", "init_params", "paged_cache_supported", "prefill", "prefill_packed"]

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ATTN_FULL, ATTN_SWA
+from repro_torch.configs.base import ATTN_FULL
 from repro_torch.kernels.decode_attention import decode_attention as decode_kernel
 from repro_torch.kernels.flash_attention import flash_attention
 
@@ -31,17 +31,17 @@ def qkv_project(params, x, num_heads, num_kv_heads, head_dim):
 
 def blockwise_attention(q, k, v, *, attn_type: str = ATTN_FULL, window: int = 0,
                         causal: bool = True):
-    """q: (B, S, H, hd); k/v: (B, S, KVH, hd) -> (B, S, H, hd). Full
-    attention, causal or not, or sliding-window attention (``ATTN_SWA``:
-    keys after query - ``window`` only; no window where it is 0), over keys
-    of the queries' own length (the ``flash_attention`` kernel); chunked
-    masks and cross attention (S_kv != S) are not ported yet."""
-    if attn_type not in (ATTN_FULL, ATTN_SWA) or k.shape[1] != q.shape[1]:
+    """q: (B, S, H, hd); k/v: (B, S, KVH, hd) -> (B, S, H, hd). Attention,
+    causal or not, over keys of the queries' own length (the
+    ``flash_attention`` kernel); ``window`` > 0 keeps only the keys after
+    query - ``window`` (the mask of JAX's ``attn_type=ATTN_SWA``), 0 keeps
+    every key. Chunked masks and cross attention (S_kv != S) are not
+    ported yet."""
+    if attn_type != ATTN_FULL or k.shape[1] != q.shape[1]:
         raise NotImplementedError(
-            f"blockwise_attention ports full and sliding-window attention with S_kv == S; "
-            f"got attn_type={attn_type!r}, S={q.shape[1]}, S_kv={k.shape[1]}")
-    return flash_attention(q, k, v, causal=causal,
-                           window=window if attn_type == ATTN_SWA else 0)
+            f"blockwise_attention ports attention with S_kv == S, windowed through "
+            f"``window``; got attn_type={attn_type!r}, S={q.shape[1]}, S_kv={k.shape[1]}")
+    return flash_attention(q, k, v, causal=causal, window=window)
 
 
 def decode_attention(q, k_cache, v_cache, lengths):
@@ -57,15 +57,11 @@ def decode_attention(q, k_cache, v_cache, lengths):
 def cache_validity(attn_type: str, cache_len: int, pos, chunk: int = 0):
     """Which cache slots a decode query at absolute position ``pos`` may
     attend: (B, Sc) bool for pos (B,), (1, Sc) for a 0-d pos. Full attention
-    (a linear cache, filled so far) and SWA (a ring, every slot valid once
-    wrapped); the chunked-local ring is not ported yet."""
-    if attn_type not in (ATTN_FULL, ATTN_SWA):
+    only (a linear cache, filled so far); the ring caches of SWA and
+    chunked-local layers are not ported yet (a hybrid stack's decode hands
+    its kernel ``lengths`` instead, see ``decode_attention``)."""
+    if attn_type != ATTN_FULL:
         raise NotImplementedError(
-            f"cache_validity ports the full-attention and SWA caches; got "
-            f"attn_type={attn_type!r}")
+            f"cache_validity ports the full-attention cache; got attn_type={attn_type!r}")
     slots = torch.arange(cache_len, device=pos.device)
-    p = pos.long().reshape(-1, 1)
-    m = slots <= torch.clamp(p, max=cache_len - 1)
-    if attn_type == ATTN_SWA:
-        m = m | (p + 1 >= cache_len)
-    return m
+    return slots <= torch.clamp(pos.long().reshape(-1, 1), max=cache_len - 1)

@@ -83,6 +83,13 @@ def dense_cache_supported(cfg: ModelConfig) -> bool:
     return tfm.dense_stack_supported(cfg) and _token_frontend(cfg)
 
 
+def has_recurrent_state(cfg: ModelConfig) -> bool:
+    """Whether the stack carries a recurrent state through its cache (RWKV-6,
+    or the SSM of a hybrid stack): a prompt padded to a bucket would carry
+    its pad tokens into that state."""
+    return cfg.attention_free or cfg.attn_type == MIXER_HYBRID
+
+
 def forward(cfg, params, batch, want_cache: bool = False, logits_mode: str = "all"):
     """batch {"tokens": (B, S) int} -> (logits (B, S, V), aux) or, with
     ``want_cache``, (logits, aux, caches): the serve cache of the whole
@@ -151,7 +158,7 @@ def init_cache(cfg: ModelConfig, B: int, S: int, device):
         return ({"state": torch.zeros((G, B, H, hd, hd), dtype=torch.float32, device=device),
                  "x_prev_att": torch.zeros((G, B, cfg.d_model), dtype=dtype, device=device),
                  "x_prev_ffn": torch.zeros((G, B, cfg.d_model), dtype=dtype, device=device)},)
-    Sc = tfm.cache_len_for(cfg, tfm.layer_kind(cfg, 0), S)
+    Sc = tfm.cache_len_for(cfg, S)
     shape = (G, B, Sc, cfg.num_kv_heads, cfg.head_dim)
     entry = {"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)}

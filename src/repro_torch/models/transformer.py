@@ -30,7 +30,6 @@ import torch
 
 from repro_torch.configs.base import (
     ATTN_FULL,
-    ATTN_SWA,
     MIXER_HYBRID,
     MIXER_RWKV6,
     ModelConfig,
@@ -69,12 +68,11 @@ def layer_kind(cfg: ModelConfig, layer: int) -> Dict[str, Any]:
     }
 
 
-def cache_len_for(cfg: ModelConfig, kind: Dict[str, Any], S: int) -> int:
-    """K/V slots a layer's serve cache holds for a context of S tokens: a
-    ring of ``window`` slots for SWA and hybrid layers (JAX sizes a hybrid
-    layer's cache S, linear: ROADMAP §3), S otherwise (the chunked-local
-    ring is not ported yet)."""
-    if kind["attn_type"] in (ATTN_SWA, MIXER_HYBRID):
+def cache_len_for(cfg: ModelConfig, S: int) -> int:
+    """K/V slots a layer of the port's stacks holds for a context of S
+    tokens: a ring of ``min(S, window)`` slots in a hybrid stack (JAX sizes
+    a hybrid layer's cache S, linear: ROADMAP §3), S otherwise."""
+    if cfg.attn_type == MIXER_HYBRID:
         return min(S, cfg.window)
     return S
 
@@ -329,11 +327,10 @@ def _apply_hybrid_layer_seq(cfg, lp, x, rope):
     KVH, hd) ring, conv: (B, K-1, D), h: (B, D, N) float32})."""
     xn = apply_norm(cfg, lp["norm1"], x)
     q, k, v = _qkv(cfg, lp, xn, rope)
-    a_out = _out_proj(cfg, lp, x, attn.blockwise_attention(q, k, v, attn_type=ATTN_SWA,
-                                                           window=cfg.window))
+    a_out = _out_proj(cfg, lp, x, attn.blockwise_attention(q, k, v, window=cfg.window))
     s_out, (conv_tail, h) = ssm_mod.apply_ssm(lp["ssm"], xn, cfg)
     x = _mlp_residual(cfg, lp, _hybrid_mix(cfg, lp, x, a_out, s_out))
-    Sc = cache_len_for(cfg, {"attn_type": MIXER_HYBRID}, x.shape[1])
+    Sc = cache_len_for(cfg, x.shape[1])
     return x, {"k": _ring(k, Sc), "v": _ring(v, Sc), "conv": conv_tail, "h": h}
 
 

@@ -55,7 +55,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import MIXER_HYBRID, ModelConfig
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.scheduler import QueuePolicy, make_policy
 from repro_torch.core.streaming import PriorityFlusher, StreamingObject
 from repro_torch.models import (
@@ -63,6 +63,7 @@ from repro_torch.models import (
     decode_step_paged,
     dense_cache_supported,
     forward,
+    has_recurrent_state,
     init_cache,
     init_params,
     paged_cache_supported,
@@ -709,7 +710,7 @@ class GenerationEngine:
         or the SSM of a hybrid stack) runs it at its own length: its
         recurrence would carry the pad tokens into the state (ROADMAP §3)."""
         Lp = len(req.prompt)
-        if self.cfg.attention_free or self.cfg.attn_type == MIXER_HYBRID:
+        if has_recurrent_state(self.cfg):
             eff = min(Lp, self.max_seq)
             toks, mode = np.asarray(req.prompt[:eff], np.int32)[None], "last"
         else:

@@ -206,6 +206,26 @@ def test_dense_decode_kernel_matches_plain_version(gpu, hd, dtype, Sc, lengths):
         _close(got, want, slice(None), BF16_OUT_TOL)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_decode_kernel_at_hymba_heads(gpu, dtype):
+    """hymba-1.5b's decode: H 25 over KVH 5 (G = 5), hd 64, a 1024-slot ring
+    whose lengths min(pos + 1, 1024) mix full rings with short rows."""
+    lengths = [1024, 1024, 1, 1024, 37, 1024, 300, 1024]
+    g = torch.Generator().manual_seed(25)
+    B = len(lengths)
+    q = torch.randn((B, 25, 64), generator=g).to(dtype).to(gpu)
+    k, v = (torch.randn((B, 1024, 5, 64), generator=g).to(dtype).to(gpu) for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=gpu)
+    before = ka.decode_attention.launches
+    got = ka.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert ka.decode_attention.launches == before + 1
+    _close(got, ka.ref_decode_attention(q, k, v, lens), slice(None), DENSE_TOL[dtype])
+    if dtype == torch.bfloat16:
+        want = ka.ref_decode_attention(q.float(), k.float(), v.float(), lens)
+        _close(got, want, slice(None), BF16_OUT_TOL)
+
+
 def test_dense_kernels_reject_what_they_do_not_take(gpu):
     q = torch.randn((1, 16, 4, 64), device=gpu)
     kv = torch.randn((1, 16, 2, 64), device=gpu)

@@ -5,8 +5,9 @@ width in float32, on the same numpy inputs and weights.
   ``ref_decode_attention``) against the Pallas kernels in interpret mode
   (``repro.kernels.ops``) and the jnp oracles (``repro.kernels.ref``), at
   ``TOL`` of tests/test_kernel_conformance.py.
-- ``cache_validity`` of a full-attention cache against JAX's, and against
-  the ``slot < pos + 1`` lengths the port's decode passes to its kernel.
+- ``cache_validity`` of a full-attention cache against JAX's, and JAX's
+  full and SWA-ring masks against the ``slot < min(pos + 1, Sc)`` lengths
+  the port's decode passes to its kernel.
 - ``forward(want_cache=True)``, ``prefill``, ``init_cache`` and
   ``decode_step`` against JAX's: logits at 1e-4 (two float32 stacks in
   different summation orders), caches at 1e-5.
@@ -89,8 +90,10 @@ def test_plain_decode_matches_pallas_and_ref(B, Sc, H, KVH, hd, lengths, block):
     np.testing.assert_allclose(got, np.asarray(want), **TOL)
 
 
-# full attention, the only cache the port has; Sc = 1 and pos far past Sc
-# exercise the clamp
+# full attention, the only cache the port masks; Sc = 1 and pos far past Sc
+# exercise the clamp. A hybrid stack's SWA ring of Sc <= window slots is
+# masked by the decode kernel's lengths alone: the SWA cases hold those
+# lengths against JAX's ring mask
 @pytest.mark.parametrize("attn_type,Sc,pos", [
     (ATTN_FULL, 24, [0, 5, 23, 30, 47]),
     (ATTN_FULL, 1, [0, 3]),
@@ -100,28 +103,31 @@ def test_plain_decode_matches_pallas_and_ref(B, Sc, H, KVH, hd, lengths, block):
 ], ids=["full", "full-Sc1", "full-Sc64", "swa", "swa-Sc64"])
 def test_cache_validity_matches_jax(attn_type, Sc, pos):
     pos = np.asarray(pos, np.int32)
-    got = attn.cache_validity(attn_type, Sc, torch.from_numpy(pos)).numpy()
     want = np.asarray(jax_attn.cache_validity(attn_type, Sc, jnp.asarray(pos)))
-    np.testing.assert_array_equal(got, want)
-    scalar = attn.cache_validity(attn_type, Sc, torch.tensor(7)).numpy()
-    np.testing.assert_array_equal(
-        scalar, np.asarray(jax_attn.cache_validity(attn_type, Sc, jnp.int32(7))))
     # the mask is slot < min(pos + 1, Sc), the lengths the port's decode
     # hands to its kernel (a full-attention engine keeps pos <= Sc - 1; an
     # SWA ring wraps)
     lengths = np.minimum(pos + 1, Sc)
-    np.testing.assert_array_equal(got, np.arange(Sc)[None] < lengths[:, None])
+    np.testing.assert_array_equal(np.arange(Sc)[None] < lengths[:, None], want)
+    if attn_type == ATTN_FULL:
+        got = attn.cache_validity(attn_type, Sc, torch.from_numpy(pos)).numpy()
+        np.testing.assert_array_equal(got, want)
+        scalar = attn.cache_validity(attn_type, Sc, torch.tensor(7)).numpy()
+        np.testing.assert_array_equal(
+            scalar, np.asarray(jax_attn.cache_validity(attn_type, Sc, jnp.int32(7))))
 
 
 def test_unported_attention_raises():
     q = torch.zeros((1, 8, 4, 64))
     kv = torch.zeros((1, 8, 2, 64))
-    with pytest.raises(NotImplementedError):
-        attn.blockwise_attention(q, kv, kv, attn_type=ATTN_CHUNKED_LOCAL, window=4)
+    for attn_type in (ATTN_SWA, ATTN_CHUNKED_LOCAL):   # a window goes in ``window``
+        with pytest.raises(NotImplementedError):
+            attn.blockwise_attention(q, kv, kv, attn_type=attn_type, window=4)
     with pytest.raises(NotImplementedError):       # cross attention: S_kv != S
         attn.blockwise_attention(q, kv[:, :4], kv[:, :4])
-    with pytest.raises(NotImplementedError):       # the chunked-local ring
-        attn.cache_validity(ATTN_CHUNKED_LOCAL, 24, torch.tensor([3, 30]), 8)
+    for attn_type in (ATTN_SWA, ATTN_CHUNKED_LOCAL):      # ring caches
+        with pytest.raises(NotImplementedError):
+            attn.cache_validity(attn_type, 24, torch.tensor([3, 30]), 8)
     cfg = smoke_variant(get_arch("smollm-135m")).replace(kv_cache_quant=True)
     with pytest.raises(NotImplementedError):
         init_cache(cfg, 2, 16, "cpu")

@@ -47,7 +47,6 @@ from repro.models import transformer as jax_tfm
 from repro.serving.engine import GenerationEngine as JaxEngine
 from repro.serving.engine import _bucket
 from repro_torch.configs import get_arch, smoke_variant
-from repro_torch.configs.base import ATTN_SWA
 from repro_torch.kernels.flash_attention import flash_attention, ref_flash_attention
 from repro_torch.kernels.ssm_scan import ref_ssm_scan, ssm_scan
 from repro_torch.launch.serve import main as serve_main
@@ -218,7 +217,7 @@ def test_windowed_flash_matches_jax_swa(S):
     want = np.asarray(jax_attn.blockwise_attention(
         *map(jnp.asarray, (q, k, v)), attn_type=JAX_ATTN_SWA, window=64))
     t = torch.from_numpy
-    got = attn.blockwise_attention(t(q), t(k), t(v), attn_type=ATTN_SWA, window=64)
+    got = attn.blockwise_attention(t(q), t(k), t(v), window=64)
     np.testing.assert_allclose(got.numpy(), want, **REF_TOL)
     np.testing.assert_array_equal(flash_attention(t(q), t(k), t(v), window=64).numpy(),
                                   got.numpy())
