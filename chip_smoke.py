@@ -13,14 +13,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
    tokens, contexts up to 2048, RAW -1 holes, pad tokens, segmented spans)
    for float32, bfloat16 and int8 pools (bf16 also against the plain version
    on the same values in float32, int8 also with bf16 q; tolerances in
-   ``TOL``); then times (CUDA events, L2 flushed between launches, median
+   ``TOL``), and the split decode's edges (a row of length 1, -1 holes at
+   the table entries that start splits); then times (CUDA events, L2 flushed between launches, median
    of 30) of the kernel, its plain version and one PyTorch SDPA call on the
    gathered view, beside the bound the card could reach, and the kernel's
    device time alone (calls queued behind a spin kernel, timed back to back
    with CUDA events; every timed kernel has one).
 2b. The dense backend's kernels against their plain versions on the card at
    qwen2.5-3b shapes: flash attention (B=1, H=16, KVH=2, hd=128, S in {16,
-   200, 2048}, causal and not) and dense decode attention (B=8, Sc=2048,
+   64, 65, 200, 1100, 2048}, causal and not; bf16 runs on the tensor cores) and dense decode attention (B=8, Sc=2048,
    the lengths of phase 2, and again with the shortest row at length 1),
    float32 and bfloat16 (bf16 also against the plain version in float32);
    then the times of the kernel, its plain version and one SDPA call
@@ -179,6 +180,11 @@ LENGTHS = [2048, 1536, 1024, 777, 512, 300, 129, 33]
 # prefill chunks (row: (n tokens, p_end, s_start)); other rows decode one token
 CHUNKS = {2: (64, 0, 0), 4: (96, 128, 400), 5: (100, 0, 0), 7: (33, 0, 0)}
 N_PAD = 3
+# the split decode's edges: at these shapes each split walks 8 table entries
+# (128 slots), so -1 holes at entries 8 and 16 sit on split boundaries, and
+# the shortest row (length 1) leaves every split but the first empty
+SPLIT_HOLES = (8, 16)
+SPLIT_LENGTHS = LENGTHS[:-1] + [1]
 
 
 def make_case(dtype_name, gen):
@@ -380,6 +386,7 @@ def phase_kernels(ka):
                 for k, v in make_case(dtype_name, gen).items()}
         # the extra inputs of the second check: the same values in f32
         # (bf16 pools), or q in bf16 (int8 pools)
+        other = None
         if dtype_name == "bfloat16":
             other = dict(case, **{k: case[k].float() for k in ("q_dec", "q_chunk", "k", "v")})
         elif dtype_name == "int8":
@@ -422,18 +429,58 @@ def phase_kernels(ka):
                   f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}: {nbytes} B, {ops} flop)",
                   flush=True)
             rows[(name, dtype_name)] = r
-        del case
-        other = None
+        rows[("paged_decode_attention", dtype_name)]["split_edges"] = check_split_edges(
+            ka, case, other, dtype_name)
+        del case, other
         torch.cuda.empty_cache()
     return rows
 
+
+
+def check_split_edges(ka, case, other, dtype_name):
+    """The decode kernel on ``SPLIT_LENGTHS`` with -1 holes at the table
+    entries ``SPLIT_HOLES`` (split boundaries), against its plain version at
+    the phase's tolerances; bf16 also against the plain version in f32, int8
+    also with bf16 q. Returns {check: max abs err}."""
+    def edged(c):
+        tables = c["tables_dec"].clone()
+        tables[:, list(SPLIT_HOLES)] = -1
+        return dict(c, tables_dec=tables,
+                    lengths=torch.tensor(SPLIT_LENGTHS, dtype=torch.int32, device="cuda"))
+
+    def run(c, fn):
+        return fn(c["q_dec"], c["k"], c["v"], c["tables_dec"], c["lengths"],
+                  k_scale=c["ks"], v_scale=c["vs"])
+
+    c, o = edged(case), edged(other) if other is not None else None
+    every = torch.ones(B, dtype=torch.bool, device="cuda")
+    name = f"paged_decode_attention[{dtype_name}, split edges]"
+    got = run(c, ka.paged_decode_attention)
+    torch.cuda.synchronize()
+    errs = {"plain": check_close(name, got, run(c, ka.ref_paged_decode_attention), every,
+                                 TOL[dtype_name]["plain"])}
+    if dtype_name == "bfloat16":
+        errs["plain_f32"] = check_close(name + " vs f32", got,
+                                        run(o, ka.ref_paged_decode_attention), every,
+                                        TOL[dtype_name]["plain_f32"])
+    elif dtype_name == "int8":
+        errs["plain_bf16_q"] = check_close(
+            name + " bf16 q", run(o, ka.paged_decode_attention),
+            run(o, ka.ref_paged_decode_attention), every, TOL[dtype_name]["plain_bf16_q"])
+    checks = ", ".join(f"vs {k} {e:.3e} (atol, rtol {TOL[dtype_name][k]})"
+                       for k, e in errs.items())
+    print(f"[kernels] {name}: lengths {SPLIT_LENGTHS}, holes at entries {SPLIT_HOLES}: "
+          f"max_abs_err {checks}", flush=True)
+    return errs
 
 
 # ---------------------------------------------------------------------------
 # phase 2b: the dense backend's kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-FLASH_S = (16, 200, 2048)                    # 200: no power-of-two tile above 8 divides it
+# 64 and 65: one whole 64-row tile and one row past it; 200 and 1100: no
+# power-of-two tile above 8 divides them; 2048: the dense serve's largest bucket
+FLASH_S = (16, 64, 65, 200, 1100, 2048)
 DECODE_LENGTHS = {"lengths": LENGTHS, "shortest_1": LENGTHS[:-1] + [1]}
 
 
@@ -1741,6 +1788,9 @@ def main() -> int:
             # every check of every dtype: {dtype: {check: max abs err}}
             "max_abs_err_by_check": {d: rows[(name, d)]["errs"]
                                      for d in ("float32", "bfloat16", "int8")},
+            **({"split_edges": {d: rows[(name, d)]["split_edges"]
+                                for d in ("float32", "bfloat16", "int8")}}
+               if name == "paged_decode_attention" else {}),
             "launches_by_phase": {ph: n[name] for ph, n in launches.items()},
         })
     # the RAG phase's shape: float32 index, B=32, k=10 (recall_at_k)

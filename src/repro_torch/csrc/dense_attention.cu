@@ -11,22 +11,37 @@
 //   mask of repro/models/attention.py::blockwise_attention(ATTN_SWA); the
 //   Pallas kernel has no window.
 //   Bound on the H100: operations. A 64-query tile does 4*hd flops per key
-//   per query against ~hd*4 bytes of K/V per key: hundreds of flops per byte,
-//   well above the ~20 flops per byte at which f32 CUDA-core work stops being
-//   bandwidth-bound. The f32 contract (no bf16 rounding of P) keeps it off
-//   the tensor cores, so the bound is the 67 TFLOP/s f32 rate.
-//   Design: one 256-thread block per (64-query tile, head, batch row) keeps
-//   its Q tile in shared memory as f32 and streams 64-key K/V tiles through
-//   shared memory. Each thread holds a 4 x 4 score tile (rows ty + 16i, keys
-//   tx + 16j) and a 4 x hd/16 slice of the output accumulator in registers;
-//   the row max and sum are reduced over the 16 lanes of a half-warp with
-//   shuffles, and the probabilities reach the value product by shuffles too,
-//   so scores never touch shared memory. Causal blocks stop at the diagonal
-//   tile (the Pallas grid's block skip), windowed blocks start at the first
-//   tile that holds a key of the window, and the heaviest query tiles are
-//   scheduled first. Rows and keys past S are masked, so S need not be a
-//   multiple of the tile. Later work: tensor cores cannot keep the f32
-//   contract; wider register tiles and cp.async/TMA staging can.
+//   per query against ~hd*4 bytes of K/V per key: hundreds of flops per byte.
+//   bf16 inputs (what every serve path runs) go to the tensor cores, f32
+//   inputs stay on the CUDA cores.
+//   bf16 design (flash_tc_kernel): one 128-thread block per (64-query tile,
+//   head, batch row), four warps of 16 query rows. The Q tile's A fragments
+//   are loaded once (ldmatrix) and kept in registers; 64-key K and V tiles
+//   are double-buffered in shared memory by 16-byte cp.async (zero-filled
+//   past S), the next tile in flight while this one is computed, rows padded
+//   by 16 bytes so that ldmatrix hits distinct banks. S = Q K^T runs on
+//   mma.sync m16n8k16 (bf16 in, f32 accumulators: bf16 x bf16 products are
+//   exact in f32, so only the order of summation differs from the f32
+//   contract); the online softmax works on the accumulator fragments (row
+//   max and sum over the quad of lanes that shares a row, ex2.approx with log2(e)
+//   folded into the scale). The f32 contract keeps P in f32, which one bf16
+//   rounding (8 bits) would break, so P goes to the value product in two
+//   bf16 parts, P_hi = bf16(P) and P_lo = bf16(P - P_hi) (about 16 bits),
+//   packed straight from the score registers into A fragments, and two
+//   mma.sync per step (V's B fragments by ldmatrix.trans) add both into one
+//   f32 accumulator. Masks are applied only on tiles that can hold a masked
+//   key (the diagonal, the window's first tiles, keys past S).
+//   f32 design (flash_kernel): the same tiles on the CUDA cores. TF32 tensor
+//   cores keep about 10 bits of each input and would not hold the f32
+//   tolerance (1e-4), so each thread holds a 4 x 4 score tile (rows ty + 16i,
+//   keys tx + 16j) and a 4 x hd/16 slice of the output accumulator in
+//   registers, with the row max and sum, and the probabilities on their way
+//   to the value product, reduced over the 16 lanes of a half-warp by
+//   shuffles.
+//   Both: causal blocks stop at the diagonal tile (the Pallas grid's block
+//   skip), windowed blocks start at the first tile that holds a key of the
+//   window, and the heaviest query tiles are scheduled first. Rows and keys
+//   past S are masked, so S need not be a multiple of the tile.
 //
 // decode_attention
 //   Replaces the Pallas kernel repro/kernels/decode_attention.py::
@@ -40,48 +55,27 @@
 //   block per (split, KV head, row) reads each K/V slot of its slice once and
 //   shares it across the G = H / KVH query heads of the group; its eight warps
 //   walk 16-slot tiles in parallel with a per-warp f32 online softmax, merged
-//   at the end into the block's (max, sum, accumulator). Slots at or past the
-//   row's length are never loaded. A second kernel merges the splits of each
-//   (row, KV head).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+//   at the end into the block's partial state. Slots at or past the row's
+//   length are never loaded. A second kernel merges the splits of each (row,
+//   KV head) (attention_common.cuh). The wrapper picks n_split and the slots
+//   per split (kernels/decode_attention.py::decode_split).
+#include <type_traits>
+
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-
-enum DType { kF32 = 0, kBF16 = 1 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Four consecutive elements as float: one 16-byte load (f32) or one 8-byte
-// load (bf16); the address must be aligned to that size.
+// Four consecutive floats in one 16-byte load (the address must be aligned
+// to it).
 template <typename T> struct Load4;
 template <> struct Load4<float> {
   __device__ __forceinline__ static float4 run(const float* p) {
     return *reinterpret_cast<const float4*>(p);
   }
 };
-template <> struct Load4<__nv_bfloat16> {
-  __device__ __forceinline__ static float4 run(const __nv_bfloat16* p) {
-    const uint2 x = *reinterpret_cast<const uint2*>(p);
-    // little-endian: element 2k in the low half of word k
-    return make_float4(__uint_as_float(x.x << 16), __uint_as_float(x.x & 0xffff0000u),
-                       __uint_as_float(x.y << 16), __uint_as_float(x.y & 0xffff0000u));
-  }
-};
 
 // ---------------------------------------------------------------------------
-// flash attention
+// flash attention, f32 inputs on the CUDA cores
 // ---------------------------------------------------------------------------
 
 constexpr int kTile = 64;         // queries per block and keys per K/V tile
@@ -248,13 +242,301 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   }
 }
 
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, size_t smem) {
-  if (smem > 48 * 1024) {
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(smem));
+// ---------------------------------------------------------------------------
+// flash attention, bf16 inputs on the tensor cores
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTCWarps = 4;                 // 16 query rows each
+constexpr int kTCThreads = 32 * kTCWarps;
+
+// Shared-memory plan (bf16): Q tile | stage 0: K tile, V tile | stage 1: K
+// tile, V tile; each tile kTile rows of HD + 8 elements. The 16-byte pad
+// moves each row four banks on, so the eight rows of an ldmatrix phase fall
+// on distinct banks.
+__host__ __device__ constexpr int flash_tc_smem_bytes(int hd) {
+  return 5 * kTile * (hd + 8) * static_cast<int>(sizeof(bf16));
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; src_bytes 0 writes zeros and
+// reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N committed groups of this thread are still in flight
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8 x 8 b16 matrices; lanes 8i .. 8i+7 give the row addresses of
+// matrix i, and lane l receives row l / 4, columns 2 (l % 4) .. +1 of each
+// (of the transpose with .trans). volatile keeps them between the barriers;
+// no memory clobber, so the compiler may schedule a step's loads ahead of its
+// mma.sync
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16, row-major) * b (16 x 8, bf16, col-major)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned bf16x2_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<unsigned*>(&x);
+}
+
+// (x0, x1) as bf16 pairs hi = bf16(x) and lo = bf16(x - hi): hi + lo keeps
+// about 16 significant bits of each
+__device__ __forceinline__ void split_bf16(float x0, float x1, unsigned& hi, unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bf16x2_bits(h);
+  lo = bf16x2_bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+}
+
+// rows [row0, row0 + kTile) of a (.., S, heads, HD) bf16 tensor at head
+// `head` into a padded shared tile, by cp.async; rows at or past S are zeros
+template <int HD>
+__device__ __forceinline__ void cp_tile(bf16* dst, const bf16* __restrict__ src, int row0, int S,
+                                        int heads, int head) {
+  constexpr int kChunks = HD / 8;  // 16-byte chunks of a row
+  static_assert(kTile * kChunks % kTCThreads == 0, "whole passes of the block");
+#pragma unroll
+  for (int i = 0; i < kTile * kChunks / kTCThreads; ++i) {
+    const int e = threadIdx.x + i * kTCThreads;
+    const int r = e / kChunks, c = (e % kChunks) * 8;
+    const bool in = row0 + r < S;
+    const bf16* g = src + ((size_t)(in ? row0 + r : 0) * heads + head) * HD + c;
+    cp_async16(dst + r * (HD + 8) + c, g, in ? 16 : 0);
   }
-  return cudaSuccess;
+}
+
+// 2^x by the SFU's ex2.approx (about 2 ulp; results below 2^-126 flush to
+// 0, a probability the f32 output cannot see)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Warp w owns query rows q0 + 16w .. +15; lane l holds, of every 16 x 8
+// accumulator fragment, rows l / 4 and l / 4 + 8 at columns 2 (l % 4) .. +1.
+// scale_log2 = scale * log2(e): scores and the running max are kept in
+// log2 units, so p = exp2(s - m).
+template <int HD>
+__global__ void __launch_bounds__(kTCThreads)
+flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, bf16* __restrict__ out, int S, int H, int KVH,
+                int causal, int window, float scale_log2) {
+  constexpr int RS = HD + 8;       // padded row of a shared tile (elements)
+  constexpr int KSTEPS = HD / 16;  // k-steps of Q K^T
+  constexpr int NT = kTile / 8;    // 8-key column tiles of S
+  constexpr int NO = HD / 8;       // 8-column tiles of O
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(tc_smem);
+  bf16* stage0 = Qs + kTile * RS;  // stage i: K at stage0 + 2i kTile RS, V after it
+
+  const int nq = gridDim.x;
+  const int qt = causal ? nq - 1 - blockIdx.x : blockIdx.x;  // heaviest tiles first
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / KVH);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = qt * kTile;
+  const bf16* qb = q + (size_t)b * S * H * HD;
+  const bf16* kb = k + (size_t)b * S * KVH * HD;
+  const bf16* vb = v + (size_t)b * S * KVH * HD;
+
+  const int n_kv = (S + kTile - 1) / kTile;
+  // causal: K/V tiles past the diagonal lie wholly in the future; window:
+  // tiles before the first row's first key (q0 - window + 1) lie wholly
+  // before every row's window
+  const int kt_end = causal ? min(qt + 1, n_kv) : n_kv;
+  const int kt_begin = window > 0 ? max(q0 - window + 1, 0) / kTile : 0;
+
+  cp_tile<HD>(Qs, qb, q0, S, H, h);
+  cp_tile<HD>(stage0, kb, kt_begin * kTile, S, KVH, kvh);
+  cp_tile<HD>(stage0 + kTile * RS, vb, kt_begin * kTile, S, KVH, kvh);
+  cp_async_commit();
+
+  const int row_a = q0 + warp * 16 + lane / 4, row_b = row_a + 8;
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_a = -INFINITY, m_b = -INFINITY;  // running max of rows a and b
+  float l_a = 0.f, l_b = 0.f;              // this lane's share of the row sums
+  unsigned qf[KSTEPS][4];
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int it = kt - kt_begin;
+    bf16* Ks = stage0 + (it & 1) * 2 * kTile * RS;
+    bf16* Vs = Ks + kTile * RS;
+    if (kt + 1 < kt_end) {  // the next tile into the other stage
+      bf16* Kn = stage0 + ((it + 1) & 1) * 2 * kTile * RS;
+      cp_tile<HD>(Kn, kb, (kt + 1) * kTile, S, KVH, kvh);
+      cp_tile<HD>(Kn + kTile * RS, vb, (kt + 1) * kTile, S, KVH, kvh);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this tile (and, first, Q) has landed for every thread
+    if (it == 0) {
+#pragma unroll
+      for (int ks = 0; ks < KSTEPS; ++ks)
+        ldsm_x4(qf[ks], Qs + (warp * 16 + lane % 16) * RS + ks * 16 + (lane / 16) * 8);
+    }
+
+    // S = Q K^T: ldmatrix matrix i of keys n0 + (i / 2) * 8 .. +7, dims
+    // k0 + (i % 2) * 8 .. +7, so r0, r1 are the B fragment of key tile n0
+    // and r2, r3 that of n0 + 8
+    float s[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+#pragma unroll
+      for (int n = 0; n < NT; n += 2) {
+        unsigned kf[4];
+        ldsm_x4(kf, Ks + (n * 8 + lane % 8 + (lane / 16) * 8) * RS + ks * 16 +
+                        ((lane / 8) % 2) * 8);
+        mma_bf16(s[n], qf[ks], kf[0], kf[1]);
+        mma_bf16(s[n + 1], qf[ks], kf[2], kf[3]);
+      }
+    }
+
+    // scale, mask where this tile can hold a masked key, online softmax
+    const int k0 = kt * kTile;
+    const bool edge = k0 + kTile > S || (causal && k0 + kTile - 1 > q0) ||
+                      (window > 0 && k0 <= q0 + kTile - 1 - window);
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * scale_log2;
+        if (edge) {
+          const int col = k0 + n * 8 + (lane % 4) * 2 + (e & 1);
+          const int row = e < 2 ? row_a : row_b;
+          const bool ok =
+              col < S && (!causal || col <= row) && (window <= 0 || col > row - window);
+          x = ok ? x : -INFINITY;
+        }
+        s[n][e] = x;
+      }
+      mx_a = fmaxf(mx_a, fmaxf(s[n][0], s[n][1]));
+      mx_b = fmaxf(mx_b, fmaxf(s[n][2], s[n][3]));
+    }
+#pragma unroll
+    for (int w = 1; w < 4; w *= 2) {  // the quad of lanes that shares a row
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(kFull, mx_a, w));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(kFull, mx_b, w));
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    // a new max is -inf only while no key of the row was valid yet
+    const float alpha_a = mn_a == -INFINITY ? 1.f : ex2(m_a - mn_a);
+    const float alpha_b = mn_b == -INFINITY ? 1.f : ex2(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      s[n][0] = s[n][0] == -INFINITY ? 0.f : ex2(s[n][0] - mn_a);
+      s[n][1] = s[n][1] == -INFINITY ? 0.f : ex2(s[n][1] - mn_a);
+      s[n][2] = s[n][2] == -INFINITY ? 0.f : ex2(s[n][2] - mn_b);
+      s[n][3] = s[n][3] == -INFINITY ? 0.f : ex2(s[n][3] - mn_b);
+      sum_a += s[n][0] + s[n][1];
+      sum_b += s[n][2] + s[n][3];
+    }
+    l_a = l_a * alpha_a + sum_a;
+    l_b = l_b * alpha_b + sum_b;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= alpha_a;
+      o[n][1] *= alpha_a;
+      o[n][2] *= alpha_b;
+      o[n][3] *= alpha_b;
+    }
+
+    // O += P V over 16-key steps. The A fragment of keys 16j .. +15 is the
+    // accumulator layout of key tiles 2j and 2j + 1; P goes in as P_hi and
+    // P_lo. ldmatrix.trans matrix i of keys 16j + (i % 2) * 8 .. +7, dims
+    // d0 + (i / 2) * 8 .. +7: r0, r1 the B fragment of dims d0, r2, r3 of
+    // d0 + 8.
+#pragma unroll
+    for (int j = 0; j < kTile / 16; ++j) {
+      unsigned ph[4], pl[4];
+      split_bf16(s[2 * j][0], s[2 * j][1], ph[0], pl[0]);
+      split_bf16(s[2 * j][2], s[2 * j][3], ph[1], pl[1]);
+      split_bf16(s[2 * j + 1][0], s[2 * j + 1][1], ph[2], pl[2]);
+      split_bf16(s[2 * j + 1][2], s[2 * j + 1][3], ph[3], pl[3]);
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        unsigned vf[4];
+        ldsm_x4_trans(vf, Vs + (j * 16 + lane % 8 + ((lane / 8) % 2) * 8) * RS + n * 8 +
+                              (lane / 16) * 8);
+        mma_bf16(o[n], ph, vf[0], vf[1]);
+        mma_bf16(o[n], pl, vf[0], vf[1]);
+        mma_bf16(o[n + 1], ph, vf[2], vf[3]);
+        mma_bf16(o[n + 1], pl, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+#pragma unroll
+  for (int w = 1; w < 4; w *= 2) {
+    l_a += __shfl_xor_sync(kFull, l_a, w);
+    l_b += __shfl_xor_sync(kFull, l_b, w);
+  }
+  const float inv_a = l_a > 0.f ? 1.f / l_a : 0.f;
+  const float inv_b = l_b > 0.f ? 1.f / l_b : 0.f;
+  bf16* ob = out + (size_t)b * S * H * HD;
+  const int c0 = (lane % 4) * 2;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    if (row_a < S)
+      *reinterpret_cast<__nv_bfloat162*>(ob + ((size_t)row_a * H + h) * HD + n * 8 + c0) =
+          __floats2bfloat162_rn(o[n][0] * inv_a, o[n][1] * inv_a);
+    if (row_b < S)
+      *reinterpret_cast<__nv_bfloat162*>(ob + ((size_t)row_b * H + h) * HD + n * 8 + c0) =
+          __floats2bfloat162_rn(o[n][2] * inv_b, o[n][3] * inv_b);
+  }
+}
+
+template <int HD>
+cudaError_t launch_flash_tc_hd(const void* q, const void* k, const void* v, void* out, int B,
+                               int S, int H, int KVH, int causal, int window, float scale,
+                               cudaStream_t stream) {
+  const size_t smem = flash_tc_smem_bytes(HD);
+  auto kernel = flash_tc_kernel<HD>;
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int nq = (S + kTile - 1) / kTile;
+  kernel<<<dim3(nq, H, B), kTCThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), S, H, KVH, causal, window, scale * 1.4426950408889634f);
+  return cudaGetLastError();
 }
 
 template <typename T, int HD>
@@ -272,14 +554,22 @@ cudaError_t launch_flash_hd(const void* q, const void* k, const void* v, void* o
   return cudaGetLastError();
 }
 
+// bf16 inputs on the tensor cores, f32 inputs on the CUDA cores
 template <typename T>
 cudaError_t launch_flash(const void* q, const void* k, const void* v, void* out, int B, int S,
                          int H, int KVH, int hd, int causal, int window, float scale,
                          cudaStream_t stream) {
-  if (hd == 64)
-    return launch_flash_hd<T, 64>(q, k, v, out, B, S, H, KVH, causal, window, scale, stream);
-  if (hd == 128)
-    return launch_flash_hd<T, 128>(q, k, v, out, B, S, H, KVH, causal, window, scale, stream);
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (hd == 64)
+      return launch_flash_tc_hd<64>(q, k, v, out, B, S, H, KVH, causal, window, scale, stream);
+    if (hd == 128)
+      return launch_flash_tc_hd<128>(q, k, v, out, B, S, H, KVH, causal, window, scale, stream);
+  } else {
+    if (hd == 64)
+      return launch_flash_hd<T, 64>(q, k, v, out, B, S, H, KVH, causal, window, scale, stream);
+    if (hd == 128)
+      return launch_flash_hd<T, 128>(q, k, v, out, B, S, H, KVH, causal, window, scale, stream);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -287,45 +577,7 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, void* out,
 // decode attention (split over the cache axis)
 // ---------------------------------------------------------------------------
 
-constexpr int kWarps = 8;
-constexpr int kDThreads = 32 * kWarps;
 constexpr int kSlots = 16;  // slots of a warp's tile
-
-// N consecutive elements from a 16-byte aligned address, as float, in
-// 16-byte loads (N * sizeof(T) must be a multiple of 16).
-template <typename T, int N> struct Load16;
-template <int N> struct Load16<float, N> {
-  __device__ __forceinline__ static void run(const float* p, float* out) {
-#pragma unroll
-    for (int c = 0; c < N / 4; ++c) {
-      const float4 x = reinterpret_cast<const float4*>(p)[c];
-      out[4 * c] = x.x;
-      out[4 * c + 1] = x.y;
-      out[4 * c + 2] = x.z;
-      out[4 * c + 3] = x.w;
-    }
-  }
-};
-template <int N> struct Load16<__nv_bfloat16, N> {
-  __device__ __forceinline__ static void run(const __nv_bfloat16* p, float* out) {
-#pragma unroll
-    for (int c = 0; c < N / 8; ++c) {
-      const uint4 x = reinterpret_cast<const uint4*>(p)[c];
-      const unsigned w[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        out[8 * c + 2 * j] = __uint_as_float(w[j] << 16);
-        out[8 * c + 2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
-      }
-    }
-  }
-};
-
-// Shared-memory plan (floats): q (G*hd) | per-warp accumulators
-// (kWarps*G*hd) | per-warp running max (kWarps*G) | per-warp sum (kWarps*G).
-__host__ __device__ inline size_t decode_smem_floats(int G, int hd) {
-  return (size_t)G * hd * (1 + kWarps) + (size_t)2 * kWarps * G;
-}
 
 // One (split, KV head, row): slots [lo, hi) of the row, hi <= lengths[b].
 // Warp w takes the slice's 16-slot tiles w, w + kWarps, ...; within a warp,
@@ -334,7 +586,7 @@ __host__ __device__ inline size_t decode_smem_floats(int G, int hd) {
 // block's merged state: max and sum per query head (part_ml) and the
 // accumulator relative to that max (part_o).
 template <typename T, int HD>
-__global__ void __launch_bounds__(kDThreads)
+__global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
                     const T* __restrict__ v_cache, const int* __restrict__ lengths,
                     float* __restrict__ part_o, float* __restrict__ part_ml, int H, int KVH,
@@ -354,18 +606,23 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
   float* m = m_all + warp * G;
   float* l = l_all + warp * G;
 
+  const size_t part = ((size_t)b * KVH + kvh) * n_split + sp;
+  const int len = min(lengths[b], Sc);
+  const int lo = sp * chunk;
+  const int hi = min(lo + chunk, len);
+  if (lo >= hi) {  // wholly past the row's length
+    store_empty_split(part_ml + part * G * 2, G);
+    return;
+  }
   const T* q_row = q + ((size_t)b * H + (size_t)kvh * G) * HD;
-  for (int e = tid; e < G * HD; e += kDThreads) qs[e] = to_f32(q_row[e]);
-  for (int e = tid; e < kWarps * G * HD; e += kDThreads) acc_all[e] = 0.f;
-  for (int e = tid; e < kWarps * G; e += kDThreads) {
+  for (int e = tid; e < G * HD; e += kThreads) qs[e] = to_f32(q_row[e]);
+  for (int e = tid; e < kWarps * G * HD; e += kThreads) acc_all[e] = 0.f;
+  for (int e = tid; e < kWarps * G; e += kThreads) {
     m_all[e] = -INFINITY;
     l_all[e] = 0.f;
   }
   __syncthreads();
 
-  const int len = min(lengths[b], Sc);
-  const int lo = sp * chunk;
-  const int hi = min(lo + chunk, len);
   const size_t row_stride = (size_t)KVH * HD;  // elements between slots
   const T* kb = k_cache + ((size_t)b * Sc * KVH + kvh) * HD;
   const T* vb = v_cache + ((size_t)b * Sc * KVH + kvh) * HD;
@@ -432,88 +689,40 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
     }
   }
   __syncthreads();
-  // merge the warps' states into the block's: M = max_w m_w,
-  // L = sum_w l_w e^(m_w - M), O = sum_w acc_w e^(m_w - M)
-  const size_t part = ((size_t)b * KVH + kvh) * n_split + sp;
-  for (int e = tid; e < G * HD; e += kDThreads) {
-    const int g = e / HD;
-    float M = -INFINITY;
-    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, m_all[w * G + g]);
-    float L = 0.f, O = 0.f;
-    if (M != -INFINITY) {
-      for (int w = 0; w < kWarps; ++w) {
-        const float mw = m_all[w * G + g];
-        if (mw == -INFINITY) continue;
-        const float c = expf(mw - M);
-        L = fmaf(l_all[w * G + g], c, L);
-        O = fmaf(acc_all[w * G * HD + e], c, O);
-      }
-    }
-    part_o[part * G * HD + e] = O;
-    if (e % HD == 0) {
-      part_ml[(part * G + g) * 2] = M;
-      part_ml[(part * G + g) * 2 + 1] = L;
-    }
-  }
-}
-
-// One (KV head, row): merge the n_split partial states of its G query heads.
-template <typename T>
-__global__ void __launch_bounds__(kDThreads)
-decode_merge_kernel(const float* __restrict__ part_o, const float* __restrict__ part_ml,
-                    T* __restrict__ out, int H, int KVH, int hd, int n_split) {
-  const int kvh = blockIdx.x, b = blockIdx.y, G = H / KVH;
-  const size_t part0 = ((size_t)b * KVH + kvh) * n_split;
-  T* out_row = out + ((size_t)b * H + (size_t)kvh * G) * hd;
-  for (int e = threadIdx.x; e < G * hd; e += kDThreads) {
-    const int g = e / hd;
-    float M = -INFINITY;
-    for (int sp = 0; sp < n_split; ++sp) M = fmaxf(M, part_ml[((part0 + sp) * G + g) * 2]);
-    float L = 0.f, O = 0.f;
-    if (M != -INFINITY) {
-      for (int sp = 0; sp < n_split; ++sp) {
-        const float ms = part_ml[((part0 + sp) * G + g) * 2];
-        if (ms == -INFINITY) continue;  // an empty split
-        const float c = expf(ms - M);
-        L = fmaf(part_ml[((part0 + sp) * G + g) * 2 + 1], c, L);
-        O = fmaf(part_o[(part0 + sp) * G * hd + e], c, O);
-      }
-    }
-    out_row[e] = from_f32<T>(L > 0.f ? O / L : 0.f);
-  }
+  store_block_state<T>(acc_all, m_all, l_all, G, HD, nullptr, part_o + part * G * HD,
+                       part_ml + part * G * 2);
 }
 
 template <typename T, int HD>
 cudaError_t launch_decode_hd(const void* q, const void* k, const void* v, const int* lengths,
                              void* out, float* part_o, float* part_ml, int B, int H, int KVH,
-                             int Sc, int n_split, float scale, cudaStream_t stream) {
+                             int Sc, int n_split, int chunk, float scale, cudaStream_t stream) {
   const size_t smem = decode_smem_floats(H / KVH, HD) * sizeof(float);
   auto kernel = decode_split_kernel<T, HD>;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
-  // slots per split: whole 16-slot tiles, n_split splits covering Sc
-  const int tiles = (Sc + kSlots - 1) / kSlots;
-  const int chunk = (tiles + n_split - 1) / n_split * kSlots;
-  kernel<<<dim3(n_split, KVH, B), kDThreads, smem, stream>>>(
+  kernel<<<dim3(n_split, KVH, B), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lengths,
       part_o, part_ml, H, KVH, Sc, chunk, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_merge_kernel<T><<<dim3(KVH, B), kDThreads, 0, stream>>>(
-      part_o, part_ml, static_cast<T*>(out), H, KVH, HD, n_split);
-  return cudaGetLastError();
+  return launch_split_merge<T>(part_o, part_ml, out, B, H, KVH, HD, n_split, stream);
 }
 
+// chunk: slots per split, whole 16-slot tiles, n_split * chunk >= Sc.
 template <typename T>
 cudaError_t launch_decode(const void* q, const void* k, const void* v, const int* lengths,
                           void* out, float* part_o, float* part_ml, int B, int H, int KVH,
-                          int hd, int Sc, int n_split, float scale, cudaStream_t stream) {
+                          int hd, int Sc, int n_split, int chunk, float scale,
+                          cudaStream_t stream) {
+  if (n_split < 1 || chunk < kSlots || chunk % kSlots != 0 || (long long)n_split * chunk < Sc)
+    return cudaErrorInvalidValue;
   if (hd == 64)
     return launch_decode_hd<T, 64>(q, k, v, lengths, out, part_o, part_ml, B, H, KVH, Sc,
-                                   n_split, scale, stream);
+                                   n_split, chunk, scale, stream);
   if (hd == 128)
     return launch_decode_hd<T, 128>(q, k, v, lengths, out, part_o, part_ml, B, H, KVH, Sc,
-                                    n_split, scale, stream);
+                                    n_split, chunk, scale, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -530,7 +739,10 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v, const int
 extern "C" {
 
 // Bytes of dynamic shared memory one thread block takes.
-int da_flash_smem_bytes(int hd) { return flash_smem_floats(hd) * static_cast<int>(sizeof(float)); }
+int da_flash_smem_bytes(int dtype, int hd) {
+  return dtype == kBF16 ? flash_tc_smem_bytes(hd)
+                        : flash_smem_floats(hd) * static_cast<int>(sizeof(float));
+}
 
 int da_decode_smem_bytes(int G, int hd) {
   return static_cast<int>(decode_smem_floats(G, hd) * sizeof(float));
@@ -546,13 +758,13 @@ int da_flash_attention(int dtype, const void* q, const void* k, const void* v, v
 }
 
 // part_o: (B, KVH, n_split, G, hd) and part_ml: (B, KVH, n_split, G, 2)
-// float32 scratch the caller allocates.
+// float32 scratch the caller allocates; chunk: slots per split.
 int da_decode_attention(int dtype, const void* q, const void* k_cache, const void* v_cache,
                         const int* lengths, void* out, float* part_o, float* part_ml, int B,
-                        int H, int KVH, int hd, int Sc, int n_split, float scale,
+                        int H, int KVH, int hd, int Sc, int n_split, int chunk, float scale,
                         void* stream) {
   DA_DISPATCH(launch_decode, q, k_cache, v_cache, lengths, out, part_o, part_ml, B, H, KVH, hd,
-              Sc, n_split, scale, static_cast<cudaStream_t>(stream))
+              Sc, n_split, chunk, scale, static_cast<cudaStream_t>(stream))
 }
 
 }  // extern "C"

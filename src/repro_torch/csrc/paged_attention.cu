@@ -18,83 +18,30 @@
 // query head does 4 flops per K/V element pair it reads, far below the ~295
 // flops per byte at which the card stops being bandwidth-bound, so both
 // kernels are bandwidth-bound.
-// What the design does about it: one thread block per (row or packed token,
-// KV head) reads each KV block of its chain once and shares it across the
-// G = H / KVH query heads of the group, so K/V bytes are not multiplied by
-// G. Blocks outside the row's length or the token's span, and -1 table
-// entries, are skipped without a load. The block's eight warps walk the chain
-// in parallel, one 16-slot block each, keeping K and V in registers (int8
-// dequantised by the block's per-KV-head scale) and a per-warp online
-// softmax (running max, sum and (G, hd) accumulator, f32); the warps' states
-// are merged at the end, so the scores of a row never leave the SM.
-// Known weak spots (later work): decode has only B * KVH thread blocks, and
-// the chunk kernel reads a row's KV once per packed token of that row.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+// What the design does about it: a thread block per (KV head, query row or
+// packed token, and for decode a split of the chain) reads each KV block of
+// its range once and shares it across the G = H / KVH query heads of the
+// group, so K/V bytes are not multiplied by G. Blocks outside the row's
+// length or the token's span, and -1 table entries, are skipped without a
+// load. The block's eight warps walk the range in parallel, one 16-slot
+// block each, keeping K and V in registers (int8 dequantised by the block's
+// per-KV-head scale) and a per-warp online softmax (running max, sum and
+// (G, hd) accumulator, f32); the warps' states are merged at the end, so the
+// scores of a row never leave the SM.
+// Decode splits each row's chain across thread blocks, so that n_split * KVH
+// * B blocks fill the card (B * KVH is only 16 at B = 8, KVH = 2): split s
+// walks the table entries [s * chunk, (s + 1) * chunk) and writes its
+// partial state, and a second kernel merges the splits of each (row, KV
+// head) (attention_common.cuh). The wrapper picks n_split and chunk
+// (kernels/decode_attention.py::decode_split), the same rule as the dense
+// decode kernel's. The chunk kernel keeps one block per (token, KV head) over
+// the whole chain. Known weak spot (later work): it reads a row's KV once per
+// packed token of that row.
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
 constexpr int kBS = 16;  // the block_size the kernels take
-constexpr unsigned kFull = 0xffffffffu;
-
-enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// N consecutive elements from a 16-byte aligned address, as float, in
-// 16-byte loads (N * sizeof(T) must be a multiple of 16).
-template <typename T, int N> struct Load16;
-template <int N> struct Load16<float, N> {
-  __device__ __forceinline__ static void run(const float* p, float* out) {
-#pragma unroll
-    for (int c = 0; c < N / 4; ++c) {
-      const float4 x = reinterpret_cast<const float4*>(p)[c];
-      out[4 * c] = x.x;
-      out[4 * c + 1] = x.y;
-      out[4 * c + 2] = x.z;
-      out[4 * c + 3] = x.w;
-    }
-  }
-};
-template <int N> struct Load16<__nv_bfloat16, N> {
-  __device__ __forceinline__ static void run(const __nv_bfloat16* p, float* out) {
-#pragma unroll
-    for (int c = 0; c < N / 8; ++c) {
-      const uint4 x = reinterpret_cast<const uint4*>(p)[c];
-      const unsigned w[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {  // little-endian: element 2k in the low half
-        out[8 * c + 2 * k] = __uint_as_float(w[k] << 16);
-        out[8 * c + 2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
-      }
-    }
-  }
-};
-template <int N> struct Load16<int8_t, N> {
-  __device__ __forceinline__ static void run(const int8_t* p, float* out) {
-#pragma unroll
-    for (int c = 0; c < N / 16; ++c) {
-      const uint4 x = reinterpret_cast<const uint4*>(p)[c];
-      const unsigned w[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-      for (int k = 0; k < 16; ++k) {
-        out[16 * c + k] = static_cast<float>(static_cast<int8_t>((w[k / 4] >> (8 * (k % 4))) & 0xffu));
-      }
-    }
-  }
-};
 
 // Decode: slots below the row's length.
 struct DecodeMask {
@@ -119,23 +66,21 @@ struct ChunkMask {
   }
 };
 
-// Shared-memory plan (floats): q (G*hd) | per-warp accumulators
-// (kWarps*G*hd) | per-warp running max (kWarps*G) | per-warp sum (kWarps*G).
-__host__ __device__ inline size_t smem_floats(int G, int hd) {
-  return (size_t)G * hd * (1 + kWarps) + (size_t)2 * kWarps * G;
-}
-
-// One (query row, KV head) of attention over a block chain. q_row points at
-// the G*HD query values of this KV head's group; out_row likewise; table is
-// the row's mb block ids. Warp w takes the chain's blocks w, w + kWarps, ...
-// Within a warp, lane (i, h) = (lane % 16, lane / 16) scores slot i of the
-// block over half h of head_dim, and owns output columns lane*HD/32 .. +HD/32.
+// One (query row, KV head) of attention over the entries [j_lo, j_hi) of a
+// block chain. q_row points at the G*HD query values of this KV head's
+// group; table is the row's mb block ids. Warp w takes the range's blocks
+// j_lo + w, j_lo + w + kWarps, ... Within a warp, lane (i, h) = (lane % 16,
+// lane / 16) scores slot i of the block over half h of head_dim, and owns
+// output columns lane*HD/32 .. +HD/32. The block's state goes to out_row
+// (normalised, in QT) or, with part_o given, to its partial (see
+// store_block_state).
 template <typename QT, typename KVT, int HD, typename Mask>
 __device__ void attend(const QT* __restrict__ q_row, const KVT* __restrict__ k_pool,
                        const KVT* __restrict__ v_pool, const float* __restrict__ k_scale,
                        const float* __restrict__ v_scale, const int* __restrict__ table,
-                       QT* __restrict__ out_row, Mask mask, int kvh, int KVH, int G, int mb,
-                       float scale) {
+                       Mask mask, int kvh, int KVH, int G, int j_lo, int j_hi, float scale,
+                       QT* __restrict__ out_row, float* __restrict__ part_o,
+                       float* __restrict__ part_ml) {
   constexpr int KH = HD / 2;   // K columns a lane scores
   constexpr int DPL = HD / 32; // output columns a lane owns
   extern __shared__ __align__(16) float smem[];
@@ -158,9 +103,8 @@ __device__ void attend(const QT* __restrict__ q_row, const KVT* __restrict__ k_p
   __syncthreads();
 
   const size_t row_stride = (size_t)KVH * HD;  // elements between slots
-  int nb = mask.n_blocks();
-  if (nb > mb) nb = mb;
-  for (int j = warp; j < nb; j += kWarps) {
+  const int nb = min(mask.n_blocks(), j_hi);
+  for (int j = j_lo + warp; j < nb; j += kWarps) {
     const int blk = table[j];
     // -1 entries and blocks outside the length/span are skipped unread;
     // the test is uniform across the warp
@@ -224,36 +168,31 @@ __device__ void attend(const QT* __restrict__ q_row, const KVT* __restrict__ k_p
     }
   }
   __syncthreads();
-  // merge the warps' states: out = sum_w acc_w e^(m_w - M) / sum_w l_w e^(m_w - M)
-  for (int e = tid; e < G * HD; e += kThreads) {
-    const int g = e / HD;
-    float M = -INFINITY;
-    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, m_all[w * G + g]);
-    float L = 0.f, O = 0.f;
-    if (M != -INFINITY) {
-      for (int w = 0; w < kWarps; ++w) {
-        const float mw = m_all[w * G + g];
-        if (mw == -INFINITY) continue;
-        const float c = expf(mw - M);
-        L = fmaf(l_all[w * G + g], c, L);
-        O = fmaf(acc_all[w * G * HD + e], c, O);
-      }
-    }
-    out_row[e] = from_f32<QT>(L > 0.f ? O / L : 0.f);
-  }
+  store_block_state<QT>(acc_all, m_all, l_all, G, HD, out_row, part_o, part_ml);
 }
 
+// One (split, KV head, row): the table entries [sp * chunk, (sp + 1) *
+// chunk) of row b, into the split's partial state.
 template <typename QT, typename KVT, int HD>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ k_pool,
-                    const KVT* __restrict__ v_pool, const float* __restrict__ k_scale,
-                    const float* __restrict__ v_scale, const int* __restrict__ tables,
-                    const int* __restrict__ lengths, QT* __restrict__ out, int H, int KVH,
-                    int mb, float scale) {
-  const int b = blockIdx.x, kvh = blockIdx.y, G = H / KVH;
+paged_decode_split_kernel(const QT* __restrict__ q, const KVT* __restrict__ k_pool,
+                          const KVT* __restrict__ v_pool, const float* __restrict__ k_scale,
+                          const float* __restrict__ v_scale, const int* __restrict__ tables,
+                          const int* __restrict__ lengths, float* __restrict__ part_o,
+                          float* __restrict__ part_ml, int H, int KVH, int mb, int chunk,
+                          float scale) {
+  const int sp = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z, n_split = gridDim.x;
+  const int G = H / KVH;
   const size_t off = ((size_t)b * H + (size_t)kvh * G) * HD;
+  const size_t part = ((size_t)b * KVH + kvh) * n_split + sp;
+  if (sp * chunk * kBS >= lengths[b]) {  // wholly past the row's length
+    store_empty_split(part_ml + part * G * 2, G);
+    return;
+  }
   attend<QT, KVT, HD>(q + off, k_pool, v_pool, k_scale, v_scale, tables + (size_t)b * mb,
-                      out + off, DecodeMask{lengths[b]}, kvh, KVH, G, mb, scale);
+                      DecodeMask{lengths[b]}, kvh, KVH, G, sp * chunk,
+                      min((sp + 1) * chunk, mb), scale, static_cast<QT*>(nullptr),
+                      part_o + part * G * HD, part_ml + part * G * 2);
 }
 
 template <typename QT, typename KVT, int HD>
@@ -272,32 +211,25 @@ paged_chunk_kernel(const QT* __restrict__ q, const KVT* __restrict__ k_pool,
     return;
   }
   attend<QT, KVT, HD>(q + off, k_pool, v_pool, k_scale, v_scale, tables + (size_t)row * mb,
-                      out + off, ChunkMask{slots[t], p_end[t], s_start[t]}, kvh, KVH, G,
-                      mb, scale);
-}
-
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, size_t smem) {
-  if (smem > 48 * 1024) {
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(smem));
-  }
-  return cudaSuccess;
+                      ChunkMask{slots[t], p_end[t], s_start[t]}, kvh, KVH, G, 0, mb, scale,
+                      out + off, nullptr, nullptr);
 }
 
 template <typename QT, typename KVT, int HD>
 cudaError_t launch_decode_hd(const void* q, const void* k, const void* v, const float* ks,
                              const float* vs, const int* tables, const int* lengths,
-                             void* out, int B, int H, int KVH, int mb, float scale,
-                             cudaStream_t stream) {
-  const size_t smem = smem_floats(H / KVH, HD) * sizeof(float);
-  auto kernel = paged_decode_kernel<QT, KVT, HD>;
+                             void* out, float* part_o, float* part_ml, int B, int H, int KVH,
+                             int mb, int n_split, int chunk, float scale, cudaStream_t stream) {
+  const size_t smem = decode_smem_floats(H / KVH, HD) * sizeof(float);
+  auto kernel = paged_decode_split_kernel<QT, KVT, HD>;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(B, KVH), kThreads, smem, stream>>>(
+  kernel<<<dim3(n_split, KVH, B), kThreads, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const KVT*>(k), static_cast<const KVT*>(v), ks,
-      vs, tables, lengths, static_cast<QT*>(out), H, KVH, mb, scale);
-  return cudaGetLastError();
+      vs, tables, lengths, part_o, part_ml, H, KVH, mb, chunk, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_split_merge<QT>(part_o, part_ml, out, B, H, KVH, HD, n_split, stream);
 }
 
 template <typename QT, typename KVT, int HD>
@@ -306,7 +238,7 @@ cudaError_t launch_chunk_hd(const void* q, const void* k, const void* v, const f
                             const int* slots, const int* p_end, const int* s_start,
                             void* out, int T, int H, int KVH, int mb, float scale,
                             cudaStream_t stream) {
-  const size_t smem = smem_floats(H / KVH, HD) * sizeof(float);
+  const size_t smem = decode_smem_floats(H / KVH, HD) * sizeof(float);
   auto kernel = paged_chunk_kernel<QT, KVT, HD>;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -318,18 +250,20 @@ cudaError_t launch_chunk_hd(const void* q, const void* k, const void* v, const f
 
 // head_dim is a template parameter (registers are indexed at compile time);
 // the kernels take 64 and 128, the head dims of the archs the port serves.
+// chunk: table entries (16-slot blocks) per split, n_split * chunk >= mb.
 template <typename QT, typename KVT>
 cudaError_t launch_decode(const void* q, const void* k, const void* v, const float* ks,
                           const float* vs, const int* tables, const int* lengths, void* out,
-                          int B, int H, int KVH, int hd, int bs, int mb, float scale,
-                          cudaStream_t stream) {
-  if (bs != kBS) return cudaErrorInvalidValue;
+                          float* part_o, float* part_ml, int B, int H, int KVH, int hd, int bs,
+                          int mb, int n_split, int chunk, float scale, cudaStream_t stream) {
+  if (bs != kBS || n_split < 1 || chunk < 1 || (long long)n_split * chunk < mb)
+    return cudaErrorInvalidValue;
   if (hd == 64)
-    return launch_decode_hd<QT, KVT, 64>(q, k, v, ks, vs, tables, lengths, out, B, H, KVH,
-                                         mb, scale, stream);
+    return launch_decode_hd<QT, KVT, 64>(q, k, v, ks, vs, tables, lengths, out, part_o,
+                                         part_ml, B, H, KVH, mb, n_split, chunk, scale, stream);
   if (hd == 128)
-    return launch_decode_hd<QT, KVT, 128>(q, k, v, ks, vs, tables, lengths, out, B, H, KVH,
-                                          mb, scale, stream);
+    return launch_decode_hd<QT, KVT, 128>(q, k, v, ks, vs, tables, lengths, out, part_o,
+                                          part_ml, B, H, KVH, mb, n_split, chunk, scale, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -368,16 +302,20 @@ extern "C" {
 
 // Bytes of dynamic shared memory one thread block takes.
 int pa_smem_bytes(int G, int hd) {
-  return static_cast<int>(smem_floats(G, hd) * sizeof(float));
+  return static_cast<int>(decode_smem_floats(G, hd) * sizeof(float));
 }
 
-// Each launcher returns the cudaError_t of its launch (0 on success).
+// Each launcher returns the cudaError_t of its launches (0 on success).
+// part_o: (B, KVH, n_split, G, hd) and part_ml: (B, KVH, n_split, G, 2)
+// float32 scratch the caller allocates; chunk: table entries per split.
 int pa_paged_decode_attention(int q_dtype, int kv_dtype, const void* q, const void* k_pool,
                               const void* v_pool, const float* k_scale, const float* v_scale,
-                              const int* tables, const int* lengths, void* out, int B, int H,
-                              int KVH, int hd, int bs, int mb, float scale, void* stream) {
-  PA_DISPATCH(launch_decode, q, k_pool, v_pool, k_scale, v_scale, tables,
-              lengths, out, B, H, KVH, hd, bs, mb, scale, static_cast<cudaStream_t>(stream))
+                              const int* tables, const int* lengths, void* out, float* part_o,
+                              float* part_ml, int B, int H, int KVH, int hd, int bs, int mb,
+                              int n_split, int chunk, float scale, void* stream) {
+  PA_DISPATCH(launch_decode, q, k_pool, v_pool, k_scale, v_scale, tables, lengths, out, part_o,
+              part_ml, B, H, KVH, hd, bs, mb, n_split, chunk, scale,
+              static_cast<cudaStream_t>(stream))
 }
 
 int pa_paged_chunk_attention(int q_dtype, int kv_dtype, const void* q, const void* k_pool,

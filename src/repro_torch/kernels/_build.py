@@ -3,8 +3,9 @@
 Each source ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library of its own with a plain C interface, on first use, under
 ``<checkout>/build/repro_torch/`` (git-ignored), and loaded with ``ctypes``.
-A library's file name carries a hash of its source, so an edit rebuilds
-that source alone. ``build_all`` starts one ``nvcc`` per source at once.
+A library's file name carries a hash of its source, of every header in
+``csrc/`` and of the compiler flags (``source_digest``), so an edit rebuilds
+what it touches. ``build_all`` starts one ``nvcc`` per source at once.
 Nothing here runs at import time: the CPU tests import every module.
 """
 from __future__ import annotations
@@ -33,7 +34,7 @@ _F = ctypes.c_float
 ENTRY_POINTS = {
     "paged_attention": {
         "pa_smem_bytes": ([_I, _I], _I),
-        "pa_paged_decode_attention": ([_I, _I] + [_P] * 8 + [_I] * 6 + [_F, _P], _I),
+        "pa_paged_decode_attention": ([_I, _I] + [_P] * 10 + [_I] * 8 + [_F, _P], _I),
         "pa_paged_chunk_attention": ([_I, _I] + [_P] * 11 + [_I] * 6 + [_F, _P], _I),
     },
     "topk_retrieval": {
@@ -43,10 +44,10 @@ ENTRY_POINTS = {
         "tk_topk_retrieval": ([_I] + [_P] * 6 + [_I] * 6 + [_P], _I),
     },
     "dense_attention": {
-        "da_flash_smem_bytes": ([_I], _I),
+        "da_flash_smem_bytes": ([_I, _I], _I),
         "da_decode_smem_bytes": ([_I, _I], _I),
         "da_flash_attention": ([_I] + [_P] * 4 + [_I] * 7 + [_F, _P], _I),
-        "da_decode_attention": ([_I] + [_P] * 7 + [_I] * 6 + [_F, _P], _I),
+        "da_decode_attention": ([_I] + [_P] * 7 + [_I] * 7 + [_F, _P], _I),
     },
     "rwkv6_scan": {
         "wkv_rwkv6": ([_I] + [_P] * 8 + [_I] * 4 + [_P], _I),
@@ -86,12 +87,23 @@ class KernelLibrary:
         self.lib = lib
 
 
+def source_digest(source: Path) -> str:
+    """Hash of what a build of ``source`` depends on: its bytes, those of
+    every ``*.cuh`` header beside it (any source may include any of them)
+    and the compiler flags."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 @functools.cache
 def load_library(name: str) -> KernelLibrary:
-    """Compile ``csrc/<name>.cu`` if this source has not been built yet,
-    then load it (once per process)."""
+    """Compile ``csrc/<name>.cu`` if this source (with the headers it may
+    include) has not been built yet, then load it (once per process)."""
     source = SOURCES[name]
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = source_digest(source)
     out = BUILD_DIR / f"lib{name}_{digest}.so"
     log = out.with_suffix(".log")
     t0 = time.perf_counter()

@@ -10,9 +10,10 @@ valid below each row's length) ports the one the dense backend runs. On
 CUDA tensors each wrapper launches its hand-written kernel (the paged ones
 in ``csrc/paged_attention.cu``, the dense one in ``csrc/dense_attention.cu``;
 built on first use, see ``kernels._build``) on the current stream and counts
-the launch in its ``launches`` attribute; on CPU tensors it runs the plain
-version. There is no fallback from one to the other: a CUDA input the kernel
-does not take raises.
+the launch in its ``launches`` attribute (one per call: the two decode
+wrappers each launch a split kernel and a merge, ``decode_split``); on CPU
+tensors it runs the plain version. There is no fallback from one to the
+other: a CUDA input the kernel does not take raises.
 
 ``ref_paged_decode_attention`` / ``ref_paged_chunk_attention`` are PyTorch
 ports of the JAX gather oracles: they materialise each query's contiguous
@@ -207,7 +208,8 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
     q: (B, H, hd) float32/bfloat16; k/v_pool: (n_blocks, bs, KVH, hd);
     block_tables: (B, mb) int32 RAW (-1 = unallocated, masked); lengths:
     (B,) int32 valid tokens per row (>= 1). Returns (B, H, hd) in q's dtype.
-    CUDA tensors launch the kernel; CPU tensors run the plain version."""
+    CUDA tensors launch the kernel, split across the chain
+    (``decode_split``) and merged; CPU tensors run the plain version."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return ref_paged_decode_attention(q, k_pool, v_pool, block_tables,
@@ -228,12 +230,15 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
     out = torch.empty_like(q)
     if B == 0:
         return out
+    n_split, chunk = decode_split(_sm_count(q.device.index), B, KVH, mb * bs)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        part_o, part_ml = _decode_partials(q.device, stream, B, KVH, n_split, H // KVH, hd)
         err = lib.pa_paged_decode_attention(
             qc, kc, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ks, vs,
             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            B, H, KVH, hd, bs, mb, float(scale), stream,
+            part_o.data_ptr(), part_ml.data_ptr(), B, H, KVH, hd, bs, mb,
+            n_split, chunk // bs, float(scale), stream,
         )
     _raise_on_error(name, err)
     paged_decode_attention.launches += 1
@@ -292,23 +297,42 @@ def paged_chunk_attention(q, k_pool, v_pool, block_tables, row_of, slots,
 paged_chunk_attention.launches = 0
 
 
-# the dense decode kernel splits the cache axis into slices of at least this
-# many slots (one pass of a thread block's eight 16-slot warps)
+# the decode kernels split a row's cache into spans of whole 16-slot tiles
+# (the paged kernel's blocks), at least this many slots long (one pass of a
+# thread block's eight 16-slot warps) unless one span holds the whole row
 _MIN_SPLIT_SLOTS = 128
 
 
+def decode_split(sms: int, B: int, KVH: int, slots: int):
+    """(n_split, chunk) of the split-cache decode kernels, dense and paged:
+    a row's ``slots`` cache slots (the paged kernel's ``mb * block_size``)
+    go to n_split thread blocks of ``chunk`` slots each, the last one taking
+    what remains. ``chunk`` is a whole number of 16-slot tiles, at least
+    ``_MIN_SPLIT_SLOTS`` unless there is one split, and small enough that the
+    ``n_split * KVH * B`` blocks give each of the ``sms`` SMs two where the
+    slots allow; no split is empty."""
+    tile = _BLOCK_SIZE
+    target = -(-2 * sms // max(B * KVH, 1))                # splits for two blocks per SM
+    chunk = max(_MIN_SPLIT_SLOTS, slots // target // tile * tile)
+    n_split = max(1, -(-slots // chunk))
+    # the same number of splits, evened out: the least whole-tile chunk
+    # that covers the slots (never more than chunk, so n_split holds)
+    per_split = -(-slots // n_split)
+    even = max(tile, -(-per_split // tile) * tile)
+    if n_split == 1 or even >= _MIN_SPLIT_SLOTS:
+        chunk = even
+    return n_split, chunk
+
+
 @functools.lru_cache(maxsize=None)
-def _decode_split(device_index: int, B: int, KVH: int, Sc: int) -> int:
-    """Cache-axis slices of the dense decode kernel: enough (split, KV head,
-    row) blocks for two per SM, none shorter than ``_MIN_SPLIT_SLOTS``."""
-    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    return max(1, min(-(-Sc // _MIN_SPLIT_SLOTS), -(-2 * sms // (B * KVH))))
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-# the dense decode kernel's per-slice partials, (part_o, part_ml) per
-# (device, stream, B, KVH, n_split, G, hd): every layer of every decode step
-# reuses one pair, since launches on one stream run in order and each launch
-# writes every partial before its merge kernel reads them
+# the decode kernels' per-split partials, (part_o, part_ml) per (device,
+# stream, B, KVH, n_split, G, hd): every layer of every decode step reuses one
+# pair, since launches on one stream run in order and each launch writes
+# every partial before its merge kernel reads them
 _decode_scratch = {}
 
 
@@ -361,14 +385,14 @@ def decode_attention(q, k_cache, v_cache, lengths, *, scale: Optional[float] = N
     out = torch.empty_like(q)
     if B == 0:
         return out
-    n_split = _decode_split(q.device.index, B, KVH, Sc)
+    n_split, chunk = decode_split(_sm_count(q.device.index), B, KVH, Sc)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         part_o, part_ml = _decode_partials(q.device, stream, B, KVH, n_split, G, hd)
         err = lib.da_decode_attention(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(),
-            B, H, KVH, hd, Sc, n_split, float(scale), stream,
+            B, H, KVH, hd, Sc, n_split, chunk, float(scale), stream,
         )
     _raise_on_error(name, err)
     decode_attention.launches += 1

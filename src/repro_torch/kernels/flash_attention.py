@@ -11,8 +11,13 @@ hand-written kernel in ``csrc/dense_attention.cu`` (built on first use, see
 ``launches`` attribute; on CPU tensors it runs ``ref_flash_attention``.
 There is no fallback from one to the other: a CUDA input the kernel does not
 take raises. The kernel takes float32 or bfloat16 (q, k and v in one dtype),
-head_dim 64 or 128 and any S >= 1, and keeps f32 scores, probabilities and
-sums, as the Pallas kernel does.
+head_dim 64 or 128 and any S >= 1, and keeps f32 scores and sums, as the
+Pallas kernel does. bfloat16 inputs run on the tensor cores: the scores are
+exact bf16 products summed in f32, and the probabilities reach the value
+product in two bf16 parts (P_hi = bf16(P), P_lo = bf16(P - P_hi), about 16
+bits), so the output stays within the bf16 output rounding of the f32
+contract. float32 inputs stay on the CUDA cores, since TF32 tensor cores
+would keep only about 10 bits of each input.
 
 ``ref_flash_attention`` is the contract of ``repro.kernels.ref.
 flash_attention_ref``: scores in float32, a -1e30 causal (and window) mask,
@@ -81,7 +86,7 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: Optional[float] = No
     from repro_torch.kernels._build import load_library
 
     lib = load_library("dense_attention").lib
-    smem = lib.da_flash_smem_bytes(hd)
+    smem = lib.da_flash_smem_bytes(_DTYPE_CODES[q.dtype], hd)
     _check(name, smem <= 227 * 1024, f"shared memory per block {smem} B exceeds 227 KB")
     out = torch.empty_like(q)
     if B == 0 or S == 0:

@@ -141,6 +141,61 @@ def test_bf16_kernels_match_f32_plain_versions(gpu, hd):
     _close(got, want, c["row_of"] >= 0, BF16_OUT_TOL)
 
 
+# The split decode at the paged serve's table width: mb 128 entries of 16
+# slots, 16 splits of 8 entries at B 8, KVH 2 on an H100. Lengths at and
+# around block and split edges; -1 holes on split boundaries (entries 8 and
+# 16) of the two longest rows and on row 5's last block; row 6's table ends
+# after two splits, so its tail splits hold only holes.
+SPLIT_LENGTHS = [2048, 1, 16, 17, 128, 129, 777, 2047]
+
+
+def _split_case(seed, hd, pool_dtype, q_dtype, KVH=2, G=8, mb=128, bs=16):
+    g = torch.Generator().manual_seed(seed)
+    B = len(SPLIT_LENGTHS)
+    n_blocks = B * mb + 1
+    tables = torch.full((B, mb), -1, dtype=torch.int32)
+    perm = torch.randperm(n_blocks - 1, generator=g) + 1
+    cur = 0
+    for b, ln in enumerate(SPLIT_LENGTHS):
+        need = -(-ln // bs)
+        tables[b, :need] = perm[cur:cur + need].int()
+        cur += need
+    tables[[0, 7], 8] = -1
+    tables[[0, 7], 16] = -1
+    tables[5, 8] = -1
+    tables[6, 16:] = -1
+    shape = (n_blocks, bs, KVH, hd)
+    if pool_dtype == torch.int8:
+        k, v = (torch.randint(-127, 128, shape, generator=g, dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand((n_blocks, KVH), generator=g) * 0.02 + 1e-3 for _ in range(2))
+    else:
+        k, v = (torch.randn(shape, generator=g).to(pool_dtype) for _ in range(2))
+        ks = vs = None
+    q = torch.randn((B, KVH * G, hd), generator=g).to(q_dtype)
+    return dict(q_dec=q, k=k, v=v, ks=ks, vs=vs, tables=tables,
+                lengths=torch.tensor(SPLIT_LENGTHS, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("pool_dtype,q_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.int8, torch.float32), (torch.int8, torch.bfloat16)])
+def test_split_decode_kernel_at_split_edges(gpu, hd, pool_dtype, q_dtype):
+    c = _on(_split_case(hd + 3, hd, pool_dtype, q_dtype), gpu)
+    args = (c["q_dec"], c["k"], c["v"], c["tables"], c["lengths"])
+    before = ka.paged_decode_attention.launches
+    got = ka.paged_decode_attention(*args, k_scale=c["ks"], v_scale=c["vs"])
+    torch.cuda.synchronize()
+    assert ka.paged_decode_attention.launches == before + 1
+    want = ka.ref_paged_decode_attention(*args, k_scale=c["ks"], v_scale=c["vs"])
+    _close(got, want, slice(None), TOL[(pool_dtype, q_dtype)])
+    if pool_dtype == torch.bfloat16:
+        f = _on(c, gpu, torch.float32)
+        want = ka.ref_paged_decode_attention(f["q_dec"], f["k"], f["v"], f["tables"],
+                                             f["lengths"])
+        _close(got, want, slice(None), BF16_OUT_TOL)
+
+
 def test_kernels_reject_what_they_do_not_take(gpu):
     c = _case(0, 64, torch.float32, torch.float32)
     q, k, v = c["q_dec"].to(gpu), c["k"].to(gpu), c["v"].to(gpu)
@@ -167,7 +222,9 @@ DENSE_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("S", [1, 37, 200])       # none a multiple of the 64-row tile
+# 64: one whole 64-row tile, 65: one row past it; 1, 37, 200 and 1100 are
+# no multiple of the tile
+@pytest.mark.parametrize("S", [1, 37, 64, 65, 200, 1100])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", [64, 128])
 def test_flash_kernel_matches_plain_version(gpu, hd, dtype, S, causal):
@@ -391,11 +448,12 @@ def test_wkv_kernel_rejects_what_it_does_not_take(gpu):
 
 
 @pytest.mark.parametrize("window", [64, 1024])
-@pytest.mark.parametrize("S", [1, 37, 200, 1100])
+@pytest.mark.parametrize("S", [1, 37, 200, 1100, 1664])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_windowed_flash_kernel_matches_plain_version(gpu, dtype, S, window):
     """hymba-1.5b's heads (H 25 over KVH 5, hd 64) with a sliding window;
-    1100 > 1024 crosses the full-width window."""
+    1100 > 1024 crosses the full-width window; 1664 is the hymba serve's
+    longest prefill (128 meta + 1536 tokens)."""
     g = torch.Generator().manual_seed(S + window)
     q = torch.randn((1, S, 25, 64), generator=g).to(dtype).to(gpu)
     k, v = (torch.randn((1, S, 5, 64), generator=g).to(dtype).to(gpu) for _ in range(2))

@@ -197,3 +197,39 @@ def test_write_paged_packed_matches_jax_bit_exact(seed):
     # writes (pad tokens, unbacked entries) only ever land in the scratch
     np.testing.assert_array_equal(got[1:], want[1:])
     np.testing.assert_array_equal(got[null, 1:], pool[null, 1:])
+
+
+# (SMs, B, KVH, slots): the paged serve's decode on the H100 (B 8, KVH 2, 128
+# blocks of 16), hymba's 1024-slot ring (KVH 5), short and ragged rows, many
+# rows, one very long row, a card of one SM
+SPLIT_CASES = [(132, 8, 2, 2048), (132, 8, 5, 1024), (132, 8, 2, 300), (132, 8, 2, 16),
+               (132, 8, 2, 2200), (132, 64, 8, 2048), (132, 1, 1, 100000), (1, 1, 1, 17)]
+
+
+def _check_split(sms, B, KVH, slots):
+    n_split, chunk = tka.decode_split(sms, B, KVH, slots)
+    assert n_split >= 1 and chunk > 0 and chunk % 16 == 0       # whole 16-slot blocks
+    assert (n_split - 1) * chunk < slots <= n_split * chunk     # all covered, none empty
+    assert chunk >= 128 or n_split == 1
+    if slots >= 128 * -(-2 * sms // (B * KVH)):                 # the slots allow it
+        assert n_split * KVH * B >= 2 * sms                     # two blocks per SM
+
+
+@pytest.mark.parametrize("sms,B,KVH,slots", SPLIT_CASES)
+def test_decode_split_rule(sms, B, KVH, slots):
+    _check_split(sms, B, KVH, slots)
+
+
+def test_decode_split_rule_over_a_sweep():
+    for sms in (1, 8, 132):
+        for B in (1, 3, 8, 64):
+            for KVH in (1, 2, 5):
+                for slots in list(range(1, 300, 7)) + [1023, 1024, 2047, 2048, 2049]:
+                    _check_split(sms, B, KVH, slots)
+
+
+def test_decode_split_at_the_serve_shapes():
+    # phase 2 of chip_smoke.py: 16 splits of 128 slots, 256 blocks
+    assert tka.decode_split(132, 8, 2, 128 * 16) == (16, 128)
+    # hymba's decode over its 1024-slot ring: 8 even splits, 320 blocks
+    assert tka.decode_split(132, 8, 5, 1024) == (8, 128)
