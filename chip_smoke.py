@@ -18,14 +18,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    of 30) of the kernel, its plain version and one PyTorch SDPA call on the
    gathered view, beside the bound the card could reach, and the kernel's
    device time alone (calls queued behind a spin kernel, timed back to back
-   with CUDA events; every timed kernel has one).
+   with CUDA events; every timed kernel has one). The chunk kernel again,
+   checked and timed the same way, at the engine's mixed step: one row
+   prefills 256 plain-causal tokens at slots 1024-1279, seven rows decode one
+   token each at lengths 301-337, one pad (264 packed tokens).
 2b. The dense backend's kernels against their plain versions on the card at
    qwen2.5-3b shapes: flash attention (B=1, H=16, KVH=2, hd=128, S in {16,
-   64, 65, 200, 1100, 2048}, causal and not; bf16 runs on the tensor cores) and dense decode attention (B=8, Sc=2048,
-   the lengths of phase 2, and again with the shortest row at length 1),
-   float32 and bfloat16 (bf16 also against the plain version in float32);
-   then the times of the kernel, its plain version and one SDPA call
-   (flash: S=2048 causal; decode: those lengths) beside the bound.
+   64, 65, 200, 1100, 2048}, causal and not; bf16 runs on the tensor cores)
+   and dense decode attention (B=8, Sc=2048, the lengths of phase 2, again
+   with the shortest row at length 1, and the mixed step's lengths 1280 and
+   301-337), float32 and bfloat16 (bf16 also against the plain version in
+   float32); then the times of the kernel, its plain version and one SDPA
+   call (flash: S=2048 causal; decode: phase 2's and the mixed step's
+   lengths) beside the bound.
 3. The top-k retrieval kernel against its plain version at B=32 queries,
    N=2^21 docs, d=768, k in {10, 100}: float32 docs (the corpus the index is
    built from), bfloat16 docs, and integer-valued docs with duplicated rows
@@ -89,9 +94,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the bound and one SDPA call with the windowed causal mask.
 2f. The dense decode kernel at the hymba serve phase's shapes (B=8, H=25
    over KVH=5, hd=64, a 1024-slot ring) with lengths that mix full rings
-   with rows of 1, 37 and 300 slots, float32 and bfloat16 (bf16 also
-   against the plain version in float32; tolerances of phase 2b); then its
-   times beside the bound and one SDPA call with the length mask.
+   with rows of 1, 37 and 300 slots, and with the mixed step's lengths on
+   the ring, float32 and bfloat16 (bf16 also against the plain version in
+   float32; tolerances of phase 2b); then its times beside the bound and
+   one SDPA call with the length mask.
 4c. The hymba engine at smoke width in float32: identical greedy tokens on
    the CPU (plain versions) and on the GPU (kernels), with 2 scan and 2
    flash launches per prefill and 2 scan and 2 dense decode launches per
@@ -185,31 +191,40 @@ N_PAD = 3
 # the shortest row (length 1) leaves every split but the first empty
 SPLIT_HOLES = (8, 16)
 SPLIT_LENGTHS = LENGTHS[:-1] + [1]
+# the engine's mixed step (max_batch 8, 256-token chunks, pack_align 4): one
+# row prefills 256 plain-causal tokens at slots 1024-1279, seven rows decode
+# one token each at lengths spread over 300-340, one pad: 264 packed tokens
+MIXED_LENGTHS = [1280, 301, 308, 312, 319, 326, 330, 337]
+MIXED_CHUNKS = {0: (256, 0, 0)}
+MIXED_PAD = 1
 
 
-def make_case(dtype_name, gen):
-    """Tables, pools and packed arrays at the engine's qwen2.5-3b shapes."""
+def make_case(dtype_name, gen, lengths=LENGTHS, chunks=CHUNKS, n_pad=N_PAD):
+    """Tables, pools and packed arrays at the engine's qwen2.5-3b shapes:
+    rows of ``lengths`` after the step, ``chunks`` {row: (tokens, p_end,
+    s_start)} prefilling (the other rows decode one token), ``n_pad`` pad
+    tokens at the tail."""
     perm = torch.randperm(N_BLOCKS - 1, generator=gen) + 1   # block 0: scratch
     tables = np.full((B, MB_CHUNK), -1, np.int32)
     cur = 0
-    for b, ln in enumerate(LENGTHS):
+    for b, ln in enumerate(lengths):
         need = -(-ln // BS)
         tables[b, :need] = perm[cur:cur + need].numpy()
         cur += need
     for b in (2, 5):                                     # interior RAW holes
         tables[b, 3] = -1
     row_of, slots, p_end, s_start = [], [], [], []
-    for b, ln in enumerate(LENGTHS):
-        c, pe, ss = CHUNKS.get(b, (1, 0, 0))
+    for b, ln in enumerate(lengths):
+        c, pe, ss = chunks.get(b, (1, 0, 0))
         for s in range(ln - c, ln):
             row_of.append(b)
             slots.append(s)
             p_end.append(pe)
             s_start.append(ss)
-    row_of += [-1] * N_PAD
-    slots += [0] * N_PAD
-    p_end += [0] * N_PAD
-    s_start += [0] * N_PAD
+    row_of += [-1] * n_pad
+    slots += [0] * n_pad
+    p_end += [0] * n_pad
+    s_start += [0] * n_pad
     T = len(row_of)
     shape = (N_BLOCKS, BS, KVH, HD)
     if dtype_name == "int8":
@@ -231,7 +246,7 @@ def make_case(dtype_name, gen):
         "q_dec": q_dec, "q_chunk": q_chunk, "k": k, "v": v, "ks": ks, "vs": vs,
         "tables_chunk": torch.from_numpy(tables),
         "tables_dec": torch.from_numpy(np.ascontiguousarray(tables[:, :MB_DECODE])),
-        "lengths": i32(LENGTHS), "row_of": i32(row_of), "slots": i32(slots),
+        "lengths": i32(lengths), "row_of": i32(row_of), "slots": i32(slots),
         "p_end": i32(p_end), "s_start": i32(s_start),
     }
 
@@ -361,11 +376,9 @@ def library_call(case, kernel):
     return lambda: F.scaled_dot_product_attention(qq, kg, vg, attn_mask=m, enable_gqa=True)
 
 
-def phase_kernels(ka):
-    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
-    gen = torch.Generator().manual_seed(0)
-    rows = {}
-    calls = {
+def paged_calls(ka):
+    """name -> (kernel call, plain call) on a case of ``make_case``."""
+    return {
         "paged_decode_attention": (
             lambda c: ka.paged_decode_attention(
                 c["q_dec"], c["k"], c["v"], c["tables_dec"], c["lengths"],
@@ -381,60 +394,93 @@ def phase_kernels(ka):
                 c["q_chunk"], c["k"], c["v"], c["tables_chunk"], c["row_of"],
                 c["slots"], c["p_end"], c["s_start"], k_scale=c["ks"], v_scale=c["vs"])),
     }
+
+
+def on_card(case, dtype_name):
+    """The case on the card, and the inputs of its second check: the same
+    values in f32 (bf16 pools), or q in bf16 (int8 pools)."""
+    case = {k: (v.cuda() if v is not None else None) for k, v in case.items()}
+    other = None
+    if dtype_name == "bfloat16":
+        other = dict(case, **{k: case[k].float() for k in ("q_dec", "q_chunk", "k", "v")})
+    elif dtype_name == "int8":
+        other = dict(case, **{k: case[k].bfloat16() for k in ("q_dec", "q_chunk")})
+    return case, other
+
+
+def paged_row(name, kern, plain, case, other, dtype_name, flush, label=""):
+    """Check one paged kernel on ``case`` against its plain version (and the
+    second check on ``other``), then time it, its plain version and SDPA
+    beside the bound."""
+    valid = (case["row_of"] >= 0 if name == "paged_chunk_attention"
+             else torch.ones(B, dtype=torch.bool, device="cuda"))
+    got = kern(case)
+    torch.cuda.synchronize()
+    errs = {"plain": check_close(f"{name}[{dtype_name}{label}]", got, plain(case), valid,
+                                 TOL[dtype_name]["plain"])}
+    if name == "paged_chunk_attention" and not bool((got[~valid] == 0).all()):
+        raise AssertionError("paged_chunk_attention: pad tokens must be zeros")
+    if dtype_name == "bfloat16":
+        errs["plain_f32"] = check_close(f"{name}[bf16 vs f32{label}]", got, plain(other),
+                                        valid, TOL[dtype_name]["plain_f32"])
+    elif dtype_name == "int8":
+        errs["plain_bf16_q"] = check_close(
+            f"{name}[int8, bf16 q{label}]", kern(other), plain(other), valid,
+            TOL[dtype_name]["plain_bf16_q"])
+    nbytes, ops = work(case, name)
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    ops_ms = ops / PEAK_OPS_S[dtype_name] * 1e3
+    lib = library_call(case, name)
+    r = {
+        "name": name, "dtype": dtype_name, "errs": errs,
+        "ms": time_ms(lambda: kern(case), flush),
+        "device_ms": device_ms(lambda: kern(case)),
+        "plain_ms": time_ms(lambda: plain(case), flush, reps=20),
+        "library_ms": time_ms(lib, flush) if lib is not None else None,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes": nbytes, "ops": ops,
+    }
+    if dtype_name == "int8":     # bf16 q over the int8 pool: the other route of the kernel
+        r["device_ms_bf16_q"] = device_ms(lambda: kern(other))
+    checks = ", ".join(f"vs {k} {e:.3e} (atol, rtol {TOL[dtype_name][k]})"
+                       for k, e in errs.items())
+    extra = (f" device_ms_bf16_q={fmt_ms(r['device_ms_bf16_q'])}"
+             if "device_ms_bf16_q" in r else "")
+    print(f"[kernels] {name} {dtype_name}{label}: max_abs_err {checks}; "
+          f"kernel_ms={r['ms']:.4f} device_ms={fmt_ms(r['device_ms'])}{extra} "
+          f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']} "
+          f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}: {nbytes} B, {ops} flop)",
+          flush=True)
+    return r
+
+
+def phase_kernels(ka):
+    """Both paged kernels on the ragged case (``LENGTHS``, ``CHUNKS``), the
+    split decode's edges, and the chunk kernel at the engine's mixed step
+    (``MIXED_LENGTHS``): rows keyed (name, dtype) and, for the mixed step,
+    (name, dtype, "mixed_step")."""
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    gen = torch.Generator().manual_seed(0)
+    rows = {}
+    calls = paged_calls(ka)
     for dtype_name in ("float32", "bfloat16", "int8"):
-        case = {k: (v.cuda() if v is not None else None)
-                for k, v in make_case(dtype_name, gen).items()}
-        # the extra inputs of the second check: the same values in f32
-        # (bf16 pools), or q in bf16 (int8 pools)
-        other = None
-        if dtype_name == "bfloat16":
-            other = dict(case, **{k: case[k].float() for k in ("q_dec", "q_chunk", "k", "v")})
-        elif dtype_name == "int8":
-            other = dict(case, **{k: case[k].bfloat16() for k in ("q_dec", "q_chunk")})
+        case, other = on_card(make_case(dtype_name, gen), dtype_name)
         for name, (kern, plain) in calls.items():
-            valid = (case["row_of"] >= 0 if name == "paged_chunk_attention"
-                     else torch.ones(B, dtype=torch.bool, device="cuda"))
-            got = kern(case)
-            torch.cuda.synchronize()
-            errs = {"plain": check_close(f"{name}[{dtype_name}]", got, plain(case), valid,
-                                         TOL[dtype_name]["plain"])}
-            if name == "paged_chunk_attention" and not bool((got[~valid] == 0).all()):
-                raise AssertionError("paged_chunk_attention: pad tokens must be zeros")
-            if dtype_name == "bfloat16":
-                errs["plain_f32"] = check_close(f"{name}[bf16 vs f32]", got, plain(other),
-                                                valid, TOL[dtype_name]["plain_f32"])
-            elif dtype_name == "int8":
-                errs["plain_bf16_q"] = check_close(
-                    f"{name}[int8, bf16 q]", kern(other), plain(other), valid,
-                    TOL[dtype_name]["plain_bf16_q"])
-            nbytes, ops = work(case, name)
-            bytes_ms = nbytes / HBM_BYTES_S * 1e3
-            ops_ms = ops / PEAK_OPS_S[dtype_name] * 1e3
-            lib = library_call(case, name)
-            r = {
-                "name": name, "dtype": dtype_name, "errs": errs,
-                "ms": time_ms(lambda: kern(case), flush),
-                "device_ms": device_ms(lambda: kern(case)),
-                "plain_ms": time_ms(lambda: plain(case), flush, reps=20),
-                "library_ms": time_ms(lib, flush) if lib is not None else None,
-                "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "bytes": nbytes, "ops": ops,
-            }
-            checks = ", ".join(f"vs {k} {e:.3e} (atol, rtol {TOL[dtype_name][k]})"
-                               for k, e in errs.items())
-            print(f"[kernels] {name} {dtype_name}: max_abs_err {checks}; "
-                  f"kernel_ms={r['ms']:.4f} device_ms={fmt_ms(r['device_ms'])} "
-                  f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']} "
-                  f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}: {nbytes} B, {ops} flop)",
-                  flush=True)
-            rows[(name, dtype_name)] = r
+            rows[(name, dtype_name)] = paged_row(name, kern, plain, case, other, dtype_name,
+                                                 flush)
         rows[("paged_decode_attention", dtype_name)]["split_edges"] = check_split_edges(
             ka, case, other, dtype_name)
         del case, other
+        case, other = on_card(make_case(dtype_name, gen, MIXED_LENGTHS, MIXED_CHUNKS,
+                                        MIXED_PAD), dtype_name)
+        kern, plain = calls["paged_chunk_attention"]
+        rows[("paged_chunk_attention", dtype_name, "mixed_step")] = paged_row(
+            "paged_chunk_attention", kern, plain, case, other, dtype_name, flush,
+            label=", mixed step")
+        del case, other
         torch.cuda.empty_cache()
     return rows
-
 
 
 def check_split_edges(ka, case, other, dtype_name):
@@ -481,7 +527,8 @@ def check_split_edges(ka, case, other, dtype_name):
 # 64 and 65: one whole 64-row tile and one row past it; 200 and 1100: no
 # power-of-two tile above 8 divides them; 2048: the dense serve's largest bucket
 FLASH_S = (16, 64, 65, 200, 1100, 2048)
-DECODE_LENGTHS = {"lengths": LENGTHS, "shortest_1": LENGTHS[:-1] + [1]}
+DECODE_LENGTHS = {"lengths": LENGTHS, "shortest_1": LENGTHS[:-1] + [1],
+                  "mixed_step": MIXED_LENGTHS}
 
 
 def dense_work(kernel, q, k, causal=True, lengths=None):
@@ -552,7 +599,7 @@ def phase_dense_kernels(ka, kf):
                 errs["plain_f32"] = check_close(name + " vs f32", got, want, every,
                                                 tol["plain_f32"])
             r = {"errs": errs}
-            if case == "lengths":
+            if case in ("lengths", "mixed_step"):
                 qt = q[:, :, None, :]
                 kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
                 mask = (torch.arange(2048, device="cuda")[None] < lens.long()[:, None])
@@ -839,50 +886,56 @@ def phase_swa_kernels(kf):
 # ---------------------------------------------------------------------------
 
 SWA_SC = 1024                                # hymba-1.5b's ring: min(max_seq + 128, window)
-# full rings (every decode step past the window) beside short rows
-SWA_DECODE_LENGTHS = [1024, 1024, 1, 1024, 37, 1024, 300, 1024]
+# full rings (every decode step past the window) beside short rows; and the
+# mixed step's lengths on the ring
+SWA_DECODE_CASES = {"rings": [1024, 1024, 1, 1024, 37, 1024, 300, 1024],
+                    "mixed_step": [min(n, SWA_SC) for n in MIXED_LENGTHS]}
 
 
 def phase_swa_decode_kernel(ka):
     """``decode_attention`` at the hymba serve phase's shapes (B 8, H 25 over
     KVH 5, hd 64, a 1024-slot ring, lengths min(pos + 1, 1024)) against its
     plain version, in f32 and bf16 (bf16 also against the plain version in
-    f32), with the tolerances of phase 2b; then its times beside the bound
-    and a masked SDPA."""
+    f32), with the tolerances of phase 2b, on each of ``SWA_DECODE_CASES``;
+    then its times beside the bound and a masked SDPA."""
     import torch.nn.functional as F
 
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(23)
-    lens = torch.tensor(SWA_DECODE_LENGTHS, dtype=torch.int32, device="cuda")
-    Bd = len(SWA_DECODE_LENGTHS)
     rows = {}
-    for dtype_name in ("float32", "bfloat16"):
-        dt = getattr(torch, dtype_name)
-        tol = TOL[dtype_name]
-        q = torch.randn((Bd, SWA_H, SWA_HD), generator=gen, device="cuda").to(dt)
-        k, v = (torch.randn((Bd, SWA_SC, SWA_KVH, SWA_HD), generator=gen, device="cuda").to(dt)
-                for _ in range(2))
-        name = f"decode_attention[{dtype_name}, H={SWA_H}, KVH={SWA_KVH}, hd={SWA_HD}, Sc={SWA_SC}]"
-        got = ka.decode_attention(q, k, v, lens)
-        torch.cuda.synchronize()
-        every = slice(None)
-        errs = {"plain": check_close(name, got, ka.ref_decode_attention(q, k, v, lens),
-                                     every, tol["plain"])}
-        if dtype_name == "bfloat16":
-            want = ka.ref_decode_attention(q.float(), k.float(), v.float(), lens)
-            errs["plain_f32"] = check_close(name + " vs f32", got, want, every, tol["plain_f32"])
-        qt = q[:, :, None, :]
-        kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
-        mask = (torch.arange(SWA_SC, device="cuda")[None] < lens.long()[:, None])[:, None, None]
-        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
-        r = {"errs": errs}
-        r.update(timed_row(dense_work("decode_attention", q, k, lengths=SWA_DECODE_LENGTHS),
-                           dtype_name, flush, lambda: ka.decode_attention(q, k, v, lens),
-                           lambda: ka.ref_decode_attention(q, k, v, lens), lib))
-        rows[dtype_name] = r
-        print_dense_row(name, r, tol)
-        del q, k, v, qt, kt, vt
-        torch.cuda.empty_cache()
+    for case, lengths in SWA_DECODE_CASES.items():
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        Bd = len(lengths)
+        for dtype_name in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype_name)
+            tol = TOL[dtype_name]
+            q = torch.randn((Bd, SWA_H, SWA_HD), generator=gen, device="cuda").to(dt)
+            k, v = (torch.randn((Bd, SWA_SC, SWA_KVH, SWA_HD), generator=gen,
+                                device="cuda").to(dt) for _ in range(2))
+            name = (f"decode_attention[{dtype_name}, H={SWA_H}, KVH={SWA_KVH}, hd={SWA_HD}, "
+                    f"Sc={SWA_SC}, {case}]")
+            got = ka.decode_attention(q, k, v, lens)
+            torch.cuda.synchronize()
+            every = slice(None)
+            errs = {"plain": check_close(name, got, ka.ref_decode_attention(q, k, v, lens),
+                                         every, tol["plain"])}
+            if dtype_name == "bfloat16":
+                want = ka.ref_decode_attention(q.float(), k.float(), v.float(), lens)
+                errs["plain_f32"] = check_close(name + " vs f32", got, want, every,
+                                                tol["plain_f32"])
+            qt = q[:, :, None, :]
+            kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+            mask = (torch.arange(SWA_SC, device="cuda")[None] < lens.long()[:, None])[:, None, None]
+            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                         enable_gqa=True)
+            r = {"errs": errs}
+            r.update(timed_row(dense_work("decode_attention", q, k, lengths=lengths),
+                               dtype_name, flush, lambda: ka.decode_attention(q, k, v, lens),
+                               lambda: ka.ref_decode_attention(q, k, v, lens), lib))
+            rows[(dtype_name, case)] = r
+            print_dense_row(name, r, tol)
+            del q, k, v, qt, kt, vt
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -1247,16 +1300,22 @@ def phase_serve(ka, kf, tk, cfg, params):
     # of prefill), six mixed steps, then six decode-only steps
     rng = np.random.default_rng(1)
     extra = [eng.submit(rng.integers(0, cfg.vocab_size, 300), max_new=40) for _ in range(8)]
-    mixed = step_profile(eng, 3)
+    # the paged attention kernels of each step: the chunk kernel's tile plan,
+    # tiles and merge on mixed steps, the split decode and its merge on
+    # decode-only steps
+    attention = ("paged_chunk", "chunk_plan", "paged_decode_split", "split_merge")
+    mixed = step_profile(eng, 3, attention)
     while any(r.slot < 0 or r.prefilling for r in extra):
         eng.step()
-    decode = step_profile(eng, 3)
+    decode = step_profile(eng, 3, attention)
     eng.run_until_done()
-    for name, (kinds, host_ms, dev_ms, n_launch) in (("mixed", mixed), ("decode-only", decode)):
+    for name, (kinds, host_ms, dev_ms, n_launch, attn_ms) in (("mixed", mixed),
+                                                               ("decode-only", decode)):
         assert set(kinds) == {"ragged" if name == "mixed" else "decode"}, kinds
         print(f"[serve] {name} step: wall {host_ms:.2f} ms (mean of 3, profiler off); "
-              f"device busy {dev_ms:.2f} ms, {n_launch:.0f} kernel launches "
-              f"(torch.profiler, mean of 3)", flush=True)
+              f"device busy {dev_ms:.2f} ms, {n_launch:.0f} kernel launches, of which "
+              f"{attn_ms:.3f} ms in the paged attention kernels (torch.profiler, mean of 3)",
+              flush=True)
 
     # the full-width stack gives finite logits of the expected shape
     n = 40
@@ -1328,11 +1387,13 @@ def phase_dense_serve(ka, kf, tk, cfg, params, prompts, paged_tokens):
     return launches
 
 
-def step_profile(eng, n):
+def step_profile(eng, n, kernels=None):
     """Per engine step, over ``n`` steps each: the mean wall time (profiler
     off, pipelined steps back to back), then the device-busy time and the
     kernel launches (torch.profiler). Returns the plan kinds stepped too
-    ("dense" for each step of the dense backend)."""
+    ("dense" for each step of the dense backend). With ``kernels`` (a
+    tuple of name fragments) it also returns the device ms per step of the
+    kernels whose names hold one of them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1351,10 +1412,15 @@ def step_profile(eng, n):
             kinds.append(kind())
         torch.cuda.synchronize()
     events = prof.key_averages()
-    dev_us = sum(e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA)
+    cuda = [e for e in events if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in cuda)
     launches = sum(e.count for e in events
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx"))
-    return kinds, wall_ms, dev_us / n / 1e3, launches / n
+    out = (kinds, wall_ms, dev_us / n / 1e3, launches / n)
+    if kernels is None:
+        return out
+    part_us = sum(e.self_device_time_total for e in cuda if any(k in e.key for k in kernels))
+    return out + (part_us / n / 1e3,)
 
 
 PAGED = ("paged_chunk_attention", "paged_decode_attention")
@@ -1793,6 +1859,15 @@ def main() -> int:
                if name == "paged_decode_attention" else {}),
             "launches_by_phase": {ph: n[name] for ph, n in launches.items()},
         })
+    # the chunk kernel at the engine's mixed step
+    chunk = next(k for k in kernels if k["name"] == "paged_chunk_attention")
+    chunk["mixed_step"] = {
+        "shape": {"lengths": MIXED_LENGTHS, "chunks": MIXED_CHUNKS, "pads": MIXED_PAD},
+        **{d: {key2: rows[("paged_chunk_attention", d, "mixed_step")].get(key2)
+               for key2 in ("errs", "ms", "device_ms", "device_ms_bf16_q", "plain_ms",
+                            "library_ms", "bound_ms", "bound_by")}
+           for d in ("float32", "bfloat16", "int8")},
+    }
     # the RAG phase's shape: float32 index, B=32, k=10 (recall_at_k)
     r = topk_rows[("float32", 10)]
     kernels.append({
@@ -1822,6 +1897,11 @@ def main() -> int:
                                     for k, x in dense_rows.items() if k[0] == name},
             "float32": {key2: dense_rows[(name, "float32", *key)][key2]
                         for key2 in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")},
+            **({"mixed_step": {d: {key2: dense_rows[(name, d, "mixed_step")][key2]
+                                   for key2 in ("ms", "device_ms", "plain_ms", "library_ms",
+                                                "bound_ms", "bound_by")}
+                               for d in ("float32", "bfloat16")}}
+               if name == "decode_attention" else {}),
             "launches_by_phase": {ph: n[name] for ph, n in launches.items()},
         })
     # the rwkv serve phase's shapes in bf16: prefill at S=2048 (the longest
@@ -1873,12 +1953,12 @@ def main() -> int:
     # the decode kernel at the hymba serve phase's shapes
     dec = next(k for k in kernels if k["name"] == "decode_attention")
     dec["hymba"] = {
-        "shape": {"B": len(SWA_DECODE_LENGTHS), "H": SWA_H, "KVH": SWA_KVH, "hd": SWA_HD,
-                  "Sc": SWA_SC, "lengths": SWA_DECODE_LENGTHS},
-        **{d: {key2: swa_decode_rows[d][key2]
-               for key2 in ("errs", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
-                            "bound_by")}
-           for d in ("float32", "bfloat16")},
+        "shape": {"B": B, "H": SWA_H, "KVH": SWA_KVH, "hd": SWA_HD,
+                  "Sc": SWA_SC, "lengths": SWA_DECODE_CASES},
+        **{f"{d}/{c}": {key2: swa_decode_rows[(d, c)][key2]
+                        for key2 in ("errs", "ms", "device_ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by")}
+           for d in ("float32", "bfloat16") for c in SWA_DECODE_CASES},
     }
     print(json.dumps({"kernels": kernels}))
     print(f"[done] {time.perf_counter() - t_start:.1f}s in all", flush=True)

@@ -49,16 +49,24 @@
 //   over a contiguous cache (B, Sc, KVH, hd); slots below lengths[b] are
 //   valid (lengths >= 1). Output in q's dtype.
 //   Bound on the H100: bytes of K/V read (4 flops per K/V element pair per
-//   query head, far below the ~295 flops per byte of the card).
-//   Design: the cache axis is split across thread blocks, so that B * KVH *
-//   n_split blocks fill the card (B * KVH is only 16 at B = 8, KVH = 2). One
-//   block per (split, KV head, row) reads each K/V slot of its slice once and
-//   shares it across the G = H / KVH query heads of the group; its eight warps
-//   walk 16-slot tiles in parallel with a per-warp f32 online softmax, merged
-//   at the end into the block's partial state. Slots at or past the row's
-//   length are never loaded. A second kernel merges the splits of each (row,
-//   KV head) (attention_common.cuh). The wrapper picks n_split and the slots
-//   per split (kernels/decode_attention.py::decode_split).
+//   query head, far below the ~295 flops per byte of the card). At the serve
+//   steps' lengths (a few hundred slots a row, B 8, KVH 2) that is a few MB:
+//   the time goes to how many loads are in flight and to per-block set-up,
+//   not to arithmetic.
+//   Design: each warp is one split of one (row, KV head): it covers the
+//   slots [sp * c_b, (sp + 1) * c_b) of row b, c_b = lengths[b] / n_split
+//   rounded up to whole 16-slot tiles (row_chunk), so short rows are split
+//   as finely as long ones and B * KVH * n_split warps share the card
+//   whatever the lengths. n_split comes from shapes alone
+//   (kernels/decode_attention.py::dense_decode_split): no host sync. A warp
+//   stages its 16-slot K/V tiles in a two-stage ring of its own by 16-byte
+//   cp.async (no block barrier, no scalar loads) and scores each tile for
+//   all the group's query heads at once: bf16 on the tensor cores (the heads
+//   are the rows of one m16 A tile, P in two bf16 parts as in the flash
+//   kernel), f32 on the CUDA cores with every head's state in registers. Its
+//   online-softmax state stays in registers until it writes its partial;
+//   a second kernel merges the splits of each (row, KV head)
+//   (attention_common.cuh).
 #include <type_traits>
 
 #include "attention_common.cuh"
@@ -246,8 +254,6 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 // flash attention, bf16 inputs on the tensor cores
 // ---------------------------------------------------------------------------
 
-using bf16 = __nv_bfloat16;
-
 constexpr int kTCWarps = 4;                 // 16 query rows each
 constexpr int kTCThreads = 32 * kTCWarps;
 
@@ -257,63 +263,6 @@ constexpr int kTCThreads = 32 * kTCWarps;
 // on distinct banks.
 __host__ __device__ constexpr int flash_tc_smem_bytes(int hd) {
   return 5 * kTile * (hd + 8) * static_cast<int>(sizeof(bf16));
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; src_bytes 0 writes zeros and
-// reads nothing
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most N committed groups of this thread are still in flight
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// four 8 x 8 b16 matrices; lanes 8i .. 8i+7 give the row addresses of
-// matrix i, and lane l receives row l / 4, columns 2 (l % 4) .. +1 of each
-// (of the transpose with .trans). volatile keeps them between the barriers;
-// no memory clobber, so the compiler may schedule a step's loads ahead of its
-// mma.sync
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c (16 x 8, f32) += a (16 x 16, bf16, row-major) * b (16 x 8, bf16, col-major)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned bf16x2_bits(__nv_bfloat162 x) {
-  return *reinterpret_cast<unsigned*>(&x);
-}
-
-// (x0, x1) as bf16 pairs hi = bf16(x) and lo = bf16(x - hi): hi + lo keeps
-// about 16 significant bits of each
-__device__ __forceinline__ void split_bf16(float x0, float x1, unsigned& hi, unsigned& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bf16x2_bits(h);
-  lo = bf16x2_bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
 }
 
 // rows [row0, row0 + kTile) of a (.., S, heads, HD) bf16 tensor at head
@@ -331,14 +280,6 @@ __device__ __forceinline__ void cp_tile(bf16* dst, const bf16* __restrict__ src,
     const bf16* g = src + ((size_t)(in ? row0 + r : 0) * heads + head) * HD + c;
     cp_async16(dst + r * (HD + 8) + c, g, in ? 16 : 0);
   }
-}
-
-// 2^x by the SFU's ex2.approx (about 2 ulp; results below 2^-126 flush to
-// 0, a probability the f32 output cannot see)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // Warp w owns query rows q0 + 16w .. +15; lane l holds, of every 16 x 8
@@ -574,78 +515,327 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// decode attention (split over the cache axis)
+// decode attention (split over the cache axis by each row's own length)
 // ---------------------------------------------------------------------------
 
-constexpr int kSlots = 16;  // slots of a warp's tile
+constexpr int kSlots = 16;      // slots a warp stages and scores at a time
+constexpr int kHeadRows = 16;   // query heads of a warp: the 16 rows of an m16 tile
 
-// One (split, KV head, row): slots [lo, hi) of the row, hi <= lengths[b].
-// Warp w takes the slice's 16-slot tiles w, w + kWarps, ...; within a warp,
-// lane (i, half) = (lane % 16, lane / 16) scores slot i of the tile over half
-// of head_dim, and owns output columns lane*HD/32 .. +HD/32. Writes the
-// block's merged state: max and sum per query head (part_ml) and the
-// accumulator relative to that max (part_o).
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
-                    const T* __restrict__ v_cache, const int* __restrict__ lengths,
-                    float* __restrict__ part_o, float* __restrict__ part_ml, int H, int KVH,
-                    int Sc, int chunk, float scale) {
-  constexpr int KH = HD / 2;    // K columns a lane scores
-  constexpr int DPL = HD / 32;  // output columns a lane owns
-  extern __shared__ __align__(16) float smem[];
-  const int sp = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z, n_split = gridDim.x;
-  const int G = H / KVH;
-  float* qs = smem;
-  float* acc_all = qs + G * HD;
-  float* m_all = acc_all + kWarps * G * HD;
-  float* l_all = m_all + kWarps * G;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int i = lane % kSlots, half = lane / kSlots;
-  float* acc = acc_all + warp * G * HD;
-  float* m = m_all + warp * G;
-  float* l = l_all + warp * G;
+// Slots per split of a row with `len` valid slots: whole 16-slot tiles, the
+// least that lets n_split splits cover the row (the wrapper's
+// dense_decode_chunk mirrors it). Split sp covers [sp * chunk, (sp + 1) *
+// chunk) below len; splits past len are empty.
+__device__ __forceinline__ int row_chunk(int len, int n_split) {
+  const int per = (len + n_split - 1) / n_split;
+  return (per + kSlots - 1) / kSlots * kSlots;
+}
 
-  const size_t part = ((size_t)b * KVH + kvh) * n_split + sp;
-  const int len = min(lengths[b], Sc);
-  const int lo = sp * chunk;
-  const int hi = min(lo + chunk, len);
-  if (lo >= hi) {  // wholly past the row's length
-    store_empty_split(part_ml + part * G * 2, G);
+// What every decode warp derives from its block and warp index: the row b,
+// KV head, the heads g0 .. g0 + ng - 1 of the group it scores (at most 16),
+// and its split's slots [lo, hi) of the row (empty when lo >= hi). part is
+// the index of (b, kvh, split, g0) in the partials (B, KVH, n_split, G, ...).
+struct DecodeWork {
+  int b, kvh, g0, ng, lo, hi;
+  size_t part;
+  __device__ DecodeWork(const int* lengths, int H, int KVH, int Sc, int n_split, int sp) {
+    const int G = H / KVH, n_hg = (G + kHeadRows - 1) / kHeadRows;
+    b = blockIdx.z;
+    kvh = blockIdx.y / n_hg;
+    g0 = (blockIdx.y % n_hg) * kHeadRows;
+    ng = min(kHeadRows, G - g0);
+    const int len = min(lengths[b], Sc);
+    const int chunk = row_chunk(len, n_split);
+    lo = sp * chunk;
+    hi = min(lo + chunk, len);
+    part = (((size_t)b * KVH + kvh) * n_split + sp) * G + g0;
+  }
+  // the partial state of a split with no valid slot: the merge skips it
+  __device__ void store_empty(float* part_ml, int lane) const {
+    if (lane < ng) {
+      part_ml[2 * (part + lane)] = -INFINITY;
+      part_ml[2 * (part + lane) + 1] = 0.f;
+    }
+  }
+};
+
+// Stage the 16 slots [s0, s0 + 16) of one (row, KV head) of the caches (K at
+// Ks, V at Vs, rows of RS elements) by 16-byte cp.async of the warp's lanes;
+// slots at or past hi are zero-filled and not read.
+template <typename T, int HD, int RS>
+__device__ __forceinline__ void stage_slots(T* Ks, T* Vs, const T* __restrict__ kb,
+                                            const T* __restrict__ vb, size_t slot_stride,
+                                            int s0, int hi, int lane) {
+  constexpr int kChunks = HD * sizeof(T) / 16;  // 16-byte chunks of a slot's row
+  constexpr int kPer = 16 / sizeof(T);          // elements per chunk
+#pragma unroll
+  for (int i = 0; i < kSlots * kChunks / 32; ++i) {
+    const int e = lane + 32 * i, r = e / kChunks, c = (e % kChunks) * kPer;
+    const bool in = s0 + r < hi;
+    const size_t off = (size_t)(in ? s0 + r : 0) * slot_stride + c;
+    cp_async16(Ks + r * RS + c, kb + off, in ? 16 : 0);
+    cp_async16(Vs + r * RS + c, vb + off, in ? 16 : 0);
+  }
+}
+
+// bf16, on the tensor cores. Each warp is one split: its 16-slot K/V tiles
+// go through a two-stage cp.async ring of its own (no block barrier), the
+// group's heads are the rows of one m16 A tile (rows past ng are zeros and
+// never stored), S = Q K^T and O += P V run on mma.sync as in flash_tc_kernel
+// (P as P_hi + P_lo), and the online softmax stays in registers.
+constexpr int kDecTCWarps = 4;
+
+__host__ __device__ constexpr int decode_tc_smem_bytes(int hd) {
+  return kDecTCWarps * 4 * kSlots * (hd + 8) * static_cast<int>(sizeof(bf16));
+}
+
+template <int HD>
+__global__ void __launch_bounds__(32 * kDecTCWarps)
+decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_cache,
+                 const bf16* __restrict__ v_cache, const int* __restrict__ lengths,
+                 float* __restrict__ part_o, float* __restrict__ part_ml, int H, int KVH, int Sc,
+                 int n_split, float scale_log2) {
+  constexpr int RS = HD + 8;       // padded row of a staged slot (elements)
+  constexpr int KSTEPS = HD / 16;  // k-steps of Q K^T
+  constexpr int NO = HD / 8;       // 8-column tiles of O
+  extern __shared__ __align__(16) unsigned char dec_smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int sp = blockIdx.x * kDecTCWarps + warp;
+  if (sp >= n_split) return;
+  const DecodeWork w(lengths, H, KVH, Sc, n_split, sp);
+  if (w.lo >= w.hi) {
+    w.store_empty(part_ml, lane);
     return;
   }
-  const T* q_row = q + ((size_t)b * H + (size_t)kvh * G) * HD;
-  for (int e = tid; e < G * HD; e += kThreads) qs[e] = to_f32(q_row[e]);
-  for (int e = tid; e < kWarps * G * HD; e += kThreads) acc_all[e] = 0.f;
-  for (int e = tid; e < kWarps * G; e += kThreads) {
-    m_all[e] = -INFINITY;
-    l_all[e] = 0.f;
-  }
-  __syncthreads();
+  bf16* ring = reinterpret_cast<bf16*>(dec_smem) + warp * 4 * kSlots * RS;  // stage i: K, V
+  const size_t slot_stride = (size_t)KVH * HD;
+  const bf16* kb = k_cache + ((size_t)w.b * Sc * KVH + w.kvh) * HD;
+  const bf16* vb = v_cache + ((size_t)w.b * Sc * KVH + w.kvh) * HD;
+  stage_slots<bf16, HD, RS>(ring, ring + kSlots * RS, kb, vb, slot_stride, w.lo, w.hi, lane);
+  cp_async_commit();
 
-  const size_t row_stride = (size_t)KVH * HD;  // elements between slots
-  const T* kb = k_cache + ((size_t)b * Sc * KVH + kvh) * HD;
-  const T* vb = v_cache + ((size_t)b * Sc * KVH + kvh) * HD;
-  for (int s0 = lo + warp * kSlots; s0 < hi; s0 += kWarps * kSlots) {
-    const int slot = s0 + i;
-    const bool valid = slot < hi;  // slots at or past hi are never loaded
-    float kr[KH];
-    if (valid) {
-      Load16<T, KH>::run(kb + slot * row_stride + half * KH, kr);
+  // the A fragments of the heads (rows ra and rb of the m16 tile)
+  const int G = H / KVH;
+  const int ra = lane / 4, rb = ra + 8, c0 = 2 * (lane % 4);
+  const bf16* qa = q + ((size_t)w.b * H + w.kvh * G + w.g0 + ra) * HD;
+  const bf16* qb = qa + 8 * HD;
+  unsigned qf[KSTEPS][4];
+#pragma unroll
+  for (int ks = 0; ks < KSTEPS; ++ks) {
+    const int col = ks * 16 + c0;
+    qf[ks][0] = ra < w.ng ? ld_bf16x2(qa + col) : 0u;
+    qf[ks][1] = rb < w.ng ? ld_bf16x2(qb + col) : 0u;
+    qf[ks][2] = ra < w.ng ? ld_bf16x2(qa + col + 8) : 0u;
+    qf[ks][3] = rb < w.ng ? ld_bf16x2(qb + col + 8) : 0u;
+  }
+
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+  const int n_steps = (w.hi - w.lo + kSlots - 1) / kSlots;
+  for (int it = 0; it < n_steps; ++it) {
+    const int s0 = w.lo + it * kSlots;
+    bf16* Ks = ring + (it & 1) * 2 * kSlots * RS;
+    bf16* Vs = Ks + kSlots * RS;
+    if (it + 1 < n_steps) {  // the next tile into the other stage
+      bf16* Kn = ring + ((it + 1) & 1) * 2 * kSlots * RS;
+      stage_slots<bf16, HD, RS>(Kn, Kn + kSlots * RS, kb, vb, slot_stride, s0 + kSlots, w.hi,
+                                lane);
+      cp_async_commit();
+      cp_async_wait<1>();
     } else {
-#pragma unroll
-      for (int d = 0; d < KH; ++d) kr[d] = 0.f;
+      cp_async_wait<0>();
     }
-    float vr[kSlots][DPL];
+    __syncwarp();  // every lane's copies of this tile have landed
+
+    // S = Q K^T over the tile's 16 slots: two 8-slot column tiles
+    float s[2][4];
 #pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
-      const bool in = s0 + s < hi;
+    for (int n = 0; n < 2; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-      for (int c = 0; c < DPL; ++c)
-        vr[s][c] = in ? to_f32(vb[(s0 + s) * row_stride + lane * DPL + c]) : 0.f;
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      unsigned kf[4];
+      ldsm_x4(kf, Ks + (lane % 8 + (lane / 16) * 8) * RS + ks * 16 + ((lane / 8) % 2) * 8);
+      mma_bf16(s[0], qf[ks], kf[0], kf[1]);
+      mma_bf16(s[1], qf[ks], kf[2], kf[3]);
     }
-    for (int g = 0; g < G; ++g) {
-      const float* qg = qs + g * HD + half * KH;
+    // scale, mask slots at or past hi (the tile's first slot is valid, so
+    // every row's max is finite), online softmax in log2 units
+    const bool edge = s0 + kSlots > w.hi;
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * scale_log2;
+        if (edge && s0 + n * 8 + c0 + (e & 1) >= w.hi) x = -INFINITY;
+        s[n][e] = x;
+      }
+      mx_a = fmaxf(mx_a, fmaxf(s[n][0], s[n][1]));
+      mx_b = fmaxf(mx_b, fmaxf(s[n][2], s[n][3]));
+    }
+#pragma unroll
+    for (int x = 1; x < 4; x *= 2) {  // the quad of lanes that shares a row
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(kFull, mx_a, x));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(kFull, mx_b, x));
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    const float alpha_a = ex2(m_a - mn_a), alpha_b = ex2(m_b - mn_b);  // 0 on the first tile
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      s[n][0] = ex2(s[n][0] - mn_a);  // ex2(-inf) = 0
+      s[n][1] = ex2(s[n][1] - mn_a);
+      s[n][2] = ex2(s[n][2] - mn_b);
+      s[n][3] = ex2(s[n][3] - mn_b);
+      sum_a += s[n][0] + s[n][1];
+      sum_b += s[n][2] + s[n][3];
+    }
+    l_a = l_a * alpha_a + sum_a;
+    l_b = l_b * alpha_b + sum_b;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= alpha_a;
+      o[n][1] *= alpha_a;
+      o[n][2] *= alpha_b;
+      o[n][3] *= alpha_b;
+    }
+    // O += P V: the accumulators of the two column tiles are the A fragment
+    // of the 16-slot step (P_hi and P_lo); V's B fragments by ldmatrix.trans
+    unsigned ph[4], pl[4];
+    split_bf16(s[0][0], s[0][1], ph[0], pl[0]);
+    split_bf16(s[0][2], s[0][3], ph[1], pl[1]);
+    split_bf16(s[1][0], s[1][1], ph[2], pl[2]);
+    split_bf16(s[1][2], s[1][3], ph[3], pl[3]);
+#pragma unroll
+    for (int n = 0; n < NO; n += 2) {
+      unsigned vf[4];
+      ldsm_x4_trans(vf, Vs + (lane % 8 + ((lane / 8) % 2) * 8) * RS + n * 8 + (lane / 16) * 8);
+      mma_bf16(o[n], ph, vf[0], vf[1]);
+      mma_bf16(o[n], pl, vf[0], vf[1]);
+      mma_bf16(o[n + 1], ph, vf[2], vf[3]);
+      mma_bf16(o[n + 1], pl, vf[2], vf[3]);
+    }
+    __syncwarp();  // every lane is done with this stage before it is refilled
+  }
+
+#pragma unroll
+  for (int x = 1; x < 4; x *= 2) {
+    l_a += __shfl_xor_sync(kFull, l_a, x);
+    l_b += __shfl_xor_sync(kFull, l_b, x);
+  }
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    if (ra < w.ng)
+      *reinterpret_cast<float2*>(part_o + (w.part + ra) * HD + n * 8 + c0) =
+          make_float2(o[n][0], o[n][1]);
+    if (rb < w.ng)
+      *reinterpret_cast<float2*>(part_o + (w.part + rb) * HD + n * 8 + c0) =
+          make_float2(o[n][2], o[n][3]);
+  }
+  if (lane % 4 == 0) {
+    if (ra < w.ng) {
+      part_ml[2 * (w.part + ra)] = m_a * kLn2;
+      part_ml[2 * (w.part + ra) + 1] = l_a;
+    }
+    if (rb < w.ng) {
+      part_ml[2 * (w.part + rb)] = m_b * kLn2;
+      part_ml[2 * (w.part + rb) + 1] = l_b;
+    }
+  }
+}
+
+// f32, on the CUDA cores (TF32 would not hold the 1e-4 tolerance). The same
+// warp-per-split ring. Lane (i, h) = (lane % 16, lane / 16) scores slot i
+// over half h of head_dim for every head of the group at once (q in shared
+// memory, read as broadcast float4s); each head's max and sum are reduced
+// over the 16 slot lanes by shuffles; the probabilities go through a 16 x 16
+// table in shared memory to the value product, where lane l owns output
+// columns l * HD / 32 .. +HD / 32 of every head. Running max, sum and
+// accumulators of all heads stay in registers.
+constexpr int kDecF32Warps = 2;
+
+template <int HD> struct DecF32Plan {
+  static constexpr int RS = HD + 4;                   // padded f32 row: 16-byte aligned,
+                                                      // rows 4 banks apart
+  static constexpr int kRing = 4 * kSlots * RS;       // floats of a warp's ring
+  static constexpr int kP = kSlots * kHeadRows;       // the probability table
+  static constexpr int kQ = kHeadRows * HD;           // the block's q
+  static constexpr int bytes = (kDecF32Warps * (kRing + kP) + kQ) * 4;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(32 * kDecF32Warps)
+decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ k_cache,
+                  const float* __restrict__ v_cache, const int* __restrict__ lengths,
+                  float* __restrict__ part_o, float* __restrict__ part_ml, int H, int KVH, int Sc,
+                  int n_split, float scale) {
+  using P = DecF32Plan<HD>;
+  constexpr int RS = P::RS, KH = HD / 2, DPL = HD / 32;
+  extern __shared__ __align__(16) float dec_f32_smem[];
+  float* qs = dec_f32_smem;  // the block's heads: qs[g * HD + d]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int sp = blockIdx.x * kDecF32Warps + warp;
+  const DecodeWork w(lengths, H, KVH, Sc, n_split, sp);
+  const int G = H / KVH;
+  const float* q_row = q + ((size_t)w.b * H + w.kvh * G + w.g0) * HD;
+  for (int e = threadIdx.x; e < w.ng * HD / 4; e += 32 * kDecF32Warps)
+    reinterpret_cast<float4*>(qs)[e] = reinterpret_cast<const float4*>(q_row)[e];
+  __syncthreads();  // the block's only barrier
+  if (sp >= n_split) return;
+  if (w.lo >= w.hi) {
+    w.store_empty(part_ml, lane);
+    return;
+  }
+  float* ring = qs + P::kQ + warp * (P::kRing + P::kP);
+  float* ptab = ring + P::kRing;  // ptab[slot * 16 + g]
+  const size_t slot_stride = (size_t)KVH * HD;
+  const float* kb = k_cache + ((size_t)w.b * Sc * KVH + w.kvh) * HD;
+  const float* vb = v_cache + ((size_t)w.b * Sc * KVH + w.kvh) * HD;
+  stage_slots<float, HD, RS>(ring, ring + kSlots * RS, kb, vb, slot_stride, w.lo, w.hi, lane);
+  cp_async_commit();
+
+  const int i = lane % kSlots, h = lane / kSlots;
+  float m[kHeadRows], l[kHeadRows], o[kHeadRows][DPL];
+#pragma unroll
+  for (int g = 0; g < kHeadRows; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DPL; ++c) o[g][c] = 0.f;
+  }
+  const int n_steps = (w.hi - w.lo + kSlots - 1) / kSlots;
+  for (int it = 0; it < n_steps; ++it) {
+    const int s0 = w.lo + it * kSlots;
+    float* Ks = ring + (it & 1) * 2 * kSlots * RS;
+    float* Vs = Ks + kSlots * RS;
+    if (it + 1 < n_steps) {
+      float* Kn = ring + ((it + 1) & 1) * 2 * kSlots * RS;
+      stage_slots<float, HD, RS>(Kn, Kn + kSlots * RS, kb, vb, slot_stride, s0 + kSlots, w.hi,
+                                 lane);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();
+
+    float kr[KH];
+#pragma unroll
+    for (int d = 0; d < KH; d += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(Ks + i * RS + h * KH + d);
+      kr[d] = x.x;
+      kr[d + 1] = x.y;
+      kr[d + 2] = x.z;
+      kr[d + 3] = x.w;
+    }
+    const bool valid = s0 + i < w.hi;  // the tile's first slot is valid
+#pragma unroll
+    for (int g = 0; g < kHeadRows; ++g) {
+      if (g >= w.ng) break;
+      const float* qg = qs + g * HD + h * KH;
       float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
 #pragma unroll
       for (int d = 0; d < KH; d += 4) {
@@ -658,71 +848,98 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
       float dot = (a0 + a1) + (a2 + a3);
       dot += __shfl_xor_sync(kFull, dot, kSlots);  // the other half of head_dim
       const float sc = valid ? dot * scale : -INFINITY;
-      const float m_old = m[g];
-      float mx = fmaxf(sc, m_old);
+      float mx = sc;
 #pragma unroll
-      for (int w = kSlots / 2; w > 0; w /= 2) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, w));
-      // the tile's first slot is valid, so mx is finite (uniform across the warp)
-      const float p = sc == -INFINITY ? 0.f : expf(sc - mx);
+      for (int x = kSlots / 2; x > 0; x /= 2) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, x));
+      const float mn = fmaxf(m[g], mx);
+      const float p = valid ? expf(sc - mn) : 0.f;
       float sum = p;
 #pragma unroll
-      for (int w = kSlots / 2; w > 0; w /= 2) sum += __shfl_xor_sync(kFull, sum, w);
-      const float alpha = expf(m_old - mx);  // 0 on the warp's first tile
-      float o[DPL];
-      float* ag = acc + g * HD + lane * DPL;
+      for (int x = kSlots / 2; x > 0; x /= 2) sum += __shfl_xor_sync(kFull, sum, x);
+      const float alpha = expf(m[g] - mn);  // 0 on the first tile
+      m[g] = mn;
+      l[g] = l[g] * alpha + sum;
 #pragma unroll
-      for (int c = 0; c < DPL; ++c) o[c] = ag[c] * alpha;
+      for (int c = 0; c < DPL; ++c) o[g][c] *= alpha;
+      if (h == 0) ptab[i * kHeadRows + g] = p;
+    }
+    __syncwarp();  // the probability table is written
 #pragma unroll
-      for (int s2 = 0; s2 < kSlots; ++s2) {
-        const float ps = __shfl_sync(kFull, p, s2);
-#pragma unroll
-        for (int c = 0; c < DPL; ++c) o[c] = fmaf(ps, vr[s2][c], o[c]);
+    for (int s2 = 0; s2 < kSlots; ++s2) {
+      float vr[DPL];
+      if constexpr (DPL == 4) {
+        const float4 x = *reinterpret_cast<const float4*>(Vs + s2 * RS + lane * DPL);
+        vr[0] = x.x, vr[1] = x.y, vr[2] = x.z, vr[3] = x.w;
+      } else {
+        const float2 x = *reinterpret_cast<const float2*>(Vs + s2 * RS + lane * DPL);
+        vr[0] = x.x, vr[1] = x.y;
       }
 #pragma unroll
-      for (int c = 0; c < DPL; ++c) ag[c] = o[c];
-      __syncwarp();  // every lane has read m[g] and l[g]
-      if (lane == 0) {
-        m[g] = mx;
-        l[g] = l[g] * alpha + sum;
+      for (int g4 = 0; g4 < kHeadRows; g4 += 4) {
+        if (g4 >= w.ng) break;
+        const float4 p4 = *reinterpret_cast<const float4*>(ptab + s2 * kHeadRows + g4);
+        const float pg[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+#pragma unroll
+          for (int c = 0; c < DPL; ++c) o[g4 + k][c] = fmaf(pg[k], vr[c], o[g4 + k][c]);
       }
-      __syncwarp();
+    }
+    __syncwarp();  // this stage and the table are read before they are refilled
+  }
+#pragma unroll
+  for (int g = 0; g < kHeadRows; ++g) {
+    if (g >= w.ng) break;
+#pragma unroll
+    for (int c = 0; c < DPL; ++c) part_o[(w.part + g) * HD + lane * DPL + c] = o[g][c];
+    if (lane == 0) {
+      part_ml[2 * (w.part + g)] = m[g];
+      part_ml[2 * (w.part + g) + 1] = l[g];
     }
   }
-  __syncthreads();
-  store_block_state<T>(acc_all, m_all, l_all, G, HD, nullptr, part_o + part * G * HD,
-                       part_ml + part * G * 2);
 }
 
 template <typename T, int HD>
 cudaError_t launch_decode_hd(const void* q, const void* k, const void* v, const int* lengths,
                              void* out, float* part_o, float* part_ml, int B, int H, int KVH,
-                             int Sc, int n_split, int chunk, float scale, cudaStream_t stream) {
-  const size_t smem = decode_smem_floats(H / KVH, HD) * sizeof(float);
-  auto kernel = decode_split_kernel<T, HD>;
-  cudaError_t err = prepare(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(n_split, KVH, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lengths,
-      part_o, part_ml, H, KVH, Sc, chunk, scale);
+                             int Sc, int n_split, float scale, cudaStream_t stream) {
+  const int n_hg = (H / KVH + kHeadRows - 1) / kHeadRows;
+  cudaError_t err;
+  if constexpr (std::is_same<T, bf16>::value) {
+    const size_t smem = decode_tc_smem_bytes(HD);
+    auto kernel = decode_tc_kernel<HD>;
+    err = prepare(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3((n_split + kDecTCWarps - 1) / kDecTCWarps, KVH * n_hg, B), 32 * kDecTCWarps,
+             smem, stream>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                             static_cast<const bf16*>(v), lengths, part_o, part_ml, H, KVH, Sc,
+                             n_split, scale * 1.4426950408889634f);
+  } else {
+    const size_t smem = DecF32Plan<HD>::bytes;
+    auto kernel = decode_f32_kernel<HD>;
+    err = prepare(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3((n_split + kDecF32Warps - 1) / kDecF32Warps, KVH * n_hg, B),
+             32 * kDecF32Warps, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), lengths, part_o, part_ml, H, KVH, Sc, n_split, scale);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_split_merge<T>(part_o, part_ml, out, B, H, KVH, HD, n_split, stream);
 }
 
-// chunk: slots per split, whole 16-slot tiles, n_split * chunk >= Sc.
 template <typename T>
 cudaError_t launch_decode(const void* q, const void* k, const void* v, const int* lengths,
                           void* out, float* part_o, float* part_ml, int B, int H, int KVH,
-                          int hd, int Sc, int n_split, int chunk, float scale,
-                          cudaStream_t stream) {
-  if (n_split < 1 || chunk < kSlots || chunk % kSlots != 0 || (long long)n_split * chunk < Sc)
-    return cudaErrorInvalidValue;
+                          int hd, int Sc, int n_split, float scale, cudaStream_t stream) {
+  if (n_split < 1) return cudaErrorInvalidValue;
   if (hd == 64)
     return launch_decode_hd<T, 64>(q, k, v, lengths, out, part_o, part_ml, B, H, KVH, Sc,
-                                   n_split, chunk, scale, stream);
+                                   n_split, scale, stream);
   if (hd == 128)
     return launch_decode_hd<T, 128>(q, k, v, lengths, out, part_o, part_ml, B, H, KVH, Sc,
-                                    n_split, chunk, scale, stream);
+                                    n_split, scale, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -744,10 +961,6 @@ int da_flash_smem_bytes(int dtype, int hd) {
                         : flash_smem_floats(hd) * static_cast<int>(sizeof(float));
 }
 
-int da_decode_smem_bytes(int G, int hd) {
-  return static_cast<int>(decode_smem_floats(G, hd) * sizeof(float));
-}
-
 // Each launcher returns the cudaError_t of its launches (0 on success).
 // window <= 0: no sliding window.
 int da_flash_attention(int dtype, const void* q, const void* k, const void* v, void* out, int B,
@@ -758,13 +971,13 @@ int da_flash_attention(int dtype, const void* q, const void* k, const void* v, v
 }
 
 // part_o: (B, KVH, n_split, G, hd) and part_ml: (B, KVH, n_split, G, 2)
-// float32 scratch the caller allocates; chunk: slots per split.
+// float32 scratch the caller allocates; each row's slots go to n_split
+// splits of whole 16-slot tiles (row_chunk).
 int da_decode_attention(int dtype, const void* q, const void* k_cache, const void* v_cache,
                         const int* lengths, void* out, float* part_o, float* part_ml, int B,
-                        int H, int KVH, int hd, int Sc, int n_split, int chunk, float scale,
-                        void* stream) {
+                        int H, int KVH, int hd, int Sc, int n_split, float scale, void* stream) {
   DA_DISPATCH(launch_decode, q, k_cache, v_cache, lengths, out, part_o, part_ml, B, H, KVH, hd,
-              Sc, n_split, chunk, scale, static_cast<cudaStream_t>(stream))
+              Sc, n_split, scale, static_cast<cudaStream_t>(stream))
 }
 
 }  // extern "C"

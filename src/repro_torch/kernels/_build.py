@@ -35,7 +35,9 @@ ENTRY_POINTS = {
     "paged_attention": {
         "pa_smem_bytes": ([_I, _I], _I),
         "pa_paged_decode_attention": ([_I, _I] + [_P] * 10 + [_I] * 8 + [_F, _P], _I),
-        "pa_paged_chunk_attention": ([_I, _I] + [_P] * 11 + [_I] * 6 + [_F, _P], _I),
+        "pa_paged_chunk_attention": ([_I, _I] + [_P] * 14 + [_I] * 8 + [_F, _P], _I),
+        "pa_chunk_tc_smem_bytes": ([_I, _I], _I),
+        "pa_chunk_tile_plan": ([_P, _I, _I, _P, _P], _I),
     },
     "topk_retrieval": {
         "tk_max_k": ([], _I),
@@ -45,9 +47,8 @@ ENTRY_POINTS = {
     },
     "dense_attention": {
         "da_flash_smem_bytes": ([_I, _I], _I),
-        "da_decode_smem_bytes": ([_I, _I], _I),
         "da_flash_attention": ([_I] + [_P] * 4 + [_I] * 7 + [_F, _P], _I),
-        "da_decode_attention": ([_I] + [_P] * 7 + [_I] * 7 + [_F, _P], _I),
+        "da_decode_attention": ([_I] + [_P] * 7 + [_I] * 6 + [_F, _P], _I),
     },
     "rwkv6_scan": {
         "wkv_rwkv6": ([_I] + [_P] * 8 + [_I] * 4 + [_P], _I),

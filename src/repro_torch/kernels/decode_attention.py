@@ -10,10 +10,11 @@ valid below each row's length) ports the one the dense backend runs. On
 CUDA tensors each wrapper launches its hand-written kernel (the paged ones
 in ``csrc/paged_attention.cu``, the dense one in ``csrc/dense_attention.cu``;
 built on first use, see ``kernels._build``) on the current stream and counts
-the launch in its ``launches`` attribute (one per call: the two decode
-wrappers each launch a split kernel and a merge, ``decode_split``); on CPU
-tensors it runs the plain version. There is no fallback from one to the
-other: a CUDA input the kernel does not take raises.
+the launch in its ``launches`` attribute (one per call, whatever kernels
+the call runs: the decode wrappers launch a split kernel and a merge, the
+chunk wrapper with bf16 q a tile plan, the tiles and, when it splits them,
+a merge); on CPU tensors it runs the plain version. There is no fallback
+from one to the other: a CUDA input the kernel does not take raises.
 
 ``ref_paged_decode_attention`` / ``ref_paged_chunk_attention`` are PyTorch
 ports of the JAX gather oracles: they materialise each query's contiguous
@@ -233,7 +234,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
     n_split, chunk = decode_split(_sm_count(q.device.index), B, KVH, mb * bs)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        part_o, part_ml = _decode_partials(q.device, stream, B, KVH, n_split, H // KVH, hd)
+        part_o, part_ml = _partials(q.device, stream, B, KVH, n_split, H // KVH, hd)
         err = lib.pa_paged_decode_attention(
             qc, kc, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ks, vs,
             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
@@ -258,7 +259,10 @@ def paged_chunk_attention(q, k_pool, v_pool, block_tables, row_of, slots,
     int32 RAW; row_of: (T,) int32 owning row (-1 = pad token, zeros out);
     slots: (T,) absolute cache slot; p_end/s_start: (T,) segmented-prompt
     spans (zeros = plain causal). Returns (T, H, hd) in q's dtype. CUDA
-    tensors launch the kernel; CPU tensors run the plain version."""
+    tensors launch the kernel (bf16 q, with a bf16 or an int8 pool: tiles
+    of a row's packed tokens on the tensor cores, listed on the card by
+    ``chunk_tile_plan``'s rule and split by ``chunk_split``; f32 q: one
+    block per token); CPU tensors run the plain version."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return ref_paged_chunk_attention(q, k_pool, v_pool, block_tables,
@@ -281,13 +285,31 @@ def paged_chunk_attention(q, k_pool, v_pool, block_tables, row_of, slots,
     out = torch.empty_like(q)
     if T == 0:
         return out
+    B = block_tables.shape[0]
+    G = H // KVH
+    tensor_cores = q.dtype == torch.bfloat16            # with a bf16 or an int8 pool
+    n_split, grid_x = 1, 1
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        plan = part_o = part_ml = None
+        if tensor_cores:
+            _check(name, G <= _TILE_ROWS, f"the kernel takes at most {_TILE_ROWS} query heads "
+                   f"a KV head, got {G}")
+            smem = lib.pa_chunk_tc_smem_bytes(hd, mb)
+            _check(name, smem <= 227 * 1024,
+                   f"shared memory per block {smem} B exceeds the H100's 227 KB")
+            n_split, tiles = chunk_split(_sm_count(q.device.index), T, B, KVH, G, mb * bs)
+            grid_x = tiles * n_split
+            plan = _scratch(q.device, stream, "chunk_plan", 1 + 2 * T, torch.int32)
+            if n_split > 1:
+                part_o, part_ml = _partials(q.device, stream, T, KVH, n_split, G, hd)
+        ptr = lambda t: None if t is None else t.data_ptr()
         err = lib.pa_paged_chunk_attention(
             qc, kc, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ks, vs,
             block_tables.data_ptr(), row_of.data_ptr(), slots.data_ptr(),
-            p_end.data_ptr(), s_start.data_ptr(), out.data_ptr(),
-            T, H, KVH, hd, bs, mb, float(scale), stream,
+            p_end.data_ptr(), s_start.data_ptr(), out.data_ptr(), ptr(plan),
+            ptr(part_o), ptr(part_ml), T, H, KVH, hd, bs, mb, n_split, grid_x,
+            float(scale), stream,
         )
     _raise_on_error(name, err)
     paged_chunk_attention.launches += 1
@@ -304,10 +326,11 @@ _MIN_SPLIT_SLOTS = 128
 
 
 def decode_split(sms: int, B: int, KVH: int, slots: int):
-    """(n_split, chunk) of the split-cache decode kernels, dense and paged:
-    a row's ``slots`` cache slots (the paged kernel's ``mb * block_size``)
-    go to n_split thread blocks of ``chunk`` slots each, the last one taking
-    what remains. ``chunk`` is a whole number of 16-slot tiles, at least
+    """(n_split, chunk) of the split paged decode kernel, its only user (the
+    dense decode kernel splits each row by its own length,
+    ``dense_decode_split``): a row's ``mb * block_size`` table slots go to
+    n_split thread blocks of ``chunk`` slots each, the last one taking what
+    remains. ``chunk`` is a whole number of 16-slot tiles, at least
     ``_MIN_SPLIT_SLOTS`` unless there is one split, and small enough that the
     ``n_split * KVH * B`` blocks give each of the ``sms`` SMs two where the
     slots allow; no split is empty."""
@@ -324,25 +347,115 @@ def decode_split(sms: int, B: int, KVH: int, slots: int):
     return n_split, chunk
 
 
+# the dense decode kernel: warps (splits) to aim for per SM (of 1, 2, 4, 8
+# and 16 at the mixed step's lengths on the H100, 2 was the fastest at
+# qwen2.5-3b's heads and 4 at hymba-1.5b's, 1-10 % apart; kernel_ab --sweep),
+# and the rows of the tensor cores' m16 tile, the most query heads one warp
+# scores
+_DENSE_WARPS_PER_SM = 2
+_HEAD_ROWS = 16
+
+
+def dense_decode_split(sms: int, B: int, KVH: int, G: int, Sc: int) -> int:
+    """n_split of the dense decode kernel, from shapes alone: each (row,
+    KV head, group of up to 16 query heads) goes to n_split warps, about
+    ``_DENSE_WARPS_PER_SM`` warps per SM in all, never more splits than
+    16-slot tiles of the cache. The kernel cuts each row by its own length
+    (``dense_decode_chunk``), so short rows fill the card too."""
+    groups = B * KVH * -(-G // _HEAD_ROWS)
+    want = -(-_DENSE_WARPS_PER_SM * sms // max(groups, 1))
+    return max(1, min(want, -(-Sc // _BLOCK_SIZE)))
+
+
+def dense_decode_chunk(length: int, n_split: int) -> int:
+    """Slots per split of a row with ``length`` valid slots, as the dense
+    decode kernel computes them on the card (``row_chunk`` in
+    csrc/dense_attention.cu): whole 16-slot tiles, the least that lets
+    n_split splits cover the row; split s covers [s * chunk, (s + 1) *
+    chunk) below the length."""
+    per = -(-length // n_split)
+    return -(-per // _BLOCK_SIZE) * _BLOCK_SIZE
+
+
+# the chunk kernel's tiles: at most 16 packed tokens and 128 query rows
+# ((token, head) pairs: eight warps of 16); a split covers whole 64-slot
+# K/V tiles; blocks to aim for per SM (a block takes an SM's registers; 1
+# was the fastest of 1, 2, 4 and 8 at the engine's mixed step on the H100,
+# kernel_ab --sweep)
+_TILE_TOKENS = 16
+_TILE_ROWS = 128
+_KV_TILE = 64
+_CHUNK_BLOCKS_PER_SM = 1
+
+
+def chunk_tile_tokens(G: int) -> int:
+    """Packed tokens a tile of the chunk kernel takes at G query heads per
+    KV head (``chunk_tile_tokens`` in csrc/paged_attention.cu)."""
+    return min(_TILE_TOKENS, _TILE_ROWS // G)
+
+
+def chunk_tile_plan(row_of, G: int):
+    """The chunk kernel's tiles, by the rule its plan kernel applies on the
+    card (``chunk_plan_kernel`` in csrc/paged_attention.cu): token t starts
+    a tile iff ``row_of[t] >= 0`` and (t is a multiple of the tile size
+    ``chunk_tile_tokens(G)`` or ``row_of[t - 1] != row_of[t]``); the tile
+    runs up to the next token that breaks the row or is a multiple of the
+    tile size. Returns (first token, tokens) of each tile, in order, as two
+    int64 tensors on row_of's device. A tile holds consecutive tokens of one
+    row and no pad, for any row_of; with each row's tokens in one run (the
+    control plane's packing) there are at most ``ceil(T / size) + B``."""
+    size = chunk_tile_tokens(G)
+    r = row_of.long()
+    T = r.numel()
+    t = torch.arange(T, device=r.device)
+    prev = torch.cat([r.new_full((1,), -1), r[:-1]])
+    cut = (t % size == 0) | (r != prev)          # a tile may begin only here
+    starts = t[(r >= 0) & cut]
+    bounds = torch.cat([t[cut], t.new_full((1,), T)])
+    ends = bounds[torch.searchsorted(bounds, starts, right=True)]
+    return starts, ends - starts
+
+
+def chunk_split(sms: int, T: int, B: int, KVH: int, G: int, slots: int):
+    """(n_split, tiles) of the chunk kernel, from shapes alone: ``tiles``
+    bounds the tiles of a packing of T tokens over B rows (``ceil(T /
+    size) + B``), and each tile's reach (its furthest attended slot + 1) is
+    cut into n_split splits of whole 64-slot K/V tiles, enough that the
+    ``tiles * n_split * KVH`` blocks give each of the ``sms`` SMs
+    ``_CHUNK_BLOCKS_PER_SM``, and no more than the 64-slot tiles of
+    ``slots``. The grid is ``tiles * n_split`` blocks a KV head; they walk
+    the card's tile list grid-stride, so a plan with more tiles is still
+    complete."""
+    tiles = -(-T // chunk_tile_tokens(G)) + B
+    want = -(-_CHUNK_BLOCKS_PER_SM * sms // max(tiles * KVH, 1))
+    return max(1, min(want, -(-slots // _KV_TILE))), tiles
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-# the decode kernels' per-split partials, (part_o, part_ml) per (device,
-# stream, B, KVH, n_split, G, hd): every layer of every decode step reuses one
-# pair, since launches on one stream run in order and each launch writes
-# every partial before its merge kernel reads them
-_decode_scratch = {}
+# the kernels' scratch: the split kernels' partials (part_o, part_ml) and
+# the chunk kernel's tile plan, one flat buffer per (device, stream, name),
+# kept at the largest size asked for and a prefix used: every layer of every
+# step reuses it, since launches on one stream run in order and each launch
+# writes what its merge reads before the merge runs
+_grow_scratch = {}
 
 
-def _decode_partials(device, stream, B, KVH, n_split, G, hd):
-    key = (device, stream, B, KVH, n_split, G, hd)
-    if key not in _decode_scratch:
-        _decode_scratch[key] = (
-            torch.empty((B, KVH, n_split, G, hd), dtype=torch.float32, device=device),
-            torch.empty((B, KVH, n_split, G, 2), dtype=torch.float32, device=device))
-    return _decode_scratch[key]
+def _scratch(device, stream, name, numel, dtype=torch.float32):
+    key = (device, stream, name)
+    buf = _grow_scratch.get(key)
+    if buf is None or buf.numel() < numel:
+        buf = _grow_scratch[key] = torch.empty(numel, dtype=dtype, device=device)
+    return buf[:numel]
+
+
+def _partials(device, stream, rows, KVH, n_split, G, hd):
+    """part_o (rows, KVH, n_split, G, hd) and part_ml (.., 2), flat."""
+    n = rows * KVH * n_split * G
+    return (_scratch(device, stream, "part_o", n * hd), _scratch(device, stream, "part_ml", n * 2))
 
 
 def decode_attention(q, k_cache, v_cache, lengths, *, scale: Optional[float] = None):
@@ -351,8 +464,10 @@ def decode_attention(q, k_cache, v_cache, lengths, *, scale: Optional[float] = N
 
     q: (B, H, hd); k/v_cache: (B, Sc, KVH, hd) in q's dtype (float32 or
     bfloat16); lengths: (B,) int32 valid slots per row (1 <= lengths <= Sc).
-    Returns (B, H, hd) in q's dtype. CUDA tensors launch the kernel; CPU
-    tensors run the plain version."""
+    Returns (B, H, hd) in q's dtype. CUDA tensors launch the kernel, each
+    row split by its own length (``dense_decode_split``,
+    ``dense_decode_chunk``) and merged; CPU tensors run the plain
+    version."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return ref_decode_attention(q, k_cache, v_cache, lengths, scale)
@@ -380,19 +495,17 @@ def decode_attention(q, k_cache, v_cache, lengths, *, scale: Optional[float] = N
 
     lib = load_library("dense_attention").lib
     G = H // KVH
-    smem = lib.da_decode_smem_bytes(G, hd)
-    _check(name, smem <= 227 * 1024, f"shared memory per block {smem} B exceeds 227 KB")
     out = torch.empty_like(q)
     if B == 0:
         return out
-    n_split, chunk = decode_split(_sm_count(q.device.index), B, KVH, Sc)
+    n_split = dense_decode_split(_sm_count(q.device.index), B, KVH, G, Sc)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        part_o, part_ml = _decode_partials(q.device, stream, B, KVH, n_split, G, hd)
+        part_o, part_ml = _partials(q.device, stream, B, KVH, n_split, G, hd)
         err = lib.da_decode_attention(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(),
-            B, H, KVH, hd, Sc, n_split, chunk, float(scale), stream,
+            B, H, KVH, hd, Sc, n_split, float(scale), stream,
         )
     _raise_on_error(name, err)
     decode_attention.launches += 1

@@ -1,23 +1,32 @@
-"""Device times of the bf16 flash and paged decode kernels, one source tree
-against another, or this tree's flash kernel against diagnostic variants of
-it, on one GPU.
+"""Device times of the bf16 attention kernels, one source tree against
+another, or this tree against diagnostic variants of it, or this tree's
+split targets, on one GPU.
 
     python -m repro_torch.launch.kernel_ab --trees build/parent/src src src build/parent/src
     python -m repro_torch.launch.kernel_ab --variants base exp2f p_once no_softmax no_loads
+    python -m repro_torch.launch.kernel_ab --variants base chunk_rows64 chunk_rows64 base
+    python -m repro_torch.launch.kernel_ab --sweep
 
 Each tree (a directory holding ``repro_torch``) or variant runs in a process
 of its own, in the order given, so that its kernels are built from its own
 sources; a variant is this tree's ``repro_torch`` copied under
-``build/kernel_ab/<name>/`` with the edits of ``VARIANTS`` applied to its
-``csrc/dense_attention.cu``. The edits after ``exp2f`` change what the
-kernel computes: they only show what a part of the kernel costs. Shapes are
-``chip_smoke.py``'s: flash bf16 causal at S 2048 (H 16 / KVH 2, hd 128) and
-windowed at S 1664 (window 1024, H 25 / KVH 5, hd 64); for trees also paged
-decode bf16 at B 8 over contexts 33-2048 (H 16 / KVH 2, hd 128, 128 blocks
-of 16 a row). Each process prints one JSON line: per case the device time
+``build/kernel_ab/<name>/`` with the edits of ``VARIANTS`` applied. The
+flash variants after ``exp2f`` change what the kernel computes: they only
+show what a part of it costs; ``chunk_rows64`` halves the chunk kernel's
+tiles. Cases are ``chip_smoke.py``'s: flash bf16 causal at S 2048 (H 16 /
+KVH 2, hd 128) and windowed at S 1664 (window 1024, H 25 / KVH 5, hd 64);
+at H 16 / KVH 2, hd 128, paged decode at B 8 over contexts 33-2048 (128
+blocks of 16 a row), the chunk kernel on phase 2's ragged case (303 packed
+tokens) and at the engine's mixed step (a 256-token prefill chunk at slots
+1024-1279, seven decode rows of 301-337 slots, one pad), and dense decode
+over a 2048-slot cache at phase 2's lengths and at the mixed step's, and
+at hymba-1.5b's heads (H 25 / KVH 5, hd 64, a 1024-slot ring) at the mixed
+step's lengths. Each process prints one JSON line: per case the device time
 three times (calls queued behind a spin kernel, L2 warm), the largest error
 against the plain version in f32 and how many elements miss the bf16 check
-(atol 1e-3, rtol 8e-3), and the card's name and power limit.
+(atol 1e-3, rtol 8e-3), and the card's name and power limit. ``--sweep``
+prints instead the dense decode's and the chunk kernel's device times at
+each split target of ``sweep``.
 """
 from __future__ import annotations
 
@@ -39,19 +48,29 @@ _TILE_LOADS = ('''    bf16* Ks = stage0 + (it & 1) * 2 * kTile * RS;
 _SOFTMAX = "    // scale, mask where this tile can hold a masked key, online softmax\n"
 _PV = "    // O += P V over 16-key steps."
 
-# name -> edits (old, new) of csrc/dense_attention.cu, or a callable on its text
+_DENSE = "csrc/dense_attention.cu"
+_CHUNK_SRC = "csrc/paged_attention.cu"
+_WRAPPERS = "kernels/decode_attention.py"
+
+# name -> edits of files of repro_torch: (file, old, new), or (file, callable
+# on its text). The flash kernel's, then the chunk kernel's.
 VARIANTS = {
     "base": [],
     # the CUDA math library's exp2f in place of ex2.approx (every call site)
-    "exp2f": [(": ex2(", ": exp2f(")],
+    "exp2f": [(_DENSE, ": ex2(", ": exp2f(")],
     # P rounded to bf16 once: one value product instead of two
-    "p_once": [("        mma_bf16(o[n], pl, vf[0], vf[1]);\n", ""),
-               ("        mma_bf16(o[n + 1], pl, vf[2], vf[3]);\n", "")],
+    "p_once": [(_DENSE, "        mma_bf16(o[n], pl, vf[0], vf[1]);\n", ""),
+               (_DENSE, "        mma_bf16(o[n + 1], pl, vf[2], vf[3]);\n", "")],
     # no online softmax: the raw scores go to the value product
-    "no_softmax": lambda s: (s[:s.index(_SOFTMAX)] + "    l_a += 1.f;\n    l_b += 1.f;\n\n"
-                             + s[s.index(_PV):]),
+    "no_softmax": [(_DENSE, lambda s: (s[:s.index(_SOFTMAX)] + "    l_a += 1.f;\n    l_b += 1.f;\n\n"
+                                       + s[s.index(_PV):]))],
     # the first K/V tile only: no loads after the prologue
-    "no_loads": [_TILE_LOADS],
+    "no_loads": [(_DENSE, *_TILE_LOADS)],
+    # chunk tiles of 64 query rows (8 tokens at 8 heads a KV head, four
+    # warps), two blocks an SM
+    "chunk_rows64": [(_CHUNK_SRC, "constexpr int kTileRows = 128;", "constexpr int kTileRows = 64;"),
+                     (_WRAPPERS, "_TILE_ROWS = 128\n", "_TILE_ROWS = 64\n"),
+                     (_WRAPPERS, "_CHUNK_BLOCKS_PER_SM = 1\n", "_CHUNK_BLOCKS_PER_SM = 2\n")],
 }
 
 
@@ -59,17 +78,17 @@ def _variant_tree(name: str) -> Path:
     dst = ROOT / "build" / "kernel_ab" / name
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(PKG, dst / "repro_torch", ignore=shutil.ignore_patterns("__pycache__"))
-    src = dst / "repro_torch" / "csrc" / "dense_attention.cu"
-    text = src.read_text()
-    edits = VARIANTS[name]
-    if callable(edits):
-        text = edits(text)
-    else:
-        for old, new in edits:
+    for rel, *edit in VARIANTS[name]:
+        path = dst / "repro_torch" / rel
+        text = path.read_text()
+        if len(edit) == 1:
+            text = edit[0](text)
+        else:
+            old, new = edit
             if old not in text:
-                raise ValueError(f"variant {name}: the source no longer holds {old!r}")
+                raise ValueError(f"variant {name}: {rel} no longer holds {old!r}")
             text = text.replace(old, new)
-    src.write_text(text)
+        path.write_text(text)
     return dst
 
 
@@ -94,10 +113,9 @@ def _off(got, want):
     return float(err.max()), int((err > 1e-3 + 8e-3 * want.abs()).sum())
 
 
-def measure(paged: bool) -> dict:
+def measure() -> dict:
     """Run in the child process, with the tree's ``repro_torch`` importable."""
     import torch
-    from repro_torch.kernels import decode_attention as ka
     from repro_torch.kernels import flash_attention as kf
 
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -110,28 +128,130 @@ def measure(paged: bool) -> dict:
                         kf.ref_flash_attention(q.float(), k.float(), v.float(), window=window))
         out[name] = {"device_ms": [_device_ms(lambda: kf.flash_attention(q, k, v, window=window))
                                    for _ in range(3)], "max_abs_err": err, "n_off": off}
-    if paged:
-        lengths = [2048, 1536, 1024, 777, 512, 300, 129, 33]
-        B, H, KVH, hd, bs, mb = 8, 16, 2, 128, 16, 128
-        n_blocks = B * mb + 1
-        perm = torch.randperm(n_blocks - 1, generator=torch.Generator().manual_seed(0)) + 1
-        tables = torch.full((B, mb), -1, dtype=torch.int32)
-        cur = 0
-        for b, ln in enumerate(lengths):
-            need = -(-ln // bs)
-            tables[b, :need] = perm[cur:cur + need].int()
-            cur += need
-        tables = tables.cuda()
+    out.update(_attention_cases(g))
+    return out
+
+
+LENGTHS = [2048, 1536, 1024, 777, 512, 300, 129, 33]
+CHUNKS = {2: (64, 0, 0), 4: (96, 128, 400), 5: (100, 0, 0), 7: (33, 0, 0)}
+MIXED_LENGTHS = [1280, 301, 308, 312, 319, 326, 330, 337]
+MIXED_CHUNKS = {0: (256, 0, 0)}
+
+
+def _paged_case(g, lengths, chunks, n_pad, B=8, H=16, KVH=2, hd=128, bs=16, mb=144):
+    """bf16 pools, RAW tables and packed arrays as chip_smoke.py's
+    make_case builds them: rows of ``lengths`` after the step, ``chunks``
+    {row: (tokens, p_end, s_start)} prefilling, the rest decoding one token,
+    ``n_pad`` pads."""
+    import torch
+
+    n_blocks = B * mb + 1
+    perm = torch.randperm(n_blocks - 1, generator=torch.Generator().manual_seed(0)) + 1
+    tables = torch.full((B, mb), -1, dtype=torch.int32)
+    cur = 0
+    for b, ln in enumerate(lengths):
+        need = -(-ln // bs)
+        tables[b, :need] = perm[cur:cur + need].int()
+        cur += need
+    row_of, slots, p_end, s_start = [], [], [], []
+    for b, ln in enumerate(lengths):
+        c, pe, ss = chunks.get(b, (1, 0, 0))
+        for s in range(ln - c, ln):
+            row_of.append(b)
+            slots.append(s)
+            p_end.append(pe)
+            s_start.append(ss)
+    row_of += [-1] * n_pad
+    slots += [0] * n_pad
+    p_end += [0] * n_pad
+    s_start += [0] * n_pad
+    i32 = lambda xs: torch.tensor(xs, dtype=torch.int32, device="cuda")
+    kp, vp = (torch.randn((n_blocks, bs, KVH, hd), generator=g, device="cuda").bfloat16()
+              for _ in range(2))
+    return {"tables": tables.cuda(), "k": kp, "v": vp, "lengths": i32(lengths),
+            "q_dec": torch.randn((B, H, hd), generator=g, device="cuda").bfloat16(),
+            "q_chunk": torch.randn((len(row_of), H, hd), generator=g, device="cuda").bfloat16(),
+            "row_of": i32(row_of), "slots": i32(slots), "p_end": i32(p_end),
+            "s_start": i32(s_start)}
+
+
+def _attention_cases(g) -> dict:
+    import torch
+    from repro_torch.kernels import decode_attention as ka
+
+    out = {}
+
+    def record(name, kern, plain_f32, valid=None):
+        got = kern()
+        want = plain_f32()
+        if valid is not None:
+            got, want = got[valid], want[valid]
+        err, off = _off(got, want)
+        out[name] = {"device_ms": [_device_ms(kern) for _ in range(3)], "max_abs_err": err,
+                     "n_off": off}
+
+    c = _paged_case(g, LENGTHS, {}, 0)
+    f = {k: c[k].float() for k in ("q_dec", "k", "v")}
+    record("paged_decode",
+           lambda: ka.paged_decode_attention(c["q_dec"], c["k"], c["v"], c["tables"][:, :128]
+                                             .contiguous(), c["lengths"]),
+           lambda: ka.ref_paged_decode_attention(f["q_dec"], f["k"], f["v"],
+                                                 c["tables"][:, :128], c["lengths"]))
+    for name, lengths, chunks, n_pad in (("chunk_ragged", LENGTHS, CHUNKS, 3),
+                                         ("chunk_mixed_step", MIXED_LENGTHS, MIXED_CHUNKS, 1)):
+        c = _paged_case(g, lengths, chunks, n_pad)
+        f = {k: c[k].float() for k in ("q_chunk", "k", "v")}
+        keys = ("tables", "row_of", "slots", "p_end", "s_start")
+        record(name, lambda: ka.paged_chunk_attention(c["q_chunk"], c["k"], c["v"],
+                                                      *(c[k] for k in keys)),
+               lambda: ka.ref_paged_chunk_attention(f["q_chunk"], f["k"], f["v"],
+                                                    *(c[k] for k in keys)),
+               valid=c["row_of"] >= 0)
+    for name, H, KVH, hd, Sc, lengths in (
+            ("dense_decode_lengths", 16, 2, 128, 2048, LENGTHS),
+            ("dense_decode_mixed_step", 16, 2, 128, 2048, MIXED_LENGTHS),
+            ("dense_decode_hymba_mixed_step", 25, 5, 64, 1024,
+             [min(n, 1024) for n in MIXED_LENGTHS])):
+        q = torch.randn((8, H, hd), generator=g, device="cuda").bfloat16()
+        k, v = (torch.randn((8, Sc, KVH, hd), generator=g, device="cuda").bfloat16()
+                for _ in range(2))
         lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-        kp, vp = (torch.randn((n_blocks, bs, KVH, hd), generator=g, device="cuda").bfloat16()
-                  for _ in range(2))
-        q = torch.randn((B, H, hd), generator=g, device="cuda").bfloat16()
-        err, off = _off(ka.paged_decode_attention(q, kp, vp, tables, lens),
-                        ka.ref_paged_decode_attention(q.float(), kp.float(), vp.float(),
-                                                      tables, lens))
-        out["paged_decode"] = {
-            "device_ms": [_device_ms(lambda: ka.paged_decode_attention(q, kp, vp, tables, lens))
-                          for _ in range(3)], "max_abs_err": err, "n_off": off}
+        record(name, lambda: ka.decode_attention(q, k, v, lens),
+               lambda: ka.ref_decode_attention(q.float(), k.float(), v.float(), lens))
+    return out
+
+
+def sweep() -> dict:
+    """This tree's split targets: the dense decode at 1, 2, 4, 8 and 16
+    warps per SM (``_DENSE_WARPS_PER_SM``) and the chunk kernel at 1, 2, 4
+    and 8 blocks per SM (``_CHUNK_BLOCKS_PER_SM``), device ms twice each."""
+    import torch
+    from repro_torch.kernels import decode_attention as ka
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for name, H, KVH, hd, Sc, lengths in (
+            ("dense_lengths", 16, 2, 128, 2048, LENGTHS),
+            ("dense_mixed_step", 16, 2, 128, 2048, MIXED_LENGTHS),
+            ("dense_hymba_mixed_step", 25, 5, 64, 1024, [min(n, 1024) for n in MIXED_LENGTHS]),
+            ("dense_hymba_rings", 25, 5, 64, 1024, [1024, 1024, 1, 1024, 37, 1024, 300, 1024])):
+        q = torch.randn((8, H, hd), generator=g, device="cuda").bfloat16()
+        k, v = (torch.randn((8, Sc, KVH, hd), generator=g, device="cuda").bfloat16()
+                for _ in range(2))
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        for target in (1, 2, 4, 8, 16):
+            ka._DENSE_WARPS_PER_SM = target
+            out[f"{name}/warps_per_sm={target}"] = [
+                _device_ms(lambda: ka.decode_attention(q, k, v, lens)) for _ in range(2)]
+    for name, lengths, chunks, n_pad in (("chunk_ragged", LENGTHS, CHUNKS, 3),
+                                         ("chunk_mixed_step", MIXED_LENGTHS, MIXED_CHUNKS, 1)):
+        c = _paged_case(g, lengths, chunks, n_pad)
+        args = [c[k] for k in ("q_chunk", "k", "v", "tables", "row_of", "slots", "p_end",
+                               "s_start")]
+        for target in (1, 2, 4, 8):
+            ka._CHUNK_BLOCKS_PER_SM = target
+            out[f"{name}/blocks_per_sm={target}"] = [
+                _device_ms(lambda: ka.paged_chunk_attention(*args)) for _ in range(2)]
     return out
 
 
@@ -139,7 +259,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--trees", nargs="+", help="directories holding repro_torch, in run order")
     ap.add_argument("--variants", nargs="+", choices=sorted(VARIANTS),
-                    help="diagnostic variants of this tree's flash kernel, in run order")
+                    help="diagnostic variants of this tree's kernels, in run order")
+    ap.add_argument("--sweep", action="store_true",
+                    help="this tree's split targets of the dense decode and chunk kernels")
     ap.add_argument("--child", nargs=2, metavar=("TREE", "LABEL"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:                 # one tree, in a process that imports only its package
@@ -154,11 +276,13 @@ def main(argv=None) -> int:
                                "--format=csv,noheader"], capture_output=True, text=True,
                               check=True).stdout.strip()
         print(json.dumps({"run": label, "card": card,
-                          **measure(paged=label.startswith("tree:"))}), flush=True)
+                          **(sweep() if label == "sweep" else measure())}), flush=True)
         return 0
-    if bool(args.trees) == bool(args.variants):
-        ap.error("give --trees or --variants")
-    if args.trees:
+    if sum(map(bool, (args.trees, args.variants, args.sweep))) != 1:
+        ap.error("give one of --trees, --variants, --sweep")
+    if args.sweep:
+        runs = [(PKG.parent, "sweep")]
+    elif args.trees:
         runs = [(Path(t).resolve(), f"tree:{t}") for t in args.trees]
     else:
         made = {v: _variant_tree(v) for v in dict.fromkeys(args.variants)}

@@ -1,7 +1,7 @@
-"""The CUDA kernels (paged attention, dense flash and decode attention with
-and without a sliding window, top-k retrieval, the RWKV-6 WKV recurrence,
-the selective scan) against their plain versions,
-on the card. Marked ``cuda``: each test skips (from inside a
+"""The CUDA kernels (paged attention with the chunk kernel's tile plan,
+dense flash and decode attention with and without a sliding window, top-k
+retrieval, the RWKV-6 WKV recurrence, the selective scan) against their
+plain versions, on the card. Marked ``cuda``: each test skips (from inside a
 fixture) where no GPU is visible, as in this repository's CPU runs. On a GPU
 machine:
 
@@ -211,6 +211,144 @@ def test_kernels_reject_what_they_do_not_take(gpu):
         ka.paged_decode_attention(q, k.bfloat16(), v.bfloat16(), tables, lengths)
 
 
+# The chunk kernel's tile plan on the card against its mirror
+# (``chunk_tile_plan``), on packings the control plane makes and on ones it
+# does not: rows interleaved, pads in the middle, a row split across runs.
+PLAN_ROW_OF = {
+    "mixed_step": [0] * 256 + list(range(1, 8)) + [-1],
+    "runs_1_15_16_17": [0] + [1] * 15 + [2] * 16 + [3] * 17 + [-1] * 3,
+    "interleaved": [0, 1, 0, 1, 2, 0, 0, 1, 1, 1],
+    "pads_in_the_middle": [2] * 5 + [-1] * 3 + [2] * 20 + [-1] * 2 + [1],
+    "row_split_across_runs": [3] * 10 + [4] * 2 + [3] * 30,
+    "all_pads": [-1] * 7,
+    "T_1": [5],
+    "long": [b % 5 for b in range(3000)] + [7] * 1500,
+}
+
+
+@pytest.mark.parametrize("G", [1, 5, 8, 20])
+@pytest.mark.parametrize("case", sorted(PLAN_ROW_OF))
+def test_chunk_tile_plan_kernel_matches_its_mirror(gpu, case, G):
+    from repro_torch.kernels._build import load_library
+
+    row_of = torch.tensor(PLAN_ROW_OF[case], dtype=torch.int32, device=gpu)
+    T = row_of.numel()
+    plan = torch.full((1 + 2 * T,), -7, dtype=torch.int32, device=gpu)
+    err = load_library("paged_attention").lib.pa_chunk_tile_plan(
+        row_of.data_ptr(), T, G, plan.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    starts, counts = ka.chunk_tile_plan(row_of, G)
+    n = int(plan[0])
+    assert n == starts.numel()
+    got = plan[1:1 + 2 * n].view(n, 2).long()
+    assert torch.equal(got[:, 0], starts) and torch.equal(got[:, 1], counts)
+
+
+def _chunk_case(seed, hd, pool_dtype, q_dtype, row_of, rows, G=8, KVH=2, holes=(), spans=None,
+                mb=144, bs=16):
+    """Pools and packed arrays for ``row_of``: rows[b] = (the row's length
+    after this step, its packed tokens) sets each row's slots (its tokens
+    are its last slots, in packed order); ``holes`` (row, entry) are -1
+    table entries; ``spans`` {token: (p_end, s_start)} segmented spans."""
+    g = torch.Generator().manual_seed(seed)
+    B = max(rows) + 1
+    n_blocks = B * mb + 1
+    tables = torch.full((B, mb), -1, dtype=torch.int32)
+    perm = torch.randperm(n_blocks - 1, generator=g) + 1
+    cur = 0
+    for b, (ln, _) in rows.items():
+        need = -(-ln // bs)
+        tables[b, :need] = perm[cur:cur + need].int()
+        cur += need
+    for b, j in holes:
+        tables[b, j] = -1
+    nxt = {b: ln - n for b, (ln, n) in rows.items()}
+    slots, p_end, s_start = [], [], []
+    for t, r in enumerate(row_of):
+        if r < 0:
+            slots.append(0)
+        else:
+            slots.append(nxt[r])
+            nxt[r] += 1
+        pe, ss = (spans or {}).get(t, (0, 0))
+        p_end.append(pe)
+        s_start.append(ss)
+    shape = (n_blocks, bs, KVH, hd)
+    if pool_dtype == torch.int8:
+        k, v = (torch.randint(-127, 128, shape, generator=g, dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand((n_blocks, KVH), generator=g) * 0.02 + 1e-3 for _ in range(2))
+    else:
+        k, v = (torch.randn(shape, generator=g).to(pool_dtype) for _ in range(2))
+        ks = vs = None
+    i32 = lambda xs: torch.tensor(xs, dtype=torch.int32)
+    return dict(q_chunk=torch.randn((len(row_of), KVH * G, hd), generator=g).to(q_dtype),
+                k=k, v=v, ks=ks, vs=vs, tables=tables, row_of=i32(row_of), slots=i32(slots),
+                p_end=i32(p_end), s_start=i32(s_start))
+
+
+def _check_chunk(c, tol, bf16_vs_f32):
+    gpu = c["q_chunk"].device
+    args = (c["q_chunk"], c["k"], c["v"], c["tables"], c["row_of"], c["slots"], c["p_end"],
+            c["s_start"])
+    before = ka.paged_chunk_attention.launches
+    got = ka.paged_chunk_attention(*args, k_scale=c["ks"], v_scale=c["vs"])
+    torch.cuda.synchronize()
+    assert ka.paged_chunk_attention.launches == before + 1
+    valid = c["row_of"] >= 0
+    want = ka.ref_paged_chunk_attention(*args, k_scale=c["ks"], v_scale=c["vs"])
+    _close(got, want, valid, tol)
+    assert (got[~valid] == 0).all()                 # pad tokens: exactly zero
+    if bf16_vs_f32:
+        f = _on(c, gpu, torch.float32)
+        want = ka.ref_paged_chunk_attention(
+            f["q_chunk"], f["k"], f["v"], f["tables"], f["row_of"], f["slots"], f["p_end"],
+            f["s_start"])
+        _close(got, want, valid, BF16_OUT_TOL)
+
+
+# the engine's mixed step: row 0 prefills 256 plain-causal tokens at slots
+# 1024-1279, rows 1-7 decode one token each at lengths 300-340, one pad
+# (pack_align 4); -1 holes in two decode rows' tables below their slots; a
+# run of prefill tokens in the middle of a tile and one lone token with
+# segmented spans unlike their neighbours'
+MIXED_ROWS = {0: (1280, 256), **{b: (300 + 6 * (b - 1) + (b % 3), 1) for b in range(1, 8)}}
+MIXED_ROW_OF = [0] * 256 + list(range(1, 8)) + [-1]
+MIXED_HOLES = ((2, 3), (5, 10))
+MIXED_SPANS = {**{t: (512, 1100) for t in range(100, 108)}, 130: (1024, 1150)}
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("pool_dtype,q_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.int8, torch.float32), (torch.int8, torch.bfloat16)])
+def test_chunk_kernel_at_the_mixed_step(gpu, hd, pool_dtype, q_dtype):
+    c = _on(_chunk_case(hd + 5, hd, pool_dtype, q_dtype, MIXED_ROW_OF, MIXED_ROWS,
+                        holes=MIXED_HOLES, spans=MIXED_SPANS), gpu)
+    _check_chunk(c, TOL[(pool_dtype, q_dtype)], pool_dtype == torch.bfloat16)
+
+
+# row_of the control plane never makes: (row_of, rows) with rows[b] = (the
+# row's length after the step, its packed tokens)
+ODD_PACKINGS = {
+    "interleaved": ([0, 1, 0, 1, 2, 0, 0, 1, 1, 1], {0: (700, 4), 1: (40, 5), 2: (17, 1)}),
+    "pads_in_the_middle": ([2] * 5 + [-1] * 3 + [2] * 20 + [-1] * 2 + [1],
+                           {2: (333, 25), 1: (1, 1)}),
+    "row_split_across_runs": ([3] * 10 + [4] * 2 + [3] * 30, {3: (2048, 40), 4: (16, 2)}),
+    "runs_1_15_16_17": ([0] + [1] * 15 + [2] * 16 + [3] * 17 + [-1] * 3,
+                        {0: (1, 1), 1: (15, 15), 2: (600, 16), 3: (1111, 17)}),
+    "T_1": ([5], {5: (77, 1)}),
+}
+
+
+@pytest.mark.parametrize("G", [1, 5, 8, 20])
+@pytest.mark.parametrize("case", sorted(ODD_PACKINGS))
+def test_chunk_kernel_for_any_row_of(gpu, case, G):
+    row_of, rows = ODD_PACKINGS[case]
+    c = _on(_chunk_case(G, 128, torch.bfloat16, torch.bfloat16, row_of, rows, G=G), gpu)
+    _check_chunk(c, TOL[(torch.bfloat16, torch.bfloat16)], True)
+
+
 # ---------------------------------------------------------------------------
 # flash_attention and decode_attention (the dense backend)
 # ---------------------------------------------------------------------------
@@ -244,14 +382,17 @@ def test_flash_kernel_matches_plain_version(gpu, hd, dtype, S, causal):
     (40, [1, 17, 40]),
     (300, [300, 299, 1, 64, 129]),          # Sc not a multiple of the 16-slot tile
     (2048, [2048, 1536, 1024, 777, 512, 300, 129, 1]),
+    # the 16-slot tile's edges, the serve steps' 300-340, the whole cache
+    (1000, [1, 15, 16, 17, 300, 323, 340, 1000]),
 ])
+@pytest.mark.parametrize("H,KVH", [(16, 2), (25, 5), (40, 2)])   # G 8, 5, and 20 (two groups)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", [64, 128])
-def test_dense_decode_kernel_matches_plain_version(gpu, hd, dtype, Sc, lengths):
-    g = torch.Generator().manual_seed(Sc + hd)
+def test_dense_decode_kernel_matches_plain_version(gpu, hd, dtype, H, KVH, Sc, lengths):
+    g = torch.Generator().manual_seed(Sc + hd + H)
     B = len(lengths)
-    q = torch.randn((B, 16, hd), generator=g).to(dtype).to(gpu)
-    k, v = (torch.randn((B, Sc, 2, hd), generator=g).to(dtype).to(gpu) for _ in range(2))
+    q = torch.randn((B, H, hd), generator=g).to(dtype).to(gpu)
+    k, v = (torch.randn((B, Sc, KVH, hd), generator=g).to(dtype).to(gpu) for _ in range(2))
     lens = torch.tensor(lengths, dtype=torch.int32, device=gpu)
     before = ka.decode_attention.launches
     got = ka.decode_attention(q, k, v, lens)
