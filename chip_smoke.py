@@ -66,8 +66,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
 2c. The RWKV-6 WKV kernel against its plain version on the card at
    rwkv6-7b shapes (H=64, hd=64) with a nonzero ``state0``: prefill B=1 at
    S=2048 and S=37, decode B=8 at S=1, the adversarial decay w=0.45 and
-   decays near 0 (w=1e-6), r/k/v in float32 and bfloat16 (tolerance
-   ``WKV_TOL``); then the kernel's and the plain version's times beside the
+   decays near 0 (w=1e-6), and B=1 at the lengths about the kernel's
+   segment edges (S in {1, 33, 255, 257, 1519}), r/k/v in float32 and
+   bfloat16 (tolerance ``WKV_TOL``), each with the (n_seg, seg_len) the
+   kernel ran; then the kernel's and the plain version's times beside the
    bound (prefill S=2048 and decode). No single PyTorch call computes the
    recurrence, so there is no library time.
 4b. The RWKV-6 engine at smoke width in float32: identical greedy tokens on
@@ -84,8 +86,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    hymba-1.5b shapes (Di=1600, N=16) with a nonzero ``h0``: prefill B=1 at
    S=1664 (128 meta + 1536 text tokens) and S=37, decode B=8 at S=1, and
    dt = softplus of extreme values (dt * A down to about -50) at S=1664,
-   dt/x/B/C in float32 and bfloat16 (bf16 also against the plain version in
-   float32; tolerance ``SSM_TOL``); then the kernel's, its device and the
+   and B=1 at the lengths about the kernel's segment edges (S in {1, 17,
+   129, 1647}), dt/x/B/C in float32 and bfloat16 (bf16 also against the
+   plain version in float32; tolerance ``SSM_TOL``), each with the (n_seg,
+   seg_len) the kernel ran; then the kernel's, its device and the
    plain version's times beside the bound (prefill S=1664 and decode). No
    single PyTorch call computes the scan, so there is no library time.
 2e. The flash kernel with a sliding window at hymba-1.5b's heads (H=25,
@@ -645,7 +649,11 @@ WKV_H, WKV_HD = 64, 64                       # rwkv6-7b: d_model 4096, head_dim 
 # (name, B, S, decay): None draws the realistic Finch decay exp(-exp(z)),
 # z ~ N(0, 0.5), as tests/test_kernels.py does
 WKV_CASES = (("prefill", 1, 2048, None), ("prefill", 1, 37, None), ("decode", 8, 1, None),
-             ("w=0.45", 1, 2048, 0.45), ("w=1e-6", 1, 2048, 1e-6))
+             ("w=0.45", 1, 2048, 0.45), ("w=1e-6", 1, 2048, 1e-6),
+             # lengths about the kernel's segment edges (wkv_segments: one
+             # segment up to 16 steps, then segments of >= 32 steps; 1519 is
+             # the longest serve prompt)
+             *(("segments", 1, S, None) for S in (1, 33, 255, 257, 1519)))
 # both sides compute in f32 (bf16 r, k and v widen exactly): summation
 # order only
 WKV_TOL = (1e-4, 1e-4)
@@ -691,7 +699,7 @@ def phase_wkv_kernel(kw):
             every = slice(None)
             err = max(check_close(name + " y", y, y_ref, every, WKV_TOL),
                       check_close(name + " state", st, st_ref, every, WKV_TOL))
-            r_ = {"errs": {"plain": err}}
+            r_ = {"errs": {"plain": err}, "segments": kw.rwkv6_chunked.segments}
             if case in ("prefill", "decode") and (case == "decode" or S == 2048):
                 # the serve phase updates the state in place; here the
                 # output goes to its own buffer, so every call sees the
@@ -713,7 +721,7 @@ def phase_wkv_kernel(kw):
                      f"computes the recurrence) bound_ms={r_['bound_ms']:.5f} "
                      f"({r_['bound_by']}: {r_['bytes']} B, {r_['ops']} flop)") if "ms" in r_ else ""
             print(f"[wkv kernel] {name}: max_abs_err vs plain {err:.3e} (atol, rtol {WKV_TOL}), "
-                  f"finite{times}", flush=True)
+                  f"finite, (n_seg, seg_len) {r_['segments']}{times}", flush=True)
             del r, k, v, w, u, state0, y, st, y_ref, st_ref
         torch.cuda.empty_cache()
     return rows
@@ -728,7 +736,10 @@ SSM_DI, SSM_N = 1600, 16                     # hymba-1.5b: d_model 1600, ssm_sta
 # draws it (dt * A near -0.1 .. -3), or for "extreme" z ~ N(1, 2) clipped to
 # [-10, 3.1] (dt up to ~3.1: dt * A down to about -50 at A = -16)
 SSM_CASES = (("prefill", 1, 1664, False), ("prefill", 1, 37, False), ("decode", 8, 1, False),
-             ("extreme", 1, 1664, True))
+             ("extreme", 1, 1664, True),
+             # lengths about the kernel's segment edges (ssm_segments; 1647 is
+             # the longest hymba serve prefill: 128 meta + 1519 tokens)
+             *(("segments", 1, S, False) for S in (1, 17, 129, 1647)))
 # both sides compute in f32 (bf16 inputs widen exactly); the kernel's exp2 of
 # dt * A * log2(e) against exp(dt * A): a few ulps a step
 SSM_TOL = (1e-4, 1e-4)
@@ -794,7 +805,8 @@ def phase_ssm_kernel(ks):
                                            a_log, h0)
                 errs["plain_f32"] = max(check_close(name + " y vs f32", y, y32, every, SSM_TOL),
                                         check_close(name + " h vs f32", h, h32, every, SSM_TOL))
-            r_ = {"errs": errs, "dA_min": float((dt.float().max() * -SSM_N))}
+            r_ = {"errs": errs, "dA_min": float((dt.float().max() * -SSM_N)),
+                  "segments": ks.ssm_scan.segments}
             if case in ("prefill", "decode") and S != 37:
                 # the serve phase updates h in place; here the output goes
                 # to its own buffer, so every call sees the same h0
@@ -820,7 +832,8 @@ def phase_ssm_kernel(ks):
                      f"{r_['exp_ms']:.5f} ms)") if "ms" in r_ else ""
             checks = ", ".join(f"vs {k} {e:.3e}" for k, e in errs.items())
             print(f"[ssm kernel] {name}: max_abs_err {checks} (atol, rtol {SSM_TOL}), finite, "
-                  f"min dt*A {r_['dA_min']:.1f}{times}", flush=True)
+                  f"min dt*A {r_['dA_min']:.1f}, (n_seg, seg_len) {r_['segments']}{times}",
+                  flush=True)
             del dt, x, bm, cm, a_log, h0, y, h, y_ref, h_ref
         torch.cuda.empty_cache()
     return rows
@@ -1914,6 +1927,7 @@ def main() -> int:
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": None,
         "library": "none: no single PyTorch call computes the WKV recurrence",
+        "segments": r["segments"],
         "max_abs_err_by_case": {f"{d}/{c}/S={S}": x["errs"]["plain"]
                                 for (d, c, S), x in wkv_rows.items()},
         "decode": {key2: wkv_rows[("bfloat16", "decode", 1)][key2]
@@ -1932,6 +1946,7 @@ def main() -> int:
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": None,
         "library": "none: no single PyTorch call computes the selective scan",
+        "segments": r["segments"],
         "bound_parts_ms": {"bytes": r["bytes"] / HBM_BYTES_S * 1e3, "flops": r["flop_ms"],
                            "exponentials": r["exp_ms"]},
         "max_abs_err_by_case": {f"{d}/{c}/S={S}": x["errs"] for (d, c, S), x in ssm_rows.items()},

@@ -51,10 +51,12 @@ ENTRY_POINTS = {
         "da_decode_attention": ([_I] + [_P] * 7 + [_I] * 6 + [_F, _P], _I),
     },
     "rwkv6_scan": {
-        "wkv_rwkv6": ([_I] + [_P] * 8 + [_I] * 4 + [_P], _I),
+        "wkv_rwkv6": ([_I] + [_P] * 10 + [_I] * 6 + [_P], _I),
+        "wkv_output_blocks_per_sm": ([_I, _I], _I),
     },
     "ssm_scan": {
-        "ssm_selective_scan": ([_I] + [_P] * 8 + [_I] * 4 + [_P], _I),
+        "ssm_selective_scan": ([_I] + [_P] * 10 + [_I] * 6 + [_P], _I),
+        "ssm_output_blocks_per_sm": ([_I, _I], _I),
     },
 }
 SOURCES = {name: CSRC / f"{name}.cu" for name in ENTRY_POINTS}

@@ -6,13 +6,21 @@ per batch row and head, with a (hd x hd) state S carried from ``state0``,
 
     y_t = r_t^T (S + diag(u) k_t v_t^T),   S <- diag(w_t) S + k_t v_t^T.
 
-On CUDA tensors the wrapper launches the hand-written kernel in
+On CUDA tensors the wrapper launches the hand-written kernels in
 ``csrc/rwkv6_scan.cu`` (built on first use, see ``kernels._build``) on the
-current stream and counts the launch in its ``launches`` attribute; on CPU
-tensors it runs ``ref_rwkv6_chunked``. There is no fallback from one to the
+current stream and counts the call in its ``launches`` attribute (one per
+call, however many CUDA kernels it runs); on CPU tensors it runs
+``ref_rwkv6_chunked``. There is no fallback from one to the
 other: a CUDA input the kernel does not take raises. The kernel takes r, k
 and v in float32 or bfloat16 (one dtype), w in float32, head_dim 32 or 64
 and any S >= 1, and honours ``state0`` (the Pallas kernel zeroes its state).
+
+The kernel cuts the time axis into segments (``wkv_segments``): a
+segment pass gives each segment's end state from a zero state and its
+decay (chunk by chunk, its products on the tensor cores in split tf32),
+and an output pass rebuilds each segment's start state from those (the
+carry) and reruns the recurrence over it with y. Decode (a few steps) runs
+one kernel without segments.
 
 ``ref_rwkv6_chunked`` is the contract of ``repro.kernels.ref.rwkv6_ref``
 (and of ``repro.models.rwkv6.wkv_scan``): the sequential recurrence in
@@ -20,14 +28,50 @@ float32.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
-from repro_torch.kernels.decode_attention import _check, _raise_on_error
+from repro_torch.kernels.decode_attention import _check, _raise_on_error, _scratch, _sm_count
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)   # the head_dim instantiations in csrc/rwkv6_scan.cu
+
+# the time axis: at most this many steps run as one segment in the kernel
+# without staging (``kDirectMax`` in csrc/rwkv6_scan.cu); segments of at
+# least _MIN_SEGMENT steps otherwise
+_DIRECT_MAX = 16
+_MIN_SEGMENT = 32
+
+
+def even_segments(S: int, n: int):
+    """(n_seg, seg_len): S >= 1 steps cut into at most n segments of
+    ``seg_len`` steps, the last one taking what remains; none is empty."""
+    seg = -(-S // max(1, min(n, S)))
+    return -(-S // seg), seg
+
+
+def wkv_segments(slots: int, B: int, H: int, S: int):
+    """(n_seg, seg_len) of the WKV kernel, from shapes alone: one segment
+    when S <= _DIRECT_MAX (decode), else as many segments as let the
+    ``n_seg * B * H`` blocks of the output pass (one a (row, head,
+    segment)) run in one wave of the card's ``slots`` (SMs times the
+    blocks an SM holds), each at least _MIN_SEGMENT steps long."""
+    if S <= _DIRECT_MAX:
+        return 1, S
+    return even_segments(S, min(slots // (B * H), S // _MIN_SEGMENT))
+
+
+@functools.lru_cache(maxsize=None)
+def output_slots(device_index: int, dtype: torch.dtype, hd: int) -> int:
+    """Output-pass blocks the card holds at once: its SMs times the blocks
+    an SM holds (the CUDA occupancy query)."""
+    from repro_torch.kernels._build import load_library
+
+    per_sm = load_library("rwkv6_scan").lib.wkv_output_blocks_per_sm(_DTYPE_CODES[dtype], hd)
+    _raise_on_error("rwkv6_chunked", max(0, -per_sm))
+    return _sm_count(device_index) * per_sm
 
 
 def ref_rwkv6_chunked(r, k, v, w, u, state0: Optional[torch.Tensor] = None):
@@ -89,19 +133,26 @@ def rwkv6_chunked(r, k, v, w, u, state0: Optional[torch.Tensor] = None, *,
     from repro_torch.kernels._build import load_library
 
     lib = load_library("rwkv6_scan").lib
+    n_seg, seg_len = wkv_segments(output_slots(r.device.index, r.dtype, hd), B, H, S)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
+        seg_state = seg_decay = None
+        if n_seg > 1:   # the segments' end states and decays
+            seg_state = _scratch(r.device, stream, "wkv_state", B * H * n_seg * hd * hd).data_ptr()
+            seg_decay = _scratch(r.device, stream, "wkv_decay", B * H * n_seg * hd).data_ptr()
         err = lib.wkv_rwkv6(
             _DTYPE_CODES[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), state0.data_ptr() if state0 is not None else None, y.data_ptr(),
-            out.data_ptr(), B, S, H, hd, stream,
+            out.data_ptr(), seg_state, seg_decay, B, S, H, hd, n_seg, seg_len, stream,
         )
     _raise_on_error(name, err)
     rwkv6_chunked.launches += 1
+    rwkv6_chunked.segments = (n_seg, seg_len)
     return y, out
 
 
 rwkv6_chunked.launches = 0
+rwkv6_chunked.segments = None   # (n_seg, seg_len) of the last call on the card
 
 
 def reset_launch_counts() -> None:

@@ -1,32 +1,40 @@
-"""Device times of the bf16 attention kernels, one source tree against
-another, or this tree against diagnostic variants of it, or this tree's
-split targets, on one GPU.
+"""Device times of the bf16 attention and scan kernels, one source tree
+against another, or this tree against diagnostic variants of it, or this
+tree's split targets, on one GPU.
 
     python -m repro_torch.launch.kernel_ab --trees build/parent/src src src build/parent/src
     python -m repro_torch.launch.kernel_ab --variants base exp2f p_once no_softmax no_loads
     python -m repro_torch.launch.kernel_ab --variants base chunk_rows64 chunk_rows64 base
+    python -m repro_torch.launch.kernel_ab --cases scans --variants base wkv_output_only wkv_segment_only base
     python -m repro_torch.launch.kernel_ab --sweep
 
 Each tree (a directory holding ``repro_torch``) or variant runs in a process
 of its own, in the order given, so that its kernels are built from its own
 sources; a variant is this tree's ``repro_torch`` copied under
 ``build/kernel_ab/<name>/`` with the edits of ``VARIANTS`` applied. The
-flash variants after ``exp2f`` change what the kernel computes: they only
-show what a part of it costs; ``chunk_rows64`` halves the chunk kernel's
-tiles. Cases are ``chip_smoke.py``'s: flash bf16 causal at S 2048 (H 16 /
-KVH 2, hd 128) and windowed at S 1664 (window 1024, H 25 / KVH 5, hd 64);
-at H 16 / KVH 2, hd 128, paged decode at B 8 over contexts 33-2048 (128
-blocks of 16 a row), the chunk kernel on phase 2's ragged case (303 packed
-tokens) and at the engine's mixed step (a 256-token prefill chunk at slots
-1024-1279, seven decode rows of 301-337 slots, one pad), and dense decode
-over a 2048-slot cache at phase 2's lengths and at the mixed step's, and
-at hymba-1.5b's heads (H 25 / KVH 5, hd 64, a 1024-slot ring) at the mixed
-step's lengths. Each process prints one JSON line: per case the device time
-three times (calls queued behind a spin kernel, L2 warm), the largest error
-against the plain version in f32 and how many elements miss the bf16 check
-(atol 1e-3, rtol 8e-3), and the card's name and power limit. ``--sweep``
-prints instead the dense decode's and the chunk kernel's device times at
-each split target of ``sweep``.
+flash variants after ``exp2f`` and the scan variants but ``wkv_unroll2``
+and ``ssm_batch2`` change what the kernel computes: they only show what a
+part of it costs; ``chunk_rows64`` halves the chunk kernel's tiles. Cases are
+``chip_smoke.py``'s: flash bf16 causal at S 2048 (H 16 / KVH 2, hd 128) and
+windowed at S 1664 (window 1024, H 25 / KVH 5, hd 64); at H 16 / KVH 2, hd
+128, paged decode at B 8 over contexts 33-2048 (128 blocks of 16 a row),
+the chunk kernel on phase 2's ragged case (303 packed tokens) and at the
+engine's mixed step (a 256-token prefill chunk at slots 1024-1279, seven
+decode rows of 301-337 slots, one pad), and dense decode over a 2048-slot
+cache at phase 2's lengths and at the mixed step's, and at hymba-1.5b's
+heads (H 25 / KVH 5, hd 64, a 1024-slot ring) at the mixed step's lengths
+(``--cases attention``); the RWKV-6 WKV kernel at rwkv6-7b's heads (H 64,
+hd 64) prefilling B 1 at S 2048 and decoding B 8 at S 1, and the selective
+scan at hymba-1.5b's (Di 1600, N 16) prefilling B 1 at S 1664 and decoding
+B 8 at S 1, each from a given state (``--cases scans``). Each process
+prints one JSON line: per case the device time three times (calls queued
+behind a spin kernel, L2 warm), the largest error against the plain
+version in f32 and how many elements miss the check (attention: atol 1e-3,
+rtol 8e-3, the bf16 output rounding; scans: y and the final state at atol
+1e-4, rtol 1e-4, their unchanged tolerance), and the card's name and power
+limit. ``--sweep`` prints instead the dense decode's and the chunk
+kernel's device times at each split target of ``sweep``, and the two
+scans' prefill device times at each segment count of ``SEGMENTS``.
 """
 from __future__ import annotations
 
@@ -51,9 +59,11 @@ _PV = "    // O += P V over 16-key steps."
 _DENSE = "csrc/dense_attention.cu"
 _CHUNK_SRC = "csrc/paged_attention.cu"
 _WRAPPERS = "kernels/decode_attention.py"
+_WKV = "csrc/rwkv6_scan.cu"
+_SSM = "csrc/ssm_scan.cu"
 
 # name -> edits of files of repro_torch: (file, old, new), or (file, callable
-# on its text). The flash kernel's, then the chunk kernel's.
+# on its text). The flash kernel's, the chunk kernel's, then the scans'.
 VARIANTS = {
     "base": [],
     # the CUDA math library's exp2f in place of ex2.approx (every call site)
@@ -71,6 +81,48 @@ VARIANTS = {
     "chunk_rows64": [(_CHUNK_SRC, "constexpr int kTileRows = 128;", "constexpr int kTileRows = 64;"),
                      (_WRAPPERS, "_TILE_ROWS = 128\n", "_TILE_ROWS = 64\n"),
                      (_WRAPPERS, "_CHUNK_BLOCKS_PER_SM = 1\n", "_CHUNK_BLOCKS_PER_SM = 2\n")],
+    # the one-loop kernels that preceded the split of the time axis (apply
+    # them with this file copied into a checkout of that tree, run from
+    # there): the WKV kernel without its stores of the partial sums of y (the
+    # compiler drops the y products with them), with the global loads of its
+    # first chunk only, and the scan with a multiply in place of its
+    # exponential
+    "oneloop_wkv_no_ystore": [(_WKV, "      syp[t * L::KS * L::VB] = a;\n", "")],
+    "oneloop_wkv_no_loads": [(_WKV, "    if (c + 1 < n_chunks) load_chunk(c + 1);", "")],
+    "oneloop_ssm_no_exp": [(_SSM, 'asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(da[j]) : "f"(d2.x * a2));',
+                            "da[j] = d2.x * a2;")],
+    # one of the two passes of each scan alone (the other's launch skipped;
+    # the output pass then starts from stale scratch): what each pass costs
+    "wkv_output_only": [(_WKV, "    wkv_segment_kernel<T, HD><<<",
+                         "    if (false) wkv_segment_kernel<T, HD><<<")],
+    "wkv_segment_only": [(_WKV, "  wkv_output_kernel<T, HD><<<dim3(n_seg, H, B)",
+                          "  if (false) wkv_output_kernel<T, HD><<<dim3(n_seg, H, B)")],
+    "ssm_output_only": [(_SSM, "    ssm_pass_kernel<T, N, false><<<",
+                         "    if (false) ssm_pass_kernel<T, N, false><<<")],
+    "ssm_segment_only": [(_SSM, "  ssm_pass_kernel<T, N, true><<<",
+                          "  if (false) ssm_pass_kernel<T, N, true><<<")],
+    # the WKV output pass's step loop unrolled twice, not four times
+    "wkv_unroll2": [(_WKV, "#pragma unroll 4\n    for (int t = 0; t < tc; ++t) {",
+                     "#pragma unroll 2\n    for (int t = 0; t < tc; ++t) {")],
+    # the scan's steps in batches of 2 (loads and exponentials ahead of h)
+    "ssm_batch2": [(_SSM, "constexpr int kBatch = 4;", "constexpr int kBatch = 2;")],
+    # the output passes without the carry (each segment after the first
+    # starts from segment 0's end state): what the carry costs
+    "wkv_no_carry": [(_WKV, "    for (int i = 1; i < j; ++i) {", "    for (int i = 1; i < 1; ++i) {")],
+    "ssm_no_carry": [(_SSM, "    for (int i0 = 1; i0 < j; i0 += kCarryBatch) {",
+                      "    for (int i0 = 1; i0 < 1; i0 += kCarryBatch) {")],
+    # the scan's exponentials replaced by a copy (what the SFU costs), and
+    # its output pass with the shared-memory loads out of the step loop
+    # (every step reads step 0's values: what the loads cost)
+    "ssm_no_exp": [(_SSM, 'asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));', "r = x;")],
+    "ssm_output_no_lds": [(_SSM, "    ssm_pass_kernel<T, N, false><<<",
+                           "    if (false) ssm_pass_kernel<T, N, false><<<"),
+                          (_SSM, "        const float4 d4 = ld4(s_d + ((r0 + st) * CP + cp) * 4);\n"
+                                 "        const float4 b4 = ld4(s_b + (r0 + st) * N + n0);",
+                           "        const float4 d4 = ld4(s_d + cp * 4);\n"
+                           "        const float4 b4 = ld4(s_b + n0);"),
+                          (_SSM, "          const float4 c4 = ld4(s_c + (r0 + st) * N + n0);",
+                           "          const float4 c4 = ld4(s_c + n0);")],
 }
 
 
@@ -108,17 +160,29 @@ def _device_ms(fn, reps=20):
     return None if late else a.elapsed_time(b) / reps
 
 
-def _off(got, want):
+def _off(got, want, atol=1e-3, rtol=8e-3):
     err = (got.float() - want).abs()
-    return float(err.max()), int((err > 1e-3 + 8e-3 * want.abs()).sum())
+    return float(err.max()), int((err > atol + rtol * want.abs()).sum())
 
 
-def measure() -> dict:
+def measure(cases=("attention", "scans")) -> dict:
     """Run in the child process, with the tree's ``repro_torch`` importable."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    if "attention" in cases:
+        out.update(_flash_cases(g))
+        out.update(_attention_cases(g))
+    if "scans" in cases:
+        out.update(_scan_cases(g))
+    return out
+
+
+def _flash_cases(g) -> dict:
     import torch
     from repro_torch.kernels import flash_attention as kf
 
-    g = torch.Generator(device="cuda").manual_seed(0)
     out = {}
     for name, S, H, KVH, hd, window in (("flash_causal_S2048", 2048, 16, 2, 128, 0),
                                         ("flash_window_S1664", 1664, 25, 5, 64, 1024)):
@@ -128,7 +192,6 @@ def measure() -> dict:
                         kf.ref_flash_attention(q.float(), k.float(), v.float(), window=window))
         out[name] = {"device_ms": [_device_ms(lambda: kf.flash_attention(q, k, v, window=window))
                                    for _ in range(3)], "max_abs_err": err, "n_off": off}
-    out.update(_attention_cases(g))
     return out
 
 
@@ -221,15 +284,93 @@ def _attention_cases(g) -> dict:
     return out
 
 
-def sweep() -> dict:
+# the scans' cases: rwkv6-7b's heads and hymba-1.5b's SSM widths, bf16
+WKV_H, WKV_HD = 64, 64
+WKV_CASES = (("wkv_prefill_S2048", 1, 2048), ("wkv_decode_B8", 8, 1))
+SSM_DI, SSM_N = 1600, 16
+SSM_CASES = (("ssm_prefill_S1664", 1, 1664), ("ssm_decode_B8", 8, 1))
+SCAN_TOL = (1e-4, 1e-4)
+
+
+def _wkv_inputs(g, B, S):
+    """chip_smoke.py's phase 2c inputs: realistic Finch decay, a state."""
+    import torch
+
+    shape = (B, S, WKV_H, WKV_HD)
+    r, k = (0.5 * torch.randn(shape, generator=g, device="cuda") for _ in range(2))
+    v = torch.randn(shape, generator=g, device="cuda")
+    w = torch.exp(-torch.exp(0.5 * torch.randn(shape, generator=g, device="cuda")))
+    u = 0.3 * torch.randn((WKV_H, WKV_HD), generator=g, device="cuda")
+    state0 = 0.5 * torch.randn((B, WKV_H, WKV_HD, WKV_HD), generator=g, device="cuda")
+    return r.bfloat16(), k.bfloat16(), v.bfloat16(), w, u, state0
+
+
+def _ssm_inputs(g, B, S):
+    """chip_smoke.py's phase 2d inputs: dt = softplus(N(-2, 1)), an h0."""
+    import torch
+
+    shape = (B, S, SSM_DI)
+    dt = torch.nn.functional.softplus(torch.randn(shape, generator=g, device="cuda") - 2.0)
+    x = torch.randn(shape, generator=g, device="cuda")
+    bm, cm = (0.5 * torch.randn((B, S, SSM_N), generator=g, device="cuda") for _ in range(2))
+    a_log = torch.log(torch.arange(1, SSM_N + 1, dtype=torch.float32, device="cuda"))
+    a_log = a_log.expand(SSM_DI, SSM_N).contiguous()
+    h0 = 0.5 * torch.randn((B, SSM_DI, SSM_N), generator=g, device="cuda")
+    return dt.bfloat16(), x.bfloat16(), bm.bfloat16(), cm.bfloat16(), a_log, h0
+
+
+def _scan_calls(g):
+    """(name, kernel call, plain call) of each scan case; the kernel writes
+    its final state to a buffer of its own, so every call sees the same
+    state."""
+    import torch
+    from repro_torch.kernels import rwkv6_scan as kw
+    from repro_torch.kernels import ssm_scan as ks
+
+    calls = []
+    for name, B, S in WKV_CASES:
+        args = _wkv_inputs(g, B, S)
+        out = torch.empty_like(args[-1])
+        calls.append((name, lambda a=args, o=out: kw.rwkv6_chunked(*a, state_out=o),
+                      lambda a=args: kw.ref_rwkv6_chunked(*a)))
+    for name, B, S in SSM_CASES:
+        args = _ssm_inputs(g, B, S)
+        out = torch.empty_like(args[-1])
+        calls.append((name, lambda a=args, o=out: ks.ssm_scan(*a, h_out=o),
+                      lambda a=args: ks.ref_ssm_scan(*a)))
+    return calls
+
+
+def _scan_cases(g) -> dict:
+    out = {}
+    for name, kern, plain in _scan_calls(g):
+        (y, st), (y_ref, st_ref) = kern(), plain()
+        err_y, off_y = _off(y, y_ref, *SCAN_TOL)
+        err_s, off_s = _off(st, st_ref, *SCAN_TOL)
+        out[name] = {"device_ms": [_device_ms(kern) for _ in range(3)],
+                     "max_abs_err": max(err_y, err_s), "n_off": off_y + off_s}
+    return out
+
+
+# segment counts of the scans' prefill sweep
+SEGMENTS = (1, 2, 4, 6, 8, 10, 12, 16, 24)
+
+
+def sweep(cases=("attention", "scans")) -> dict:
     """This tree's split targets: the dense decode at 1, 2, 4, 8 and 16
     warps per SM (``_DENSE_WARPS_PER_SM``) and the chunk kernel at 1, 2, 4
-    and 8 blocks per SM (``_CHUNK_BLOCKS_PER_SM``), device ms twice each."""
+    and 8 blocks per SM (``_CHUNK_BLOCKS_PER_SM``) (``cases`` attention),
+    and the scans' prefills at each segment count of ``SEGMENTS`` (scans),
+    device ms twice each."""
     import torch
     from repro_torch.kernels import decode_attention as ka
 
     g = torch.Generator(device="cuda").manual_seed(0)
     out = {}
+    if "scans" in cases:
+        out.update(_segment_sweep(g))
+    if "attention" not in cases:
+        return out
     for name, H, KVH, hd, Sc, lengths in (
             ("dense_lengths", 16, 2, 128, 2048, LENGTHS),
             ("dense_mixed_step", 16, 2, 128, 2048, MIXED_LENGTHS),
@@ -255,17 +396,42 @@ def sweep() -> dict:
     return out
 
 
+def _segment_sweep(g) -> dict:
+    """The scans' prefill device times with the segment rule replaced by a
+    fixed count (``wkv_segments`` / ``ssm_segments``), twice each."""
+    from repro_torch.kernels import rwkv6_scan as kw
+    from repro_torch.kernels import ssm_scan as ks
+
+    out = {}
+    rules = {"wkv": (kw, "wkv_segments"), "ssm": (ks, "ssm_segments")}
+    for name, kern, _ in _scan_calls(g):
+        if "prefill" not in name:
+            continue
+        mod, rule = rules[name[:3]]
+        keep = getattr(mod, rule)
+        for n in SEGMENTS:
+            setattr(mod, rule, lambda *shape, n=n: kw.even_segments(shape[-1], n))
+            out[f"{name}/n_seg={n}"] = [_device_ms(kern) for _ in range(2)]
+        setattr(mod, rule, keep)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--trees", nargs="+", help="directories holding repro_torch, in run order")
     ap.add_argument("--variants", nargs="+", choices=sorted(VARIANTS),
                     help="diagnostic variants of this tree's kernels, in run order")
     ap.add_argument("--sweep", action="store_true",
-                    help="this tree's split targets of the dense decode and chunk kernels")
-    ap.add_argument("--child", nargs=2, metavar=("TREE", "LABEL"), help=argparse.SUPPRESS)
+                    help="this tree's split targets of the dense decode and chunk kernels, "
+                         "and the scans' segment counts")
+    ap.add_argument("--cases", nargs="+", choices=("attention", "scans"),
+                    default=["attention", "scans"], help="which kernels --trees, "
+                    "--variants and --sweep time")
+    ap.add_argument("--child", nargs=3, metavar=("TREE", "LABEL", "CASES"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:                 # one tree, in a process that imports only its package
-        tree, label = args.child
+        tree, label, cases = args.child
         sys.path.insert(0, tree)
         import torch
 
@@ -276,7 +442,8 @@ def main(argv=None) -> int:
                                "--format=csv,noheader"], capture_output=True, text=True,
                               check=True).stdout.strip()
         print(json.dumps({"run": label, "card": card,
-                          **(sweep() if label == "sweep" else measure())}), flush=True)
+                          **(sweep if label == "sweep" else measure)(cases.split(","))}),
+              flush=True)
         return 0
     if sum(map(bool, (args.trees, args.variants, args.sweep))) != 1:
         ap.error("give one of --trees, --variants, --sweep")
@@ -290,7 +457,8 @@ def main(argv=None) -> int:
     rc = 0
     for tree, label in runs:
         # the file, not the module: the child must not import this tree's package first
-        proc = subprocess.run([sys.executable, __file__, "--child", str(tree), label])
+        proc = subprocess.run([sys.executable, __file__, "--child", str(tree), label,
+                               ",".join(args.cases)])
         rc = rc or proc.returncode
     return rc
 

@@ -37,3 +37,8 @@ def test_digest_follows_the_sources_and_headers(csrc_copy, name):
 def test_attention_sources_share_the_header():
     for name in ("dense_attention", "paged_attention"):
         assert '#include "attention_common.cuh"' in _build.SOURCES[name].read_text()
+
+
+def test_scan_sources_share_the_header():
+    for name in ("rwkv6_scan", "ssm_scan"):
+        assert '#include "scan_common.cuh"' in _build.SOURCES[name].read_text()

@@ -570,6 +570,32 @@ def test_wkv_kernel_matches_plain_version(gpu, dtype, B, S, H, hd, decay):
     torch.testing.assert_close(inplace, st, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,hd,decay", [
+    (1, 1, 64, 64, None),       # one step: the kernel without staging
+    (1, 33, 64, 64, None),      # one segment (segments are >= 32 steps)
+    (1, 255, 64, 64, None),     # 7 segments of 37 (at most 255 // 32), the last 33
+    (1, 257, 64, 64, None),     # 8 segments of 33, the last 26
+    (1, 1519, 64, 64, None),    # the longest rwkv serve prompt
+    (1, 2048, 64, 64, 1e-6),    # decays near 0 across every segment
+    (2, 100, 8, 32, None),      # the smoke variant's head_dim, 3 segments
+], ids=["S1", "S33", "S255", "S257", "S1519", "S2048-w1e-6", "hd32-S100"])
+def test_wkv_kernel_at_segment_edges(gpu, dtype, B, S, H, hd, decay):
+    """Lengths about the edges of ``wkv_segments``, the state updated in
+    place; the kernel's (n_seg, seg_len) is the rule's."""
+    r, k, v, w, u, state0 = _wkv_case(S + 7, B, S, H, hd, dtype, decay, gpu)
+    inplace = state0.clone()
+    y, st = kw.rwkv6_chunked(r, k, v, w, u, inplace, state_out=inplace)
+    torch.cuda.synchronize()
+    assert st is inplace
+    slots = kw.output_slots(r.device.index, dtype, hd)
+    assert kw.rwkv6_chunked.segments == kw.wkv_segments(slots, B, H, S)
+    y_ref, st_ref = kw.ref_rwkv6_chunked(r, k, v, w, u, state0)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())
+    torch.testing.assert_close(y, y_ref, atol=WKV_TOL[0], rtol=WKV_TOL[1])
+    torch.testing.assert_close(st, st_ref, atol=WKV_TOL[0], rtol=WKV_TOL[1])
+
+
 def test_wkv_kernel_rejects_what_it_does_not_take(gpu):
     r, k, v, w, u, state0 = _wkv_case(0, 1, 8, 2, 64, torch.float32, None, gpu)
     with pytest.raises(ValueError):      # w in bf16
@@ -663,6 +689,31 @@ def test_ssm_kernel_matches_plain_version(gpu, dtype, B, S, Di, N, extreme):
     assert h1 is inplace
     torch.testing.assert_close(y1, y, atol=0, rtol=0)
     torch.testing.assert_close(inplace, h, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Di,N,extreme", [
+    (1, 1, 1600, 16, False),      # one step: the kernel without shared memory
+    (1, 17, 1600, 16, False),     # one segment (segments are >= 32 steps)
+    (1, 129, 1600, 16, False),    # 4 segments of 33 (at most 129 // 32), the last 30
+    (1, 1647, 1600, 16, False),   # the longest hymba serve prefill
+    (1, 1664, 1600, 16, True),    # extreme dt across every segment
+    (2, 100, 256, 8, True),       # the smoke variant's state size, 3 segments
+], ids=["S1", "S17", "S129", "S1647", "S1664-extreme", "N8-S100"])
+def test_ssm_kernel_at_segment_edges(gpu, dtype, B, S, Di, N, extreme):
+    """Lengths about the edges of ``ssm_segments``, h updated in place; the
+    kernel's (n_seg, seg_len) is the rule's."""
+    dt, x, bm, cm, a_log, h0 = _ssm_case(S + 5, B, S, Di, N, dtype, gpu, extreme)
+    inplace = h0.clone()
+    y, h = ks.ssm_scan(dt, x, bm, cm, a_log, inplace, h_out=inplace)
+    torch.cuda.synchronize()
+    assert h is inplace
+    slots = ks.output_slots(dt.device.index, dtype, N)
+    assert ks.ssm_scan.segments == ks.ssm_segments(slots, B, Di, N, S)
+    y_ref, h_ref = ks.ref_ssm_scan(dt, x, bm, cm, a_log, h0)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    torch.testing.assert_close(y, y_ref, atol=SSM_TOL[0], rtol=SSM_TOL[1])
+    torch.testing.assert_close(h, h_ref, atol=SSM_TOL[0], rtol=SSM_TOL[1])
 
 
 def test_ssm_kernel_rejects_what_it_does_not_take(gpu):
