@@ -35,7 +35,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    N=2^21 docs, d=768, k in {10, 100}: float32 docs (the corpus the index is
    built from), bfloat16 docs, and integer-valued docs with duplicated rows
    (exact ties; tolerances in ``TOPK_TOL``); then the kernel's, the plain
-   version's and ``torch.topk(q @ docs.T, k)``'s times beside the bound.
+   version's and ``torch.topk(q @ docs.T, k)``'s times (bf16 docs: on the
+   f32 upcast) beside the bound of the kernel's route (the split-tf32
+   products counted at the tf32 tensor-core rate).
 4. Engine parity at smoke width: the same greedy RAG workload on the CPU
    (plain versions) and on the GPU (kernels) gives identical tokens; then
    the same seeded open-loop pipeline trace (vrag + crag, sessions) gives
@@ -134,6 +136,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_S = 3.35e12                    # H100 SXM HBM3
 PEAK_OPS_S = {"float32": 67e12,          # CUDA cores, no tensor cores
+              "tf32": 495e12,            # dense tensor-core rate
               "bfloat16": 989e12,        # dense tensor-core rate
               "int8": 1979e12}
 # (atol, rtol) of each check, by the pools' dtype: the kernel against
@@ -989,11 +992,16 @@ def check_topk(name, got, want, q, docs, exact_ids):
 
 
 def topk_work(q, docs, k):
-    """(bytes, flops): docs and queries read once, (B, k) scores and ids
-    written once; 2*B*N*d float32 flops."""
+    """(bytes, flops, products) of the kernel's route: docs and queries
+    read once, (B, k) scores and ids written once; the products the split
+    needs on the tensor cores, 2*B*N*d flops each at the dense tf32 rate:
+    3 with float32 docs (hi*hi, hi*lo, lo*hi) and 2 with bfloat16 docs
+    (exact in tf32: the query alone is split; the kernel takes it as three
+    bf16 parts at twice the rate, the same time)."""
     B, d = q.shape
     nbytes = docs.numel() * docs.element_size() + q.numel() * 4 + B * k * 8
-    return nbytes, 2 * B * docs.shape[0] * d
+    products = 3 if docs.dtype == torch.float32 else 2
+    return nbytes, products * 2 * B * docs.shape[0] * d, products
 
 
 def phase_topk(tk, corpus, queries):
@@ -1020,26 +1028,30 @@ def phase_topk(tk, corpus, queries):
                                         exact_ids=case.startswith("ties"))
             r = {"case": case, "k": k, "max_abs_err": err, "swapped": n_swapped}
             if not case.startswith("ties"):
-                nbytes, ops = topk_work(q, docs, k)
+                nbytes, ops, products = topk_work(q, docs, k)
                 bytes_ms = nbytes / HBM_BYTES_S * 1e3
-                ops_ms = ops / PEAK_OPS_S["float32"] * 1e3
+                ops_ms = ops / PEAK_OPS_S["tf32"] * 1e3
+                # bf16 docs: one PyTorch call on the f32 upcast (no bf16 x f32 product)
                 lib = ((lambda: torch.topk(q @ docs.T, k)) if docs.dtype == torch.float32
-                       else None)
+                       else (lambda: torch.topk(q @ docs.float().T, k)))
                 r.update({
                     "ms": time_ms(lambda: tk.topk_retrieval(q, docs, k), flush),
                     "device_ms": device_ms(lambda: tk.topk_retrieval(q, docs, k)),
                     "plain_ms": time_ms(lambda: tk.ref_topk_retrieval(q, docs, k), flush,
                                         reps=10),
-                    "library_ms": time_ms(lib, flush, reps=10) if lib is not None else None,
+                    "library_ms": time_ms(lib, flush, reps=10),
+                    "library": ("torch.topk(q @ docs.T, k)" if docs.dtype == torch.float32
+                                else "torch.topk(q @ docs.float().T, k), the upcast included"),
                     "bound_ms": max(bytes_ms, ops_ms),
                     "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                    "bytes": nbytes, "ops": ops,
+                    "bytes": nbytes, "ops": ops, "products": products,
                 })
             rows[(case, k)] = r
             times = (f"; kernel_ms={r['ms']:.4f} device_ms={fmt_ms(r['device_ms'])} "
-                     f"plain_ms={r['plain_ms']:.4f} "
-                     f"library_ms={r['library_ms']} bound_ms={r['bound_ms']:.4f} "
-                     f"({r['bound_by']}: {r['bytes']} B, {r['ops']} flop)") if "ms" in r else ""
+                     f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+                     f"[{r['library']}] bound_ms={r['bound_ms']:.4f} ({r['bound_by']}: "
+                     f"{r['bytes']} B; {r['ops']} flop = {r['products']} split-tf32 "
+                     f"products of 2BNd at 495 TFLOP/s)") if "ms" in r else ""
             print(f"[topk] {case} B={N_QUERIES} N={N_DOCS} d={DIM} k={k}: max_abs_err "
                   f"{err:.3e} (atol {TOPK_TOL['score_atol']}), {n_swapped} ids swapped "
                   f"within {TOPK_TOL['swap']}{times}", flush=True)
@@ -1892,7 +1904,8 @@ def main() -> int:
         "library_ms": r["library_ms"],
         "by_case": {f"{c}/k={k}": {key: x.get(key) for key in
                                    ("max_abs_err", "swapped", "ms", "device_ms", "plain_ms",
-                                    "library_ms", "bound_ms")}
+                                    "library_ms", "library", "bound_ms", "bound_by",
+                                    "products")}
                     for (c, k), x in topk_rows.items()},
         "launches_by_phase": {ph: n["topk_retrieval"] for ph, n in launches.items()},
     })

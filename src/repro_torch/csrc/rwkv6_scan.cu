@@ -60,6 +60,7 @@
 //   state_out, so state_out may be state0 itself: the decode step updates
 //   the cache's state slice in place.
 #include "scan_common.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -67,6 +68,8 @@ using scan::ld4;
 using scan::st4;
 using scan::to_f32;
 using scan::Vec4;
+using tf32::mma;
+using tf32::split;
 
 constexpr int kKT = 8;          // keys of a thread's state tile (output pass, decode)
 constexpr int kVT = 4;          // value columns of a thread's state tile
@@ -85,26 +88,6 @@ __device__ __forceinline__ void ld8(float (&d)[kKT], const float* p) {
 // ---------------------------------------------------------------------------
 // 1. the segment pass: chunks of K~^T V on the tensor cores, in split tf32
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-// x = hi + lo, both tf32 (x - hi is exact in f32)
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-// c += a b on one m16n8k8 tile (a: 16 x 8 row-major fragment, b: 8 x 8
-// column fragment, c: 16 x 8 f32)
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // The segment pass's block: hd / 16 warps, each holding 16 keys (rows) of
 // the (hd x hd) state as m16n8 accumulator fragments. Shared memory, in

@@ -42,8 +42,10 @@ ENTRY_POINTS = {
     "topk_retrieval": {
         "tk_max_k": ([], _I),
         "tk_docs_per_tile": ([], _I),
-        "tk_smem_bytes": ([_I, _I], _I),
-        "tk_topk_retrieval": ([_I] + [_P] * 6 + [_I] * 6 + [_P], _I),
+        "tk_query_tile": ([], _I),
+        "tk_smem_bytes": ([_I, _I, _I, _I], _I),
+        "tk_merge_smem_bytes": ([_I, _I], _I),
+        "tk_topk_retrieval": ([_I] + [_P] * 6 + [_I] * 7 + [_P], _I),
     },
     "dense_attention": {
         "da_flash_smem_bytes": ([_I, _I], _I),

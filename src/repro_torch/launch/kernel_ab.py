@@ -1,4 +1,4 @@
-"""Device times of the bf16 attention and scan kernels, one source tree
+"""Device times of the bf16 attention, scan and top-k kernels, one source tree
 against another, or this tree against diagnostic variants of it, or this
 tree's split targets, on one GPU.
 
@@ -7,6 +7,7 @@ tree's split targets, on one GPU.
     python -m repro_torch.launch.kernel_ab --variants base chunk_rows64 chunk_rows64 base
     python -m repro_torch.launch.kernel_ab --cases scans --variants base wkv_output_only wkv_segment_only base
     python -m repro_torch.launch.kernel_ab --sweep
+    python -m repro_torch.launch.kernel_ab --cases retrieval --variants base topk_no_select topk_loads_only topk_merge_only base
 
 Each tree (a directory holding ``repro_torch``) or variant runs in a process
 of its own, in the order given, so that its kernels are built from its own
@@ -26,15 +27,31 @@ heads (H 25 / KVH 5, hd 64, a 1024-slot ring) at the mixed step's lengths
 (``--cases attention``); the RWKV-6 WKV kernel at rwkv6-7b's heads (H 64,
 hd 64) prefilling B 1 at S 2048 and decoding B 8 at S 1, and the selective
 scan at hymba-1.5b's (Di 1600, N 16) prefilling B 1 at S 1664 and decoding
-B 8 at S 1, each from a given state (``--cases scans``). Each process
+B 8 at S 1, each from a given state (``--cases scans``); the top-k
+retrieval kernel at chip_smoke.py phase 3's timed shapes, B 32 unit-row
+queries over N 2^21 unit-row docs of d 768 in float32 and in bfloat16, k
+10 and 100 (``--cases retrieval``, not run unless named). Each process
 prints one JSON line: per case the device time three times (calls queued
 behind a spin kernel, L2 warm), the largest error against the plain
 version in f32 and how many elements miss the check (attention: atol 1e-3,
 rtol 8e-3, the bf16 output rounding; scans: y and the final state at atol
-1e-4, rtol 1e-4, their unchanged tolerance), and the card's name and power
-limit. ``--sweep`` prints instead the dense decode's and the chunk
-kernel's device times at each split target of ``sweep``, and the two
-scans' prefill device times at each segment count of ``SEGMENTS``.
+1e-4, rtol 1e-4, their unchanged tolerance; top-k: the scores' largest
+error, and the ids that differ from the plain version's where the plain
+scores of the two lie further apart than 1e-5, chip_smoke.py's TOPK_TOL),
+and the card's name and power limit. ``--sweep`` prints instead the dense
+decode's and the chunk kernel's device times at each split target of
+``sweep``, the two scans' prefill device times at each segment count of
+``SEGMENTS``, and the top-k cases' at each ring depth of ``STAGES`` and
+slice count a SM of ``SLICES_PER_SM``. The ``topk_*`` variants show where
+the top-k kernel's time goes: the products without the selection
+(``topk_no_select``), the corpus stream alone (``topk_loads_only``: no
+products, no selection), the products alone (``topk_products_only``: no
+copies, no selection), the merge kernel alone (``topk_merge_only``, on
+stale scratch), one wgmma a step in place of two (``topk_one_wgmma``,
+wrong scores), the f32 d_lo pass without its stores (``topk_no_lo_pass``,
+wrong scores) and the products without the proxy fence after each stage's
+copies (``topk_no_stage_fence``). A variant still stores the scores:
+wgmma results nobody reads are dropped by the compiler.
 """
 from __future__ import annotations
 
@@ -61,6 +78,9 @@ _CHUNK_SRC = "csrc/paged_attention.cu"
 _WRAPPERS = "kernels/decode_attention.py"
 _WKV = "csrc/rwkv6_scan.cu"
 _SSM = "csrc/ssm_scan.cu"
+_TOPK = "csrc/topk_retrieval.cu"
+_NO_SELECT = ("      const bool select = q0 + qi < B;               // warp-uniform",
+              "      const bool select = false;")
 
 # name -> edits of files of repro_torch: (file, old, new), or (file, callable
 # on its text). The flash kernel's, the chunk kernel's, then the scans'.
@@ -123,6 +143,33 @@ VARIANTS = {
                            "        const float4 b4 = ld4(s_b + n0);"),
                           (_SSM, "          const float4 c4 = ld4(s_c + (r0 + st) * N + n0);",
                            "          const float4 c4 = ld4(s_c + n0);")],
+    # the top-k kernel: no selection (no score passes); the stream alone
+    # (the consumers wait for each stage and release it, no products); the
+    # products alone (no copies issued: the stages' arrivals still pace the
+    # ring; no selection); the merge kernel alone (pass 1 not launched: it
+    # merges stale scratch); one wgmma a step (f32: d_hi alone, bf16: b0 and
+    # b1 alone); the f32 d_lo pass's stores dropped (its wgmma reads stale
+    # d_lo)
+    "topk_no_select": [(_TOPK, *_NO_SELECT)],
+    "topk_loads_only": [(_TOPK, *_NO_SELECT),
+                        (_TOPK, "        Doc<T>::products(acc, ring + st * kStageBytes, lo_buf, "
+                                "qrow, c, t, tid);\n", "")],
+    "topk_products_only": [(_TOPK, *_NO_SELECT),
+                           (_TOPK, "          cp_async16(dst + (m & 1 ? dst1 : dst0) + (m >> 1) "
+                                   "* 8 * kRowBytes,\n                     ok ? src + m * "
+                                   "row_step : docs, ok ? 16 : 0);\n", "")],
+    "topk_merge_only": [(_TOPK, "  pass1<<<grid, kThreads, smem, stream>>>(",
+                         "  if (false) pass1<<<grid, kThreads, smem, stream>>>(")],
+    "topk_one_wgmma": [(_TOPK, "    for (int kk = 0; kk < 4; ++kk) wgmma_tf32(acc, a[kk], "
+                               "desc_sw128(la + 32 * kk), 1);\n", ""),
+                       (_TOPK, "      wgmma_bf16(acc, a2[kk], desc_sw128(sa + 32 * kk), 1);\n", "")],
+    "topk_no_lo_pass": [(_TOPK, "      *reinterpret_cast<uint4*>(lo + off) = l;\n", "")],
+    # no proxy fence between the stage's copies and the products (what the
+    # fence costs; the products may read stale data)
+    "topk_no_stage_fence": [(_TOPK, "    fence_proxy_async();                   // the stage's copies, "
+                                    "for the async proxy\n    wgmma_fence();", "    wgmma_fence();"),
+                            (_TOPK, "    fence_proxy_async();                   // the stage's copies, "
+                                    "for the async proxy\n    uint32_t a1", "    uint32_t a1")],
 }
 
 
@@ -176,6 +223,8 @@ def measure(cases=("attention", "scans")) -> dict:
         out.update(_attention_cases(g))
     if "scans" in cases:
         out.update(_scan_cases(g))
+    if "retrieval" in cases:
+        out.update(_retrieval_cases(g))
     return out
 
 
@@ -352,8 +401,57 @@ def _scan_cases(g) -> dict:
     return out
 
 
+# chip_smoke.py phase 3's timed shapes
+TOPK_B, TOPK_N, TOPK_D, TOPK_KS = 32, 1 << 21, 768, (10, 100)
+TOPK_SWAP = 1e-5
+
+
+def _topk_calls(g):
+    """(name, kernel call, plain call, q, docs, k) of each top-k case: unit rows,
+    as the index holds them, float32 and bfloat16 docs."""
+    import torch
+    from repro_torch.kernels import topk_retrieval as tk
+
+    unit = lambda x: x / x.norm(dim=1, keepdim=True)
+    q = unit(torch.randn((TOPK_B, TOPK_D), generator=g, device="cuda"))
+    docs32 = unit(torch.randn((TOPK_N, TOPK_D), generator=g, device="cuda"))
+    calls = []
+    for dname, docs in (("f32", docs32), ("bf16", docs32.bfloat16())):
+        for k in TOPK_KS:
+            calls.append((f"topk_{dname}_k{k}",
+                          lambda docs=docs, k=k: tk.topk_retrieval(q, docs, k),
+                          lambda docs=docs, k=k: tk.ref_topk_retrieval(q, docs, k), q, docs, k))
+    return calls
+
+
+def _retrieval_cases(g) -> dict:
+    import torch
+
+    out = {}
+    for name, kern, plain, q, docs, _ in _topk_calls(g):
+        (gs, gi), (ws, wi) = kern(), plain()
+        diff = gi != wi
+        off = 0
+        if bool(diff.any()):
+            # a variant may leave ids that are no doc: they count as off
+            real = (gi >= 0) & (gi < docs.shape[0])
+            full = q @ docs.float().T
+            gap = (full.gather(1, torch.where(real, gi, 0).long())
+                   - full.gather(1, wi.long())).abs()
+            off = int(((gap > TOPK_SWAP) | ~real)[diff].sum())
+            del full
+        out[name] = {"device_ms": [_device_ms(kern) for _ in range(3)],
+                     "max_abs_err": float((gs - ws).abs().max()), "n_off": off,
+                     "ids_swapped": int(diff.sum())}
+    return out
+
+
 # segment counts of the scans' prefill sweep
 SEGMENTS = (1, 2, 4, 6, 8, 10, 12, 16, 24)
+# the top-k sweep: ring stages (at most what shared memory leaves) and
+# slices a SM
+STAGES = (2, 3, 4, 5, 6)
+SLICES_PER_SM = (1, 2, 3, 4)
 
 
 def sweep(cases=("attention", "scans")) -> dict:
@@ -369,6 +467,8 @@ def sweep(cases=("attention", "scans")) -> dict:
     out = {}
     if "scans" in cases:
         out.update(_segment_sweep(g))
+    if "retrieval" in cases:
+        out.update(_topk_sweep(g))
     if "attention" not in cases:
         return out
     for name, H, KVH, hd, Sc, lengths in (
@@ -416,6 +516,29 @@ def _segment_sweep(g) -> dict:
     return out
 
 
+def _topk_sweep(g) -> dict:
+    """The top-k cases' device times at each ring depth of ``STAGES`` (the
+    plan's ``_MAX_STAGES``; the stages actually run are those that fit) and
+    each slice count a SM of ``SLICES_PER_SM`` (``_SLICES_PER_SM``: more
+    than one is more than one wave), twice each."""
+    from repro_torch.kernels import topk_retrieval as tk
+
+    out = {}
+    keep = tk._MAX_STAGES, tk._SLICES_PER_SM
+    for name, kern, _, q, docs, k in _topk_calls(g):
+        for n in STAGES:
+            tk._MAX_STAGES = n
+            ran = tk.topk_plan(tk._sm_count(0), q.shape[0], *docs.shape, k,
+                               docs.element_size()).stages
+            out[f"{name}/stages={ran}"] = [_device_ms(kern) for _ in range(2)]
+        tk._MAX_STAGES = keep[0]
+        for n in SLICES_PER_SM:
+            tk._SLICES_PER_SM = n
+            out[f"{name}/slices_per_sm={n}"] = [_device_ms(kern) for _ in range(2)]
+        tk._SLICES_PER_SM = keep[1]
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--trees", nargs="+", help="directories holding repro_torch, in run order")
@@ -424,7 +547,7 @@ def main(argv=None) -> int:
     ap.add_argument("--sweep", action="store_true",
                     help="this tree's split targets of the dense decode and chunk kernels, "
                          "and the scans' segment counts")
-    ap.add_argument("--cases", nargs="+", choices=("attention", "scans"),
+    ap.add_argument("--cases", nargs="+", choices=("attention", "scans", "retrieval"),
                     default=["attention", "scans"], help="which kernels --trees, "
                     "--variants and --sweep time")
     ap.add_argument("--child", nargs=3, metavar=("TREE", "LABEL", "CASES"),

@@ -42,3 +42,12 @@ def test_attention_sources_share_the_header():
 def test_scan_sources_share_the_header():
     for name in ("rwkv6_scan", "ssm_scan"):
         assert '#include "scan_common.cuh"' in _build.SOURCES[name].read_text()
+
+
+def test_split_tf32_sources_share_the_header():
+    """The WKV and top-k kernels take their split-tf32 helpers from one
+    header; neither keeps a copy of its own."""
+    for name in ("rwkv6_scan", "topk_retrieval"):
+        text = _build.SOURCES[name].read_text()
+        assert '#include "tf32_mma.cuh"' in text
+        assert "cvt.rna.tf32.f32" not in text and "uint32_t to_tf32(" not in text

@@ -499,6 +499,62 @@ def test_topk_kernel_breaks_ties_to_the_lower_id(gpu, docs_dtype, k):
     _check_topk(got, tk.ref_topk_retrieval(q, docs, k), q, docs, exact_ids=True)
 
 
+@pytest.mark.parametrize("docs_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,d,k", [
+    (5, 128 * 300 + 77, 768, 10),    # 300 tiles: 132 slices, N not a multiple of the tile
+    (5, 128 * 300 + 77, 768, 100),
+    (33, 50_000, 768, 100),          # two query tiles, the second holding one query
+    (64, 20_000, 256, 10),           # two full query tiles
+    (32, 30_000, 768, 128),          # the largest k at the retrieval phase's width
+    (3, 4_000, 72, 16),              # d not a multiple of a stage's columns (zero fill)
+])
+def test_topk_kernel_across_slices_and_query_tiles(gpu, docs_dtype, B, N, d, k):
+    g = torch.Generator().manual_seed(B * 7 + N + d + k)
+    unit = lambda x: x / x.norm(dim=1, keepdim=True)
+    q = unit(torch.randn((B, d), generator=g)).to(gpu)
+    docs = unit(torch.randn((N, d), generator=g)).to(docs_dtype).to(gpu)
+    plan = tk.topk_plan(torch.cuda.get_device_properties(gpu).multi_processor_count,
+                        B, N, d, k, docs.element_size())
+    assert plan.n_slices > 1
+    got = tk.topk_retrieval(q, docs, k)
+    torch.cuda.synchronize()
+    _check_topk(got, tk.ref_topk_retrieval(q, docs, k), q, docs)
+
+
+@pytest.mark.parametrize("docs_dtype", [torch.float32, torch.bfloat16])
+def test_topk_kernel_on_near_duplicate_docs(gpu, docs_dtype):
+    """Each row repeated with perturbations of 1e-6: neighbours' scores lie
+    closer than the tolerance, so their ids may swap, but only within
+    TOPK_SWAP_TOL of the plain scores."""
+    g = torch.Generator().manual_seed(3)
+    base = torch.randn((500, 768), generator=g)
+    docs = base.repeat(40, 1) + 1e-6 * torch.randn((20_000, 768), generator=g)
+    docs = (docs / docs.norm(dim=1, keepdim=True)).to(docs_dtype).to(gpu)
+    q = base[:16].to(gpu) / base[:16].norm(dim=1, keepdim=True).to(gpu)
+    for k in (10, 100):
+        got = tk.topk_retrieval(q, docs, k)
+        _check_topk(got, tk.ref_topk_retrieval(q, docs, k), q, docs)
+
+
+def test_topk_plan_mirrors_the_kernel(gpu):
+    """The wrapper's plan sizes (kernels/topk_retrieval.py) are the
+    kernel's."""
+    from repro_torch.kernels._build import load_library
+
+    lib = load_library("topk_retrieval").lib
+    assert (lib.tk_max_k(), lib.tk_docs_per_tile(), lib.tk_query_tile()) == (
+        tk.MAX_K, tk.TILE_DOCS, tk.QUERY_TILE)
+    for code, item in ((0, 4), (1, 2)):
+        for d in (8, 72, 768, 1024):
+            for k in (1, 10, 33, 100, 128):
+                for stages in (2, 4, 6):
+                    assert lib.tk_smem_bytes(code, d, k, stages) == tk.topk_smem_bytes(
+                        d, k, item, stages)
+    for n in (1, 2, 7, 66, 132, 256):
+        for k in (10, 64, 128):
+            assert lib.tk_merge_smem_bytes(n, k) == tk.merge_smem_bytes(n, k)
+
+
 def test_topk_kernel_rejects_what_it_does_not_take(gpu):
     q = torch.randn((2, 64), device=gpu)
     docs = torch.randn((500, 64), device=gpu)

@@ -1,15 +1,17 @@
-"""How the port's attention kernels cut their work, on the CPU (no kernel
-is launched): the chunk kernel's tile plan (``chunk_tile_plan``, the rule
-its plan kernel applies on the card) and split count (``chunk_split``), and
-the dense decode kernel's per-row splits (``dense_decode_split``,
-``dense_decode_chunk``, the rule its warps apply on the card). The card
-tests hold the kernels' own plans and outputs to these
-(``tests/test_torch_cuda.py``)."""
+"""How the port's attention and top-k kernels cut their work, on the CPU
+(no kernel is launched): the chunk kernel's tile plan (``chunk_tile_plan``,
+the rule its plan kernel applies on the card) and split count
+(``chunk_split``), the dense decode kernel's per-row splits
+(``dense_decode_split``, ``dense_decode_chunk``, the rule its warps apply on
+the card), and the top-k kernel's query tiles, corpus slices and ring
+stages (``topk_plan``). The card tests hold the kernels' own plans and
+outputs to these (``tests/test_torch_cuda.py``)."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import decode_attention as ka
+from repro_torch.kernels import topk_retrieval as tk
 
 
 def _row_of(xs):
@@ -150,3 +152,61 @@ def test_dense_decode_split(sms, B, KVH, G, Sc, want):
     assert n_split == want
     for length in (1, 17, Sc // 2 + 1, Sc):
         _check_dense_split(length, n_split)
+
+
+# ---------------------------------------------------------------------------
+# top-k retrieval: query tiles, corpus slices, ring stages
+# ---------------------------------------------------------------------------
+
+def _check_topk_plan(sms, B, N, d, k, item):
+    plan = tk.topk_plan(sms, B, N, d, k, item)
+    # every query in exactly one tile, no tile empty
+    assert plan.q_tiles * tk.QUERY_TILE >= B > (plan.q_tiles - 1) * tk.QUERY_TILE
+    # every 128-doc tile in exactly one slice, no slice empty
+    n_tiles = -(-N // tk.TILE_DOCS)
+    covered = np.zeros(n_tiles, np.int64)
+    for j in range(plan.n_slices):
+        lo, hi = j * plan.tiles_per_slice, min((j + 1) * plan.tiles_per_slice, n_tiles)
+        assert lo < hi
+        covered[lo:hi] += 1
+    np.testing.assert_array_equal(covered, 1)
+    # one wave of blocks, one an SM; shared memory within the block's 227 KB
+    assert plan.q_tiles * plan.n_slices <= max(sms, plan.q_tiles)
+    assert 2 <= plan.stages <= tk._MAX_STAGES
+    assert tk.topk_smem_bytes(d, k, item, plan.stages) <= 227 * 1024
+    assert tk.merge_smem_bytes(plan.n_slices, k) <= 227 * 1024
+    assert plan.list_k >= k and plan.list_k in (32, 64, 128)
+    return plan
+
+
+@pytest.mark.parametrize("item", [4, 2])
+@pytest.mark.parametrize("k", [1, 10, 100, 128])
+@pytest.mark.parametrize("B", [1, 32, 33, 64])
+@pytest.mark.parametrize("N", [1, 127, 128, 129, 1000, 777 * 128 + 5, 1 << 21])
+def test_topk_plan_covers_every_doc_and_query_once(N, B, k, item):
+    if k > N:
+        k = N
+    _check_topk_plan(132, B, N, 768, k, item)
+
+
+def test_topk_plan_at_the_retrieval_phase():
+    """B 32, N 2^21, d 768: one slice an SM, whole tiles, and a ring of at
+    least 3 stages (48 KB in flight) at every k: 5 with f32 docs (beside
+    their d_lo buffer), 6 with bf16."""
+    for k in (10, 64, 100, 128):
+        for item, stages in ((4, 5), (2, 6)):
+            plan = _check_topk_plan(132, 32, 1 << 21, 768, k, item)
+            assert (plan.q_tiles, plan.n_slices, plan.tiles_per_slice) == (1, 132, 125)
+            assert plan.stages == stages
+    # two query tiles share the card: 66 slices each
+    plan = _check_topk_plan(132, 33, 1 << 21, 768, 100, 4)
+    assert (plan.q_tiles, plan.n_slices) == (2, 66)
+    # more query tiles than SMs: one slice each
+    plan = _check_topk_plan(132, 32 * 200, 1 << 21, 768, 10, 4)
+    assert (plan.q_tiles, plan.n_slices) == (200, 1)
+
+
+def test_topk_plan_rejects_what_does_not_fit():
+    with pytest.raises(ValueError):        # the query tile alone passes 227 KB
+        tk.topk_plan(132, 32, 1 << 20, 2048, 10, 4)
+    tk.topk_plan(132, 32, 1 << 20, 1024, 128, 4)     # the widest rows that fit at k 128

@@ -165,3 +165,93 @@ def test_scored_docs_and_doc_token_store_match_jax():
         a, b = tr.DocTokenStore(vocab, doc_len), jr.DocTokenStore(vocab, doc_len)
         for x, y in zip(a.tokens_for([0, 7, 10_005, 2**20]), b.tokens_for([0, 7, 10_005, 2**20])):
             assert x.dtype == y.dtype and np.array_equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's arithmetic, emulated in plain torch on the CPU
+# ---------------------------------------------------------------------------
+
+# the card's checks (tests/test_torch_cuda.py, chip_smoke.py TOPK_TOL):
+# scores within TOPK_ATOL, and two ids may swap only where the plain
+# version's scores of the two lie within TOPK_SWAP_TOL
+TOPK_ATOL = 1e-4
+TOPK_SWAP_TOL = 1e-5
+
+
+def _tf32_trunc(x):
+    """The top 19 bits of each f32 (sign, exponent, 10 mantissa bits): what
+    the kernel keeps as hi (a logic op) and what the tensor core reads of
+    a tf32 operand (so lo is truncated too)."""
+    return (x.view(torch.int32) & -(1 << 13)).view(torch.float32)
+
+
+def _split_tf32_scores(q, docs):
+    """csrc/topk_retrieval.cu's scores. f32 docs: q and docs split as x = hi
+    + lo (hi = trunc(x), lo = trunc(x - hi)), the rows [q_hi; q_lo] times
+    d_hi and times d_lo, every product exact (tf32 x tf32 fits f32) and
+    summed in f32. bf16 docs (exact in bf16): q = b0 + b1 + b2 in bf16, each
+    the rounded rest of the one before, the rows [b0; b1] and [b2; 0]
+    times the docs."""
+    if docs.dtype == torch.bfloat16:
+        d = docs.float()
+        b0 = q.bfloat16().float()
+        b1 = (q - b0).bfloat16().float()
+        b2 = (q - b0 - b1).bfloat16().float()
+        return (b0 @ d.T + b2 @ d.T) + b1 @ d.T
+    qh = _tf32_trunc(q)
+    ql = _tf32_trunc(q - qh)
+    dh = _tf32_trunc(docs)
+    dl = _tf32_trunc(docs - dh)
+    return (qh @ dh.T + qh @ dl.T) + (ql @ dh.T + ql @ dl.T)
+
+
+def _emulated_topk(q, docs, k):
+    s = _split_tf32_scores(q, docs)
+    vals, ids = torch.sort(s, dim=1, descending=True, stable=True)
+    return vals[:, :k], ids[:, :k].to(torch.int32)
+
+
+@pytest.mark.parametrize("docs_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [10, 100, 128])
+def test_split_tf32_topk_within_the_tolerances_at_d768(docs_dtype, k):
+    """Unit rows at the retrieval phase's width: the split's top-k scores
+    within TOPK_ATOL of ``ref_topk_retrieval`` and its ids within
+    TOPK_SWAP_TOL; a single tf32 product is not (its scores are off by more
+    than TOPK_SWAP_TOL, so near-equal docs could swap beyond it). The split
+    holds b0 + b1 + b2 == q exactly."""
+    rng = np.random.default_rng(19 + k)
+    unit = lambda x: x / np.linalg.norm(x, axis=1, keepdims=True)
+    q = torch.tensor(unit(rng.standard_normal((32, 768))).astype(np.float32))
+    docs = torch.tensor(unit(rng.standard_normal((20000, 768))).astype(np.float32))
+    docs = docs.to(docs_dtype)
+    ws, wi = tk.ref_topk_retrieval(q, docs, k)
+    gs, gi = _emulated_topk(q, docs, k)
+    exact = q.double() @ docs.double().T
+    err = float((_split_tf32_scores(q, docs).double() - exact).abs().max())
+    assert err < 1e-6, err                                  # as close as f32 sums
+    torch.testing.assert_close(gs, ws, atol=TOPK_ATOL, rtol=0)
+    diff = gi != wi
+    plain = q.float() @ docs.float().T
+    gap = (plain.gather(1, gi.long()) - plain.gather(1, wi.long())).abs()
+    assert bool((gap[diff] <= TOPK_SWAP_TOL).all()), gap[diff]
+    b0 = q.bfloat16().float()
+    b1 = (q - b0).bfloat16().float()
+    assert torch.equal(b0 + b1 + (q - b0 - b1).bfloat16().float(), q)
+    one = _tf32_trunc(q) @ _tf32_trunc(docs.float()).T       # one tf32 product
+    assert float((one.double() - exact).abs().max()) > TOPK_SWAP_TOL
+
+
+@pytest.mark.parametrize("docs_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 10, 100])
+def test_split_tf32_topk_keeps_exact_ties(docs_dtype, k):
+    """Integer-valued rows, many duplicated: the split is exact (lo = 0,
+    b1 = b2 = 0), so the scores equal the plain version's and the ids match
+    one for one, ties to the lower id."""
+    rng = np.random.default_rng(23 + k)
+    base = rng.integers(-2, 3, (64, 768)).astype(np.float32)
+    docs = torch.tensor(base[rng.integers(0, 64, 5000)]).to(docs_dtype)
+    q = torch.tensor(rng.integers(-2, 3, (7, 768)).astype(np.float32))
+    ws, wi = tk.ref_topk_retrieval(q, docs, k)
+    gs, gi = _emulated_topk(q, docs, k)
+    assert torch.equal(gs, ws) and torch.equal(gi, wi)
+    assert k == 1 or len(set(ws[0].tolist())) < k             # the case really ties
