@@ -61,10 +61,34 @@ Phases, each of which raises on failure (the script then exits non-zero):
    Retriever -> Reranker -> Augmenter -> the qwen2.5-3b engine, half of
    them repeating an earlier query's text, with every ported kernel's
    launch count read around the phase (the dense kernels' must be 0).
+5c. Serve phase 5's ten prompts with phase 5's settings on int8 pools
+   (``kv_dtype="int8"``, bf16 weights): both paged kernels take their int8
+   route from the engine's running-max scales (launches 36 a step, none of
+   the dense, scan or top-k kernels); tokens/s, TTFT, TPOT, steps, peak
+   memory, the pool's bytes against phase 5's bf16 pool, greedy agreement
+   with phase 5's tokens (reported; the 0.75 floor holds at smoke width
+   only), and a step profile of a mixed and a decode-only step.
+5d. The host tier and swap at full width: phase 5's prompts in two waves
+   (each prompt asked for again in the second) on a 256-block pool (phase
+   5: 1033) with a 1024-block host tier, under ``preempt="recompute"``,
+   ``"swap"`` and ``"cost"`` and once on int8 pools with swap: demotions,
+   promotions and (swap) swap-outs > 0, every swap set restored, the pool
+   clean, and swap's prefill tokens below recompute's; steps, tokens/s,
+   prefill tokens, bytes swapped, and the device<->host rate of a swap
+   chain's pinned copies (CUDA events).
+4d. int8 pools and swap/cost preemption at smoke width in float32, CPU
+   against the card: the RAG workload on an int8 pool, and the invariant
+   harness's long-decode workload on a 6-block pool under swap (float and
+   int8) and cost (the per-token step time pinned to 6e-7 s on both):
+   identical greedy tokens and counters, int8 payloads within one code and
+   scales within 1e-5 relative (the float K/V they quantize differ by the
+   devices' summation orders); and the quantized scatter itself equal bit
+   for bit on identical inputs, .5 ties included.
 7. The open-loop pipelines at full width: ``serve_pipelines`` on
    qwen2.5-3b bfloat16 replays a Poisson trace (4 requests/s for 5
    trace-seconds, 30% sessions) of vrag/crag/srag/planrag with EDF-slack
-   priorities; every event must complete.
+   priorities and the reference launcher's 128-block host tier; every
+   event must complete.
 2c. The RWKV-6 WKV kernel against its plain version on the card at
    rwkv6-7b shapes (H=64, hd=64) with a nonzero ``state0``: prefill B=1 at
    S=2048 and S=37, decode B=8 at S=1, the adversarial decay w=0.45 and
@@ -116,7 +140,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    decode steps, and the paged, top-k and WKV kernels' 0; every earlier phase
    must show 0 scan launches. The rwkv6-7b weights are freed first.
 
-It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
+It prints a ``{"int8_serve": ..., "host_tier": ...}`` line of phases 5c
+and 5d's figures, a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU.
 """
 from __future__ import annotations
@@ -1266,14 +1291,182 @@ def phase_hymba_parity(ka, kf, ks):
 
 
 # ---------------------------------------------------------------------------
+# phase 4d: int8 pools and swap/cost preemption at smoke width, CPU and card
+# ---------------------------------------------------------------------------
+
+# the cost model's per-token step time, pinned on both devices (a wall-clock
+# quantity otherwise); at 6e-7 s the float pool of LONG_DECODE's workload
+# swaps some victims and recomputes others
+PINNED_TOKEN_S = 6e-7
+
+
+def long_decode_workload(eng, seed):
+    """The invariant harness's long-decode workload (tests/
+    test_engine_invariants.py ``_run_workload(long_decode=True)``), greedy:
+    bursts of short prompts with 28-38 new tokens each, interleaved with
+    engine steps, so decodes outgrow a tiny pool and preempt."""
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for _ in range(4):
+        for _ in range(int(rng.integers(1, 4))):
+            prompt = rng.integers(0, 90, size=int(rng.integers(3, 13)))
+            reqs.append(eng.submit(prompt, max_new=int(rng.integers(28, 39)),
+                                   priority=float(rng.random())))
+        for _ in range(int(rng.integers(0, 4))):
+            eng.step()
+    eng.run_until_done(max_steps=2000)
+    return reqs
+
+
+def pin_token_time(eng, value):
+    """Hold the runner's per-token step time at ``value`` through a run."""
+    runner = eng.runner
+    orig = runner.materialize
+
+    def materialize(ex):
+        out = orig(ex)
+        runner.token_time_ema = value
+        return out
+
+    runner.materialize = materialize
+    runner.token_time_ema = value
+
+
+# the engine's int8 state, CPU against card: the K/V both quantize come
+# from float32 stacks summing in different orders (cuBLAS against the CPU's
+# matmuls), so payloads may sit one code apart where a value lies near a
+# .5 boundary, and scales (absmax / 127) agree as the K/V do: 1e-5
+# relative. On identical inputs the quantized write is exact
+# (``check_scatter_exact``).
+INT8_SCALE_RTOL = 1e-5
+
+
+def int8_state_diff(cpu_kv, gpu_kv):
+    """(max code difference of the int8 payloads, max relative scale
+    difference), over every block but the null block (block 0: pad tokens
+    write it and nothing reads it)."""
+    codes = max(int((a[:, 1:].int() - b.cpu()[:, 1:].int()).abs().max())
+                for a, b in ((cpu_kv.k, gpu_kv.k), (cpu_kv.v, gpu_kv.v)))
+    rel = 0.0
+    for a, b in ((cpu_kv.k_scale, gpu_kv.k_scale), (cpu_kv.v_scale, gpu_kv.v_scale)):
+        a, b = a[:, 1:], b.cpu()[:, 1:]
+        rel = max(rel, float(((a - b).abs() / a.abs().clamp(min=1e-30)).max()))
+    return codes, rel
+
+
+def check_scatter_exact():
+    """The quantized scatter on the card against the CPU on identical
+    inputs at qwen2.5-3b's pool geometry (one layer slice, 264 packed
+    tokens): random values over partly zero scales, and values that all lie
+    exactly on a .5 code (scale 2**-7), which both round half to even.
+    Payloads and scales must be equal bit for bit. Returns the case count."""
+    from repro_torch.serving.paged_cache import _quantized_scatter
+
+    g = torch.Generator().manual_seed(5)
+    nb, T = 64, 264
+    for ties in (False, True):
+        if ties:
+            pool = torch.zeros((1, nb, BS, KVH, HD), dtype=torch.int8)
+            sc = torch.zeros((1, nb, KVH))
+            dest = torch.arange(1, nb) * BS + torch.randint(0, BS, (nb - 1,), generator=g)
+            vals = (torch.randint(-127, 127, (1, nb - 1, KVH, HD), generator=g) + 0.5) / 128
+            vals[..., 0] = 127.0 / 128.0
+        else:
+            pool = torch.randint(-127, 128, (1, nb, BS, KVH, HD), generator=g,
+                                 dtype=torch.int8)
+            sc = torch.rand((1, nb, KVH), generator=g) * 0.02
+            sc[:, :8] = 0.0
+            dest = torch.randperm(nb * BS, generator=g)[:T]
+            vals = torch.randn((1, T, KVH, HD), generator=g) * 3.0
+        cpu, card = (pool.clone(), sc.clone()), (pool.cuda(), sc.cuda())
+        _quantized_scatter(*cpu, dest, vals)
+        _quantized_scatter(*card, dest.cuda(), vals.cuda())
+        if not (torch.equal(card[0].cpu(), cpu[0]) and torch.equal(card[1].cpu(), cpu[1])):
+            raise AssertionError(f"quantized scatter (ties={ties}): card and CPU differ")
+    return 2
+
+
+def phase_int8_swap_parity():
+    """int8 pools and the preemption strategies on the CPU and on the card:
+    the RAG workload of ``phase_parity`` on an int8 pool (full
+    provisioning), and the harness's long-decode workload on a 6-block pool
+    under ``preempt="swap"`` (float and int8) and ``"cost"`` (the step time
+    pinned). Identical greedy tokens and preemption/swap counts; int8
+    payloads within one code and scales within ``INT8_SCALE_RTOL``; and the
+    quantized scatter exact on identical inputs, .5 ties included."""
+    from repro_torch.configs import get_arch, smoke_variant
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import GenerationEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
+    torch.backends.cudnn.allow_tf32 = False
+    n_exact = check_scatter_exact()
+    print(f"[parity] quantized scatter at qwen2.5-3b's pool geometry: {n_exact} cases "
+          f"(random, all .5 ties) equal bit for bit on cpu and cuda", flush=True)
+    cfg = smoke_variant(get_arch("smollm-135m"))
+    prompts = rag_workload(np.random.default_rng(1), cfg.vocab_size, 48, (5, 40),
+                           3, 2, (10, 90), (16, 48, 32, 9))
+    counters = ("steps", "preemptions", "swap_outs", "swap_ins", "cost_swap_choices",
+                "cost_recompute_choices", "prefix_hit_tokens", "host_hit_tokens",
+                "prefill_tokens")
+    cases = {
+        "int8 full pool": dict(kv_dtype="int8"),
+        "swap float": dict(n_blocks=6, preempt="swap", seed=5),
+        "swap int8": dict(n_blocks=6, preempt="swap", kv_dtype="int8", seed=5),
+        "cost float": dict(n_blocks=6, preempt="cost", seed=6, scheduler="edf_slack"),
+    }
+    for name, kw in cases.items():
+        kw = dict(kw)
+        seed = kw.pop("seed", None)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            params = init_params(cfg, torch.Generator().manual_seed(0), dev)
+            if seed is None:
+                eng = GenerationEngine(cfg, params=params, device=dev, max_batch=4,
+                                       max_seq=256, **kw)
+                reqs = [eng.submit(p, max_new=12) for p in prompts]
+                eng.run_until_done()
+            else:
+                eng = GenerationEngine(cfg, params=params, device=dev, max_batch=3,
+                                       max_seq=96, prefill_chunk_size=16, token_budget=20,
+                                       **kw)
+                if kw["preempt"] == "cost":
+                    pin_token_time(eng, PINNED_TOKEN_S)
+                reqs = long_decode_workload(eng, seed)
+            st = eng.stats()
+            assert all(r.done and len(r.out_tokens) == r.max_new for r in reqs), (name, dev)
+            assert pool_is_clean(eng), (name, dev)
+            if eng.host_store is not None:
+                assert eng.host_store.n_swapped == 0 and st["swap_ins"] == st["swap_outs"]
+            out[dev] = ([r.out_tokens for r in reqs], {c: st[c] for c in counters}, eng)
+        if out["cpu"][0] != out["cuda"][0]:
+            raise AssertionError(f"{name}: CPU and GPU greedy tokens differ:\n"
+                                 f"{out['cpu'][0]}\n{out['cuda'][0]}")
+        if out["cpu"][1] != out["cuda"][1]:
+            raise AssertionError(f"{name}: counters differ: {out['cpu'][1]} {out['cuda'][1]}")
+        st = out["cuda"][1]
+        extra = ""
+        if "int8" in name:
+            codes, rel = int8_state_diff(out["cpu"][2].kv, out["cuda"][2].kv)
+            assert codes <= 1 and rel <= INT8_SCALE_RTOL, (name, codes, rel)
+            extra = (f"; int8 payloads within {codes} code(s), scales within {rel:.3g} "
+                     f"relative")
+        if kw.get("preempt") in ("swap", "cost"):
+            assert st["preemptions"] >= 1 and st["swap_outs"] >= 1, (name, st)
+        print(f"[parity] {name} smoke width f32: {len(out['cuda'][0])} requests, identical "
+              f"greedy tokens and counters on cpu (plain) and cuda (kernels): {st}{extra}",
+              flush=True)
+
+
+# ---------------------------------------------------------------------------
 # phase 5: serve qwen2.5-3b at full width
 # ---------------------------------------------------------------------------
 
 
 def phase_serve(ka, kf, tk, cfg, params):
     """Serve the RAG workload on ``cfg`` (qwen2.5-3b, bf16, on the card).
-    Returns the five kernels' launches in the run, the prompts and the
-    greedy tokens."""
+    Returns the kernels' launches in the run, the prompts, the greedy tokens
+    and the pool's bytes."""
     from repro_torch.models import prefill_packed
     from repro_torch.serving.engine import GenerationEngine
 
@@ -1355,7 +1548,7 @@ def phase_serve(ka, kf, tk, cfg, params):
                                 null_block=eng._null_block)
     assert tuple(logits.shape) == (n, cfg.padded_vocab)
     assert bool(torch.isfinite(logits.float()).all())
-    return launches, prompts, [r.out_tokens for r in reqs]
+    return launches, prompts, [r.out_tokens for r in reqs], pool_bytes(eng)
 
 
 def phase_dense_serve(ka, kf, tk, cfg, params, prompts, paged_tokens):
@@ -1482,6 +1675,225 @@ def pool_is_clean(eng):
     return pool.n_free == pool.n_blocks - 1
 
 
+def pool_bytes(eng):
+    """Device bytes of the engine's K/V pools (and an int8 pool's scales)."""
+    kv = eng.kv
+    return sum(t.numel() * t.element_size()
+               for t in (kv.k, kv.v, kv.k_scale, kv.v_scale) if t is not None)
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: serve qwen2.5-3b on int8 pools
+# ---------------------------------------------------------------------------
+
+
+def agreement(tokens_a, tokens_b):
+    """Share of positions where two runs' greedy tokens agree."""
+    pairs = [(x, y) for a, b in zip(tokens_a, tokens_b) for x, y in zip(a, b)]
+    return sum(x == y for x, y in pairs) / max(len(pairs), 1)
+
+
+def phase_int8_serve(ka, kf, tk, cfg, params, prompts, bf16_tokens, bf16_pool_bytes):
+    """Phase 5's ten prompts and engine settings on int8 pools
+    (``kv_dtype="int8"``): the two paged kernels take their int8 route from
+    the engine's running-max scales. Returns the launches, the step
+    profiles and the figures."""
+    from repro_torch.models import prefill_packed
+    from repro_torch.serving.engine import GenerationEngine
+
+    torch.cuda.reset_peak_memory_stats()
+    eng = GenerationEngine(cfg, params=params, device="cuda", max_batch=8, max_seq=2048,
+                           block_size=16, prefill_chunk_size=256, kv_dtype="int8")
+    eng.warmup_step_variants()
+    assert eng.kv.k.dtype == torch.int8 and eng.stats()["kv_dtype"] == "int8"
+    reset_launches(ka, kf, tk)
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new=32) for p in prompts]
+    eng.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(ka, kf, tk)
+    st, lat = eng.stats(), eng.latency_summary()
+    assert st["kernel"] == "cuda", st["kernel"]
+    assert all(len(r.out_tokens) == 32 for r in reqs), [len(r.out_tokens) for r in reqs]
+    assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens)
+    assert all(launches[n] > 0 and launches[n] % cfg.num_layers == 0 for n in PAGED), launches
+    assert all(launches[n] == 0 for n in (*DENSE, "topk_retrieval", "rwkv6_chunked",
+                                          "ssm_scan")), launches
+    n_mixed = launches["paged_chunk_attention"] // cfg.num_layers
+    n_dec = launches["paged_decode_attention"] // cfg.num_layers
+    assert n_mixed + n_dec == st["steps"], (launches, st["steps"])
+    assert pool_is_clean(eng) and st["prefix_hit_tokens"] > 0, st
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    nbytes = pool_bytes(eng)
+    agree = agreement(bf16_tokens, [r.out_tokens for r in reqs])
+    print(f"[int8 serve] {cfg.name} {cfg.dtype} weights, int8 pools: {len(reqs)} requests, "
+          f"{st['tokens_out']} tokens out in {wall:.3f}s = {st['tokens_out'] / wall:.1f} tok/s "
+          f"(prefill tokens {st['prefill_tokens']}); mean TTFT {1e3 * lat['ttft_mean']:.1f}ms, "
+          f"p95 TPOT {1e3 * lat.get('tpot_p95', 0):.2f}ms; {st['steps']} steps ({n_mixed} mixed, "
+          f"{n_dec} decode-only); peak memory {peak:.2f} GiB; pool {nbytes / 2**20:.1f} MiB "
+          f"against phase 5's bf16 pool {bf16_pool_bytes / 2**20:.1f} MiB "
+          f"({nbytes / bf16_pool_bytes:.4f}x); launches {launches}", flush=True)
+    print(f"[int8 serve] greedy agreement with phase 5's bf16 pools: {agree:.4f} of "
+          f"{sum(map(len, bf16_tokens))} tokens (random full-width weights: reported, not "
+          f"held to the smoke-width floor of 0.75)", flush=True)
+
+    rng = np.random.default_rng(1)
+    extra = [eng.submit(rng.integers(0, cfg.vocab_size, 300), max_new=40) for _ in range(8)]
+    attention = ("paged_chunk", "chunk_plan", "paged_decode_split", "split_merge")
+    mixed = step_profile(eng, 3, attention)
+    while any(r.slot < 0 or r.prefilling for r in extra):
+        eng.step()
+    decode = step_profile(eng, 3, attention)
+    eng.run_until_done()
+    profiles = {}
+    for name, (kinds, host_ms, dev_ms, n_launch, attn_ms) in (("mixed", mixed),
+                                                               ("decode-only", decode)):
+        assert set(kinds) == {"ragged" if name == "mixed" else "decode"}, kinds
+        profiles[name] = {"wall_ms": host_ms, "device_busy_ms": dev_ms,
+                          "launches": n_launch, "paged_attention_ms": attn_ms}
+        print(f"[int8 serve] {name} step: wall {host_ms:.2f} ms (mean of 3, profiler off); "
+              f"device busy {dev_ms:.2f} ms, {n_launch:.0f} kernel launches, of which "
+              f"{attn_ms:.3f} ms in the paged attention kernels (torch.profiler, mean of 3)",
+              flush=True)
+
+    # the full-width int8 stack gives finite logits of the expected shape
+    n = 40
+    toks = torch.as_tensor(prompts[0][:n], dtype=torch.int32, device="cuda")
+    tables = torch.full((1, eng._view_blocks), -1, dtype=torch.int32, device="cuda")
+    tables[0, :3] = torch.tensor([1, 2, 3], dtype=torch.int32)
+    eng.kv.reset_block_scales([1, 2, 3])
+    ar = torch.arange(n, dtype=torch.int32, device="cuda")
+    zeros = torch.zeros(n, dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        logits = prefill_packed(cfg, eng.params, eng.kv.k, eng.kv.v, tables, toks,
+                                zeros, ar, ar, zeros, zeros, block_size=16,
+                                null_block=eng._null_block, k_scales=eng.kv.k_scale,
+                                v_scales=eng.kv.v_scale)
+    assert tuple(logits.shape) == (n, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits.float()).all())
+    figures = {"tok_s": st["tokens_out"] / wall, "ttft_mean_ms": 1e3 * lat["ttft_mean"],
+               "tpot_p95_ms": 1e3 * lat.get("tpot_p95", 0), "steps": st["steps"],
+               "peak_gib": peak, "pool_bytes": nbytes, "bf16_pool_bytes": bf16_pool_bytes,
+               "greedy_agreement": agree, "step_profile": profiles}
+    del eng
+    torch.cuda.empty_cache()
+    return launches, figures
+
+
+# ---------------------------------------------------------------------------
+# phase 5d: the host tier and swap preemption at full width
+# ---------------------------------------------------------------------------
+
+# 192 blocks of 16 tokens (3072 token slots, against phase 5's 1033 blocks):
+# the ten prompts (301-1519 tokens, 5946 in all) outgrow it, so admission
+# evicts the first wave's finished documents from the warm LRU (demotion to
+# the host tier) before the second wave asks for them again (promotion),
+# and twice the running decodes run the pool dry (preemption). The plan
+# sequence depends on token counts only (no eos), so a CPU run of the same
+# prompts at smoke width shows the same schedule: at 256 blocks and 32 new
+# tokens no decode ran the pool dry
+TIGHT_POOL = 192
+HOST_BLOCKS = 1024
+
+
+def host_copy_rates(eng, n_blocks, reps=5):
+    """Device->host and host->device rates (GB/s) of the engine's own copy
+    path for an ``n_blocks`` chain: the gather plus the non-blocking copy
+    into pinned memory, and the pinned staging plus the copy and scatter
+    back, each between CUDA events (median of ``reps``)."""
+    from repro_torch.serving.paged_cache import device_to_host
+
+    ids = list(range(1, n_blocks + 1))
+    nbytes = n_blocks * eng.host_store.block_bytes
+    d2h, h2d = [], []
+    for _ in range(reps):
+        start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        start.record()
+        host, wait = device_to_host(*eng.kv.gather_blocks(ids))
+        mid.record()
+        wait()
+        eng.kv.write_blocks(ids, *(t for t in host if t is not None))
+        end.record()
+        end.synchronize()
+        d2h.append(start.elapsed_time(mid))
+        h2d.append(mid.elapsed_time(end))
+    return (nbytes / (np.median(d2h) * 1e-3) / 1e9, nbytes / (np.median(h2d) * 1e-3) / 1e9,
+            nbytes)
+
+
+def phase_host_tier(ka, kf, tk, cfg, params, prompts):
+    """Phase 5's prompts in two waves (every prompt's documents asked for
+    again in the second) on a tight pool with a host tier, under each
+    preemption strategy and once on int8 pools with swap. Returns the
+    launches of the swap run and the per-strategy figures."""
+    from repro_torch.serving.engine import GenerationEngine
+
+    figures, launches = {}, None
+    for name, kw in (("recompute", dict(preempt="recompute")),
+                     ("swap", dict(preempt="swap")),
+                     ("cost", dict(preempt="cost")),
+                     ("swap int8", dict(preempt="swap", kv_dtype="int8"))):
+        eng = GenerationEngine(cfg, params=params, device="cuda", max_batch=8, max_seq=2048,
+                               block_size=16, prefill_chunk_size=256, n_blocks=TIGHT_POOL,
+                               host_blocks=HOST_BLOCKS, **kw)
+        eng.warmup_step_variants()
+        reset_launches(ka, kf, tk)
+        t0 = time.perf_counter()
+        reqs = []
+        for _wave in range(2):
+            reqs += [eng.submit(p, max_new=32) for p in prompts]
+            eng.run_until_done()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run_launches = read_launches(ka, kf, tk)
+        st = eng.stats()
+        hs = st["host_store"]
+        assert st["kernel"] == "cuda" and all(len(r.out_tokens) == 32 for r in reqs), st
+        assert all(run_launches[n] == 0 for n in (*DENSE, "topk_retrieval", "rwkv6_chunked",
+                                                  "ssm_scan")), run_launches
+        assert pool_is_clean(eng), (name, eng.kv.pool.n_free)
+        assert hs["n_swapped"] == 0 and st["swap_ins"] == st["swap_outs"], (name, st)
+        assert hs["puts"] > 0 and hs["hits"] > 0, (name, hs)       # demoted, promoted
+        if name.startswith("swap"):
+            assert st["swap_outs"] > 0, (name, st)
+        if name == "swap":
+            launches = run_launches
+        figures[name] = {k: st[k] for k in (
+            "steps", "tokens_out", "prefill_tokens", "preemptions", "swap_outs", "swap_ins",
+            "swap_out_bytes", "swap_in_bytes", "swap_reshared_blocks", "cost_swap_choices",
+            "cost_recompute_choices", "prefix_hit_tokens", "host_hit_tokens")}
+        figures[name].update(tok_s=st["tokens_out"] / wall, wall_s=wall, host_store=hs)
+        if name == "swap int8" or name == "swap":
+            n = max(1, st["swap_out_bytes"] // max(st["swap_outs"], 1)
+                    // eng.host_store.block_bytes)
+            d2h, h2d, nbytes = host_copy_rates(eng, n)
+            figures[name].update(d2h_gb_s=d2h, h2d_gb_s=h2d, copy_chain_blocks=n,
+                                 copy_chain_bytes=nbytes)
+        print(f"[host tier] {cfg.name} {cfg.dtype}, pool {TIGHT_POOL} blocks, host tier "
+              f"{HOST_BLOCKS} blocks, preempt={name}: 2 waves of {len(prompts)} requests, "
+              f"{st['tokens_out']} tokens out in {wall:.3f}s = {st['tokens_out'] / wall:.1f} "
+              f"tok/s; {st['steps']} steps; prefill tokens {st['prefill_tokens']}; "
+              f"preemptions {st['preemptions']}, swap outs/ins {st['swap_outs']}/"
+              f"{st['swap_ins']} ({st['swap_out_bytes'] / 2**20:.1f} MiB out, "
+              f"{st['swap_in_bytes'] / 2**20:.1f} MiB in, {st['swap_reshared_blocks']} blocks "
+              f"re-shared); cost choices swap/recompute {st['cost_swap_choices']}/"
+              f"{st['cost_recompute_choices']}; prefix-hit tokens {st['prefix_hit_tokens']}, "
+              f"host-hit tokens {st['host_hit_tokens']}; host store {hs}", flush=True)
+        if "d2h_gb_s" in figures[name]:
+            f = figures[name]
+            print(f"[host tier] {name}: a {f['copy_chain_blocks']}-block chain "
+                  f"({f['copy_chain_bytes'] / 2**20:.2f} MiB) device->host {f['d2h_gb_s']:.2f} "
+                  f"GB/s (gather + pinned copy), host->device {f['h2d_gb_s']:.2f} GB/s (pinned "
+                  f"staging + copy + scatter), CUDA events, median of 5", flush=True)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    # swap repays no prefill: fewer prefill tokens than recompute on the same pool
+    assert figures["swap"]["prefill_tokens"] < figures["recompute"]["prefill_tokens"], figures
+    return launches, figures
+
+
 # ---------------------------------------------------------------------------
 # phase 6: RAG requests at full width
 # ---------------------------------------------------------------------------
@@ -1598,6 +2010,10 @@ def phase_pipelines(ka, kf, tk, cfg, params):
           f"{st['session_shared_tokens']}; prefix-hit tokens {st['prefix_hit_tokens']}; "
           f"{st['steps']} steps; {wall:.2f}s wall; peak memory {peak:.2f} GiB; "
           f"launches {launches}", flush=True)
+    print(f"[pipelines] host tier ({eng.host_store.n_blocks} blocks, the reference "
+          f"launcher's): host-hit tokens {st['host_hit_tokens']}, session host-hit tokens "
+          f"{st['session_hit_tokens']}; host_store {json.dumps(st['host_store'])}", flush=True)
+    assert eng.host_store.n_blocks == 128 and st["host_store"]["n_swapped"] == 0, st
     del drv, eng
     torch.cuda.empty_cache()
     return launches
@@ -1849,12 +2265,18 @@ def main() -> int:
     no_scan("dense parity", phase_dense_parity, ka, kf, kw)
     no_scan("rwkv parity", phase_rwkv_parity, kw)
     timed("hymba parity", phase_hymba_parity, ka, kf, ks)
+    no_scan("int8 and swap parity", phase_int8_swap_parity)
 
     cfg = get_arch("qwen2.5-3b").replace(dtype="bfloat16")
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    serve_launches, prompts, paged_tokens = no_scan("serve", phase_serve, ka, kf, tk, cfg,
-                                                    params)
+    serve_launches, prompts, paged_tokens, bf16_pool = no_scan("serve", phase_serve, ka, kf,
+                                                               tk, cfg, params)
     launches = {"serve": serve_launches}
+    launches["int8 serve"], int8_figures = no_scan(
+        "int8 serve", phase_int8_serve, ka, kf, tk, cfg, params, prompts, paged_tokens,
+        bf16_pool)
+    launches["host tier"], host_figures = no_scan("host tier", phase_host_tier, ka, kf, tk,
+                                                  cfg, params, prompts)
     launches["dense serve"] = no_scan("dense serve", phase_dense_serve, ka, kf, tk, cfg, params,
                                       prompts, paged_tokens)
     launches["rag"] = no_scan("rag", phase_rag, ka, kf, tk, cfg, params, corpus, queries_gpu)
@@ -1883,6 +2305,11 @@ def main() -> int:
                                 for d in ("float32", "bfloat16", "int8")}}
                if name == "paged_decode_attention" else {}),
             "launches_by_phase": {ph: n[name] for ph, n in launches.items()},
+            # the kernel on the engine's int8 pools: device ms a step of
+            # both paged kernels inside the int8 serve's step profile
+            "int8_serve_step_ms": {
+                step: int8_figures["step_profile"][step]["paged_attention_ms"]
+                for step in ("mixed", "decode-only")},
         })
     # the chunk kernel at the engine's mixed step
     chunk = next(k for k in kernels if k["name"] == "paged_chunk_attention")
@@ -1988,6 +2415,7 @@ def main() -> int:
                                      "bound_ms", "bound_by")}
            for d in ("float32", "bfloat16") for c in SWA_DECODE_CASES},
     }
+    print(json.dumps({"int8_serve": int8_figures, "host_tier": host_figures}))
     print(json.dumps({"kernels": kernels}))
     print(f"[done] {time.perf_counter() - t_start:.1f}s in all", flush=True)
     print(card)

@@ -4,6 +4,8 @@ mixed RAG pipelines on it.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m --smoke --device cpu \
+        --kv-dtype int8 --preempt swap --host-blocks 64
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --pipelines --arch smollm-135m --smoke --device cpu
@@ -24,10 +26,15 @@ import numpy as np
 
 def serve_real(arch: str, n_requests: int = 8, max_new: int = 12,
                pipeline: bool = True, smoke: bool = False, device=None,
-               seed: int = 0):
+               seed: int = 0, preempt: str = "recompute", host_blocks: int = 0,
+               kv_dtype: Optional[str] = None):
     """Serve ``n_requests`` random prompts (4-31 tokens) on ``arch`` (its
     smoke variant with ``smoke``) and print the per-request and summary
-    lines of the JAX launcher. Returns the engine."""
+    lines of the JAX launcher. ``kv_dtype="int8"`` stores the paged pools
+    quantized; ``host_blocks > 0`` attaches a host tier of that many
+    blocks; ``preempt`` is ``"recompute"``, ``"swap"`` or ``"cost"`` (the
+    last two provision a pool-sized host tier when ``host_blocks`` is 0).
+    Returns the engine."""
     from repro_torch.configs import get_arch, smoke_variant
     from repro_torch.serving.engine import GenerationEngine
 
@@ -35,7 +42,8 @@ def serve_real(arch: str, n_requests: int = 8, max_new: int = 12,
     if smoke:
         cfg = smoke_variant(cfg)
     eng = GenerationEngine(cfg, max_batch=4, max_seq=256, pipeline=pipeline,
-                           seed=seed, device=device)
+                           seed=seed, device=device, preempt=preempt,
+                           host_blocks=host_blocks or None, kv_dtype=kv_dtype)
     rng = np.random.default_rng(seed)
     reqs = [
         eng.submit(rng.integers(0, cfg.vocab_size, rng.integers(4, 32)), max_new)
@@ -52,6 +60,9 @@ def serve_real(arch: str, n_requests: int = 8, max_new: int = 12,
     print(f"[serve:real] {cfg.name}: device={stats['device']} backend={stats['backend']} "
           f"mode={mode} kernel={stats['kernel']} kv={stats.get('kv_dtype', cfg.dtype)} "
           f"{stats['tokens_out']} tokens out")
+    if "preempt" in stats:
+        print(f"[serve:real] preempt={stats['preempt']}: {stats['preemptions']} preemptions, "
+              f"{stats['swap_outs']} swap outs, {stats['swap_ins']} swap ins")
     if "padded_token_fraction" in stats:
         print(f"[serve:real] fused-step padding: "
               f"{100 * stats['padded_token_fraction']:.1f}% of slot tokens")
@@ -59,12 +70,14 @@ def serve_real(arch: str, n_requests: int = 8, max_new: int = 12,
         print(f"[serve:real] host gap: {1e3 * stats['host_gap_s']:.1f}ms total "
               f"over {stats['dispatches']} dispatches "
               f"(copy ops drained: {stats['copy_ops_drained']})")
+    if "host_store" in stats:
+        print(f"[serve:real] host tier: {stats['host_store']}")
     return eng
 
 
 def serve_pipelines(arch: str = "smollm-135m", rate: float = 10.0,
                     duration: float = 2.0, *, arrival: str = "poisson",
-                    session_fraction: float = 0.3, host_blocks: int = 0,
+                    session_fraction: float = 0.3, host_blocks: int = 128,
                     seed: int = 0, wall_clock: bool = False, smoke: bool = False,
                     device=None, params=None, dtype: Optional[str] = None,
                     apps: Optional[Sequence[str]] = None, max_batch: int = 4,
@@ -81,9 +94,8 @@ def serve_pipelines(arch: str = "smollm-135m", rate: float = 10.0,
     doc_len=doc_len)``; default: the reference's ``DocTokenStore()``); the
     trace runs on a ``VirtualClock(dt=0.02)``, or a ``WallClock`` with
     ``wall_clock``. The engine arguments default to the reference
-    launcher's. The reference provisions a host block tier of 128 blocks;
-    the port has none yet, so ``host_blocks`` defaults to 0 and a nonzero
-    value raises ``NotImplementedError`` in the engine."""
+    launcher's, a host block tier of 128 blocks included (``host_blocks=0``:
+    none)."""
     from repro_torch.apps import OpenLoopDriver, VirtualClock, WallClock, make_app
     from repro_torch.configs import get_arch, smoke_variant
     from repro_torch.core.workload import DEFAULT_CLASSES, WorkloadSpec, generate
@@ -116,10 +128,15 @@ def serve_pipelines(arch: str = "smollm-135m", rate: float = 10.0,
               f"viol={100 * s['violation_rate']:.1f}% "
               f"mean_e2e={s['mean_latency_s']:.3f}s")
     st = eng.stats()
-    print(f"[serve:pipelines] session KV: {st['session_shared_tokens']} HBM-shared "
-          f"tokens; prefix-hit tokens {st['prefix_hit_tokens']}; {st['steps']} steps, "
+    ls = eng.latency_summary()
+    print(f"[serve:pipelines] session KV: {st['session_shared_tokens']} device-shared "
+          f"tokens, {st['session_hit_tokens']} host-promoted tokens "
+          f"(session_hit_rate={ls.get('session_hit_rate', 0.0):.3f}); prefix-hit tokens "
+          f"{st['prefix_hit_tokens']}; {st['steps']} steps, "
           f"{st['tokens_out']} tokens out in {wall:.2f}s wall "
           f"(device={st['device']}, kernel={st['kernel']})")
+    if "host_store" in st:
+        print(f"[serve:pipelines] host tier: {st['host_store']}")
     return drv
 
 
@@ -156,18 +173,30 @@ def main(argv=None):
                     help="pace --pipelines arrivals in real time instead of "
                          "the deterministic virtual clock")
     ap.add_argument("--host-blocks", type=int, default=0,
-                    help="host block tier capacity; the tier is not ported "
-                         "yet, so a nonzero value raises NotImplementedError")
+                    help="host-memory block tier capacity (0: none, unless "
+                         "--preempt swap/cost provisions a pool-sized one; "
+                         "--pipelines then takes the reference's 128)")
+    ap.add_argument("--preempt", default="recompute",
+                    choices=["recompute", "swap", "cost"],
+                    help="pool-exhaustion strategy: re-queue and re-prefill, "
+                         "swap the victim's KV to the host tier, or pick per "
+                         "victim from a swap-versus-recompute cost model")
+    ap.add_argument("--kv-dtype", default=None, choices=["int8"],
+                    help="paged KV pool storage: int8 blocks with per-block "
+                         "absmax scales (the kernels dequantize as they read); "
+                         "default the model dtype")
     args = ap.parse_args(argv)
     if args.pipelines:
         serve_pipelines(args.arch, args.rate, args.duration, arrival=args.arrival,
-                        session_fraction=args.sessions, host_blocks=args.host_blocks,
+                        session_fraction=args.sessions,
+                        host_blocks=args.host_blocks or 128,
                         seed=args.seed, wall_clock=args.wall_clock, smoke=args.smoke,
                         device=args.device)
         return
     serve_real(args.arch, n_requests=args.n_requests, max_new=args.max_new,
                pipeline=not args.no_pipeline, smoke=args.smoke,
-               device=args.device, seed=args.seed)
+               device=args.device, seed=args.seed, preempt=args.preempt,
+               host_blocks=args.host_blocks, kv_dtype=args.kv_dtype)
 
 
 if __name__ == "__main__":

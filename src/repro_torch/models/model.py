@@ -171,16 +171,20 @@ def init_cache(cfg: ModelConfig, B: int, S: int, device):
 
 
 def prefill_packed(cfg, params, k_pool, v_pool, tables, tokens, row_of, slots,
-                   positions, p_end, s_start, *, block_size, null_block):
+                   positions, p_end, s_start, *, block_size, null_block,
+                   k_scales=None, v_scales=None):
     """Ragged fused step: T packed tokens (decode rows + prefill chunks from
     different sequences) run against the paged pools directly, writing their
     K/V in place before attending. tokens/row_of/slots/positions/p_end/
-    s_start: (T,) int32; tables: (B, mb) int32 RAW. Returns logits (T, V),
-    pad-vocab entries masked to -1e30. Requires ``paged_cache_supported``."""
+    s_start: (T,) int32; tables: (B, mb) int32 RAW. An int8 pool passes its
+    (G, n_blocks, KVH) running-max scale pools ``k_scales``/``v_scales``,
+    updated in place with the pools. Returns logits (T, V), pad-vocab
+    entries masked to -1e30. Requires ``paged_cache_supported``."""
     x = embed_tokens(params["embed"], tokens[None])          # (1, T, D)
     x = tfm.run_stack_paged(
         cfg, params["blocks"], x, k_pool, v_pool, tables, row_of, slots,
         positions, p_end, s_start, block_size=block_size, null_block=null_block,
+        k_scales=k_scales, v_scales=v_scales,
     )
     x = tfm.apply_norm(cfg, params["final_norm"], x)
     logits = unembed(params["embed"], params.get("lm_head"), x, cfg.tie_embeddings)
@@ -188,9 +192,10 @@ def prefill_packed(cfg, params, k_pool, v_pool, tables, tokens, row_of, slots,
 
 
 def decode_step_paged(cfg, params, k_pool, v_pool, tables, tokens, pos, *,
-                      block_size, null_block):
+                      block_size, null_block, k_scales=None, v_scales=None):
     """Paged decode: one new token per row attends its block chain in place.
-    tokens: (B, 1); pos: (B,) int32. Returns logits (B, V). Like the JAX
+    tokens: (B, 1); pos: (B,) int32; ``k_scales``/``v_scales`` as for
+    ``prefill_packed``. Returns logits (B, V). Like the JAX
     function, it applies no pad-vocab bias, unlike the dense ``decode_step``:
     the archs the paged path takes have vocabularies that are multiples of
     128, so there is nothing to mask, and parity with JAX holds as is."""
@@ -198,6 +203,7 @@ def decode_step_paged(cfg, params, k_pool, v_pool, tables, tokens, pos, *,
     x = tfm.run_stack_decode_paged(
         cfg, params["blocks"], x, k_pool, v_pool, tables, pos,
         block_size=block_size, null_block=null_block,
+        k_scales=k_scales, v_scales=v_scales,
     )
     x = tfm.apply_norm(cfg, params["final_norm"], x)
     logits = unembed(params["embed"], params.get("lm_head"), x, cfg.tie_embeddings)

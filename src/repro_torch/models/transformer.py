@@ -49,7 +49,12 @@ from repro_torch.models.layers import (
     rms_norm,
     rope_tables,
 )
-from repro_torch.serving.paged_cache import decode_slots, packed_slots, scatter_slots
+from repro_torch.serving.paged_cache import (
+    _quantized_scatter,
+    decode_slots,
+    packed_slots,
+    scatter_slots,
+)
 
 # ---------------------------------------------------------------------------
 # layer-kind resolution
@@ -214,8 +219,19 @@ def _rope(cfg, positions):
     return rope_tables(positions, cfg.head_dim, cfg.rope_theta) if cfg.use_rope else None
 
 
+def _write_slots(pool_slice, sc_slice, dest, new_kv):
+    """Write new K/V entries (N, KVH, hd) at flat slots ``dest`` of one
+    layer's pool slice, in place: a plain scatter into a float pool, the
+    quantized scatter (running-max scales ``sc_slice`` (n_blocks, KVH),
+    updated in place too) into an int8 pool."""
+    if sc_slice is None:
+        scatter_slots(pool_slice, dest, new_kv)
+    else:
+        _quantized_scatter(pool_slice[None], sc_slice[None], dest, new_kv[None])
+
+
 def apply_layer_paged(cfg, lp, x, k_slice, v_slice, tables, row_of, slots,
-                      p_end, s_start, *, rope, dest):
+                      p_end, s_start, *, rope, dest, k_sc=None, v_sc=None):
     """Ragged fused-step layer: T packed tokens (decode rows and prefill
     chunks back to back) read and write one layer's pool slice directly.
 
@@ -224,20 +240,29 @@ def apply_layer_paged(cfg, lp, x, k_slice, v_slice, tables, row_of, slots,
     row (-1 = pad), cache slot and span; ``rope``: the step's rope tables of
     the tokens' positions; ``dest``: the step's ``packed_slots``. The
     tokens' K/V are written before attention, so each token sees its own
-    entry and every earlier packed token of its row. Returns the new x."""
+    entry and every earlier packed token of its row. ``k_sc``/``v_sc``
+    ((n_blocks, KVH) float32, both or neither) mark an int8 pool slice: the
+    writes quantize at scatter time and the kernel dequantizes. Returns the
+    new x."""
     q, k, v = _attn_inputs(cfg, lp, x, rope)
-    scatter_slots(k_slice, dest, k[0])
-    scatter_slots(v_slice, dest, v[0])
+    _write_slots(k_slice, k_sc, dest, k[0])
+    _write_slots(v_slice, v_sc, dest, v[0])
     a_out = paged_chunk_attention(q[0], k_slice, v_slice, tables, row_of,
-                                  slots, p_end, s_start)
+                                  slots, p_end, s_start, k_scale=k_sc, v_scale=v_sc)
     return _finish_layer(cfg, lp, x, a_out)
 
 
+def _scale_slice(scales, g):
+    return None if scales is None else scales[g]
+
+
 def run_stack_paged(cfg, blocks, x, k_pool, v_pool, tables, row_of, slots,
-                    positions, p_end, s_start, *, block_size, null_block):
+                    positions, p_end, s_start, *, block_size, null_block,
+                    k_scales=None, v_scales=None):
     """Run the stack in ragged fused-step mode: x (1, T, D) packed tokens
     against the full pools (G, n_blocks, bs, KVH, hd), which are updated in
-    place layer by layer. Returns x."""
+    place layer by layer (with their (G, n_blocks, KVH) scale pools
+    ``k_scales``/``v_scales`` for an int8 pool). Returns x."""
     if period(cfg) != 1:
         raise NotImplementedError("ragged paged path requires period-1 stacks")
     rope = _rope(cfg, positions[None])
@@ -246,30 +271,33 @@ def run_stack_paged(cfg, blocks, x, k_pool, v_pool, tables, row_of, slots,
         x = apply_layer_paged(
             cfg, layer_slice(blocks[0], g), x, k_pool[g], v_pool[g], tables,
             row_of, slots, p_end, s_start, rope=rope, dest=dest,
+            k_sc=_scale_slice(k_scales, g), v_sc=_scale_slice(v_scales, g),
         )
     return x
 
 
 def apply_layer_decode_paged(cfg, lp, x, k_slice, v_slice, tables, lengths,
-                             *, rope, dest):
+                             *, rope, dest, k_sc=None, v_sc=None):
     """Paged decode layer: write each row's new K/V at its ``dest`` slot of
-    the pool slice (in place), then attend the row's chain with
+    the pool slice (in place; quantized into an int8 slice with scales
+    ``k_sc``/``v_sc``), then attend the row's chain with
     ``paged_decode_attention``. x: (B, 1, D); tables: (B, mb); lengths:
     (B,) int32 = pos + 1; ``rope``/``dest``: the step's rope tables and
     ``decode_slots``. Returns the new x."""
     q, k, v = _attn_inputs(cfg, lp, x, rope)
-    scatter_slots(k_slice, dest, k[:, 0])
-    scatter_slots(v_slice, dest, v[:, 0])
+    _write_slots(k_slice, k_sc, dest, k[:, 0])
+    _write_slots(v_slice, v_sc, dest, v[:, 0])
     a_out = paged_decode_attention(q[:, 0].contiguous(), k_slice, v_slice,
-                                   tables, lengths)
+                                   tables, lengths, k_scale=k_sc, v_scale=v_sc)
     return _finish_layer(cfg, lp, x, a_out)
 
 
 def run_stack_decode_paged(cfg, blocks, x, k_pool, v_pool, tables, pos, *,
-                           block_size, null_block):
-    """Run the stack in paged-decode mode: x (B, 1, D), pools updated in
-    place layer by layer, per-row positions (B,) int32, table-backed (the
-    plan allocates before it decodes). Returns x."""
+                           block_size, null_block, k_scales=None, v_scales=None):
+    """Run the stack in paged-decode mode: x (B, 1, D), pools (and an int8
+    pool's scale pools) updated in place layer by layer, per-row positions
+    (B,) int32, table-backed (the plan allocates before it decodes).
+    Returns x."""
     if period(cfg) != 1:
         raise NotImplementedError("paged decode requires period-1 stacks")
     rope = _rope(cfg, pos[:, None])
@@ -279,6 +307,7 @@ def run_stack_decode_paged(cfg, blocks, x, k_pool, v_pool, tables, pos, *,
         x = apply_layer_decode_paged(
             cfg, layer_slice(blocks[0], g), x, k_pool[g], v_pool[g], tables,
             lengths, rope=rope, dest=dest,
+            k_sc=_scale_slice(k_scales, g), v_sc=_scale_slice(v_scales, g),
         )
     return x
 

@@ -25,10 +25,11 @@ the host half of the split (the device half is ``serving.device_runner``):
 
 * ``CopyEngine`` — a bounded host-side queue of deferred device<->host
   copies (swap-set fills, warm-block demotions, write-through publishes).
-  A copy op captures its source when enqueued; only the blocking host
-  materialization is deferred off the critical path. ``sync(tag)`` gives
-  readers (swap-in) a happens-before edge against their own pending writes.
-  The port's engine enqueues no copies until the host tier is ported.
+  A copy op gathers its source into a fresh tensor and starts the copy to
+  pinned memory when it is enqueued (the pools change in place); only the
+  wait for that copy and the store's bookkeeping are deferred off the
+  critical path. ``sync(tag)`` gives readers (swap-in) a happens-before
+  edge against their own pending writes.
 
 Completion bookkeeping splits across the two timelines: the *plan* decides
 a request is finishing (its ``planned`` count hit ``max_new``) and releases
@@ -84,14 +85,14 @@ class StepPlan:
 class CopyEngine:
     """Bounded FIFO of deferred host<->device copy closures.
 
-    Each op is a zero-arg callable whose expensive part is a blocking
-    ``np.asarray`` (device→host) or scatter (host→device); the device-side
-    gather was already dispatched when the op was enqueued, so draining is
-    pure host/transfer work that the engine schedules BETWEEN dispatches.
+    Each op is a zero-arg callable whose expensive part is the wait for a
+    device→host copy (an event) and the host store's slab write; the
+    device-side gather and the copy were already enqueued with the op, so
+    draining is pure host work that the engine schedules BETWEEN dispatches.
     Ordering is FIFO — a demotion enqueued after a write-through of the same
     block drains after it, so the host tier always converges to the latest
     publication. ``submit`` force-drains the oldest ops past ``max_pending``
-    (bounded memory: each pending op pins one gathered array)."""
+    (bounded memory: each pending op holds one gathered block set)."""
 
     def __init__(self, max_pending: int = 32):
         self.max_pending = max_pending

@@ -18,6 +18,10 @@
   completion of one step and the dispatch of the next, measured with
   ``Event.query()`` at build start and the blocking materializes.
 
+* **Per-token step time.** ``token_time_ema``: an EMA of (materialize -
+  dispatch wall time) / the plan's valid tokens, which the cost model of
+  ``preempt="cost"`` reads.
+
 On the CPU everything runs synchronously: a dispatched plan is ready at once.
 """
 from __future__ import annotations
@@ -59,10 +63,11 @@ class PlanExec:
     buffer they are copied into, and the event recorded after that copy
     (None on the CPU, where the tokens are ready at once)."""
 
-    __slots__ = ("plan", "tokens", "host", "event", "staging", "_host")
+    __slots__ = ("plan", "tokens", "host", "event", "staging", "dispatched_at", "_host")
 
-    def __init__(self, plan: StepPlan, tokens, host, event, staging):
+    def __init__(self, plan: StepPlan, tokens, host, event, staging, dispatched_at):
         self.plan = plan
+        self.dispatched_at = dispatched_at
         self.tokens = tokens          # (B,) device tensor, possibly in flight
         self.host = host              # (B,) host tensor the copy lands in
         self.event = event
@@ -84,6 +89,9 @@ class DeviceRunner:
         self.host_gap_s = 0.0
         self.gap_samples: List[float] = []
         self.n_dispatched = 0
+        # online per-valid-token step time (EMA over materialized plans);
+        # the cost-model preemption's recompute estimate consumes it
+        self.token_time_ema: Optional[float] = None
         self._no_prev = torch.zeros((engine.max_batch,), dtype=torch.int32,
                                     device=self.device)
 
@@ -155,7 +163,7 @@ class DeviceRunner:
             host.copy_(toks, non_blocking=True)
             event = torch.cuda.Event()
             event.record()
-        ex = PlanExec(plan, toks, host, event, staging)
+        ex = PlanExec(plan, toks, host, event, staging, now)
         self._last = ex
         self._outstanding = ex
         self.last_plan_id = plan.plan_id
@@ -172,9 +180,14 @@ class DeviceRunner:
                 ex.event.synchronize()
             ex._host = ex.host.numpy().copy()
             ex.staging = None
+            t = time.perf_counter()
             if self._outstanding is ex:
                 self._outstanding = None
-                self._idle_mark = time.perf_counter()
+                self._idle_mark = t
+            if ex.plan.n_tokens > 0:
+                per = max(t - ex.dispatched_at, 1e-9) / ex.plan.n_tokens
+                self.token_time_ema = (per if self.token_time_ema is None
+                                       else 0.8 * self.token_time_ema + 0.2 * per)
         return ex._host
 
     # ---------------------------------------------------------------- stats

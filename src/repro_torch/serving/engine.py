@@ -15,10 +15,24 @@ A host-side ``ControlPlane`` builds an immutable ``StepPlan`` per step and a
 ``models.decode_step_paged`` (``kernels.paged_decode_attention``).
 ``pipeline=True`` materializes sampled tokens one plan late, so plan N+1 is
 built while step N runs on the card; ``pipeline=False`` is the eager
-oracle, greedy-token-identical. Pool exhaustion preempts the youngest
-request by recompute: its blocks are released and its continuation
-re-queued. Token delivery is out of band through per-request
-``StreamingObject``s and one shared ``PriorityFlusher``.
+oracle, greedy-token-identical. Token delivery is out of band through
+per-request ``StreamingObject``s and one shared ``PriorityFlusher``.
+
+``kv_dtype="int8"`` (the default for a ``cfg.kv_cache_quant`` config) stores
+the paged pools as int8 with per-(block, KV head) running-max scales: the
+step programs quantize at scatter time (plain tensor ops) and the two paged
+kernels dequantize as they read.
+
+Pool exhaustion preempts the youngest request. ``preempt="recompute"``
+releases its blocks and re-queues its continuation; ``"swap"`` parks its
+block chain in the host tier (``serving.host_tier.HostBlockStore``) and
+restores it on re-admission without repaying the prefill; ``"cost"`` picks
+per victim from a swap-versus-recompute cost model. The host tier
+(``host_store``/``host_blocks``, provisioned automatically for swap and
+cost) also takes the warm blocks the pool evicts, and admission promotes
+them back. Device->host copies (swap fills, demotions) are gathered when
+they are enqueued and land through a ``CopyEngine`` drained between
+dispatches.
 
 ``backend="dense"`` is the JAX package's parity oracle and the fallback for
 architectures outside the paged contract: a contiguous (G, B, max_seq, KVH,
@@ -39,10 +53,10 @@ window, ``kernels.decode_attention``, ``kernels.ssm_scan.ssm_scan``).
 The engine runs on ``cuda`` unless ``device="cpu"`` is passed. The
 attention wrappers launch the CUDA kernels for CUDA tensors and run their
 plain PyTorch versions for CPU tensors; ``stats()["kernel"]`` says which.
-Arguments of later slices — meshes and pool layouts, an injected cache,
-swap/cost preemption, the host tier, int8 pools and the int8 dense cache,
-the sequential and padded oracles of the paged backend, the rest of the
-zoo on the dense backend and the sanitizer — raise ``NotImplementedError``.
+Arguments of later slices — meshes and pool layouts, an injected cache, the
+int8 dense cache, the sequential and padded oracles of the paged backend,
+the rest of the zoo on the dense backend and the sanitizer — raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -75,7 +89,8 @@ from repro_torch.serving.device_runner import (
     PlanExec,
     _substitute_packed,
 )
-from repro_torch.serving.paged_cache import PagedKVCache
+from repro_torch.serving.host_tier import HostBlockStore
+from repro_torch.serving.paged_cache import PagedKVCache, device_to_host
 from repro_torch.serving.sampler import sample_tokens
 from repro_torch.serving.segments import KIND_DOC, SegmentedPrompt, build_layout
 
@@ -97,12 +112,17 @@ class Request:
     done: bool = False
     truncated: bool = False          # prompt exceeded engine capacity
     shared_prefix_tokens: int = 0    # prompt tokens served from shared blocks
-    session_shared_tokens: int = 0   # session-history subset of shared tokens
+    host_prefix_tokens: int = 0      # non-session prompt tokens promoted from host
+    # session-history hit tokens: a SUBSET of shared_prefix_tokens, and
+    # DISJOINT from host_prefix_tokens (host promotions split doc/session)
+    session_shared_tokens: int = 0
+    session_host_tokens: int = 0
     segprompt: Optional[SegmentedPrompt] = None  # retrieval-aware structure
     layout: Any = None               # SegmentLayout (built at admission)
     probe_layout: Any = None         # residency-probe layout (pre-admission)
     shared_spans: List = field(default_factory=list)  # token ranges served from cache
-    swapped: bool = False            # always False until swap preemption is ported
+    swapped: bool = False            # KV chain parked in the host tier
+    swap_len: int = 0                # cache length to restore on swap-in
     queued_steps: int = 0            # engine steps spent waiting for admission
     submitted_at: float = 0.0
     first_token_at: Optional[float] = None
@@ -112,12 +132,18 @@ class Request:
     max_token_gap: float = 0.0       # worst inter-token stall (decode SLO signal)
     planned: int = 0                 # tokens scheduled by plans (>= len(out_tokens))
     _tok_src: tuple = (-1, -1)       # (plan_id, row) holding the last sampled token
+    swap_keys: List = field(default_factory=list)  # prefix keys of the swap chain
     stream: Optional[StreamingObject] = None       # out-of-band token delivery
     delivered: List[int] = field(default_factory=list)  # tokens flushed downstream
 
     @property
     def prefilling(self) -> bool:
         return self.slot >= 0 and self.prefill_pos < self.prefill_cap
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        """Fraction of the (truncated) prompt served from shared blocks."""
+        return self.shared_prefix_tokens / self.prefill_cap if self.prefill_cap else 0.0
 
 
 def _bucket(n: int) -> int:
@@ -188,6 +214,7 @@ class GenerationEngine:
         host_blocks: Optional[int] = None,
         pipeline: bool = True,
         flusher: Optional[PriorityFlusher] = None,
+        host_bw_bytes_s: float = 8e9,
         copy_budget: int = 4,
         ragged: bool = True,
         pack_align: int = 4,
@@ -200,23 +227,24 @@ class GenerationEngine:
         ``params`` (the ``init_params`` tree, e.g. from
         ``params.params_from_numpy``) default to ``init_params`` drawn from a
         ``torch.Generator`` seeded with ``seed``; sampled rows draw from a
-        generator seeded with ``seed + 1``. The other arguments mean what
-        they mean in the JAX engine."""
-        later = {"mesh": mesh, "pool_layout": pool_layout, "kv": kv,
-                 "host_store": host_store, "host_blocks": host_blocks,
-                 "kv_dtype": kv_dtype}
+        generator seeded with ``seed + 1``. ``host_store`` (a
+        ``HostBlockStore``) or ``host_blocks`` (the size of a fresh one,
+        pinned on ``cuda``) attach the host tier, which ``preempt="swap"``
+        and ``"cost"`` provision pool-sized when neither is given;
+        ``host_bw_bytes_s`` is the cost model's host-link rate. The other
+        arguments mean what they mean in the JAX engine."""
+        later = {"mesh": mesh, "pool_layout": pool_layout, "kv": kv}
         for name, value in later.items():
             if value is not None:
                 raise NotImplementedError(f"GenerationEngine({name}=...) is not ported yet")
         if backend not in ("paged", "dense"):
             raise ValueError(f"unknown backend {backend!r}")
-        if preempt in ("swap", "cost"):
-            raise NotImplementedError(f"preempt={preempt!r} is not ported yet")
-        if preempt != "recompute":
+        if preempt not in ("recompute", "swap", "cost"):
             raise ValueError(f"unknown preempt strategy {preempt!r}")
-        if sanitize or cfg.kv_cache_quant:
-            raise NotImplementedError(
-                "the sanitizer, int8 pools and the int8 dense cache are not ported yet")
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(f"unsupported kv_dtype {kv_dtype!r}")
+        if sanitize:
+            raise NotImplementedError("the KV sanitizer is not ported yet")
         if not paged_cache_supported(cfg):
             # JAX serves such archs on the dense backend; its port covers
             # full-attention GQA and RWKV-6 stacks
@@ -257,7 +285,17 @@ class GenerationEngine:
         self.tokens_out = 0
         self.prefill_tokens = 0
         self.preemptions = 0
+        self.swap_outs = 0
+        self.swap_ins = 0
+        self.swap_out_bytes = 0          # host-tier bytes parked by swap-outs
+        self.swap_in_bytes = 0           # and copied back by swap-ins
+        self.cost_swap_choices = 0
+        self.cost_recompute_choices = 0
+        self.swap_reshared_blocks = 0
         self.preempt = preempt
+        self.host_store = host_store
+        self.host_bw_bytes_s = host_bw_bytes_s
+        self.kv_dtype = None
         self.pack_align = max(int(pack_align), 1)
         # fused-batch occupancy: device slots dispatched vs slots holding a
         # real token (1 - valid/slot is the padded fraction)
@@ -271,7 +309,8 @@ class GenerationEngine:
         self._build_emitted: Optional[Dict[int, List[int]]] = None
         if self.backend == "dense":
             # a row's cache holds its meta tokens too (a hybrid layer's
-            # K/V: a ring of min(max_seq + M, window) slots)
+            # K/V: a ring of min(max_seq + M, window) slots); init_cache
+            # raises for the int8 dense cache (cfg.kv_cache_quant)
             self.cache = init_cache(cfg, max_batch, max_seq + cfg.num_meta_tokens, self.device)
             return
 
@@ -284,10 +323,21 @@ class GenerationEngine:
         if n_blocks is None:
             # full provisioning: every slot can reach max_seq (+ slack), +1 scratch
             n_blocks = max_batch * (self.max_blocks + 1) + 1
+        if kv_dtype is None and cfg.kv_cache_quant:
+            kv_dtype = "int8"  # quant configs store int8 pools
+        self.kv_dtype = kv_dtype
+        if self.host_store is None and (host_blocks or preempt in ("swap", "cost")):
+            self.host_store = HostBlockStore.for_config(
+                cfg, host_blocks or n_blocks, block_size, kv_dtype=kv_dtype,
+                pin=self.device.type == "cuda")
         self.kv = PagedKVCache(cfg, n_blocks, block_size, self.max_blocks,
-                               prefix_sharing=prefix_sharing, device=self.device)
+                               prefix_sharing=prefix_sharing, device=self.device,
+                               host_store=self.host_store, kv_dtype=kv_dtype)
         # reserved scratch block: swallows pad-token and unbacked writes
         self._null_block = self.kv.pool.allocate(_NULL_SEQ, 1)[0]
+        # the cache's demotions and write-through copies and the engine's
+        # swap-set fills drain through the copy engine between dispatches
+        self.kv.copy_engine = self._copy
         self.control = ControlPlane(self)
         self.runner = DeviceRunner(self)
 
@@ -350,11 +400,15 @@ class GenerationEngine:
         s.update({
             "utilization": self.kv.utilization(),
             "prefix_hit_tokens": self.kv.shared_token_hits,
+            "host_hit_tokens": self.kv.host_token_hits,
+            "session_hit_tokens": self.kv.session_host_token_hits,
             "session_shared_tokens": self.kv.session_token_hits,
             "free_blocks": self.kv.pool.n_free,
             "measured_hit_rate": self.measured_hit_rate(),
+            "measured_host_hit_rate": self.measured_host_hit_rate(),
+            "measured_session_hit_rate": self.measured_session_hit_rate(),
             "preempt": self.preempt,
-            "kv_dtype": str(self.kv.k.dtype).replace("torch.", ""),
+            "kv_dtype": self.kv_dtype or self.cfg.dtype,
             "ragged": self.ragged,
             "fused_slot_tokens": self.fused_slot_tokens,
             "fused_valid_tokens": self.fused_valid_tokens,
@@ -362,11 +416,20 @@ class GenerationEngine:
                 1.0 - self.fused_valid_tokens / self.fused_slot_tokens
                 if self.fused_slot_tokens else 0.0
             ),
+            "swap_outs": self.swap_outs,
+            "swap_ins": self.swap_ins,
+            "swap_out_bytes": self.swap_out_bytes,
+            "swap_in_bytes": self.swap_in_bytes,
+            "swap_reshared_blocks": self.swap_reshared_blocks,
+            "cost_swap_choices": self.cost_swap_choices,
+            "cost_recompute_choices": self.cost_recompute_choices,
             "copy_backlog": self._copy.backlog,
             "copy_ops_drained": self._copy.drained,
             "stream_chunk_size": self.control.last_chunk_size,
         })
         s.update(self.runner.summary())
+        if self.host_store is not None:
+            s["host_store"] = self.host_store.stats()
         return s
 
     @torch.no_grad()
@@ -406,23 +469,44 @@ class GenerationEngine:
     _advance_cursor = staticmethod(_advance_cursor)
     _max_grant = staticmethod(_max_grant)
 
-    def measured_hit_rate(self, window: int = 256,
-                          min_tokens: Optional[int] = None,
-                          default: Optional[float] = None) -> float:
-        """Rolling token-weighted prefix hit rate over recently finished
-        requests; below ``min_tokens`` prompt tokens in the window, returns
-        ``default`` (or the cold-start rate)."""
+    def _measured_rate(self, hit_tokens, window: int, min_tokens: Optional[int],
+                       default: Optional[float]) -> float:
+        """Rolling token-weighted hit rate of one tier (``hit_tokens`` of a
+        finished request) over the last ``window`` finished requests; below
+        ``min_tokens`` prompt tokens in the window, ``default`` (or the
+        cold-start rate)."""
         done = [r for r in (self.finished[-window:] if window > 0 else [])
                 if r.prefill_cap > 0]
         total = sum(r.prefill_cap for r in done)
         lo = self.hit_rate_min_tokens if min_tokens is None else min_tokens
         if total < max(lo, 1):
             return self.cold_start_hit_rate if default is None else default
-        return sum(r.shared_prefix_tokens for r in done) / total
+        return sum(hit_tokens(r) for r in done) / total
+
+    def measured_hit_rate(self, window: int = 256,
+                          min_tokens: Optional[int] = None,
+                          default: Optional[float] = None) -> float:
+        """Rolling token-weighted prefix (device-shared) hit rate."""
+        return self._measured_rate(lambda r: r.shared_prefix_tokens,
+                                   window, min_tokens, default)
+
+    def measured_host_hit_rate(self, window: int = 256,
+                               min_tokens: Optional[int] = None,
+                               default: Optional[float] = None) -> float:
+        """Rolling token-weighted host-tier hit rate (non-session tokens)."""
+        return self._measured_rate(lambda r: r.host_prefix_tokens,
+                                   window, min_tokens, default)
+
+    def measured_session_hit_rate(self, window: int = 256,
+                                  min_tokens: Optional[int] = None,
+                                  default: Optional[float] = None) -> float:
+        """Rolling token-weighted session-history host hit rate."""
+        return self._measured_rate(lambda r: r.session_host_tokens,
+                                   window, min_tokens, default)
 
     def latency_summary(self) -> Dict[str, float]:
         """TTFT/TPOT/e2e percentiles (seconds) over finished requests, the
-        prefix hit rate, and on the paged backend the measured host gap —
+        hit rates of both tiers, and on the paged backend the measured host gap —
         wall time the device sat idle between the end of one dispatched step
         and the next dispatch (total and per-dispatch mean)."""
         done = [r for r in self.finished
@@ -446,16 +530,22 @@ class GenerationEngine:
         out["ttft_mean"] = float(np.mean(ttft))
         capped = [r for r in done if r.prefill_cap > 0]
         if capped:
+            total = sum(r.prefill_cap for r in capped)
             out["prefix_hit_rate"] = float(
-                sum(r.shared_prefix_tokens for r in capped)
-                / sum(r.prefill_cap for r in capped)
-            )
+                sum(r.shared_prefix_tokens for r in capped) / total)
+            out["prefix_hit_rate_p50"] = float(
+                np.percentile([r.prefix_hit_rate for r in capped], 50))
+            out["host_hit_rate"] = float(
+                sum(r.host_prefix_tokens for r in capped) / total)
+            out["session_hit_rate"] = float(
+                sum(r.session_host_tokens for r in capped) / total)
         return out
 
     def _residency(self, req: Request) -> float:
         """Eviction-aware admission signal: fraction of a waiting request's
-        prompt whose keyed blocks are in the prefix index (0 on the dense
-        backend, which shares nothing)."""
+        prompt whose keyed blocks are resident — device-indexed blocks weigh
+        1.0, host-tier blocks 0.5 (a promotion still costs a copy); 0 on the
+        dense backend, which shares nothing."""
         if self.backend != "paged" or not self.kv.prefix_sharing:
             return 0.0
         lay = req.layout if req.layout is not None else req.probe_layout
@@ -465,8 +555,15 @@ class GenerationEngine:
                 self.block_size, self._prompt_cap(req),
             )
             req.probe_layout = lay
-        tok = sum(self.block_size for key in lay.block_keys
-                  if key is not None and key in self.kv._prefix_index)
+        host = self.kv.host_store
+        tok = 0.0
+        for key in lay.block_keys:
+            if key is None:
+                continue
+            if key in self.kv._prefix_index:
+                tok += self.block_size
+            elif host is not None and host.contains(key):
+                tok += 0.5 * self.block_size
         return tok / max(lay.n_tokens, 1)
 
     # ------------------------------------------------------------ admission
@@ -476,6 +573,8 @@ class GenerationEngine:
         return min(len(req.prompt), self.max_seq)
 
     def _try_admit(self, req: Request) -> bool:
+        if req.swapped:
+            return self._swap_in(req)
         cap = self._prompt_cap(req)
         if self.kv.pool.blocks_needed(cap + self.block_size) > self.kv.pool.n_owned - 1:
             # can never fit, even with the whole pool free: fail the request
@@ -497,8 +596,120 @@ class GenerationEngine:
         req.layout = layout
         req.shared_spans = normalize_spans(adm.shared_spans)
         req.shared_prefix_tokens = adm.n_shared
+        # host promotions split into the doc/other class and the session-
+        # history class: disjoint counters, separately measured rates
+        req.host_prefix_tokens = adm.n_host - adm.n_host_session
         req.session_shared_tokens = adm.n_shared_session
+        req.session_host_tokens = adm.n_host_session
         return True
+
+    # ----------------------------------------------------- swap preemption
+    def _swap_tag(self, req: Request):
+        """Store tag of a request's swap set, namespaced by the cache's
+        client tag (a store may be shared by caches with their own ids)."""
+        return (self.kv.client_tag, req.req_id)
+
+    def _swap_out(self, victim: Request) -> bool:
+        """Park a victim's block chain in the host tier. The capacity check
+        and slot pinning are synchronous (``reserve_seq``, all-or-nothing:
+        False means fall back to recompute); the chain is gathered into a
+        fresh device tensor now, behind the steps that wrote it, and its
+        copy to host lands through the copy engine (``_swap_in`` syncs the
+        tag before reading). The chain's prefix keys are kept
+        (``swap_keys``) so re-admission can re-share blocks still indexed."""
+        blocks = list(self.kv.pool.tables.get(victim.req_id, []))
+        if self.host_store is None or not blocks:
+            return False
+        tag = self._swap_tag(victim)
+        if self.host_store.reserve_seq(tag, len(blocks)) is None:
+            return False
+        victim.swap_keys = [self.kv._block_key.get(b) for b in blocks]
+        # quantized pools park int8 payloads with their per-block scales
+        host, wait = device_to_host(*self.kv.gather_blocks(blocks))
+        store = self.host_store
+
+        def _fill(host=host, wait=wait):
+            wait()
+            store.fill_seq(tag, *host)
+
+        self._copy.submit(_fill, tag=tag)
+        self.swap_out_bytes += len(blocks) * store.block_bytes
+        victim.swap_len = self.kv.lengths.get(victim.req_id, victim.pos)
+        victim.swapped = True
+        self.kv.release(victim.req_id)
+        if victim.slot >= 0 and self.slots[victim.slot] is victim:
+            self.slots[victim.slot] = None
+        victim.slot = -1
+        self.waiting.insert(0, victim)
+        self.preemptions += 1
+        self.swap_outs += 1
+        return True
+
+    def _swap_in(self, req: Request) -> bool:
+        """Restore a swapped-out request with its cursor and position state
+        as swap-out left them — no prefill is repaid. All-or-nothing: on
+        backpressure the swap set stays pinned and the request queued. A
+        chain block whose key is still in the device index is re-shared;
+        only the other blocks are copied back (with their scales, verbatim,
+        for an int8 pool)."""
+        tag = self._swap_tag(req)
+        self._copy.sync(tag)  # the deferred fill must land before the read
+        n = self.host_store.saved_blocks(tag)
+        keys = req.swap_keys if len(req.swap_keys) == n else [None] * n
+        shared: Dict[int, int] = {}
+        if self.kv.prefix_sharing:
+            for i, key in enumerate(keys):
+                if key is not None:
+                    b = self.kv._prefix_index.get(key)
+                    if b is not None:
+                        shared[i] = b
+        n_fresh = n - len(shared)
+        n_warm = sum(1 for b in set(shared.values())
+                     if self.kv.pool.refcounts.get(b, 0) == 0)
+        if n_fresh + n_warm > self.kv.pool.n_free:
+            return False  # backpressure: blocks not yet available
+        restored = self.host_store.restore_seq(tag)
+        fresh_ords: List[int] = []
+        fresh_ids: List[int] = []
+        for i in range(n):
+            if i in shared:
+                self.kv.pool.share(req.req_id, shared[i])
+            else:
+                fresh_ords.append(i)
+                fresh_ids.append(self.kv.pool.allocate(req.req_id, 1)[0])
+        if fresh_ids:
+            sel = torch.as_tensor(fresh_ords, dtype=torch.long)
+            self.kv.write_blocks(fresh_ids, *(t[:, sel] for t in restored))
+            self.swap_in_bytes += len(fresh_ids) * self.host_store.block_bytes
+        self.kv.lengths[req.req_id] = req.swap_len
+        self.swap_reshared_blocks += len(shared)
+        req.swap_keys = []
+        req.swapped = False
+        self.swap_ins += 1
+        return True
+
+    def _swap_is_cheaper(self, victim: Request) -> bool:
+        """Cost model of ``preempt="cost"``: the estimated swap time (the
+        chain's bytes over ``host_bw_bytes_s``, both ways) against the
+        estimated recompute time (tokens to re-prefill x the runner's
+        per-token step time, discounted by the share of the chain still in
+        the device prefix index, which re-shares for free)."""
+        chain = self.kv.pool.tables.get(victim.req_id, [])
+        if self.host_store is None or not chain:
+            return False
+        shape = self.kv.k.shape  # (G, n_blocks, bs, KVH, hd)
+        blk_bytes = 2 * shape[0] * int(np.prod(shape[2:])) * self.kv.k.element_size()
+        if self.kv.quantized:
+            blk_bytes += 2 * shape[0] * shape[3] * 4  # the f32 scales, k and v
+        swap_s = 2.0 * len(chain) * blk_bytes / max(self.host_bw_bytes_s, 1.0)
+        tok_s = self.runner.token_time_ema
+        if tok_s is None:
+            tok_s = 1e-3  # prior before any plan has materialized
+        resident = sum(1 for b in set(chain) if b in self.kv._block_key)
+        residency = resident / max(len(chain), 1)
+        n_tok = self.kv.lengths.get(victim.req_id, victim.pos)
+        recompute_s = n_tok * tok_s * (1.0 - residency)
+        return swap_s < recompute_s
 
     # ---------------------------------------------------------- step programs
     def _ragged_step(self, tables, tokens, row_of, slots, positions, p_end,
@@ -511,6 +722,7 @@ class GenerationEngine:
             self.cfg, self.params, self.kv.k, self.kv.v, tables, tokens,
             row_of, slots, positions, p_end, s_start,
             block_size=self.block_size, null_block=self._null_block,
+            k_scales=self.kv.k_scale, v_scales=self.kv.v_scale,
         )
         return logits[last_idx.long()]
 
@@ -520,16 +732,33 @@ class GenerationEngine:
         return decode_step_paged(
             self.cfg, self.params, self.kv.k, self.kv.v, tables, tokens, pos,
             block_size=self.block_size, null_block=self._null_block,
+            k_scales=self.kv.k_scale, v_scales=self.kv.v_scale,
         )
 
     # ----------------------------------------------------------- preemption
     def _preempt(self, victim: Request):
-        """Recompute preemption: release the victim's blocks and re-queue its
-        continuation (prompt + generated tokens); re-admission re-prefills,
-        reusing any of its own prefix blocks that survived in the warm
-        cache. A mid-prefill victim restarts its cursor from scratch."""
-        # the continuation must be complete: land any inflight plan first
+        """Apply the engine's preemption strategy to ``victim``.
+
+        ``swap``: park the block chain in the host tier and re-queue with all
+        cursor state intact (``_swap_out``; falls back to recompute when the
+        store cannot pin the chain). ``recompute``: release the blocks and
+        re-queue the continuation (prompt + generated tokens); re-admission
+        re-prefills, reusing any of its prefix blocks that survived in the
+        warm cache or the host tier. A mid-prefill victim restarts its
+        cursor from scratch. ``cost``: per victim, swap when
+        ``_swap_is_cheaper``."""
+        # the continuation and the swap snapshot must be complete: land any
+        # inflight plan first
         self._sync_inflight()
+        strategy = self.preempt
+        if strategy == "cost":
+            strategy = "swap" if self._swap_is_cheaper(victim) else "recompute"
+            if strategy == "swap":
+                self.cost_swap_choices += 1
+            else:
+                self.cost_recompute_choices += 1
+        if strategy == "swap" and self._swap_out(victim):
+            return
         self.kv.release(victim.req_id)
         if victim.slot >= 0 and self.slots[victim.slot] is victim:
             self.slots[victim.slot] = None
@@ -541,7 +770,9 @@ class GenerationEngine:
              np.asarray(victim.out_tokens, np.int32)]
         )
         victim.shared_prefix_tokens = 0
+        victim.host_prefix_tokens = 0
         victim.session_shared_tokens = 0
+        victim.session_host_tokens = 0
         victim.shared_spans = []
         victim.layout = None
         victim.probe_layout = None  # continuation content changed
@@ -560,7 +791,11 @@ class GenerationEngine:
                 continue
             while True:
                 try:
-                    self.kv.pool.extend_for(r.req_id, r.pos + 1)
+                    nb = self.kv.pool.extend_for(r.req_id, r.pos + 1)
+                    if nb is not None:
+                        # a fresh block must not inherit its previous
+                        # tenant's absmax (running-max scales)
+                        self.kv.reset_block_scales([nb])
                     break
                 except MemoryError:
                     active = [x for x in self.slots if x is not None]
@@ -640,8 +875,11 @@ class GenerationEngine:
         self.kv.release(req.req_id)
 
     def _drain_copies(self, full: bool = False) -> None:
-        """Advance the async copy engine: the whole backlog when ``full``,
-        else up to ``copy_budget`` ops."""
+        """Advance the async copy engine: the whole backlog when ``full``
+        (idle steps, drain and exit paths), else up to ``copy_budget`` ops —
+        bounded host work per step, scheduled between dispatches."""
+        if self.backend == "paged":
+            self.kv.flush_write_through()
         self._copy.drain(None if full else self.copy_budget)
 
     def _prefix_pending(self, req: Request) -> bool:

@@ -9,15 +9,28 @@ them; two keying schemes feed one prefix index — whole-prompt chained hashes
 (``serving.segments.build_layout``) for ``SegmentedPrompt`` requests.
 Releases keep refcount-0 keyed blocks warm in an LRU eviction queue.
 
+Beneath the device pool sits an optional host-memory tier
+(``serving.host_tier.HostBlockStore``): warm blocks evicted from the device
+demote their contents to host, and admission promotes host-resident keyed
+blocks back — a second-chance hit class between a device hit and a prefill
+miss (``Admission.n_host``).
+
 Pool layout (matching the JAX package):
     k/v: (G, n_blocks, block_size, KVH, hd) torch tensors on the engine's
-    device. Unlike JAX, which returns new pools from every step, the step
-    programs here update the pools IN PLACE, one layer-group slice at a time.
+    device, in the config's dtype or int8 (``kv_dtype="int8"``: per-(block,
+    KV head) float32 running-max scales ride alongside, (G, n_blocks, KVH)).
+    Unlike JAX, which returns new pools from every step, the step programs
+    here update the pools (and scales) IN PLACE, one layer-group slice at a
+    time.
 Block tables: (max_seqs, max_blocks_per_seq) int32, -1 = unallocated.
 
-The host tier (``host_store``, demote/promote, write-through), mesh layouts
-and block ranges, int8 pools (``kv_dtype``) and the lifecycle sanitizer are
-not ported yet; the constructor raises ``NotImplementedError`` for them.
+Because the pools change in place, every device->host copy (demotion,
+write-through, swap-out) gathers into a fresh tensor on the compute stream
+when it is enqueued, behind the steps that wrote the blocks; only the host
+side's wait is deferred (``device_to_host``).
+
+Mesh layouts, block ranges, injected pool boxes and the lifecycle sanitizer
+are not ported yet; the constructor raises ``NotImplementedError`` for them.
 """
 from __future__ import annotations
 
@@ -193,6 +206,104 @@ def write_paged_packed(pool_kv, block_tables, row_of, slots, new_kv,
 
 
 # ---------------------------------------------------------------------------
+# int8 quantized pool scatters (per-block, per-KV-head running-max scales)
+# ---------------------------------------------------------------------------
+
+
+def _quantized_scatter(pool_kv, scales, dest, new_vals):
+    """Core of every quantized write, in place: scatter float K/V entries
+    into an int8 pool, keeping per-(block, KV head) absmax scales.
+
+    pool_kv: (G, nb, bs, KVH, hd) int8; scales: (G, nb, KVH) float32; dest:
+    (N,) flat slots (block * bs + offset, pads already routed to the scratch
+    block); new_vals: (G, N, KVH, hd) floats. Returns ``(pool_kv, scales)``.
+
+    The same operations in the same order as the JAX function, so the two
+    agree bit for bit: a running-max scale (``max(old, absmax(new)/127)``);
+    the affected blocks requantised as ``round(q * old/new)`` (ratio 1 where
+    the new scale is 0); the new entries quantised with the NEW scale;
+    round half to even, clamps to +-127, 1e-30 floors, and true division
+    (no scalar divisor, see below). JAX rescales
+    from a gather of the old blocks and then sets them; in place, every
+    affected block is likewise read before any is written (a block named
+    twice in ``dest`` gets the same rescaled values twice, never a second
+    rescale)."""
+    G, nb, bs = pool_kv.shape[0], pool_kv.shape[1], pool_kv.shape[2]
+    dest = dest.long()
+    blk = dest // bs                                              # (N,)
+    absmax = new_vals.float().abs().amax(dim=-1)                  # (G, N, KVH)
+    blk_max = torch.zeros_like(scales).scatter_reduce_(
+        1, blk[None, :, None].expand_as(absmax), absmax, "amax")
+    # a tensor divisor: CUDA divides by a Python scalar as a multiply by its
+    # reciprocal, one ulp off the true quotient that JAX and the CPU take
+    new_scales = torch.maximum(scales, blk_max / torch.full_like(blk_max, 127.0))
+    ratio = torch.where(new_scales > 0.0, scales / new_scales.clamp(min=1e-30),
+                        torch.ones_like(scales))
+    old_blocks = pool_kv[:, blk].float()                          # (G, N, bs, KVH, hd)
+    r = ratio[:, blk]                                             # (G, N, KVH)
+    rescaled = torch.round(old_blocks * r[:, :, None, :, None]).clamp(-127, 127)
+    pool_kv[:, blk] = rescaled.to(pool_kv.dtype)
+    s_dest = new_scales[:, blk].clamp(min=1e-30)                  # (G, N, KVH)
+    q = torch.round(new_vals.float() / s_dest[:, :, :, None]).clamp(-127, 127)
+    flat = pool_kv.view(G, nb * bs, *pool_kv.shape[3:])
+    flat[:, dest] = q.to(pool_kv.dtype)
+    scales.copy_(new_scales)
+    return pool_kv, scales
+
+
+def write_paged_packed_q(pool_kv, scales, block_tables, row_of, slots, new_kv,
+                         block_size: int, null_dest: int = 0):
+    """Quantized ``write_paged_packed``: one layer group's int8 pool slice
+    (n_blocks, bs, KVH, hd) and scale slice (n_blocks, KVH), both updated in
+    place. Returns ``(pool_kv, scales)``."""
+    dest = packed_slots(block_tables, row_of, slots, block_size, null_dest)
+    _quantized_scatter(pool_kv[None], scales[None], dest, new_kv[None])
+    return pool_kv, scales
+
+
+def dequantize_blocks(blocks, block_scales, out_dtype=torch.float32):
+    """Dequantize gathered int8 blocks (..., bs, KVH, hd) with matching
+    per-block scales (..., KVH): broadcast-multiply over slot and head dims."""
+    return blocks.to(out_dtype) * block_scales[..., None, :, None].to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# device <-> host copies
+# ---------------------------------------------------------------------------
+
+
+def device_to_host(*tensors):
+    """Start copying FRESH device tensors (gathers, never views of a pool
+    that later steps write) to host memory. Returns the host tensors and a
+    ``wait`` that must run before they are read. On CUDA each copy goes
+    into a new pinned buffer, non-blocking, on the current stream behind
+    the work that produced the tensor; ``wait`` blocks on an event recorded
+    after the copies. On the CPU the tensors are returned as they are.
+    ``None`` entries pass through."""
+    live = [t for t in tensors if t is not None]
+    if not live or not live[0].is_cuda:
+        return tensors, lambda: None
+    host = tuple(None if t is None else torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                 for t in tensors)
+    for h, t in zip(host, tensors):
+        if t is not None:
+            h.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event.synchronize
+
+
+def host_to_device(t, device):
+    """Copy a host tensor to ``device``: on CUDA through a pinned staging
+    copy, non-blocking on the current stream (the caching host allocator
+    keeps the staging buffer until the copy has run), so the caller's
+    tensor may be reused at once."""
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+# ---------------------------------------------------------------------------
 # prefix hashing (host side)
 # ---------------------------------------------------------------------------
 
@@ -219,23 +330,32 @@ def prefix_block_keys(tokens, block_size: int) -> List[bytes]:
 
 @dataclass
 class Admission:
-    """Result of admission-controlled allocation for a prompt. (The host
-    tier's hit counts join it when that tier is ported.)"""
+    """Result of admission-controlled allocation for a prompt.
+    ``shared_spans`` covers both hit classes (device-shared blocks and blocks
+    promoted from the host tier hold exact KV either way); ``n_shared`` and
+    ``n_host`` split the token counts per tier, and the ``*_session`` counts
+    the session-history subset of each."""
 
-    n_shared: int                       # prompt tokens served from shared blocks
+    n_shared: int                       # prompt tokens from device-shared blocks
     shared_spans: List[Tuple[int, int]]  # token ranges prefill may skip
+    n_host: int = 0                     # prompt tokens promoted from the host tier
     n_shared_session: int = 0           # session-history subset of n_shared
+    n_host_session: int = 0             # session-history subset of n_host
 
 
 class PoolArrays:
     """Device-side k/v pool tensors, boxed so they can be shared (DP
-    replicas over one pool, and int8 scale pools, are later slices)."""
+    replicas over one pool are a later slice). Quantized pools carry
+    per-(block, KV head) float32 scale pools ``k_scale``/``v_scale`` of
+    shape (G, n_blocks, KVH); both are ``None`` for float pools."""
 
-    __slots__ = ("k", "v")
+    __slots__ = ("k", "v", "k_scale", "v_scale")
 
-    def __init__(self, k, v):
+    def __init__(self, k, v, k_scale=None, v_scale=None):
         self.k = k
         self.v = v
+        self.k_scale = k_scale
+        self.v_scale = v_scale
 
 
 class PagedKVCache:
@@ -245,21 +365,29 @@ class PagedKVCache:
     ``admit_tokens``/``register_prefix`` take an optional
     ``serving.segments.SegmentLayout``: segmented prompts key per-document
     blocks independently of document order, so hits can be non-contiguous
-    (``Admission.shared_spans`` lists every skippable token range)."""
+    (``Admission.shared_spans`` lists every skippable token range).
+
+    ``kv_dtype="int8"`` stores the pools quantized, with per-(block, KV
+    head) scale pools beside them. ``host_store`` attaches the host tier:
+    evicted warm blocks demote there and ``admit_tokens`` promotes
+    host-resident keys back; ``host_write_through`` also copies every newly
+    published prefix block there at ``register_prefix``. ``client_tag``
+    names this cache to a possibly shared store."""
 
     def __init__(self, cfg, n_blocks: int = 256, block_size: int = 16,
                  max_blocks_per_seq: int = 64, prefix_sharing: bool = True,
                  device=None, layout=None, block_range=None, arrays=None,
                  host_store=None, host_write_through: bool = False,
-                 kv_dtype: Optional[str] = None, sanitize: bool = False):
+                 client_tag=None, kv_dtype: Optional[str] = None,
+                 sanitize: bool = False):
         for name, value in (("layout", layout), ("block_range", block_range),
-                            ("arrays", arrays), ("host_store", host_store),
-                            ("kv_dtype", kv_dtype)):
+                            ("arrays", arrays)):
             if value is not None:
                 raise NotImplementedError(f"PagedKVCache({name}=...) is not ported yet")
-        if host_write_through or sanitize:
-            raise NotImplementedError(
-                "the host tier and the KV sanitizer are not ported yet")
+        if sanitize:
+            raise NotImplementedError("the KV sanitizer is not ported yet")
+        if kv_dtype is not None and kv_dtype != "int8":
+            raise ValueError(f"unsupported kv_dtype {kv_dtype!r}")
         from repro_torch import resolve_device
         from repro_torch.models.transformer import period
 
@@ -267,6 +395,7 @@ class PagedKVCache:
         self.block_size = block_size
         self.max_blocks = max_blocks_per_seq
         self.device = resolve_device(device)
+        self.kv_dtype = kv_dtype
         G = cfg.num_layers // period(cfg)
         self.pool = PagedPool(
             n_blocks, block_size,
@@ -274,17 +403,30 @@ class PagedKVCache:
             keep_on_release=lambda b: b in self._block_key,
         )
         shape = (G, n_blocks, block_size, cfg.num_kv_heads, cfg.head_dim)
-        dt = torch_dtype(cfg)
-        self._arrays = PoolArrays(
-            torch.zeros(shape, dtype=dt, device=self.device),
-            torch.zeros(shape, dtype=dt, device=self.device),
-        )
+        dt = torch.int8 if kv_dtype == "int8" else torch_dtype(cfg)
+        zeros = lambda shp, d: torch.zeros(shp, dtype=d, device=self.device)
+        scales = (None, None)
+        if kv_dtype == "int8":
+            sshape = (G, n_blocks, cfg.num_kv_heads)
+            scales = (zeros(sshape, torch.float32), zeros(sshape, torch.float32))
+        self._arrays = PoolArrays(zeros(shape, dt), zeros(shape, dt), *scales)
         self.lengths: Dict[int, int] = {}
         self.prefix_sharing = prefix_sharing
+        self.host_store = host_store
+        self.host_write_through = host_write_through
+        self.client_tag = client_tag if client_tag is not None else id(self)
+        # async copy engine (serving.control_plane.CopyEngine), set by the
+        # engine: demotions and write-through publishes then defer their
+        # host-side wait off the step's critical path. None = synchronous
+        # copies; the host tier's contents are the same either way.
+        self.copy_engine = None
+        self._wt_pending: List[Tuple[int, bytes]] = []  # (block, key) to write through
         self._prefix_index: Dict[bytes, int] = {}   # chain hash -> block id
         self._block_key: Dict[int, bytes] = {}      # reverse map for eviction
         self.shared_token_hits = 0                  # prompt tokens from shared blocks
-        self.session_token_hits = 0                 # session-history subset
+        self.host_token_hits = 0                    # prompt tokens promoted from host
+        self.session_token_hits = 0                 # session-history subsets of
+        self.session_host_token_hits = 0            # the two counters above
 
     @property
     def k(self):
@@ -294,11 +436,83 @@ class PagedKVCache:
     def v(self):
         return self._arrays.v
 
+    @property
+    def k_scale(self):
+        return self._arrays.k_scale
+
+    @property
+    def v_scale(self):
+        return self._arrays.v_scale
+
+    @property
+    def quantized(self) -> bool:
+        return self._arrays.k_scale is not None
+
+    def _ids(self, ids) -> torch.Tensor:
+        """Block ids on the pool's device, uploaded without a sync (a
+        pageable upload would wait for the step in flight)."""
+        return host_to_device(torch.from_numpy(np.asarray(ids, np.int64)), self.device)
+
+    def reset_block_scales(self, ids) -> None:
+        """Zero the scales of freshly allocated blocks: a running max only
+        grows while a block is written, so a reused block must not inherit
+        its previous tenant's absmax. No-op for float pools."""
+        if not self.quantized or not len(ids):
+            return
+        idx = self._ids(ids)
+        self.k_scale[:, idx] = 0.0
+        self.v_scale[:, idx] = 0.0
+
+    def gather_blocks(self, ids):
+        """Fresh device copies of blocks ``ids``: ``(k, v, k_scale,
+        v_scale)`` of (G, n, bs, KVH, hd) and (G, n, KVH) (scales None for
+        float pools). Gathers, never views: the pool changes in place."""
+        idx = self._ids(ids)
+        if self.quantized:
+            return self.k[:, idx], self.v[:, idx], self.k_scale[:, idx], self.v_scale[:, idx]
+        return self.k[:, idx], self.v[:, idx], None, None
+
+    def write_blocks(self, ids, k, v, k_scale=None, v_scale=None) -> None:
+        """Copy host blocks (G, n, bs, KVH, hd) (and their (G, n, KVH)
+        scales for an int8 pool) into pool blocks ``ids``."""
+        idx = self._ids(ids)
+        self.k[:, idx] = host_to_device(k, self.device)
+        self.v[:, idx] = host_to_device(v, self.device)
+        if k_scale is not None:
+            self.k_scale[:, idx] = host_to_device(k_scale, self.device)
+            self.v_scale[:, idx] = host_to_device(v_scale, self.device)
+
     # ----------------------------------------------------------- host side
     def _forget_block(self, block_id: int):
         key = self._block_key.pop(block_id, None)
-        if key is not None and self._prefix_index.get(key) == block_id:
-            del self._prefix_index[key]
+        if key is None or self._prefix_index.get(key) != block_id:
+            return
+        del self._prefix_index[key]
+        if self.host_store is None:
+            return
+        # demotion: the block is being reclaimed but its contents are still
+        # intact (its new owner writes later); mirror them to the host tier
+        # so the key stays promotable. A resident key only re-heats.
+        if self.host_store.contains(key):
+            self.host_store.touch(key)
+            return
+        host, wait = device_to_host(*self.gather_blocks([block_id]))
+        store, owner = self.host_store, self.client_tag
+
+        def _demote(key=key, host=host, wait=wait):
+            wait()
+            if store.contains(key):
+                store.touch(key)  # raced with a write-through or put
+                return
+            k, v, ks, vs = host
+            store.put(key, k[:, 0], v[:, 0], owner=owner,
+                      k_scale=None if ks is None else ks[:, 0],
+                      v_scale=None if vs is None else vs[:, 0])
+
+        if self.copy_engine is not None:
+            self.copy_engine.submit(_demote, tag=key)
+        else:
+            _demote()
 
     def _block_hits(self, tokens, layout) -> Dict[int, int]:
         """Block ordinal -> cached block id, for every keyed block already in
@@ -319,17 +533,50 @@ class PagedKVCache:
                 self.pool.touch(b)
         return hits
 
+    def _host_block_hits(self, n_tokens: int, layout,
+                         hbm_hits: Dict[int, int]) -> Dict[int, bytes]:
+        """Block ordinal -> prefix key for every keyed block that misses the
+        device index but is resident in the host tier, with the exclusions
+        of ``_block_hits``. Re-heats each such key now: allocation may demote
+        evicted device blocks into the store, whose LRU must take colder
+        keys first."""
+        if self.host_store is None or not self.prefix_sharing or not n_tokens:
+            return {}
+        last_block = (n_tokens - 1) // self.block_size
+        out: Dict[int, bytes] = {}
+        for ordinal, key in enumerate(layout.block_keys):
+            if key is None or ordinal == last_block or ordinal in hbm_hits:
+                continue
+            if self.host_store.contains(key):
+                out[ordinal] = key
+                self.host_store.touch(key)
+        return out
+
+    def _promote_host_blocks(self, promote: List[Tuple[int, bytes]]):
+        """Copy host-resident blocks into freshly allocated device blocks
+        (one batched host->device scatter) and publish their keys in the
+        device index, so the next request with the same content hits there."""
+        keys = [key for _, key in promote]
+        self.write_blocks([b for b, _ in promote],
+                          *self.host_store.read(keys, owner=self.client_tag))
+        for b, key in promote:
+            if key not in self._prefix_index:  # first writer wins
+                self._prefix_index[key] = b
+                self._block_key[b] = key
+
     def admit_tokens(self, seq_id: int, tokens, layout=None) -> Optional[Admission]:
         """Admission-controlled allocation for a prompt. Reuses every cached
         keyed block (+1 slack block for decode) and returns the admission
         record — or None when the pool cannot fit the request (backpressure).
 
-        Invariants: all-or-nothing (on None nothing was allocated or shared;
-        headroom counts new blocks AND warm revivals, revivals by unique block
-        id); on success ``tables[seq_id]`` holds exactly
-        ``blocks_needed(len(tokens)) + 1`` entries in prompt-block order; the
-        block of the final prompt token is never served from cache;
-        ``shared_spans`` are disjoint, sorted, block-aligned token ranges."""
+        Invariants: all-or-nothing (on None nothing was allocated, shared or
+        promoted; headroom counts new blocks AND warm revivals, revivals by
+        unique block id); on success ``tables[seq_id]`` holds exactly
+        ``blocks_needed(len(tokens)) + 1`` entries in prompt-block order
+        (host hits take fresh blocks, filled from the host tier); the block
+        of the final prompt token is never served from cache;
+        ``shared_spans`` are disjoint, sorted, block-aligned token ranges
+        covering both hit tiers."""
         from repro_torch.serving.segments import build_layout
 
         Lp = len(tokens)
@@ -338,38 +585,58 @@ class PagedKVCache:
         bs = self.block_size
         n_blocks = self.pool.blocks_needed(Lp)
         hits = self._block_hits(tokens, layout)
+        host_hits = self._host_block_hits(Lp, layout, hits)
         n_new = n_blocks - len(hits) + 1
         n_warm = sum(
             1 for b in set(hits.values()) if self.pool.refcounts.get(b, 0) == 0
         )
         if n_new + n_warm > self.pool.n_free:
             return None
+        promote: List[Tuple[int, int, bytes]] = []  # (ordinal, block, key)
+        fresh: List[int] = []
         for ordinal in range(n_blocks):
             if ordinal in hits:
                 self.pool.share(seq_id, hits[ordinal])
             else:
-                self.pool.allocate(seq_id, 1)
-        self.pool.allocate(seq_id, 1)  # decode slack block
+                b = self.pool.allocate(seq_id, 1)[0]
+                fresh.append(b)
+                if ordinal in host_hits:
+                    promote.append((ordinal, b, host_hits[ordinal]))
+        fresh.extend(self.pool.allocate(seq_id, 1))  # decode slack block
+        self.reset_block_scales(fresh)
+        # allocation may have demoted evicted blocks into the host store,
+        # whose LRU can drop a pending-promote key under extreme pressure:
+        # such ordinals degrade to ordinary misses
+        promote = [(o, b, k) for o, b, k in promote if self.host_store.contains(k)]
+        if promote:
+            self._promote_host_blocks([(b, k) for _o, b, k in promote])
         n_shared = len(hits) * bs
+        n_host = len(promote) * bs
         hist = layout.history_block_set() if layout.seg_spans else set()
         n_shared_session = sum(bs for o in hits if o in hist)
+        n_host_session = sum(bs for o, _b, _k in promote if o in hist)
         self.lengths[seq_id] = 0
         self.shared_token_hits += n_shared
+        self.host_token_hits += n_host
         self.session_token_hits += n_shared_session
+        self.session_host_token_hits += n_host_session
         spans: List[Tuple[int, int]] = []
-        for ordinal in sorted(hits):
+        for ordinal in sorted(set(hits) | {o for o, _b, _k in promote}):
             lo, hi = ordinal * bs, (ordinal + 1) * bs
             if spans and spans[-1][1] == lo:
                 spans[-1] = (spans[-1][0], hi)
             else:
                 spans.append((lo, hi))
-        return Admission(n_shared, spans, n_shared_session=n_shared_session)
+        return Admission(n_shared, spans, n_host, n_shared_session=n_shared_session,
+                         n_host_session=n_host_session)
 
     def register_prefix(self, seq_id: int, tokens, layout=None):
         """Publish this sequence's fully written prompt blocks into the prefix
         index so later requests reuse them. Only immutable (full, in-segment)
         blocks are keyed; call only after the prompt's K/V is written through
-        those blocks (in stream order); first writer wins."""
+        those blocks (in stream order); first writer wins. With write-through,
+        newly published blocks are copied to the host tier too: at once
+        without a copy engine, else queued for ``flush_write_through``."""
         if not self.prefix_sharing:
             return
         from repro_torch.serving.segments import build_layout
@@ -377,12 +644,47 @@ class PagedKVCache:
         if layout is None:
             layout = build_layout(np.asarray(tokens), self.block_size)
         table = self.pool.tables.get(seq_id, [])
+        published: List[Tuple[int, bytes]] = []
         for i, key in enumerate(layout.block_keys):
             if key is None or i >= len(table):
                 continue
             if key not in self._prefix_index:
                 self._prefix_index[key] = table[i]
                 self._block_key[table[i]] = key
+                published.append((table[i], key))
+        if published and self.host_store is not None and self.host_write_through:
+            # the pipelined control plane registers prefixes at plan-BUILD
+            # time, before the plan that writes the completing chunk is
+            # dispatched: with a copy engine, gather after that dispatch
+            self._wt_pending.extend(published)
+            if self.copy_engine is None:
+                self.flush_write_through()
+
+    def flush_write_through(self) -> None:
+        """Copy queued write-through publishes to the host tier. MUST run
+        after the plan that completes the published blocks has been
+        dispatched: the gather is enqueued behind it on the stream. Blocks
+        whose key was forgotten meanwhile are skipped (their demotion
+        already mirrored or dropped them)."""
+        pend = [(b, key) for b, key in self._wt_pending if self._block_key.get(b) == key]
+        self._wt_pending = []
+        if not pend or self.host_store is None:
+            return
+        host, wait = device_to_host(*self.gather_blocks([b for b, _ in pend]))
+        store, owner = self.host_store, self.client_tag
+
+        def _publish(host=host, wait=wait, pend=tuple(pend)):
+            wait()
+            k, v, ks, vs = host
+            for j, (_b, key) in enumerate(pend):
+                store.put(key, k[:, j], v[:, j], owner=owner,
+                          k_scale=None if ks is None else ks[:, j],
+                          v_scale=None if vs is None else vs[:, j])
+
+        if self.copy_engine is not None:
+            self.copy_engine.submit(_publish, tag="write_through")
+        else:
+            _publish()
 
     def release(self, seq_id: int):
         self.pool.free(seq_id)

@@ -790,3 +790,98 @@ def test_ssm_kernel_rejects_what_it_does_not_take(gpu):
         ks.ssm_scan(dt, x, bm.cpu(), cm, a_log)
     with pytest.raises(ValueError):      # no time steps
         ks.ssm_scan(*(t[:, :0].contiguous() for t in (dt, x, bm, cm)), a_log)
+
+
+# ------------------------------------------- int8 pools and swap on the card
+def _engine_run(device, seed, **kw):
+    """The invariant harness's long-decode workload (a 6-block pool: decodes
+    run it dry and preempt) on the smollm-135m smoke model in float32, with
+    the weights drawn on the CPU from one seed."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch, smoke_variant
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import GenerationEngine
+
+    cfg = smoke_variant(get_arch("smollm-135m"))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device)
+    eng = GenerationEngine(cfg, params=params, device=device, max_batch=3,
+                           max_seq=96, prefill_chunk_size=16, token_budget=20, **kw)
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for _ in range(4):
+        for _ in range(int(rng.integers(1, 4))):
+            prompt = rng.integers(0, 90, size=int(rng.integers(3, 13)))
+            reqs.append(eng.submit(prompt, max_new=int(rng.integers(28, 39))))
+        for _ in range(int(rng.integers(0, 4))):
+            eng.step()
+    eng.run_until_done(max_steps=2000)
+    return eng, [r.out_tokens for r in reqs]
+
+
+@pytest.mark.parametrize("kw", [dict(kv_dtype="int8"),
+                                dict(n_blocks=6, preempt="swap"),
+                                dict(n_blocks=6, preempt="swap", kv_dtype="int8")],
+                         ids=["int8", "swap", "swap-int8"])
+def test_int8_and_swap_engines_on_the_card_match_the_cpu(gpu, kw):
+    """The engine's int8 pools (both paged kernels on their int8 route) and
+    a swap round trip through the host tier's pinned slabs give the CPU's
+    greedy tokens and counters. The K/V the two devices quantize come from
+    float32 stacks that sum in different orders, so int8 payloads agree
+    within one code and scales (absmax / 127) at 1e-5 relative, the null
+    block (only pads write it) aside; on identical inputs the quantized
+    write is exact (``test_quantized_scatter_on_the_card_is_exact``)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ka.reset_launch_counts()
+    runs = {dev: _engine_run(dev, 5, **kw) for dev in ("cpu", "cuda")}
+    (ceng, ctoks), (geng, gtoks) = runs["cpu"], runs["cuda"]
+    assert gtoks == ctoks
+    assert ka.paged_chunk_attention.launches > 0 and ka.paged_decode_attention.launches > 0
+    for key in ("steps", "preemptions", "swap_outs", "swap_ins", "prefill_tokens"):
+        assert geng.stats()[key] == ceng.stats()[key], key
+    if "preempt" in kw:
+        assert geng.swap_outs >= 1 and geng.swap_ins == geng.swap_outs
+        assert geng.host_store.n_swapped == 0 and geng.host_store.k.is_pinned()
+    if kw.get("kv_dtype") == "int8":
+        for a, b in ((ceng.kv.k, geng.kv.k), (ceng.kv.v, geng.kv.v)):
+            assert int((a[:, 1:].int() - b.cpu()[:, 1:].int()).abs().max()) <= 1
+        for a, b in ((ceng.kv.k_scale, geng.kv.k_scale), (ceng.kv.v_scale, geng.kv.v_scale)):
+            torch.testing.assert_close(b.cpu()[:, 1:], a[:, 1:], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_quantized_scatter_on_the_card_is_exact(gpu, ties):
+    """The quantized scatter on the card and on the CPU, on identical
+    inputs: int8 payloads and scales bit for bit. ``ties`` puts every entry
+    exactly on a .5 code (scale 2**-7: one entry of +-127/128 a lane and
+    head, the rest (n + 0.5)/128), which both round to the even code."""
+    from repro_torch.serving.paged_cache import _quantized_scatter
+
+    g = torch.Generator().manual_seed(3)
+    G, nb, bs, kvh, hd = 2, 64, 16, 2, 128
+    if ties:
+        pool = torch.zeros((G, nb, bs, kvh, hd), dtype=torch.int8)
+        sc = torch.zeros((G, nb, kvh))
+        dest = torch.arange(1, nb) * bs + torch.randint(0, bs, (nb - 1,), generator=g)
+        n = torch.randint(-127, 127, (G, nb - 1, kvh, hd), generator=g)
+        vals = (n + 0.5) / 128.0
+        vals[..., 0] = 127.0 / 128.0
+    else:
+        pool = torch.randint(-127, 128, (G, nb, bs, kvh, hd), generator=g, dtype=torch.int8)
+        sc = torch.rand((G, nb, kvh), generator=g) * 0.02
+        sc[:, :8] = 0.0
+        dest = torch.randint(0, nb * bs, (300,), generator=g)
+        vals = torch.randn((G, 300, kvh, hd), generator=g) * 3.0
+    cpu = (pool.clone(), sc.clone())
+    card = (pool.to(gpu), sc.to(gpu))
+    _quantized_scatter(*cpu, dest, vals)
+    _quantized_scatter(*card, dest.to(gpu), vals.to(gpu))
+    torch.cuda.synchronize()
+    assert torch.equal(card[1].cpu(), cpu[1])
+    if ties:
+        assert torch.equal(card[0].cpu(), cpu[0])
+        assert bool((cpu[0].view(G, -1, kvh, hd)[:, dest, :, 1:] % 2 == 0).all())
+    else:   # slots named twice take either write; compare the rest
+        once = torch.bincount(dest, minlength=nb * bs) <= 1
+        a, b = (t.view(G, nb * bs, kvh, hd)[:, once] for t in (cpu[0], card[0].cpu()))
+        assert torch.equal(a, b)

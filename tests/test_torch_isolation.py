@@ -21,6 +21,7 @@ def test_imports_with_jax_and_repro_blocked():
         "for name in ('jax', 'jaxlib', 'repro'):\n"
         "    sys.modules[name] = None\n"
         "import repro_torch, repro_torch.serving.engine, repro_torch.launch.serve\n"
+        "import repro_torch.serving.host_tier, repro_torch.serving.paged_cache\n"
         "import repro_torch.kernels.decode_attention, repro_torch.kernels._build\n"
         "import repro_torch.apps, repro_torch.serving.retrieval\n"
         "import repro_torch.kernels.topk_retrieval, repro_torch.data.workload\n"
@@ -75,18 +76,27 @@ def test_later_slices_raise_not_implemented():
     from repro_torch.serving.engine import GenerationEngine
 
     cfg = smoke_variant(get_arch("smollm-135m"))
-    for kw in ({"preempt": "swap"}, {"kv_dtype": "int8"}, {"host_blocks": 8},
-               {"backend": "paged", "interleave": False}, {"ragged": False},
-               {"sanitize": True}, {"mesh": object()}):
+    for kw in ({"backend": "paged", "interleave": False}, {"ragged": False},
+               {"sanitize": True}, {"mesh": object()}, {"pool_layout": object()},
+               {"kv": object()}):
         with pytest.raises(NotImplementedError):
             GenerationEngine(cfg, device="cpu", **kw)
     with pytest.raises(NotImplementedError):      # the int8 dense cache
         GenerationEngine(cfg.replace(kv_cache_quant=True), device="cpu", backend="dense")
     assert GenerationEngine(cfg, device="cpu", backend="dense").backend == "dense"
+    # int8 pools, the host tier and swap/cost preemption are ported
+    for kw in ({"preempt": "swap"}, {"preempt": "cost"}, {"kv_dtype": "int8"},
+               {"host_blocks": 8}):
+        eng = GenerationEngine(cfg, device="cpu", **kw)
+        assert (eng.host_store is not None) == ("kv_dtype" not in kw)
+    assert GenerationEngine(cfg.replace(kv_cache_quant=True), device="cpu").kv.quantized
 
 
 def test_pipelines_with_a_host_tier_raise_not_implemented():
+    """The pipelines launcher used to refuse a host tier; it now attaches
+    one of the size asked for (the reference's 128 blocks by default)."""
     from repro_torch.launch.serve import serve_pipelines
 
-    with pytest.raises(NotImplementedError):
-        serve_pipelines(host_blocks=8, device="cpu")
+    drv = serve_pipelines(host_blocks=8, device="cpu", smoke=True, rate=10.0, duration=0.5)
+    assert drv.engine.host_store.n_blocks == 8
+    assert drv.engine.host_store.n_swapped == 0

@@ -3,8 +3,10 @@ the apps' captured workflow graphs, the slack model, the workload
 generator, sessions, the components' cost models, and the open-loop driver
 end to end. The driver runs over the port's engine on the CPU and over the
 JAX engine (``kernel="pallas"``, interpret mode), with the same weights
-through the bridge, a virtual clock, EDF-slack admission and no host tier
-on either side: records and every engine request's tokens must be equal."""
+through the bridge, a virtual clock and EDF-slack admission, once with no
+host tier on either side and once with a 64-block host tier beside a
+40-block pool on both (demotions, promotions and session-history host
+hits): records and every engine request's tokens must be equal."""
 import dataclasses
 
 import jax
@@ -175,3 +177,30 @@ def test_open_loop_driver_matches_jax(weights, session_fraction):
         assert tst["session_shared_tokens"] > 0
     pool = teng.kv.pool
     assert pool.n_free == pool.n_blocks - 1
+
+
+def test_open_loop_driver_with_host_tier_matches_jax(weights):
+    """The same trace with sessions, a pool small enough to evict warm
+    blocks (40 blocks) and a host tier of 64 blocks on both sides."""
+    jcfg, tree, tcfg, tparams = weights
+    kw = dict(ENGINE_KW, n_blocks=40, host_blocks=64)
+    jeng = JaxEngine(jcfg, params=jax.tree.map(jax.numpy.asarray, tree), kernel="pallas",
+                     **kw)
+    teng = GenerationEngine(tcfg, params=tparams, device="cpu", **kw)
+    jdrv, jreqs = _drive(jeng, japps, jwl, 0.3)
+    tdrv, treqs = _drive(teng, tapps, twl, 0.3)
+    assert tdrv.records == jdrv.records and len(tdrv.records) > 0
+    assert len(treqs) == len(jreqs)
+    for a, b in zip(jreqs, treqs):
+        assert b.out_tokens == a.out_tokens, a.req_id
+        assert (b.host_prefix_tokens, b.session_host_tokens) == \
+            (a.host_prefix_tokens, a.session_host_tokens), a.req_id
+    tst, jst = teng.stats(), jeng.stats()
+    for key in ("steps", "prefix_hit_tokens", "host_hit_tokens", "session_hit_tokens",
+                "session_shared_tokens", "host_store"):
+        assert tst[key] == jst[key], key
+    assert tst["host_store"]["puts"] > 0 and tst["host_store"]["hits"] > 0
+    assert tst["session_hit_tokens"] > 0
+    assert teng.latency_summary()["session_hit_rate"] == \
+        jeng.latency_summary()["session_hit_rate"] > 0
+    assert teng.kv.pool.n_free == teng.kv.pool.n_blocks - 1
