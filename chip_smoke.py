@@ -89,6 +89,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
    trace-seconds, 30% sessions) of vrag/crag/srag/planrag with EDF-slack
    priorities and the reference launcher's 128-block host tier; every
    event must complete.
+7b. The control plane on the card, on phase 5's qwen2.5-3b bf16 weights:
+   ``calibrate_generator_from_engine(prefill_len=1024, decode_tokens=32,
+   long_ctx=1536)`` against the paged engine (``max_batch=8``,
+   ``max_seq=2048``, 16-token blocks, 256-token chunks) on bf16 and on
+   int8 pools, each coefficient printed beside the Generator class default,
+   ``kv_bytes_per_token`` exactly 36864 and 18468 and ``kv_capacity_scale``
+   1.99610 on int8 pools; ``profile_components(real_execution=True)`` of
+   vrag's generator on the bf16 engine (8 draws) beside the calibrated cost
+   model on the same draws; both paged kernels launch in the phase and no
+   other kernel does. Then, host work only, for vrag/crag/srag/arag with
+   32 GPUs, 256 CPUs and 1024 GB: the LP plan under the default and the
+   card's coefficients (status ``optimal``), the SLO as benchmarks/common.py
+   sets it (2x the mean latency at 0.1x the card plan's throughput), and
+   the Patchwork, monolithic and Ray-like runtimes at 0.8x that throughput
+   for 30 trace-seconds, each run until it completes all it was offered.
 2c. The RWKV-6 WKV kernel against its plain version on the card at
    rwkv6-7b shapes (H=64, hd=64) with a nonzero ``state0``: prefill B=1 at
    S=2048 and S=37, decode B=8 at S=1, the adversarial decay w=0.45 and
@@ -140,9 +155,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    decode steps, and the paged, top-k and WKV kernels' 0; every earlier phase
    must show 0 scan launches. The rwkv6-7b weights are freed first.
 
-It prints a ``{"int8_serve": ..., "host_tier": ...}`` line of phases 5c
-and 5d's figures, a ``{"kernels": [...]}`` line, the card's name and power limit,
-and last ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU.
+It prints a ``{"int8_serve": ..., "host_tier": ..., "controller": ...}``
+line of phases 5c, 5d and 7b's figures, a ``{"kernels": [...]}`` line, the
+card's name and power limit, and last ``{"ok": true, "device": {...}}``.
+Exits non-zero without a GPU.
 """
 from __future__ import annotations
 
@@ -2020,6 +2036,210 @@ def phase_pipelines(ka, kf, tk, cfg, params):
 
 
 # ---------------------------------------------------------------------------
+# phase 7b: the control plane, calibrated against the paged engine
+# ---------------------------------------------------------------------------
+
+CONTROL_APPS = ("vrag", "crag", "srag", "arag")   # benchmarks/common.py APP_NAMES
+CONTROL_BUDGETS = {"GPU": 32, "CPU": 256, "RAM": 1024}
+DRAIN_S = 3600.0
+COEFFS = ("prefill_per_token_s", "ttft_per_prefill_token_s", "decode_per_token_s",
+          "decode_cache_per_ctx_token_s", "prefix_hit_rate")
+
+
+def calibrated_app(name, coeffs):
+    """``make_app(name)`` with every Generator-class component (Grader,
+    Rewriter and Critic too) calibrated with ``coeffs`` (None: defaults)."""
+    from repro_torch.apps import make_app
+    from repro_torch.core.components import Generator
+
+    app = make_app(name)
+    for comp in app.components.values():
+        if coeffs is not None and isinstance(comp, Generator):
+            comp.calibrate(coeffs)
+    return app
+
+
+def runtime(name, coeffs, engine, slo_s=None):
+    """``PatchworkRuntime`` of ``calibrated_app(name, coeffs)`` on the
+    simulated cluster, seed 0. Python's ``random``, which WebSearch's jitter
+    draws from (in profiling and in service times), is reseeded to 0 so the
+    run repeats."""
+    import random
+
+    from repro_torch.core.controller import PatchworkRuntime
+
+    random.seed(0)
+    return PatchworkRuntime(calibrated_app(name, coeffs), CONTROL_BUDGETS, engine=engine,
+                            slo_s=slo_s, seed=0)
+
+
+def plan_and_serve(card):
+    """For each of the paper's four apps: the LP plan under the default and
+    the ``card`` coefficients, the SLO (``slo_multiplier`` x the mean
+    latency of a Patchwork run at 0.1x the card plan's throughput for 15
+    trace-seconds, as benchmarks/common.py sets it), and Patchwork,
+    monolithic and Ray-like runs at 0.8x that throughput for 30
+    trace-seconds (three re-plans at the 10 s period in the window), each
+    run until all it was offered has completed. Host work only: no device.
+    Returns the figures."""
+    from repro_torch.core.controller import MONOLITHIC, PATCHWORK, RAY_LIKE
+    from repro_torch.data.workload import make_workload
+
+    out = {}
+    for name in CONTROL_APPS:
+        t0 = time.perf_counter()
+        plans = {}
+        for which, co in (("default", None), ("card", card)):
+            p = runtime(name, co, PATCHWORK).plan
+            assert p.status == "optimal", (name, which, p.status)
+            plans[which] = {"instances": p.instances, "throughput": p.throughput,
+                            "solve_time_s": p.solve_time_s}
+            print(f"[controller] {name} plan ({which} coefficients): instances "
+                  f"{p.instances}, throughput {p.throughput:.4f} req/s, solve "
+                  f"{1e3 * p.solve_time_s:.2f} ms", flush=True)
+        thr = plans["card"]["throughput"]
+        low = runtime(name, card, PATCHWORK).run(make_workload(0.1 * thr, 15.0, seed=0))
+        slo = PATCHWORK.slo_multiplier * (float(np.mean(low.latencies)) if low.latencies
+                                          else 0.5)
+        runs = {}
+        for engine in (PATCHWORK, MONOLITHIC, RAY_LIKE):
+            # the horizon runs DRAIN_S past the window (the runtime's default:
+            # 120 s) so the slower engines finish what they were offered
+            m = runtime(name, card, engine, slo).run(make_workload(0.8 * thr, 30.0, seed=0),
+                                                     duration_s=30.0 + DRAIN_S)
+            assert m.completed == m.offered > 0, (name, engine.name, m.completed, m.offered)
+            r = runs[engine.name] = {
+                "completed": m.completed, "offered": m.offered, "throughput": m.throughput,
+                "goodput": m.goodput, "p50_s": m.latency_pct(50), "p99_s": m.latency_pct(99),
+                "slo_violation_rate": m.slo_violation_rate,
+                "realloc_events": m.realloc_events, "instance_counts": m.instance_counts,
+                "decision_ms": 1e3 * float(np.mean(m.controller_overhead_s))}
+            print(f"[controller] {name} {engine.name} at {0.8 * thr:.4f} req/s for 30 "
+                  f"trace-s (SLO {slo:.3f}s): {m.completed}/{m.offered} completed, "
+                  f"throughput {m.throughput:.4f}/s, goodput {m.goodput:.4f}/s, p50 "
+                  f"{r['p50_s']:.3f}s, p99 {r['p99_s']:.3f}s, SLO violations "
+                  f"{100 * m.slo_violation_rate:.1f}%, plan changes applied {m.realloc_events}, "
+                  f"instances {m.instance_counts}, decision {r['decision_ms']:.4f} ms",
+                  flush=True)
+        out[name] = {"plans": plans, "slo_s": slo, "runs": runs,
+                     "wall_s": time.perf_counter() - t0}
+    return out
+
+
+def phase_controller(ka, kf, tk, cfg, params):
+    """Calibrate the Generator cost model against the paged engine on the
+    card (bf16 and int8 pools), profile the vrag generator by real
+    execution, then plan and serve the paper's four apps on the simulated
+    cluster under the default and the card's coefficients. Returns the
+    launches and the figures."""
+    import scipy
+
+    from repro_torch.apps import make_app
+    from repro_torch.core.components import Generator
+    from repro_torch.core.profiling import calibrate_generator_from_engine, profile_components
+    from repro_torch.data.workload import sample_request_features
+    from repro_torch.serving.engine import GenerationEngine
+
+    print(f"[controller] scipy {scipy.__version__} (solve_allocation's linprog, HiGHS)",
+          flush=True)
+    gc.collect()                     # earlier phases' engines hold reference cycles
+    reset_launches(ka, kf, tk)
+    fp_bytes = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim * 2
+    figures = {"scipy": scipy.__version__, "calibration": {}}
+    coeffs = {}
+    for kv_dtype in (None, "int8"):
+        label = kv_dtype or cfg.dtype
+        t0 = time.perf_counter()
+        eng = GenerationEngine(cfg, params=params, device="cuda", max_batch=8, max_seq=2048,
+                               block_size=16, prefill_chunk_size=256, kv_dtype=kv_dtype)
+        eng.warmup_step_variants()
+        gen = Generator(engine=eng)
+        t1 = time.perf_counter()
+        c = calibrate_generator_from_engine(gen, eng, prefill_len=1024, decode_tokens=32,
+                                            long_ctx=1536)
+        # the fit times a host-bound step loop: its mean step wall says how
+        # fast the host ran while it measured
+        step_ms = 1e3 * (time.perf_counter() - t1) / eng.stats()["steps"]
+        wall = time.perf_counter() - t0
+        # int8: one byte a value plus the (n_blocks, KVH) f32 scales of K and
+        # V amortized over a 16-token block
+        want = (fp_bytes // 2 + 2 * cfg.num_layers * cfg.num_kv_heads * 4 / 16 if kv_dtype
+                else fp_bytes)
+        assert c["kv_bytes_per_token"] == want, (label, c["kv_bytes_per_token"], want)
+        assert c["baseline_kv_bytes_per_token"] == fp_bytes, c
+        scale = gen.kv_capacity_scale()
+        assert scale == (fp_bytes / want), scale
+        assert all(c[k] > 0 for k in ("prefill_per_token_s", "ttft_per_prefill_token_s",
+                                      "decode_per_token_s")), c
+        assert pool_is_clean(eng)
+        for k in COEFFS:
+            print(f"[controller] {label} pools: {k} {c[k]!r} (class default "
+                  f"{getattr(Generator, k)!r}; x{c[k] / getattr(Generator, k):.4g})"
+                  if getattr(Generator, k) else
+                  f"[controller] {label} pools: {k} {c[k]!r} (class default "
+                  f"{getattr(Generator, k)!r})", flush=True)
+        print(f"[controller] {label} pools: kv_bytes_per_token {c['kv_bytes_per_token']!r}, "
+              f"baseline_kv_bytes_per_token {c['baseline_kv_bytes_per_token']!r}, "
+              f"kv_capacity_scale {scale:.5f}; {len(eng.finished)} calibration requests, "
+              f"{eng.stats()['steps']} steps, {step_ms:.2f} ms a step; {wall:.1f}s wall "
+              f"(engine, warmup and fit)", flush=True)
+        figures["calibration"][label] = {**c, "kv_capacity_scale": scale,
+                                         "step_ms": step_ms, "wall_s": wall}
+        coeffs[label] = c
+        if kv_dtype is None:
+            bf16_eng = eng
+        else:
+            del eng
+    assert round(figures["calibration"]["int8"]["kv_capacity_scale"], 5) == 1.99610
+    card = {k: coeffs[cfg.dtype][k] for k in COEFFS}
+
+    # real-execution profiling of vrag's generator on the bf16 engine, beside
+    # the card-calibrated cost model on the same 8 feature draws (cold), on
+    # the draws as drawn and as _profile_run caps them (prompt <= max_seq/2,
+    # at most 64 new tokens)
+    t0 = time.perf_counter()
+    app = make_app("vrag", engine=bf16_eng)
+    gen = app.components["VGenerator"]
+    gen.calibrate(coeffs[cfg.dtype])
+    rng = np.random.default_rng(0)
+    draws = [sample_request_features(rng) for _ in range(8)]
+    capped = []
+    for f in draws:
+        n = max(int(min(f["tokens_in"], bf16_eng.max_seq // 2)), 4)
+        out = max(int(min(f["tokens_out"], max(bf16_eng.max_seq - n - 1, 1), 64)), 1)
+        capped.append({**f, "tokens_in": float(n), "tokens_out": float(out)})
+    model = float(np.mean([gen.estimate_time(f, hit_rate=0.0, host_hit_rate=0.0)
+                           for f in draws]))
+    model_capped = float(np.mean([gen.estimate_time(f, hit_rate=0.0, host_hit_rate=0.0)
+                                  for f in capped]))
+    n_before = len(bf16_eng.finished)
+    profile_components({"VGenerator": gen}, n_samples=8, real_execution=True)
+    meta = gen.meta
+    assert len(bf16_eng.finished) == n_before + 8 and pool_is_clean(bf16_eng)
+    real = {"alpha": meta.alpha, "mean_service_s": meta.mean_service_s,
+            "alpha_hit_rate": meta.alpha_hit_rate, "model_mean_s": model,
+            "model_capped_mean_s": model_capped,
+            "real_over_model_capped": meta.mean_service_s / model_capped,
+            "wall_s": time.perf_counter() - t0}
+    figures["real_execution"] = real
+    print(f"[controller] profile_components(real_execution) of vrag's VGenerator, 8 draws: "
+          f"alpha {meta.alpha} (mean_service_s {meta.mean_service_s:.4f}, baked hit rate "
+          f"{meta.alpha_hit_rate:.3f}); card-calibrated estimate_time (cold) on the same "
+          f"draws {model:.4f}s, on the draws as run (capped) {model_capped:.4f}s: measured "
+          f"/ model {real['real_over_model_capped']:.3f}; {real['wall_s']:.1f}s wall",
+          flush=True)
+    del app, gen, bf16_eng
+    torch.cuda.empty_cache()
+    figures["apps"] = plan_and_serve(card)
+    launches = read_launches(ka, kf, tk)
+    assert all(launches[n] > 0 for n in PAGED), launches
+    assert all(launches[n] == 0 for n in (*DENSE, "topk_retrieval", "rwkv6_chunked",
+                                          "ssm_scan")), launches
+    print(f"[controller] launches in the phase: {launches}", flush=True)
+    return launches, figures
+
+
+# ---------------------------------------------------------------------------
 # phase 8: serve rwkv6-7b at full width
 # ---------------------------------------------------------------------------
 
@@ -2281,6 +2501,8 @@ def main() -> int:
                                       prompts, paged_tokens)
     launches["rag"] = no_scan("rag", phase_rag, ka, kf, tk, cfg, params, corpus, queries_gpu)
     launches["pipelines"] = no_scan("pipelines", phase_pipelines, ka, kf, tk, cfg, params)
+    launches["controller"], controller_figures = no_scan("controller", phase_controller, ka,
+                                                         kf, tk, cfg, params)
     del params                       # room for rwkv6-7b's ~15 GB of bf16 weights
     gc.collect()                     # engines hold reference cycles
     torch.cuda.empty_cache()
@@ -2415,7 +2637,8 @@ def main() -> int:
                                      "bound_ms", "bound_by")}
            for d in ("float32", "bfloat16") for c in SWA_DECODE_CASES},
     }
-    print(json.dumps({"int8_serve": int8_figures, "host_tier": host_figures}))
+    print(json.dumps({"int8_serve": int8_figures, "host_tier": host_figures,
+                      "controller": controller_figures}))
     print(json.dumps({"kernels": kernels}))
     print(f"[done] {time.perf_counter() - t_start:.1f}s in all", flush=True)
     print(card)

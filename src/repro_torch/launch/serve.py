@@ -1,7 +1,10 @@
 """Serving launcher of the port: serve a model with batched requests on one
-device through the paged generation engine, or replay an open-loop trace of
-mixed RAG pipelines on it.
+device through the paged generation engine, replay an open-loop trace of
+mixed RAG pipelines on it, or run a RAG application under the Patchwork
+runtime on a simulated cluster (the control plane is real, compute
+occupancy comes from the components' cost models).
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --app crag --rate 24 --duration 10
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m --smoke --device cpu \
@@ -10,9 +13,15 @@ mixed RAG pipelines on it.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --pipelines --arch smollm-135m --smoke --device cpu
 
+Giving ``--app NAME`` selects the simulated mode (``serve_sim``, with
+``--engine``, ``--slo``, ``--rate``, ``--duration`` and ``--seed``): it does
+host work only and takes no device. Without ``--app`` the launcher serves
+the model as before (``--pipelines`` for the open-loop trace); the
+reference launcher instead runs ``serve_sim`` whenever neither ``--real``
+nor ``--pipelines`` is given.
+
 Weights are random, drawn by ``init_params`` from ``--seed``. Runs on
-``cuda`` unless ``--device cpu`` is given (and raises without a GPU). The
-reference's simulated-cluster mode (``serve_sim``) is not ported yet. An
+``cuda`` unless ``--device cpu`` is given (and raises without a GPU). An
 arch outside the paged contract (rwkv6-7b, hymba-1.5b) is served on the dense backend.
 """
 from __future__ import annotations
@@ -22,6 +31,32 @@ import time
 from typing import Optional, Sequence
 
 import numpy as np
+
+from repro_torch.apps import APPS, make_app
+from repro_torch.core.controller import MONOLITHIC, PATCHWORK, RAY_LIKE, PatchworkRuntime
+
+ENGINES = {"patchwork": PATCHWORK, "monolithic": MONOLITHIC, "ray_like": RAY_LIKE}
+DEFAULT_BUDGETS = {"GPU": 32, "CPU": 256, "RAM": 1024}
+
+
+def serve_sim(app_name: str, rate: float, duration: float, engine: str = "patchwork",
+              slo_s: float = 2.0, seed: int = 0, budgets=None):
+    """Run ``app_name`` under the Patchwork runtime on the simulated cluster
+    (``PatchworkRuntime`` with the ``engine`` preset) for a Poisson workload
+    of ``rate`` requests/s over ``duration`` trace-seconds; print the
+    reference launcher's summary line and return the ``Metrics``."""
+    from repro_torch.data.workload import make_workload
+
+    app = make_app(app_name)
+    rt = PatchworkRuntime(app, budgets or DEFAULT_BUDGETS, engine=ENGINES[engine],
+                          slo_s=slo_s, seed=seed)
+    wl = make_workload(rate, duration, seed=seed)
+    m = rt.run(wl)
+    print(f"[serve:{engine}] app={app_name} rate={rate}/s: "
+          f"thr={m.throughput:.1f}/s p50={m.latency_pct(50)*1e3:.0f}ms "
+          f"p99={m.latency_pct(99)*1e3:.0f}ms slo_viol={m.slo_violation_rate*100:.1f}% "
+          f"ctrl={np.mean(m.controller_overhead_s)*1e3:.3f}ms")
+    return m
 
 
 def serve_real(arch: str, n_requests: int = 8, max_new: int = 12,
@@ -142,6 +177,13 @@ def serve_pipelines(arch: str = "smollm-135m", rate: float = 10.0,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--app", default=None, choices=list(APPS),
+                    help="run this RAG application on the simulated cluster "
+                         "(serve_sim) instead of serving the model")
+    ap.add_argument("--engine", default="patchwork", choices=list(ENGINES),
+                    help="--app runtime preset")
+    ap.add_argument("--slo", type=float, default=2.0,
+                    help="--app end-to-end SLO (seconds)")
     ap.add_argument("--arch", default="qwen2.5-3b",
                     choices=["smollm-135m", "qwen2.5-3b", "phi3-medium-14b", "rwkv6-7b",
                              "hymba-1.5b"])
@@ -160,9 +202,9 @@ def main(argv=None):
                          "pipelines (sessions included) on the engine and "
                          "report per-SLO-class violation rates")
     ap.add_argument("--rate", type=float, default=10.0,
-                    help="--pipelines arrival rate (requests/s)")
+                    help="--app / --pipelines arrival rate (requests/s)")
     ap.add_argument("--duration", type=float, default=2.0,
-                    help="--pipelines trace length (trace seconds)")
+                    help="--app / --pipelines trace length (trace seconds)")
     ap.add_argument("--arrival", default="poisson",
                     choices=["poisson", "diurnal", "bursty"],
                     help="arrival process for --pipelines traces")
@@ -186,6 +228,9 @@ def main(argv=None):
                          "absmax scales (the kernels dequantize as they read); "
                          "default the model dtype")
     args = ap.parse_args(argv)
+    if args.app is not None:
+        serve_sim(args.app, args.rate, args.duration, args.engine, args.slo, seed=args.seed)
+        return
     if args.pipelines:
         serve_pipelines(args.arch, args.rate, args.duration, arrival=args.arrival,
                         session_fraction=args.sessions,

@@ -145,6 +145,18 @@ class Request:
         """Fraction of the (truncated) prompt served from shared blocks."""
         return self.shared_prefix_tokens / self.prefill_cap if self.prefill_cap else 0.0
 
+    @property
+    def host_hit_rate(self) -> float:
+        """Fraction of the prompt promoted from the host tier, session-history
+        promotions excluded (``session_hit_rate``)."""
+        return self.host_prefix_tokens / self.prefill_cap if self.prefill_cap else 0.0
+
+    @property
+    def session_hit_rate(self) -> float:
+        """Fraction of the prompt that is session history promoted from the
+        host tier (disjoint from ``host_hit_rate``)."""
+        return self.session_host_tokens / self.prefill_cap if self.prefill_cap else 0.0
+
 
 def _bucket(n: int) -> int:
     b = 16

@@ -27,6 +27,10 @@ def test_imports_with_jax_and_repro_blocked():
         "import repro_torch.kernels.topk_retrieval, repro_torch.data.workload\n"
         "import repro_torch.kernels.flash_attention, repro_torch.models.attention\n"
         "import repro_torch.kernels.ssm_scan, repro_torch.models.ssm\n"
+        "import repro_torch.core.telemetry, repro_torch.core.simcluster\n"
+        "import repro_torch.core.router, repro_torch.core.allocation\n"
+        "import repro_torch.core.profiling, repro_torch.core.controller\n"
+        "import repro_torch.launch.deploy_config\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -34,6 +38,27 @@ def test_imports_with_jax_and_repro_blocked():
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_controller_imports_without_scipy():
+    """scipy is imported by ``solve_allocation``, not by the modules: the
+    controller, the launchers and the allocation module import without it,
+    and a monolithic deployment (no LP) runs with scipy blocked."""
+    code = ("import sys\n"
+            "import repro_torch.core.controller, repro_torch.core.allocation\n"
+            "import repro_torch.launch.serve, repro_torch.launch.deploy_config\n"
+            "assert 'scipy' not in sys.modules, sorted(m for m in sys.modules if 'scipy' in m)\n"
+            "sys.modules['scipy'] = None\n"
+            "from repro_torch.apps import make_app\n"
+            "from repro_torch.core.controller import PatchworkRuntime, MONOLITHIC\n"
+            "rt = PatchworkRuntime(make_app('vrag'), {'GPU': 4, 'CPU': 32, 'RAM': 256},\n"
+            "                      engine=MONOLITHIC)\n"
+            "print(rt.metrics.instance_counts)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "{'__pipeline__': 2}"
 
 
 def _imported_roots(path: Path):
