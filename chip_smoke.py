@@ -68,6 +68,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
    memory, the pool's bytes against phase 5's bf16 pool, greedy agreement
    with phase 5's tokens (reported; the 0.75 floor holds at smoke width
    only), and a step profile of a mixed and a decode-only step.
+5e. The paged engine's oracle paths and the KV sanitizer at full width,
+   phase 5's settings and prompts with 8 new tokens each: (a) the packed
+   kernel path (``kernel="pallas"``) against the padded oracle
+   (``ragged=False, kernel="reference"``: fused steps over the gathered
+   views, decode plans through the gather oracle and the dense decode
+   kernel): plans identical step for step (the packed plans unpacked give
+   the padded rows, starts and n_valid), each request's first-token logits
+   within ``logit_bound`` as max |d| / max |logit|, and two controls (the
+   padded oracle with a deliberate fault, ``oracle_fault``) above it;
+   greedy agreement reported; the oracle run launches no paged kernel and
+   one dense decode a layer and decode plan. (b) The sequential path (``interleave=False``):
+   one paged decode a layer and step, no chunk kernel, the pool drained to
+   its scratch block. (c) Phase 5d's swap schedule with ``sanitize=True``,
+   bf16 then int8 pools: no violation, every lifecycle hook exercised, the
+   shadow equal to the pool and the host store at the drain, phase 5d's
+   steps and swaps; the op counts and the step wall with and without.
 5d. The host tier and swap at full width: phase 5's prompts in two waves
    (each prompt asked for again in the second) on a 256-block pool (phase
    5: 1033) with a 1024-block host tier, under ``preempt="recompute"``,
@@ -155,13 +171,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    decode steps, and the paged, top-k and WKV kernels' 0; every earlier phase
    must show 0 scan launches. The rwkv6-7b weights are freed first.
 
-It prints a ``{"int8_serve": ..., "host_tier": ..., "controller": ...}``
-line of phases 5c, 5d and 7b's figures, a ``{"kernels": [...]}`` line, the
+It prints a ``{"int8_serve": ..., "host_tier": ..., "oracle_paths": ...,
+"controller": ...}`` line of phases 5c, 5d, 5e and 7b's figures, a ``{"kernels": [...]}`` line, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero without a GPU.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import subprocess
@@ -1911,6 +1928,255 @@ def phase_host_tier(ka, kf, tk, cfg, params, prompts):
 
 
 # ---------------------------------------------------------------------------
+# phase 5e: the oracle paths and the KV sanitizer at full width
+# ---------------------------------------------------------------------------
+
+ORACLE_MAX_NEW = 8
+
+
+def logit_bound(num_layers):
+    """Bound on max |d| / max |logit| between the packed kernel path's and
+    the padded oracle's first-token logits. Phase 2 lets a bf16 attention
+    kernel differ from its plain version by TOL["bfloat16"]["plain"] (2e-2
+    relative: the plain version's bf16 probabilities) in one call. The two
+    paths differ that way in each layer's attention, and independent
+    per-layer differences add in quadrature through the residual stream:
+    2e-2 * sqrt(num_layers), 0.12 for qwen2.5-3b's 36 layers."""
+    return TOL["bfloat16"]["plain"][1] * float(np.sqrt(num_layers))
+
+
+def keep_first_logits(eng):
+    """Each request's first-token logits (float32, on the card), taken from
+    the mixed step that samples the token (a prefill's last chunk)."""
+    first, last = {}, {}
+    for name in ("_ragged_step", "_fused_step"):
+        def keep(*args, step=getattr(eng, name)):
+            last["logits"] = out = step(*args)
+            return out
+
+        setattr(eng, name, keep)
+    dispatch = eng.runner.dispatch
+
+    def dispatch_and_keep(plan):
+        ex = dispatch(plan)
+        if plan.kind != "decode":
+            for req, row, _ in plan.emit_rows:
+                first.setdefault(req.req_id, last["logits"][row].float())
+        return ex
+
+    eng.runner.dispatch = dispatch_and_keep
+    return first
+
+
+ORACLE_FAULTS = ("segment spans dropped", "one layer's attention zeroed")
+
+
+@contextlib.contextmanager
+def oracle_fault(name, num_layers):
+    """A deliberate fault in the padded oracle's prefill, for the controls
+    that show the logit bound can see one: the segment spans dropped from
+    the chunk mask (plain causal: the segmented request's documents attend
+    each other), or the attention output of one layer (the middle one)
+    zeroed in every fused step."""
+    from repro_torch.models import attention, transformer
+
+    if name == "segment spans dropped":
+        module, attr = transformer, "_prefix_mask"
+        mask = transformer._prefix_mask
+        faulty = lambda Sc, slots, seg_prefix_end=None, seg_start=None: mask(Sc, slots)
+    else:
+        module, attr = attention, "chunk_decode_attention"
+        chunk_attention, calls = attention.chunk_decode_attention, [0]
+
+        def faulty(*args):
+            layer = calls[0] % num_layers
+            calls[0] += 1
+            out = chunk_attention(*args)
+            return torch.zeros_like(out) if layer == num_layers // 2 else out
+    orig = getattr(module, attr)
+    setattr(module, attr, faulty)
+    try:
+        yield
+    finally:
+        setattr(module, attr, orig)
+
+
+def phase_oracles(ka, kf, tk, cfg, params, prompts, host_figures):
+    """Phase 5's prompts and settings with ``max_new=8`` through the packed
+    kernel path, the padded oracle (``ragged=False, kernel="reference"``)
+    and the sequential path (``interleave=False``); then phase 5d's swap
+    schedule with the KV sanitizer on, bf16 and int8 pools. Returns the
+    launches of the whole phase and its figures."""
+    from repro_torch.serving.control_plane import padded_plan_difference
+    from repro_torch.serving.engine import GenerationEngine
+
+    L = cfg.num_layers
+    common = dict(params=params, device="cuda", max_batch=8, max_seq=2048, block_size=16,
+                  prefill_chunk_size=256)
+    total = {}
+    runs = {}
+    for name, kw in (("kernel", {}), ("padded oracle", dict(ragged=False, kernel="reference")),
+                     ("sequential", dict(interleave=False))):
+        eng = GenerationEngine(cfg, **common, **kw)
+        eng.warmup_step_variants()
+        plans = []
+        if eng.interleave:
+            eng.control.recorded = plans
+        first = keep_first_logits(eng) if eng.interleave else {}
+        reset_launches(ka, kf, tk)
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, max_new=ORACLE_MAX_NEW) for p in prompts]
+        eng.run_until_done()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = read_launches(ka, kf, tk)
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
+        st = eng.stats()
+        assert all(len(r.out_tokens) == ORACLE_MAX_NEW for r in reqs), name
+        assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens), name
+        assert pool_is_clean(eng) and eng.kv.pool.tables == {-1: [eng._null_block]}, name
+        assert n["flash_attention"] == n["topk_retrieval"] == 0, (name, n)
+        assert n["rwkv6_chunked"] == n["ssm_scan"] == 0, (name, n)
+        n_decode = sum(p.kind == "decode" for p in plans)
+        runs[name] = {"tokens": [r.out_tokens for r in reqs], "plans": plans, "first": first,
+                      "launches": n, "steps": st["steps"], "wall_s": wall,
+                      "decode_plans": n_decode, "mixed_plans": len(plans) - n_decode,
+                      "prefill_tokens": st["prefill_tokens"], "kernel_impl": st["kernel_impl"]}
+        print(f"[oracles] {name} (interleave={st['interleave']}, ragged={st['ragged']}, "
+              f"kernel_impl={st['kernel_impl']}): {len(reqs)} requests x {ORACLE_MAX_NEW} "
+              f"tokens in {wall:.3f}s, {st['steps']} steps ({len(plans) - n_decode} mixed, "
+              f"{n_decode} decode-only plans), prefill tokens {st['prefill_tokens']}, "
+              f"padded slot fraction {st['padded_token_fraction']:.3f}; launches {n}",
+              flush=True)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    kern, pad, seq = runs["kernel"], runs["padded oracle"], runs["sequential"]
+    # (a) the packed kernel path on the main path's kernels; the padded oracle
+    # on the gather oracles: no paged kernel, one dense decode a layer and
+    # decode plan
+    assert kern["launches"]["paged_chunk_attention"] == L * kern["mixed_plans"] > 0, kern
+    assert kern["launches"]["paged_decode_attention"] == L * kern["decode_plans"] > 0, kern
+    assert kern["launches"]["decode_attention"] == 0, kern["launches"]
+    assert pad["launches"]["paged_chunk_attention"] == 0, pad["launches"]
+    assert pad["launches"]["paged_decode_attention"] == 0, pad["launches"]
+    assert pad["launches"]["decode_attention"] == L * pad["decode_plans"] > 0, pad
+    assert len(kern["plans"]) == len(pad["plans"]) == pad["steps"], (kern["steps"], pad["steps"])
+    for rp, fp in zip(kern["plans"], pad["plans"]):
+        diff = padded_plan_difference(rp, fp)
+        assert diff is None, diff
+    bound = logit_bound(L)
+    assert set(kern["first"]) == set(pad["first"]) == set(range(len(prompts)))
+    rel = {}
+    for rid, k_logits in sorted(kern["first"].items()):
+        p_logits = pad["first"][rid]
+        assert bool(torch.isfinite(k_logits).all() and torch.isfinite(p_logits).all()), rid
+        rel[rid] = float((k_logits - p_logits).abs().max() / k_logits.abs().max())
+    worst = max(rel.values())
+    print(f"[oracles] plans: {len(kern['plans'])} packed plans unpack to the padded plans' "
+          f"rows, starts and n_valid, step for step; first-token logits max |d| / max "
+          f"|logit| per request {[round(x, 5) for x in rel.values()]}, worst {worst:.5f} "
+          f"(bound {bound:.3f} = bf16 plain tolerance x sqrt({L}))", flush=True)
+    assert worst <= bound, (rel, bound)
+    # controls: the padded oracle with a deliberate fault in its prefill must
+    # read above the bound, or the bound could not see such a fault
+    controls = {}
+    for fault in ORACLE_FAULTS:
+        eng = GenerationEngine(cfg, **common, ragged=False, kernel="reference")
+        first = keep_first_logits(eng)
+        reset_launches(ka, kf, tk)
+        t0 = time.perf_counter()
+        with oracle_fault(fault, L):
+            for p in prompts:
+                eng.submit(p, max_new=1)
+            eng.run_until_done()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = read_launches(ka, kf, tk)
+        assert sum(n.values()) == 0, (fault, n)
+        assert set(first) == set(kern["first"]), (fault, sorted(first))
+        controls[fault] = {
+            rid: float((kern["first"][rid] - lg).abs().max() / kern["first"][rid].abs().max())
+            for rid, lg in sorted(first.items())}
+        c_worst = max(controls[fault].values())
+        print(f"[oracles] control, padded oracle with {fault}: first-token logits max |d| / "
+              f"max |logit| per request {[round(x, 5) for x in controls[fault].values()]}, "
+              f"worst {c_worst:.5f} against the bound {bound:.3f} ({wall:.3f}s)", flush=True)
+        assert c_worst > bound, (fault, controls[fault], bound)
+        del eng, first
+        gc.collect()
+        torch.cuda.empty_cache()
+    agree_pad = agreement(kern["tokens"], pad["tokens"])
+    # (b) the sequential path: the paged decode kernel each step, no chunk kernel
+    assert seq["launches"]["paged_decode_attention"] == L * seq["steps"] > 0, seq
+    assert seq["launches"]["paged_chunk_attention"] == 0, seq["launches"]
+    assert seq["launches"]["decode_attention"] == 0, seq["launches"]
+    agree_seq = agreement(kern["tokens"], seq["tokens"])
+    print(f"[oracles] greedy agreement with the packed kernel path (reported, not "
+          f"required: bf16 near-ties): padded oracle {agree_pad:.4f}, sequential "
+          f"{agree_seq:.4f}; rows identical {sum(a == b for a, b in zip(kern['tokens'], pad['tokens']))}"
+          f"/{len(prompts)} and {sum(a == b for a, b in zip(kern['tokens'], seq['tokens']))}"
+          f"/{len(prompts)}", flush=True)
+
+    # (c) phase 5d's swap schedule under the sanitizer, bf16 then int8 pools
+    kvsan = {}
+    for name, kw in (("swap", dict(preempt="swap")),
+                     ("swap int8", dict(preempt="swap", kv_dtype="int8"))):
+        eng = GenerationEngine(cfg, **common, n_blocks=TIGHT_POOL, host_blocks=HOST_BLOCKS,
+                               sanitize=True, **kw)
+        eng.warmup_step_variants()
+        reset_launches(ka, kf, tk)
+        t0 = time.perf_counter()
+        reqs = []
+        for _wave in range(2):
+            reqs += [eng.submit(p, max_new=32) for p in prompts]
+            eng.run_until_done()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = read_launches(ka, kf, tk)
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
+        st, san = eng.stats(), eng.sanitizer
+        shadow = san.stats()
+        assert all(len(r.out_tokens) == 32 for r in reqs), name
+        assert san.violations == 0, shadow
+        for hook in ("device_alloc", "host_reserve", "host_restore", "copy_submit"):
+            assert san.op_counts.get(hook, 0) >= 1, (name, hook, san.op_counts)
+        assert shadow["device_allocated"] == 1, shadow
+        assert shadow["device_warm"] == len(eng.kv.pool.cached), (shadow, len(eng.kv.pool.cached))
+        assert shadow["copy_pending"] == 0, shadow
+        san.audit_host(eng.host_store)
+        assert pool_is_clean(eng) and st["host_store"]["n_swapped"] == 0, name
+        # the shadow changes nothing: phase 5d's schedule, step for step
+        plain = host_figures[name]
+        for key in ("steps", "preemptions", "swap_outs", "swap_ins", "prefill_tokens"):
+            assert st[key] == plain[key], (name, key, st[key], plain[key])
+        step_ms, plain_ms = 1e3 * wall / st["steps"], 1e3 * plain["wall_s"] / plain["steps"]
+        kvsan[name] = {"op_counts": dict(sorted(san.op_counts.items())), "shadow": shadow,
+                       "wall_s": wall, "steps": st["steps"], "step_ms": step_ms,
+                       "step_ms_without": plain_ms, "swap_outs": st["swap_outs"]}
+        print(f"[oracles] kvsan on phase 5d's {name} schedule: {san.ops} ops checked, 0 "
+              f"violations; ops by hook {kvsan[name]['op_counts']}; shadow at the drain "
+              f"{shadow}; {st['steps']} steps in {wall:.3f}s = {step_ms:.2f} ms a step with "
+              f"the sanitizer, {plain_ms:.2f} ms without (phase 5d's run), "
+              f"{san.ops / st['steps']:.1f} checked ops a step", flush=True)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    figures = {"logit_bound": bound, "logit_rel_err": rel, "logit_controls": controls,
+               "greedy_agreement":
+               {"padded oracle": agree_pad, "sequential": agree_seq}, "kvsan": kvsan,
+               "runs": {name: {k: r[k] for k in ("steps", "wall_s", "decode_plans",
+                                                   "mixed_plans", "prefill_tokens", "launches",
+                                                   "kernel_impl")}
+                        for name, r in runs.items()}}
+    return total, figures
+
+
+# ---------------------------------------------------------------------------
 # phase 6: RAG requests at full width
 # ---------------------------------------------------------------------------
 
@@ -2497,6 +2763,8 @@ def main() -> int:
         bf16_pool)
     launches["host tier"], host_figures = no_scan("host tier", phase_host_tier, ka, kf, tk,
                                                   cfg, params, prompts)
+    launches["oracles"], oracle_figures = no_scan(
+        "oracle paths and kvsan", phase_oracles, ka, kf, tk, cfg, params, prompts, host_figures)
     launches["dense serve"] = no_scan("dense serve", phase_dense_serve, ka, kf, tk, cfg, params,
                                       prompts, paged_tokens)
     launches["rag"] = no_scan("rag", phase_rag, ka, kf, tk, cfg, params, corpus, queries_gpu)
@@ -2638,7 +2906,7 @@ def main() -> int:
            for d in ("float32", "bfloat16") for c in SWA_DECODE_CASES},
     }
     print(json.dumps({"int8_serve": int8_figures, "host_tier": host_figures,
-                      "controller": controller_figures}))
+                      "oracle_paths": oracle_figures, "controller": controller_figures}))
     print(json.dumps({"kernels": kernels}))
     print(f"[done] {time.perf_counter() - t_start:.1f}s in all", flush=True)
     print(card)

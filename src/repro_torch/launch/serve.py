@@ -9,6 +9,8 @@ occupancy comes from the components' cost models).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m --smoke --device cpu \
         --kv-dtype int8 --preempt swap --host-blocks 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m --smoke --device cpu \
+        --kernel reference --no-interleave --sanitize
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --pipelines --arch smollm-135m --smoke --device cpu
@@ -62,14 +64,18 @@ def serve_sim(app_name: str, rate: float, duration: float, engine: str = "patchw
 def serve_real(arch: str, n_requests: int = 8, max_new: int = 12,
                pipeline: bool = True, smoke: bool = False, device=None,
                seed: int = 0, preempt: str = "recompute", host_blocks: int = 0,
-               kv_dtype: Optional[str] = None):
+               kv_dtype: Optional[str] = None, kernel: str = "pallas",
+               interleave: bool = True, sanitize: bool = False):
     """Serve ``n_requests`` random prompts (4-31 tokens) on ``arch`` (its
     smoke variant with ``smoke``) and print the per-request and summary
     lines of the JAX launcher. ``kv_dtype="int8"`` stores the paged pools
     quantized; ``host_blocks > 0`` attaches a host tier of that many
     blocks; ``preempt`` is ``"recompute"``, ``"swap"`` or ``"cost"`` (the
     last two provision a pool-sized host tier when ``host_blocks`` is 0).
-    Returns the engine."""
+    ``kernel="reference"`` reads attention through the gather oracles
+    instead of the paged kernels; ``interleave=False`` runs the sequential
+    oracle loop; ``sanitize`` shadows the KV block lifecycle (the summary
+    prints its operation counts). Returns the engine."""
     from repro_torch.configs import get_arch, smoke_variant
     from repro_torch.serving.engine import GenerationEngine
 
@@ -78,7 +84,8 @@ def serve_real(arch: str, n_requests: int = 8, max_new: int = 12,
         cfg = smoke_variant(cfg)
     eng = GenerationEngine(cfg, max_batch=4, max_seq=256, pipeline=pipeline,
                            seed=seed, device=device, preempt=preempt,
-                           host_blocks=host_blocks or None, kv_dtype=kv_dtype)
+                           host_blocks=host_blocks or None, kv_dtype=kv_dtype,
+                           kernel=kernel, interleave=interleave, sanitize=sanitize)
     rng = np.random.default_rng(seed)
     reqs = [
         eng.submit(rng.integers(0, cfg.vocab_size, rng.integers(4, 32)), max_new)
@@ -95,6 +102,9 @@ def serve_real(arch: str, n_requests: int = 8, max_new: int = 12,
     print(f"[serve:real] {cfg.name}: device={stats['device']} backend={stats['backend']} "
           f"mode={mode} kernel={stats['kernel']} kv={stats.get('kv_dtype', cfg.dtype)} "
           f"{stats['tokens_out']} tokens out")
+    if "kernel_impl" in stats:
+        print(f"[serve:real] paged paths: interleave={stats['interleave']} "
+              f"ragged={stats['ragged']} kernel_impl={stats['kernel_impl']}")
     if "preempt" in stats:
         print(f"[serve:real] preempt={stats['preempt']}: {stats['preemptions']} preemptions, "
               f"{stats['swap_outs']} swap outs, {stats['swap_ins']} swap ins")
@@ -107,6 +117,9 @@ def serve_real(arch: str, n_requests: int = 8, max_new: int = 12,
               f"(copy ops drained: {stats['copy_ops_drained']})")
     if "host_store" in stats:
         print(f"[serve:real] host tier: {stats['host_store']}")
+    if eng.sanitizer is not None:
+        print(f"[serve:real] kvsan: {eng.sanitizer.stats()}; ops by hook "
+              f"{dict(sorted(eng.sanitizer.op_counts.items()))}")
     return eng
 
 
@@ -227,6 +240,15 @@ def main(argv=None):
                     help="paged KV pool storage: int8 blocks with per-block "
                          "absmax scales (the kernels dequantize as they read); "
                          "default the model dtype")
+    ap.add_argument("--kernel", default="pallas", choices=["pallas", "reference"],
+                    help="paged attention: the hand-written kernels (pallas), or "
+                         "the gather oracles (reference)")
+    ap.add_argument("--no-interleave", action="store_true",
+                    help="the sequential oracle loop: blocking chunked prefill at "
+                         "admission, then batched decode")
+    ap.add_argument("--sanitize", action="store_true",
+                    help="shadow every KV block lifecycle transition (kvsan); "
+                         "a violation raises")
     args = ap.parse_args(argv)
     if args.app is not None:
         serve_sim(args.app, args.rate, args.duration, args.engine, args.slo, seed=args.seed)
@@ -241,7 +263,9 @@ def main(argv=None):
     serve_real(args.arch, n_requests=args.n_requests, max_new=args.max_new,
                pipeline=not args.no_pipeline, smoke=args.smoke,
                device=args.device, seed=args.seed, preempt=args.preempt,
-               host_blocks=args.host_blocks, kv_dtype=args.kv_dtype)
+               host_blocks=args.host_blocks, kv_dtype=args.kv_dtype,
+               kernel=args.kernel, interleave=not args.no_interleave,
+               sanitize=args.sanitize)
 
 
 if __name__ == "__main__":

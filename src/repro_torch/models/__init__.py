@@ -9,8 +9,10 @@ from repro_torch.models.model import (
     init_params,
     paged_cache_supported,
     prefill,
+    prefill_chunk,
     prefill_packed,
 )
 
 __all__ = ["decode_step", "decode_step_paged", "dense_cache_supported", "forward",
-           "has_recurrent_state", "init_cache", "init_params", "paged_cache_supported", "prefill", "prefill_packed"]
+           "has_recurrent_state", "init_cache", "init_params", "paged_cache_supported", "prefill",
+           "prefill_chunk", "prefill_packed"]

@@ -2,12 +2,18 @@
 and for the dense backend ``blockwise_attention`` (prefill, full or
 sliding-window, through the ``flash_attention`` kernel), ``decode_attention``
 (through the dense ``decode_attention`` kernel) and ``cache_validity``. The
-paged path reads attention through ``kernels.decode_attention`` directly."""
+paged path reads attention through ``kernels.decode_attention`` directly;
+its oracle steps (the padded fused step and the sequential prefill) run
+``chunk_decode_attention``, a plain masked softmax as in JAX, where the
+reference is a plain ``jnp`` function too."""
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.configs.base import ATTN_FULL
+from repro_torch.kernels.decode_attention import NEG_INF
 from repro_torch.kernels.decode_attention import decode_attention as decode_kernel
 from repro_torch.kernels.flash_attention import flash_attention
 
@@ -52,6 +58,27 @@ def decode_attention(q, k_cache, v_cache, lengths):
     Sc)``, so the port passes ``lengths = min(pos + 1, Sc)`` to the
     kernel."""
     return decode_kernel(q[:, 0].contiguous(), k_cache, v_cache, lengths)[:, None]
+
+
+def chunk_decode_attention(q, k_cache, v_cache, valid_mask, scale=None):
+    """Chunked-prefill attention: C query tokens against a cache that
+    already holds the cached prefix and the chunk's own entries.
+
+    q: (B, C, H, hd); k/v_cache: (B, Sc, KVH, hd); valid_mask: (B, C, Sc)
+    bool (per query, over absolute cache slots) -> (B, C, H, hd) in q's
+    dtype. The JAX function's numerics: scores accumulated in float32 (the
+    products of bf16 inputs are exact there), masked to -1e30, a float32
+    softmax, the probabilities cast to the value dtype for the value
+    product, accumulated in float32."""
+    B, C, H, hd = q.shape
+    KVH = k_cache.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, C, KVH, H // KVH, hd).float()
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k_cache.float()) * scale
+    scores = torch.where(valid_mask[:, None, None], scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", probs.to(v_cache.dtype).float(), v_cache.float())
+    return out.reshape(B, C, H, hd).to(q.dtype)
 
 
 def cache_validity(attn_type: str, cache_len: int, pos, chunk: int = 0):

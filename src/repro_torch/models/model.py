@@ -1,6 +1,7 @@
 """Top-level model API of the serving paths, ported from
 ``repro.models.model``: ``init_params``; for the paged backend
-``prefill_packed``, ``decode_step_paged`` and ``paged_cache_supported``;
+``prefill_packed``, ``decode_step_paged``, ``paged_cache_supported`` and,
+for its oracle steps over a gathered contiguous view, ``prefill_chunk``;
 for the dense backend ``forward``, ``prefill``, ``decode_step`` and
 ``init_cache``.
 
@@ -170,21 +171,43 @@ def init_cache(cfg: ModelConfig, B: int, S: int, device):
     return (entry,)
 
 
+def prefill_chunk(cfg, params, caches, tokens, pos, positions=None,
+                  seg_prefix_end=None, seg_start=None):
+    """Chunked prefill: C tokens (B, C) per row at cache slots ``pos ..
+    pos+C-1`` (``pos`` an int, a 0-d tensor or (B,) per-row starts) run
+    against the contiguous serve cache ({k, v} of (G, B, Sc, KVH, hd)),
+    writing their K/V into it IN PLACE. ``positions``/``seg_prefix_end``/
+    ``seg_start`` (B, C) carry a segmented prompt's rope positions and
+    attention spans (``transformer._prefix_mask``). Returns (logits (B, C,
+    V), caches), pad-vocab logits masked to -1e30. Full-attention GQA stacks
+    with rope positions (``paged_cache_supported``)."""
+    if not _token_frontend(cfg) or not cfg.use_rope:
+        raise NotImplementedError(f"{cfg.name}: chunked prefill takes rope token stacks only")
+    x = embed_tokens(params["embed"], tokens)
+    x, caches = tfm.run_stack_prefix(cfg, params["blocks"], x, caches, pos, positions,
+                                     seg_prefix_end, seg_start)
+    x = tfm.apply_norm(cfg, params["final_norm"], x)
+    logits = unembed(params["embed"], params.get("lm_head"), x, cfg.tie_embeddings)
+    return _pad_vocab_bias(cfg, logits), caches
+
+
 def prefill_packed(cfg, params, k_pool, v_pool, tables, tokens, row_of, slots,
                    positions, p_end, s_start, *, block_size, null_block,
-                   k_scales=None, v_scales=None):
+                   k_scales=None, v_scales=None, impl="pallas"):
     """Ragged fused step: T packed tokens (decode rows + prefill chunks from
     different sequences) run against the paged pools directly, writing their
     K/V in place before attending. tokens/row_of/slots/positions/p_end/
     s_start: (T,) int32; tables: (B, mb) int32 RAW. An int8 pool passes its
     (G, n_blocks, KVH) running-max scale pools ``k_scales``/``v_scales``,
-    updated in place with the pools. Returns logits (T, V), pad-vocab
-    entries masked to -1e30. Requires ``paged_cache_supported``."""
+    updated in place with the pools. ``impl="pallas"`` reads attention
+    through ``kernels.paged_chunk_attention`` (the kernel on the card),
+    ``"reference"`` through its gather oracle. Returns logits (T, V),
+    pad-vocab entries masked to -1e30. Requires ``paged_cache_supported``."""
     x = embed_tokens(params["embed"], tokens[None])          # (1, T, D)
     x = tfm.run_stack_paged(
         cfg, params["blocks"], x, k_pool, v_pool, tables, row_of, slots,
         positions, p_end, s_start, block_size=block_size, null_block=null_block,
-        k_scales=k_scales, v_scales=v_scales,
+        k_scales=k_scales, v_scales=v_scales, impl=impl,
     )
     x = tfm.apply_norm(cfg, params["final_norm"], x)
     logits = unembed(params["embed"], params.get("lm_head"), x, cfg.tie_embeddings)

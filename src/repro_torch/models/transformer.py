@@ -37,6 +37,7 @@ from repro_torch.configs.base import (
 from repro_torch.kernels.decode_attention import (
     paged_chunk_attention,
     paged_decode_attention,
+    ref_paged_chunk_attention,
 )
 from repro_torch.models import attention as attn
 from repro_torch.models import rwkv6 as rwkv_mod
@@ -231,7 +232,8 @@ def _write_slots(pool_slice, sc_slice, dest, new_kv):
 
 
 def apply_layer_paged(cfg, lp, x, k_slice, v_slice, tables, row_of, slots,
-                      p_end, s_start, *, rope, dest, k_sc=None, v_sc=None):
+                      p_end, s_start, *, rope, dest, k_sc=None, v_sc=None,
+                      impl="pallas"):
     """Ragged fused-step layer: T packed tokens (decode rows and prefill
     chunks back to back) read and write one layer's pool slice directly.
 
@@ -242,13 +244,16 @@ def apply_layer_paged(cfg, lp, x, k_slice, v_slice, tables, row_of, slots,
     tokens' K/V are written before attention, so each token sees its own
     entry and every earlier packed token of its row. ``k_sc``/``v_sc``
     ((n_blocks, KVH) float32, both or neither) mark an int8 pool slice: the
-    writes quantize at scatter time and the kernel dequantizes. Returns the
-    new x."""
+    writes quantize at scatter time and the kernel dequantizes. ``impl``
+    picks the attention read: "pallas" the chunk kernel's wrapper (the
+    hand-written kernel on the card), "reference" its gather oracle
+    ``ref_paged_chunk_attention`` on any device. Returns the new x."""
     q, k, v = _attn_inputs(cfg, lp, x, rope)
     _write_slots(k_slice, k_sc, dest, k[0])
     _write_slots(v_slice, v_sc, dest, v[0])
-    a_out = paged_chunk_attention(q[0], k_slice, v_slice, tables, row_of,
-                                  slots, p_end, s_start, k_scale=k_sc, v_scale=v_sc)
+    read = paged_chunk_attention if impl == "pallas" else ref_paged_chunk_attention
+    a_out = read(q[0], k_slice, v_slice, tables, row_of, slots, p_end, s_start,
+                 k_scale=k_sc, v_scale=v_sc)
     return _finish_layer(cfg, lp, x, a_out)
 
 
@@ -258,11 +263,12 @@ def _scale_slice(scales, g):
 
 def run_stack_paged(cfg, blocks, x, k_pool, v_pool, tables, row_of, slots,
                     positions, p_end, s_start, *, block_size, null_block,
-                    k_scales=None, v_scales=None):
+                    k_scales=None, v_scales=None, impl="pallas"):
     """Run the stack in ragged fused-step mode: x (1, T, D) packed tokens
     against the full pools (G, n_blocks, bs, KVH, hd), which are updated in
     place layer by layer (with their (G, n_blocks, KVH) scale pools
-    ``k_scales``/``v_scales`` for an int8 pool). Returns x."""
+    ``k_scales``/``v_scales`` for an int8 pool); ``impl`` as for
+    ``apply_layer_paged``. Returns x."""
     if period(cfg) != 1:
         raise NotImplementedError("ragged paged path requires period-1 stacks")
     rope = _rope(cfg, positions[None])
@@ -271,7 +277,7 @@ def run_stack_paged(cfg, blocks, x, k_pool, v_pool, tables, row_of, slots,
         x = apply_layer_paged(
             cfg, layer_slice(blocks[0], g), x, k_pool[g], v_pool[g], tables,
             row_of, slots, p_end, s_start, rope=rope, dest=dest,
-            k_sc=_scale_slice(k_scales, g), v_sc=_scale_slice(v_scales, g),
+            k_sc=_scale_slice(k_scales, g), v_sc=_scale_slice(v_scales, g), impl=impl,
         )
     return x
 
@@ -310,6 +316,66 @@ def run_stack_decode_paged(cfg, blocks, x, k_pool, v_pool, tables, pos, *,
             k_sc=_scale_slice(k_scales, g), v_sc=_scale_slice(v_scales, g),
         )
     return x
+
+
+# ---------------------------------------------------------------------------
+# chunked prefill over a contiguous view (the paged backend's oracle steps)
+# ---------------------------------------------------------------------------
+
+
+def _prefix_mask(Sc: int, slots, seg_prefix_end=None, seg_start=None):
+    """(B, C, Sc) bool: which cache slots each chunk query attends — plain
+    causal over slots (``s <= slots``), or with segment spans ``s <
+    seg_prefix_end | seg_start <= s <= slots`` (document tokens attend the
+    prelude and their own segment)."""
+    s = torch.arange(Sc, device=slots.device)[None, None, :]
+    own = slots[:, :, None]
+    if seg_prefix_end is None:
+        return s <= own
+    return (s < seg_prefix_end[:, :, None]) | ((s >= seg_start[:, :, None]) & (s <= own))
+
+
+def apply_layer_prefix(cfg, lp, x, k_cache, v_cache, slots, *, rope, valid):
+    """Chunked prefill layer: x (B, C, D) of prompt tokens at cache slots
+    ``slots`` (B, C) attends the cached prefix plus itself. The chunk's K/V
+    are written into the layer's contiguous cache k/v_cache (B, Sc, KVH, hd)
+    IN PLACE before attention (``chunk_decode_attention`` under ``valid``,
+    the step's ``_prefix_mask``); ``rope``: the step's rope tables of the
+    tokens' positions. Full-attention GQA only; the int8 dense cache is not
+    ported. Returns the new x."""
+    if cfg.kv_cache_quant:
+        raise NotImplementedError("the int8 dense cache is not ported yet")
+    q, k, v = _attn_inputs(cfg, lp, x, rope)
+    _cache_update(k_cache, k, slots)
+    _cache_update(v_cache, v, slots)
+    return _finish_layer(cfg, lp, x, attn.chunk_decode_attention(q, k_cache, v_cache, valid))
+
+
+def run_stack_prefix(cfg, blocks, x, caches, pos, positions=None,
+                     seg_prefix_end=None, seg_start=None):
+    """Run the stack in chunked-prefill mode: x (B, C, D) written into (and
+    attending) the contiguous caches ({k, v} of (G, B, Sc, KVH, hd), updated
+    in place layer by layer) at start slot ``pos`` — an int, a 0-d tensor
+    or (B,) per-row starts (the padded fused step runs every row at its own
+    cursor). ``positions`` (B, C) are the rope positions (default: the
+    slots); ``seg_prefix_end``/``seg_start`` (B, C) the segment spans (see
+    ``_prefix_mask``). Full-attention GQA stacks of period 1. Returns (x,
+    caches)."""
+    if period(cfg) != 1 or cfg.attn_type != ATTN_FULL or cfg.is_encoder_decoder:
+        raise NotImplementedError("chunked prefix prefill supports full-attention GQA stacks only")
+    B, C = x.shape[:2]
+    entry = caches[0]
+    Sc = entry["k"].shape[2]
+    start = torch.as_tensor(pos, device=x.device).long()
+    slots = (start.reshape(-1, 1) + torch.arange(C, device=x.device)).expand(B, C)
+    if positions is None:
+        positions = slots
+    rope = _rope(cfg, positions)
+    valid = _prefix_mask(Sc, slots, seg_prefix_end, seg_start)
+    for g in range(entry["k"].shape[0]):
+        x = apply_layer_prefix(cfg, layer_slice(blocks[0], g), x, entry["k"][g],
+                               entry["v"][g], slots, rope=rope, valid=valid)
+    return x, caches
 
 
 # ---------------------------------------------------------------------------
@@ -396,19 +462,19 @@ def run_stack_seq(cfg, blocks, x, positions):
     return x, caches, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def _cache_update(c, new, pos):
-    """Write each row's one new entry ``new`` (B, 1, ...) into ``c`` (B, Sc,
-    ...) IN PLACE at slot ``pos[b] % Sc``."""
-    rows = torch.arange(c.shape[0], device=c.device)
-    c[rows, pos.long() % c.shape[1]] = new[:, 0].to(c.dtype)
+def _cache_update(c, new, slots):
+    """Write each row's C new entries ``new`` (B, C, ...) into ``c`` (B, Sc,
+    ...) IN PLACE at slots ``slots % Sc`` (B, C)."""
+    rows = torch.arange(c.shape[0], device=c.device)[:, None]
+    c[rows, slots.long() % c.shape[1]] = new.to(c.dtype)
 
 
 def _decode_attn(cfg, lp, xn, k_cache, v_cache, pos, rope, lengths):
     """QKV of the normed input, its K/V written at slot ``pos % Sc`` (in
     place), attention over the row's valid slots; returns (B, 1, H, hd)."""
     q, k, v = _qkv(cfg, lp, xn, rope)
-    _cache_update(k_cache, k, pos)
-    _cache_update(v_cache, v, pos)
+    _cache_update(k_cache, k, pos[:, None])
+    _cache_update(v_cache, v, pos[:, None])
     return attn.decode_attention(q, k_cache, v_cache, lengths)
 
 

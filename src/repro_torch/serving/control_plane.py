@@ -1,8 +1,9 @@
 """Host-side control plane: immutable per-step plans for the device runtime.
 
-A copy of ``repro.serving.control_plane`` for the port, without the padded
-("fused") batch layout, which the port does not have yet: mixed steps are
-always packed ("ragged").
+A copy of ``repro.serving.control_plane`` for the port: mixed steps are
+packed ("ragged", the main path) or, with ``ragged=False``, padded to a
+chunk-width slab per row ("fused", the packing oracle). The plan SEQUENCE
+(grants, bookkeeping, emissions) is the same under both layouts.
 
 Admission, block allocation, chunk grants and the bookkeeping of a step
 are host work; this module keeps them off the device's critical path. It is
@@ -56,13 +57,15 @@ class StepPlan:
     the runner uploads them; nothing here holds device state."""
 
     plan_id: int
-    kind: str                # "ragged" (packed mixed batch) | "decode"
-    tokens: np.ndarray       # ragged: (T,) flat packed tokens; decode: (B, 1)
+    kind: str                # "ragged" (packed mixed batch) | "fused"
+    #                          (padded mixed batch) | "decode"
+    tokens: np.ndarray       # ragged: (T,) flat packed tokens; fused: (B, C)
+    #                          chunk tokens; decode: (B, 1)
     starts: np.ndarray       # (B,) int32 per-row cursor / decode position
     temps: np.ndarray        # (B,) float32 sampling temperatures
     tables: np.ndarray       # (B, view_blocks | max_blocks) int32 block
     #                          tables — RAW (-1 holes) for ragged plans,
-    #                          scratch-filled for decode
+    #                          scratch-filled for fused/decode
     # rows whose decode token must be substituted with the PREVIOUS plan's
     # device-resident sampled token (-1 = feed the host-provided token)
     prev_slots: np.ndarray   # (B,) int32
@@ -70,7 +73,8 @@ class StepPlan:
     emit_rows: Tuple[Tuple[Any, int, bool], ...]
     n_tokens: int            # valid tokens this step (per-token calibration)
     n_valid: Optional[np.ndarray] = None     # mixed only: (B,) valid counts
-    positions: Optional[np.ndarray] = None   # mixed only: (T,) rope positions
+    positions: Optional[np.ndarray] = None   # mixed only: rope positions —
+    #                                          (T,) ragged, (B, C) fused
     p_end: Optional[np.ndarray] = None       # mixed only: attention span ends
     s_start: Optional[np.ndarray] = None     # mixed only: span starts
     # ragged layout only: the packed batch's row-offset arrays
@@ -80,6 +84,54 @@ class StepPlan:
     #                                          decode token (-1 = not decoding)
     last_idx: Optional[np.ndarray] = None    # (B,) flat index of the row's
     #                                          last valid token (0 = unused row)
+
+
+def padded_plan_difference(rp: StepPlan, fp: StepPlan) -> Optional[str]:
+    """Where the plan of one step under the packed layout (``rp``) departs
+    from the plan of the same step under the padded one (``fp``); None when
+    it re-encodes it. Decode plans are equal; a mixed plan unpacked (each
+    row a contiguous run of the packed buffer, the pads a tail run with
+    ``row_of`` -1) gives the padded rows' tokens, positions, spans and
+    slots, with the same plan id, token count, starts and ``n_valid``."""
+    if (rp.plan_id, rp.n_tokens) != (fp.plan_id, fp.n_tokens):
+        return f"plan {rp.plan_id}/{fp.plan_id}: ids or token counts differ"
+    where = f"plan {rp.plan_id}"
+    if not np.array_equal(rp.starts, fp.starts):
+        return f"{where}: starts {rp.starts} vs {fp.starts}"
+    if fp.kind == "decode":
+        if rp.kind != "decode":
+            return f"{where}: kinds {rp.kind} vs decode"
+        if not (np.array_equal(rp.tokens, fp.tokens) and np.array_equal(rp.tables, fp.tables)):
+            return f"{where}: decode tokens or tables differ"
+        return None
+    if (rp.kind, fp.kind) != ("ragged", "fused"):
+        return f"{where}: kinds {rp.kind} vs {fp.kind}"
+    if not np.array_equal(rp.n_valid, fp.n_valid):
+        return f"{where}: n_valid {rp.n_valid} vs {fp.n_valid}"
+    row_of = np.asarray(rp.row_of)
+    n_packed = int((row_of >= 0).sum())
+    if not np.all(row_of[n_packed:] == -1):
+        return f"{where}: pads are not a tail run"
+    for b, nv in enumerate(np.asarray(fp.n_valid).tolist()):
+        idx = np.nonzero(row_of == b)[0]
+        if len(idx) != nv:
+            return f"{where} row {b}: {len(idx)} packed tokens, n_valid {nv}"
+        if not nv:
+            continue
+        if not np.array_equal(idx, np.arange(idx[0], idx[0] + nv)):
+            return f"{where} row {b}: not a contiguous run"
+        for name in ("tokens", "positions", "p_end", "s_start"):
+            if not np.array_equal(np.asarray(getattr(rp, name))[idx],
+                                  np.asarray(getattr(fp, name))[b, :nv]):
+                return f"{where} row {b}: {name} differ"
+        if not np.array_equal(np.asarray(rp.slots)[idx],
+                              np.arange(fp.starts[b], fp.starts[b] + nv)):
+            return f"{where} row {b}: slots differ"
+        if rp.last_idx[b] != idx[-1]:
+            return f"{where} row {b}: last_idx {rp.last_idx[b]} vs {idx[-1]}"
+        if rp.decode_idx[b] >= 0 and (nv != 1 or rp.decode_idx[b] != idx[0]):
+            return f"{where} row {b}: decode_idx {rp.decode_idx[b]} vs {idx[0]}"
+    return None
 
 
 class CopyEngine:
@@ -150,6 +202,9 @@ class ControlPlane:
         self.plans_built = 0
         self.last_load = 0.0
         self.last_chunk_size: Optional[int] = None
+        # a list here collects every StepPlan built, in build order (the
+        # oracle comparisons read them); None keeps none
+        self.recorded: Optional[List[StepPlan]] = None
 
     # ------------------------------------------------------------ admission
     def admit(self) -> None:
@@ -218,8 +273,10 @@ class ControlPlane:
         prev_slots = np.full((B,), -1, np.int32)
 
         if prefill_rows:
-            plan = self._assemble_ragged(plan_id, active, prefill_rows,
-                                         decode_rows, prev_slots)
+            assemble = (self._assemble_ragged if eng.ragged
+                        else self._assemble_fused)
+            plan = assemble(plan_id, active, prefill_rows, decode_rows,
+                            prev_slots)
         else:
             plan = self._assemble_decode(plan_id, active, prev_slots)
 
@@ -228,12 +285,15 @@ class ControlPlane:
         for req, _row, finishing in plan.emit_rows:
             if finishing:
                 eng._retire_slot(req)
+        if self.recorded is not None:
+            self.recorded.append(plan)
         return plan
 
     def _grants(self, prefill_rows, decode_rows) -> Dict[int, int]:
         """Token-budget grants: decode rows reserve one token each; the
         remaining budget goes to mid-prefill rows in policy order (always
-        at least one token, so prefill can never fully starve)."""
+        at least one token, so prefill can never fully starve). The same
+        for both mixed layouts."""
         eng = self.eng
         budget = max(eng.token_budget - len(decode_rows), 1)
         grants: Dict[int, int] = {}
@@ -276,6 +336,55 @@ class ControlPlane:
                 r.pos = r.prefill_cap
                 emit.append(self._mark_sampled(r, plan_id))
         return emit, n_tok
+
+    def _assemble_fused(self, plan_id, active, prefill_rows, decode_rows,
+                        prev_slots) -> StepPlan:
+        """Padded mixed batch: every row a chunk-width slab at its own
+        cursor, decode rows one valid token in C columns; tables
+        scratch-filled. The layout oracle of the ragged packing
+        (``ragged=False``)."""
+        eng = self.eng
+        grants = self._grants(prefill_rows, decode_rows)
+
+        B, C = eng.max_batch, eng.prefill_chunk_size
+        tokens = np.zeros((B, C), np.int32)
+        starts = np.zeros((B,), np.int32)
+        n_valid = np.zeros((B,), np.int32)
+        temps = np.zeros((B,), np.float32)
+        positions = np.zeros((B, C), np.int32)
+        p_end = np.zeros((B, C), np.int32)
+        s_start = np.zeros((B, C), np.int32)
+        tables = np.full((B, eng._view_blocks), eng._null_block, np.int32)
+        rows = eng.kv.pool.table_array([r.req_id for r in active],
+                                       eng._view_blocks)
+        for i, r in enumerate(active):
+            backed = rows[i] >= 0
+            tables[r.slot, backed] = rows[i][backed]
+            temps[r.slot] = r.temperature
+            if r.prefilling:
+                c = grants.get(r.req_id, 0)
+                tokens[r.slot, :c] = r.prompt[r.prefill_pos : r.prefill_pos + c]
+                starts[r.slot] = r.prefill_pos
+                n_valid[r.slot] = c
+                pp, pe, ss = eng._seg_arrays(r, r.prefill_pos, c, C)
+                positions[r.slot], p_end[r.slot], s_start[r.slot] = pp[0], pe[0], ss[0]
+            else:
+                tokens[r.slot, 0] = self._decode_token(r, prev_slots)
+                starts[r.slot] = r.pos
+                n_valid[r.slot] = 1
+                positions[r.slot, 0] = r.pos  # decoded tokens: position == slot
+
+        emit, n_tok = self._mixed_bookkeeping(
+            plan_id, prefill_rows, decode_rows, grants
+        )
+        eng.fused_slot_tokens += B * C
+        eng.fused_valid_tokens += n_tok
+        return StepPlan(
+            plan_id=plan_id, kind="fused", tokens=tokens, starts=starts,
+            temps=temps, tables=tables, prev_slots=prev_slots,
+            emit_rows=tuple(emit), n_tokens=n_tok, n_valid=n_valid,
+            positions=positions, p_end=p_end, s_start=s_start,
+        )
 
     def _assemble_ragged(self, plan_id, active, prefill_rows, decode_rows,
                          prev_slots) -> StepPlan:

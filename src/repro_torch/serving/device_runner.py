@@ -2,7 +2,9 @@
 ``repro.serving.device_runner``.
 
 * **Same programs, same numerics.** The runner calls the engine's own step
-  programs (``_ragged_step`` / ``_decode_step``); around them sit a
+  programs (``_ragged_step``, the padded oracle's ``_fused_step``, and
+  ``_decode_dispatch``: the paged decode kernel or the gather oracle, by
+  the engine's ``kernel``); around them sit a
   prev-token substitution (decode rows feed the previous plan's sampled
   token straight from device memory, no host roundtrip) and the sampler.
 
@@ -150,11 +152,19 @@ class DeviceRunner:
             toks_in = _substitute_packed(toks, prev, prev_slots, decode_idx)
             logits = eng._ragged_step(tables, toks_in, row_of, slots,
                                       positions, p_end, s_start, last_idx)
+        elif plan.kind == "fused":
+            (tables, toks, prev_slots, starts, n_valid, positions, p_end,
+             s_start), staging = self.upload(
+                plan.tables, plan.tokens, plan.prev_slots, plan.starts,
+                plan.n_valid, plan.positions, plan.p_end, plan.s_start)
+            toks_in = _substitute(toks, prev, prev_slots)
+            logits = eng._fused_step(tables, toks_in, starts, n_valid,
+                                     positions, p_end, s_start)
         else:
             (tables, toks, prev_slots, starts), staging = self.upload(
                 plan.tables, plan.tokens, plan.prev_slots, plan.starts)
             toks_in = _substitute(toks, prev, prev_slots)
-            logits = eng._decode_step(tables, toks_in, starts)
+            logits = eng._decode_dispatch(tables, toks_in, starts)
         toks = sample_tokens(eng._generator, logits, plan.temps)
         event = None
         host = toks

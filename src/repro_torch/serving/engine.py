@@ -50,12 +50,26 @@ min(max_seq + M, window) K/V slots beside its SSM state, and decodes at
 absolute position M + its text position (``kernels.flash_attention`` with a
 window, ``kernels.decode_attention``, ``kernels.ssm_scan.ssm_scan``).
 
+The paged backend keeps the JAX engine's oracle paths: ``interleave=False``
+is the sequential loop (blocking chunked prefill at admission, one
+request at a time, then one batched decode per step), ``ragged=False`` the
+padded mixed batch (every row a chunk-width slab; needs
+``kernel="reference"``), and ``kernel="reference"`` reads attention through
+the gather oracles: the ragged step through ``ref_paged_chunk_attention``,
+decode plans through the gathered contiguous view and the dense
+``decode_step`` (whose attention is the dense ``decode_attention`` kernel
+on the card). ``kernel="pallas"`` (the port's default; JAX defaults to
+``"reference"``) reads attention through the paged kernels. Each gives the
+JAX engine's plans and greedy tokens under the same settings. ``sanitize=True`` shadows every
+block lifecycle transition of the pool, the host tier and the copy engine
+in an ``analysis.kvsan.KVSanitizer`` (``self.sanitizer``).
+
 The engine runs on ``cuda`` unless ``device="cpu"`` is passed. The
 attention wrappers launch the CUDA kernels for CUDA tensors and run their
-plain PyTorch versions for CPU tensors; ``stats()["kernel"]`` says which.
-Arguments of later slices — meshes and pool layouts, an injected cache, the
-int8 dense cache, the sequential and padded oracles of the paged backend,
-the rest of the zoo on the dense backend and the sanitizer — raise
+plain PyTorch versions for CPU tensors; ``stats()["kernel"]`` says which,
+``stats()["kernel_impl"]`` which selector the engine was given. Arguments
+of later slices — meshes and pool layouts, an injected cache, the int8
+dense cache and the rest of the zoo on the dense backend — raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -81,6 +95,7 @@ from repro_torch.models import (
     init_cache,
     init_params,
     paged_cache_supported,
+    prefill_chunk,
     prefill_packed,
 )
 from repro_torch.serving.control_plane import ControlPlane, CopyEngine
@@ -90,7 +105,16 @@ from repro_torch.serving.device_runner import (
     _substitute_packed,
 )
 from repro_torch.serving.host_tier import HostBlockStore
-from repro_torch.serving.paged_cache import PagedKVCache, device_to_host
+from repro_torch.params import torch_dtype
+from repro_torch.serving.paged_cache import (
+    PagedKVCache,
+    device_to_host,
+    gather_paged_batch_dq,
+    write_paged_chunk,
+    write_paged_chunk_batch,
+    write_paged_chunk_batch_q,
+    write_paged_chunk_q,
+)
 from repro_torch.serving.sampler import sample_tokens
 from repro_torch.serving.segments import KIND_DOC, SegmentedPrompt, build_layout
 
@@ -228,6 +252,7 @@ class GenerationEngine:
         flusher: Optional[PriorityFlusher] = None,
         host_bw_bytes_s: float = 8e9,
         copy_budget: int = 4,
+        kernel: str = "pallas",
         ragged: bool = True,
         pack_align: int = 4,
         kv_dtype: Optional[str] = None,
@@ -243,8 +268,11 @@ class GenerationEngine:
         ``HostBlockStore``) or ``host_blocks`` (the size of a fresh one,
         pinned on ``cuda``) attach the host tier, which ``preempt="swap"``
         and ``"cost"`` provision pool-sized when neither is given;
-        ``host_bw_bytes_s`` is the cost model's host-link rate. The other
-        arguments mean what they mean in the JAX engine."""
+        ``host_bw_bytes_s`` is the cost model's host-link rate. ``kernel``
+        is ``"pallas"`` (the hand-written paged kernels; the port's default)
+        or ``"reference"`` (the gather oracles), as in the JAX engine, whose
+        default is ``"reference"``; ``"pallas"`` requires ``ragged=True``.
+        The other arguments mean what they mean in the JAX engine."""
         later = {"mesh": mesh, "pool_layout": pool_layout, "kv": kv}
         for name, value in later.items():
             if value is not None:
@@ -255,8 +283,11 @@ class GenerationEngine:
             raise ValueError(f"unknown preempt strategy {preempt!r}")
         if kv_dtype not in (None, "int8"):
             raise ValueError(f"unsupported kv_dtype {kv_dtype!r}")
-        if sanitize:
-            raise NotImplementedError("the KV sanitizer is not ported yet")
+        if kernel not in ("reference", "pallas"):
+            raise ValueError(f"unknown kernel {kernel!r}")
+        if kernel == "pallas" and not ragged:
+            raise ValueError("kernel='pallas' requires the ragged fused layout: the "
+                             "chunk kernel consumes the packed token buffer")
         if not paged_cache_supported(cfg):
             # JAX serves such archs on the dense backend; its port covers
             # full-attention GQA and RWKV-6 stacks
@@ -265,9 +296,6 @@ class GenerationEngine:
                     f"{cfg.name} is outside the paged contract; the rest of the zoo "
                     "on the dense backend is not ported yet")
             backend = "dense"
-        if backend == "paged" and (not interleave or not ragged):
-            raise NotImplementedError(
-                "only the interleaved, ragged (packed) paged step is ported")
         self.cfg = cfg
         self.device = resolve_device(device)
         if params is None:
@@ -278,9 +306,10 @@ class GenerationEngine:
         self.max_seq = max_seq
         self.eos_token = eos_token
         self.backend = backend
-        self.interleave = backend == "paged"
-        self.ragged = backend == "paged"
+        self.interleave = interleave and backend == "paged"
+        self.ragged = bool(ragged)
         self.kernel = "cuda" if self.device.type == "cuda" else "plain"
+        self.kernel_impl = kernel
         self.scheduler: QueuePolicy = make_policy(scheduler)
         # never mutate a caller-supplied policy: bind residency into a copy
         if isinstance(scheduler, QueuePolicy):
@@ -319,6 +348,7 @@ class GenerationEngine:
         self._copy = CopyEngine()
         self._inflight: Optional[PlanExec] = None
         self._build_emitted: Optional[Dict[int, List[int]]] = None
+        self.sanitizer = None
         if self.backend == "dense":
             # a row's cache holds its meta tokens too (a hybrid layer's
             # K/V: a ring of min(max_seq + M, window) slots); init_cache
@@ -344,7 +374,19 @@ class GenerationEngine:
                 pin=self.device.type == "cuda")
         self.kv = PagedKVCache(cfg, n_blocks, block_size, self.max_blocks,
                                prefix_sharing=prefix_sharing, device=self.device,
-                               host_store=self.host_store, kv_dtype=kv_dtype)
+                               host_store=self.host_store, kv_dtype=kv_dtype,
+                               sanitize=sanitize)
+        # one sanitizer (if any) shadows the pool, the host store and the
+        # copy engine's tag queue (the swap-in sync(tag) happens-before edge)
+        self.sanitizer = self.kv.sanitizer
+        self._copy.sanitizer = self.sanitizer
+        # the oracle steps run the stack over gathered float views (an int8
+        # pool is dequantized by the gather, requantized by the _q writes),
+        # never through the dense int8 cache
+        self._oracle_cfg = cfg.replace(kv_cache_quant=False) if cfg.kv_cache_quant else cfg
+        # decode plans: the paged decode kernel, or the gather oracle
+        self._decode_dispatch = (self._decode_step if kernel == "pallas"
+                                 else self._decode_paged)
         # reserved scratch block: swallows pad-token and unbacked writes
         self._null_block = self.kv.pool.allocate(_NULL_SEQ, 1)[0]
         # the cache's demotions and write-through copies and the engine's
@@ -421,6 +463,7 @@ class GenerationEngine:
             "measured_session_hit_rate": self.measured_session_hit_rate(),
             "preempt": self.preempt,
             "kv_dtype": self.kv_dtype or self.cfg.dtype,
+            "kernel_impl": self.kernel_impl,
             "ragged": self.ragged,
             "fused_slot_tokens": self.fused_slot_tokens,
             "fused_valid_tokens": self.fused_valid_tokens,
@@ -452,8 +495,9 @@ class GenerationEngine:
         the token budget (+1 floor grant) and by B * C. Each call packs only
         pad tokens (``row_of = -1``), whose K/V writes land in the scratch
         block, so no request state changes. Returns the number of lengths
-        run (0 on the dense backend, which has no packed step)."""
-        if self.backend != "paged":
+        run (0 on the dense backend and the paged oracle paths, which have
+        no packed step)."""
+        if self.backend != "paged" or not self.interleave or not self.ragged:
             return 0
         B, C = self.max_batch, self.prefill_chunk_size
         cap = min(max(self.token_budget + 1, B + 1), B * C)
@@ -585,6 +629,8 @@ class GenerationEngine:
         return min(len(req.prompt), self.max_seq)
 
     def _try_admit(self, req: Request) -> bool:
+        if self.backend != "paged":
+            return True  # dense: a free slot is the only admission resource
         if req.swapped:
             return self._swap_in(req)
         cap = self._prompt_cap(req)
@@ -729,12 +775,14 @@ class GenerationEngine:
         """One ragged fused step: T packed tokens read and write the pools
         in place through RAW block tables (``models.prefill_packed``).
         Returns each row's last-valid-token logits (gathered by
-        ``last_idx``), so the sampler keeps its (B,) contract."""
+        ``last_idx``), so the sampler keeps its (B,) contract. Attention
+        reads through the chunk kernel, or under ``kernel="reference"``
+        through its gather oracle."""
         logits = prefill_packed(
             self.cfg, self.params, self.kv.k, self.kv.v, tables, tokens,
             row_of, slots, positions, p_end, s_start,
             block_size=self.block_size, null_block=self._null_block,
-            k_scales=self.kv.k_scale, v_scales=self.kv.v_scale,
+            k_scales=self.kv.k_scale, v_scales=self.kv.v_scale, impl=self.kernel_impl,
         )
         return logits[last_idx.long()]
 
@@ -746,6 +794,124 @@ class GenerationEngine:
             block_size=self.block_size, null_block=self._null_block,
             k_scales=self.kv.k_scale, v_scales=self.kv.v_scale,
         )
+
+    # the oracle steps: gathered contiguous views through the dense-cache
+    # stack, new K/V written back as new pools (as the JAX step programs do)
+    def _views(self, tables):
+        """Each row's contiguous view of both pools, (G, B, mb*bs, KVH, hd)
+        in the config's dtype (an int8 pool dequantized): one cache entry
+        {k, v} for the dense-cache stack."""
+        dt = torch_dtype(self.cfg)
+        kv = self.kv
+        return ({"k": gather_paged_batch_dq(kv.k, kv.k_scale, tables, out_dtype=dt),
+                 "v": gather_paged_batch_dq(kv.v, kv.v_scale, tables, out_dtype=dt)},)
+
+    def _write_back(self, write, write_q, tables, starts, newk, newv, n_valid=None):
+        """Land new K/V entries in the pools through ``write`` (a float
+        pool) or ``write_q`` (an int8 pool, with its scales): the new pools
+        replace the old in the cache box. Padding (past ``n_valid``) goes
+        to the scratch block."""
+        kv, bs, nb = self.kv, self.block_size, self._null_block
+        if kv.quantized:
+            kv.k, kv.k_scale = write_q(kv.k, kv.k_scale, tables, starts, newk, bs, n_valid, nb)
+            kv.v, kv.v_scale = write_q(kv.v, kv.v_scale, tables, starts, newv, bs, n_valid, nb)
+        else:
+            kv.k = write(kv.k, tables, starts, newk, bs, n_valid, nb)
+            kv.v = write(kv.v, tables, starts, newv, bs, n_valid, nb)
+
+    def _prefill_chunk(self, table_row, tokens, start: int, n_valid: int, positions,
+                       p_end, s_start):
+        """One chunked-prefill step of one request (the sequential path):
+        gather its view, run the (1, C) chunk at slot ``start`` through the
+        stack (``models.prefill_chunk``), write its ``n_valid`` new entries
+        back. Returns the last valid token's logits (V,)."""
+        caches = self._views(table_row[None])
+        logits, caches = prefill_chunk(self._oracle_cfg, self.params, caches, tokens, start,
+                                       positions, p_end, s_start)
+        pc = tokens.shape[1]
+        newk = caches[0]["k"][:, 0, start:start + pc]            # (G, C, KVH, hd)
+        newv = caches[0]["v"][:, 0, start:start + pc]
+        self._write_back(write_paged_chunk, write_paged_chunk_q, table_row, start, newk,
+                         newv, n_valid)
+        return logits[0, n_valid - 1]
+
+    def _fused_step(self, tables, tokens, starts, n_valid, positions, p_end, s_start):
+        """One padded fused step: every row a C-token chunk at its own
+        cursor (decode rows one valid token), through the rows' gathered
+        views; the valid entries are written back (padding to the scratch
+        block). Returns each row's last-valid-token logits (B, V)."""
+        caches = self._views(tables)
+        logits, caches = prefill_chunk(self._oracle_cfg, self.params, caches, tokens, starts,
+                                       positions, p_end, s_start)
+        B, C = tokens.shape
+        b = torch.arange(B, device=tokens.device)
+        idx = starts.long()[:, None] + torch.arange(C, device=tokens.device)
+        newk = caches[0]["k"][:, b[:, None], idx]                # (G, B, C, KVH, hd)
+        newv = caches[0]["v"][:, b[:, None], idx]
+        self._write_back(write_paged_chunk_batch, write_paged_chunk_batch_q, tables, starts,
+                         newk, newv, n_valid)
+        return logits[b, (n_valid.long() - 1).clamp(min=0)]
+
+    def _decode_paged(self, tables, tokens, pos):
+        """The gather-oracle decode: each row's contiguous view through the
+        dense ``decode_step`` (its attention is ``decode_attention``), the
+        new entries scattered back at ``pos``. Returns logits (B, V)."""
+        logits, caches = decode_step(self._oracle_cfg, self.params, self._views(tables),
+                                     tokens, pos)
+        b = torch.arange(tables.shape[0], device=tables.device)
+        p = pos.long()
+        newk = caches[0]["k"][:, b, p][:, :, None]                # (G, B, 1, KVH, hd)
+        newv = caches[0]["v"][:, b, p][:, :, None]
+        self._write_back(write_paged_chunk_batch, write_paged_chunk_batch_q, tables, pos,
+                         newk, newv)
+        return logits
+
+    def _seg_arrays(self, req: Request, pos: int, c: int, width: int) -> tuple:
+        """(positions, p_end, s_start) (1, width) slices of the request's
+        layout at [pos, pos+c): the segmented prompt's rope positions and
+        attention spans of one chunk (padding columns stay zero; n_valid
+        masks them downstream)."""
+        positions = np.zeros((1, width), np.int32)
+        p_end = np.zeros((1, width), np.int32)
+        s_start = np.zeros((1, width), np.int32)
+        lay = req.layout
+        positions[0, :c] = lay.pos_ids[pos : pos + c]
+        p_end[0, :c] = lay.attn_p_end[pos : pos + c]
+        s_start[0, :c] = lay.attn_s_start[pos : pos + c]
+        return positions, p_end, s_start
+
+    @torch.no_grad()
+    def _prefill_paged(self, req: Request, slot: int):
+        """Sequential path: prefill the admitted request's whole prompt in
+        chunks of ``prefill_chunk_size`` (skipping cache-served spans),
+        publish its prefix blocks and emit its first token."""
+        cap = self._prompt_cap(req)
+        req.truncated = cap < len(req.prompt)
+        toks = np.asarray(req.prompt[:cap], np.int32)
+        pc = self.prefill_chunk_size
+        (table,), _ = self.runner.upload(
+            self.kv.pool.table_array([req.req_id], self._view_blocks)[0])
+        req.prefill_cap = cap
+        req.prefill_pos = 0
+        _advance_cursor(req)  # shared blocks already carry their K/V
+        last = None
+        while req.prefill_pos < cap:
+            pos = req.prefill_pos
+            C = _max_grant(req, pc)
+            chunk = np.zeros((1, pc), np.int32)
+            chunk[0, :C] = toks[pos : pos + C]
+            arrays, _ = self.runner.upload(chunk, *self._seg_arrays(req, pos, C, pc))
+            last = self._prefill_chunk(table, arrays[0], pos, C, *arrays[1:])
+            req.prefill_pos = pos + C
+            self.prefill_tokens += C
+            _advance_cursor(req)
+        self.kv.lengths[req.req_id] = cap
+        self.kv.register_prefix(req.req_id, toks, req.layout)
+        req.slot = slot
+        req.pos = cap
+        req.prefill_pos = cap
+        tok = int(sample_tokens(self._generator, last[None], req.temperature)[0])
+        self._emit(req, tok)
 
     # ----------------------------------------------------------- preemption
     def _preempt(self, victim: Request):
@@ -821,11 +987,12 @@ class GenerationEngine:
         """One engine iteration: the control plane builds one StepPlan and
         the device runner dispatches it; sampled tokens materialize this
         step (``pipeline=False``) or next step (``pipeline=True``). Returns
-        the tokens whose emission LANDED this step. The dense backend admits
-        (blocking whole-prompt prefill) and then runs one batched decode."""
+        the tokens whose emission LANDED this step. The dense backend and
+        the sequential paged path (``interleave=False``) admit (blocking
+        whole-prompt prefill) and then run one batched decode."""
         for r in self.waiting:
             r.queued_steps += 1
-        if self.backend == "dense":
+        if not self.interleave:
             out = self._step_sequential()
             self._drain_copies(full=True)
             self.flusher.flush()
@@ -951,7 +1118,7 @@ class GenerationEngine:
         if req.stream is not None and not req.stream.closed:
             req.stream.close()
 
-    # ---------------------------------------------------------- dense path
+    # ------------------------------------------- sequential and dense paths
     def _prefill_one(self, req: Request, slot: int):
         """Prefill the whole prompt (truncated to ``max_seq``), write its
         cache into row ``slot`` and emit the first token. Attention stacks
@@ -986,24 +1153,48 @@ class GenerationEngine:
         self._emit(req, tok)
 
     def _step_sequential(self) -> Dict[int, List[int]]:
-        """Fill free slots from the queue (a free slot is the dense backend's
-        only admission resource), then one batched decode."""
+        """Fill free slots from the queue in policy order (on the paged
+        backend through admission, which may backpressure or fail an
+        unfittable request; a swapped-out request is restored in place),
+        prefilling each admitted request whole, then one batched decode."""
+        blocked = False
         for slot in range(self.max_batch):
-            while self.slots[slot] is None and self.waiting:
-                req = self.waiting.pop(self.scheduler.select(self.waiting))
+            while self.slots[slot] is None and self.waiting and not blocked:
+                i = self.scheduler.select(self.waiting)
+                req = self.waiting[i]
+                was_swapped = req.swapped  # _try_admit clears it on restore
+                if not self._try_admit(req):
+                    if req.done:  # unfittable request failed out; try the next
+                        self.waiting.pop(i)
+                        continue
+                    blocked = True  # the policy's head-of-line waits for blocks
+                    break
+                self.waiting.pop(i)
                 self.slots[slot] = req
-                self._prefill_one(req, slot)
+                if was_swapped:
+                    # restored in place: KV, position and cursor resume as
+                    # they were (sequential victims are always decode-phase)
+                    req.slot = slot
+                elif self.backend == "paged":
+                    self._prefill_paged(req, slot)
+                else:
+                    self._prefill_one(req, slot)
+        if self.backend == "paged":
+            self._ensure_decode_capacity()
         active = [r for r in self.slots if r is not None]
         if not active:
             return {}
         return self._decode_batch(active)
 
+    @torch.no_grad()
     def _decode_batch(self, active: List[Request]) -> Dict[int, List[int]]:
-        """One batched decode over every slot; inactive rows decode token 0
-        at position 0 of their own (unused) cache row (an RWKV-6 or SSM row's
-        state advances on it; admission overwrites the row). A row's absolute
-        position counts its ``num_meta_tokens`` meta tokens before its text
-        (JAX decodes at the text position: ROADMAP §3)."""
+        """One batched decode over every slot. Paged: through the decode
+        dispatch (kernel or gather oracle) on scratch-filled tables.
+        Dense: inactive rows decode token 0 at position 0 of their own
+        (unused) cache row (an RWKV-6 or SSM row's state advances on it;
+        admission overwrites the row), and a row's absolute position counts
+        its ``num_meta_tokens`` meta tokens before its text (JAX decodes at
+        the text position: ROADMAP §3)."""
         B = self.max_batch
         tokens = np.zeros((B, 1), np.int32)
         pos = np.zeros((B,), np.int32)
@@ -1012,9 +1203,20 @@ class GenerationEngine:
             tokens[r.slot, 0] = r.out_tokens[-1] if r.out_tokens else 0
             pos[r.slot] = self.cfg.num_meta_tokens + r.pos
             temps[r.slot] = r.temperature
-        logits, self.cache = decode_step(
-            self.cfg, self.params, self.cache, torch.from_numpy(tokens).to(self.device),
-            torch.from_numpy(pos).to(self.device))
+        if self.backend == "paged":
+            tables = np.full((B, self.max_blocks), self._null_block, np.int32)
+            rows = self.kv.batch_tables([r.req_id for r in active])
+            for i, r in enumerate(active):
+                valid = rows[i] >= 0
+                tables[r.slot, valid] = rows[i][valid]
+            (t_tables, t_tokens, t_pos), _ = self.runner.upload(tables, tokens, pos)
+            logits = self._decode_dispatch(t_tables, t_tokens, t_pos)
+            for r in active:
+                self.kv.lengths[r.req_id] = r.pos + 1
+        else:
+            logits, self.cache = decode_step(
+                self.cfg, self.params, self.cache, torch.from_numpy(tokens).to(self.device),
+                torch.from_numpy(pos).to(self.device))
         self.steps += 1
         toks = sample_tokens(self._generator, logits, temps).cpu().numpy()
         emitted: Dict[int, List[int]] = {}
@@ -1028,8 +1230,8 @@ class GenerationEngine:
         return emitted
 
     def _emit(self, req: Request, tok: int):
-        """Eager emit (dense path): token side effects plus the completion
-        check applied immediately."""
+        """Eager emit (sequential and dense paths): token side effects plus
+        the completion check applied immediately."""
         self._emit_token(req, tok)
         req.planned = len(req.out_tokens)
         if (

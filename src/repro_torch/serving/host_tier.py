@@ -63,7 +63,9 @@ class HostBlockStore:
         else:
             self.k_scale = self.v_scale = None
         self.free: List[int] = list(range(n_blocks))
-        self.sanitizer: Optional[Any] = None    # the KV sanitizer is not ported yet
+        # optional analysis.kvsan.KVSanitizer: slot transitions mirror into
+        # its shadow (attached by PagedKVCache(sanitize=True))
+        self.sanitizer: Optional[Any] = None
         self._by_key: Dict[bytes, int] = {}     # prefix key -> slot
         self._key_of: Dict[int, bytes] = {}     # reverse map
         self._lru: Dict[bytes, None] = {}       # keyed slots, eviction order
@@ -120,6 +122,8 @@ class HostBlockStore:
         del self._key_of[slot]
         self._producer.pop(key, None)
         self.evictions += 1
+        if self.sanitizer is not None:
+            self.sanitizer.host_evict(key, slot)
         return slot
 
     def _take_slot(self) -> Optional[int]:
@@ -166,6 +170,9 @@ class HostBlockStore:
         self._lru[key] = None
         self._producer[key] = owner
         self.puts += 1
+        if self.sanitizer is not None:
+            self.sanitizer.host_put(key, slot, owner)
+            self.sanitizer.audit_host(self)
         return True
 
     def _copies(self, slots: List[int]):
@@ -182,6 +189,8 @@ class HostBlockStore:
         quantized store). Records hits and cross-owner hits and re-heats
         every key; every key must be resident."""
         slots = [self._by_key[k] for k in keys]
+        if self.sanitizer is not None:
+            self.sanitizer.host_read(keys, slots)
         for key in keys:
             self._touch(key)
             self.hits += 1
@@ -206,13 +215,19 @@ class HostBlockStore:
             slots.append(s)
         self._swap[tag] = slots
         self.swap_outs += 1
+        if self.sanitizer is not None:
+            self.sanitizer.host_reserve(tag, slots)
+            self.sanitizer.audit_host(self)
         return slots
 
     def fill_seq(self, tag: Any, k_blocks: torch.Tensor, v_blocks: torch.Tensor,
                  k_scales: Optional[torch.Tensor] = None,
                  v_scales: Optional[torch.Tensor] = None) -> None:
         """Fill a reserved swap set ``(G, n, bs, KVH, hd)``; a tag dropped
-        before the copy drained is ignored."""
+        before the copy drained is ignored (the sanitizer too allows that
+        race, and only that one)."""
+        if self.sanitizer is not None:
+            self.sanitizer.host_fill(tag)
         slots = self._swap.get(tag)
         if slots is None:
             return
@@ -241,6 +256,8 @@ class HostBlockStore:
     def restore_seq(self, tag: Any):
         """Unpin and return a swap set's ``(k, v)`` copies (``(k, v,
         k_scale, v_scale)`` for a quantized store)."""
+        if self.sanitizer is not None:
+            self.sanitizer.host_restore(tag)
         slots = self._swap.pop(tag)
         out = self._copies(slots)
         self.free.extend(slots)
@@ -249,6 +266,8 @@ class HostBlockStore:
 
     def drop_seq(self, tag: Any) -> None:
         """Abandon a swap set without restoring it."""
+        if self.sanitizer is not None and tag in self._swap:
+            self.sanitizer.host_drop(tag)
         self.free.extend(self._swap.pop(tag, []))
 
     # ---------------------------------------------------------------- stats

@@ -29,14 +29,19 @@ write-through, swap-out) gathers into a fresh tensor on the compute stream
 when it is enqueued, behind the steps that wrote the blocks; only the host
 side's wait is deferred (``device_to_host``).
 
-Mesh layouts, block ranges, injected pool boxes and the lifecycle sanitizer
-are not ported yet; the constructor raises ``NotImplementedError`` for them.
+The gather and chunk-write functions of the oracle paths (``gather_paged*``,
+``write_paged_chunk*``, ``paged_validity``) are functions on tensors that
+return NEW pools, as the JAX functions do; the engine's oracle steps land
+them back in the cache box. ``sanitize=True`` attaches the lifecycle
+sanitizer (``analysis.kvsan``). Mesh layouts, block ranges and injected
+pool boxes are not ported yet; the constructor raises
+``NotImplementedError`` for them.
 """
 from __future__ import annotations
 
 import hashlib
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +69,9 @@ class PagedPool:
     on_free: Optional[Callable[[int], None]] = None             # block truly freed
     keep_on_release: Optional[Callable[[int], bool]] = None     # warm-cache policy
     n_owned: int = 0     # blocks this allocator may hand out
+    # optional analysis.kvsan.KVSanitizer: every state transition below
+    # mirrors into its shadow machine, which raises on lifecycle violations
+    sanitizer: Optional[Any] = None
 
     def __post_init__(self):
         if not self.free_list:
@@ -78,6 +86,9 @@ class PagedPool:
     def blocks_needed(self, n_tokens: int) -> int:
         return (n_tokens + self.block_size - 1) // self.block_size
 
+    def can_allocate(self, n_tokens: int) -> bool:
+        return self.blocks_needed(n_tokens) <= self.n_free
+
     def _pop_block(self) -> int:
         if self.free_list:
             return self.free_list.pop()
@@ -85,6 +96,8 @@ class PagedPool:
             raise MemoryError("paged pool exhausted: no free or warm block")
         b = next(iter(self.cached))  # evict least-recently-used warm block
         del self.cached[b]
+        if self.sanitizer is not None:
+            self.sanitizer.device_warm_evict(b)
         if self.on_free is not None:
             self.on_free(b)
         return b
@@ -94,6 +107,8 @@ class PagedPool:
         of the eviction queue even when the hitting request cannot be admitted
         yet (backpressure). O(1)."""
         if self.refcounts.get(block_id, 0) == 0 and block_id in self.cached:
+            if self.sanitizer is not None:
+                self.sanitizer.device_touch(block_id)
             del self.cached[block_id]
             self.cached[block_id] = None  # re-insert at the MRU end
 
@@ -106,6 +121,8 @@ class PagedPool:
         blocks = [self._pop_block() for _ in range(need)]
         for b in blocks:
             self.refcounts[b] = 1
+            if self.sanitizer is not None:
+                self.sanitizer.device_alloc(b, seq_id)
         self.tables.setdefault(seq_id, []).extend(blocks)
         return blocks
 
@@ -113,6 +130,8 @@ class PagedPool:
         """Append an already-written block to ``seq_id``'s table, bumping its
         refcount (only fully written, immutable prompt blocks are shared).
         Reviving a warm cached block removes it from the eviction queue."""
+        if self.sanitizer is not None:
+            self.sanitizer.device_share(block_id, seq_id)
         if self.refcounts.get(block_id, 0) == 0:
             self.cached.pop(block_id, None)
         self.refcounts[block_id] = self.refcounts.get(block_id, 0) + 1
@@ -130,15 +149,23 @@ class PagedPool:
     def free(self, seq_id: int):
         # release in reverse chain order: a chain's head blocks (most likely
         # to be re-hit) land at the back of the LRU queue, so tails are
-        # evicted before heads
+        # evicted before heads. A missing refcount counts as 1, as in the
+        # JAX allocator: a stale table's second release then passes here,
+        # and the sanitizer (when attached) is what catches it
         for b in reversed(self.tables.pop(seq_id, [])):
+            if self.sanitizer is not None:
+                self.sanitizer.device_release(b, seq_id)
             self.refcounts[b] = self.refcounts.get(b, 1) - 1
             if self.refcounts[b] <= 0:
                 del self.refcounts[b]
                 if self.keep_on_release is not None and self.keep_on_release(b):
                     self.cached[b] = None  # stays warm for prefix reuse
+                    if self.sanitizer is not None:
+                        self.sanitizer.device_warm(b)
                 else:
                     self.free_list.append(b)
+                    if self.sanitizer is not None:
+                        self.sanitizer.device_free(b)
                     if self.on_free is not None:
                         self.on_free(b)
 
@@ -206,6 +233,109 @@ def write_paged_packed(pool_kv, block_tables, row_of, slots, new_kv,
 
 
 # ---------------------------------------------------------------------------
+# the oracle paths' gathers and chunk writes (new tensors, as in JAX)
+# ---------------------------------------------------------------------------
+
+
+def _table_blocks(tables, idx):
+    """``tables[..., idx]`` along the last axis with ``idx`` clamped to the
+    table, as a JAX gather clamps an out-of-range index. int64."""
+    return torch.gather(tables.long(), -1, idx.clamp(max=tables.shape[-1] - 1))
+
+
+def _chunk_dest(block_table_row, start, C: int, bs: int, n_valid, null_dest: int):
+    """Flat pool slots (C,) of a C-token chunk at ``start``: unallocated
+    table entries read block 0, padding (index >= ``n_valid``) goes to slot
+    0 of the ``null_dest`` scratch block."""
+    ar = torch.arange(C, device=block_table_row.device)
+    pos = torch.as_tensor(start, device=ar.device).long() + ar
+    dest = _table_blocks(block_table_row, pos // bs).clamp(min=0) * bs + pos % bs
+    if n_valid is not None:
+        n_valid = torch.as_tensor(n_valid, device=ar.device)
+        dest = torch.where(ar < n_valid, dest, torch.full_like(dest, null_dest * bs))
+    return dest
+
+
+def _batch_dest(block_tables, starts, C: int, bs: int, n_valid, null_dest: int):
+    """Flat pool slots (B, C) of B rows' C-token chunks at ``starts`` (B,),
+    routed as in ``_chunk_dest`` row by row."""
+    ar = torch.arange(C, device=block_tables.device)
+    pos = starts.long()[:, None] + ar                          # (B, C)
+    dest = _table_blocks(block_tables, pos // bs).clamp(min=0) * bs + pos % bs
+    if n_valid is not None:
+        dest = torch.where(ar[None, :] < n_valid.long()[:, None], dest,
+                           torch.full_like(dest, null_dest * bs))
+    return dest
+
+
+def _scatter_new(pool_kv, dest, new_kv):
+    """A copy of pool_kv (G, nb, bs, KVH, hd) with ``new_kv`` (G, N, KVH,
+    hd) at flat slots ``dest`` (N,)."""
+    G, nb, bs = pool_kv.shape[:3]
+    out = pool_kv.clone()
+    out.view(G, nb * bs, *pool_kv.shape[3:])[:, dest] = new_kv.to(out.dtype)
+    return out
+
+
+def write_paged(pool_kv, block_table_row, pos, new_kv, block_size: int):
+    """Write one token's (G, KVH, hd) entry at absolute position ``pos`` for
+    the sequence whose blocks are ``block_table_row`` (max_blocks,) int32.
+    pool_kv: (G, n_blocks, bs, KVH, hd). Returns a new pool."""
+    pos = torch.as_tensor(pos, device=block_table_row.device).long().reshape(1)
+    blk = _table_blocks(block_table_row, pos // block_size)
+    return _scatter_new(pool_kv, blk * block_size + pos % block_size, new_kv[:, None])
+
+
+def write_paged_chunk(pool_kv, block_table_row, start, new_kv, block_size: int,
+                      n_valid=None, null_dest: int = 0):
+    """Bulk write of a C-token chunk new_kv (G, C, KVH, hd) at absolute
+    positions ``start .. start+C-1`` of one sequence. ``n_valid`` masks
+    trailing padding tokens: their writes go to slot 0 of the ``null_dest``
+    scratch block, which nothing reads. Returns a new pool."""
+    dest = _chunk_dest(block_table_row, start, new_kv.shape[1], block_size, n_valid,
+                       null_dest)
+    return _scatter_new(pool_kv, dest, new_kv)
+
+
+def write_paged_chunk_batch(pool_kv, block_tables, starts, new_kv, block_size: int,
+                            n_valid=None, null_dest: int = 0):
+    """Multi-row chunk scatter (the padded fused step; decode rows are
+    chunks with ``n_valid == 1``): block_tables (B, mb) int32; starts/n_valid
+    (B,); new_kv (G, B, C, KVH, hd). Padding goes to the scratch block.
+    Returns a new pool."""
+    G, B, C = new_kv.shape[:3]
+    dest = _batch_dest(block_tables, starts, C, block_size, n_valid, null_dest)
+    return _scatter_new(pool_kv, dest.reshape(-1), new_kv.reshape(G, B * C, *new_kv.shape[3:]))
+
+
+def gather_paged(pool_kv, block_table_row, max_blocks: int):
+    """A sequence's contiguous cache view (G, max_blocks*bs, KVH, hd) from
+    its pages; unallocated pages read block 0 and must be masked by
+    validity downstream."""
+    safe = block_table_row[:max_blocks].long().clamp(min=0)
+    g = pool_kv[:, safe]                                       # (G, mb, bs, KVH, hd)
+    G, nb, bs = g.shape[:3]
+    return g.reshape(G, nb * bs, *g.shape[3:])
+
+
+def gather_paged_batch(pool_kv, block_tables):
+    """Batched gather: block_tables (B, mb) -> (G, B, mb*bs, KVH, hd), the
+    contiguous per-row view the oracle steps consume."""
+    safe = block_tables.long().clamp(min=0)
+    g = pool_kv[:, safe]                                       # (G, B, mb, bs, KVH, hd)
+    G, B, mb, bs = g.shape[:4]
+    return g.reshape(G, B, mb * bs, *g.shape[4:])
+
+
+def paged_validity(block_table_row, length, block_size: int, max_blocks: int):
+    """(max_blocks*block_size,) bool: the slot is backed by a real page AND
+    below the sequence length."""
+    slots = torch.arange(max_blocks * block_size, device=block_table_row.device)
+    backed = block_table_row.long()[slots // block_size] >= 0
+    return backed & (slots < torch.as_tensor(length, device=slots.device))
+
+
+# ---------------------------------------------------------------------------
 # int8 quantized pool scatters (per-block, per-KV-head running-max scales)
 # ---------------------------------------------------------------------------
 
@@ -265,6 +395,47 @@ def dequantize_blocks(blocks, block_scales, out_dtype=torch.float32):
     """Dequantize gathered int8 blocks (..., bs, KVH, hd) with matching
     per-block scales (..., KVH): broadcast-multiply over slot and head dims."""
     return blocks.to(out_dtype) * block_scales[..., None, :, None].to(out_dtype)
+
+
+def write_paged_chunk_q(pool_kv, scales, block_table_row, start, new_kv,
+                        block_size: int, n_valid=None, null_dest: int = 0):
+    """Quantized ``write_paged_chunk``: the same routing into an int8 pool
+    through ``_quantized_scatter``. Returns new ``(pool, scales)``."""
+    dest = _chunk_dest(block_table_row, start, new_kv.shape[1], block_size, n_valid,
+                       null_dest)
+    return _quantized_scatter(pool_kv.clone(), scales.clone(), dest, new_kv)
+
+
+def write_paged_chunk_batch_q(pool_kv, scales, block_tables, starts, new_kv,
+                              block_size: int, n_valid=None, null_dest: int = 0):
+    """Quantized ``write_paged_chunk_batch``. Returns new ``(pool, scales)``."""
+    G, B, C = new_kv.shape[:3]
+    dest = _batch_dest(block_tables, starts, C, block_size, n_valid, null_dest)
+    return _quantized_scatter(pool_kv.clone(), scales.clone(), dest.reshape(-1),
+                              new_kv.reshape(G, B * C, *new_kv.shape[3:]))
+
+
+def gather_paged_dq(pool_kv, scales, block_table_row, max_blocks: int,
+                    out_dtype=torch.float32):
+    """``gather_paged`` of a quantized pool: the dequantized contiguous view.
+    With ``scales=None``, the plain gather."""
+    if scales is None:
+        return gather_paged(pool_kv, block_table_row, max_blocks)
+    safe = block_table_row[:max_blocks].long().clamp(min=0)
+    g = dequantize_blocks(pool_kv[:, safe], scales[:, safe], out_dtype)
+    G, nb, bs = g.shape[:3]
+    return g.reshape(G, nb * bs, *g.shape[3:])
+
+
+def gather_paged_batch_dq(pool_kv, scales, block_tables, out_dtype=torch.float32):
+    """``gather_paged_batch`` of a quantized pool: the batched dequantized
+    view. With ``scales=None``, the plain gather."""
+    if scales is None:
+        return gather_paged_batch(pool_kv, block_tables)
+    safe = block_tables.long().clamp(min=0)
+    g = dequantize_blocks(pool_kv[:, safe], scales[:, safe], out_dtype)
+    G, B, mb, bs = g.shape[:4]
+    return g.reshape(G, B, mb * bs, *g.shape[4:])
 
 
 # ---------------------------------------------------------------------------
@@ -372,20 +543,26 @@ class PagedKVCache:
     evicted warm blocks demote there and ``admit_tokens`` promotes
     host-resident keys back; ``host_write_through`` also copies every newly
     published prefix block there at ``register_prefix``. ``client_tag``
-    names this cache to a possibly shared store."""
+    names this cache to a possibly shared store. ``sanitize=True`` attaches
+    an ``analysis.kvsan.KVSanitizer`` that mirrors every block lifecycle
+    transition of the pool and the host tier in a shadow state machine and
+    raises ``KVSanError`` on a violation (a debug mode); ``sanitizer``
+    injects one instead.
+
+    The legacy per-sequence API (``admit``, ``write_token``,
+    ``write_prefill``, ``sequence_view``) streams K/V in without token
+    identity, through the oracle paths' functions."""
 
     def __init__(self, cfg, n_blocks: int = 256, block_size: int = 16,
                  max_blocks_per_seq: int = 64, prefix_sharing: bool = True,
                  device=None, layout=None, block_range=None, arrays=None,
                  host_store=None, host_write_through: bool = False,
                  client_tag=None, kv_dtype: Optional[str] = None,
-                 sanitize: bool = False):
+                 sanitize: bool = False, sanitizer=None):
         for name, value in (("layout", layout), ("block_range", block_range),
                             ("arrays", arrays)):
             if value is not None:
                 raise NotImplementedError(f"PagedKVCache({name}=...) is not ported yet")
-        if sanitize:
-            raise NotImplementedError("the KV sanitizer is not ported yet")
         if kv_dtype is not None and kv_dtype != "int8":
             raise ValueError(f"unsupported kv_dtype {kv_dtype!r}")
         from repro_torch import resolve_device
@@ -397,11 +574,20 @@ class PagedKVCache:
         self.device = resolve_device(device)
         self.kv_dtype = kv_dtype
         G = cfg.num_layers // period(cfg)
+        if sanitizer is None and sanitize:
+            from repro_torch.analysis.kvsan import KVSanitizer
+
+            sanitizer = KVSanitizer()
+        self.sanitizer = sanitizer
         self.pool = PagedPool(
             n_blocks, block_size,
             on_free=self._forget_block,
             keep_on_release=lambda b: b in self._block_key,
+            sanitizer=sanitizer,
         )
+        if sanitizer is not None and host_store is not None \
+                and getattr(host_store, "sanitizer", None) is None:
+            host_store.sanitizer = sanitizer
         shape = (G, n_blocks, block_size, cfg.num_kv_heads, cfg.head_dim)
         dt = torch.int8 if kv_dtype == "int8" else torch_dtype(cfg)
         zeros = lambda shp, d: torch.zeros(shp, dtype=d, device=self.device)
@@ -428,21 +614,39 @@ class PagedKVCache:
         self.session_token_hits = 0                 # session-history subsets of
         self.session_host_token_hits = 0            # the two counters above
 
+    # the main path updates these tensors in place; the oracle steps and
+    # the legacy API land new ones through the setters
     @property
     def k(self):
         return self._arrays.k
+
+    @k.setter
+    def k(self, value):
+        self._arrays.k = value
 
     @property
     def v(self):
         return self._arrays.v
 
+    @v.setter
+    def v(self, value):
+        self._arrays.v = value
+
     @property
     def k_scale(self):
         return self._arrays.k_scale
 
+    @k_scale.setter
+    def k_scale(self, value):
+        self._arrays.k_scale = value
+
     @property
     def v_scale(self):
         return self._arrays.v_scale
+
+    @v_scale.setter
+    def v_scale(self, value):
+        self._arrays.v_scale = value
 
     @property
     def quantized(self) -> bool:
@@ -563,6 +767,8 @@ class PagedKVCache:
             if key not in self._prefix_index:  # first writer wins
                 self._prefix_index[key] = b
                 self._block_key[b] = key
+                if self.sanitizer is not None:
+                    self.sanitizer.device_key(b, key)
 
     def admit_tokens(self, seq_id: int, tokens, layout=None) -> Optional[Admission]:
         """Admission-controlled allocation for a prompt. Reuses every cached
@@ -651,6 +857,8 @@ class PagedKVCache:
             if key not in self._prefix_index:
                 self._prefix_index[key] = table[i]
                 self._block_key[table[i]] = key
+                if self.sanitizer is not None:
+                    self.sanitizer.device_key(table[i], key)
                 published.append((table[i], key))
         if published and self.host_store is not None and self.host_write_through:
             # the pipelined control plane registers prefixes at plan-BUILD
@@ -686,6 +894,15 @@ class PagedKVCache:
         else:
             _publish()
 
+    def admit(self, seq_id: int, prompt_len: int) -> bool:
+        """Length-only admission (no prefix sharing), for callers that stream
+        K/V in without token identity."""
+        if not self.pool.can_allocate(prompt_len + self.block_size):
+            return False  # backpressure: the caller keeps the request queued
+        self.reset_block_scales(self.pool.allocate(seq_id, prompt_len + self.block_size))
+        self.lengths[seq_id] = 0
+        return True
+
     def release(self, seq_id: int):
         self.pool.free(seq_id)
         self.lengths.pop(seq_id, None)
@@ -693,6 +910,52 @@ class PagedKVCache:
     def batch_tables(self, seq_ids: List[int]) -> np.ndarray:
         """Block-table rows truncated to ``max_blocks`` (int32, pad = -1)."""
         return self.pool.table_array(seq_ids, self.max_blocks)
+
+    # --------------------------------------------------------- device side
+    def _row(self, seq_id: int) -> torch.Tensor:
+        """The sequence's block-table row (max_blocks,) int32 on the pool's
+        device (-1 past its chain: the gathers clamp, validity masks)."""
+        return self._ids(self.pool.table_array([seq_id], self.max_blocks)[0]).int()
+
+    def write_token(self, seq_id: int, k_entry, v_entry):
+        """k/v_entry: (G, KVH, hd) for the next position of ``seq_id``."""
+        pos = self.lengths[seq_id]
+        new_blk = self.pool.extend_for(seq_id, pos + 1)
+        if new_blk is not None:
+            self.reset_block_scales([new_blk])
+        row = self._row(seq_id)
+        if self.quantized:
+            self.k, self.k_scale = write_paged_chunk_q(
+                self.k, self.k_scale, row, pos, k_entry[:, None], self.block_size)
+            self.v, self.v_scale = write_paged_chunk_q(
+                self.v, self.v_scale, row, pos, v_entry[:, None], self.block_size)
+        else:
+            self.k = write_paged(self.k, row, pos, k_entry, self.block_size)
+            self.v = write_paged(self.v, row, pos, v_entry, self.block_size)
+        self.lengths[seq_id] = pos + 1
+
+    def write_prefill(self, seq_id: int, k_seq, v_seq):
+        """k/v_seq: (G, Lp, KVH, hd), a prefilled prompt written in one
+        scatter into the blocks the caller's admission reserved."""
+        row = self._row(seq_id)
+        if self.quantized:
+            self.k, self.k_scale = write_paged_chunk_q(
+                self.k, self.k_scale, row, 0, k_seq, self.block_size)
+            self.v, self.v_scale = write_paged_chunk_q(
+                self.v, self.v_scale, row, 0, v_seq, self.block_size)
+        else:
+            self.k = write_paged_chunk(self.k, row, 0, k_seq, self.block_size)
+            self.v = write_paged_chunk(self.v, row, 0, v_seq, self.block_size)
+        self.lengths[seq_id] = k_seq.shape[1]
+
+    def sequence_view(self, seq_id: int) -> Tuple:
+        """(k, v, valid): the contiguous gathered view (dequantized to
+        float32 for an int8 pool) and its validity mask."""
+        row = self._row(seq_id)
+        k = gather_paged_dq(self.k, self.k_scale, row, self.max_blocks)
+        v = gather_paged_dq(self.v, self.v_scale, row, self.max_blocks)
+        valid = paged_validity(row, self.lengths[seq_id], self.block_size, self.max_blocks)
+        return k, v, valid
 
     def utilization(self) -> float:
         return self.pool.utilization()

@@ -1,7 +1,8 @@
 """The CUDA kernels (paged attention with the chunk kernel's tile plan,
 dense flash and decode attention with and without a sliding window, top-k
 retrieval, the RWKV-6 WKV recurrence, the selective scan) against their
-plain versions, on the card. Marked ``cuda``: each test skips (from inside a
+plain versions, on the card; the engine's int8 pools, swap, oracle paths
+and KV sanitizer on the card. Marked ``cuda``: each test skips (from inside a
 fixture) where no GPU is visible, as in this repository's CPU runs. On a GPU
 machine:
 
@@ -18,6 +19,7 @@ from repro_torch.kernels import flash_attention as kf
 from repro_torch.kernels import rwkv6_scan as kw
 from repro_torch.kernels import ssm_scan as ks
 from repro_torch.kernels import topk_retrieval as tk
+from repro_torch.serving.control_plane import padded_plan_difference
 
 pytestmark = pytest.mark.cuda
 
@@ -793,10 +795,11 @@ def test_ssm_kernel_rejects_what_it_does_not_take(gpu):
 
 
 # ------------------------------------------- int8 pools and swap on the card
-def _engine_run(device, seed, **kw):
+def _engine_run(device, seed, plans=None, **kw):
     """The invariant harness's long-decode workload (a 6-block pool: decodes
     run it dry and preempt) on the smollm-135m smoke model in float32, with
-    the weights drawn on the CPU from one seed."""
+    the weights drawn on the CPU from one seed. ``plans`` (a list) collects
+    the StepPlans of an interleaved engine."""
     import numpy as np
 
     from repro_torch.configs import get_arch, smoke_variant
@@ -807,6 +810,8 @@ def _engine_run(device, seed, **kw):
     params = init_params(cfg, torch.Generator().manual_seed(0), device)
     eng = GenerationEngine(cfg, params=params, device=device, max_batch=3,
                            max_seq=96, prefill_chunk_size=16, token_budget=20, **kw)
+    if plans is not None and eng.interleave:
+        eng.control.recorded = plans
     rng = np.random.default_rng(seed)
     reqs = []
     for _ in range(4):
@@ -885,3 +890,73 @@ def test_quantized_scatter_on_the_card_is_exact(gpu, ties):
         once = torch.bincount(dest, minlength=nb * bs) <= 1
         a, b = (t.view(G, nb * bs, kvh, hd)[:, once] for t in (cpu[0], card[0].cpu()))
         assert torch.equal(a, b)
+
+
+# ----------------------------------- the oracle paths and kvsan on the card
+ORACLES = {"padded": dict(ragged=False, kernel="reference"),
+           "sequential": dict(interleave=False),
+           "sequential-reference": dict(interleave=False, kernel="reference")}
+
+
+@pytest.mark.parametrize("n_blocks", [None, 6], ids=["full-pool", "swap"])
+@pytest.mark.parametrize("oracle", sorted(ORACLES))
+def test_oracle_paths_on_the_card_match_the_kernel_path(gpu, oracle, n_blocks):
+    """At smoke width in float32 on the card: the padded oracle (fused
+    steps through the gathered views, decode through the gather oracle and
+    the dense decode kernel) and the sequential path give the packed kernel
+    path's greedy tokens and counters; the padded plans are the packed
+    plans' rows, starts and n_valid step for step. Launches: the padded
+    oracle runs no paged kernel and one dense decode per layer and decode
+    plan; the sequential path one paged (or, with the reference selector,
+    dense) decode per layer and step, and no chunk kernel."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw = dict(n_blocks=n_blocks, preempt="swap") if n_blocks else {}
+    kplans, oplans = [], []
+    ka.reset_launch_counts()
+    keng, ktoks = _engine_run("cuda", 5, plans=kplans, **kw)
+    assert ka.paged_chunk_attention.launches > 0 and ka.decode_attention.launches == 0
+    ka.reset_launch_counts()
+    oeng, otoks = _engine_run("cuda", 5, plans=oplans, **kw, **ORACLES[oracle])
+    assert otoks == ktoks
+    for key in ("preemptions", "swap_outs", "swap_ins", "prefill_tokens", "tokens_out"):
+        assert oeng.stats()[key] == keng.stats()[key], key
+    L = oeng.cfg.num_layers
+    assert ka.paged_chunk_attention.launches == 0
+    if oracle == "padded":
+        assert len(oplans) == len(kplans) == oeng.steps
+        for kp, op in zip(kplans, oplans):
+            diff = padded_plan_difference(kp, op)
+            assert diff is None, diff
+        n_decode = sum(p.kind == "decode" for p in oplans)
+        assert ka.paged_decode_attention.launches == 0
+        assert ka.decode_attention.launches == L * n_decode
+    else:
+        assert not oplans and not oeng.interleave
+        dense = oracle == "sequential-reference"
+        assert ka.paged_decode_attention.launches == (0 if dense else L * oeng.steps)
+        assert ka.decode_attention.launches == (L * oeng.steps if dense else 0)
+    pool = oeng.kv.pool
+    assert pool.n_free == pool.n_blocks - 1
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_sanitized_swap_run_on_the_card(gpu, kv_dtype):
+    """The long-decode workload under swap preemption with the KV sanitizer
+    on: the pinned, non-blocking device->host copies drain through the copy
+    engine with no lifecycle violation, and the shadow agrees with the pool
+    and the host store at the drain; the tokens are the unsanitized run's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw = dict(n_blocks=6, preempt="swap", kv_dtype=kv_dtype)
+    _, plain = _engine_run("cuda", 5, **kw)
+    eng, toks = _engine_run("cuda", 5, sanitize=True, **kw)
+    assert toks == plain
+    san = eng.sanitizer
+    assert san is not None and san.violations == 0
+    for hook in ("device_alloc", "host_reserve", "host_restore", "copy_submit"):
+        assert san.op_counts.get(hook, 0) > 0, hook
+    shadow = san.stats()
+    assert shadow["device_allocated"] == 1
+    assert shadow["device_warm"] == len(eng.kv.pool.cached)
+    assert shadow["copy_pending"] == 0
+    san.audit_host(eng.host_store)
+    assert eng.host_store.k.is_pinned() and eng.host_store.n_swapped == 0

@@ -31,6 +31,7 @@ def test_imports_with_jax_and_repro_blocked():
         "import repro_torch.core.router, repro_torch.core.allocation\n"
         "import repro_torch.core.profiling, repro_torch.core.controller\n"
         "import repro_torch.launch.deploy_config\n"
+        "import repro_torch.analysis, repro_torch.analysis.kvsan, repro_torch.analysis.__main__\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -101,11 +102,23 @@ def test_later_slices_raise_not_implemented():
     from repro_torch.serving.engine import GenerationEngine
 
     cfg = smoke_variant(get_arch("smollm-135m"))
-    for kw in ({"backend": "paged", "interleave": False}, {"ragged": False},
-               {"sanitize": True}, {"mesh": object()}, {"pool_layout": object()},
-               {"kv": object()}):
+    for kw in ({"mesh": object()}, {"pool_layout": object()}, {"kv": object()}):
         with pytest.raises(NotImplementedError):
             GenerationEngine(cfg, device="cpu", **kw)
+    from repro_torch.serving.paged_cache import PagedKVCache
+
+    for kw in ({"layout": object()}, {"block_range": (0, 4)}, {"arrays": object()}):
+        with pytest.raises(NotImplementedError):
+            PagedKVCache(cfg, 8, 16, 4, device="cpu", **kw)
+    # the paged backend's oracle paths and the sanitizer are ported
+    eng = GenerationEngine(cfg, device="cpu", interleave=False)
+    assert eng.backend == "paged" and not eng.interleave and eng.kernel_impl == "pallas"
+    eng = GenerationEngine(cfg, device="cpu", ragged=False, kernel="reference")
+    assert not eng.ragged and eng.stats()["kernel_impl"] == "reference"
+    assert GenerationEngine(cfg, device="cpu", sanitize=True).sanitizer is not None
+    assert PagedKVCache(cfg, 8, 16, 4, device="cpu", sanitize=True).sanitizer is not None
+    with pytest.raises(ValueError):               # the chunk kernel needs the packed layout
+        GenerationEngine(cfg, device="cpu", kernel="pallas", ragged=False)
     with pytest.raises(NotImplementedError):      # the int8 dense cache
         GenerationEngine(cfg.replace(kv_cache_quant=True), device="cpu", backend="dense")
     assert GenerationEngine(cfg, device="cpu", backend="dense").backend == "dense"
