@@ -159,6 +159,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the ring, float32 and bfloat16 (bf16 also against the plain version in
    float32; tolerances of phase 2b); then its times beside the bound and
    one SDPA call with the length mask.
+2g. The same two kernels at the shapes of phases 10 and 11: flash with
+   window 4096 at hd 128, S 6000 and 4097 (past the window and no multiple
+   of the tile), H 48 over KVH 8 (mixtral-8x22b: G = 6) and H 16 over KVH 2
+   (qwen2.5-3b-swa: G = 8); dense decode at H 48 over KVH 8 on a 4096-slot
+   ring whose lengths saturate at the ring beside short rows; float32 and
+   bfloat16 against the plain versions, then times beside the bound and an
+   SDPA call with the mask (flash timed at S 6000).
 4c. The hymba engine at smoke width in float32: identical greedy tokens on
    the CPU (plain versions) and on the GPU (kernels), with 2 scan and 2
    flash launches per prefill and 2 scan and 2 dense decode launches per
@@ -170,9 +177,36 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (prefills + decode steps), flash 32 x the prefills, dense decode 32 x the
    decode steps, and the paged, top-k and WKV kernels' 0; every earlier phase
    must show 0 scan launches. The rwkv6-7b weights are freed first.
+4e. The qwen2.5-3b-swa and mixtral-8x22b smoke engines in float32 (window
+   64; 4 experts, top-2) on the CPU and on the GPU: identical greedy tokens
+   for prompts short of, at and past the window (phase 11's check (c)), one
+   flash a layer and prefill, one dense decode a layer and step.
+10. qwen2.5-3b-swa at full width and depth in bfloat16 (phase 5's weights:
+   the variant changes the mask, not the widths) on the dense backend,
+   ``max_batch=8``, ``max_seq=8192``: prompts of 4090, 4096, 4097, 5000 and
+   6000 tokens and two of phase 5's, 32 new tokens each. Every sampled
+   token's logits (the prefill's and each dense decode step's) against the
+   no-cache oracle (``forward`` on the prompt plus the engine's tokens so
+   far) within ``logit_bound(36)``; the oracle with the window dropped must
+   read above the bound on the 5000- and 6000-token prompts; the
+   reference's linear ring order is run and reported, not asserted; flash
+   launches 36 x the prefills and dense decode 36 x the steps; tokens/s,
+   TTFT, TPOT, and a decode step's wall against its device busy.
+11. mixtral-8x22b at full width with its depth cut to 8 of 56 layers (~41
+   GB of bf16 weights drawn on the card; 56 layers would take ~282 GB):
+   (a) one layer's ``apply_moe`` at T = 8 and 2048 against a per-route
+   float32 formulation with the same routing (``MOE_TOL``), drops equal to
+   the count of ``keep``; (b) phase 5's ten prompts and prompts of 4500 and
+   6000 tokens, 32 new tokens each, flash 8 x the prefills and dense decode
+   8 x the steps; (c) is phase 4e. Reported: routes dropped per prefill,
+   tokens/s, TTFT, TPOT, peak memory, a decode step's device busy against
+   its wall and its bound, greedy agreement with the no-cache oracle on
+   the two long prompts. Phase 5's weights are freed first; rwkv6-7b's are
+   drawn after mixtral's are freed.
 
 It prints a ``{"int8_serve": ..., "host_tier": ..., "oracle_paths": ...,
-"controller": ...}`` line of phases 5c, 5d, 5e and 7b's figures, a ``{"kernels": [...]}`` line, the
+"controller": ..., "swa_serve": ..., "mixtral_serve": ...}`` line of phases
+5c, 5d, 5e, 7b, 10 and 11's figures, a ``{"kernels": [...]}`` line, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero without a GPU.
 """
@@ -382,16 +416,17 @@ def time_ms(fn, flush, reps=30, warmup=3):
     return float(np.median(times))
 
 
-def device_ms(fn, reps=10):
+def device_ms(fn, reps=10, spin_cycles=100_000_000):
     """Device time of one call with no host gaps: a spin kernel holds the
     stream while the host queues ``reps`` calls behind it, so the card runs
     them back to back, and CUDA events around them give the time (L2 warm:
     no flush between calls). None ("not measured") if the spin ended before
-    the host had queued every call."""
+    the host had queued every call. The default spin is ~50 ms at the
+    H100's 1.98 GHz boost clock."""
     fn()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(100_000_000)      # ~50 ms at the H100's 1.98 GHz boost clock
+    torch.cuda._sleep(spin_cycles)
     a.record()
     for _ in range(reps):
         fn()
@@ -916,19 +951,24 @@ def swa_work(q, k, window):
     return (2 * q.numel() + 2 * k.numel()) * q.element_size(), 4 * hd * Hq * pairs
 
 
-def phase_swa_kernels(kf):
+def phase_swa_kernels(kf, heads=(SWA_H, SWA_KVH, SWA_HD), cases=SWA_CASES, seed=19):
+    """The windowed flash kernel at ``heads`` (H, KVH, hd) on each (S,
+    window) of ``cases`` against its plain version, f32 and bf16 (bf16 also
+    against the plain version in f32); the first case also timed beside the
+    bound and one SDPA call with the windowed causal mask."""
     import torch.nn.functional as F
 
+    Hq, Hkv, hd = heads
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(19)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = {}
     for dtype_name in ("float32", "bfloat16"):
         dt = getattr(torch, dtype_name)
         tol = TOL[dtype_name]
-        for S, window in SWA_CASES:
-            q, k, v = (torch.randn((1, S, n, SWA_HD), generator=gen, device="cuda").to(dt)
-                       for n in (SWA_H, SWA_KVH, SWA_KVH))
-            name = f"flash_attention[{dtype_name}, S={S}, window={window}]"
+        for S, window in cases:
+            q, k, v = (torch.randn((1, S, n, hd), generator=gen, device="cuda").to(dt)
+                       for n in (Hq, Hkv, Hkv))
+            name = f"flash_attention[{dtype_name}, H={Hq}, KVH={Hkv}, S={S}, window={window}]"
             got = kf.flash_attention(q, k, v, window=window)
             torch.cuda.synchronize()
             every = slice(None)
@@ -939,7 +979,7 @@ def phase_swa_kernels(kf):
                 errs["plain_f32"] = check_close(name + " vs f32", got, want, every,
                                                 tol["plain_f32"])
             r = {"errs": errs}
-            if S == SWA_CASES[0][0]:
+            if (S, window) == cases[0]:
                 qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
                 i = torch.arange(S, device="cuda")
                 mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
@@ -948,10 +988,11 @@ def phase_swa_kernels(kf):
                 r.update(timed_row(swa_work(q, k, window), dtype_name, flush,
                                    lambda: kf.flash_attention(q, k, v, window=window),
                                    lambda: kf.ref_flash_attention(q, k, v, window=window), lib))
+                del qt, kt, vt, mask, lib
             rows[(dtype_name, S, window)] = r
             print_dense_row(name, r, tol)
             del q, k, v
-        torch.cuda.empty_cache()
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -966,28 +1007,30 @@ SWA_DECODE_CASES = {"rings": [1024, 1024, 1, 1024, 37, 1024, 300, 1024],
                     "mixed_step": [min(n, SWA_SC) for n in MIXED_LENGTHS]}
 
 
-def phase_swa_decode_kernel(ka):
+def phase_swa_decode_kernel(ka, heads=(SWA_H, SWA_KVH, SWA_HD), Sc=SWA_SC,
+                            cases=SWA_DECODE_CASES, seed=23):
     """``decode_attention`` at the hymba serve phase's shapes (B 8, H 25 over
-    KVH 5, hd 64, a 1024-slot ring, lengths min(pos + 1, 1024)) against its
-    plain version, in f32 and bf16 (bf16 also against the plain version in
-    f32), with the tolerances of phase 2b, on each of ``SWA_DECODE_CASES``;
-    then its times beside the bound and a masked SDPA."""
+    KVH 5, hd 64, a 1024-slot ring, lengths min(pos + 1, 1024)), or at
+    ``heads`` (H, KVH, hd) on an ``Sc``-slot ring, against its plain version,
+    in f32 and bf16 (bf16 also against the plain version in f32), with the
+    tolerances of phase 2b, on each of ``cases``; then its times beside the
+    bound and a masked SDPA."""
     import torch.nn.functional as F
 
+    Hq, Hkv, hd = heads
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(23)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = {}
-    for case, lengths in SWA_DECODE_CASES.items():
+    for case, lengths in cases.items():
         lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
         Bd = len(lengths)
         for dtype_name in ("float32", "bfloat16"):
             dt = getattr(torch, dtype_name)
             tol = TOL[dtype_name]
-            q = torch.randn((Bd, SWA_H, SWA_HD), generator=gen, device="cuda").to(dt)
-            k, v = (torch.randn((Bd, SWA_SC, SWA_KVH, SWA_HD), generator=gen,
+            q = torch.randn((Bd, Hq, hd), generator=gen, device="cuda").to(dt)
+            k, v = (torch.randn((Bd, Sc, Hkv, hd), generator=gen,
                                 device="cuda").to(dt) for _ in range(2))
-            name = (f"decode_attention[{dtype_name}, H={SWA_H}, KVH={SWA_KVH}, hd={SWA_HD}, "
-                    f"Sc={SWA_SC}, {case}]")
+            name = f"decode_attention[{dtype_name}, H={Hq}, KVH={Hkv}, hd={hd}, Sc={Sc}, {case}]"
             got = ka.decode_attention(q, k, v, lens)
             torch.cuda.synchronize()
             every = slice(None)
@@ -999,7 +1042,7 @@ def phase_swa_decode_kernel(ka):
                                                 tol["plain_f32"])
             qt = q[:, :, None, :]
             kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
-            mask = (torch.arange(SWA_SC, device="cuda")[None] < lens.long()[:, None])[:, None, None]
+            mask = (torch.arange(Sc, device="cuda")[None] < lens.long()[:, None])[:, None, None]
             lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                          enable_gqa=True)
             r = {"errs": errs}
@@ -2506,6 +2549,515 @@ def phase_controller(ka, kf, tk, cfg, params):
 
 
 # ---------------------------------------------------------------------------
+# phase 2g: the windowed flash and dense decode kernels at a 4096 window
+# ---------------------------------------------------------------------------
+
+WIN = 4096                                   # qwen2.5-3b-swa's and mixtral-8x22b's window
+WIN_HEADS = {"G6": (48, 8, 128), "G8": (16, 2, 128)}   # mixtral-8x22b, qwen2.5-3b(-swa)
+WIN_CASES = ((6000, WIN), (4097, WIN))       # the longest prefill first (timed)
+WIN_DECODE_CASES = {"rings": [WIN, WIN, 1, WIN, WIN - 1, WIN, 300, WIN]}
+
+
+def phase_window_kernels(ka, kf):
+    """The two dense kernels at the shapes of phases 10 and 11: flash with
+    window 4096 at hd 128, S 6000 and 4097 (past the window, no multiple of
+    the tile), mixtral's group of 6 and qwen's of 8; dense decode at
+    mixtral's heads on a wrapped 4096-slot ring. Returns (flash rows by
+    group, decode rows)."""
+    flash = {g: phase_swa_kernels(kf, heads, WIN_CASES, seed=29 + i)
+             for i, (g, heads) in enumerate(WIN_HEADS.items())}
+    decode = phase_swa_decode_kernel(ka, WIN_HEADS["G6"], WIN, WIN_DECODE_CASES, seed=31)
+    return flash, decode
+
+
+# ---------------------------------------------------------------------------
+# phases 10 and 11: sliding-window stacks and MoE at full width
+# ---------------------------------------------------------------------------
+
+SWA_PROMPT_LENGTHS = (4090, 4096, 4097, 5000, 6000)
+LONG_MAX_NEW = 32
+WINDOW_CONTROL_LENGTHS = (5000, 6000)        # 904 and 1904 keys outside the window
+
+
+@contextlib.contextmanager
+def keep_step_logits(eng):
+    """Each request's logits (float32, on the card) of every token the dense
+    engine samples: {req_id: [logits of token 0 (its prefill), 1, ...]},
+    taken from the prefill's ``forward`` and from each batched
+    ``decode_step`` (the row of the request's slot)."""
+    from repro_torch.models import prefills_unpadded
+    from repro_torch.serving import engine as engine_mod
+
+    assert eng.backend == "dense" and prefills_unpadded(eng.cfg)
+    kept, current = {}, {}
+    fwd, dec = engine_mod.forward, engine_mod.decode_step
+    prefill_one, decode_batch = eng._prefill_one, eng._decode_batch
+
+    def forward(*args, **kw):
+        out = fwd(*args, **kw)
+        kept[current["req"].req_id] = [out[0][0, -1].float()]   # logits_mode "last"
+        return out
+
+    def decode_step(*args, **kw):
+        logits, caches = dec(*args, **kw)
+        for r in current["active"]:
+            kept[r.req_id].append(logits[r.slot].float())
+        return logits, caches
+
+    def prefill(req, slot):
+        current["req"] = req
+        return prefill_one(req, slot)
+
+    def decode(active):
+        current["active"] = list(active)
+        return decode_batch(active)
+
+    engine_mod.forward, engine_mod.decode_step = forward, decode_step
+    eng._prefill_one, eng._decode_batch = prefill, decode
+    try:
+        yield kept
+    finally:
+        engine_mod.forward, engine_mod.decode_step = fwd, dec
+        del eng._prefill_one, eng._decode_batch
+
+
+@contextlib.contextmanager
+def window_dropped():
+    """The control of phase 10's bound: every sliding-window attention of the
+    sequence path run as full causal attention."""
+    from repro_torch.configs.base import ATTN_FULL
+    from repro_torch.models import attention
+
+    blockwise = attention.blockwise_attention
+    attention.blockwise_attention = lambda q, k, v, **kw: blockwise(
+        q, k, v, **{**kw, "attn_type": ATTN_FULL, "window": 0})
+    try:
+        yield
+    finally:
+        attention.blockwise_attention = blockwise
+
+
+@contextlib.contextmanager
+def linear_ring_order():
+    """The reference's prefill cache (reported control): the window's last
+    keys kept in linear order, ``t[:, S - Sc:]``, where the ring needs them
+    rolled by S % Sc."""
+    from repro_torch.models import transformer
+
+    ring = transformer._ring
+    transformer._ring = lambda t, Sc: t[:, t.shape[1] - Sc:]
+    try:
+        yield
+    finally:
+        transformer._ring = ring
+
+
+def oracle_logits(cfg, params, prompt, tokens):
+    """The no-cache oracle's logits (float32) at the positions that sample
+    ``tokens``: one ``forward`` of the prompt and all but the last token."""
+    from repro_torch.models import forward
+
+    seq = torch.as_tensor(np.concatenate([np.asarray(prompt), tokens[:-1]]),
+                          dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        logits, _ = forward(cfg, params, {"tokens": seq[None]})
+    return logits[0, len(prompt) - 1:].float()
+
+
+def rel_diffs(kept, want):
+    """max |d| / max |logit| of each sampled token's logits against the
+    oracle's at the same position."""
+    return [float((k - w).abs().max() / k.abs().max()) for k, w in zip(kept, want)]
+
+
+def serve_long(eng, prompts, max_new=LONG_MAX_NEW):
+    """Serve ``prompts`` greedily with each token's logits kept; returns
+    (requests, kept logits, wall s)."""
+    with keep_step_logits(eng) as kept:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, max_new=max_new) for p in prompts]
+        eng.run_until_done()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    assert all(len(r.out_tokens) == max_new and len(kept[r.req_id]) == max_new for r in reqs)
+    return reqs, kept, wall
+
+
+def decode_step_times(cfg, params, cache, pos, reps=3):
+    """One dense ``decode_step`` of the cache's B rows at position ``pos``:
+    its wall (host clock around each call and a synchronize, as a serving
+    step waits for its logits; mean of ``reps``) and its device busy by CUDA
+    events. A whole step's ~600-1500 launches do not all queue behind one
+    spin kernel (the launch queue fills and the host waits), so the step
+    runs as its pieces (the embedding and rope tables, each layer, the
+    final norm and the unembedding), each queued behind a spin and timed
+    with events; busy is their sum, mean of ``reps`` (None if a piece could
+    not be queued while the card spun)."""
+    from repro_torch.models import decode_step
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import embed_tokens, unembed
+
+    entry = cache[0]
+    B = entry["k"].shape[1]
+    tokens = torch.zeros((B, 1), dtype=torch.int32, device="cuda")
+    pos_t = torch.full((B,), pos, dtype=torch.int32, device="cuda")
+    state = {}
+
+    def head():
+        state["rope"] = tfm._rope(cfg, pos_t[:, None])
+        state["lengths"] = torch.clamp(pos_t + 1, max=entry["k"].shape[2]).to(torch.int32)
+        state["x"] = embed_tokens(params["embed"], tokens)
+
+    def layer(g):
+        lp = tfm.layer_slice(params["blocks"][0], g)
+        state["x"] = tfm.apply_layer_decode(cfg, lp, state["x"], entry["k"][g], entry["v"][g],
+                                            pos_t, rope=state["rope"],
+                                            lengths=state["lengths"])
+
+    def tail():
+        x = tfm.apply_norm(cfg, params["final_norm"], state["x"])
+        state["logits"] = unembed(params["embed"], params.get("lm_head"), x,
+                                  cfg.tie_embeddings)
+
+    pieces = [head] + [lambda g=g: layer(g) for g in range(cfg.num_layers)] + [tail]
+    with torch.no_grad():
+        decode_step(cfg, params, cache, tokens, pos_t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            decode_step(cfg, params, cache, tokens, pos_t)
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+        busy = 0.0
+        for _ in range(reps):
+            for piece in pieces:
+                a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                torch.cuda._sleep(20_000_000)              # ~10 ms
+                a.record()
+                piece()
+                b.record()
+                if a.query():
+                    b.synchronize()
+                    return wall, None
+                b.synchronize()
+                busy += a.elapsed_time(b)
+    return wall, busy / reps
+
+
+def serve_figures(eng, reqs, wall):
+    st, lat = eng.stats(), eng.latency_summary()
+    return {"requests": len(reqs), "tokens_out": st["tokens_out"], "wall_s": wall,
+            "tokens_per_s": st["tokens_out"] / wall, "ttft_mean_ms": 1e3 * lat["ttft_mean"],
+            "tpot_p95_ms": 1e3 * lat.get("tpot_p95", 0.0), "steps": st["steps"],
+            "prefill_tokens": st["prefill_tokens"]}
+
+
+def phase_swa_serve(ka, kf, tk, params, prompts):
+    """Phase 10: qwen2.5-3b-swa at full width and depth (36 layers, bf16,
+    window 4096, phase 5's weights: the variant changes the mask, not the
+    widths) on the dense backend, ``max_batch=8``, ``max_seq=8192``: prompts
+    of 4090 (wraps while decoding), 4096, 4097, 5000 and 6000 tokens and two
+    of phase 5's below the window, 32 new tokens each. Every sampled token's
+    logits are held to the no-cache oracle's at its position (``forward``
+    on the prompt plus the engine's tokens so far: the windowed flash over
+    the whole sequence, no ring) within ``logit_bound``; the oracle with the
+    window dropped must read above the bound on the 5000- and 6000-token
+    prompts; the reference's linear ring order is run and reported. Returns
+    the launches of the served run and the figures."""
+    from repro_torch.configs import get_arch
+    from repro_torch.serving.engine import GenerationEngine
+    from repro_torch.serving.segments import SegmentedPrompt
+
+    cfg = get_arch("qwen2.5-3b-swa").replace(dtype="bfloat16")
+    L = cfg.num_layers
+    rng = np.random.default_rng(10)
+    short = [np.asarray(p) for p in prompts if not isinstance(p, SegmentedPrompt)][:2]
+    batch = [rng.integers(0, cfg.vocab_size, n) for n in SWA_PROMPT_LENGTHS] + short
+    lens = [len(p) for p in batch]
+    torch.cuda.reset_peak_memory_stats()
+    eng = GenerationEngine(cfg, params=params, device="cuda", backend="dense", max_batch=8,
+                           max_seq=8192)
+    assert eng.cache[0]["k"].shape[2] == cfg.window
+    reset_launches(ka, kf, tk)
+    reqs, kept, wall = serve_long(eng, batch)
+    launches = read_launches(ka, kf, tk)
+    st = eng.stats()
+    figures = serve_figures(eng, reqs, wall)
+    assert st["backend"] == "dense" and st["kernel"] == "cuda", st
+    assert st["prefill_tokens"] == sum(lens), st                    # unpadded prefills
+    assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens)
+    want = {n: 0 for n in launches}
+    want["flash_attention"] = L * len(reqs)
+    want["decode_attention"] = L * st["steps"]
+    assert launches == want, (launches, want, st)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[swa serve] {cfg.name} {cfg.dtype} (window {cfg.window}, {L} layers, dense backend, "
+          f"{eng.cache[0]['k'].shape[2]}-slot rings): {len(reqs)} requests (prompts {lens}), "
+          f"{st['tokens_out']} tokens out in {wall:.3f}s = {figures['tokens_per_s']:.1f} tok/s; "
+          f"mean TTFT {figures['ttft_mean_ms']:.1f}ms, p95 TPOT {figures['tpot_p95_ms']:.2f}ms; "
+          f"{st['steps']} decode steps; peak memory {peak:.2f} GiB; launches {launches} "
+          f"(flash {L} x {len(reqs)} prefills, decode {L} x {st['steps']} steps)", flush=True)
+
+    bound = logit_bound(L)
+    rel, agree = {}, {}
+    for r, n in zip(reqs, lens):
+        want_logits = oracle_logits(cfg, params, r.prompt, r.out_tokens)
+        rel[n] = rel_diffs(kept[r.req_id], want_logits)
+        agree[n] = float(np.mean([int(w.argmax()) == t for w, t in
+                                  zip(want_logits, r.out_tokens)]))
+        del want_logits
+    worst = {n: max(v) for n, v in rel.items()}
+    print(f"[swa serve] every sampled token's logits against the no-cache oracle's, max |d| / "
+          f"max |logit|, worst per prompt {dict((n, round(x, 5)) for n, x in worst.items())} "
+          f"(bound {bound:.3f}); greedy agreement with the oracle per prompt {agree}",
+          flush=True)
+    assert max(worst.values()) <= bound, (worst, bound)
+    # control, asserted: without the window the oracle reads above the bound
+    # where the window excludes keys
+    control = {}
+    with window_dropped():
+        for r, n in zip(reqs, lens):
+            if n in WINDOW_CONTROL_LENGTHS:
+                control[n] = max(rel_diffs(kept[r.req_id],
+                                           oracle_logits(cfg, params, r.prompt, r.out_tokens)))
+    print(f"[swa serve] control, the oracle with the window dropped (full causal): worst per "
+          f"prompt {dict((n, round(x, 5)) for n, x in control.items())} against the bound "
+          f"{bound:.3f}", flush=True)
+    assert all(x > bound for x in control.values()), (control, bound)
+    # control, reported: the reference's linear ring order in the prefill
+    eng_lin = GenerationEngine(cfg, params=params, device="cuda", backend="dense",
+                               max_batch=8, max_seq=8192)
+    with linear_ring_order():
+        lreqs, lkept, _ = serve_long(eng_lin, batch)
+    linear = {}
+    for r, n in zip(lreqs, lens):
+        d = rel_diffs(lkept[r.req_id], oracle_logits(cfg, params, r.prompt, r.out_tokens))
+        linear[n] = {"worst": max(d), "first": d[0], "last": d[-1]}
+    print(f"[swa serve] control (reported, not asserted), the reference's linear ring order: "
+          f"per prompt {{Lp: worst, first token, last token}} "
+          f"{ {n: tuple(round(x, 5) for x in v.values()) for n, v in linear.items()} }",
+          flush=True)
+    del eng_lin, lkept
+    # where a decode step's time goes: 8 rows at position 6000 of the rings
+    wall_ms, busy_ms = decode_step_times(cfg, params, eng.cache, 6000)
+    print(f"[swa serve] decode step (8 rows, position 6000): wall {wall_ms:.2f} ms (mean of 3); "
+          f"device busy {fmt_ms(busy_ms)} ms (CUDA events: each of the step's {L + 2} pieces "
+          f"queued behind a spin, summed; mean of 3)", flush=True)
+    figures.update(peak_gib=peak, logit_bound=bound, worst_rel=worst, rel=rel,
+                   greedy_agreement=agree, window_dropped=control, linear_order=linear,
+                   decode_step_wall_ms=wall_ms, decode_step_busy_ms=busy_ms)
+    del eng, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, figures
+
+
+MIXTRAL_LAYERS = 8                           # of 56: 8 layers' bf16 weights ~41 GB of 80
+MOE_CHECK_T = (8, 2048)                      # a decode step (dropless), a prefill (capacity)
+# a bf16 MoE against the per-route formulation in float32: the kernel
+# tolerance of phase 2 for bf16 against f32 (products rounded to bf16)
+MOE_TOL = TOL["bfloat16"]["plain"][1]
+
+
+def check_moe_layer(cfg, lp, T, gen):
+    """Phase 11 (a): one layer's ``apply_moe`` at full width on T tokens
+    against an independent per-route formulation in float32 with the same
+    routing (``moe.route``): for each kept (token, k), the expert's SwiGLU on
+    the token times its gate, summed. The drops must be the count of
+    ``keep`` and sum(max(n_e - C, 0)) over the experts' route counts.
+    Returns (max |d| / max |y|, drops, capacity)."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import moe
+
+    E, K, D = cfg.num_experts, cfg.num_experts_per_tok, cfg.d_model
+    x = torch.randn((1, T, D), generator=gen, device="cuda").to(lp["router"].dtype)
+    with torch.no_grad():
+        y, aux = moe.apply_moe(lp, x, cfg)
+        C = moe.expert_capacity(T, E, K)
+        xt = x.reshape(T, D)
+        _, _, idx, gates, _, keep = moe.route(lp, xt, cfg, C)
+        want = torch.zeros((T, D), dtype=torch.float32, device="cuda")
+        for e in range(E):
+            t, k = torch.nonzero((idx == e) & keep, as_tuple=True)
+            xe = xt[t].float()
+            h = F.silu(xe @ lp["w_gate"][e].float()) * (xe @ lp["w_up"][e].float())
+            want.index_add_(0, t, (h @ lp["w_down"][e].float()) * gates[t, k].float()[:, None])
+    drops = int((~keep).sum())
+    counts = torch.bincount(idx.reshape(-1), minlength=E)
+    assert drops == int((counts - C).clamp(min=0).sum()), (drops, counts.tolist(), C)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(aux))
+    rel = float((y.reshape(T, D).float() - want).abs().max() / want.abs().max())
+    assert rel <= MOE_TOL, (T, rel, MOE_TOL)
+    return rel, drops, C
+
+
+@contextlib.contextmanager
+def count_drops():
+    """The routes each ``moe.route`` call drops, as (T, device count) pairs
+    (no host sync inside the run)."""
+    from repro_torch.models import moe
+
+    route, calls = moe.route, []
+
+    def counted(params, xt, cfg, capacity):
+        out = route(params, xt, cfg, capacity)
+        calls.append((xt.shape[0], (~out[-1]).sum()))
+        return out
+
+    moe.route = counted
+    try:
+        yield calls
+    finally:
+        moe.route = route
+
+
+def phase_swa_moe_parity(ka, kf):
+    """Phase 11 (c): the mixtral-8x22b and qwen2.5-3b-swa smoke engines in
+    float32 (window 64; 4 experts, top-2) on the CPU (plain versions) and on
+    the card (kernels) give identical greedy tokens, with prompts short of,
+    at and past the window and decodes that wrap the ring; one flash a
+    layer and prefill, one dense decode a layer and step."""
+    from repro_torch.configs import get_arch, smoke_variant
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import GenerationEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
+    torch.backends.cudnn.allow_tf32 = False
+    for arch in ("mixtral-8x22b", "qwen2.5-3b-swa"):
+        cfg = smoke_variant(get_arch(arch))
+        rng = np.random.default_rng(3)
+        prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 23, 60, 64, 70, 100, 200)]
+        out = {}
+        for dev in ("cpu", "cuda"):
+            params = init_params(cfg, torch.Generator().manual_seed(0), dev)
+            eng = GenerationEngine(cfg, params=params, device=dev, max_batch=4, max_seq=256)
+            ka.reset_launch_counts()
+            kf.reset_launch_counts()
+            reqs = [eng.submit(p, max_new=12) for p in prompts]
+            eng.run_until_done()
+            assert eng.backend == "dense" and all(len(r.out_tokens) == 12 for r in reqs)
+            out[dev] = [r.out_tokens for r in reqs]
+        launches = (kf.flash_attention.launches, ka.decode_attention.launches)
+        assert launches == (cfg.num_layers * len(prompts), cfg.num_layers * eng.steps), launches
+        if out["cpu"] != out["cuda"]:
+            raise AssertionError(f"{arch} smoke engine: CPU and GPU greedy tokens differ:\n"
+                                 f"{out['cpu']}\n{out['cuda']}")
+        print(f"[parity] {cfg.name} engine f32: {len(prompts)} requests (prompts "
+              f"{[len(p) for p in prompts]} tokens, window {cfg.window}), identical greedy "
+              f"tokens on cpu (plain) and cuda (kernels); flash/decode launches {launches}",
+              flush=True)
+
+
+def phase_mixtral_serve(ka, kf, tk, prompts):
+    """Phase 11: mixtral-8x22b at full width with its depth cut to 8 of 56
+    layers, bf16 weights drawn on the card, dense backend, ``max_batch=8``,
+    ``max_seq=8192``: (a) one layer's MoE against the per-route float32
+    formulation at T = 8 and 2048; (b) phase 5's ten prompts (flattened,
+    tokens modulo the vocab) and prompts of 4500 and 6000 tokens, 32 new
+    tokens each, with flash and dense decode launching once a layer and
+    prefill or step; (c) CPU/card parity at smoke width
+    (``phase_swa_moe_parity``). Reported: routes dropped per prefill,
+    tokens/s, TTFT, TPOT, peak memory, a decode step's device busy against
+    its wall and its bound, greedy agreement with the no-cache oracle on the
+    two long prompts. Returns the launches of the served run and the
+    figures."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import layer_slice
+    from repro_torch.serving.engine import GenerationEngine
+    from repro_torch.serving.segments import SegmentedPrompt
+
+    cfg = get_arch("mixtral-8x22b").replace(dtype="bfloat16", num_layers=MIXTRAL_LAYERS)
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    leaves = list(_tensors(params))
+    weight_bytes = sum(x.numel() * x.element_size() for x in leaves)
+    print(f"[mixtral serve] {cfg.name} {cfg.dtype}, {L} of 56 layers: "
+          f"{sum(x.numel() for x in leaves) / 1e9:.3f}B parameters ({weight_bytes / 1e9:.2f} GB) "
+          f"drawn on the card in {time.perf_counter() - t0:.1f}s", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    moe_check = {}
+    for T in MOE_CHECK_T:
+        rel, drops, C = check_moe_layer(cfg, layer_slice(params["blocks"][0], 0)["moe"], T, gen)
+        moe_check[T] = {"rel_err": rel, "dropped_routes": drops, "capacity": C}
+    print(f"[mixtral serve] (a) apply_moe of layer 0 against the per-route float32 formulation: "
+          f"{moe_check} (max |d| / max |y|, bound {MOE_TOL})", flush=True)
+
+    rng = np.random.default_rng(11)
+    flat = [np.asarray(p.tokens if isinstance(p, SegmentedPrompt) else p) % cfg.vocab_size
+            for p in prompts]
+    batch = flat + [rng.integers(0, cfg.vocab_size, n) for n in (4500, 6000)]
+    lens = [len(p) for p in batch]
+    torch.cuda.reset_peak_memory_stats()
+    eng = GenerationEngine(cfg, params=params, device="cuda", max_batch=8, max_seq=8192)
+    assert eng.backend == "dense" and eng.cache[0]["k"].shape[2] == cfg.window
+    reset_launches(ka, kf, tk)
+    with count_drops() as routed:
+        reqs, kept, wall = serve_long(eng, batch)
+    launches = read_launches(ka, kf, tk)
+    st = eng.stats()
+    figures = serve_figures(eng, reqs, wall)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    assert st["kernel"] == "cuda" and st["prefill_tokens"] == sum(lens), st
+    assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens)
+    assert all(bool(torch.isfinite(x).all()) for v in kept.values() for x in v)
+    want = {n: 0 for n in launches}
+    want["flash_attention"] = L * len(reqs)
+    want["decode_attention"] = L * st["steps"]
+    assert launches == want, (launches, want, st)
+    # the routes each prefill dropped (every layer routes once a call)
+    prefill_calls = [(T, int(n)) for T, n in routed if T > 8]
+    assert len(prefill_calls) == L * len(reqs), len(prefill_calls)
+    decode_drops = sum(int(n) for T, n in routed if T <= 8)
+    assert decode_drops == 0                                         # dropless decode
+    drops = [(prefill_calls[i][0], sum(n for _, n in prefill_calls[i:i + L]))
+             for i in range(0, len(prefill_calls), L)]
+    print(f"[mixtral serve] (b) {len(reqs)} requests (prompts {lens}), {st['tokens_out']} "
+          f"tokens out in {wall:.3f}s = {figures['tokens_per_s']:.1f} tok/s; mean TTFT "
+          f"{figures['ttft_mean_ms']:.1f}ms, p95 TPOT {figures['tpot_p95_ms']:.2f}ms; "
+          f"{st['steps']} decode steps; peak memory {peak:.2f} GiB; launches {launches} (flash "
+          f"{L} x {len(reqs)} prefills, decode {L} x {st['steps']} steps); routes dropped per "
+          f"prefill, summed over its {L} layers, as (prompt tokens, routes dropped of "
+          f"{cfg.num_experts_per_tok * L} x the prompt tokens): {drops}; decode steps drop "
+          f"none", flush=True)
+    # reported: greedy agreement with the no-cache oracle on the two long
+    # prompts (its capacity is that of Lp + 31 tokens, the prefill's of Lp)
+    agree = {}
+    for r, n in zip(reqs, lens):
+        if n in (4500, 6000):
+            w = oracle_logits(cfg, params, r.prompt, r.out_tokens)
+            agree[n] = float(np.mean([int(x.argmax()) == t for x, t in zip(w, r.out_tokens)]))
+            agree[f"{n}_worst_rel"] = max(rel_diffs(kept[r.req_id], w))
+            del w
+    print(f"[mixtral serve] greedy agreement with the no-cache oracle (reported: the oracle "
+          f"routes Lp + 31 tokens with their own capacity): {agree}", flush=True)
+    # a decode step of 8 rows at position 6000: all 8 experts of each layer
+    # run (dropless, C = 8), so it reads every weight but the embedding table
+    wall_ms, busy_ms = decode_step_times(cfg, params, eng.cache, 6000)
+    embed = params["embed"]["table"]
+    kv_bytes = sum(t.numel() * t.element_size() for t in eng.cache[0].values())
+    step_bytes = weight_bytes - embed.numel() * embed.element_size() + kv_bytes
+    bound_ms = step_bytes / HBM_BYTES_S * 1e3
+    print(f"[mixtral serve] decode step (8 rows, position 6000): wall {wall_ms:.2f} ms (mean of "
+          f"3); device busy {fmt_ms(busy_ms)} ms (CUDA events: each of the step's {L + 2} pieces "
+          f"queued behind a spin, summed; mean of 3); bound {bound_ms:.2f} ms "
+          f"({step_bytes / 1e9:.2f} GB: the weights but the embedding table, and the full "
+          f"rings, at 3.35 TB/s)", flush=True)
+    figures.update(peak_gib=peak, weight_gb=weight_bytes / 1e9, moe_check=moe_check,
+                   dropped_routes_per_prefill=drops, oracle_agreement=agree,
+                   decode_step_wall_ms=wall_ms, decode_step_busy_ms=busy_ms,
+                   decode_step_bound_ms=bound_ms)
+    del eng, kept, params, leaves, embed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, figures
+
+
+# ---------------------------------------------------------------------------
 # phase 8: serve rwkv6-7b at full width
 # ---------------------------------------------------------------------------
 
@@ -2739,6 +3291,8 @@ def main() -> int:
     ssm_rows = timed("ssm scan kernel", phase_ssm_kernel, ks)
     swa_rows = no_scan("windowed flash kernel", phase_swa_kernels, kf)
     swa_decode_rows = no_scan("hymba decode kernel", phase_swa_decode_kernel, ka)
+    win_flash_rows, win_decode_rows = no_scan("window 4096 kernels", phase_window_kernels, ka,
+                                              kf)
     # the queries are drawn as benchmarks/retrieval_knob.py draws them
     corpus, queries = no_scan("synthetic_corpus on the host", lambda: (
         synthetic_corpus(N_DOCS, DIM, seed=0), synthetic_corpus(N_QUERIES, DIM, seed=7)))
@@ -2752,6 +3306,7 @@ def main() -> int:
     no_scan("rwkv parity", phase_rwkv_parity, kw)
     timed("hymba parity", phase_hymba_parity, ka, kf, ks)
     no_scan("int8 and swap parity", phase_int8_swap_parity)
+    no_scan("swa and moe parity", phase_swa_moe_parity, ka, kf)
 
     cfg = get_arch("qwen2.5-3b").replace(dtype="bfloat16")
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
@@ -2771,8 +3326,14 @@ def main() -> int:
     launches["pipelines"] = no_scan("pipelines", phase_pipelines, ka, kf, tk, cfg, params)
     launches["controller"], controller_figures = no_scan("controller", phase_controller, ka,
                                                          kf, tk, cfg, params)
-    del params                       # room for rwkv6-7b's ~15 GB of bf16 weights
+    launches["swa serve"], swa_figures = no_scan("swa serve", phase_swa_serve, ka, kf, tk,
+                                                 params, prompts)
+    del params                       # room for mixtral's ~41 GB of bf16 weights
     gc.collect()                     # engines hold reference cycles
+    torch.cuda.empty_cache()
+    launches["mixtral serve"], mixtral_figures = no_scan("mixtral serve", phase_mixtral_serve,
+                                                         ka, kf, tk, prompts)
+    gc.collect()                     # mixtral's weights go before rwkv6-7b's
     torch.cuda.empty_cache()
     launches["rwkv serve"] = no_scan("rwkv serve", phase_rwkv_serve, ka, kf, tk, prompts)
     gc.collect()                     # rwkv6-7b's weights go before hymba-1.5b's
@@ -2905,8 +3466,22 @@ def main() -> int:
                                      "bound_ms", "bound_by")}
            for d in ("float32", "bfloat16") for c in SWA_DECODE_CASES},
     }
+    # the two kernels at a 4096 window (phases 10 and 11's shapes)
+    flash["window_4096"] = {
+        f"{g}/{d}/S={S}": {key2: x.get(key2) for key2 in
+                           ("errs", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+                            "bound_by")}
+        for g, rows_g in win_flash_rows.items() for (d, S, _), x in rows_g.items()}
+    dec["mixtral"] = {
+        "shape": {"B": B, "heads": WIN_HEADS["G6"], "Sc": WIN, "lengths": WIN_DECODE_CASES},
+        **{f"{d}/{c}": {key2: win_decode_rows[(d, c)][key2]
+                        for key2 in ("errs", "ms", "device_ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by")}
+           for d in ("float32", "bfloat16") for c in WIN_DECODE_CASES},
+    }
     print(json.dumps({"int8_serve": int8_figures, "host_tier": host_figures,
-                      "oracle_paths": oracle_figures, "controller": controller_figures}))
+                      "oracle_paths": oracle_figures, "controller": controller_figures,
+                      "swa_serve": swa_figures, "mixtral_serve": mixtral_figures}))
     print(json.dumps({"kernels": kernels}))
     print(f"[done] {time.perf_counter() - t_start:.1f}s in all", flush=True)
     print(card)

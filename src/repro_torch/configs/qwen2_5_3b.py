@@ -1,9 +1,10 @@
 """qwen2.5-3b — dense GQA with QKV bias.
 
 [hf:Qwen/Qwen2.5-3B] 36L, d_model=2048, 16 heads (GQA kv=2), d_ff=11008,
-vocab=151936. Full attention.
+vocab=151936. Full attention; ``CONFIG_SWA`` is the sliding-window serving
+variant (window 4096) of the JAX package.
 """
-from repro_torch.configs.base import ATTN_FULL, ModelConfig
+from repro_torch.configs.base import ATTN_FULL, ATTN_SWA, ModelConfig
 
 CONFIG = ModelConfig(
     name="qwen2.5-3b",
@@ -20,3 +21,6 @@ CONFIG = ModelConfig(
     rope_theta=1000000.0,
     source="Qwen2.5 [hf:Qwen/Qwen2.5-3B]",
 )
+
+# Sliding-window serving variant (Qwen2 supports SWA in its config)
+CONFIG_SWA = CONFIG.replace(name="qwen2.5-3b-swa", attn_type=ATTN_SWA, window=4096)

@@ -11,8 +11,9 @@ from repro_torch.models.model import (
     prefill,
     prefill_chunk,
     prefill_packed,
+    prefills_unpadded,
 )
 
 __all__ = ["decode_step", "decode_step_paged", "dense_cache_supported", "forward",
            "has_recurrent_state", "init_cache", "init_params", "paged_cache_supported", "prefill",
-           "prefill_chunk", "prefill_packed"]
+           "prefill_chunk", "prefill_packed", "prefills_unpadded"]

@@ -1,7 +1,8 @@
 """GQA attention, ported from ``repro.models.attention``: ``qkv_project``,
 and for the dense backend ``blockwise_attention`` (prefill, full or
 sliding-window, through the ``flash_attention`` kernel), ``decode_attention``
-(through the dense ``decode_attention`` kernel) and ``cache_validity``. The
+(through the dense ``decode_attention`` kernel) and ``cache_validity`` (a
+full-attention cache or a sliding-window ring). The
 paged path reads attention through ``kernels.decode_attention`` directly;
 its oracle steps (the padded fused step and the sequential prefill) run
 ``chunk_decode_attention``, a plain masked softmax as in JAX, where the
@@ -12,7 +13,7 @@ import math
 
 import torch
 
-from repro_torch.configs.base import ATTN_FULL
+from repro_torch.configs.base import ATTN_FULL, ATTN_SWA
 from repro_torch.kernels.decode_attention import NEG_INF
 from repro_torch.kernels.decode_attention import decode_attention as decode_kernel
 from repro_torch.kernels.flash_attention import flash_attention
@@ -39,15 +40,15 @@ def blockwise_attention(q, k, v, *, attn_type: str = ATTN_FULL, window: int = 0,
                         causal: bool = True):
     """q: (B, S, H, hd); k/v: (B, S, KVH, hd) -> (B, S, H, hd). Attention,
     causal or not, over keys of the queries' own length (the
-    ``flash_attention`` kernel); ``window`` > 0 keeps only the keys after
-    query - ``window`` (the mask of JAX's ``attn_type=ATTN_SWA``), 0 keeps
-    every key. Chunked masks and cross attention (S_kv != S) are not
-    ported yet."""
-    if attn_type != ATTN_FULL or k.shape[1] != q.shape[1]:
+    ``flash_attention`` kernel). ``attn_type=ATTN_SWA`` with ``window`` w >
+    0 keeps only the keys after query - w (JAX's mask ``kpos > qpos -
+    window``); ``ATTN_FULL``, or a window of 0, keeps every key, as in JAX.
+    Chunked masks and cross attention (S_kv != S) are not ported yet."""
+    if attn_type not in (ATTN_FULL, ATTN_SWA) or k.shape[1] != q.shape[1]:
         raise NotImplementedError(
-            f"blockwise_attention ports attention with S_kv == S, windowed through "
-            f"``window``; got attn_type={attn_type!r}, S={q.shape[1]}, S_kv={k.shape[1]}")
-    return flash_attention(q, k, v, causal=causal, window=window)
+            f"blockwise_attention ports full and sliding-window attention with S_kv == S; "
+            f"got attn_type={attn_type!r}, S={q.shape[1]}, S_kv={k.shape[1]}")
+    return flash_attention(q, k, v, causal=causal, window=window if attn_type == ATTN_SWA else 0)
 
 
 def decode_attention(q, k_cache, v_cache, lengths):
@@ -56,7 +57,7 @@ def decode_attention(q, k_cache, v_cache, lengths):
     mask of ``cache_validity``; on a full-attention linear cache, and on an
     SWA ring of Sc <= window slots, that mask is ``slot < min(pos + 1,
     Sc)``, so the port passes ``lengths = min(pos + 1, Sc)`` to the
-    kernel."""
+    kernel (``cache_validity`` is that mask)."""
     return decode_kernel(q[:, 0].contiguous(), k_cache, v_cache, lengths)[:, None]
 
 
@@ -83,12 +84,14 @@ def chunk_decode_attention(q, k_cache, v_cache, valid_mask, scale=None):
 
 def cache_validity(attn_type: str, cache_len: int, pos, chunk: int = 0):
     """Which cache slots a decode query at absolute position ``pos`` may
-    attend: (B, Sc) bool for pos (B,), (1, Sc) for a 0-d pos. Full attention
-    only (a linear cache, filled so far); the ring caches of SWA and
-    chunked-local layers are not ported yet (a hybrid stack's decode hands
-    its kernel ``lengths`` instead, see ``decode_attention``)."""
-    if attn_type != ATTN_FULL:
+    attend: (B, Sc) bool for pos (B,), (1, Sc) for a 0-d pos. A
+    full-attention cache: the slots filled so far; an SWA ring: those too,
+    and once wrapped (pos + 1 >= Sc) every slot. Both are ``slot < min(pos +
+    1, Sc)``, the ``lengths`` the decode stacks hand their kernel. The
+    chunked-local ring is not ported yet."""
+    if attn_type not in (ATTN_FULL, ATTN_SWA):
         raise NotImplementedError(
-            f"cache_validity ports the full-attention cache; got attn_type={attn_type!r}")
+            f"cache_validity ports full-attention caches and SWA rings; "
+            f"got attn_type={attn_type!r}")
     slots = torch.arange(cache_len, device=pos.device)
-    return slots <= torch.clamp(pos.long().reshape(-1, 1), max=cache_len - 1)
+    return slots < torch.clamp(pos.long().reshape(-1, 1) + 1, max=cache_len)

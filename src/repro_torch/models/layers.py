@@ -105,6 +105,13 @@ def apply_rope(x, positions, theta: float):
 # ---------------------------------------------------------------------------
 
 
+def init_mlp(generator, d_model: int, d_ff: int, dtype, device, lead=()):
+    """SwiGLU weights (``w_gate``, ``w_up`` (d_model, d_ff), ``w_down``),
+    each at 1/sqrt(d_in); ``lead`` prepends the stacked layer-group axis."""
+    mk = lambda d_in, d_out: dense_init(generator, (*lead, d_in, d_out), dtype, device)
+    return {"w_gate": mk(d_model, d_ff), "w_up": mk(d_model, d_ff), "w_down": mk(d_ff, d_model)}
+
+
 def apply_mlp(params, x, act: str):
     if act == "silu":
         h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])

@@ -7,8 +7,9 @@ for the dense backend ``forward``, ``prefill``, ``decode_step`` and
 
 The paged step functions update the KV pools in place and return the
 logits; ``decode_step`` updates the dense cache in place and returns it
-with the logits. The dense functions take full-attention GQA stacks, RWKV-6
-stacks and Hymba's hybrid stacks with their meta-token prefix
+with the logits. The dense functions take full-attention and
+sliding-window GQA stacks (with SwiGLU or MoE feed-forwards), RWKV-6 stacks
+and Hymba's hybrid stacks with their meta-token prefix
 (``dense_cache_supported``).
 """
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.configs.base import ATTN_FULL, MIXER_HYBRID, MIXER_RWKV6, ModelConfig
+from repro_torch.configs.base import ATTN_FULL, ATTN_SWA, MIXER_HYBRID, MIXER_RWKV6, ModelConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import dense_init, embed_tokens, unembed
 from repro_torch.params import torch_dtype
@@ -26,10 +27,10 @@ from repro_torch.params import torch_dtype
 def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> Dict[str, Any]:
     """Random weights with the JAX ``init_params`` tree, shapes and scales
     (embedding and lm_head N(0, 0.02), projections N(0, 1/d_in), zero QKV
-    biases, unit norms; RWKV-6 layers as ``rwkv6.init_rwkv6``, hybrid
-    layers' SSM as ``ssm.init_ssm``, meta tokens N(0, 0.02)), drawn from
-    ``generator`` on its own device and placed on ``device``. Dense GQA,
-    RWKV-6 and hybrid stacks only."""
+    biases, unit norms; MoE layers as ``moe.init_moe``, RWKV-6 layers as
+    ``rwkv6.init_rwkv6``, hybrid layers' SSM as ``ssm.init_ssm``, meta
+    tokens N(0, 0.02)), drawn from ``generator`` on its own device and
+    placed on ``device``. The stacks of ``dense_cache_supported`` only."""
     dtype = torch_dtype(cfg)
     params: Dict[str, Any] = {
         "embed": {"table": dense_init(generator, (cfg.padded_vocab, cfg.d_model),
@@ -79,8 +80,9 @@ def _embed_inputs(cfg, params, batch):
 
 def dense_cache_supported(cfg: ModelConfig) -> bool:
     """Whether the port's dense backend serves this architecture: a
-    period-1 stack of full-attention GQA layers, of RWKV-6 layers or of
-    hybrid layers, with the token frontend (and meta tokens)."""
+    period-1 stack of full-attention or sliding-window GQA layers (SwiGLU or
+    MoE), of RWKV-6 layers or of hybrid layers, with the token frontend (and
+    meta tokens)."""
     return tfm.dense_stack_supported(cfg) and _token_frontend(cfg)
 
 
@@ -91,12 +93,22 @@ def has_recurrent_state(cfg: ModelConfig) -> bool:
     return cfg.attention_free or cfg.attn_type == MIXER_HYBRID
 
 
+def prefills_unpadded(cfg: ModelConfig) -> bool:
+    """Whether a prompt must be prefilled at its own length, not padded to
+    a bucket: a recurrent state would carry the pad tokens
+    (``has_recurrent_state``), and a sliding-window ring as long as the
+    window would keep pads in place of the prompt's last keys."""
+    return has_recurrent_state(cfg) or cfg.attn_type == ATTN_SWA
+
+
 def forward(cfg, params, batch, want_cache: bool = False, logits_mode: str = "all"):
     """batch {"tokens": (B, S) int} -> (logits (B, S, V), aux) or, with
     ``want_cache``, (logits, aux, caches): the serve cache of the whole
     sequence, meta tokens included (a tuple of one entry: {k, v} of (G, B,
-    S, KVH, hd), an RWKV-6 stack's state and token shifts, or a hybrid
-    stack's K/V ring and SSM state, see ``transformer.run_stack_seq``).
+    S, KVH, hd), a sliding-window stack's K/V ring, an RWKV-6 stack's state
+    and token shifts, or a hybrid stack's K/V ring and SSM state, see
+    ``transformer.run_stack_seq``); aux is the sum of the MoE layers'
+    load-balance losses (zero without MoE).
     The logits are those of the text positions (the meta prefix is
     stripped); ``logits_mode="last"`` unembeds the last position only.
     Pad-vocab logits are masked to -1e30."""
@@ -142,8 +154,9 @@ def decode_step(cfg, params, caches, tokens, pos):
 def init_cache(cfg: ModelConfig, B: int, S: int, device):
     """Zero-initialised dense serve cache for B rows of S tokens (meta
     tokens included) on ``device``: a tuple of one {k, v} entry of (G, B,
-    Sc, KVH, hd) in the config's dtype (full attention: Sc = S; hybrid: a
-    ring of Sc = min(S, window), plus the SSM's conv (G, B, K-1, D) in the
+    Sc, KVH, hd) in the config's dtype (full attention: Sc = S; sliding
+    window: a ring of Sc = min(S, window); hybrid: that ring, plus the
+    SSM's conv (G, B, K-1, D) in the
     config's dtype and h (G, B, D, N) float32), or for RWKV-6 {state (G, B,
     H, hd, hd) float32, x_prev_att, x_prev_ffn (G, B, D) in the config's
     dtype}, whatever S. The int8 cache (``kv_cache_quant``) is not ported

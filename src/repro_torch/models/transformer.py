@@ -1,8 +1,10 @@
 """Layer stacks of the serving paths, ported from
 ``repro.models.transformer``: the paged stacks (ragged fused step, paged
 decode) and the dense backend's stacks (whole-prompt prefill, contiguous
-per-slot decode cache) of full-attention GQA layers, of RWKV-6 layers and of
-Hymba's hybrid layers (sliding-window attention and an SSM side by side).
+per-slot decode cache) of full-attention or sliding-window GQA layers, of
+RWKV-6 layers and of Hymba's hybrid layers (sliding-window attention and an
+SSM side by side). A GQA or hybrid layer's feed-forward is a SwiGLU MLP or
+an MoE layer (``models.moe``).
 
 Parameters of a period-1 stack are stacked over the L layer groups, as
 ``transformer._stack_layers`` does in the JAX package: every leaf of
@@ -12,9 +14,10 @@ Python and hands each layer the ``g``-th slice of every leaf.
 
 The KV pools are (G, n_blocks, bs, KVH, hd) tensors, the dense caches
 (G, B, Sc, KVH, hd); an RWKV-6 stack's cache is its recurrent state (G, B,
-H, hd, hd) float32 and two token-shift vectors (G, B, D); a hybrid stack's
-is a ring of Sc = min(S, window) K/V slots (position p at slot p % Sc), the
-SSM's convolution tail (G, B, K-1, D) and its state (G, B, D, N) float32.
+H, hd, hd) float32 and two token-shift vectors (G, B, D); a sliding-window
+stack's is a ring of Sc = min(S, window) K/V slots (position p at slot p %
+Sc), and a hybrid stack's that ring, the SSM's convolution tail (G, B, K-1,
+D) and its state (G, B, D, N) float32.
 Each decoding layer writes its new K/V entries (or its new state) into its
 slice ``pool[g]`` or ``cache[g]`` IN PLACE; JAX instead returns new pools
 and caches from the scan. What is the same for every layer of a step —
@@ -30,6 +33,7 @@ import torch
 
 from repro_torch.configs.base import (
     ATTN_FULL,
+    ATTN_SWA,
     MIXER_HYBRID,
     MIXER_RWKV6,
     ModelConfig,
@@ -40,12 +44,14 @@ from repro_torch.kernels.decode_attention import (
     ref_paged_chunk_attention,
 )
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     apply_mlp,
     apply_rope_tables,
     dense_init,
+    init_mlp,
     layer_norm,
     rms_norm,
     rope_tables,
@@ -76,9 +82,10 @@ def layer_kind(cfg: ModelConfig, layer: int) -> Dict[str, Any]:
 
 def cache_len_for(cfg: ModelConfig, S: int) -> int:
     """K/V slots a layer of the port's stacks holds for a context of S
-    tokens: a ring of ``min(S, window)`` slots in a hybrid stack (JAX sizes
-    a hybrid layer's cache S, linear: ROADMAP §3), S otherwise."""
-    if cfg.attn_type == MIXER_HYBRID:
+    tokens: a ring of ``min(S, window)`` slots in a sliding-window or hybrid
+    stack (JAX sizes a hybrid layer's cache S, linear: ROADMAP §3), S
+    otherwise."""
+    if cfg.attn_type in (ATTN_SWA, MIXER_HYBRID):
         return min(S, cfg.window)
     return S
 
@@ -108,32 +115,34 @@ def apply_norm(cfg, p, x):
 
 
 def dense_stack_supported(cfg: ModelConfig) -> bool:
-    """Whether the port has this layer stack: period 1, no MoE, no cross
-    attention, and either full-attention GQA layers with SwiGLU, RWKV-6
-    layers, or hybrid layers (SWA attention beside an SSM) with SwiGLU.
-    MLA, SWA-only and chunked-local stacks are not ported yet."""
+    """Whether the port has this layer stack: period 1, no cross attention,
+    and either RWKV-6 layers without MoE, or full-attention, sliding-window
+    or hybrid (SWA attention beside an SSM) GQA layers with SwiGLU, whose
+    feed-forward may be MoE. MLA and chunked-local stacks are not ported
+    yet."""
     kind = layer_kind(cfg, 0)
-    if period(cfg) != 1 or kind["moe"] or kind["cross"]:
+    if period(cfg) != 1 or kind["cross"]:
         return False
     if kind["attn_type"] == MIXER_RWKV6:
-        return True
-    return kind["attn_type"] in (ATTN_FULL, MIXER_HYBRID) and cfg.act == "silu"
+        return not kind["moe"]
+    return kind["attn_type"] in (ATTN_FULL, ATTN_SWA, MIXER_HYBRID) and cfg.act == "silu"
 
 
 def _check_dense_stack(cfg: ModelConfig) -> None:
     if not dense_stack_supported(cfg):
         raise NotImplementedError(
-            "the port covers period-1 stacks of full-attention dense GQA layers "
-            "or hybrid layers with SwiGLU, or of RWKV-6 layers, only")
+            "the port covers period-1 stacks of full-attention, sliding-window or "
+            "hybrid GQA layers with SwiGLU or MoE, or of RWKV-6 layers, only")
 
 
 def init_layer(generator, cfg: ModelConfig, dtype, device, lead=()):
     """One layer's params (``lead`` = stacked group axis), with the init
     scales of the JAX package. GQA: 1/sqrt(d_in) for every projection,
-    zero QKV biases, unit norm scales. RWKV-6: layer norms with bias, time
-    and channel mixing (``rwkv6.init_rwkv6``/``init_rwkv6_ffn``). Hybrid:
-    the GQA layer plus the SSM (``ssm.init_ssm``) and unit gate scales of
-    the two branches' norms."""
+    zero QKV biases, unit norm scales, and in an MoE layer ``moe`` (see
+    ``moe.init_moe``) in place of ``mlp``. RWKV-6: layer norms with bias,
+    time and channel mixing (``rwkv6.init_rwkv6``/``init_rwkv6_ffn``).
+    Hybrid: the GQA layer plus the SSM (``ssm.init_ssm``) and unit gate
+    scales of the two branches' norms."""
     _check_dense_stack(cfg)
     if cfg.attn_type == MIXER_RWKV6:
         return {"norm1": init_norm(cfg, dtype, device, lead),
@@ -147,14 +156,16 @@ def init_layer(generator, cfg: ModelConfig, dtype, device, lead=()):
     if cfg.qkv_bias:
         for name, n in (("bq", q_dim), ("bk", kv_dim), ("bv", kv_dim)):
             a[name] = torch.zeros((*lead, n), dtype=dtype, device=device)
-    mlp = {"w_gate": mk(D, F), "w_up": mk(D, F), "w_down": mk(F, D)}
     p = {"norm1": init_norm(cfg, dtype, device, lead), "attn": a}
     if cfg.attn_type == MIXER_HYBRID:
         p["ssm"] = ssm_mod.init_ssm(generator, cfg, dtype, device, lead)
         p["gate_attn"] = torch.ones((*lead, D), dtype=dtype, device=device)
         p["gate_ssm"] = torch.ones((*lead, D), dtype=dtype, device=device)
     p["norm2"] = init_norm(cfg, dtype, device, lead)
-    p["mlp"] = mlp
+    if layer_kind(cfg, 0)["moe"]:
+        p["moe"] = moe_mod.init_moe(generator, cfg, dtype, device, lead)
+    else:
+        p["mlp"] = init_mlp(generator, D, F, dtype, device, lead)
     return p
 
 
@@ -183,10 +194,21 @@ def _out_proj(cfg, lp, x, a_out):
     return a_out.reshape(B, S, cfg.num_heads * cfg.head_dim) @ lp["attn"]["wo"]
 
 
-def _mlp_residual(cfg, lp, x):
-    """norm2, the MLP and its residual."""
+def _ffn_residual(cfg, lp, x):
+    """norm2, the MLP or the MoE layer, and its residual: (x, aux), aux the
+    MoE's load-balance loss (float32 zero for an MLP)."""
     xn = apply_norm(cfg, lp["norm2"], x)
-    return x + apply_mlp(lp["mlp"], xn, cfg.act)
+    if "moe" in lp:
+        out, aux = moe_mod.apply_moe(lp["moe"], xn, cfg)
+        return x + out, aux
+    return x + apply_mlp(lp["mlp"], xn, cfg.act), x.new_zeros((), dtype=torch.float32)
+
+
+def _mlp_residual(cfg, lp, x):
+    """norm2, the MLP or the MoE layer, and its residual (the serving
+    steps drop the MoE's aux loss, as JAX's decode, prefix and paged
+    layers do)."""
+    return _ffn_residual(cfg, lp, x)[0]
 
 
 def _finish_layer(cfg, lp, x, a_out):
@@ -383,13 +405,30 @@ def run_stack_prefix(cfg, blocks, x, caches, pos, positions=None,
 # ---------------------------------------------------------------------------
 
 
+def _ring(t, Sc):
+    """The last Sc entries of t (B, S, ...) with position p at slot p % Sc:
+    JAX keeps them in order (``t[:, S - Sc:]``), a ring cache needs them
+    rolled by S % Sc. t itself where Sc == S."""
+    S = t.shape[1]
+    if Sc == S:
+        return t
+    return torch.roll(t[:, S - Sc:], S % Sc, dims=1)
+
+
+def _kv_entry(cfg, k, v):
+    """A layer's K/V cache entry of a whole sequence k/v (B, S, KVH, hd):
+    the sequence (full attention) or its ring of ``cache_len_for`` slots."""
+    Sc = cache_len_for(cfg, k.shape[1])
+    return {"k": _ring(k, Sc), "v": _ring(v, Sc)}
+
+
 def _attn_branch_seq(cfg, lp, x, rope):
-    """norm1 -> QKV -> rope -> full causal attention over the sequence
-    (``blockwise_attention``); returns the attention output and the layer's
-    cache entry {k, v}: (B, S, KVH, hd), the whole sequence (a full-attention
-    cache)."""
+    """norm1 -> QKV -> rope -> causal attention over the sequence, full or
+    sliding-window (``blockwise_attention``); returns the attention output
+    and the layer's cache entry {k, v} (``_kv_entry``)."""
     q, k, v = _attn_inputs(cfg, lp, x, rope)
-    return attn.blockwise_attention(q, k, v), {"k": k, "v": v}
+    out = attn.blockwise_attention(q, k, v, attn_type=cfg.attn_type, window=cfg.window)
+    return out, _kv_entry(cfg, k, v)
 
 
 def _apply_rwkv_layer(cfg, lp, x, x_prev_att=None, x_prev_ffn=None, state=None,
@@ -407,39 +446,35 @@ def _apply_rwkv_layer(cfg, lp, x, x_prev_att=None, x_prev_ffn=None, state=None,
     return x + ffn_out, {"state": state, "x_prev_att": xprev_a, "x_prev_ffn": xprev_f}
 
 
-def _ring(t, Sc):
-    """The last Sc entries of t (B, S, ...) with position p at slot p % Sc:
-    JAX keeps them in order (``t[:, S - Sc:]``), a ring cache needs them
-    rolled by S % Sc."""
-    S = t.shape[1]
-    return torch.roll(t[:, S - Sc:], S % Sc, dims=1)
-
-
 def _apply_hybrid_layer_seq(cfg, lp, x, rope):
     """A hybrid layer over a sequence: norm1 -> sliding-window attention and
     the SSM side by side (both from the zero state) -> their gated mix ->
     residual -> norm2 -> MLP. Returns (x, {k, v: the (B, min(S, window),
-    KVH, hd) ring, conv: (B, K-1, D), h: (B, D, N) float32})."""
+    KVH, hd) ring, conv: (B, K-1, D), h: (B, D, N) float32}, aux)."""
     xn = apply_norm(cfg, lp["norm1"], x)
     q, k, v = _qkv(cfg, lp, xn, rope)
-    a_out = _out_proj(cfg, lp, x, attn.blockwise_attention(q, k, v, window=cfg.window))
+    a_out = _out_proj(cfg, lp, x, attn.blockwise_attention(q, k, v, attn_type=ATTN_SWA,
+                                                           window=cfg.window))
     s_out, (conv_tail, h) = ssm_mod.apply_ssm(lp["ssm"], xn, cfg)
-    x = _mlp_residual(cfg, lp, _hybrid_mix(cfg, lp, x, a_out, s_out))
-    Sc = cache_len_for(cfg, x.shape[1])
-    return x, {"k": _ring(k, Sc), "v": _ring(v, Sc), "conv": conv_tail, "h": h}
+    x, aux = _ffn_residual(cfg, lp, _hybrid_mix(cfg, lp, x, a_out, s_out))
+    return x, {**_kv_entry(cfg, k, v), "conv": conv_tail, "h": h}, aux
 
 
 def apply_layer_seq(cfg, lp, x, rope):
     """Sequence-mode layer (whole-prompt prefill): x (B, S, D) -> (x, cache
-    entry): {k, v} (B, S, KVH, hd) for attention, {state (B, H, hd, hd),
-    x_prev_att (B, D), x_prev_ffn (B, D)} for RWKV-6, and for a hybrid layer
-    a K/V ring of min(S, window) slots with the SSM's {conv, h}."""
+    entry, aux): the entry {k, v} (B, S, KVH, hd) for full attention, a K/V
+    ring of min(S, window) slots for sliding-window attention, {state (B, H,
+    hd, hd), x_prev_att (B, D), x_prev_ffn (B, D)} for RWKV-6, and for a
+    hybrid layer the ring with the SSM's {conv, h}; aux the MoE layer's
+    load-balance loss (float32 zero without MoE)."""
     if cfg.attn_type == MIXER_RWKV6:
-        return _apply_rwkv_layer(cfg, lp, x)
+        x, cache = _apply_rwkv_layer(cfg, lp, x)
+        return x, cache, x.new_zeros((), dtype=torch.float32)
     if cfg.attn_type == MIXER_HYBRID:
         return _apply_hybrid_layer_seq(cfg, lp, x, rope)
     a_out, cache = _attn_branch_seq(cfg, lp, x, rope)
-    return _finish_layer(cfg, lp, x, a_out), cache
+    x, aux = _ffn_residual(cfg, lp, x + _out_proj(cfg, lp, x, a_out))
+    return x, cache, aux
 
 
 def run_stack_seq(cfg, blocks, x, positions):
@@ -447,19 +482,22 @@ def run_stack_seq(cfg, blocks, x, positions):
     positions (B, S). A Python loop over the layers (JAX scans them, with
     remat and a segmented scan for training, which serving does not need).
     Returns (x, caches, aux): caches a tuple of one entry, {k, v} of (G, B,
-    S, KVH, hd), for RWKV-6 {state (G, B, H, hd, hd) float32, x_prev_att,
-    x_prev_ffn (G, B, D)}, for a hybrid stack {k, v} of (G, B, min(S,
-    window), KVH, hd) with position p at slot p % Sc (JAX's cache rolled by
-    S % Sc), conv (G, B, K-1, D) and h (G, B, D, N) float32; aux the zero
-    auxiliary loss of a stack without MoE."""
+    S, KVH, hd), for a sliding-window stack {k, v} of (G, B, min(S, window),
+    KVH, hd) with position p at slot p % Sc (JAX's cache rolled by S % Sc),
+    for RWKV-6 {state (G, B, H, hd, hd) float32, x_prev_att, x_prev_ffn (G,
+    B, D)}, for a hybrid stack the ring, conv (G, B, K-1, D) and h (G, B, D,
+    N) float32; aux the sum of the layers' MoE load-balance losses (float32
+    zero without MoE)."""
     _check_dense_stack(cfg)
     rope = _rope(cfg, positions)
     entries = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g in range(cfg.num_layers):
-        x, cache = apply_layer_seq(cfg, layer_slice(blocks[0], g), x, rope)
+        x, cache, a = apply_layer_seq(cfg, layer_slice(blocks[0], g), x, rope)
         entries.append(cache)
+        aux = aux + a
     caches = ({name: torch.stack([e[name] for e in entries]) for name in entries[0]},)
-    return x, caches, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, caches, aux
 
 
 def _cache_update(c, new, slots):
@@ -479,11 +517,12 @@ def _decode_attn(cfg, lp, xn, k_cache, v_cache, pos, rope, lengths):
 
 
 def apply_layer_decode(cfg, lp, x, k_cache, v_cache, pos, *, rope, lengths):
-    """Dense decode layer: write each row's new K/V at slot ``pos`` of the
-    layer's cache (in place), then attend the row's valid slots. x: (B, 1,
-    D); k/v_cache: (B, Sc, KVH, hd); pos: (B,) int32; ``rope``: the step's
-    rope tables; ``lengths`` = min(pos + 1, Sc), which on a full-attention
-    linear cache is what ``cache_validity`` allows. Returns the new x."""
+    """Dense decode layer: write each row's new K/V at slot ``pos % Sc`` of
+    the layer's cache (in place), then attend the row's valid slots. x: (B,
+    1, D); k/v_cache: (B, Sc, KVH, hd); pos: (B,) int32; ``rope``: the
+    step's rope tables; ``lengths`` = min(pos + 1, Sc), which is what
+    ``cache_validity`` allows on a full-attention linear cache and on a
+    sliding-window ring of Sc <= window slots. Returns the new x."""
     xn = apply_norm(cfg, lp["norm1"], x)
     a_out = _decode_attn(cfg, lp, xn, k_cache, v_cache, pos, rope, lengths)
     return _finish_layer(cfg, lp, x, a_out)
@@ -517,7 +556,8 @@ def run_stack_decode(cfg, blocks, x, caches, pos):
     """Run the stack in dense-decode mode: x (B, 1, D), per-row positions
     pos (B,) int32 (each <= Sc - 1 on a full-attention cache; a ring takes
     any; an RWKV-6 stack has no positions), caches from ``model.init_cache``
-    updated in place layer by layer. Returns (x, caches)."""
+    updated in place layer by layer. Returns (x, caches). An MoE layer's
+    capacity is that of B tokens: dropless."""
     _check_dense_stack(cfg)
     entry = caches[0]
     if cfg.attn_type == MIXER_RWKV6:

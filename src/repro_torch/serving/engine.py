@@ -48,7 +48,12 @@ where the JAX engine does (ROADMAP §3). Its recurrences run through
 prefilled unpadded too, its meta tokens first: each row keeps a ring of
 min(max_seq + M, window) K/V slots beside its SSM state, and decodes at
 absolute position M + its text position (``kernels.flash_attention`` with a
-window, ``kernels.decode_attention``, ``kernels.ssm_scan.ssm_scan``).
+window, ``kernels.decode_attention``, ``kernels.ssm_scan.ssm_scan``). A
+sliding-window stack (qwen2.5-3b-swa, mixtral-8x22b) is prefilled unpadded
+as well, into a ring of min(max_seq, window) K/V slots: a bucket longer than
+the window would keep its pad tokens' keys in place of the prompt's last
+ones (ROADMAP §3). An MoE layer's feed-forward (mixtral-8x22b) is
+``models.moe``, plain torch on any device.
 
 The paged backend keeps the JAX engine's oracle paths: ``interleave=False``
 is the sequential loop (blocking chunked prefill at admission, one
@@ -91,12 +96,12 @@ from repro_torch.models import (
     decode_step_paged,
     dense_cache_supported,
     forward,
-    has_recurrent_state,
     init_cache,
     init_params,
     paged_cache_supported,
     prefill_chunk,
     prefill_packed,
+    prefills_unpadded,
 )
 from repro_torch.serving.control_plane import ControlPlane, CopyEngine
 from repro_torch.serving.device_runner import (
@@ -289,8 +294,8 @@ class GenerationEngine:
             raise ValueError("kernel='pallas' requires the ragged fused layout: the "
                              "chunk kernel consumes the packed token buffer")
         if not paged_cache_supported(cfg):
-            # JAX serves such archs on the dense backend; its port covers
-            # full-attention GQA and RWKV-6 stacks
+            # JAX serves such archs on the dense backend; the port's covers
+            # the stacks of dense_cache_supported
             if not dense_cache_supported(cfg):
                 raise NotImplementedError(
                     f"{cfg.name} is outside the paged contract; the rest of the zoo "
@@ -1121,13 +1126,16 @@ class GenerationEngine:
     # ------------------------------------------- sequential and dense paths
     def _prefill_one(self, req: Request, slot: int):
         """Prefill the whole prompt (truncated to ``max_seq``), write its
-        cache into row ``slot`` and emit the first token. Attention stacks
-        run it zero-padded to its bucket, as the JAX engine does (decode
-        masks the pad slots). A stack that carries a recurrent state (RWKV-6,
-        or the SSM of a hybrid stack) runs it at its own length: its
-        recurrence would carry the pad tokens into the state (ROADMAP §3)."""
+        cache into row ``slot`` and emit the first token. Full-attention
+        stacks run it zero-padded to its bucket, as the JAX engine does
+        (decode masks the pad slots). The stacks of
+        ``models.prefills_unpadded`` run it at its own length: a recurrent
+        state (RWKV-6, or the SSM of a hybrid stack) would carry the pad
+        tokens, and a K/V ring as long as the window (a sliding-window or
+        hybrid stack) would keep the pads' keys in place of the prompt's last
+        ones (ROADMAP §3)."""
         Lp = len(req.prompt)
-        if has_recurrent_state(self.cfg):
+        if prefills_unpadded(self.cfg):
             eff = min(Lp, self.max_seq)
             toks, mode = np.asarray(req.prompt[:eff], np.int32)[None], "last"
         else:
@@ -1251,11 +1259,11 @@ def _merge_cache(batch_cache, one_cache, slot: int):
     """Write a B=1 prefill cache into row ``slot`` of the batch cache, in
     place. A K/V entry (G, B, Sc, KVH, hd) has a sequence axis at dim 2: the
     row's slots past the prefill are zeroed, as the JAX function pads them.
-    A hybrid layer's ring keeps position p at slot p % Sc in both caches:
-    the prefill's ring is shorter than the batch's only when it has not
-    wrapped, so its slots go to the same indices. A recurrent entry (RWKV-6
-    state and token shifts, the SSM's conv tail and h) has none: the whole
-    row is copied."""
+    A ring (a sliding-window or hybrid layer's) keeps position p at slot p %
+    Sc in both caches: the prefill's ring is shorter than the batch's only
+    when it has not wrapped, so its slots go to the same indices. A
+    recurrent entry (RWKV-6 state and token shifts, the SSM's conv tail and
+    h) has none: the whole row is copied."""
     for bc_entry, oc_entry in zip(batch_cache, one_cache):
         for name, bc in bc_entry.items():
             oc = oc_entry[name]

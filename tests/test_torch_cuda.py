@@ -2,7 +2,7 @@
 dense flash and decode attention with and without a sliding window, top-k
 retrieval, the RWKV-6 WKV recurrence, the selective scan) against their
 plain versions, on the card; the engine's int8 pools, swap, oracle paths
-and KV sanitizer on the card. Marked ``cuda``: each test skips (from inside a
+and KV sanitizer, and the sliding-window and MoE stacks on the card. Marked ``cuda``: each test skips (from inside a
 fixture) where no GPU is visible, as in this repository's CPU runs. On a GPU
 machine:
 
@@ -960,3 +960,79 @@ def test_sanitized_swap_run_on_the_card(gpu, kv_dtype):
     assert shadow["copy_pending"] == 0
     san.audit_host(eng.host_store)
     assert eng.host_store.k.is_pinned() and eng.host_store.n_swapped == 0
+
+
+# ------------------------------- sliding-window stacks and MoE on the card
+@pytest.mark.parametrize("H,KVH", [(48, 8), (16, 2)], ids=["G6", "G8"])  # mixtral, qwen2.5-3b
+@pytest.mark.parametrize("S", [4097, 6000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_windowed_flash_kernel_at_a_4096_window(gpu, dtype, S, H, KVH):
+    """The prefill of qwen2.5-3b-swa and mixtral-8x22b: hd 128, window 4096,
+    S past the window and no multiple of the kernel's tile, where the
+    causal block skip and the window's lower edge meet."""
+    g = torch.Generator().manual_seed(S + H)
+    q = torch.randn((1, S, H, 128), generator=g).to(dtype).to(gpu)
+    k, v = (torch.randn((1, S, KVH, 128), generator=g).to(dtype).to(gpu) for _ in range(2))
+    before = kf.flash_attention.launches
+    got = kf.flash_attention(q, k, v, window=4096)
+    torch.cuda.synchronize()
+    assert kf.flash_attention.launches == before + 1
+    atol, rtol = TOL[(dtype, dtype)]
+    want = kf.ref_flash_attention(q, k, v, window=4096)
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+    if dtype == torch.bfloat16:
+        want = kf.ref_flash_attention(q.float(), k.float(), v.float(), window=4096)
+        torch.testing.assert_close(got.float(), want, atol=BF16_OUT_TOL[0], rtol=BF16_OUT_TOL[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_decode_kernel_on_a_wrapped_ring_at_mixtral_heads(gpu, dtype):
+    """mixtral-8x22b's decode: H 48 over KVH 8 (G = 6 in the m16 tile), hd
+    128, a 4096-slot ring whose lengths min(pos + 1, 4096) saturate at the
+    ring once it has wrapped, beside rows that have not."""
+    lengths = [4096, 4096, 1, 4096, 4095, 4096, 300, 4096]
+    g = torch.Generator().manual_seed(48)
+    B = len(lengths)
+    q = torch.randn((B, 48, 128), generator=g).to(dtype).to(gpu)
+    k, v = (torch.randn((B, 4096, 8, 128), generator=g).to(dtype).to(gpu) for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=gpu)
+    before = ka.decode_attention.launches
+    got = ka.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert ka.decode_attention.launches == before + 1
+    _close(got, ka.ref_decode_attention(q, k, v, lens), slice(None), DENSE_TOL[dtype])
+    if dtype == torch.bfloat16:
+        want = ka.ref_decode_attention(q.float(), k.float(), v.float(), lens)
+        _close(got, want, slice(None), BF16_OUT_TOL)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b-swa", "mixtral-8x22b"])
+def test_swa_and_moe_engines_on_the_card_match_the_cpu(gpu, arch):
+    """The smoke variant (window 64; mixtral 4 experts, top-2) in float32 on
+    the dense backend: prompts short of, at and past the window, and decodes
+    that wrap the ring, give the CPU's greedy tokens; one windowed flash a
+    layer and prefill, one dense decode a layer and step."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch, smoke_variant
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import GenerationEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_variant(get_arch(arch))
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 23, 60, 64, 70, 100, 200)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = init_params(cfg, torch.Generator().manual_seed(0), dev)
+        eng = GenerationEngine(cfg, params=params, device=dev, max_batch=3, max_seq=256)
+        kf.reset_launch_counts()
+        ka.reset_launch_counts()
+        reqs = [eng.submit(p, max_new=12) for p in prompts]
+        eng.run_until_done()
+        assert eng.backend == "dense" and all(len(r.out_tokens) == 12 for r in reqs)
+        out[dev] = [r.out_tokens for r in reqs]
+    L = cfg.num_layers
+    assert kf.flash_attention.launches == L * len(prompts)
+    assert ka.decode_attention.launches == L * eng.steps
+    assert out["cuda"] == out["cpu"]

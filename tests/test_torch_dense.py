@@ -5,9 +5,10 @@ width in float32, on the same numpy inputs and weights.
   ``ref_decode_attention``) against the Pallas kernels in interpret mode
   (``repro.kernels.ops``) and the jnp oracles (``repro.kernels.ref``), at
   ``TOL`` of tests/test_kernel_conformance.py.
-- ``cache_validity`` of a full-attention cache against JAX's, and JAX's
-  full and SWA-ring masks against the ``slot < min(pos + 1, Sc)`` lengths
-  the port's decode passes to its kernel.
+- ``cache_validity`` of a full-attention cache and of an SWA ring against
+  JAX's, and both masks against the ``slot < min(pos + 1, Sc)`` lengths the
+  port's decode passes to its kernel; ``blockwise_attention`` with
+  ``attn_type=ATTN_SWA`` against JAX's.
 - ``forward(want_cache=True)``, ``prefill``, ``init_cache`` and
   ``decode_step`` against JAX's: logits at 1e-4 (two float32 stacks in
   different summation orders), caches at 1e-5.
@@ -90,10 +91,9 @@ def test_plain_decode_matches_pallas_and_ref(B, Sc, H, KVH, hd, lengths, block):
     np.testing.assert_allclose(got, np.asarray(want), **TOL)
 
 
-# full attention, the only cache the port masks; Sc = 1 and pos far past Sc
-# exercise the clamp. A hybrid stack's SWA ring of Sc <= window slots is
-# masked by the decode kernel's lengths alone: the SWA cases hold those
-# lengths against JAX's ring mask
+# a full-attention cache and an SWA ring; Sc = 1 and pos far past Sc exercise
+# the clamp. The decode stacks mask either by the kernel's lengths alone:
+# each case holds those lengths against JAX's mask too
 @pytest.mark.parametrize("attn_type,Sc,pos", [
     (ATTN_FULL, 24, [0, 5, 23, 30, 47]),
     (ATTN_FULL, 1, [0, 3]),
@@ -109,25 +109,33 @@ def test_cache_validity_matches_jax(attn_type, Sc, pos):
     # SWA ring wraps)
     lengths = np.minimum(pos + 1, Sc)
     np.testing.assert_array_equal(np.arange(Sc)[None] < lengths[:, None], want)
-    if attn_type == ATTN_FULL:
-        got = attn.cache_validity(attn_type, Sc, torch.from_numpy(pos)).numpy()
-        np.testing.assert_array_equal(got, want)
-        scalar = attn.cache_validity(attn_type, Sc, torch.tensor(7)).numpy()
-        np.testing.assert_array_equal(
-            scalar, np.asarray(jax_attn.cache_validity(attn_type, Sc, jnp.int32(7))))
+    got = attn.cache_validity(attn_type, Sc, torch.from_numpy(pos)).numpy()
+    np.testing.assert_array_equal(got, want)
+    scalar = attn.cache_validity(attn_type, Sc, torch.tensor(7)).numpy()
+    np.testing.assert_array_equal(
+        scalar, np.asarray(jax_attn.cache_validity(attn_type, Sc, jnp.int32(7))))
 
 
 def test_unported_attention_raises():
-    q = torch.zeros((1, 8, 4, 64))
-    kv = torch.zeros((1, 8, 2, 64))
-    for attn_type in (ATTN_SWA, ATTN_CHUNKED_LOCAL):   # a window goes in ``window``
-        with pytest.raises(NotImplementedError):
-            attn.blockwise_attention(q, kv, kv, attn_type=attn_type, window=4)
+    """The SWA arms are ported (held against JAX here); chunked-local masks
+    and rings, cross attention and the int8 dense cache still raise."""
+    rng = np.random.default_rng(8)
+    q, kv = _normal(rng, (1, 8, 4, 64)), _normal(rng, (2, 1, 8, 2, 64))
+    want = jax_attn.blockwise_attention(jnp.asarray(q), jnp.asarray(kv[0]), jnp.asarray(kv[1]),
+                                        attn_type=ATTN_SWA, window=4)
+    got = attn.blockwise_attention(torch.from_numpy(q), torch.from_numpy(kv[0]),
+                                   torch.from_numpy(kv[1]), attn_type=ATTN_SWA, window=4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    swa = attn.cache_validity(ATTN_SWA, 24, torch.tensor([3, 30]), 8).numpy()
+    np.testing.assert_array_equal(
+        swa, np.asarray(jax_attn.cache_validity(ATTN_SWA, 24, jnp.asarray([3, 30]), 8)))
+    q, kv = torch.from_numpy(q), torch.from_numpy(kv[0])
+    with pytest.raises(NotImplementedError):
+        attn.blockwise_attention(q, kv, kv, attn_type=ATTN_CHUNKED_LOCAL, window=4)
     with pytest.raises(NotImplementedError):       # cross attention: S_kv != S
         attn.blockwise_attention(q, kv[:, :4], kv[:, :4])
-    for attn_type in (ATTN_SWA, ATTN_CHUNKED_LOCAL):      # ring caches
-        with pytest.raises(NotImplementedError):
-            attn.cache_validity(attn_type, 24, torch.tensor([3, 30]), 8)
+    with pytest.raises(NotImplementedError):       # the chunked-local ring
+        attn.cache_validity(ATTN_CHUNKED_LOCAL, 24, torch.tensor([3, 30]), 8)
     cfg = smoke_variant(get_arch("smollm-135m")).replace(kv_cache_quant=True)
     with pytest.raises(NotImplementedError):
         init_cache(cfg, 2, 16, "cpu")

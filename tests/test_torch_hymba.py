@@ -47,6 +47,7 @@ from repro.models import transformer as jax_tfm
 from repro.serving.engine import GenerationEngine as JaxEngine
 from repro.serving.engine import _bucket
 from repro_torch.configs import get_arch, smoke_variant
+from repro_torch.configs.base import ATTN_SWA
 from repro_torch.kernels.flash_attention import flash_attention, ref_flash_attention
 from repro_torch.kernels.ssm_scan import ref_ssm_scan, ssm_scan
 from repro_torch.launch.serve import main as serve_main
@@ -217,7 +218,7 @@ def test_windowed_flash_matches_jax_swa(S):
     want = np.asarray(jax_attn.blockwise_attention(
         *map(jnp.asarray, (q, k, v)), attn_type=JAX_ATTN_SWA, window=64))
     t = torch.from_numpy
-    got = attn.blockwise_attention(t(q), t(k), t(v), window=64)
+    got = attn.blockwise_attention(t(q), t(k), t(v), attn_type=ATTN_SWA, window=64)
     np.testing.assert_allclose(got.numpy(), want, **REF_TOL)
     np.testing.assert_array_equal(flash_attention(t(q), t(k), t(v), window=64).numpy(),
                                   got.numpy())
@@ -263,8 +264,9 @@ def test_hybrid_layer_seq_matches_jax(S):
     pos = np.broadcast_to(np.arange(S, dtype=np.int32), (2, S)).copy()
     kind = jax_tfm.layer_kind(jcfg, 0)
     jx, jc, _ = jax_tfm.apply_layer_seq(jcfg, kind, jp, jnp.asarray(x), jnp.asarray(pos), True)
-    tx, tc = tfm.apply_layer_seq(tcfg, tp, torch.from_numpy(x),
-                                 tfm._rope(tcfg, torch.from_numpy(pos)))
+    tx, tc, aux = tfm.apply_layer_seq(tcfg, tp, torch.from_numpy(x),
+                                      tfm._rope(tcfg, torch.from_numpy(pos)))
+    assert float(aux) == 0.0                              # no MoE
     np.testing.assert_allclose(tx.numpy(), np.asarray(jx), **OUT_TOL)
     assert set(tc) == set(jc) == {"k", "v", "conv", "h"}
     for name in ("k", "v"):                               # (B, Sc, KVH, hd)
