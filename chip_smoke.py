@@ -204,11 +204,58 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the two long prompts. Phase 5's weights are freed first; rwkv6-7b's are
    drawn after mixtral's are freed.
 
+2h. The flash kernel with a chunk at llama4-scout's heads (H 40 over KVH 8,
+   hd 128): S 12500 with chunk 8192 (phase 12's longest prefill, bf16,
+   timed) and S 1000 with chunk 200 (query tiles straddling chunk
+   boundaries, f32 and bf16); the flash kernel at minicpm3's split head
+   dims (40 heads, query/key 96, value 64): S 6000 (bf16, timed) and 2048
+   (f32 and bf16); each against its plain version one group of KV heads at
+   a time (40 heads of 12500^2 f32 scores would take 25 GB), with the time
+   beside the bound and an SDPA call with the mask. Then dense decode at
+   llama4's heads on an 8192-slot chunk ring (lengths pos % 8192 + 1) and
+   a 16384-slot global cache, f32 and bf16, timed.
+4f. The llama4-scout and minicpm3 smoke engines in float32 (llama4: chunk
+   64, a chunked and a global layer, 4 experts top-1 with a shared expert;
+   minicpm3 at MLA's real head dims 96 / 64) on the CPU and on the GPU:
+   identical greedy tokens and every sampled token's logits within
+   ``PARITY_LOGIT_TOL``, one flash a layer and prefill; llama4 one dense
+   decode a layer and step, minicpm3's absorbed decode none.
+12. llama4-scout at full width with its depth cut to 8 of 48 layers (two
+   groups of three chunked-local layers and a global one; ~39 GB of bf16
+   weights drawn on the card, 48 layers would take ~216 GB), dense backend,
+   ``max_batch=8``, ``max_seq=16384``: phase 5's ten prompts and prompts of
+   9000 and 12500 tokens (S % chunk = 808 and 4308), 32 new tokens each.
+   Every sampled token's logits against the no-cache oracle, its MoE as
+   served (the calls cut as the engine's, each token at the expert the
+   engine chose: ``moe_as_served``, ``moe_replayed``), within
+   ``logit_bound(8)``, and the routes the oracle's own router would have
+   chosen otherwise near-tie noise (``route_flips_ok``: at most 1 % of a
+   prompt's routes, each gap within 2 x the bound), which a faulted replay
+   (each decode step's routes from another request's row) must fail; two
+   faulted controls above the bound on the long prompts (the chunk mask
+   dropped; the reference's linear ring order); flash 8 x the prefills,
+   dense decode 8 x the steps; routes dropped per prefill, tokens/s, TTFT,
+   TPOT, peak memory, a decode step's device busy against its wall and its
+   bytes bound (all 16 experts run at C = 8). The mixtral-8x22b weights
+   are freed first.
+13. minicpm3 at full width and depth (62 MLA layers, ~8.5 GB of bf16
+   weights), dense backend, ``max_batch=8``, ``max_seq=8192``: phase 5's
+   ten prompts and one of 6000 tokens, 32 new tokens each, prefilled padded
+   to their buckets as in JAX: every sampled token's logits against the
+   no-cache oracle within ``logit_bound(62)``; the control (rope dropped at
+   decode) above it on the long prompt; flash 62 x the prefills at head
+   dims 96 / 64 and no dense decode (the absorbed decode is plain torch);
+   the serve figures and a decode step's busy against its bytes bound.
+   The llama4-scout weights are freed first; rwkv6-7b's are drawn after
+   minicpm3's are freed.
+
 It prints a ``{"int8_serve": ..., "host_tier": ..., "oracle_paths": ...,
-"controller": ..., "swa_serve": ..., "mixtral_serve": ...}`` line of phases
-5c, 5d, 5e, 7b, 10 and 11's figures, a ``{"kernels": [...]}`` line, the
-card's name and power limit, and last ``{"ok": true, "device": {...}}``.
-Exits non-zero without a GPU.
+"controller": ..., "swa_serve": ..., "mixtral_serve": ...,
+"chunk_mla_parity_max_abs_logit_diff": ..., "llama4_serve": ...,
+"minicpm3_serve": ...}`` line of phases 5c, 5d, 5e, 7b, 10, 11, 4f, 12 and
+13's figures, a ``{"kernels": [...]}`` line, the card's name and power
+limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero without
+a GPU.
 """
 from __future__ import annotations
 
@@ -2571,6 +2618,133 @@ def phase_window_kernels(ka, kf):
 
 
 # ---------------------------------------------------------------------------
+# phase 2h: the flash kernel with a chunk and at MLA's split head dims; the
+# dense decode kernel on llama4-scout's caches
+# ---------------------------------------------------------------------------
+
+L4_CHUNK = 8192                              # llama4-scout's chunk
+L4_HEADS = (40, 8, 128)                      # llama4-scout: H, KVH, hd (G = 5)
+# (S, chunk, dtypes): phase 12's longest prefill (12500 = 8192 + 4308;
+# timed), and a chunk of 200 with S 1000, whose 64-row query tiles straddle
+# chunk boundaries
+CHUNK_FLASH_CASES = ((12500, L4_CHUNK, ("bfloat16",)), (1000, 200, ("float32", "bfloat16")))
+MLA_HEADS = (40, 96, 64)                     # minicpm3: H (= KVH), query/key and value head dims
+MLA_FLASH_CASES = ((6000, ("bfloat16",)), (2048, ("float32", "bfloat16")))   # 6000 timed
+# dense decode at llama4's heads: an 8192-slot chunk ring (lengths pos %
+# 8192 + 1: full chunks, a new chunk's first slots, the long prompts' 808
+# and 4308) and a 16384-slot global cache (lengths pos + 1)
+L4_DECODE_CASES = {"chunk_ring": (L4_CHUNK, [8192, 1, 808, 4308, 8192, 2, 100, 4097]),
+                   "global": (16384, [12532, 9031, 1, 16384, 5000, 129, 777, 2048])}
+
+
+def chunk_pairs(S, chunk):
+    """Causal (query, key) pairs inside each query's chunk."""
+    n, r = divmod(S, chunk)
+    return n * chunk * (chunk + 1) // 2 + r * (r + 1) // 2
+
+
+def flash_work(q, k, v, pairs):
+    """(bytes, flops) of a flash call: q, K and V read once, the output
+    written once; per query head and (query, key) pair, 2 * hd flops for the
+    score and 2 * hd_v for the value product."""
+    Hq, hd, hd_v = q.shape[2], q.shape[3], v.shape[3]
+    out = q.numel() // hd * hd_v
+    nbytes = (q.numel() + k.numel() + v.numel() + out) * q.element_size()
+    return nbytes, 2 * (hd + hd_v) * Hq * pairs
+
+
+def grouped_ref(kf, q, k, v, max_kv_heads, **kw):
+    """``ref_flash_attention`` over ``max_kv_heads`` KV heads (and their
+    query heads) at a time: whole (H, S, S) float32 scores would not fit
+    (40 heads at S 12500: 25 GB)."""
+    G, KVH = q.shape[2] // k.shape[2], k.shape[2]
+    return torch.cat([kf.ref_flash_attention(q[:, :, i * G:(i + max_kv_heads) * G],
+                                             k[:, :, i:i + max_kv_heads],
+                                             v[:, :, i:i + max_kv_heads], **kw)
+                      for i in range(0, KVH, max_kv_heads)], dim=2)
+
+
+def flash_case(kf, name, dtype_name, q, k, v, timed_case, lib, work, group, **kw):
+    """One flash check against its plain version (grouped by ``group`` KV
+    heads), f32 and for bf16 also against the plain version in f32; timed
+    beside the bound and the library call when ``timed_case``."""
+    tol = TOL[dtype_name]
+    got = kf.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    every = slice(None)
+    errs = {"plain": check_close(name, got, grouped_ref(kf, q, k, v, group, **kw), every,
+                                 tol["plain"])}
+    if dtype_name == "bfloat16":
+        want = grouped_ref(kf, q.float(), k.float(), v.float(), group, **kw)
+        errs["plain_f32"] = check_close(name + " vs f32", got, want, every, tol["plain_f32"])
+        del want
+    del got
+    r = {"errs": errs}
+    if timed_case:
+        flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+        r.update(timed_row(work, dtype_name, flush, lambda: kf.flash_attention(q, k, v, **kw),
+                           lambda: grouped_ref(kf, q, k, v, group, **kw), lib))
+    print_dense_row(name, r, tol)
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_chunk_mla_kernels(ka, kf):
+    """Phase 2h: flash with a chunk at llama4's heads (S 12500 with chunk
+    8192, bf16, timed; S 1000 with chunk 200, f32 and bf16, query tiles
+    straddling chunk boundaries), flash at minicpm3's split head dims (96,
+    64; S 6000 bf16 timed, S 2048 f32 and bf16), each against its plain
+    version one group of KV heads at a time; then dense decode at llama4's
+    heads on an 8192-slot chunk ring and a 16384-slot global cache
+    (``phase_swa_decode_kernel``). Returns (chunk rows, mla rows, decode
+    rows)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    Hq, Hkv, hd = L4_HEADS
+    chunk_rows = {}
+    for S, chunk, dtypes in CHUNK_FLASH_CASES:
+        for dtype_name in dtypes:
+            dt = getattr(torch, dtype_name)
+            q, k, v = (torch.randn((1, S, n, hd), generator=gen, device="cuda").to(dt)
+                       for n in (Hq, Hkv, Hkv))
+            timed_case = (S, chunk) == CHUNK_FLASH_CASES[0][:2]
+            i = torch.arange(S, device="cuda")
+            mask = (i[None] <= i[:, None]) & (i[None] // chunk == i[:, None] // chunk)
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                         enable_gqa=True)
+            name = (f"flash_attention[{dtype_name}, H={Hq}, KVH={Hkv}, hd={hd}, S={S}, "
+                    f"chunk={chunk}]")
+            chunk_rows[(dtype_name, S, chunk)] = flash_case(
+                kf, name, dtype_name, q, k, v, timed_case, lib,
+                flash_work(q, k, v, chunk_pairs(S, chunk)), 1, chunk=chunk)
+            del q, k, v, qt, kt, vt, mask, lib
+            torch.cuda.empty_cache()
+    Hm, hdk, hdv = MLA_HEADS
+    mla_rows = {}
+    for S, dtypes in MLA_FLASH_CASES:
+        for dtype_name in dtypes:
+            dt = getattr(torch, dtype_name)
+            q, k = (torch.randn((1, S, Hm, hdk), generator=gen, device="cuda").to(dt)
+                    for _ in range(2))
+            v = torch.randn((1, S, Hm, hdv), generator=gen, device="cuda").to(dt)
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            name = f"flash_attention[{dtype_name}, H={Hm}, hd={hdk}/{hdv}, S={S}, causal]"
+            mla_rows[(dtype_name, S)] = flash_case(
+                kf, name, dtype_name, q, k, v, S == MLA_FLASH_CASES[0][0], lib,
+                flash_work(q, k, v, S * (S + 1) // 2), 8)
+            del q, k, v, qt, kt, vt, lib
+            torch.cuda.empty_cache()
+    decode_rows = {}
+    for i, (case, (Sc, lengths)) in enumerate(L4_DECODE_CASES.items()):
+        decode_rows.update(phase_swa_decode_kernel(ka, L4_HEADS, Sc, {case: lengths},
+                                                   seed=41 + i))
+    return chunk_rows, mla_rows, decode_rows
+
+
+# ---------------------------------------------------------------------------
 # phases 10 and 11: sliding-window stacks and MoE at full width
 # ---------------------------------------------------------------------------
 
@@ -2580,22 +2754,30 @@ WINDOW_CONTROL_LENGTHS = (5000, 6000)        # 904 and 1904 keys outside the win
 
 
 @contextlib.contextmanager
-def keep_step_logits(eng):
-    """Each request's logits (float32, on the card) of every token the dense
-    engine samples: {req_id: [logits of token 0 (its prefill), 1, ...]},
-    taken from the prefill's ``forward`` and from each batched
-    ``decode_step`` (the row of the request's slot)."""
-    from repro_torch.models import prefills_unpadded
+def keep_step_logits(eng, routes=None):
+    """Each request's logits (float32, on the device) of every token the
+    dense engine samples: {req_id: [logits of token 0 (its prefill), 1,
+    ...]}, taken from the prefill's ``forward`` (the last position of an
+    unpadded prefill, the prompt's last token of one padded to its bucket)
+    and from each batched ``decode_step`` (the row of the request's slot).
+    With a dict ``routes``, also the experts each request's tokens were
+    routed to: routes[req_id] the (T, K) expert ids of each ``moe.route``
+    call in the engine's order, the prefill's (its layers, each in
+    ``moe_chunks(Lp)`` chunks) then each decode step's (its layers, the
+    request's row)."""
+    from repro_torch.models import moe
     from repro_torch.serving import engine as engine_mod
 
-    assert eng.backend == "dense" and prefills_unpadded(eng.cfg)
+    assert eng.backend == "dense"
     kept, current = {}, {}
-    fwd, dec = engine_mod.forward, engine_mod.decode_step
+    fwd, dec, route = engine_mod.forward, engine_mod.decode_step, moe.route
     prefill_one, decode_batch = eng._prefill_one, eng._decode_batch
 
     def forward(*args, **kw):
         out = fwd(*args, **kw)
-        kept[current["req"].req_id] = [out[0][0, -1].float()]   # logits_mode "last"
+        req = current["req"]
+        last = -1 if kw.get("logits_mode") == "last" else min(len(req.prompt), eng.max_seq) - 1
+        kept[req.req_id] = [out[0][0, last].float()]
         return out
 
     def decode_step(*args, **kw):
@@ -2605,26 +2787,38 @@ def keep_step_logits(eng):
         return logits, caches
 
     def prefill(req, slot):
-        current["req"] = req
+        current["req"], current["active"] = req, None
         return prefill_one(req, slot)
 
     def decode(active):
         current["active"] = list(active)
         return decode_batch(active)
 
+    def routed(params, xt, cfg, capacity):
+        out = route(params, xt, cfg, capacity)
+        if current["active"] is None:
+            routes.setdefault(current["req"].req_id, []).append(out[2])
+        else:
+            for r in current["active"]:
+                routes[r.req_id].append(out[2][r.slot:r.slot + 1])
+        return out
+
     engine_mod.forward, engine_mod.decode_step = forward, decode_step
     eng._prefill_one, eng._decode_batch = prefill, decode
+    if routes is not None:
+        moe.route = routed
     try:
         yield kept
     finally:
-        engine_mod.forward, engine_mod.decode_step = fwd, dec
+        engine_mod.forward, engine_mod.decode_step, moe.route = fwd, dec, route
         del eng._prefill_one, eng._decode_batch
 
 
 @contextlib.contextmanager
-def window_dropped():
-    """The control of phase 10's bound: every sliding-window attention of the
-    sequence path run as full causal attention."""
+def local_mask_dropped():
+    """The control of phases 10 and 12's bound: every sliding-window or
+    chunked-local attention of the sequence path run as full causal
+    attention."""
     from repro_torch.configs.base import ATTN_FULL
     from repro_torch.models import attention
 
@@ -2664,16 +2858,19 @@ def oracle_logits(cfg, params, prompt, tokens):
     return logits[0, len(prompt) - 1:].float()
 
 
-def rel_diffs(kept, want):
+def rel_diffs(kept, want, vocab):
     """max |d| / max |logit| of each sampled token's logits against the
-    oracle's at the same position."""
-    return [float((k - w).abs().max() / k.abs().max()) for k, w in zip(kept, want)]
+    oracle's at the same position, over the ``vocab`` real entries (the
+    pad-vocab logits are -1e30 on both sides)."""
+    return [float((k[:vocab] - w[:vocab]).abs().max() / k[:vocab].abs().max())
+            for k, w in zip(kept, want)]
 
 
-def serve_long(eng, prompts, max_new=LONG_MAX_NEW):
-    """Serve ``prompts`` greedily with each token's logits kept; returns
-    (requests, kept logits, wall s)."""
-    with keep_step_logits(eng) as kept:
+def serve_long(eng, prompts, max_new=LONG_MAX_NEW, routes=None):
+    """Serve ``prompts`` greedily with each token's logits (and, given a
+    dict ``routes``, its experts) kept; returns (requests, kept logits, wall
+    s)."""
+    with keep_step_logits(eng, routes) as kept:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         reqs = [eng.submit(p, max_new=max_new) for p in prompts]
@@ -2690,37 +2887,35 @@ def decode_step_times(cfg, params, cache, pos, reps=3):
     step waits for its logits; mean of ``reps``) and its device busy by CUDA
     events. A whole step's ~600-1500 launches do not all queue behind one
     spin kernel (the launch queue fills and the host waits), so the step
-    runs as its pieces (the embedding and rope tables, each layer, the
-    final norm and the unembedding), each queued behind a spin and timed
-    with events; busy is their sum, mean of ``reps`` (None if a piece could
-    not be queued while the card spun)."""
+    runs as its pieces (the embedding, rope tables and lengths, each layer
+    group, the final norm and the unembedding), each queued behind a spin
+    and timed with events (a piece the spin did not outlast runs again from
+    the same state behind a spin twice as long); busy is their sum, mean of
+    ``reps`` (None if a piece could not be queued within a ~0.8 s spin)."""
     from repro_torch.models import decode_step
     from repro_torch.models import transformer as tfm
     from repro_torch.models.layers import embed_tokens, unembed
 
-    entry = cache[0]
-    B = entry["k"].shape[1]
+    B = next(iter(cache[0].values())).shape[1]
     tokens = torch.zeros((B, 1), dtype=torch.int32, device="cuda")
     pos_t = torch.full((B,), pos, dtype=torch.int32, device="cuda")
     state = {}
 
     def head():
-        state["rope"] = tfm._rope(cfg, pos_t[:, None])
-        state["lengths"] = torch.clamp(pos_t + 1, max=entry["k"].shape[2]).to(torch.int32)
+        state["rope"], state["lengths"] = tfm.decode_inputs(cfg, cache, pos_t)
         state["x"] = embed_tokens(params["embed"], tokens)
 
-    def layer(g):
-        lp = tfm.layer_slice(params["blocks"][0], g)
-        state["x"] = tfm.apply_layer_decode(cfg, lp, state["x"], entry["k"][g], entry["v"][g],
-                                            pos_t, rope=state["rope"],
-                                            lengths=state["lengths"])
+    def group(g):
+        state["x"] = tfm.apply_group_decode(cfg, params["blocks"], cache, g, state["x"], pos_t,
+                                            state["rope"], state["lengths"])
 
     def tail():
         x = tfm.apply_norm(cfg, params["final_norm"], state["x"])
         state["logits"] = unembed(params["embed"], params.get("lm_head"), x,
                                   cfg.tie_embeddings)
 
-    pieces = [head] + [lambda g=g: layer(g) for g in range(cfg.num_layers)] + [tail]
+    G = cfg.num_layers // tfm.period(cfg)
+    pieces = [head] + [lambda g=g: group(g) for g in range(G)] + [tail]
     with torch.no_grad():
         decode_step(cfg, params, cache, tokens, pos_t)
         torch.cuda.synchronize()
@@ -2732,15 +2927,23 @@ def decode_step_times(cfg, params, cache, pos, reps=3):
         busy = 0.0
         for _ in range(reps):
             for piece in pieces:
-                a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-                torch.cuda._sleep(20_000_000)              # ~10 ms
-                a.record()
-                piece()
-                b.record()
-                if a.query():
+                spin, saved = 20_000_000, dict(state)       # ~10 ms
+                while True:
+                    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                    torch.cuda._sleep(spin)
+                    a.record()
+                    piece()
+                    b.record()
+                    early = a.query()   # the spin already over: the piece was not all queued
                     b.synchronize()
-                    return wall, None
-                b.synchronize()
+                    if not early:
+                        break
+                    # the spin ended before the piece was queued: again,
+                    # from the same state, behind a spin twice as long
+                    spin *= 2
+                    state.update(saved)
+                    if spin > 1_600_000_000:                # ~0.8 s
+                        return wall, None
                 busy += a.elapsed_time(b)
     return wall, busy / reps
 
@@ -2803,7 +3006,7 @@ def phase_swa_serve(ka, kf, tk, params, prompts):
     rel, agree = {}, {}
     for r, n in zip(reqs, lens):
         want_logits = oracle_logits(cfg, params, r.prompt, r.out_tokens)
-        rel[n] = rel_diffs(kept[r.req_id], want_logits)
+        rel[n] = rel_diffs(kept[r.req_id], want_logits, cfg.vocab_size)
         agree[n] = float(np.mean([int(w.argmax()) == t for w, t in
                                   zip(want_logits, r.out_tokens)]))
         del want_logits
@@ -2816,11 +3019,12 @@ def phase_swa_serve(ka, kf, tk, params, prompts):
     # control, asserted: without the window the oracle reads above the bound
     # where the window excludes keys
     control = {}
-    with window_dropped():
+    with local_mask_dropped():
         for r, n in zip(reqs, lens):
             if n in WINDOW_CONTROL_LENGTHS:
-                control[n] = max(rel_diffs(kept[r.req_id],
-                                           oracle_logits(cfg, params, r.prompt, r.out_tokens)))
+                control[n] = max(rel_diffs(
+                    kept[r.req_id], oracle_logits(cfg, params, r.prompt, r.out_tokens),
+                    cfg.vocab_size))
     print(f"[swa serve] control, the oracle with the window dropped (full causal): worst per "
           f"prompt {dict((n, round(x, 5)) for n, x in control.items())} against the bound "
           f"{bound:.3f}", flush=True)
@@ -2832,7 +3036,8 @@ def phase_swa_serve(ka, kf, tk, params, prompts):
         lreqs, lkept, _ = serve_long(eng_lin, batch)
     linear = {}
     for r, n in zip(lreqs, lens):
-        d = rel_diffs(lkept[r.req_id], oracle_logits(cfg, params, r.prompt, r.out_tokens))
+        d = rel_diffs(lkept[r.req_id], oracle_logits(cfg, params, r.prompt, r.out_tokens),
+                      cfg.vocab_size)
         linear[n] = {"worst": max(d), "first": d[0], "last": d[-1]}
     print(f"[swa serve] control (reported, not asserted), the reference's linear ring order: "
           f"per prompt {{Lp: worst, first token, last token}} "
@@ -3031,7 +3236,7 @@ def phase_mixtral_serve(ka, kf, tk, prompts):
         if n in (4500, 6000):
             w = oracle_logits(cfg, params, r.prompt, r.out_tokens)
             agree[n] = float(np.mean([int(x.argmax()) == t for x, t in zip(w, r.out_tokens)]))
-            agree[f"{n}_worst_rel"] = max(rel_diffs(kept[r.req_id], w))
+            agree[f"{n}_worst_rel"] = max(rel_diffs(kept[r.req_id], w, cfg.vocab_size))
             del w
     print(f"[mixtral serve] greedy agreement with the no-cache oracle (reported: the oracle "
           f"routes Lp + 31 tokens with their own capacity): {agree}", flush=True)
@@ -3052,6 +3257,490 @@ def phase_mixtral_serve(ka, kf, tk, prompts):
                    decode_step_wall_ms=wall_ms, decode_step_busy_ms=busy_ms,
                    decode_step_bound_ms=bound_ms)
     del eng, kept, params, leaves, embed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, figures
+
+
+# ---------------------------------------------------------------------------
+# phases 4f, 12 and 13: chunked-local stacks with global layers (llama4-scout)
+# and multi-head latent attention (minicpm3)
+# ---------------------------------------------------------------------------
+
+PARITY_LOGIT_TOL = TOL["float32"]["plain"]   # f32 on both sides: summation order only
+
+
+def phase_chunk_mla_parity(ka, kf):
+    """Phase 4f: the llama4-scout (chunk 64, a chunked and a global layer,
+    4 experts top-1 with a shared expert) and minicpm3 (MLA at its real
+    head dims) smoke engines in float32 on the CPU (plain versions) and on
+    the card (kernels): identical greedy tokens, and every sampled token's
+    logits within ``PARITY_LOGIT_TOL``, for prompts short of, at and past
+    the chunk; one flash a layer and prefill; llama4 one dense decode a
+    layer and step, minicpm3's absorbed decode none. Returns {arch: max
+    |d| of the logits}."""
+    from repro_torch.configs import card_smoke_variant
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import GenerationEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
+    torch.backends.cudnn.allow_tf32 = False
+    worst = {}
+    for arch in ("llama4-scout-17b-a16e", "minicpm3-4b"):
+        cfg = card_smoke_variant(arch)
+        rng = np.random.default_rng(3)
+        prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 40, 64, 100, 128, 150, 200)]
+        out, logits = {}, {}
+        for dev in ("cpu", "cuda"):
+            params = init_params(cfg, torch.Generator().manual_seed(0), dev)
+            eng = GenerationEngine(cfg, params=params, device=dev, max_batch=4, max_seq=256)
+            ka.reset_launch_counts()
+            kf.reset_launch_counts()
+            with keep_step_logits(eng) as kept:
+                reqs = [eng.submit(p, max_new=12) for p in prompts]
+                eng.run_until_done()
+            assert eng.backend == "dense" and all(len(r.out_tokens) == 12 for r in reqs)
+            out[dev] = [r.out_tokens for r in reqs]
+            logits[dev] = [torch.stack(kept[r.req_id]).cpu() for r in reqs]
+        L = cfg.num_layers
+        mla = arch == "minicpm3-4b"
+        launches = (kf.flash_attention.launches, ka.decode_attention.launches)
+        assert launches == (L * len(prompts), 0 if mla else L * eng.steps), launches
+        if out["cpu"] != out["cuda"]:
+            raise AssertionError(f"{arch} smoke engine: CPU and GPU greedy tokens differ:\n"
+                                 f"{out['cpu']}\n{out['cuda']}")
+        atol, rtol = PARITY_LOGIT_TOL
+        for a, b in zip(logits["cuda"], logits["cpu"]):
+            torch.testing.assert_close(a, b, atol=atol, rtol=rtol)
+        worst[arch] = max(float((a - b).abs().max())
+                          for a, b in zip(logits["cuda"], logits["cpu"]))
+        print(f"[parity] {cfg.name} engine f32: {len(prompts)} requests (prompts "
+              f"{[len(p) for p in prompts]} tokens{'' if mla else f', chunk {cfg.chunk_size}'}), "
+              f"identical greedy tokens on cpu (plain) and cuda (kernels), every sampled token's "
+              f"logits within max |d| {worst[arch]:.3e} (atol, rtol {PARITY_LOGIT_TOL}); "
+              f"flash/decode launches {launches}", flush=True)
+    return worst
+
+
+LLAMA4_LAYERS = 8                            # of 48: two groups of [chunked x 3, global]
+LLAMA4_MAX_SEQ = 16384
+LLAMA4_LONG = (9000, 12500)                  # S % chunk = 808 and 4308
+
+
+def moe_chunks(T, max_chunk_tokens=8192):
+    """The chunks ``moe.apply_moe`` cuts T tokens into (one ``route`` call
+    each)."""
+    if T <= max_chunk_tokens:
+        return 1
+    n = -(-T // max_chunk_tokens)
+    while T % n:
+        n += 1
+    return n
+
+
+@contextlib.contextmanager
+def moe_as_served(split):
+    """The no-cache oracle's MoE calls cut as the engine's: an MoE layer's
+    capacity is that of one call's tokens, and the engine routes a prompt's
+    ``split`` tokens in its prefill and each sampled token in a dropless
+    decode step; so the oracle's first ``split`` tokens go to one call and
+    the rest (<= 256 tokens: dropless) to another."""
+    from repro_torch.models import moe
+
+    apply = moe.apply_moe
+
+    def served(params, x, cfg, *args, **kw):
+        if x.shape[1] <= split:
+            return apply(params, x, cfg, *args, **kw)
+        head, aux = apply(params, x[:, :split], cfg, *args, **kw)
+        tail, _ = apply(params, x[:, split:], cfg, *args, **kw)
+        return torch.cat([head, tail], dim=1), aux
+
+    moe.apply_moe = served
+    try:
+        yield
+    finally:
+        moe.apply_moe = apply
+
+
+@contextlib.contextmanager
+def moe_replayed(routes, n_prompt, num_layers):
+    """The oracle's tokens sent to the experts the engine chose for them:
+    ``routes`` (one request's, from ``keep_step_logits``) replayed in the
+    order ``moe_as_served`` makes the oracle's calls (each layer's prefill
+    chunks, then its sampled tokens, one a decode step). A top-1 router's
+    choice flips on bf16 near-ties between two paths that round
+    differently, and a flip swaps a token's whole expert output; with the
+    choices pinned, the logits differ by the paths' arithmetic alone.
+    Yields a dict: ``n`` the routes the oracle's own router would have
+    chosen otherwise, and ``gap`` the largest of their gaps, the oracle's
+    router logit of its own choice less that of the engine's, over the
+    token's largest |router logit| (0 without a flip). A near-tie flip's
+    gap is of the size of the paths' difference; a routing fault (a wrong
+    choice, another row's routes) leaves gaps of the size of the logits'
+    spread."""
+    from repro_torch.models import moe
+
+    n, L = moe_chunks(n_prompt), num_layers
+    prefill, steps = routes[:L * n], routes[L * n:]
+    queue = []
+    for layer in range(L):
+        queue += prefill[layer * n:(layer + 1) * n] + [torch.cat(steps[layer::L])]
+    route, flips = moe.route, {"n": 0, "gap": 0.0}
+
+    def replayed(params, xt, cfg, capacity):
+        idx = queue.pop(0)
+        assert idx.shape[0] == xt.shape[0], (idx.shape, xt.shape)
+        logits = (xt @ params["router"]).float()
+        own = torch.sort(logits, dim=-1, descending=True, stable=True)[1][:, :idx.shape[1]]
+        flip = (own != idx).any(dim=-1)
+        n_flip = int(flip.sum())
+        if n_flip:
+            gap = (logits.gather(1, own) - logits.gather(1, idx)).abs().amax(dim=-1)
+            rel = gap[flip] / logits[flip].abs().amax(dim=-1)
+            flips["n"] += n_flip
+            flips["gap"] = max(flips["gap"], float(rel.max()))
+        return moe.assign(logits, idx, cfg, capacity, xt.dtype)
+
+    moe.route = replayed
+    try:
+        yield flips
+    finally:
+        moe.route = route
+    assert not queue, len(queue)
+
+
+def served_oracle_logits(cfg, params, prompt, tokens, routes):
+    """``oracle_logits`` with the MoE as served (``moe_as_served``,
+    ``moe_replayed``); returns (logits, the routes the oracle would flip:
+    ``moe_replayed``'s dict)."""
+    with moe_as_served(len(prompt)), moe_replayed(routes, len(prompt),
+                                                  cfg.num_layers) as flips:
+        logits = oracle_logits(cfg, params, prompt, tokens)
+    return logits, flips
+
+
+ROUTE_FLIP_SHARE = 0.01   # of a prompt's routes, the most the oracle's router may choose otherwise
+
+
+def route_flips_ok(flips, n_routes, bound):
+    """Whether the routes the oracle's own router would have chosen
+    otherwise (``moe_replayed``'s dict) are near-tie noise: at most
+    ``ROUTE_FLIP_SHARE`` of the prompt's ``n_routes``, and each flip's gap
+    within 2 x the logit ``bound``. The router logits differ between the
+    two paths as the logits do, by at most ``bound`` of the largest, and a
+    flip's gap is at most the two experts' differences together."""
+    return flips["n"] <= ROUTE_FLIP_SHARE * n_routes and flips["gap"] <= 2 * bound
+
+
+def decode_routes_of(routes, other, n_prompt, num_layers):
+    """The faulted control of the route replay: a request's routes
+    (``keep_step_logits``' list) with its decode steps' taken from
+    ``other``'s row, as if each decode step read another slot's routes."""
+    k = num_layers * moe_chunks(n_prompt)
+    return routes[:k] + other[k - len(routes):]
+
+
+def kv_read_bytes(cfg, cache, pos):
+    """The K/V bytes a decode step of the cache's rows at ``pos`` reads:
+    each layer's valid slots (``transformer.decode_lengths``)."""
+    from repro_torch.models import transformer as tfm
+
+    total = 0
+    for kind, entry in zip(tfm._kinds(cfg), cache):
+        G, B, Sc = entry["k"].shape[:3]
+        n = int(tfm.decode_lengths(cfg, kind, Sc, torch.tensor(pos)))
+        total += 2 * G * B * n * entry["k"][0, 0, 0].numel() * entry["k"].element_size()
+    return total
+
+
+def phase_llama4_serve(ka, kf, tk, prompts):
+    """Phase 12: llama4-scout at full width with its depth cut to 8 of 48
+    layers (two groups of three chunked-local layers and a global one), bf16
+    weights drawn on the card, dense backend (``backend="paged"`` falls
+    back), ``max_batch=8``, ``max_seq=16384``: phase 5's ten prompts
+    (flattened, tokens modulo the vocab) and prompts of 9000 and 12500 tokens
+    (S % chunk = 808 and 4308), 32 new tokens each. Every sampled token's
+    logits against the no-cache oracle (``forward`` on the prompt plus the
+    tokens so far, its MoE as served: ``served_oracle_logits``) within
+    ``logit_bound(8)``, with the oracle router's flips near-tie noise
+    (``route_flips_ok``) and a replay of other rows' decode routes failing
+    that check; two faulted controls above the bound on the long prompts:
+    the chunk mask dropped (local layers full causal, in the oracle) and the
+    reference's linear ring order (in the engine's prefill). Reported:
+    routes dropped per prefill, tokens/s, TTFT, TPOT, peak memory, a decode
+    step's device busy against its wall and its bytes bound. Returns the
+    launches of the served run and the figures."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import period
+    from repro_torch.serving.engine import GenerationEngine
+    from repro_torch.serving.segments import SegmentedPrompt
+
+    cfg = get_arch("llama4-scout-17b-a16e").replace(dtype="bfloat16", num_layers=LLAMA4_LAYERS)
+    L, p = cfg.num_layers, period(cfg)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    leaves = list(_tensors(params))
+    weight_bytes = sum(x.numel() * x.element_size() for x in leaves)
+    print(f"[llama4 serve] {cfg.name} {cfg.dtype}, {L} of 48 layers: "
+          f"{sum(x.numel() for x in leaves) / 1e9:.3f}B parameters ({weight_bytes / 1e9:.2f} GB) "
+          f"drawn on the card in {time.perf_counter() - t0:.1f}s", flush=True)
+    rng = np.random.default_rng(12)
+    flat = [np.asarray(p.tokens if isinstance(p, SegmentedPrompt) else p) % cfg.vocab_size
+            for p in prompts]
+    batch = flat + [rng.integers(0, cfg.vocab_size, n) for n in LLAMA4_LONG]
+    lens = [len(p) for p in batch]
+    torch.cuda.reset_peak_memory_stats()
+    eng = GenerationEngine(cfg, params=params, device="cuda", max_batch=8,
+                           max_seq=LLAMA4_MAX_SEQ)
+    rings = [e["k"].shape[2] for e in eng.cache]
+    assert eng.backend == "dense" and rings == [cfg.chunk_size] * (p - 1) + [LLAMA4_MAX_SEQ]
+    reset_launches(ka, kf, tk)
+    routes = {}
+    with count_drops() as routed:
+        reqs, kept, wall = serve_long(eng, batch, routes=routes)
+    launches = read_launches(ka, kf, tk)
+    st = eng.stats()
+    figures = serve_figures(eng, reqs, wall)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    assert st["kernel"] == "cuda" and st["prefill_tokens"] == sum(lens), st   # unpadded
+    assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens)
+    assert all(bool(torch.isfinite(x).all()) for v in kept.values() for x in v)
+    want = {n: 0 for n in launches}
+    want["flash_attention"] = L * len(reqs)
+    want["decode_attention"] = L * st["steps"]
+    assert launches == want, (launches, want, st)
+    # the routes each prefill dropped: its L layers route moe_chunks(Lp)
+    # times each, in admission (= submission) order; decode steps route <= 8
+    prefill_calls = [(T, int(n)) for T, n in routed if T > 8]
+    drops, i = [], 0
+    for n in lens:
+        calls = prefill_calls[i:i + L * moe_chunks(n)]
+        assert sum(T for T, _ in calls) == L * n, (n, calls)
+        drops.append((n, sum(d for _, d in calls)))
+        i += len(calls)
+    assert i == len(prefill_calls)
+    assert sum(int(n) for T, n in routed if T <= 8) == 0                # dropless decode
+    print(f"[llama4 serve] {len(reqs)} requests (prompts {lens}; rings {rings}), "
+          f"{st['tokens_out']} tokens out in {wall:.3f}s = {figures['tokens_per_s']:.1f} tok/s; "
+          f"mean TTFT {figures['ttft_mean_ms']:.1f}ms, p95 TPOT {figures['tpot_p95_ms']:.2f}ms; "
+          f"{st['steps']} decode steps; peak memory {peak:.2f} GiB; launches {launches} (flash "
+          f"{L} x {len(reqs)} prefills, decode {L} x {st['steps']} steps); routes dropped per "
+          f"prefill, summed over its {L} layers, as (prompt tokens, routes dropped of {L} x the "
+          f"prompt tokens): {drops}; decode steps drop none", flush=True)
+
+    bound = logit_bound(L)
+    rel, agree, flips = {}, {}, {}
+    for r, n in zip(reqs, lens):
+        w, flips[n] = served_oracle_logits(cfg, params, r.prompt, r.out_tokens,
+                                           routes[r.req_id])
+        rel[n] = rel_diffs(kept[r.req_id], w, cfg.vocab_size)
+        agree[n] = float(np.mean([int(x.argmax()) == t for x, t in zip(w, r.out_tokens)]))
+        del w
+    worst = {n: max(v) for n, v in rel.items()}
+    print(f"[llama4 serve] every sampled token's logits against the no-cache oracle's (its MoE "
+          f"as served: the calls cut as the engine's, each token at the expert the engine "
+          f"chose), max |d| / max |logit|, worst per prompt "
+          f"{dict((n, round(x, 5)) for n, x in worst.items())} (bound {bound:.4f}); greedy "
+          f"agreement with the oracle per prompt {agree}; routes the oracle's own router would "
+          f"have chosen otherwise, of {L} x (Lp + {LONG_MAX_NEW - 1}), and their largest gap "
+          f"over the token's largest |router logit|: {flips}", flush=True)
+    assert max(worst.values()) <= bound, (worst, bound)
+    n_routes = {n: L * (n + LONG_MAX_NEW - 1) for n in lens}
+    assert all(route_flips_ok(flips[n], n_routes[n], bound) for n in lens), (flips, bound)
+    # control 0: the replay fed each decode step's routes from the next
+    # request's row, on the shortest and a long prompt: its flips must fail
+    # the near-tie check (the count limit alone would pass the long one)
+    order = sorted(range(len(reqs)), key=lambda i: lens[i])
+    wrong_rows = {}
+    for i in (order[0], lens.index(LLAMA4_LONG[0])):
+        r, other = reqs[i], reqs[(i + 1) % len(reqs)]
+        _, wrong_rows[lens[i]] = served_oracle_logits(
+            cfg, params, r.prompt, r.out_tokens,
+            decode_routes_of(routes[r.req_id], routes[other.req_id], lens[i], L))
+    print(f"[llama4 serve] control: each decode step's routes taken from the next request's "
+          f"row, flips {wrong_rows} against a limit of {ROUTE_FLIP_SHARE:.0%} of the routes and "
+          f"a gap of {2 * bound:.4f}", flush=True)
+    assert not any(route_flips_ok(f, n_routes[n], bound) for n, f in wrong_rows.items()), (
+        wrong_rows, bound)
+    assert all(f["gap"] > 2 * bound for f in wrong_rows.values()), (wrong_rows, bound)
+    # control 1: the oracle without the chunk mask (local layers full causal)
+    control = {}
+    with local_mask_dropped():
+        for r, n in zip(reqs, lens):
+            if n in LLAMA4_LONG:
+                w, _ = served_oracle_logits(cfg, params, r.prompt, r.out_tokens,
+                                            routes[r.req_id])
+                control[n] = max(rel_diffs(kept[r.req_id], w, cfg.vocab_size))
+    # control 2: the reference's linear ring order in the engine's prefill
+    long_prompts = [p for p in batch if len(p) in LLAMA4_LONG]
+    eng_lin = GenerationEngine(cfg, params=params, device="cuda", max_batch=8,
+                               max_seq=LLAMA4_MAX_SEQ)
+    lroutes = {}
+    with linear_ring_order():
+        lreqs, lkept, _ = serve_long(eng_lin, long_prompts, routes=lroutes)
+    linear = {}
+    for r in lreqs:
+        w, _ = served_oracle_logits(cfg, params, r.prompt, r.out_tokens, lroutes[r.req_id])
+        d = rel_diffs(lkept[r.req_id], w, cfg.vocab_size)
+        linear[len(r.prompt)] = {"worst": max(d), "first": d[0], "last": d[-1]}
+    del eng_lin, lkept
+    print(f"[llama4 serve] controls against the bound {bound:.4f}: the oracle with the chunk "
+          f"mask dropped, worst per prompt {dict((n, round(x, 5)) for n, x in control.items())}; "
+          f"the reference's linear ring order, {{Lp: worst, first token, last token}} "
+          f"{ {n: tuple(round(x, 5) for x in v.values()) for n, v in linear.items()} }",
+          flush=True)
+    assert all(x > bound for x in control.values()), (control, bound)
+    assert all(v["worst"] > bound for v in linear.values()), (linear, bound)
+    # a decode step of 8 rows at position 12000: all 16 experts of each layer
+    # run (dropless, C = 8), so it reads every weight but the embedding table
+    step_pos = 12000
+    wall_ms, busy_ms = decode_step_times(cfg, params, eng.cache, step_pos)
+    embed = params["embed"]["table"]
+    kv_bytes = kv_read_bytes(cfg, eng.cache, step_pos)
+    step_bytes = weight_bytes - embed.numel() * embed.element_size() + kv_bytes
+    bound_ms = step_bytes / HBM_BYTES_S * 1e3
+    print(f"[llama4 serve] decode step (8 rows, position {step_pos}): wall {wall_ms:.2f} ms "
+          f"(mean of 3); device busy {fmt_ms(busy_ms)} ms (CUDA events: each of the step's "
+          f"{L // p + 2} pieces queued behind a spin, summed; mean of 3); bound {bound_ms:.2f} ms "
+          f"({step_bytes / 1e9:.2f} GB: the weights but the embedding table, and the valid "
+          f"K/V slots, {kv_bytes / 1e9:.3f} GB, at 3.35 TB/s)", flush=True)
+    figures.update(peak_gib=peak, weight_gb=weight_bytes / 1e9, logit_bound=bound,
+                   worst_rel=worst, rel=rel, greedy_agreement=agree, oracle_route_flips=flips,
+                   oracle_route_flips_wrong_rows=wrong_rows,
+                   dropped_routes_per_prefill=drops, chunk_dropped=control,
+                   linear_order=linear, decode_step_wall_ms=wall_ms,
+                   decode_step_busy_ms=busy_ms, decode_step_bound_ms=bound_ms)
+    del eng, kept, params, leaves, embed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, figures
+
+
+MLA_MAX_SEQ = 8192
+MLA_LONG = 6000
+
+
+@contextlib.contextmanager
+def rope_dropped_at_decode():
+    """The control of phase 13's bound: decode steps run with identity rope
+    tables, so each step's q_rope and its new k_rope go unrotated (the
+    prefill's cached k_rope keep theirs)."""
+    from repro_torch.models import transformer
+
+    inputs = transformer.decode_inputs
+
+    def unroped(cfg, caches, pos):
+        (cos, sin), lengths = inputs(cfg, caches, pos)
+        return (torch.ones_like(cos), torch.zeros_like(sin)), lengths
+
+    transformer.decode_inputs = unroped
+    try:
+        yield
+    finally:
+        transformer.decode_inputs = inputs
+
+
+def phase_minicpm3_serve(ka, kf, tk, prompts):
+    """Phase 13: minicpm3 at full width and depth (62 layers of MLA, bf16
+    weights drawn on the card), dense backend (``backend="paged"`` falls
+    back), ``max_batch=8``, ``max_seq=8192``: phase 5's ten prompts
+    (flattened, tokens modulo the vocab) and one of 6000 tokens, 32 new
+    tokens each, prefilled padded to their buckets as in JAX. Every sampled
+    token's logits against the no-cache oracle within ``logit_bound(62)``;
+    the control (rope dropped at decode) above it on the long prompt.
+    Reported: tokens/s, TTFT, TPOT, peak memory, a decode step's device
+    busy against its wall and its bytes bound. Returns the launches of the
+    served run and the figures."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import GenerationEngine
+    from repro_torch.serving.segments import SegmentedPrompt
+
+    cfg = get_arch("minicpm3-4b").replace(dtype="bfloat16")
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    leaves = list(_tensors(params))
+    weight_bytes = sum(x.numel() * x.element_size() for x in leaves)
+    print(f"[minicpm3 serve] {cfg.name} {cfg.dtype}, {L} layers: "
+          f"{sum(x.numel() for x in leaves) / 1e9:.3f}B parameters ({weight_bytes / 1e9:.2f} GB) "
+          f"drawn on the card in {time.perf_counter() - t0:.1f}s", flush=True)
+    rng = np.random.default_rng(13)
+    flat = [np.asarray(p.tokens if isinstance(p, SegmentedPrompt) else p) % cfg.vocab_size
+            for p in prompts]
+    batch = flat + [rng.integers(0, cfg.vocab_size, MLA_LONG)]
+    lens = [len(p) for p in batch]
+    torch.cuda.reset_peak_memory_stats()
+    eng = GenerationEngine(cfg, params=params, device="cuda", max_batch=8, max_seq=MLA_MAX_SEQ)
+    entry = eng.cache[0]
+    assert eng.backend == "dense" and set(entry) == {"c_kv", "k_rope"}
+    assert entry["c_kv"].shape[2] == MLA_MAX_SEQ
+    reset_launches(ka, kf, tk)
+    reqs, kept, wall = serve_long(eng, batch)
+    launches = read_launches(ka, kf, tk)
+    st = eng.stats()
+    figures = serve_figures(eng, reqs, wall)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    assert st["kernel"] == "cuda" and st["prefill_tokens"] == sum(lens), st
+    assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens)
+    assert all(bool(torch.isfinite(x).all()) for v in kept.values() for x in v)
+    want = {n: 0 for n in launches}
+    want["flash_attention"] = L * len(reqs)          # the absorbed decode is plain torch
+    assert launches == want, (launches, want, st)
+    print(f"[minicpm3 serve] {len(reqs)} requests (prompts {lens}, padded to their buckets), "
+          f"{st['tokens_out']} tokens out in {wall:.3f}s = {figures['tokens_per_s']:.1f} tok/s; "
+          f"mean TTFT {figures['ttft_mean_ms']:.1f}ms, p95 TPOT {figures['tpot_p95_ms']:.2f}ms; "
+          f"{st['steps']} decode steps; peak memory {peak:.2f} GiB; launches {launches} (flash "
+          f"{L} x {len(reqs)} prefills at head dims 96 / 64)", flush=True)
+    bound = logit_bound(L)
+    rel, agree = {}, {}
+    for r, n in zip(reqs, lens):
+        w = oracle_logits(cfg, params, r.prompt, r.out_tokens)
+        rel[n] = rel_diffs(kept[r.req_id], w, cfg.vocab_size)
+        agree[n] = float(np.mean([int(x.argmax()) == t for x, t in zip(w, r.out_tokens)]))
+        del w
+    worst = {n: max(v) for n, v in rel.items()}
+    print(f"[minicpm3 serve] every sampled token's logits against the no-cache oracle's, max "
+          f"|d| / max |logit|, worst per prompt {dict((n, round(x, 5)) for n, x in worst.items())} "
+          f"(bound {bound:.4f}); greedy agreement with the oracle per prompt {agree}", flush=True)
+    assert max(worst.values()) <= bound, (worst, bound)
+    # control: rope dropped at decode, on the long prompt and two short ones
+    control_batch = [batch[-1]] + flat[:2]
+    eng_c = GenerationEngine(cfg, params=params, device="cuda", max_batch=8,
+                             max_seq=MLA_MAX_SEQ)
+    with rope_dropped_at_decode():
+        creqs, ckept, _ = serve_long(eng_c, control_batch)
+    control = {}
+    for r in creqs:
+        d = rel_diffs(ckept[r.req_id], oracle_logits(cfg, params, r.prompt, r.out_tokens),
+                      cfg.vocab_size)
+        control[len(r.prompt)] = {"worst": max(d), "first": d[0], "last": d[-1]}
+    del eng_c, ckept
+    print(f"[minicpm3 serve] control against the bound {bound:.4f}, rope dropped at decode: "
+          f"{{Lp: worst, first token, last token}} "
+          f"{ {n: tuple(round(x, 5) for x in v.values()) for n, v in control.items()} }",
+          flush=True)
+    assert control[MLA_LONG]["worst"] > bound, (control, bound)
+    step_pos = MLA_LONG
+    wall_ms, busy_ms = decode_step_times(cfg, params, eng.cache, step_pos)
+    embed = params["embed"]["table"]
+    kv_bytes = sum(t[:, :, :step_pos + 1].numel() * t.element_size() for t in entry.values())
+    step_bytes = weight_bytes - embed.numel() * embed.element_size() + kv_bytes
+    bound_ms = step_bytes / HBM_BYTES_S * 1e3
+    print(f"[minicpm3 serve] decode step (8 rows, position {step_pos}): wall {wall_ms:.2f} ms "
+          f"(mean of 3); device busy {fmt_ms(busy_ms)} ms (CUDA events: each of the step's "
+          f"{L + 2} pieces queued behind a spin, summed; mean of 3); bound {bound_ms:.2f} ms "
+          f"({step_bytes / 1e9:.2f} GB: the weights but the embedding table, and the latents "
+          f"of the valid slots, {kv_bytes / 1e9:.3f} GB, at 3.35 TB/s)", flush=True)
+    figures.update(peak_gib=peak, weight_gb=weight_bytes / 1e9, logit_bound=bound,
+                   worst_rel=worst, rel=rel, greedy_agreement=agree, rope_dropped=control,
+                   decode_step_wall_ms=wall_ms, decode_step_busy_ms=busy_ms,
+                   decode_step_bound_ms=bound_ms)
+    del eng, kept, params, leaves, embed, entry
     gc.collect()
     torch.cuda.empty_cache()
     return launches, figures
@@ -3293,6 +3982,8 @@ def main() -> int:
     swa_decode_rows = no_scan("hymba decode kernel", phase_swa_decode_kernel, ka)
     win_flash_rows, win_decode_rows = no_scan("window 4096 kernels", phase_window_kernels, ka,
                                               kf)
+    chunk_rows, mla_rows, l4_decode_rows = no_scan("chunk and mla kernels",
+                                                   phase_chunk_mla_kernels, ka, kf)
     # the queries are drawn as benchmarks/retrieval_knob.py draws them
     corpus, queries = no_scan("synthetic_corpus on the host", lambda: (
         synthetic_corpus(N_DOCS, DIM, seed=0), synthetic_corpus(N_QUERIES, DIM, seed=7)))
@@ -3307,6 +3998,7 @@ def main() -> int:
     timed("hymba parity", phase_hymba_parity, ka, kf, ks)
     no_scan("int8 and swap parity", phase_int8_swap_parity)
     no_scan("swa and moe parity", phase_swa_moe_parity, ka, kf)
+    parity_logits = no_scan("chunk and mla parity", phase_chunk_mla_parity, ka, kf)
 
     cfg = get_arch("qwen2.5-3b").replace(dtype="bfloat16")
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
@@ -3333,7 +4025,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches["mixtral serve"], mixtral_figures = no_scan("mixtral serve", phase_mixtral_serve,
                                                          ka, kf, tk, prompts)
-    gc.collect()                     # mixtral's weights go before rwkv6-7b's
+    gc.collect()                     # mixtral's weights go before llama4-scout's
+    torch.cuda.empty_cache()
+    launches["llama4 serve"], llama4_figures = no_scan("llama4 serve", phase_llama4_serve, ka,
+                                                       kf, tk, prompts)
+    gc.collect()                     # llama4-scout's weights go before minicpm3's
+    torch.cuda.empty_cache()
+    launches["minicpm3 serve"], minicpm3_figures = no_scan("minicpm3 serve",
+                                                           phase_minicpm3_serve, ka, kf, tk,
+                                                           prompts)
+    gc.collect()                     # minicpm3's weights go before rwkv6-7b's
     torch.cuda.empty_cache()
     launches["rwkv serve"] = no_scan("rwkv serve", phase_rwkv_serve, ka, kf, tk, prompts)
     gc.collect()                     # rwkv6-7b's weights go before hymba-1.5b's
@@ -3479,9 +4180,23 @@ def main() -> int:
                                      "bound_ms", "bound_by")}
            for d in ("float32", "bfloat16") for c in WIN_DECODE_CASES},
     }
+    # the flash kernel with a chunk (phase 12's prefill) and at MLA's split
+    # head dims (phase 13's); the decode kernel on llama4's caches
+    phase_keys = ("errs", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    flash["chunked"] = {f"{d}/S={S}/chunk={c}": {key2: x.get(key2) for key2 in phase_keys}
+                        for (d, S, c), x in chunk_rows.items()}
+    flash["mla_96_64"] = {f"{d}/S={S}": {key2: x.get(key2) for key2 in phase_keys}
+                          for (d, S), x in mla_rows.items()}
+    dec["llama4"] = {
+        "shape": {"B": B, "heads": L4_HEADS, "cases": L4_DECODE_CASES},
+        **{f"{d}/{c}": {key2: l4_decode_rows[(d, c)][key2] for key2 in phase_keys}
+           for d in ("float32", "bfloat16") for c in L4_DECODE_CASES},
+    }
     print(json.dumps({"int8_serve": int8_figures, "host_tier": host_figures,
                       "oracle_paths": oracle_figures, "controller": controller_figures,
-                      "swa_serve": swa_figures, "mixtral_serve": mixtral_figures}))
+                      "swa_serve": swa_figures, "mixtral_serve": mixtral_figures,
+                      "chunk_mla_parity_max_abs_logit_diff": parity_logits,
+                      "llama4_serve": llama4_figures, "minicpm3_serve": minicpm3_figures}))
     print(json.dumps({"kernels": kernels}))
     print(f"[done] {time.perf_counter() - t_start:.1f}s in all", flush=True)
     print(card)

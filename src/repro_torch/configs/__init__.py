@@ -1,8 +1,11 @@
 """Config registry of the port: the three archs the paged serving path takes,
-and rwkv6-7b, hymba-1.5b and mixtral-8x22b, which the dense backend serves;
-``VARIANTS`` holds qwen2.5-3b's sliding-window serving variant."""
+and rwkv6-7b, hymba-1.5b, mixtral-8x22b, llama4-scout-17b-a16e and
+minicpm3-4b, which the dense backend serves; ``VARIANTS`` holds qwen2.5-3b's
+sliding-window serving variant."""
 from repro_torch.configs import (
     hymba_1_5b,
+    llama4_scout_17b_a16e,
+    minicpm3_4b,
     mixtral_8x22b,
     phi3_medium_14b,
     qwen2_5_3b,
@@ -18,6 +21,8 @@ ARCHS = {
     "rwkv6-7b": rwkv6_7b.CONFIG,
     "hymba-1.5b": hymba_1_5b.CONFIG,
     "mixtral-8x22b": mixtral_8x22b.CONFIG,
+    "llama4-scout-17b-a16e": llama4_scout_17b_a16e.CONFIG,
+    "minicpm3-4b": minicpm3_4b.CONFIG,
 }
 
 # variants used only in beyond-paper experiments
@@ -34,4 +39,15 @@ def get_arch(name: str) -> ModelConfig:
     raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
 
 
-__all__ = ["ARCHS", "VARIANTS", "ModelConfig", "get_arch", "smoke_variant"]
+def card_smoke_variant(name: str) -> ModelConfig:
+    """The smoke variant of arch ``name`` as the card runs it: minicpm3's at
+    MLA's real head dims (64 nope + 32 rope query/key dims, 64 value dims),
+    since the smoke variant's 48 / 32 has no instantiation of the flash
+    kernel; every other arch's unchanged."""
+    cfg = smoke_variant(get_arch(name))
+    if name == "minicpm3-4b":
+        cfg = cfg.replace(qk_nope_head_dim=64, qk_rope_head_dim=32, v_head_dim=64, head_dim=96)
+    return cfg
+
+
+__all__ = ["ARCHS", "VARIANTS", "ModelConfig", "card_smoke_variant", "get_arch", "smoke_variant"]

@@ -8,8 +8,14 @@
 //   (B, S, KVH, hd), causal or not, any S >= 1; scores, softmax and the
 //   value product in f32, output in q's dtype. A sliding window (window >
 //   0, hymba's SWA layers) also masks keys at or before row - window, the
-//   mask of repro/models/attention.py::blockwise_attention(ATTN_SWA); the
-//   Pallas kernel has no window.
+//   mask of repro/models/attention.py::blockwise_attention(ATTN_SWA); a
+//   chunk (chunk > 0, llama4's chunked-local layers) masks keys of another
+//   chunk than the row's (col / chunk != row / chunk), the mask of
+//   blockwise_attention(ATTN_CHUNKED_LOCAL); the Pallas kernel has neither.
+//   The query/key head dim HDK and the value head dim HDV are template
+//   arguments of their own: (64, 64), (128, 128), and MLA's (96, 64)
+//   (minicpm3: 64 nope + 32 rope dims against 64 value dims), so the value
+//   product and the output run at HDV, not at a zero-padded HDK.
 //   Bound on the H100: operations. A 64-query tile does 4*hd flops per key
 //   per query against ~hd*4 bytes of K/V per key: hundreds of flops per byte.
 //   bf16 inputs (what every serve path runs) go to the tensor cores, f32
@@ -40,8 +46,14 @@
 //   shuffles.
 //   Both: causal blocks stop at the diagonal tile (the Pallas grid's block
 //   skip), windowed blocks start at the first tile that holds a key of the
-//   window, and the heaviest query tiles are scheduled first. Rows and keys
-//   past S are masked, so S need not be a multiple of the tile.
+//   window, chunked blocks at the tile that holds the first key of the
+//   tile's first row's chunk (and, not causal, stop after the last row's
+//   chunk), and the heaviest query tiles are scheduled first. Rows and keys
+//   past S are masked, so S need not be a multiple of the tile, and a query
+//   tile may straddle a chunk boundary: the per-element mask runs on every
+//   tile whose rows and keys do not all lie in one chunk. Whether a chunk
+//   applies is a template argument (CHUNKED, chosen by the launcher from
+//   chunk > 0), so the unchunked kernels carry no chunk term.
 //
 // decode_attention
 //   Replaces the Pallas kernel repro/kernels/decode_attention.py::
@@ -89,11 +101,41 @@ template <> struct Load4<float> {
 constexpr int kTile = 64;         // queries per block and keys per K/V tile
 constexpr int kFThreads = 256;    // 16 x 16 threads: ty = tid / 16, tx = tid % 16
 
-// Shared-memory plan (floats): Q tile (kTile x (HD+4)) | K tile (kTile x
-// (HD+4)) | V tile (kTile x HD). The +4 pad keeps rows 16-byte aligned and
+// Shared-memory plan (floats): Q tile (kTile x (HDK+4)) | K tile (kTile x
+// (HDK+4)) | V tile (kTile x HDV). The +4 pad keeps rows 16-byte aligned and
 // spreads the K rows a half-warp reads over all 32 banks.
-__host__ __device__ constexpr int flash_smem_floats(int hd) {
-  return 2 * kTile * (hd + 4) + kTile * hd;
+__host__ __device__ constexpr int flash_smem_floats(int hdk, int hdv) {
+  return 2 * kTile * (hdk + 4) + kTile * hdv;
+}
+
+// The K/V tiles [kt_begin, kt_end) a block of query tile qt (rows q0 .. q0 +
+// kTile - 1) visits. causal: tiles past the diagonal lie wholly in the
+// future; window: tiles before the first row's first key (q0 - window + 1)
+// lie wholly before every row's window; chunk (CHUNKED only): tiles before
+// the first row's chunk, and (not causal) after the last row's, hold no key
+// of a row's chunk. CHUNKED is a template argument, so the kernels without a
+// chunk compile with no chunk term at all.
+template <bool CHUNKED>
+struct KvRange {
+  int begin, end;
+  __device__ KvRange(int qt, int S, int causal, int window, int chunk) {
+    const int q0 = qt * kTile, n_kv = (S + kTile - 1) / kTile;
+    end = causal ? min(qt + 1, n_kv) : n_kv;
+    begin = window > 0 ? max(q0 - window + 1, 0) / kTile : 0;
+    if constexpr (CHUNKED) {
+      begin = q0 / chunk * chunk / kTile;
+      const int last_row = min(q0 + kTile, S) - 1;
+      end = min(end, ((last_row / chunk + 1) * chunk + kTile - 1) / kTile);
+    }
+  }
+};
+
+// Whether key col may be attended by query row.
+template <bool CHUNKED>
+__device__ __forceinline__ bool key_ok(int row, int col, int S, int causal, int window,
+                                       int chunk) {
+  return col < S && (!causal || col <= row) && (window <= 0 || col > row - window) &&
+         (!CHUNKED || col / chunk == row / chunk);
 }
 
 // rows [row0, row0 + kTile) of a (.., S, heads, HD) tensor at head `head`
@@ -110,13 +152,14 @@ __device__ __forceinline__ void load_tile(float* dst, int dst_stride, const T* _
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HDK, int HDV, bool CHUNKED>
 __global__ void __launch_bounds__(kFThreads, 2)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ out, int S, int H, int KVH, int causal, int window,
+             T* __restrict__ out, int S, int H, int KVH, int causal, int window, int chunk,
              float scale) {
-  constexpr int QS = HD + 4;      // padded row stride of the Q and K tiles
-  constexpr int NG = HD / 64;     // 4-column groups of the output a thread owns
+  constexpr int QS = HDK + 4;     // padded row stride of the Q and K tiles
+  constexpr int NG = HDV / 64;    // 4-column groups of the output a thread owns
+  static_assert(HDV % 64 == 0 && HDK % 4 == 0, "the thread layout of the tiles");
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* Ks = Qs + kTile * QS;
@@ -127,11 +170,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / KVH);
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16, lane = tid % 32;
   const int q0 = qt * kTile;
-  const T* qb = q + (size_t)b * S * H * HD;
-  const T* kb = k + (size_t)b * S * KVH * HD;
-  const T* vb = v + (size_t)b * S * KVH * HD;
+  const T* qb = q + (size_t)b * S * H * HDK;
+  const T* kb = k + (size_t)b * S * KVH * HDK;
+  const T* vb = v + (size_t)b * S * KVH * HDV;
 
-  load_tile<T, HD>(Qs, QS, qb, q0, S, H, h);
+  load_tile<T, HDK>(Qs, QS, qb, q0, S, H, h);
 
   float m[4], l[4], o[4][4 * NG];
 #pragma unroll
@@ -142,17 +185,12 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     for (int c = 0; c < 4 * NG; ++c) o[i][c] = 0.f;
   }
 
-  const int n_kv = (S + kTile - 1) / kTile;
-  // causal: K/V tiles past the diagonal lie wholly in the future; window:
-  // tiles before the first row's first key (q0 - window + 1) lie wholly
-  // before every row's window
-  const int kt_end = causal ? min(qt + 1, n_kv) : n_kv;
-  const int kt_begin = window > 0 ? max(q0 - window + 1, 0) / kTile : 0;
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
+  const KvRange<CHUNKED> kv(qt, S, causal, window, chunk);
+  for (int kt = kv.begin; kt < kv.end; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous tile's K/V are no longer read (and Q is in)
-    load_tile<T, HD>(Ks, QS, kb, k0, S, KVH, kvh);
-    load_tile<T, HD>(Vs, HD, vb, k0, S, KVH, kvh);
+    load_tile<T, HDK>(Ks, QS, kb, k0, S, KVH, kvh);
+    load_tile<T, HDV>(Vs, HDV, vb, k0, S, KVH, kvh);
     __syncthreads();
 
     // scores of rows ty + 16i against keys tx + 16j
@@ -162,21 +200,21 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      float4 qv[4], kv[4];
+    for (int d = 0; d < HDK; d += 4) {
+      float4 qv[4], kv4[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) qv[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * QS + d);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * QS + d);
+      for (int j = 0; j < 4; ++j) kv4[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * QS + d);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           float a = s[i][j];
-          a = fmaf(qv[i].x, kv[j].x, a);
-          a = fmaf(qv[i].y, kv[j].y, a);
-          a = fmaf(qv[i].z, kv[j].z, a);
-          a = fmaf(qv[i].w, kv[j].w, a);
+          a = fmaf(qv[i].x, kv4[j].x, a);
+          a = fmaf(qv[i].y, kv4[j].y, a);
+          a = fmaf(qv[i].z, kv4[j].z, a);
+          a = fmaf(qv[i].w, kv4[j].w, a);
           s[i][j] = a;
         }
     }
@@ -190,9 +228,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx + 16 * j;
-        const bool ok =
-            col < S && (!causal || col <= row) && (window <= 0 || col > row - window);
-        s[i][j] = ok ? s[i][j] * scale : -INFINITY;
+        s[i][j] = key_ok<CHUNKED>(row, col, S, causal, window, chunk) ? s[i][j] * scale
+                                                                      : -INFINITY;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -224,7 +261,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
       for (int i = 0; i < 4; ++i) p[i] = __shfl_sync(kFull, s[i][kk / 16], src);
 #pragma unroll
       for (int g = 0; g < NG; ++g) {
-        const float4 vv = *reinterpret_cast<const float4*>(Vs + kk * HD + 64 * g + 4 * tx);
+        const float4 vv = *reinterpret_cast<const float4*>(Vs + kk * HDV + 64 * g + 4 * tx);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           o[i][4 * g] = fmaf(p[i], vv.x, o[i][4 * g]);
@@ -236,13 +273,13 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     }
   }
 
-  T* ob = out + (size_t)b * S * H * HD;
+  T* ob = out + (size_t)b * S * H * HDV;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= S) continue;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-    T* dst = ob + ((size_t)row * H + h) * HD;
+    T* dst = ob + ((size_t)row * H + h) * HDV;
 #pragma unroll
     for (int g = 0; g < NG; ++g)
 #pragma unroll
@@ -258,11 +295,12 @@ constexpr int kTCWarps = 4;                 // 16 query rows each
 constexpr int kTCThreads = 32 * kTCWarps;
 
 // Shared-memory plan (bf16): Q tile | stage 0: K tile, V tile | stage 1: K
-// tile, V tile; each tile kTile rows of HD + 8 elements. The 16-byte pad
-// moves each row four banks on, so the eight rows of an ldmatrix phase fall
-// on distinct banks.
-__host__ __device__ constexpr int flash_tc_smem_bytes(int hd) {
-  return 5 * kTile * (hd + 8) * static_cast<int>(sizeof(bf16));
+// tile, V tile; the Q and K tiles kTile rows of HDK + 8 elements, the V
+// tiles of HDV + 8. The 16-byte pad moves each row an odd number of 16-byte
+// bank groups on (HDK = 96: 13, 128: 17; HDV = 64: 9), so the eight rows of
+// an ldmatrix phase fall on distinct banks.
+__host__ __device__ constexpr int flash_tc_smem_bytes(int hdk, int hdv) {
+  return kTile * (3 * (hdk + 8) + 2 * (hdv + 8)) * static_cast<int>(sizeof(bf16));
 }
 
 // rows [row0, row0 + kTile) of a (.., S, heads, HD) bf16 tensor at head
@@ -286,38 +324,37 @@ __device__ __forceinline__ void cp_tile(bf16* dst, const bf16* __restrict__ src,
 // accumulator fragment, rows l / 4 and l / 4 + 8 at columns 2 (l % 4) .. +1.
 // scale_log2 = scale * log2(e): scores and the running max are kept in
 // log2 units, so p = exp2(s - m).
-template <int HD>
+template <int HDK, int HDV, bool CHUNKED>
 __global__ void __launch_bounds__(kTCThreads)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, bf16* __restrict__ out, int S, int H, int KVH,
-                int causal, int window, float scale_log2) {
-  constexpr int RS = HD + 8;       // padded row of a shared tile (elements)
-  constexpr int KSTEPS = HD / 16;  // k-steps of Q K^T
+                int causal, int window, int chunk, float scale_log2) {
+  constexpr int RS = HDK + 8;      // padded row of a Q or K tile (elements)
+  constexpr int RV = HDV + 8;      // padded row of a V tile
+  constexpr int STAGE = kTile * (RS + RV);  // one stage: a K tile, then a V tile
+  constexpr int KSTEPS = HDK / 16; // k-steps of Q K^T
   constexpr int NT = kTile / 8;    // 8-key column tiles of S
-  constexpr int NO = HD / 8;       // 8-column tiles of O
+  constexpr int NO = HDV / 8;      // 8-column tiles of O
+  static_assert(HDK % 16 == 0 && NO % 2 == 0, "whole mma tiles");
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16* Qs = reinterpret_cast<bf16*>(tc_smem);
-  bf16* stage0 = Qs + kTile * RS;  // stage i: K at stage0 + 2i kTile RS, V after it
+  bf16* stage0 = Qs + kTile * RS;  // stage i: K at stage0 + i STAGE, V after it
 
   const int nq = gridDim.x;
   const int qt = causal ? nq - 1 - blockIdx.x : blockIdx.x;  // heaviest tiles first
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / KVH);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int q0 = qt * kTile;
-  const bf16* qb = q + (size_t)b * S * H * HD;
-  const bf16* kb = k + (size_t)b * S * KVH * HD;
-  const bf16* vb = v + (size_t)b * S * KVH * HD;
+  const bf16* qb = q + (size_t)b * S * H * HDK;
+  const bf16* kb = k + (size_t)b * S * KVH * HDK;
+  const bf16* vb = v + (size_t)b * S * KVH * HDV;
 
-  const int n_kv = (S + kTile - 1) / kTile;
-  // causal: K/V tiles past the diagonal lie wholly in the future; window:
-  // tiles before the first row's first key (q0 - window + 1) lie wholly
-  // before every row's window
-  const int kt_end = causal ? min(qt + 1, n_kv) : n_kv;
-  const int kt_begin = window > 0 ? max(q0 - window + 1, 0) / kTile : 0;
+  const KvRange<CHUNKED> kv(qt, S, causal, window, chunk);
+  const int kt_begin = kv.begin, kt_end = kv.end;
 
-  cp_tile<HD>(Qs, qb, q0, S, H, h);
-  cp_tile<HD>(stage0, kb, kt_begin * kTile, S, KVH, kvh);
-  cp_tile<HD>(stage0 + kTile * RS, vb, kt_begin * kTile, S, KVH, kvh);
+  cp_tile<HDK>(Qs, qb, q0, S, H, h);
+  cp_tile<HDK>(stage0, kb, kt_begin * kTile, S, KVH, kvh);
+  cp_tile<HDV>(stage0 + kTile * RS, vb, kt_begin * kTile, S, KVH, kvh);
   cp_async_commit();
 
   const int row_a = q0 + warp * 16 + lane / 4, row_b = row_a + 8;
@@ -330,12 +367,12 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int it = kt - kt_begin;
-    bf16* Ks = stage0 + (it & 1) * 2 * kTile * RS;
+    bf16* Ks = stage0 + (it & 1) * STAGE;
     bf16* Vs = Ks + kTile * RS;
     if (kt + 1 < kt_end) {  // the next tile into the other stage
-      bf16* Kn = stage0 + ((it + 1) & 1) * 2 * kTile * RS;
-      cp_tile<HD>(Kn, kb, (kt + 1) * kTile, S, KVH, kvh);
-      cp_tile<HD>(Kn + kTile * RS, vb, (kt + 1) * kTile, S, KVH, kvh);
+      bf16* Kn = stage0 + ((it + 1) & 1) * STAGE;
+      cp_tile<HDK>(Kn, kb, (kt + 1) * kTile, S, KVH, kvh);
+      cp_tile<HDV>(Kn + kTile * RS, vb, (kt + 1) * kTile, S, KVH, kvh);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -369,7 +406,8 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // scale, mask where this tile can hold a masked key, online softmax
     const int k0 = kt * kTile;
     const bool edge = k0 + kTile > S || (causal && k0 + kTile - 1 > q0) ||
-                      (window > 0 && k0 <= q0 + kTile - 1 - window);
+                      (window > 0 && k0 <= q0 + kTile - 1 - window) ||
+                      (CHUNKED && min(k0, q0) / chunk != (max(k0, q0) + kTile - 1) / chunk);
     float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
@@ -379,9 +417,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         if (edge) {
           const int col = k0 + n * 8 + (lane % 4) * 2 + (e & 1);
           const int row = e < 2 ? row_a : row_b;
-          const bool ok =
-              col < S && (!causal || col <= row) && (window <= 0 || col > row - window);
-          x = ok ? x : -INFINITY;
+          x = key_ok<CHUNKED>(row, col, S, causal, window, chunk) ? x : -INFINITY;
         }
         s[n][e] = x;
       }
@@ -434,7 +470,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int n = 0; n < NO; n += 2) {
         unsigned vf[4];
-        ldsm_x4_trans(vf, Vs + (j * 16 + lane % 8 + ((lane / 8) % 2) * 8) * RS + n * 8 +
+        ldsm_x4_trans(vf, Vs + (j * 16 + lane % 8 + ((lane / 8) % 2) * 8) * RV + n * 8 +
                               (lane / 16) * 8);
         mma_bf16(o[n], ph, vf[0], vf[1]);
         mma_bf16(o[n], pl, vf[0], vf[1]);
@@ -452,65 +488,76 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   const float inv_a = l_a > 0.f ? 1.f / l_a : 0.f;
   const float inv_b = l_b > 0.f ? 1.f / l_b : 0.f;
-  bf16* ob = out + (size_t)b * S * H * HD;
+  bf16* ob = out + (size_t)b * S * H * HDV;
   const int c0 = (lane % 4) * 2;
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
     if (row_a < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + ((size_t)row_a * H + h) * HD + n * 8 + c0) =
+      *reinterpret_cast<__nv_bfloat162*>(ob + ((size_t)row_a * H + h) * HDV + n * 8 + c0) =
           __floats2bfloat162_rn(o[n][0] * inv_a, o[n][1] * inv_a);
     if (row_b < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + ((size_t)row_b * H + h) * HD + n * 8 + c0) =
+      *reinterpret_cast<__nv_bfloat162*>(ob + ((size_t)row_b * H + h) * HDV + n * 8 + c0) =
           __floats2bfloat162_rn(o[n][2] * inv_b, o[n][3] * inv_b);
   }
 }
 
-template <int HD>
+template <int HDK, int HDV, bool CHUNKED>
 cudaError_t launch_flash_tc_hd(const void* q, const void* k, const void* v, void* out, int B,
-                               int S, int H, int KVH, int causal, int window, float scale,
-                               cudaStream_t stream) {
-  const size_t smem = flash_tc_smem_bytes(HD);
-  auto kernel = flash_tc_kernel<HD>;
+                               int S, int H, int KVH, int causal, int window, int chunk,
+                               float scale, cudaStream_t stream) {
+  const size_t smem = flash_tc_smem_bytes(HDK, HDV);
+  auto kernel = flash_tc_kernel<HDK, HDV, CHUNKED>;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
   const int nq = (S + kTile - 1) / kTile;
   kernel<<<dim3(nq, H, B), kTCThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), S, H, KVH, causal, window, scale * 1.4426950408889634f);
+      static_cast<bf16*>(out), S, H, KVH, causal, window, chunk, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <typename T, int HDK, int HDV, bool CHUNKED>
 cudaError_t launch_flash_hd(const void* q, const void* k, const void* v, void* out, int B,
-                            int S, int H, int KVH, int causal, int window, float scale,
-                            cudaStream_t stream) {
-  const size_t smem = flash_smem_floats(HD) * sizeof(float);
-  auto kernel = flash_kernel<T, HD>;
+                            int S, int H, int KVH, int causal, int window, int chunk,
+                            float scale, cudaStream_t stream) {
+  const size_t smem = flash_smem_floats(HDK, HDV) * sizeof(float);
+  auto kernel = flash_kernel<T, HDK, HDV, CHUNKED>;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
   const int nq = (S + kTile - 1) / kTile;
   kernel<<<dim3(nq, H, B), kFThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), S, H, KVH, causal, window, scale);
+      static_cast<T*>(out), S, H, KVH, causal, window, chunk, scale);
   return cudaGetLastError();
 }
 
-// bf16 inputs on the tensor cores, f32 inputs on the CUDA cores
+// bf16 inputs on the tensor cores, f32 inputs on the CUDA cores; the
+// (query/key, value) head dims of the instantiations: (64, 64), (128, 128)
+// and MLA's (96, 64)
 template <typename T>
 cudaError_t launch_flash(const void* q, const void* k, const void* v, void* out, int B, int S,
-                         int H, int KVH, int hd, int causal, int window, float scale,
-                         cudaStream_t stream) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    if (hd == 64)
-      return launch_flash_tc_hd<64>(q, k, v, out, B, S, H, KVH, causal, window, scale, stream);
-    if (hd == 128)
-      return launch_flash_tc_hd<128>(q, k, v, out, B, S, H, KVH, causal, window, scale, stream);
-  } else {
-    if (hd == 64)
-      return launch_flash_hd<T, 64>(q, k, v, out, B, S, H, KVH, causal, window, scale, stream);
-    if (hd == 128)
-      return launch_flash_hd<T, 128>(q, k, v, out, B, S, H, KVH, causal, window, scale, stream);
+                         int H, int KVH, int hdk, int hdv, int causal, int window, int chunk,
+                         float scale, cudaStream_t stream) {
+#define DA_FLASH_CH(K, V, C)                                                                \
+  if constexpr (std::is_same<T, bf16>::value)                                               \
+    return launch_flash_tc_hd<K, V, C>(q, k, v, out, B, S, H, KVH, causal, window, chunk,   \
+                                       scale, stream);                                      \
+  else                                                                                      \
+    return launch_flash_hd<T, K, V, C>(q, k, v, out, B, S, H, KVH, causal, window, chunk,   \
+                                       scale, stream);
+#define DA_FLASH_HD(K, V)                                                                   \
+  if (hdk == K && hdv == V) {                                                               \
+    if (chunk > 0) {                                                                        \
+      DA_FLASH_CH(K, V, true)                                                               \
+    } else {                                                                                \
+      DA_FLASH_CH(K, V, false)                                                              \
+    }                                                                                       \
   }
+  DA_FLASH_HD(64, 64)
+  DA_FLASH_HD(128, 128)
+  DA_FLASH_HD(96, 64)
+#undef DA_FLASH_HD
+#undef DA_FLASH_CH
   return cudaErrorInvalidValue;
 }
 
@@ -956,17 +1003,19 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v, const int
 extern "C" {
 
 // Bytes of dynamic shared memory one thread block takes.
-int da_flash_smem_bytes(int dtype, int hd) {
-  return dtype == kBF16 ? flash_tc_smem_bytes(hd)
-                        : flash_smem_floats(hd) * static_cast<int>(sizeof(float));
+int da_flash_smem_bytes(int dtype, int hdk, int hdv) {
+  return dtype == kBF16 ? flash_tc_smem_bytes(hdk, hdv)
+                        : flash_smem_floats(hdk, hdv) * static_cast<int>(sizeof(float));
 }
 
 // Each launcher returns the cudaError_t of its launches (0 on success).
-// window <= 0: no sliding window.
+// hdk: the query/key head dim, hdv: the value (and output) head dim; window
+// <= 0: no sliding window; chunk <= 0: no chunk mask (the wrapper refuses
+// both together).
 int da_flash_attention(int dtype, const void* q, const void* k, const void* v, void* out, int B,
-                       int S, int H, int KVH, int hd, int causal, int window, float scale,
-                       void* stream) {
-  DA_DISPATCH(launch_flash, q, k, v, out, B, S, H, KVH, hd, causal, window, scale,
+                       int S, int H, int KVH, int hdk, int hdv, int causal, int window,
+                       int chunk, float scale, void* stream) {
+  DA_DISPATCH(launch_flash, q, k, v, out, B, S, H, KVH, hdk, hdv, causal, window, chunk, scale,
               static_cast<cudaStream_t>(stream))
 }
 

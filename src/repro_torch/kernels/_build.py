@@ -48,8 +48,8 @@ ENTRY_POINTS = {
         "tk_topk_retrieval": ([_I] + [_P] * 6 + [_I] * 7 + [_P], _I),
     },
     "dense_attention": {
-        "da_flash_smem_bytes": ([_I, _I], _I),
-        "da_flash_attention": ([_I] + [_P] * 4 + [_I] * 7 + [_F, _P], _I),
+        "da_flash_smem_bytes": ([_I, _I, _I], _I),
+        "da_flash_attention": ([_I] + [_P] * 4 + [_I] * 9 + [_F, _P], _I),
         "da_decode_attention": ([_I] + [_P] * 7 + [_I] * 6 + [_F, _P], _I),
     },
     "rwkv6_scan": {

@@ -4,6 +4,7 @@ tree's split targets, on one GPU.
 
     python -m repro_torch.launch.kernel_ab --trees build/parent/src src src build/parent/src
     python -m repro_torch.launch.kernel_ab --variants base exp2f p_once no_softmax no_loads
+    python -m repro_torch.launch.kernel_ab --cases attention --variants base chunk_runtime chunk_runtime base
     python -m repro_torch.launch.kernel_ab --variants base chunk_rows64 chunk_rows64 base
     python -m repro_torch.launch.kernel_ab --cases scans --variants base wkv_output_only wkv_segment_only base
     python -m repro_torch.launch.kernel_ab --sweep
@@ -15,9 +16,14 @@ sources; a variant is this tree's ``repro_torch`` copied under
 ``build/kernel_ab/<name>/`` with the edits of ``VARIANTS`` applied. The
 flash variants after ``exp2f`` and the scan variants but ``wkv_unroll2``
 and ``ssm_batch2`` change what the kernel computes: they only show what a
-part of it costs; ``chunk_rows64`` halves the chunk kernel's tiles. Cases are
-``chip_smoke.py``'s: flash bf16 causal at S 2048 (H 16 / KVH 2, hd 128) and
-windowed at S 1664 (window 1024, H 25 / KVH 5, hd 64); at H 16 / KVH 2, hd
+part of it costs; ``chunk_rows64`` halves the chunk kernel's tiles;
+``chunk_runtime`` makes the flash kernel's chunk tests at run time in every
+instantiation (same results). Cases are ``chip_smoke.py``'s: flash bf16
+causal at S 2048 (H 16 / KVH 2, hd 128), windowed at S 1664 (window 1024, H
+25 / KVH 5, hd 64), chunked at S 2048 (chunk 800, so tiles straddle chunk
+boundaries, H 40 / KVH 8, hd 128) and at MLA's head dims 96 / 64 at S 6000
+(H 40; a tree without the chunk mask or those head dims reports the case
+unsupported); at H 16 / KVH 2, hd
 128, paged decode at B 8 over contexts 33-2048 (128 blocks of 16 a row),
 the chunk kernel on phase 2's ragged case (303 packed tokens) and at the
 engine's mixed step (a 256-token prefill chunk at slots 1024-1279, seven
@@ -65,7 +71,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[3]
 PKG = Path(__file__).resolve().parents[1]
 
-_TILE_LOADS = ('''    bf16* Ks = stage0 + (it & 1) * 2 * kTile * RS;
+_TILE_LOADS = ('''    bf16* Ks = stage0 + (it & 1) * STAGE;
     bf16* Vs = Ks + kTile * RS;
     if (kt + 1 < kt_end) {''', '''    bf16* Ks = stage0;
     bf16* Vs = Ks + kTile * RS;
@@ -96,6 +102,12 @@ VARIANTS = {
                                        + s[s.index(_PV):]))],
     # the first K/V tile only: no loads after the prologue
     "no_loads": [(_DENSE, *_TILE_LOADS)],
+    # the chunk tests made at run time in every instantiation, as before
+    # the chunk mask became a template argument (same results)
+    "chunk_runtime": [(_DENSE, "    if constexpr (CHUNKED) {", "    if (chunk > 0) {"),
+                      (_DENSE, "(!CHUNKED || col / chunk == row / chunk)",
+                       "(chunk <= 0 || col / chunk == row / chunk)"),
+                      (_DENSE, "(CHUNKED && min(k0, q0)", "(chunk > 0 && min(k0, q0)")],
     # chunk tiles of 64 query rows (8 tokens at 8 heads a KV head, four
     # warps), two blocks an SM
     "chunk_rows64": [(_CHUNK_SRC, "constexpr int kTileRows = 128;", "constexpr int kTileRows = 64;"),
@@ -233,13 +245,20 @@ def _flash_cases(g) -> dict:
     from repro_torch.kernels import flash_attention as kf
 
     out = {}
-    for name, S, H, KVH, hd, window in (("flash_causal_S2048", 2048, 16, 2, 128, 0),
-                                        ("flash_window_S1664", 1664, 25, 5, 64, 1024)):
-        q, k, v = (torch.randn((1, S, n, hd), generator=g, device="cuda").bfloat16()
-                   for n in (H, KVH, KVH))
-        err, off = _off(kf.flash_attention(q, k, v, window=window),
-                        kf.ref_flash_attention(q.float(), k.float(), v.float(), window=window))
-        out[name] = {"device_ms": [_device_ms(lambda: kf.flash_attention(q, k, v, window=window))
+    for name, S, H, KVH, hd, hd_v, mask in (
+            ("flash_causal_S2048", 2048, 16, 2, 128, 128, {}),
+            ("flash_window_S1664", 1664, 25, 5, 64, 64, {"window": 1024}),
+            ("flash_chunk_S2048", 2048, 40, 8, 128, 128, {"chunk": 800}),
+            ("flash_mla_S6000", 6000, 40, 40, 96, 64, {})):
+        q, k, v = (torch.randn((1, S, n, d), generator=g, device="cuda").bfloat16()
+                   for n, d in ((H, hd), (KVH, hd), (KVH, hd_v)))
+        try:
+            got = kf.flash_attention(q, k, v, **mask)
+        except (TypeError, ValueError) as e:   # a tree without this mask or head dims
+            out[name] = {"unsupported": str(e)}
+            continue
+        err, off = _off(got, kf.ref_flash_attention(q.float(), k.float(), v.float(), **mask))
+        out[name] = {"device_ms": [_device_ms(lambda: kf.flash_attention(q, k, v, **mask))
                                    for _ in range(3)], "max_abs_err": err, "n_off": off}
     return out
 

@@ -14,6 +14,8 @@ occupancy comes from the components' cost models).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama4-scout-17b-a16e --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm3-4b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --pipelines --arch smollm-135m --smoke --device cpu
 
 Giving ``--app NAME`` selects the simulated mode (``serve_sim``, with
@@ -26,7 +28,8 @@ nor ``--pipelines`` is given.
 Weights are random, drawn by ``init_params`` from ``--seed``. Runs on
 ``cuda`` unless ``--device cpu`` is given (and raises without a GPU). An
 arch outside the paged contract (rwkv6-7b, hymba-1.5b, mixtral-8x22b,
-qwen2.5-3b-swa) is served on the dense backend.
+qwen2.5-3b-swa, llama4-scout-17b-a16e, minicpm3-4b) is served on the dense
+backend.
 """
 from __future__ import annotations
 
@@ -201,7 +204,8 @@ def main(argv=None):
                     help="--app end-to-end SLO (seconds)")
     ap.add_argument("--arch", default="qwen2.5-3b",
                     choices=["smollm-135m", "qwen2.5-3b", "phi3-medium-14b", "rwkv6-7b",
-                             "hymba-1.5b", "mixtral-8x22b", "qwen2.5-3b-swa"])
+                             "hymba-1.5b", "mixtral-8x22b", "qwen2.5-3b-swa",
+                             "llama4-scout-17b-a16e", "minicpm3-4b"])
     ap.add_argument("--smoke", action="store_true",
                     help="serve the arch's 2-layer smoke variant")
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],

@@ -1,22 +1,29 @@
-"""GQA attention, ported from ``repro.models.attention``: ``qkv_project``,
-and for the dense backend ``blockwise_attention`` (prefill, full or
-sliding-window, through the ``flash_attention`` kernel), ``decode_attention``
-(through the dense ``decode_attention`` kernel) and ``cache_validity`` (a
-full-attention cache or a sliding-window ring). The
-paged path reads attention through ``kernels.decode_attention`` directly;
-its oracle steps (the padded fused step and the sequential prefill) run
-``chunk_decode_attention``, a plain masked softmax as in JAX, where the
-reference is a plain ``jnp`` function too."""
+"""Attention, ported from ``repro.models.attention``: GQA's
+``qkv_project``, and for the dense backend ``blockwise_attention``
+(prefill, full, sliding-window or chunked-local, through the
+``flash_attention`` kernel), ``decode_attention`` (through the dense
+``decode_attention`` kernel) and ``cache_validity`` (a full-attention
+cache, a sliding-window ring or a chunked-local ring); and multi-head
+latent attention (MLA, minicpm3): ``mla_latents``, ``mla_queries``,
+``mla_prefill`` (expanded heads through the ``flash_attention`` kernel at
+its split head dims) and ``mla_decode`` (the absorbed form, plain torch
+products, as the JAX function is plain ``jnp``; MLA's params come from
+``transformer.init_mla``). The paged path reads attention through
+``kernels.decode_attention`` directly; its oracle steps (the padded fused
+step and the sequential prefill) run ``chunk_decode_attention``, a plain
+masked softmax as in JAX, where the reference is a plain ``jnp`` function
+too."""
 from __future__ import annotations
 
 import math
 
 import torch
 
-from repro_torch.configs.base import ATTN_FULL, ATTN_SWA
+from repro_torch.configs.base import ATTN_CHUNKED_LOCAL, ATTN_FULL, ATTN_SWA
 from repro_torch.kernels.decode_attention import NEG_INF
 from repro_torch.kernels.decode_attention import decode_attention as decode_kernel
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.layers import apply_rope_tables, rms_norm
 
 
 def qkv_project(params, x, num_heads, num_kv_heads, head_dim):
@@ -37,18 +44,24 @@ def qkv_project(params, x, num_heads, num_kv_heads, head_dim):
 
 
 def blockwise_attention(q, k, v, *, attn_type: str = ATTN_FULL, window: int = 0,
-                        causal: bool = True):
-    """q: (B, S, H, hd); k/v: (B, S, KVH, hd) -> (B, S, H, hd). Attention,
-    causal or not, over keys of the queries' own length (the
-    ``flash_attention`` kernel). ``attn_type=ATTN_SWA`` with ``window`` w >
-    0 keeps only the keys after query - w (JAX's mask ``kpos > qpos -
-    window``); ``ATTN_FULL``, or a window of 0, keeps every key, as in JAX.
-    Chunked masks and cross attention (S_kv != S) are not ported yet."""
-    if attn_type not in (ATTN_FULL, ATTN_SWA) or k.shape[1] != q.shape[1]:
+                        chunk: int = 0, causal: bool = True):
+    """q: (B, S, H, hd); k: (B, S, KVH, hd); v: (B, S, KVH, hd_v) -> (B, S,
+    H, hd_v). Attention, causal or not, over keys of the queries' own length
+    (the ``flash_attention`` kernel), scaled by 1/sqrt(hd). ``attn_type=
+    ATTN_SWA`` with ``window`` w > 0 keeps only the keys after query - w
+    (JAX's mask ``kpos > qpos - window``);
+    ``ATTN_CHUNKED_LOCAL`` with ``chunk`` c > 0 only the keys of the query's
+    chunk (``kpos // c == qpos // c``), the model's definition at every S
+    (JAX's function gets it wrong where S > c and S % c != 0: ROADMAP §3);
+    ``ATTN_FULL``, or a window or chunk of 0, keeps every key, as in JAX.
+    Cross attention (S_kv != S) is not ported yet."""
+    if attn_type not in (ATTN_FULL, ATTN_SWA, ATTN_CHUNKED_LOCAL) or k.shape[1] != q.shape[1]:
         raise NotImplementedError(
-            f"blockwise_attention ports full and sliding-window attention with S_kv == S; "
-            f"got attn_type={attn_type!r}, S={q.shape[1]}, S_kv={k.shape[1]}")
-    return flash_attention(q, k, v, causal=causal, window=window if attn_type == ATTN_SWA else 0)
+            f"blockwise_attention ports full, sliding-window and chunked-local attention with "
+            f"S_kv == S; got attn_type={attn_type!r}, S={q.shape[1]}, S_kv={k.shape[1]}")
+    return flash_attention(q, k, v, causal=causal,
+                           window=window if attn_type == ATTN_SWA else 0,
+                           chunk=chunk if attn_type == ATTN_CHUNKED_LOCAL else 0)
 
 
 def decode_attention(q, k_cache, v_cache, lengths):
@@ -84,14 +97,89 @@ def chunk_decode_attention(q, k_cache, v_cache, valid_mask, scale=None):
 
 def cache_validity(attn_type: str, cache_len: int, pos, chunk: int = 0):
     """Which cache slots a decode query at absolute position ``pos`` may
-    attend: (B, Sc) bool for pos (B,), (1, Sc) for a 0-d pos. A
-    full-attention cache: the slots filled so far; an SWA ring: those too,
-    and once wrapped (pos + 1 >= Sc) every slot. Both are ``slot < min(pos +
-    1, Sc)``, the ``lengths`` the decode stacks hand their kernel. The
-    chunked-local ring is not ported yet."""
-    if attn_type not in (ATTN_FULL, ATTN_SWA):
+    attend: (B, Sc) bool for pos (B,), (1, Sc) for a 0-d pos, as the JAX
+    function gives it. A full-attention cache: the slots filled so far; an
+    SWA ring: those too, and once wrapped (pos + 1 >= Sc) every slot. Both
+    are ``slot < min(pos + 1, Sc)``. A chunked-local ring (``chunk`` > 0):
+    the pos % chunk + 1 newest slots, ring order, the query's own among
+    them; on a ring of Sc = chunk slots (position p at slot p % Sc) that is
+    ``slot < pos % chunk + 1``, and on a shorter one (Sc = S < chunk, so pos
+    < Sc) ``slot < pos + 1``. These are the ``lengths`` the decode stacks
+    hand their kernel (``transformer.decode_lengths``)."""
+    if attn_type not in (ATTN_FULL, ATTN_SWA, ATTN_CHUNKED_LOCAL):
         raise NotImplementedError(
-            f"cache_validity ports full-attention caches and SWA rings; "
+            f"cache_validity ports full-attention caches, SWA and chunked-local rings; "
             f"got attn_type={attn_type!r}")
+    p = pos.long().reshape(-1, 1)
     slots = torch.arange(cache_len, device=pos.device)
-    return slots < torch.clamp(pos.long().reshape(-1, 1) + 1, max=cache_len)
+    if attn_type == ATTN_CHUNKED_LOCAL and chunk:
+        return (p % cache_len - slots) % cache_len < p % chunk + 1
+    return slots < torch.clamp(p + 1, max=cache_len)
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention): minicpm3
+# ---------------------------------------------------------------------------
+
+
+def mla_latents(params, x, cfg, rope):
+    """The compressed cache entries of x (B, S, D): c_kv (B, S, kv_lora),
+    the normed latent, and k_rope (B, S, 1, rope), the shared rope key
+    rotated by ``rope`` (the rope tables of the tokens' positions)."""
+    kv_a = x @ params["wkv_a"]                                   # (B, S, kv_lora + rope)
+    c_kv = rms_norm(kv_a[..., :cfg.kv_lora_rank], params["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope_tables(kv_a[..., cfg.kv_lora_rank:][:, :, None, :], *rope)
+    return c_kv, k_rope
+
+
+def mla_queries(params, x, cfg, rope):
+    """The queries of x (B, S, D) through the low-rank ``wq_a`` -> norm ->
+    ``wq_b``: q_nope (B, S, H, nope) and q_rope (B, S, H, rope), rotated."""
+    B, S, _ = x.shape
+    nope = cfg.qk_nope_head_dim
+    cq = rms_norm(x @ params["wq_a"], params["q_norm"], cfg.norm_eps)
+    q = (cq @ params["wq_b"]).reshape(B, S, cfg.num_heads, nope + cfg.qk_rope_head_dim)
+    return q[..., :nope], apply_rope_tables(q[..., nope:], *rope)
+
+
+def mla_prefill(params, x, cfg, rope):
+    """Expanded MLA attention over a sequence x (B, S, D): the latents
+    expanded through ``wkv_b`` to H heads of nope key and v value dims, the
+    shared k_rope broadcast to every head, causal attention at query/key
+    head dim nope + rope and value head dim v (``blockwise_attention``,
+    whose scale, 1/sqrt of q's head dim, is 1/sqrt(nope + rope)), then
+    ``wo``. Returns (out (B, S, D),
+    (c_kv, k_rope)), the compressed cache entries."""
+    B, S, _ = x.shape
+    H, nope, v_dim = cfg.num_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
+    q_nope, q_rope = mla_queries(params, x, cfg, rope)
+    c_kv, k_rope = mla_latents(params, x, cfg, rope)
+    kv = (c_kv @ params["wkv_b"]).reshape(B, S, H, nope + v_dim)
+    k = torch.cat([kv[..., :nope], k_rope.expand(B, S, H, cfg.qk_rope_head_dim)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    out = blockwise_attention(q, k, kv[..., nope:].contiguous(), attn_type=ATTN_FULL)
+    return out.reshape(B, S, H * v_dim) @ params["wo"], (c_kv, k_rope)
+
+
+def mla_decode(params, x, cfg, c_kv_cache, k_rope_cache, pos, rope):
+    """Absorbed MLA decode: the queries move into the latent space (q_nope
+    through ``wkv_b``'s key half), so the cache is read once with no
+    per-step expansion. x: (B, 1, D); c_kv_cache: (B, Sc, kv_lora);
+    k_rope_cache: (B, Sc, rope); pos: (B,) (slots <= pos are valid);
+    ``rope``: the rope tables of pos. Scores in float32 (JAX's
+    ``preferred_element_type``), the probabilities cast to the cache dtype
+    for the latent value product. Returns (B, 1, D)."""
+    B, Sc = x.shape[0], c_kv_cache.shape[1]
+    H, nope, v_dim = cfg.num_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
+    q_nope, q_rope = mla_queries(params, x, cfg, rope)           # (B, 1, H, nope / rope)
+    w_b = params["wkv_b"].reshape(cfg.kv_lora_rank, H, nope + v_dim)
+    q_lat = torch.einsum("bqhn,khn->bqhk", q_nope, w_b[..., :nope])   # (B, 1, H, kv_lora)
+    scale = 1.0 / math.sqrt(nope + cfg.qk_rope_head_dim)
+    scores = (torch.einsum("bqhk,bsk->bhqs", q_lat.float(), c_kv_cache.float())
+              + torch.einsum("bqhr,bsr->bhqs", q_rope.float(), k_rope_cache.float())) * scale
+    valid = torch.arange(Sc, device=x.device)[None] <= pos.long()[:, None]
+    scores = torch.where(valid[:, None, None, :], scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1).to(c_kv_cache.dtype)
+    out_lat = torch.einsum("bhqs,bsk->bqhk", probs, c_kv_cache)
+    out = torch.einsum("bqhk,khv->bqhv", out_lat, w_b[..., nope:])
+    return out.reshape(B, 1, H * v_dim) @ params["wo"]

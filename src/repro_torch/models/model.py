@@ -7,9 +7,10 @@ for the dense backend ``forward``, ``prefill``, ``decode_step`` and
 
 The paged step functions update the KV pools in place and return the
 logits; ``decode_step`` updates the dense cache in place and returns it
-with the logits. The dense functions take full-attention and
-sliding-window GQA stacks (with SwiGLU or MoE feed-forwards), RWKV-6 stacks
-and Hymba's hybrid stacks with their meta-token prefix
+with the logits. The dense functions take full-attention, sliding-window
+and chunked-local GQA stacks (with SwiGLU or MoE feed-forwards; llama4's
+period-4 stack of chunked-local and global layers), MLA stacks (minicpm3),
+RWKV-6 stacks and Hymba's hybrid stacks with their meta-token prefix
 (``dense_cache_supported``).
 """
 from __future__ import annotations
@@ -18,7 +19,15 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.configs.base import ATTN_FULL, ATTN_SWA, MIXER_HYBRID, MIXER_RWKV6, ModelConfig
+from repro_torch.configs.base import (
+    ATTN_CHUNKED_LOCAL,
+    ATTN_FULL,
+    ATTN_MLA,
+    ATTN_SWA,
+    MIXER_HYBRID,
+    MIXER_RWKV6,
+    ModelConfig,
+)
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import dense_init, embed_tokens, unembed
 from repro_torch.params import torch_dtype
@@ -27,10 +36,12 @@ from repro_torch.params import torch_dtype
 def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> Dict[str, Any]:
     """Random weights with the JAX ``init_params`` tree, shapes and scales
     (embedding and lm_head N(0, 0.02), projections N(0, 1/d_in), zero QKV
-    biases, unit norms; MoE layers as ``moe.init_moe``, RWKV-6 layers as
-    ``rwkv6.init_rwkv6``, hybrid layers' SSM as ``ssm.init_ssm``, meta
-    tokens N(0, 0.02)), drawn from ``generator`` on its own device and
-    placed on ``device``. The stacks of ``dense_cache_supported`` only."""
+    biases, unit norms; MoE layers as ``moe.init_moe``, MLA layers as
+    ``transformer.init_mla``, RWKV-6 layers as ``rwkv6.init_rwkv6``, hybrid
+    layers' SSM as ``ssm.init_ssm``, meta tokens N(0, 0.02)), drawn from
+    ``generator`` on its own device and placed on ``device``; ``blocks`` a
+    list of one tree per position in the period (``transformer.
+    _stack_layers``). The stacks of ``dense_cache_supported`` only."""
     dtype = torch_dtype(cfg)
     params: Dict[str, Any] = {
         "embed": {"table": dense_init(generator, (cfg.padded_vocab, cfg.d_model),
@@ -79,10 +90,10 @@ def _embed_inputs(cfg, params, batch):
 
 
 def dense_cache_supported(cfg: ModelConfig) -> bool:
-    """Whether the port's dense backend serves this architecture: a
-    period-1 stack of full-attention or sliding-window GQA layers (SwiGLU or
-    MoE), of RWKV-6 layers or of hybrid layers, with the token frontend (and
-    meta tokens)."""
+    """Whether the port's dense backend serves this architecture: a stack of
+    ``transformer.dense_stack_supported`` (full-attention, sliding-window,
+    chunked-local or MLA layers with SwiGLU or MoE, RWKV-6 layers or hybrid
+    layers) with the token frontend (and meta tokens)."""
     return tfm.dense_stack_supported(cfg) and _token_frontend(cfg)
 
 
@@ -97,16 +108,18 @@ def prefills_unpadded(cfg: ModelConfig) -> bool:
     """Whether a prompt must be prefilled at its own length, not padded to
     a bucket: a recurrent state would carry the pad tokens
     (``has_recurrent_state``), and a sliding-window ring as long as the
-    window would keep pads in place of the prompt's last keys."""
-    return has_recurrent_state(cfg) or cfg.attn_type == ATTN_SWA
+    window, or a chunked-local ring as long as the chunk, would keep pads in
+    place of the prompt's last keys (the JAX engine pads: ROADMAP §3)."""
+    return has_recurrent_state(cfg) or cfg.attn_type in (ATTN_SWA, ATTN_CHUNKED_LOCAL)
 
 
 def forward(cfg, params, batch, want_cache: bool = False, logits_mode: str = "all"):
     """batch {"tokens": (B, S) int} -> (logits (B, S, V), aux) or, with
     ``want_cache``, (logits, aux, caches): the serve cache of the whole
-    sequence, meta tokens included (a tuple of one entry: {k, v} of (G, B,
-    S, KVH, hd), a sliding-window stack's K/V ring, an RWKV-6 stack's state
-    and token shifts, or a hybrid stack's K/V ring and SSM state, see
+    sequence, meta tokens included (a tuple of one entry per position in the
+    period: {k, v} of (G, B, S, KVH, hd), a sliding-window or chunked-local
+    layer's K/V ring, an MLA layer's latents, an RWKV-6 stack's state and
+    token shifts, or a hybrid stack's K/V ring and SSM state, see
     ``transformer.run_stack_seq``); aux is the sum of the MoE layers'
     load-balance losses (zero without MoE).
     The logits are those of the text positions (the meta prefix is
@@ -153,35 +166,42 @@ def decode_step(cfg, params, caches, tokens, pos):
 
 def init_cache(cfg: ModelConfig, B: int, S: int, device):
     """Zero-initialised dense serve cache for B rows of S tokens (meta
-    tokens included) on ``device``: a tuple of one {k, v} entry of (G, B,
-    Sc, KVH, hd) in the config's dtype (full attention: Sc = S; sliding
-    window: a ring of Sc = min(S, window); hybrid: that ring, plus the
-    SSM's conv (G, B, K-1, D) in the
-    config's dtype and h (G, B, D, N) float32), or for RWKV-6 {state (G, B,
-    H, hd, hd) float32, x_prev_att, x_prev_ffn (G, B, D) in the config's
-    dtype}, whatever S. The int8 cache (``kv_cache_quant``) is not ported
-    yet."""
+    tokens included) on ``device``: a tuple of one entry per position in the
+    period, each with a leading axis of G = L / p layer groups. A GQA layer's
+    {k, v} of (G, B, Sc, KVH, hd) in the config's dtype (full attention: Sc
+    = S; sliding window: a ring of Sc = min(S, window); chunked-local: a
+    ring of Sc = min(S, chunk); hybrid: the window's ring, plus the SSM's
+    conv (G, B, K-1, D) in the config's dtype and h (G, B, D, N) float32);
+    an MLA layer's {c_kv (G, B, S, kv_lora), k_rope (G, B, S, rope)}; or
+    for RWKV-6 {state (G, B, H, hd, hd) float32, x_prev_att, x_prev_ffn (G,
+    B, D) in the config's dtype}, whatever S. The int8 cache
+    (``kv_cache_quant``) is not ported yet."""
     tfm._check_dense_stack(cfg)
     if cfg.kv_cache_quant:
         raise NotImplementedError("the int8 dense cache is not ported yet")
     dtype = torch_dtype(cfg)
-    G = cfg.num_layers
+    G = cfg.num_layers // tfm.period(cfg)
+    zeros = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
     if cfg.attn_type == MIXER_RWKV6:
         hd = cfg.rwkv_head_dim
         H = cfg.d_model // hd
-        return ({"state": torch.zeros((G, B, H, hd, hd), dtype=torch.float32, device=device),
-                 "x_prev_att": torch.zeros((G, B, cfg.d_model), dtype=dtype, device=device),
-                 "x_prev_ffn": torch.zeros((G, B, cfg.d_model), dtype=dtype, device=device)},)
-    Sc = tfm.cache_len_for(cfg, S)
-    shape = (G, B, Sc, cfg.num_kv_heads, cfg.head_dim)
-    entry = {"k": torch.zeros(shape, dtype=dtype, device=device),
-             "v": torch.zeros(shape, dtype=dtype, device=device)}
-    if cfg.attn_type == MIXER_HYBRID:
-        entry["conv"] = torch.zeros((G, B, cfg.ssm_conv - 1, cfg.d_model), dtype=dtype,
-                                    device=device)
-        entry["h"] = torch.zeros((G, B, cfg.d_model, cfg.ssm_state), dtype=torch.float32,
-                                 device=device)
-    return (entry,)
+        return ({"state": zeros(G, B, H, hd, hd, dt=torch.float32),
+                 "x_prev_att": zeros(G, B, cfg.d_model),
+                 "x_prev_ffn": zeros(G, B, cfg.d_model)},)
+
+    def entry(kind):
+        Sc = tfm.cache_len_for(cfg, kind, S)
+        if kind["attn_type"] == ATTN_MLA:
+            return {"c_kv": zeros(G, B, Sc, cfg.kv_lora_rank),
+                    "k_rope": zeros(G, B, Sc, cfg.qk_rope_head_dim)}
+        e = {"k": zeros(G, B, Sc, cfg.num_kv_heads, cfg.head_dim),
+             "v": zeros(G, B, Sc, cfg.num_kv_heads, cfg.head_dim)}
+        if kind["attn_type"] == MIXER_HYBRID:
+            e["conv"] = zeros(G, B, cfg.ssm_conv - 1, cfg.d_model)
+            e["h"] = zeros(G, B, cfg.d_model, cfg.ssm_state, dt=torch.float32)
+        return e
+
+    return tuple(entry(kind) for kind in tfm._kinds(cfg))
 
 
 def prefill_chunk(cfg, params, caches, tokens, pos, positions=None,

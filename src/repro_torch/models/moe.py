@@ -65,19 +65,24 @@ def route(params, xt, cfg, capacity: int):
     (T, K, E) int64, expert_idx (T, K), gates (T, K) in xt's dtype, pos (T,
     K), keep (T, K) bool). The top K experts are taken on the float32
     logits, ties to the lower expert index as ``jax.lax.top_k`` breaks them
-    (a stable descending sort), and their gates are the softmax over the K
-    logits. ``pos`` is a route's slot in its expert's buffer, counted in
-    (token, route) order; ``keep = pos < capacity``."""
-    E, K = cfg.num_experts, cfg.num_experts_per_tok
-    T = xt.shape[0]
+    (a stable descending sort); the rest is ``assign``."""
     logits = (xt @ params["router"]).float()
+    expert_idx = torch.sort(logits, dim=-1, descending=True, stable=True)[1]
+    return assign(logits, expert_idx[:, :cfg.num_experts_per_tok], cfg, capacity, xt.dtype)
+
+
+def assign(logits, expert_idx, cfg, capacity: int, dtype):
+    """The routes to the chosen experts ``expert_idx`` (T, K) on the float32
+    router ``logits`` (T, E), as ``route`` returns them: the gates are the
+    softmax over the K chosen logits (in ``dtype``), ``pos`` is a route's
+    slot in its expert's buffer, counted in (token, route) order, and
+    ``keep = pos < capacity``."""
+    T, K = expert_idx.shape
     probs = torch.softmax(logits, dim=-1)
-    gate_vals, expert_idx = torch.sort(logits, dim=-1, descending=True, stable=True)
-    gate_vals, expert_idx = gate_vals[:, :K], expert_idx[:, :K]
-    gates = torch.softmax(gate_vals, dim=-1).to(xt.dtype)
-    onehot = F.one_hot(expert_idx, E)
-    flat = onehot.reshape(T * K, E)
-    pos = ((torch.cumsum(flat, dim=0) - flat).reshape(T, K, E) * onehot).sum(dim=-1)
+    gates = torch.softmax(logits.gather(1, expert_idx), dim=-1).to(dtype)
+    onehot = F.one_hot(expert_idx, cfg.num_experts)
+    flat = onehot.reshape(T * K, cfg.num_experts)
+    pos = ((torch.cumsum(flat, dim=0) - flat).reshape(T, K, cfg.num_experts) * onehot).sum(dim=-1)
     return probs, onehot, expert_idx, gates, pos, pos < capacity
 
 

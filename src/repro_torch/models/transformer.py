@@ -1,23 +1,29 @@
 """Layer stacks of the serving paths, ported from
 ``repro.models.transformer``: the paged stacks (ragged fused step, paged
 decode) and the dense backend's stacks (whole-prompt prefill, contiguous
-per-slot decode cache) of full-attention or sliding-window GQA layers, of
-RWKV-6 layers and of Hymba's hybrid layers (sliding-window attention and an
-SSM side by side). A GQA or hybrid layer's feed-forward is a SwiGLU MLP or
-an MoE layer (``models.moe``).
+per-slot decode cache) of full-attention, sliding-window or chunked-local
+GQA layers (llama4: three chunked layers, then a global one), of MLA layers
+(minicpm3), of RWKV-6 layers and of Hymba's hybrid layers (sliding-window
+attention and an SSM side by side). A GQA or hybrid layer's feed-forward is
+a SwiGLU MLP or an MoE layer (``models.moe``).
 
-Parameters of a period-1 stack are stacked over the L layer groups, as
-``transformer._stack_layers`` does in the JAX package: every leaf of
-``blocks[0]`` carries a leading axis of ``num_layers``. Where JAX scans the
-stack with ``lax.scan``, the port loops over the layer index ``g`` in
-Python and hands each layer the ``g``-th slice of every leaf.
+A stack of period p (``period``: 4 for llama4, 1 for every other arch) holds
+its parameters as ``transformer._stack_layers`` does in the JAX package: a
+list of p trees, one per position in the period, every leaf of which
+carries a leading axis of G = L / p layer groups; layer g * p + i is
+position i of group g. Where JAX scans the groups with ``lax.scan``, the
+port loops over g in Python and, inside, over the p positions, handing each
+layer the ``g``-th slice of its position's leaves. The dense caches are a
+tuple of p entries in the same way.
 
 The KV pools are (G, n_blocks, bs, KVH, hd) tensors, the dense caches
 (G, B, Sc, KVH, hd); an RWKV-6 stack's cache is its recurrent state (G, B,
 H, hd, hd) float32 and two token-shift vectors (G, B, D); a sliding-window
-stack's is a ring of Sc = min(S, window) K/V slots (position p at slot p %
-Sc), and a hybrid stack's that ring, the SSM's convolution tail (G, B, K-1,
-D) and its state (G, B, D, N) float32.
+layer's is a ring of Sc = min(S, window) K/V slots (position p at slot p %
+Sc), a chunked-local layer's a ring of Sc = min(S, chunk) slots laid out the
+same way, an MLA layer's the compressed latents c_kv (G, B, Sc, kv_lora)
+and the roped k_rope (G, B, Sc, rope), and a hybrid layer's the ring, the
+SSM's convolution tail (G, B, K-1, D) and its state (G, B, D, N) float32.
 Each decoding layer writes its new K/V entries (or its new state) into its
 slice ``pool[g]`` or ``cache[g]`` IN PLACE; JAX instead returns new pools
 and caches from the scan. What is the same for every layer of a step —
@@ -32,7 +38,9 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import (
+    ATTN_CHUNKED_LOCAL,
     ATTN_FULL,
+    ATTN_MLA,
     ATTN_SWA,
     MIXER_HYBRID,
     MIXER_RWKV6,
@@ -80,14 +88,23 @@ def layer_kind(cfg: ModelConfig, layer: int) -> Dict[str, Any]:
     }
 
 
-def cache_len_for(cfg: ModelConfig, S: int) -> int:
-    """K/V slots a layer of the port's stacks holds for a context of S
-    tokens: a ring of ``min(S, window)`` slots in a sliding-window or hybrid
-    stack (JAX sizes a hybrid layer's cache S, linear: ROADMAP §3), S
-    otherwise."""
-    if cfg.attn_type in (ATTN_SWA, MIXER_HYBRID):
+def cache_len_for(cfg: ModelConfig, kind: Dict[str, Any], S: int) -> int:
+    """Cache slots a layer of kind ``kind`` holds for a context of S tokens:
+    a ring of ``min(S, window)`` slots for a sliding-window or hybrid layer
+    (JAX sizes a hybrid layer's cache S, linear: ROADMAP §3), a ring of
+    ``min(S, chunk)`` for a chunked-local layer, S otherwise (full
+    attention, MLA)."""
+    at = kind["attn_type"]
+    if at in (ATTN_SWA, MIXER_HYBRID):
         return min(S, cfg.window)
+    if at == ATTN_CHUNKED_LOCAL:
+        return min(S, cfg.chunk_size)
     return S
+
+
+def _kinds(cfg: ModelConfig):
+    """The layer kind of each position in the period."""
+    return [layer_kind(cfg, i) for i in range(period(cfg))]
 
 
 def _uses_layernorm(cfg: ModelConfig) -> bool:
@@ -114,35 +131,62 @@ def apply_norm(cfg, p, x):
 # ---------------------------------------------------------------------------
 
 
+# the attention kinds a period-1 stack may have, and those a longer period
+# may mix (llama4: chunked-local layers, every p-th one global)
+_PERIOD1_KINDS = (ATTN_FULL, ATTN_SWA, ATTN_CHUNKED_LOCAL, ATTN_MLA, MIXER_HYBRID)
+_PERIOD_P_KINDS = (ATTN_FULL, ATTN_CHUNKED_LOCAL)
+
+
 def dense_stack_supported(cfg: ModelConfig) -> bool:
-    """Whether the port has this layer stack: period 1, no cross attention,
-    and either RWKV-6 layers without MoE, or full-attention, sliding-window
-    or hybrid (SWA attention beside an SSM) GQA layers with SwiGLU, whose
-    feed-forward may be MoE. MLA and chunked-local stacks are not ported
-    yet."""
-    kind = layer_kind(cfg, 0)
-    if period(cfg) != 1 or kind["cross"]:
+    """Whether the port has this layer stack: no cross attention, and either
+    a period-1 stack of RWKV-6 layers without MoE, or SwiGLU layers (whose
+    feed-forward may be MoE) of one period: full-attention, sliding-window,
+    chunked-local, MLA or hybrid (SWA attention beside an SSM) layers at
+    period 1, full-attention and chunked-local GQA layers at a longer one
+    (llama4)."""
+    p = period(cfg)
+    if cfg.is_encoder_decoder or cfg.num_layers % p:
         return False
-    if kind["attn_type"] == MIXER_RWKV6:
-        return not kind["moe"]
-    return kind["attn_type"] in (ATTN_FULL, ATTN_SWA, MIXER_HYBRID) and cfg.act == "silu"
+    kinds = [k["attn_type"] for k in _kinds(cfg)]
+    if MIXER_RWKV6 in kinds:
+        return p == 1 and not layer_kind(cfg, 0)["moe"]
+    allowed = _PERIOD1_KINDS if p == 1 else _PERIOD_P_KINDS
+    return cfg.act == "silu" and all(at in allowed for at in kinds)
 
 
 def _check_dense_stack(cfg: ModelConfig) -> None:
     if not dense_stack_supported(cfg):
         raise NotImplementedError(
-            "the port covers period-1 stacks of full-attention, sliding-window or "
-            "hybrid GQA layers with SwiGLU or MoE, or of RWKV-6 layers, only")
+            "the port covers stacks of full-attention, sliding-window, chunked-local, MLA "
+            "or hybrid layers with SwiGLU or MoE (a period > 1 of full and chunked-local "
+            "GQA layers only), or of RWKV-6 layers, only")
 
 
-def init_layer(generator, cfg: ModelConfig, dtype, device, lead=()):
-    """One layer's params (``lead`` = stacked group axis), with the init
-    scales of the JAX package. GQA: 1/sqrt(d_in) for every projection,
-    zero QKV biases, unit norm scales, and in an MoE layer ``moe`` (see
-    ``moe.init_moe``) in place of ``mlp``. RWKV-6: layer norms with bias,
-    time and channel mixing (``rwkv6.init_rwkv6``/``init_rwkv6_ffn``).
-    Hybrid: the GQA layer plus the SSM (``ssm.init_ssm``) and unit gate
-    scales of the two branches' norms."""
+def init_mla(generator, cfg: ModelConfig, dtype, device, lead=()):
+    """MLA params with the JAX tree and init scales (``attention.init_mla``):
+    the low-rank query ``wq_a`` (D, q_lora) -> ``q_norm`` -> ``wq_b`` (q_lora,
+    H (nope + rope)), the compressed K/V ``wkv_a`` (D, kv_lora + rope) ->
+    ``kv_norm`` -> ``wkv_b`` (kv_lora, H (nope + v)), and ``wo`` (H v, D),
+    each at 1/sqrt(d_in), unit norm scales."""
+    H, D = cfg.num_heads, cfg.d_model
+    nope, rope, v = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    mk = lambda d_in, d_out: dense_init(generator, (*lead, d_in, d_out), dtype, device)
+    ones = lambda n: torch.ones((*lead, n), dtype=dtype, device=device)
+    return {"wq_a": mk(D, cfg.q_lora_rank), "q_norm": ones(cfg.q_lora_rank),
+            "wq_b": mk(cfg.q_lora_rank, H * (nope + rope)),
+            "wkv_a": mk(D, cfg.kv_lora_rank + rope), "kv_norm": ones(cfg.kv_lora_rank),
+            "wkv_b": mk(cfg.kv_lora_rank, H * (nope + v)), "wo": mk(H * v, D)}
+
+
+def init_layer(generator, cfg: ModelConfig, kind, dtype, device, lead=()):
+    """One layer's params of kind ``kind`` (``lead`` = stacked group axis),
+    with the init scales of the JAX package. GQA:
+    1/sqrt(d_in) for every projection, zero QKV biases, unit norm scales,
+    and in an MoE layer ``moe`` (see ``moe.init_moe``) in place of ``mlp``.
+    MLA: ``init_mla`` in place of the GQA projections. RWKV-6: layer norms
+    with bias, time and channel mixing (``rwkv6.init_rwkv6``/
+    ``init_rwkv6_ffn``). Hybrid: the GQA layer plus the SSM
+    (``ssm.init_ssm``) and unit gate scales of the two branches' norms."""
     _check_dense_stack(cfg)
     if cfg.attn_type == MIXER_RWKV6:
         return {"norm1": init_norm(cfg, dtype, device, lead),
@@ -150,19 +194,22 @@ def init_layer(generator, cfg: ModelConfig, dtype, device, lead=()):
                 "norm2": init_norm(cfg, dtype, device, lead),
                 "rwkv_ffn": rwkv_mod.init_rwkv6_ffn(generator, cfg, dtype, device, lead)}
     D, F, q_dim, kv_dim = cfg.d_model, cfg.d_ff, cfg.q_dim, cfg.kv_dim
-    mk = lambda d_in, d_out: dense_init(generator, (*lead, d_in, d_out), dtype, device)
-    a = {"wq": mk(D, q_dim), "wk": mk(D, kv_dim), "wv": mk(D, kv_dim),
-         "wo": mk(q_dim, D)}
-    if cfg.qkv_bias:
-        for name, n in (("bq", q_dim), ("bk", kv_dim), ("bv", kv_dim)):
-            a[name] = torch.zeros((*lead, n), dtype=dtype, device=device)
+    if kind["attn_type"] == ATTN_MLA:
+        a = init_mla(generator, cfg, dtype, device, lead)
+    else:
+        mk = lambda d_in, d_out: dense_init(generator, (*lead, d_in, d_out), dtype, device)
+        a = {"wq": mk(D, q_dim), "wk": mk(D, kv_dim), "wv": mk(D, kv_dim),
+             "wo": mk(q_dim, D)}
+        if cfg.qkv_bias:
+            for name, n in (("bq", q_dim), ("bk", kv_dim), ("bv", kv_dim)):
+                a[name] = torch.zeros((*lead, n), dtype=dtype, device=device)
     p = {"norm1": init_norm(cfg, dtype, device, lead), "attn": a}
-    if cfg.attn_type == MIXER_HYBRID:
+    if kind["attn_type"] == MIXER_HYBRID:
         p["ssm"] = ssm_mod.init_ssm(generator, cfg, dtype, device, lead)
         p["gate_attn"] = torch.ones((*lead, D), dtype=dtype, device=device)
         p["gate_ssm"] = torch.ones((*lead, D), dtype=dtype, device=device)
     p["norm2"] = init_norm(cfg, dtype, device, lead)
-    if layer_kind(cfg, 0)["moe"]:
+    if kind["moe"]:
         p["moe"] = moe_mod.init_moe(generator, cfg, dtype, device, lead)
     else:
         p["mlp"] = init_mlp(generator, D, F, dtype, device, lead)
@@ -170,9 +217,11 @@ def init_layer(generator, cfg: ModelConfig, dtype, device, lead=()):
 
 
 def _stack_layers(generator, cfg: ModelConfig, dtype, device):
-    """Decoder layers stacked into period groups: a list of one tree whose
-    leaves carry a leading axis of ``num_layers``."""
-    return [init_layer(generator, cfg, dtype, device, lead=(cfg.num_layers,))]
+    """Decoder layers stacked into period groups: a list of p trees (one per
+    position in the period, of that position's kind) whose leaves carry a
+    leading axis of G = num_layers / p."""
+    G = cfg.num_layers // period(cfg)
+    return [init_layer(generator, cfg, kind, dtype, device, lead=(G,)) for kind in _kinds(cfg)]
 
 
 def layer_slice(tree, g: int):
@@ -239,7 +288,12 @@ def _hybrid_mix(cfg, lp, x, a_out, s_out):
 
 
 def _rope(cfg, positions):
-    return rope_tables(positions, cfg.head_dim, cfg.rope_theta) if cfg.use_rope else None
+    """The rope tables of ``positions``, over the head dim (an MLA stack's:
+    its rope dims), or None without rope."""
+    if not cfg.use_rope:
+        return None
+    dim = cfg.qk_rope_head_dim if cfg.attn_type == ATTN_MLA else cfg.head_dim
+    return rope_tables(positions, dim, cfg.rope_theta)
 
 
 def _write_slots(pool_slice, sc_slice, dest, new_kv):
@@ -415,20 +469,22 @@ def _ring(t, Sc):
     return torch.roll(t[:, S - Sc:], S % Sc, dims=1)
 
 
-def _kv_entry(cfg, k, v):
+def _kv_entry(cfg, attn_type, k, v):
     """A layer's K/V cache entry of a whole sequence k/v (B, S, KVH, hd):
-    the sequence (full attention) or its ring of ``cache_len_for`` slots."""
-    Sc = cache_len_for(cfg, k.shape[1])
+    the sequence (full attention) or its ring of ``cache_len_for`` slots
+    (sliding-window, hybrid and chunked-local layers)."""
+    Sc = cache_len_for(cfg, {"attn_type": attn_type}, k.shape[1])
     return {"k": _ring(k, Sc), "v": _ring(v, Sc)}
 
 
-def _attn_branch_seq(cfg, lp, x, rope):
-    """norm1 -> QKV -> rope -> causal attention over the sequence, full or
-    sliding-window (``blockwise_attention``); returns the attention output
-    and the layer's cache entry {k, v} (``_kv_entry``)."""
+def _attn_branch_seq(cfg, lp, x, rope, attn_type):
+    """norm1 -> QKV -> rope -> causal attention over the sequence, full,
+    sliding-window or chunked-local (``blockwise_attention``); returns the
+    attention output and the layer's cache entry {k, v} (``_kv_entry``)."""
     q, k, v = _attn_inputs(cfg, lp, x, rope)
-    out = attn.blockwise_attention(q, k, v, attn_type=cfg.attn_type, window=cfg.window)
-    return out, _kv_entry(cfg, k, v)
+    out = attn.blockwise_attention(q, k, v, attn_type=attn_type, window=cfg.window,
+                                   chunk=cfg.chunk_size)
+    return out, _kv_entry(cfg, attn_type, k, v)
 
 
 def _apply_rwkv_layer(cfg, lp, x, x_prev_att=None, x_prev_ffn=None, state=None,
@@ -457,46 +513,61 @@ def _apply_hybrid_layer_seq(cfg, lp, x, rope):
                                                            window=cfg.window))
     s_out, (conv_tail, h) = ssm_mod.apply_ssm(lp["ssm"], xn, cfg)
     x, aux = _ffn_residual(cfg, lp, _hybrid_mix(cfg, lp, x, a_out, s_out))
-    return x, {**_kv_entry(cfg, k, v), "conv": conv_tail, "h": h}, aux
+    return x, {**_kv_entry(cfg, MIXER_HYBRID, k, v), "conv": conv_tail, "h": h}, aux
 
 
-def apply_layer_seq(cfg, lp, x, rope):
-    """Sequence-mode layer (whole-prompt prefill): x (B, S, D) -> (x, cache
-    entry, aux): the entry {k, v} (B, S, KVH, hd) for full attention, a K/V
-    ring of min(S, window) slots for sliding-window attention, {state (B, H,
-    hd, hd), x_prev_att (B, D), x_prev_ffn (B, D)} for RWKV-6, and for a
-    hybrid layer the ring with the SSM's {conv, h}; aux the MoE layer's
-    load-balance loss (float32 zero without MoE)."""
-    if cfg.attn_type == MIXER_RWKV6:
+def apply_layer_seq(cfg, lp, x, rope, kind=None):
+    """Sequence-mode layer of kind ``kind`` (default: position 0's) in
+    whole-prompt prefill: x (B, S, D) -> (x, cache entry, aux): the entry
+    {k, v} (B, S, KVH, hd) for full attention, a K/V ring of min(S, window)
+    slots for sliding-window attention and of min(S, chunk) for
+    chunked-local attention, {c_kv (B, S, kv_lora), k_rope (B, S, rope)} for
+    MLA, {state (B, H, hd, hd), x_prev_att (B, D), x_prev_ffn (B, D)} for
+    RWKV-6, and for a hybrid layer the ring with the SSM's {conv, h}; aux
+    the MoE layer's load-balance loss (float32 zero without MoE)."""
+    at = (kind if kind is not None else layer_kind(cfg, 0))["attn_type"]
+    if at == MIXER_RWKV6:
         x, cache = _apply_rwkv_layer(cfg, lp, x)
         return x, cache, x.new_zeros((), dtype=torch.float32)
-    if cfg.attn_type == MIXER_HYBRID:
+    if at == MIXER_HYBRID:
         return _apply_hybrid_layer_seq(cfg, lp, x, rope)
-    a_out, cache = _attn_branch_seq(cfg, lp, x, rope)
+    if at == ATTN_MLA:
+        out, (c_kv, k_rope) = attn.mla_prefill(lp["attn"], apply_norm(cfg, lp["norm1"], x),
+                                               cfg, rope)
+        x, aux = _ffn_residual(cfg, lp, x + out)
+        return x, {"c_kv": c_kv, "k_rope": k_rope[:, :, 0, :]}, aux
+    a_out, cache = _attn_branch_seq(cfg, lp, x, rope, at)
     x, aux = _ffn_residual(cfg, lp, x + _out_proj(cfg, lp, x, a_out))
     return x, cache, aux
 
 
 def run_stack_seq(cfg, blocks, x, positions):
     """Run the stack over a sequence, the serving path: x (B, S, D),
-    positions (B, S). A Python loop over the layers (JAX scans them, with
-    remat and a segmented scan for training, which serving does not need).
-    Returns (x, caches, aux): caches a tuple of one entry, {k, v} of (G, B,
-    S, KVH, hd), for a sliding-window stack {k, v} of (G, B, min(S, window),
-    KVH, hd) with position p at slot p % Sc (JAX's cache rolled by S % Sc),
-    for RWKV-6 {state (G, B, H, hd, hd) float32, x_prev_att, x_prev_ffn (G,
-    B, D)}, for a hybrid stack the ring, conv (G, B, K-1, D) and h (G, B, D,
-    N) float32; aux the sum of the layers' MoE load-balance losses (float32
-    zero without MoE)."""
+    positions (B, S). A Python loop over the layer groups and, in each, the
+    period's positions (JAX scans the groups, with remat and a segmented
+    scan for training, which serving does not need). Returns (x, caches,
+    aux): caches a tuple of one entry per position in the period, each
+    stacked over the G groups: {k, v} of (G, B, S, KVH, hd) for full
+    attention, {k, v} of (G, B, Sc, KVH, hd) for a sliding-window (Sc =
+    min(S, window)) or chunked-local (Sc = min(S, chunk)) layer with
+    position p at slot p % Sc (JAX's cache rolled by S % Sc), {c_kv (G, B,
+    S, kv_lora), k_rope (G, B, S, rope)} for MLA, for RWKV-6 {state (G, B,
+    H, hd, hd) float32, x_prev_att, x_prev_ffn (G, B, D)}, for a hybrid
+    stack the ring, conv (G, B, K-1, D) and h (G, B, D, N) float32; aux the
+    sum of the layers' MoE load-balance losses (float32 zero without
+    MoE)."""
     _check_dense_stack(cfg)
+    kinds = _kinds(cfg)
     rope = _rope(cfg, positions)
-    entries = []
+    entries = [[] for _ in kinds]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for g in range(cfg.num_layers):
-        x, cache, a = apply_layer_seq(cfg, layer_slice(blocks[0], g), x, rope)
-        entries.append(cache)
-        aux = aux + a
-    caches = ({name: torch.stack([e[name] for e in entries]) for name in entries[0]},)
+    for g in range(cfg.num_layers // len(kinds)):
+        for i, kind in enumerate(kinds):
+            x, cache, a = apply_layer_seq(cfg, layer_slice(blocks[i], g), x, rope, kind)
+            entries[i].append(cache)
+            aux = aux + a
+    caches = tuple({name: torch.stack([e[name] for e in ents]) for name in ents[0]}
+                   for ents in entries)
     return x, caches, aux
 
 
@@ -520,9 +591,10 @@ def apply_layer_decode(cfg, lp, x, k_cache, v_cache, pos, *, rope, lengths):
     """Dense decode layer: write each row's new K/V at slot ``pos % Sc`` of
     the layer's cache (in place), then attend the row's valid slots. x: (B,
     1, D); k/v_cache: (B, Sc, KVH, hd); pos: (B,) int32; ``rope``: the
-    step's rope tables; ``lengths`` = min(pos + 1, Sc), which is what
-    ``cache_validity`` allows on a full-attention linear cache and on a
-    sliding-window ring of Sc <= window slots. Returns the new x."""
+    step's rope tables; ``lengths`` (``decode_lengths``): min(pos + 1, Sc),
+    which is what ``cache_validity`` allows on a full-attention linear cache
+    and on a sliding-window ring of Sc <= window slots, or pos % chunk + 1
+    on a chunked-local ring. Returns the new x."""
     xn = apply_norm(cfg, lp["norm1"], x)
     a_out = _decode_attn(cfg, lp, xn, k_cache, v_cache, pos, rope, lengths)
     return _finish_layer(cfg, lp, x, a_out)
@@ -552,28 +624,74 @@ def apply_layer_decode_rwkv(cfg, lp, x, state, x_prev_att, x_prev_ffn):
     return x
 
 
+def apply_layer_decode_mla(cfg, lp, x, c_kv, k_rope, pos, *, rope):
+    """MLA decode layer: the new token's latents (``mla_latents``) go to slot
+    ``pos`` of the layer's c_kv (B, Sc, kv_lora) and k_rope (B, Sc, rope)
+    caches (in place), then the absorbed attention over slots <= pos
+    (``mla_decode``). Returns the new x."""
+    xn = apply_norm(cfg, lp["norm1"], x)
+    c_new, k_new = attn.mla_latents(lp["attn"], xn, cfg, rope)
+    _cache_update(c_kv, c_new, pos[:, None])
+    _cache_update(k_rope, k_new[:, :, 0, :], pos[:, None])
+    out = attn.mla_decode(lp["attn"], xn, cfg, c_kv, k_rope, pos, rope)
+    return _mlp_residual(cfg, lp, x + out)
+
+
+def decode_lengths(cfg, kind, Sc: int, pos):
+    """The valid slots of each row's cache for a decode query at ``pos``
+    (B,), as the decode kernel takes them (slots [0, lengths)): pos % chunk
+    + 1 on a chunked-local ring (the query's chunk starts at slot 0 of a
+    ring of chunk slots; a shorter ring holds pos < Sc <= chunk), min(pos +
+    1, Sc) otherwise. Both are ``cache_validity``'s mask."""
+    if kind["attn_type"] == ATTN_CHUNKED_LOCAL:
+        return (pos % cfg.chunk_size + 1).to(torch.int32)
+    return torch.clamp(pos + 1, max=Sc).to(torch.int32)
+
+
+def decode_inputs(cfg, caches, pos):
+    """What every layer group of a decode step at ``pos`` (B,) shares: the
+    rope tables, and each period position's ``decode_lengths`` (None for an
+    MLA entry, whose mask ``mla_decode`` builds)."""
+    lengths = [decode_lengths(cfg, kind, entry["k"].shape[2], pos) if "k" in entry else None
+               for kind, entry in zip(_kinds(cfg), caches)]
+    return _rope(cfg, pos[:, None]), lengths
+
+
+def apply_group_decode(cfg, blocks, caches, g, x, pos, rope, lengths):
+    """Decode layer group g of a GQA, MLA or hybrid stack: its p layers in
+    turn, each against its own cache entry (updated in place); ``rope`` and
+    ``lengths`` from ``decode_inputs``. Returns the new x."""
+    for i, kind in enumerate(_kinds(cfg)):
+        lp, entry = layer_slice(blocks[i], g), caches[i]
+        at = kind["attn_type"]
+        if at == ATTN_MLA:
+            x = apply_layer_decode_mla(cfg, lp, x, entry["c_kv"][g], entry["k_rope"][g], pos,
+                                       rope=rope)
+        elif at == MIXER_HYBRID:
+            x = apply_layer_decode_hybrid(cfg, lp, x, entry["k"][g], entry["v"][g],
+                                          entry["conv"][g], entry["h"][g], pos, rope=rope,
+                                          lengths=lengths[i])
+        else:
+            x = apply_layer_decode(cfg, lp, x, entry["k"][g], entry["v"][g], pos, rope=rope,
+                                   lengths=lengths[i])
+    return x
+
+
 def run_stack_decode(cfg, blocks, x, caches, pos):
     """Run the stack in dense-decode mode: x (B, 1, D), per-row positions
-    pos (B,) int32 (each <= Sc - 1 on a full-attention cache; a ring takes
-    any; an RWKV-6 stack has no positions), caches from ``model.init_cache``
-    updated in place layer by layer. Returns (x, caches). An MoE layer's
-    capacity is that of B tokens: dropless."""
+    pos (B,) int32 (each <= Sc - 1 on a full-attention or MLA cache; a ring
+    takes any; an RWKV-6 stack has no positions), caches from
+    ``model.init_cache`` updated in place layer by layer, group by group.
+    Returns (x, caches). An MoE layer's capacity is that of B tokens:
+    dropless."""
     _check_dense_stack(cfg)
-    entry = caches[0]
     if cfg.attn_type == MIXER_RWKV6:
+        entry = caches[0]
         for g in range(cfg.num_layers):
             x = apply_layer_decode_rwkv(cfg, layer_slice(blocks[0], g), x, entry["state"][g],
                                         entry["x_prev_att"][g], entry["x_prev_ffn"][g])
         return x, caches
-    rope = _rope(cfg, pos[:, None])
-    lengths = torch.clamp(pos + 1, max=entry["k"].shape[2]).to(torch.int32)
-    for g in range(cfg.num_layers):
-        lp = layer_slice(blocks[0], g)
-        if cfg.attn_type == MIXER_HYBRID:
-            x = apply_layer_decode_hybrid(cfg, lp, x, entry["k"][g], entry["v"][g],
-                                          entry["conv"][g], entry["h"][g], pos, rope=rope,
-                                          lengths=lengths)
-        else:
-            x = apply_layer_decode(cfg, lp, x, entry["k"][g], entry["v"][g], pos, rope=rope,
-                                   lengths=lengths)
+    rope, lengths = decode_inputs(cfg, caches, pos)
+    for g in range(cfg.num_layers // period(cfg)):
+        x = apply_group_decode(cfg, blocks, caches, g, x, pos, rope, lengths)
     return x, caches

@@ -5,8 +5,8 @@ layer groups) of arrays. A caller converts its leaves to numpy and hands the
 tree here; the port's parameters keep the same nesting and key names
 (``embed.table``, ``blocks[0].attn.wq``/``bq``/…, ``mlp.w_gate``/``w_up``/
 ``w_down``, ``norm1``/``norm2.scale``, ``final_norm``, ``lm_head.w``) and the
-same per-layer-group stacking (a leading axis of ``num_layers`` for the
-period-1 stacks the paged path serves).
+same per-layer-group stacking: ``blocks`` a list of one tree per position
+in the period, each leaf with a leading axis of num_layers / period.
 """
 from __future__ import annotations
 

@@ -1132,8 +1132,9 @@ class GenerationEngine:
         ``models.prefills_unpadded`` run it at its own length: a recurrent
         state (RWKV-6, or the SSM of a hybrid stack) would carry the pad
         tokens, and a K/V ring as long as the window (a sliding-window or
-        hybrid stack) would keep the pads' keys in place of the prompt's last
-        ones (ROADMAP §3)."""
+        hybrid stack) or the chunk (a chunked-local layer) would keep the
+        pads' keys in place of the prompt's last ones (ROADMAP §3). An MoE
+        layer's capacity is then that of the prompt's own tokens."""
         Lp = len(req.prompt)
         if prefills_unpadded(self.cfg):
             eff = min(Lp, self.max_seq)
@@ -1255,19 +1256,25 @@ def _merge_emitted(into: Dict[int, List[int]], more: Dict[int, List[int]]) -> No
         into.setdefault(rid, []).extend(toks)
 
 
+# cache entries with a sequence axis at dim 2: GQA K/V, MLA's latents
+_SEQUENCE_ENTRIES = ("k", "v", "c_kv", "k_rope")
+
+
 def _merge_cache(batch_cache, one_cache, slot: int):
     """Write a B=1 prefill cache into row ``slot`` of the batch cache, in
-    place. A K/V entry (G, B, Sc, KVH, hd) has a sequence axis at dim 2: the
-    row's slots past the prefill are zeroed, as the JAX function pads them.
-    A ring (a sliding-window or hybrid layer's) keeps position p at slot p %
-    Sc in both caches: the prefill's ring is shorter than the batch's only
-    when it has not wrapped, so its slots go to the same indices. A
-    recurrent entry (RWKV-6 state and token shifts, the SSM's conv tail and
-    h) has none: the whole row is copied."""
+    place, entry by entry (one per position in the period, each with its own
+    Sc). A K/V entry (G, B, Sc, KVH, hd) or an MLA latent (G, B, Sc, n) has
+    a sequence axis at dim 2: the row's slots past the prefill are zeroed,
+    as the JAX function pads them. A ring (a sliding-window, hybrid or
+    chunked-local layer's) keeps position p at slot p % Sc in both caches:
+    the prefill's ring is shorter than the batch's only when it has not
+    wrapped, so its slots go to the same indices. A recurrent entry (RWKV-6
+    state and token shifts, the SSM's conv tail and h) has none: the whole
+    row is copied."""
     for bc_entry, oc_entry in zip(batch_cache, one_cache):
         for name, bc in bc_entry.items():
             oc = oc_entry[name]
-            if name not in ("k", "v"):
+            if name not in _SEQUENCE_ENTRIES:
                 bc[:, slot] = oc[:, 0]
                 continue
             n = oc.shape[2]

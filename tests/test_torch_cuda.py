@@ -1036,3 +1036,117 @@ def test_swa_and_moe_engines_on_the_card_match_the_cpu(gpu, arch):
     assert kf.flash_attention.launches == L * len(prompts)
     assert ka.decode_attention.launches == L * eng.steps
     assert out["cuda"] == out["cpu"]
+
+
+# ------------------------- chunked-local stacks (llama4) and MLA (minicpm3)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,chunk,H,KVH,hd", [
+    (1000, 200, 40, 8, 128),    # llama4's heads; query tiles straddle every boundary
+    (200, 64, 8, 2, 64),        # the smoke variant's chunk: tile-aligned chunks
+    (300, 33, 8, 2, 64),        # a chunk shorter than the 64-row tile
+    (130, 100, 8, 2, 128),      # one boundary, inside the second tile
+    (37, 8192, 8, 2, 128),      # S below the chunk: plain causal attention
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunked_flash_kernel_matches_plain_version(gpu, dtype, S, chunk, H, KVH, hd, causal):
+    g = torch.Generator().manual_seed(S + chunk + causal)
+    q = torch.randn((1, S, H, hd), generator=g).to(dtype).to(gpu)
+    k, v = (torch.randn((1, S, KVH, hd), generator=g).to(dtype).to(gpu) for _ in range(2))
+    before = kf.flash_attention.launches
+    got = kf.flash_attention(q, k, v, causal=causal, chunk=chunk)
+    torch.cuda.synchronize()
+    assert kf.flash_attention.launches == before + 1
+    _close(got, kf.ref_flash_attention(q, k, v, causal, chunk=chunk), slice(None),
+           DENSE_TOL[dtype])
+    if dtype == torch.bfloat16:
+        want = kf.ref_flash_attention(q.float(), k.float(), v.float(), causal, chunk=chunk)
+        _close(got, want, slice(None), BF16_OUT_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [1, 37, 64, 65, 200, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_head_dim_flash_kernel_matches_plain_version(gpu, dtype, S, causal):
+    """minicpm3's MLA prefill: 40 heads, query/key head dim 96 (nope 64 +
+    rope 32), value head dim 64, scale 1/sqrt(96)."""
+    g = torch.Generator().manual_seed(S + causal)
+    q, k = (torch.randn((1, S, 40, 96), generator=g).to(dtype).to(gpu) for _ in range(2))
+    v = torch.randn((1, S, 40, 64), generator=g).to(dtype).to(gpu)
+    before = kf.flash_attention.launches
+    got = kf.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kf.flash_attention.launches == before + 1 and tuple(got.shape) == (1, S, 40, 64)
+    _close(got, kf.ref_flash_attention(q, k, v, causal), slice(None), DENSE_TOL[dtype])
+    if dtype == torch.bfloat16:
+        want = kf.ref_flash_attention(q.float(), k.float(), v.float(), causal)
+        _close(got, want, slice(None), BF16_OUT_TOL)
+
+
+def test_flash_kernel_refuses_what_the_new_masks_do_not_take(gpu):
+    q = torch.randn((1, 16, 4, 48), device=gpu)
+    v = torch.randn((1, 16, 4, 32), device=gpu)
+    with pytest.raises(ValueError):      # MLA's smoke dims (48, 32): no instantiation
+        kf.flash_attention(q, q, v)
+    q = torch.randn((1, 16, 4, 64), device=gpu)
+    with pytest.raises(ValueError):      # a window and a chunk together
+        kf.flash_attention(q, q, q, window=4, chunk=8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sc,lengths", [
+    # an 8192-slot chunk ring: lengths pos % 8192 + 1 (a full chunk, a new
+    # chunk's first slot, the 9000- and 12500-token prompts' 808 and 4308)
+    (8192, [8192, 1, 808, 4308, 8192, 2, 100, 4097]),
+    # a global layer's 16384-slot cache: lengths pos + 1
+    (16384, [12532, 9031, 1, 16384, 5000, 129, 777, 2048]),
+])
+def test_dense_decode_kernel_on_llama4_caches(gpu, dtype, Sc, lengths):
+    """llama4-scout's decode: H 40 over KVH 8 (G = 5 in the m16 tile), hd
+    128, on a chunk ring and on a global cache."""
+    g = torch.Generator().manual_seed(Sc)
+    B = len(lengths)
+    q = torch.randn((B, 40, 128), generator=g).to(dtype).to(gpu)
+    k, v = (torch.randn((B, Sc, 8, 128), generator=g).to(dtype).to(gpu) for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=gpu)
+    before = ka.decode_attention.launches
+    got = ka.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert ka.decode_attention.launches == before + 1
+    _close(got, ka.ref_decode_attention(q, k, v, lens), slice(None), DENSE_TOL[dtype])
+    if dtype == torch.bfloat16:
+        want = ka.ref_decode_attention(q.float(), k.float(), v.float(), lens)
+        _close(got, want, slice(None), BF16_OUT_TOL)
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "minicpm3-4b"])
+def test_chunked_and_mla_engines_on_the_card_match_the_cpu(gpu, arch):
+    """The smoke variants in float32 on the dense backend (llama4: chunk 64,
+    a chunked and a global layer, top-1 MoE with a shared expert): prompts
+    short of, at and past the chunk give the CPU's greedy tokens; one flash
+    a layer and prefill; llama4 one dense decode a layer and step, MLA's
+    absorbed decode none."""
+    import numpy as np
+
+    from repro_torch.configs import card_smoke_variant
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import GenerationEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = card_smoke_variant(arch)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 40, 64, 100, 128, 150, 200)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = init_params(cfg, torch.Generator().manual_seed(0), dev)
+        eng = GenerationEngine(cfg, params=params, device=dev, max_batch=3, max_seq=256)
+        kf.reset_launch_counts()
+        ka.reset_launch_counts()
+        reqs = [eng.submit(p, max_new=12) for p in prompts]
+        eng.run_until_done()
+        assert eng.backend == "dense" and all(len(r.out_tokens) == 12 for r in reqs)
+        out[dev] = [r.out_tokens for r in reqs]
+    L = cfg.num_layers
+    assert kf.flash_attention.launches == L * len(prompts)
+    mla = arch == "minicpm3-4b"
+    assert ka.decode_attention.launches == (0 if mla else L * eng.steps)
+    assert out["cuda"] == out["cpu"]

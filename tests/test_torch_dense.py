@@ -117,8 +117,9 @@ def test_cache_validity_matches_jax(attn_type, Sc, pos):
 
 
 def test_unported_attention_raises():
-    """The SWA arms are ported (held against JAX here); chunked-local masks
-    and rings, cross attention and the int8 dense cache still raise."""
+    """The SWA and chunked-local arms are ported (held against JAX here, the
+    chunked one where JAX is right: S % chunk == 0, tests/test_torch_llama4.py
+    has the rest); cross attention and the int8 dense cache still raise."""
     rng = np.random.default_rng(8)
     q, kv = _normal(rng, (1, 8, 4, 64)), _normal(rng, (2, 1, 8, 2, 64))
     want = jax_attn.blockwise_attention(jnp.asarray(q), jnp.asarray(kv[0]), jnp.asarray(kv[1]),
@@ -129,13 +130,18 @@ def test_unported_attention_raises():
     swa = attn.cache_validity(ATTN_SWA, 24, torch.tensor([3, 30]), 8).numpy()
     np.testing.assert_array_equal(
         swa, np.asarray(jax_attn.cache_validity(ATTN_SWA, 24, jnp.asarray([3, 30]), 8)))
+    want = jax_attn.blockwise_attention(jnp.asarray(q), jnp.asarray(kv[0]), jnp.asarray(kv[1]),
+                                        attn_type=ATTN_CHUNKED_LOCAL, chunk=4)
+    got = attn.blockwise_attention(torch.from_numpy(q), torch.from_numpy(kv[0]),
+                                   torch.from_numpy(kv[1]), attn_type=ATTN_CHUNKED_LOCAL, chunk=4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    chunked = attn.cache_validity(ATTN_CHUNKED_LOCAL, 24, torch.tensor([3, 30]), 8).numpy()
+    np.testing.assert_array_equal(
+        chunked, np.asarray(jax_attn.cache_validity(ATTN_CHUNKED_LOCAL, 24, jnp.asarray([3, 30]),
+                                                    8)))
     q, kv = torch.from_numpy(q), torch.from_numpy(kv[0])
-    with pytest.raises(NotImplementedError):
-        attn.blockwise_attention(q, kv, kv, attn_type=ATTN_CHUNKED_LOCAL, window=4)
     with pytest.raises(NotImplementedError):       # cross attention: S_kv != S
         attn.blockwise_attention(q, kv[:, :4], kv[:, :4])
-    with pytest.raises(NotImplementedError):       # the chunked-local ring
-        attn.cache_validity(ATTN_CHUNKED_LOCAL, 24, torch.tensor([3, 30]), 8)
     cfg = smoke_variant(get_arch("smollm-135m")).replace(kv_cache_quant=True)
     with pytest.raises(NotImplementedError):
         init_cache(cfg, 2, 16, "cpu")

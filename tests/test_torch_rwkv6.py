@@ -359,14 +359,18 @@ def test_truncated_prompt_and_unported_archs():
     assert dense_cache_supported(tcfg)
     base = smoke_variant(get_arch("smollm-135m"))
     # SWA-only stacks and MoE on GQA stacks are ported (tests/test_torch_swa.py,
-    # tests/test_torch_moe.py); MoE on RWKV-6 is not
+    # tests/test_torch_moe.py), chunked-local stacks with global layers and MLA
+    # too (tests/test_torch_llama4.py, tests/test_torch_mla.py); MoE on RWKV-6
+    # is not
     for cfg in (base.replace(attn_type=ATTN_SWA),
-                base.replace(num_experts=4, num_experts_per_tok=2)):
+                base.replace(num_experts=4, num_experts_per_tok=2),
+                base.replace(attn_type=ATTN_CHUNKED_LOCAL, global_layer_every=2)):
         assert dense_cache_supported(cfg)
         assert init_cache(cfg, 1, 16, "cpu")[0]["k"].shape[2] == 16
-    for cfg in (base.replace(attn_type=ATTN_CHUNKED_LOCAL, global_layer_every=2),
-                base.replace(attn_type=ATTN_MLA),
-                tcfg.replace(num_experts=4, num_experts_per_tok=2),
+    mla = smoke_variant(get_arch("minicpm3-4b"))
+    assert mla.attn_type == ATTN_MLA and dense_cache_supported(mla)
+    assert init_cache(mla, 1, 16, "cpu")[0]["c_kv"].shape[2] == 16
+    for cfg in (tcfg.replace(num_experts=4, num_experts_per_tok=2),
                 base.replace(is_encoder_decoder=True, encoder_layers=2)):
         assert not dense_cache_supported(cfg)
         with pytest.raises(NotImplementedError):
