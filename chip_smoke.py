@@ -249,13 +249,47 @@ Phases, each of which raises on failure (the script then exits non-zero):
    The llama4-scout weights are freed first; rwkv6-7b's are drawn after
    minicpm3's are freed.
 
+2i. The flash kernel's cross form at whisper's heads (H 20 = KVH 20, hd
+   64, B 8): S 1, 37 and 448 queries over 1500 keys, non-causal, and the
+   encoder's causal S 1500, f32 and bf16, each against its plain version
+   and timed beside its bound and an SDPA call; then dense decode at G 1
+   over whisper's 1500-slot cross cache and at internvl2's G 7.
+4g. The internvl2 (patch embeddings) and whisper (frames) smoke models
+   through the model API, and the smollm smoke engine on the int8 dense
+   cache, in float32 on the CPU and on the GPU: identical greedy tokens,
+   logits within ``PARITY_LOGIT_TOL`` (the int8 engine's within
+   ``CODE_LOGIT_TOL``), ``quantize_kv`` bit for bit across the devices,
+   and the launches (flash: one a layer and prefill, one more a decoder
+   layer for the cross form, one an encoder layer; dense decode: one a
+   layer and step, one more a decoder layer for cross attention).
+10b. qwen2.5-3b-swa on the int8 dense cache at full width on phase 10's
+   weights and prompts: the rings' bytes (128 + 4) / 256 of the bf16
+   rings', tokens/s, greedy agreement with phase 10, a decode step's busy
+   against its bytes bound.
+14. internvl2-1b at full width and depth (24 layers, bf16 weights drawn on
+   the card): 8 rows of 256 patch embeddings N(0, 1) and phase 5's
+   prompts through ``prefill``, then 32 greedy tokens together through
+   ``decode_step`` at pos + 256; every sampled token's logits within
+   ``logit_bound(24)`` of the no-cache oracle (``forward`` with the same
+   patches), a control without the patch offset above it; the engine
+   serves the prompts text only, held to the text-only oracle. Reported:
+   tokens/s, TTFT, TPOT, a decode step's busy against its bytes bound.
+15. whisper-large-v3 at full width and depth (32 + 32 layers): 8 rows of
+   1500 frames N(0, 1) and decoder prompts of 4-200 tokens through
+   ``prefill``, then 32 greedy tokens together; every sampled token's
+   logits within ``logit_bound(64)`` of the no-cache oracle, a control
+   (each row's cross attention over the next row's cross cache) above it.
+   Reported: the same figures and the encoder's share of a prefill.
+
 It prints a ``{"int8_serve": ..., "host_tier": ..., "oracle_paths": ...,
 "controller": ..., "swa_serve": ..., "mixtral_serve": ...,
 "chunk_mla_parity_max_abs_logit_diff": ..., "llama4_serve": ...,
-"minicpm3_serve": ...}`` line of phases 5c, 5d, 5e, 7b, 10, 11, 4f, 12 and
-13's figures, a ``{"kernels": [...]}`` line, the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero without
-a GPU.
+"minicpm3_serve": ..., "zoo_parity_max_abs_logit_diff": ...,
+"swa_int8_serve": ..., "internvl2_serve": ..., "whisper_serve": ...}`` line
+of phases 5c, 5d, 5e, 7b, 10, 11, 4f, 12, 13, 4g, 10b, 14 and 15's figures,
+a ``{"kernels": [...]}`` line, the card's name and power limit, each
+phase's seconds and the total, and last ``{"ok": true, "device":
+{...}}``. Exits non-zero without a GPU.
 """
 from __future__ import annotations
 
@@ -2846,15 +2880,17 @@ def linear_ring_order():
         transformer._ring = ring
 
 
-def oracle_logits(cfg, params, prompt, tokens):
+def oracle_logits(cfg, params, prompt, tokens, extra=None):
     """The no-cache oracle's logits (float32) at the positions that sample
-    ``tokens``: one ``forward`` of the prompt and all but the last token."""
+    ``tokens``: one ``forward`` of the prompt and all but the last token,
+    with the batch's ``extra`` inputs (a row's patch embeddings or
+    frames)."""
     from repro_torch.models import forward
 
     seq = torch.as_tensor(np.concatenate([np.asarray(prompt), tokens[:-1]]),
                           dtype=torch.int32, device="cuda")
     with torch.no_grad():
-        logits, _ = forward(cfg, params, {"tokens": seq[None]})
+        logits, _ = forward(cfg, params, {**(extra or {}), "tokens": seq[None]})
     return logits[0, len(prompt) - 1:].float()
 
 
@@ -2894,7 +2930,8 @@ def decode_step_times(cfg, params, cache, pos, reps=3):
     ``reps`` (None if a piece could not be queued within a ~0.8 s spin)."""
     from repro_torch.models import decode_step
     from repro_torch.models import transformer as tfm
-    from repro_torch.models.layers import embed_tokens, unembed
+    from repro_torch.models.layers import unembed
+    from repro_torch.models.model import decode_embed
 
     B = next(iter(cache[0].values())).shape[1]
     tokens = torch.zeros((B, 1), dtype=torch.int32, device="cuda")
@@ -2902,12 +2939,12 @@ def decode_step_times(cfg, params, cache, pos, reps=3):
     state = {}
 
     def head():
-        state["rope"], state["lengths"] = tfm.decode_inputs(cfg, cache, pos_t)
-        state["x"] = embed_tokens(params["embed"], tokens)
+        state["inputs"] = tfm.decode_inputs(cfg, cache, pos_t)
+        state["x"] = decode_embed(cfg, params, tokens, pos_t)
 
     def group(g):
         state["x"] = tfm.apply_group_decode(cfg, params["blocks"], cache, g, state["x"], pos_t,
-                                            state["rope"], state["lengths"])
+                                            state["inputs"])
 
     def tail():
         x = tfm.apply_norm(cfg, params["final_norm"], state["x"])
@@ -2956,6 +2993,16 @@ def serve_figures(eng, reqs, wall):
             "prefill_tokens": st["prefill_tokens"]}
 
 
+def swa_batch(cfg, prompts):
+    """Phase 10's prompts: the ``SWA_PROMPT_LENGTHS`` drawn from seed 10,
+    then two of phase 5's below the window."""
+    from repro_torch.serving.segments import SegmentedPrompt
+
+    rng = np.random.default_rng(10)
+    short = [np.asarray(p) for p in prompts if not isinstance(p, SegmentedPrompt)][:2]
+    return [rng.integers(0, cfg.vocab_size, n) for n in SWA_PROMPT_LENGTHS] + short
+
+
 def phase_swa_serve(ka, kf, tk, params, prompts):
     """Phase 10: qwen2.5-3b-swa at full width and depth (36 layers, bf16,
     window 4096, phase 5's weights: the variant changes the mask, not the
@@ -2967,16 +3014,13 @@ def phase_swa_serve(ka, kf, tk, params, prompts):
     the whole sequence, no ring) within ``logit_bound``; the oracle with the
     window dropped must read above the bound on the 5000- and 6000-token
     prompts; the reference's linear ring order is run and reported. Returns
-    the launches of the served run and the figures."""
+    the launches of the served run, the figures and the greedy tokens."""
     from repro_torch.configs import get_arch
     from repro_torch.serving.engine import GenerationEngine
-    from repro_torch.serving.segments import SegmentedPrompt
 
     cfg = get_arch("qwen2.5-3b-swa").replace(dtype="bfloat16")
     L = cfg.num_layers
-    rng = np.random.default_rng(10)
-    short = [np.asarray(p) for p in prompts if not isinstance(p, SegmentedPrompt)][:2]
-    batch = [rng.integers(0, cfg.vocab_size, n) for n in SWA_PROMPT_LENGTHS] + short
+    batch = swa_batch(cfg, prompts)
     lens = [len(p) for p in batch]
     torch.cuda.reset_peak_memory_stats()
     eng = GenerationEngine(cfg, params=params, device="cuda", backend="dense", max_batch=8,
@@ -3052,10 +3096,11 @@ def phase_swa_serve(ka, kf, tk, params, prompts):
     figures.update(peak_gib=peak, logit_bound=bound, worst_rel=worst, rel=rel,
                    greedy_agreement=agree, window_dropped=control, linear_order=linear,
                    decode_step_wall_ms=wall_ms, decode_step_busy_ms=busy_ms)
+    tokens = [r.out_tokens for r in reqs]
     del eng, kept
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, figures
+    return launches, figures, tokens
 
 
 MIXTRAL_LAYERS = 8                           # of 56: 8 layers' bf16 weights ~41 GB of 80
@@ -3443,14 +3488,22 @@ def decode_routes_of(routes, other, n_prompt, num_layers):
 
 def kv_read_bytes(cfg, cache, pos):
     """The K/V bytes a decode step of the cache's rows at ``pos`` reads:
-    each layer's valid slots (``transformer.decode_lengths``)."""
+    each layer's valid slots (``transformer.decode_lengths``; an int8
+    cache's codes and scales), and every slot of an encoder-decoder's cross
+    keys and values."""
     from repro_torch.models import transformer as tfm
 
     total = 0
     for kind, entry in zip(tfm._kinds(cfg), cache):
         G, B, Sc = entry["k"].shape[:3]
         n = int(tfm.decode_lengths(cfg, kind, Sc, torch.tensor(pos)))
-        total += 2 * G * B * n * entry["k"][0, 0, 0].numel() * entry["k"].element_size()
+        for name in ("k", "v", "k_scale", "v_scale"):       # the int8 cache's scales too
+            if name in entry:
+                t = entry[name]
+                total += G * B * n * t[0, 0, 0].numel() * t.element_size()
+        for name in ("ck", "cv"):                           # every cross slot
+            if name in entry:
+                total += entry[name].numel() * entry[name].element_size()
     return total
 
 
@@ -3633,8 +3686,9 @@ def rope_dropped_at_decode():
     inputs = transformer.decode_inputs
 
     def unroped(cfg, caches, pos):
-        (cos, sin), lengths = inputs(cfg, caches, pos)
-        return (torch.ones_like(cos), torch.zeros_like(sin)), lengths
+        out = inputs(cfg, caches, pos)
+        cos, sin = out["rope"]
+        return {**out, "rope": (torch.ones_like(cos), torch.zeros_like(sin))}
 
     transformer.decode_inputs = unroped
     try:
@@ -3921,6 +3975,592 @@ def phase_hymba_serve(ka, kf, tk, prompts):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 2i: the flash kernel's cross form (whisper); dense decode at G 1 and 7
+# ---------------------------------------------------------------------------
+
+WHISPER_HEADS = (20, 20, 64)                 # whisper-large-v3: H = KVH (MHA), hd
+ENC_SEQ = 1500                               # whisper's encoder frames
+CROSS_S = (1, 37, 448)                       # decoder queries: a step, a prompt, the context
+INTERNVL2_HEADS = (14, 2, 64)                # internvl2-1b: G 7
+# dense decode at G 1 over whisper's cross cache (all 1500 slots valid),
+# and at internvl2's G 7 over a 2048-slot cache at lengths like phase 14's
+# (256 patches, a prompt, the decoded tokens)
+WHISPER_DECODE_CASES = {"cross_1500": [ENC_SEQ] * B}
+INTERNVL2_SC = 2048
+INTERNVL2_DECODE_CASES = {"patch_prefix": [2048, 1300, 257, 300, 1, 777, 290, 1100]}
+
+
+def phase_cross_kernels(ka, kf):
+    """Phase 2i: flash at whisper's heads (H 20 = KVH 20, hd 64, B 8): the
+    cross form, S 1, 37 and 448 queries over 1500 keys, non-causal, and the
+    encoder's causal S 1500, in f32 and bf16, each against its plain
+    version and timed beside its bound and an SDPA call on the same
+    tensors; then dense decode at G 1 over whisper's 1500-slot cross cache
+    and at internvl2's G 7 (``phase_swa_decode_kernel``). Returns (cross
+    rows, encoder rows, decode rows)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    Hq, Hkv, hd = WHISPER_HEADS
+    draw = lambda S, n, dt: torch.randn((B, S, n, hd), generator=gen, device="cuda").to(dt)
+    cross_rows, enc_rows = {}, {}
+    for S in CROSS_S:
+        for dtype_name in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype_name)
+            q, k, v = draw(S, Hq, dt), draw(ENC_SEQ, Hkv, dt), draw(ENC_SEQ, Hkv, dt)
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt)
+            name = (f"flash_attention[{dtype_name}, cross, B={B}, H={Hq}, KVH={Hkv}, hd={hd}, "
+                    f"S={S}, S_kv={ENC_SEQ}]")
+            cross_rows[(dtype_name, S)] = flash_case(
+                kf, name, dtype_name, q, k, v, True, lib, flash_work(q, k, v, B * S * ENC_SEQ),
+                5, causal=False)
+            del q, k, v, qt, kt, vt, lib
+    for dtype_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype_name)
+        q, k, v = draw(ENC_SEQ, Hq, dt), draw(ENC_SEQ, Hkv, dt), draw(ENC_SEQ, Hkv, dt)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        name = (f"flash_attention[{dtype_name}, encoder, B={B}, H={Hq}, hd={hd}, S={ENC_SEQ}, "
+                f"causal]")
+        enc_rows[dtype_name] = flash_case(
+            kf, name, dtype_name, q, k, v, True, lib,
+            flash_work(q, k, v, B * ENC_SEQ * (ENC_SEQ + 1) // 2), 5)
+        del q, k, v, qt, kt, vt, lib
+    torch.cuda.empty_cache()
+    decode_rows = phase_swa_decode_kernel(ka, WHISPER_HEADS, ENC_SEQ, WHISPER_DECODE_CASES,
+                                          seed=47)
+    decode_rows.update(phase_swa_decode_kernel(ka, INTERNVL2_HEADS, INTERNVL2_SC,
+                                               INTERNVL2_DECODE_CASES, seed=53))
+    return cross_rows, enc_rows, decode_rows
+
+
+# ---------------------------------------------------------------------------
+# the model API over rows of patch embeddings or frames (phases 4g, 14, 15)
+# ---------------------------------------------------------------------------
+
+
+def prefill_rows(cfg, params, rows, Sc):
+    """Each row's batch (B = 1: tokens, with patch embeddings or frames)
+    through ``prefill``, its cache written into row b of a fresh
+    ``init_cache`` of Sc slots as the engine writes a prefill
+    (``_merge_cache``: the self-attention entries at their first slots, the
+    cross entries whole). Returns (the prefills' logits (B, V)
+    float32, the cache, each prefill's seconds, host clock around it and a
+    synchronize)."""
+    from repro_torch.models import init_cache, prefill
+    from repro_torch.serving.engine import _merge_cache
+
+    cache = init_cache(cfg, len(rows), Sc, rows[0]["tokens"].device)
+    first, secs = [], []
+    with torch.no_grad():
+        for b, batch in enumerate(rows):
+            if rows[0]["tokens"].is_cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last, pc = prefill(cfg, params, batch)
+            _merge_cache(cache, pc, b)
+            if rows[0]["tokens"].is_cuda:
+                torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            first.append(last[0].float())
+            del pc
+    return torch.stack(first), cache, secs
+
+
+def decode_rows(cfg, params, cache, first, pos0, n_new, forced=None):
+    """n_new - 1 batched ``decode_step`` calls after the prefills' logits
+    ``first`` (B, V): step i feeds row b's token i at absolute position
+    pos0[b] + i and yields the logits of token i + 1. Tokens are greedy, or
+    ``forced`` (B, n_new) (teacher-forced). Returns (tokens (B, n_new) on
+    the host, logits (B, n_new, V) float32, each step's seconds)."""
+    from repro_torch.models import decode_step
+
+    dev = first.device
+    pick = (lambda i, lg: lg.argmax(-1)) if forced is None else \
+        (lambda i, lg: forced[:, i].to(dev))
+    toks, logits, secs = [pick(0, first)], [first], []
+    pos0 = torch.as_tensor(pos0, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        for i in range(n_new - 1):
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step, _ = decode_step(cfg, params, cache, toks[-1][:, None].to(torch.int32),
+                                  pos0 + i)
+            toks.append(pick(i + 1, step))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            logits.append(step.float())
+    return torch.stack(toks, 1).cpu(), torch.stack(logits, 1), secs
+
+
+# ---------------------------------------------------------------------------
+# phase 4g: internvl2, whisper and the int8 dense cache, CPU against card
+# ---------------------------------------------------------------------------
+
+ZOO_NEW = 12
+# the int8 cache's logits: the float K/V differ by summation order between
+# the CPU and the card, so a code may land one apart (one code of a V entry
+# moves the smoke model's logits by ~4e-4; tests/test_torch_int8_dense.py)
+CODE_LOGIT_TOL = (1e-3, 1e-3)
+
+
+def phase_zoo_parity(ka, kf):
+    """Phase 4g: the internvl2 (16 patch embeddings a row) and whisper (64
+    frames a row) smoke models through the model API (``prefill`` of four
+    37-token rows, then ``decode_step`` at absolute positions, greedy, 12
+    tokens), and the smollm smoke engine on the int8 dense cache
+    (``backend="dense"``, ``kv_cache_quant``), in float32 on the CPU (plain
+    versions) and on the card (kernels): identical greedy tokens, every
+    sampled token's logits within ``PARITY_LOGIT_TOL`` (the int8 engine's
+    within ``CODE_LOGIT_TOL``), its caches' codes within one and scales
+    within 1e-5; ``quantize_kv`` on the card equal to the CPU's bit for
+    bit; one flash a layer and prefill, plus one a decoder layer for the
+    cross form and one an encoder layer; one dense decode a layer and step,
+    plus one a decoder layer for cross attention. Returns {case: max |d| of
+    the logits}."""
+    from repro_torch.configs import get_arch, smoke_variant
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import quantize_kv
+    from repro_torch.serving.engine import GenerationEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
+    torch.backends.cudnn.allow_tf32 = False
+    worst = {}
+    for arch in ("internvl2-1b", "whisper-large-v3"):
+        cfg = smoke_variant(get_arch(arch))
+        rng = np.random.default_rng(7)
+        n_rows, Lp, P = 4, 37, cfg.num_patch_tokens
+        batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (n_rows, Lp))
+                                            .astype(np.int32))}
+        extra = "patch_embeds" if P else "frames"
+        n_extra = P if P else cfg.encoder_seq
+        batch[extra] = torch.from_numpy(rng.standard_normal((n_rows, n_extra, cfg.d_model))
+                                        .astype(np.float32))
+        out = {}
+        for dev in ("cpu", "cuda"):
+            params = init_params(cfg, torch.Generator().manual_seed(0), dev)
+            rows = [{k: t[b:b + 1].to(dev) for k, t in batch.items()} for b in range(n_rows)]
+            ka.reset_launch_counts()
+            kf.reset_launch_counts()
+            first, cache, _ = prefill_rows(cfg, params, rows, P + Lp + ZOO_NEW)
+            toks, logits, _ = decode_rows(cfg, params, cache, first, [P + Lp] * n_rows, ZOO_NEW)
+            out[dev] = (toks, logits.cpu())
+        L, cross = cfg.num_layers, 2 if cfg.is_encoder_decoder else 1
+        launches = (kf.flash_attention.launches, ka.decode_attention.launches)
+        want = ((cross * L + cfg.encoder_layers) * n_rows, cross * L * (ZOO_NEW - 1))
+        assert launches == want, (arch, launches, want)
+        if not torch.equal(out["cpu"][0], out["cuda"][0]):
+            raise AssertionError(f"{arch} smoke model: CPU and GPU greedy tokens differ:\n"
+                                 f"{out['cpu'][0]}\n{out['cuda'][0]}")
+        atol, rtol = PARITY_LOGIT_TOL
+        torch.testing.assert_close(out["cuda"][1], out["cpu"][1], atol=atol, rtol=rtol)
+        worst[arch] = float((out["cuda"][1] - out["cpu"][1]).abs().max())
+        print(f"[parity] {cfg.name} model API f32 ({n_rows} rows of {Lp} tokens behind "
+              f"{n_extra} {extra}, {ZOO_NEW} greedy tokens): identical tokens on cpu (plain) and "
+              f"cuda (kernels), logits within max |d| {worst[arch]:.3e} (atol, rtol "
+              f"{PARITY_LOGIT_TOL}); flash/decode launches {launches}", flush=True)
+    # the int8 dense cache: the quantizer bit for bit on the same K/V
+    x = torch.randn((8, 300, 2, 64), generator=torch.Generator().manual_seed(9)) * 5.0
+    x[0, :5] = 0.0
+    qc, sc = quantize_kv(x)
+    qg, sg = quantize_kv(x.cuda())
+    assert torch.equal(qg.cpu(), qc) and torch.equal(sg.cpu(), sc)
+    cfg = smoke_variant(get_arch("smollm-135m")).replace(kv_cache_quant=True)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 40, 64, 100, 128, 150, 200)]
+    out, logits, caches = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        params = init_params(cfg, torch.Generator().manual_seed(0), dev)
+        eng = GenerationEngine(cfg, params=params, device=dev, backend="dense", max_batch=4,
+                               max_seq=256)
+        assert eng.cache[0]["k"].dtype == torch.int8
+        ka.reset_launch_counts()
+        kf.reset_launch_counts()
+        with keep_step_logits(eng) as kept:
+            reqs = [eng.submit(p, max_new=ZOO_NEW) for p in prompts]
+            eng.run_until_done()
+        assert all(len(r.out_tokens) == ZOO_NEW for r in reqs)
+        out[dev] = [r.out_tokens for r in reqs]
+        logits[dev] = [torch.stack(kept[r.req_id]).cpu() for r in reqs]
+        caches[dev] = {n: t.cpu() for n, t in eng.cache[0].items()}
+    launches = (kf.flash_attention.launches, ka.decode_attention.launches)
+    L = cfg.num_layers
+    assert launches == (L * len(prompts), L * eng.steps), launches
+    if out["cpu"] != out["cuda"]:
+        raise AssertionError(f"int8 dense smoke engine: CPU and GPU greedy tokens differ:\n"
+                             f"{out['cpu']}\n{out['cuda']}")
+    atol, rtol = CODE_LOGIT_TOL
+    for a, b in zip(logits["cuda"], logits["cpu"]):
+        torch.testing.assert_close(a, b, atol=atol, rtol=rtol)
+    codes = max(int((caches["cuda"][n].int() - caches["cpu"][n].int()).abs().max())
+                for n in ("k", "v"))
+    assert codes <= 1, codes
+    for n in ("k_scale", "v_scale"):
+        torch.testing.assert_close(caches["cuda"][n], caches["cpu"][n], rtol=1e-5, atol=0)
+    worst["int8_dense_engine"] = max(float((a - b).abs().max())
+                                     for a, b in zip(logits["cuda"], logits["cpu"]))
+    print(f"[parity] {cfg.name} int8 dense cache f32: quantize_kv bit for bit on the card and "
+          f"the CPU; engine of {len(prompts)} requests: identical greedy tokens, logits within "
+          f"max |d| {worst['int8_dense_engine']:.3e} (atol, rtol {CODE_LOGIT_TOL}), codes within "
+          f"{codes}, scales within 1e-5 relative; flash/decode launches {launches}", flush=True)
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 10b: qwen2.5-3b-swa on the int8 dense cache
+# ---------------------------------------------------------------------------
+
+
+def weight_bytes_read(cfg, params, leaves):
+    """Bytes of the weights a decode step reads: every leaf but the
+    embedding table (only B rows of it are looked up) unless the embeddings
+    are tied (the unembedding then reads it whole), and no encoder weight."""
+    total = sum(x.numel() * x.element_size() for x in leaves)
+    skip = [] if cfg.tie_embeddings else [params["embed"]["table"]]
+    if cfg.is_encoder_decoder:
+        skip += list(_tensors([params["enc_blocks"], params["enc_final_norm"],
+                               params["frame_proj"]]))
+    return total - sum(x.numel() * x.element_size() for x in skip)
+
+
+def phase_swa_int8_serve(ka, kf, tk, params, prompts, bf16_tokens, bf16_figures):
+    """Phase 10b: qwen2.5-3b-swa with ``kv_cache_quant`` at full width and
+    depth on phase 10's weights and prompts (rings of 4096 slots), dense
+    backend: the ring's bytes (int8 codes and float32 scales) are (128 + 4)
+    / 256 of the bf16 ring's; reported: tokens/s, greedy agreement with
+    phase 10's bf16 run, and a decode step's busy against its bytes bound
+    (the whole ring is dequantized every step, as in JAX, so the step is
+    expected to cost more than the bf16 ring's). Returns the launches and
+    the figures."""
+    from repro_torch.configs import get_arch
+    from repro_torch.serving.engine import GenerationEngine
+
+    cfg = get_arch("qwen2.5-3b-swa").replace(dtype="bfloat16", kv_cache_quant=True)
+    L = cfg.num_layers
+    batch = swa_batch(cfg, prompts)
+    eng = GenerationEngine(cfg, params=params, device="cuda", backend="dense", max_batch=8,
+                           max_seq=8192)
+    entry = eng.cache[0]
+    assert entry["k"].dtype == torch.int8 and entry["k"].shape[2] == WIN
+    int8_bytes = sum(t.numel() * t.element_size() for t in entry.values())
+    bf16_bytes = 2 * entry["k"].numel() * 2
+    ratio = int8_bytes / bf16_bytes
+    assert ratio == (cfg.head_dim + 4) / (2 * cfg.head_dim) == 0.515625, ratio
+    reset_launches(ka, kf, tk)
+    reqs, kept, wall = serve_long(eng, batch)
+    launches = read_launches(ka, kf, tk)
+    st = eng.stats()
+    figures = serve_figures(eng, reqs, wall)
+    want = {n: 0 for n in launches}
+    want["flash_attention"] = L * len(reqs)
+    want["decode_attention"] = L * st["steps"]
+    assert launches == want, (launches, want, st)
+    assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens)
+    assert all(bool(torch.isfinite(x).all()) for v in kept.values() for x in v)
+    del kept
+    agree = {len(p): agreement([r.out_tokens], [t])
+             for p, r, t in zip(batch, reqs, bf16_tokens)}
+    step_pos = 6000
+    wall_ms, busy_ms = decode_step_times(cfg, params, eng.cache, step_pos)
+    kv_bytes = kv_read_bytes(cfg, eng.cache, step_pos)
+    step_bytes = weight_bytes_read(cfg, params, list(_tensors(params))) + kv_bytes
+    bound_ms = step_bytes / HBM_BYTES_S * 1e3
+    print(f"[swa int8 serve] {cfg.name} {cfg.dtype} on the int8 dense cache ({WIN}-slot rings: "
+          f"{int8_bytes / 1e9:.3f} GB of codes and scales, {ratio:.6f} of the bf16 rings' "
+          f"{bf16_bytes / 1e9:.3f} GB): {len(reqs)} requests, {st['tokens_out']} tokens out in "
+          f"{wall:.3f}s = {figures['tokens_per_s']:.1f} tok/s (bf16 rings, phase 10: "
+          f"{bf16_figures['tokens_per_s']:.1f}); mean TTFT {figures['ttft_mean_ms']:.1f}ms, "
+          f"p95 TPOT {figures['tpot_p95_ms']:.2f}ms; greedy agreement with phase 10's bf16 "
+          f"run per prompt {agree}; launches {launches}", flush=True)
+    print(f"[swa int8 serve] decode step (8 rows, position {step_pos}): wall {wall_ms:.2f} ms "
+          f"(mean of 3); device busy {fmt_ms(busy_ms)} ms (bf16 rings, phase 10: "
+          f"{fmt_ms(bf16_figures['decode_step_busy_ms'])} ms); bound {bound_ms:.2f} ms "
+          f"({step_bytes / 1e9:.3f} GB: the weights but the embedding table, and the codes and "
+          f"scales of the valid slots, {kv_bytes / 1e9:.3f} GB, at 3.35 TB/s)", flush=True)
+    figures.update(cache_bytes=int8_bytes, bf16_cache_bytes=bf16_bytes, cache_ratio=ratio,
+                   greedy_agreement_with_bf16=agree, decode_step_wall_ms=wall_ms,
+                   decode_step_busy_ms=busy_ms, decode_step_bound_ms=bound_ms,
+                   bf16_decode_step_busy_ms=bf16_figures["decode_step_busy_ms"])
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, figures
+
+
+# ---------------------------------------------------------------------------
+# phases 14 and 15: internvl2-1b and whisper-large-v3 at full width and depth
+# ---------------------------------------------------------------------------
+
+API_NEW = 32
+API_ROWS = 8
+WHISPER_PROMPT_LENGTHS = (4, 17, 37, 64, 100, 129, 150, 200)   # within the 448-token context
+
+
+def draw_weights(tag, cfg):
+    """``init_params`` on the card from seed 0; prints what was drawn.
+    Returns (params, leaves)."""
+    from repro_torch.models import init_params
+
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    leaves = list(_tensors(params))
+    nbytes = sum(x.numel() * x.element_size() for x in leaves)
+    print(f"[{tag}] {cfg.name} {cfg.dtype}, {cfg.num_layers} layers"
+          f"{f' (+{cfg.encoder_layers} encoder layers)' if cfg.encoder_layers else ''}: "
+          f"{sum(x.numel() for x in leaves) / 1e9:.3f}B parameters ({nbytes / 1e9:.2f} GB) drawn "
+          f"on the card in {time.perf_counter() - t0:.1f}s", flush=True)
+    return params, leaves
+
+
+def api_figures(ttft_s, step_s, wall, n_tokens):
+    """tokens/s of the rows' whole run; TTFT as if the rows were prefilled
+    one after another (each row's is the sum of the prefills up to its
+    own); TPOT the mean and p95 of a batched decode step."""
+    ttft = np.cumsum(ttft_s)
+    return {"tokens_per_s": n_tokens / wall, "wall_s": wall,
+            "prefill_ms_mean": 1e3 * float(np.mean(ttft_s)),
+            "ttft_mean_ms": 1e3 * float(np.mean(ttft)),
+            "tpot_mean_ms": 1e3 * float(np.mean(step_s)),
+            "tpot_p95_ms": 1e3 * float(np.percentile(step_s, 95))}
+
+
+def held_to_oracle(tag, cfg, params, rows, tokens, logits, bound):
+    """Every sampled token's logits (max |d| / max |logit| over the real
+    vocabulary) against the no-cache oracle's; returns (worst per row, the
+    oracle logits per row, greedy agreement with the oracle per row)."""
+    worst, want, agree = [], [], []
+    for b, batch in enumerate(rows):
+        extra = {k: t for k, t in batch.items() if k != "tokens"}
+        w = oracle_logits(cfg, params, batch["tokens"][0].cpu().numpy(), tokens[b].numpy(),
+                          extra)
+        worst.append(max(rel_diffs(logits[b], w, cfg.vocab_size)))
+        agree.append(float(np.mean([int(x.argmax()) == t for x, t in zip(w, tokens[b].tolist())])))
+        want.append(w)
+    print(f"[{tag}] every sampled token's logits against the no-cache oracle's (forward of the "
+          f"row's prompt and tokens so far), max |d| / max |logit|, worst per row "
+          f"{[round(x, 5) for x in worst]} (bound {bound:.4f}); greedy agreement with the oracle "
+          f"per row {agree}", flush=True)
+    assert max(worst) <= bound, (worst, bound)
+    return worst, want, agree
+
+
+def control_worst(cfg, logits, want):
+    return [max(rel_diffs(logits[b], want[b], cfg.vocab_size)) for b in range(len(want))]
+
+
+def phase_internvl2_serve(ka, kf, tk, prompts):
+    """Phase 14: internvl2-1b at full width and depth (24 layers, bf16
+    weights drawn on the card). Each of 8 rows carries 256 patch embeddings
+    drawn N(0, 1) from a seeded generator and one of phase 5's prompts
+    (flattened, tokens modulo the vocab), prefilled through ``prefill``; the
+    rows then decode together through ``decode_step`` at pos + 256, 32
+    greedy tokens each. Every sampled token's logits within
+    ``logit_bound(24)`` of the no-cache oracle (``forward`` with the same
+    patches); the control (decode positions without the patch offset)
+    above it. The engine serves the same prompts text only on the dense
+    backend, held to the text-only oracle. Reported: tokens/s, TTFT, TPOT,
+    a decode step's busy against its bytes bound. Returns the launches and
+    the figures."""
+    from repro_torch.configs import get_arch
+    from repro_torch.serving.engine import GenerationEngine
+    from repro_torch.serving.segments import SegmentedPrompt
+
+    cfg = get_arch("internvl2-1b").replace(dtype="bfloat16")
+    L, P = cfg.num_layers, cfg.num_patch_tokens
+    params, leaves = draw_weights("internvl2 serve", cfg)
+    flat = [np.asarray(p.tokens if isinstance(p, SegmentedPrompt) else p) % cfg.vocab_size
+            for p in prompts][:API_ROWS]
+    lens = [len(p) for p in flat]
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    patches = torch.randn((API_ROWS, P, cfg.d_model), generator=gen, device="cuda")
+    rows = [{"tokens": torch.as_tensor(p, dtype=torch.int32, device="cuda")[None],
+             "patch_embeds": patches[b:b + 1]} for b, p in enumerate(flat)]
+    Sc = P + max(lens) + API_NEW
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(ka, kf, tk)
+    t0 = time.perf_counter()
+    first, cache, ttft_s = prefill_rows(cfg, params, rows, Sc)
+    tokens, logits, step_s = decode_rows(cfg, params, cache, first, [P + n for n in lens],
+                                         API_NEW)
+    wall = time.perf_counter() - t0
+    launches = read_launches(ka, kf, tk)
+    want = {n: 0 for n in launches}
+    want["flash_attention"] = L * API_ROWS
+    want["decode_attention"] = L * (API_NEW - 1)
+    assert launches == want, (launches, want)
+    assert int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab_size
+    assert bool(torch.isfinite(logits[..., :cfg.vocab_size]).all())
+    figures = api_figures(ttft_s, step_s, wall, API_ROWS * API_NEW)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[internvl2 serve] model API: {API_ROWS} rows of {P} patch embeddings and prompts "
+          f"{lens}, {API_NEW} greedy tokens each in {wall:.3f}s = {figures['tokens_per_s']:.1f} "
+          f"tok/s; mean prefill {figures['prefill_ms_mean']:.1f}ms, mean TTFT (rows prefilled "
+          f"in turn) {figures['ttft_mean_ms']:.1f}ms, TPOT mean {figures['tpot_mean_ms']:.2f}ms "
+          f"p95 {figures['tpot_p95_ms']:.2f}ms; peak memory {peak:.2f} GiB; launches {launches} "
+          f"(flash {L} x {API_ROWS} prefills, decode {L} x {API_NEW - 1} steps)", flush=True)
+    bound = logit_bound(L)
+    worst, want_logits, agree = held_to_oracle("internvl2 serve", cfg, params, rows, tokens,
+                                               logits, bound)
+    # control: the same tokens decoded at their text positions, without the
+    # patch offset (the class of the reference's meta-token fault, ROADMAP §3)
+    _, cache_c, _ = prefill_rows(cfg, params, rows, Sc)
+    _, logits_c, _ = decode_rows(cfg, params, cache_c, first, lens, API_NEW, forced=tokens)
+    control = control_worst(cfg, logits_c, want_logits)
+    del cache_c, logits_c
+    print(f"[internvl2 serve] control, decode without the patch offset: worst per row "
+          f"{[round(x, 5) for x in control]} against the bound {bound:.4f} "
+          f"({sum(x > bound for x in control)} of {API_ROWS} rows above)", flush=True)
+    assert max(control) > bound, (control, bound)
+    step_pos = Sc - 1
+    wall_ms, busy_ms = decode_step_times(cfg, params, cache, step_pos)
+    kv_bytes = kv_read_bytes(cfg, cache, step_pos)
+    step_bytes = weight_bytes_read(cfg, params, leaves) + kv_bytes
+    bound_ms = step_bytes / HBM_BYTES_S * 1e3
+    print(f"[internvl2 serve] decode step (8 rows, position {step_pos}): wall {wall_ms:.2f} ms "
+          f"(mean of 3); device busy {fmt_ms(busy_ms)} ms (CUDA events, {L + 2} pieces behind "
+          f"spins, summed; mean of 3); bound {bound_ms:.3f} ms ({step_bytes / 1e9:.3f} GB: the "
+          f"weights with the tied table the unembedding reads, and the K/V of the valid slots, "
+          f"{kv_bytes / 1e9:.3f} GB, at 3.35 TB/s)", flush=True)
+    del cache, logits, want_logits
+    # the engine: the same prompts text only, padded to their buckets
+    eng = GenerationEngine(cfg, params=params, device="cuda", max_batch=8, max_seq=2048)
+    assert eng.backend == "dense"
+    reset_launches(ka, kf, tk)
+    reqs, kept, ewall = serve_long(eng, flat)
+    elaunches = read_launches(ka, kf, tk)
+    st = eng.stats()
+    efigures = serve_figures(eng, reqs, ewall)
+    ewant = {n: 0 for n in elaunches}
+    ewant["flash_attention"] = L * len(reqs)
+    ewant["decode_attention"] = L * st["steps"]
+    assert elaunches == ewant, (elaunches, ewant)
+    text_rel = [max(rel_diffs(kept[r.req_id], oracle_logits(cfg, params, r.prompt, r.out_tokens),
+                              cfg.vocab_size)) for r in reqs]
+    print(f"[internvl2 serve] engine, text only (dense backend, prompts padded to their "
+          f"buckets): {len(reqs)} requests, {st['tokens_out']} tokens out in {ewall:.3f}s = "
+          f"{efigures['tokens_per_s']:.1f} tok/s; mean TTFT {efigures['ttft_mean_ms']:.1f}ms, "
+          f"p95 TPOT {efigures['tpot_p95_ms']:.2f}ms; against the text-only oracle, worst per "
+          f"request {[round(x, 5) for x in text_rel]} (bound {bound:.4f}); launches {elaunches}",
+          flush=True)
+    assert max(text_rel) <= bound, (text_rel, bound)
+    figures.update(prompt_lengths=lens, peak_gib=peak, logit_bound=bound, worst_rel=worst,
+                   greedy_agreement=agree, no_patch_offset=control,
+                   decode_step_wall_ms=wall_ms, decode_step_busy_ms=busy_ms,
+                   decode_step_bound_ms=bound_ms, engine_text_only=efigures,
+                   engine_text_only_worst_rel=text_rel)
+    del eng, kept, params, leaves, patches, rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"model_api": launches, "engine": elaunches}, figures
+
+
+def phase_whisper_serve(ka, kf, tk):
+    """Phase 15: whisper-large-v3 at full width and depth (32 decoder and
+    32 encoder layers, bf16 weights drawn on the card). Each of 8 rows
+    carries 1500 frames drawn N(0, 1) and a decoder prompt of 4 to 200
+    tokens, prefilled through ``prefill`` (the encoder, then the decoder
+    with its cross keys and values), then decoding 32 greedy tokens
+    together through ``decode_step``. Every sampled token's logits within
+    ``logit_bound(2 * 32)`` of the no-cache oracle (``forward`` with the
+    same frames): each decoder layer's self and cross attention run other
+    kernels in the two paths (flash against dense decode), and the encoder
+    runs the same kernels on the same frames in both (asserted: two runs of
+    ``_encode`` agree bit for bit), so it adds nothing. The control (each
+    row's cross attention reading the next row's ``ck``/``cv``) above it.
+    Reported: tokens/s, TTFT, TPOT, the encoder's share of a prefill, a
+    decode step's busy against its bytes bound. Returns the launches and
+    the figures."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import _encode
+
+    cfg = get_arch("whisper-large-v3").replace(dtype="bfloat16")
+    L, Le = cfg.num_layers, cfg.encoder_layers
+    params, leaves = draw_weights("whisper serve", cfg)
+    rng = np.random.default_rng(15)
+    lens = list(WHISPER_PROMPT_LENGTHS)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    frames = torch.randn((API_ROWS, cfg.encoder_seq, cfg.d_model), generator=gen, device="cuda")
+    rows = [{"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, n), dtype=torch.int32,
+                                       device="cuda")[None],
+             "frames": frames[b:b + 1]} for b, n in enumerate(lens)]
+    Sc = max(lens) + API_NEW
+    assert Sc <= 448                                      # whisper's text context
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(ka, kf, tk)
+    t0 = time.perf_counter()
+    first, cache, ttft_s = prefill_rows(cfg, params, rows, Sc)
+    prefilled = tuple({name: t.clone() for name, t in entry.items()}   # for the control
+                      for entry in cache)
+    tokens, logits, step_s = decode_rows(cfg, params, cache, first, lens, API_NEW)
+    wall = time.perf_counter() - t0
+    launches = read_launches(ka, kf, tk)
+    want = {n: 0 for n in launches}
+    want["flash_attention"] = (2 * L + Le) * API_ROWS
+    want["decode_attention"] = 2 * L * (API_NEW - 1)
+    assert launches == want, (launches, want)
+    assert int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab_size
+    assert bool(torch.isfinite(logits[..., :cfg.vocab_size]).all())
+    figures = api_figures(ttft_s, step_s, wall, API_ROWS * API_NEW)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with torch.no_grad():
+        enc_s = []
+        for b in range(API_ROWS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            enc = _encode(cfg, params, frames[b:b + 1])
+            torch.cuda.synchronize()
+            enc_s.append(time.perf_counter() - t1)
+        assert torch.equal(enc, _encode(cfg, params, frames[-1:]))    # deterministic
+        del enc
+    share = float(np.mean(enc_s) / np.mean(ttft_s))
+    print(f"[whisper serve] model API: {API_ROWS} rows of {cfg.encoder_seq} frames and prompts "
+          f"{lens}, {API_NEW} greedy tokens each in {wall:.3f}s = {figures['tokens_per_s']:.1f} "
+          f"tok/s; mean prefill {figures['prefill_ms_mean']:.1f}ms (the encoder "
+          f"{1e3 * np.mean(enc_s):.1f}ms of it, share {share:.3f}), mean TTFT (rows prefilled "
+          f"in turn) {figures['ttft_mean_ms']:.1f}ms, TPOT mean {figures['tpot_mean_ms']:.2f}ms "
+          f"p95 {figures['tpot_p95_ms']:.2f}ms; peak memory {peak:.2f} GiB; launches {launches} "
+          f"(flash (2 x {L} + {Le}) x {API_ROWS} prefills, decode 2 x {L} x {API_NEW - 1} steps)",
+          flush=True)
+    bound = logit_bound(2 * L)
+    worst, want_logits, agree = held_to_oracle("whisper serve", cfg, params, rows, tokens, logits,
+                                               bound)
+    # control: each row's cross attention reads the next row's ck/cv
+    for entry in prefilled:
+        for name in ("ck", "cv"):
+            entry[name] = entry[name].roll(1, dims=1).contiguous()
+    _, logits_c, _ = decode_rows(cfg, params, prefilled, first, lens, API_NEW, forced=tokens)
+    control = control_worst(cfg, logits_c, want_logits)
+    del prefilled, logits_c
+    print(f"[whisper serve] control, each row's cross attention over the next row's ck/cv: "
+          f"worst per row {[round(x, 5) for x in control]} against the bound {bound:.4f} "
+          f"({sum(x > bound for x in control)} of {API_ROWS} rows above)", flush=True)
+    assert max(control) > bound, (control, bound)
+    step_pos = Sc - 1
+    wall_ms, busy_ms = decode_step_times(cfg, params, cache, step_pos)
+    kv_bytes = kv_read_bytes(cfg, cache, step_pos)
+    step_bytes = weight_bytes_read(cfg, params, leaves) + kv_bytes
+    bound_ms = step_bytes / HBM_BYTES_S * 1e3
+    print(f"[whisper serve] decode step (8 rows, position {step_pos}): wall {wall_ms:.2f} ms "
+          f"(mean of 3); device busy {fmt_ms(busy_ms)} ms (CUDA events, {L + 2} pieces behind "
+          f"spins, summed; mean of 3); bound {bound_ms:.3f} ms ({step_bytes / 1e9:.3f} GB: the "
+          f"decoder's weights but the embedding table, the self-attention K/V of the valid "
+          f"slots and every cross slot, {kv_bytes / 1e9:.3f} GB, at 3.35 TB/s)", flush=True)
+    figures.update(prompt_lengths=lens, peak_gib=peak, logit_bound=bound, worst_rel=worst,
+                   greedy_agreement=agree, cross_of_next_row=control,
+                   encoder_ms_mean=1e3 * float(np.mean(enc_s)), encoder_share_of_prefill=share,
+                   decode_step_wall_ms=wall_ms, decode_step_busy_ms=busy_ms,
+                   decode_step_bound_ms=bound_ms)
+    del cache, logits, want_logits, params, leaves, frames, rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, figures
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3984,6 +4624,8 @@ def main() -> int:
                                               kf)
     chunk_rows, mla_rows, l4_decode_rows = no_scan("chunk and mla kernels",
                                                    phase_chunk_mla_kernels, ka, kf)
+    cross_rows, enc_rows, zoo_decode_rows = no_scan("cross and g1/g7 kernels",
+                                                    phase_cross_kernels, ka, kf)
     # the queries are drawn as benchmarks/retrieval_knob.py draws them
     corpus, queries = no_scan("synthetic_corpus on the host", lambda: (
         synthetic_corpus(N_DOCS, DIM, seed=0), synthetic_corpus(N_QUERIES, DIM, seed=7)))
@@ -3999,6 +4641,7 @@ def main() -> int:
     no_scan("int8 and swap parity", phase_int8_swap_parity)
     no_scan("swa and moe parity", phase_swa_moe_parity, ka, kf)
     parity_logits = no_scan("chunk and mla parity", phase_chunk_mla_parity, ka, kf)
+    zoo_parity = no_scan("internvl2, whisper and int8 dense parity", phase_zoo_parity, ka, kf)
 
     cfg = get_arch("qwen2.5-3b").replace(dtype="bfloat16")
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
@@ -4018,8 +4661,11 @@ def main() -> int:
     launches["pipelines"] = no_scan("pipelines", phase_pipelines, ka, kf, tk, cfg, params)
     launches["controller"], controller_figures = no_scan("controller", phase_controller, ka,
                                                          kf, tk, cfg, params)
-    launches["swa serve"], swa_figures = no_scan("swa serve", phase_swa_serve, ka, kf, tk,
-                                                 params, prompts)
+    launches["swa serve"], swa_figures, swa_tokens = no_scan("swa serve", phase_swa_serve, ka,
+                                                             kf, tk, params, prompts)
+    launches["swa int8 serve"], swa_int8_figures = no_scan(
+        "swa int8 serve", phase_swa_int8_serve, ka, kf, tk, params, prompts, swa_tokens,
+        swa_figures)
     del params                       # room for mixtral's ~41 GB of bf16 weights
     gc.collect()                     # engines hold reference cycles
     torch.cuda.empty_cache()
@@ -4040,6 +4686,16 @@ def main() -> int:
     gc.collect()                     # rwkv6-7b's weights go before hymba-1.5b's
     torch.cuda.empty_cache()
     launches["hymba serve"] = timed("hymba serve", phase_hymba_serve, ka, kf, tk, prompts)
+    gc.collect()                     # hymba-1.5b's weights go before internvl2-1b's
+    torch.cuda.empty_cache()
+    internvl2_launches, internvl2_figures = no_scan("internvl2 serve", phase_internvl2_serve, ka,
+                                                    kf, tk, prompts)
+    launches["internvl2 serve"] = internvl2_launches["model_api"]
+    launches["internvl2 engine"] = internvl2_launches["engine"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["whisper serve"], whisper_figures = no_scan("whisper serve", phase_whisper_serve, ka,
+                                                         kf, tk)
 
     kernels = []
     for name in ("paged_chunk_attention", "paged_decode_attention"):
@@ -4192,11 +4848,33 @@ def main() -> int:
         **{f"{d}/{c}": {key2: l4_decode_rows[(d, c)][key2] for key2 in phase_keys}
            for d in ("float32", "bfloat16") for c in L4_DECODE_CASES},
     }
+    # the flash kernel's cross form and whisper's causal encoder (phase 15's
+    # shapes); the decode kernel at G 1 (whisper's cross cache) and G 7
+    # (internvl2)
+    flash["cross"] = {
+        "shape": {"B": B, "heads": WHISPER_HEADS, "S_kv": ENC_SEQ},
+        **{f"{d}/S={S}/S_kv={ENC_SEQ}": {key2: x.get(key2) for key2 in phase_keys}
+           for (d, S), x in cross_rows.items()}}
+    flash["whisper_encoder"] = {f"{d}/S={ENC_SEQ}/causal": {key2: x.get(key2)
+                                                            for key2 in phase_keys}
+                                for d, x in enc_rows.items()}
+    dec["whisper_cross_g1"] = {
+        "shape": {"B": B, "heads": WHISPER_HEADS, "Sc": ENC_SEQ},
+        **{f"{d}/{c}": {key2: zoo_decode_rows[(d, c)][key2] for key2 in phase_keys}
+           for d in ("float32", "bfloat16") for c in WHISPER_DECODE_CASES}}
+    dec["internvl2_g7"] = {
+        "shape": {"B": B, "heads": INTERNVL2_HEADS, "Sc": INTERNVL2_SC,
+                  "lengths": INTERNVL2_DECODE_CASES},
+        **{f"{d}/{c}": {key2: zoo_decode_rows[(d, c)][key2] for key2 in phase_keys}
+           for d in ("float32", "bfloat16") for c in INTERNVL2_DECODE_CASES}}
     print(json.dumps({"int8_serve": int8_figures, "host_tier": host_figures,
                       "oracle_paths": oracle_figures, "controller": controller_figures,
                       "swa_serve": swa_figures, "mixtral_serve": mixtral_figures,
                       "chunk_mla_parity_max_abs_logit_diff": parity_logits,
-                      "llama4_serve": llama4_figures, "minicpm3_serve": minicpm3_figures}))
+                      "llama4_serve": llama4_figures, "minicpm3_serve": minicpm3_figures,
+                      "zoo_parity_max_abs_logit_diff": zoo_parity,
+                      "swa_int8_serve": swa_int8_figures, "internvl2_serve": internvl2_figures,
+                      "whisper_serve": whisper_figures}))
     print(json.dumps({"kernels": kernels}))
     print(f"[done] {time.perf_counter() - t_start:.1f}s in all", flush=True)
     print(card)

@@ -1,9 +1,13 @@
-"""Config registry of the port: the three archs the paged serving path takes,
-and rwkv6-7b, hymba-1.5b, mixtral-8x22b, llama4-scout-17b-a16e and
-minicpm3-4b, which the dense backend serves; ``VARIANTS`` holds qwen2.5-3b's
-sliding-window serving variant."""
+"""Config registry of the port: every arch of the JAX package's zoo. The
+paged serving path takes smollm-135m, qwen2.5-3b and phi3-medium-14b; the
+dense backend serves rwkv6-7b, hymba-1.5b, mixtral-8x22b,
+llama4-scout-17b-a16e, minicpm3-4b and internvl2-1b (text only); whisper-
+large-v3 runs through the model API (``forward``, ``prefill``,
+``decode_step``), as in the JAX package, whose engine has no frames input.
+``VARIANTS`` holds qwen2.5-3b's sliding-window serving variant."""
 from repro_torch.configs import (
     hymba_1_5b,
+    internvl2_1b,
     llama4_scout_17b_a16e,
     minicpm3_4b,
     mixtral_8x22b,
@@ -11,6 +15,7 @@ from repro_torch.configs import (
     qwen2_5_3b,
     rwkv6_7b,
     smollm_135m,
+    whisper_large_v3,
 )
 from repro_torch.configs.base import ModelConfig, smoke_variant
 
@@ -23,6 +28,8 @@ ARCHS = {
     "mixtral-8x22b": mixtral_8x22b.CONFIG,
     "llama4-scout-17b-a16e": llama4_scout_17b_a16e.CONFIG,
     "minicpm3-4b": minicpm3_4b.CONFIG,
+    "internvl2-1b": internvl2_1b.CONFIG,
+    "whisper-large-v3": whisper_large_v3.CONFIG,
 }
 
 # variants used only in beyond-paper experiments

@@ -5,7 +5,7 @@
 // flash_attention
 //   Replaces the Pallas kernel repro/kernels/flash_attention.py::
 //   flash_attention (body _flash_kernel). q (B, S, H, hd) attends k/v
-//   (B, S, KVH, hd), causal or not, any S >= 1; scores, softmax and the
+//   (B, S_kv, KVH, hd), causal or not, any S >= 1; scores, softmax and the
 //   value product in f32, output in q's dtype. A sliding window (window >
 //   0, hymba's SWA layers) also masks keys at or before row - window, the
 //   mask of repro/models/attention.py::blockwise_attention(ATTN_SWA); a
@@ -15,7 +15,15 @@
 //   The query/key head dim HDK and the value head dim HDV are template
 //   arguments of their own: (64, 64), (128, 128), and MLA's (96, 64)
 //   (minicpm3: 64 nope + 32 rope dims against 64 value dims), so the value
-//   product and the output run at HDV, not at a zero-padded HDK.
+//   product and the output run at HDV, not at a zero-padded HDK. Keys of
+//   another length than the queries (S_kv != S: whisper's cross attention
+//   over the encoder's 1500 frames, the form of
+//   repro/models/attention.py::blockwise_attention that its decoder runs;
+//   the Pallas kernel takes S_kv = S only) go non-causal, with no window or
+//   chunk, at head dims (64, 64): the query tiles still count over S, the
+//   K/V tiles over S_kv, keys past S_kv are masked. Whether S_kv differs is
+//   a template argument (CROSS), so the self-attention kernels compile with
+//   S in its place, as before.
 //   Bound on the H100: operations. A 64-query tile does 4*hd flops per key
 //   per query against ~hd*4 bytes of K/V per key: hundreds of flops per byte.
 //   bf16 inputs (what every serve path runs) go to the tensor cores, f32
@@ -118,8 +126,8 @@ __host__ __device__ constexpr int flash_smem_floats(int hdk, int hdv) {
 template <bool CHUNKED>
 struct KvRange {
   int begin, end;
-  __device__ KvRange(int qt, int S, int causal, int window, int chunk) {
-    const int q0 = qt * kTile, n_kv = (S + kTile - 1) / kTile;
+  __device__ KvRange(int qt, int S, int Skv, int causal, int window, int chunk) {
+    const int q0 = qt * kTile, n_kv = (Skv + kTile - 1) / kTile;
     end = causal ? min(qt + 1, n_kv) : n_kv;
     begin = window > 0 ? max(q0 - window + 1, 0) / kTile : 0;
     if constexpr (CHUNKED) {
@@ -130,11 +138,11 @@ struct KvRange {
   }
 };
 
-// Whether key col may be attended by query row.
+// Whether key col (of Skv keys) may be attended by query row.
 template <bool CHUNKED>
-__device__ __forceinline__ bool key_ok(int row, int col, int S, int causal, int window,
+__device__ __forceinline__ bool key_ok(int row, int col, int Skv, int causal, int window,
                                        int chunk) {
-  return col < S && (!causal || col <= row) && (window <= 0 || col > row - window) &&
+  return col < Skv && (!causal || col <= row) && (window <= 0 || col > row - window) &&
          (!CHUNKED || col / chunk == row / chunk);
 }
 
@@ -152,11 +160,12 @@ __device__ __forceinline__ void load_tile(float* dst, int dst_stride, const T* _
   }
 }
 
-template <typename T, int HDK, int HDV, bool CHUNKED>
+template <typename T, int HDK, int HDV, bool CHUNKED, bool CROSS>
 __global__ void __launch_bounds__(kFThreads, 2)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ out, int S, int H, int KVH, int causal, int window, int chunk,
-             float scale) {
+             T* __restrict__ out, int S, int S_kv, int H, int KVH, int causal, int window,
+             int chunk, float scale) {
+  const int Skv = CROSS ? S_kv : S;  // the self-attention kernels key on S alone
   constexpr int QS = HDK + 4;     // padded row stride of the Q and K tiles
   constexpr int NG = HDV / 64;    // 4-column groups of the output a thread owns
   static_assert(HDV % 64 == 0 && HDK % 4 == 0, "the thread layout of the tiles");
@@ -171,8 +180,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16, lane = tid % 32;
   const int q0 = qt * kTile;
   const T* qb = q + (size_t)b * S * H * HDK;
-  const T* kb = k + (size_t)b * S * KVH * HDK;
-  const T* vb = v + (size_t)b * S * KVH * HDV;
+  const T* kb = k + (size_t)b * Skv * KVH * HDK;
+  const T* vb = v + (size_t)b * Skv * KVH * HDV;
 
   load_tile<T, HDK>(Qs, QS, qb, q0, S, H, h);
 
@@ -185,12 +194,12 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     for (int c = 0; c < 4 * NG; ++c) o[i][c] = 0.f;
   }
 
-  const KvRange<CHUNKED> kv(qt, S, causal, window, chunk);
+  const KvRange<CHUNKED> kv(qt, S, Skv, causal, window, chunk);
   for (int kt = kv.begin; kt < kv.end; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous tile's K/V are no longer read (and Q is in)
-    load_tile<T, HDK>(Ks, QS, kb, k0, S, KVH, kvh);
-    load_tile<T, HDV>(Vs, HDV, vb, k0, S, KVH, kvh);
+    load_tile<T, HDK>(Ks, QS, kb, k0, Skv, KVH, kvh);
+    load_tile<T, HDV>(Vs, HDV, vb, k0, Skv, KVH, kvh);
     __syncthreads();
 
     // scores of rows ty + 16i against keys tx + 16j
@@ -228,8 +237,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx + 16 * j;
-        s[i][j] = key_ok<CHUNKED>(row, col, S, causal, window, chunk) ? s[i][j] * scale
-                                                                      : -INFINITY;
+        s[i][j] = key_ok<CHUNKED>(row, col, Skv, causal, window, chunk) ? s[i][j] * scale
+                                                                        : -INFINITY;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -324,11 +333,12 @@ __device__ __forceinline__ void cp_tile(bf16* dst, const bf16* __restrict__ src,
 // accumulator fragment, rows l / 4 and l / 4 + 8 at columns 2 (l % 4) .. +1.
 // scale_log2 = scale * log2(e): scores and the running max are kept in
 // log2 units, so p = exp2(s - m).
-template <int HDK, int HDV, bool CHUNKED>
+template <int HDK, int HDV, bool CHUNKED, bool CROSS>
 __global__ void __launch_bounds__(kTCThreads)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ out, int S, int H, int KVH,
-                int causal, int window, int chunk, float scale_log2) {
+                const bf16* __restrict__ v, bf16* __restrict__ out, int S, int S_kv, int H,
+                int KVH, int causal, int window, int chunk, float scale_log2) {
+  const int Skv = CROSS ? S_kv : S;  // the self-attention kernels key on S alone
   constexpr int RS = HDK + 8;      // padded row of a Q or K tile (elements)
   constexpr int RV = HDV + 8;      // padded row of a V tile
   constexpr int STAGE = kTile * (RS + RV);  // one stage: a K tile, then a V tile
@@ -346,15 +356,15 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int q0 = qt * kTile;
   const bf16* qb = q + (size_t)b * S * H * HDK;
-  const bf16* kb = k + (size_t)b * S * KVH * HDK;
-  const bf16* vb = v + (size_t)b * S * KVH * HDV;
+  const bf16* kb = k + (size_t)b * Skv * KVH * HDK;
+  const bf16* vb = v + (size_t)b * Skv * KVH * HDV;
 
-  const KvRange<CHUNKED> kv(qt, S, causal, window, chunk);
+  const KvRange<CHUNKED> kv(qt, S, Skv, causal, window, chunk);
   const int kt_begin = kv.begin, kt_end = kv.end;
 
   cp_tile<HDK>(Qs, qb, q0, S, H, h);
-  cp_tile<HDK>(stage0, kb, kt_begin * kTile, S, KVH, kvh);
-  cp_tile<HDV>(stage0 + kTile * RS, vb, kt_begin * kTile, S, KVH, kvh);
+  cp_tile<HDK>(stage0, kb, kt_begin * kTile, Skv, KVH, kvh);
+  cp_tile<HDV>(stage0 + kTile * RS, vb, kt_begin * kTile, Skv, KVH, kvh);
   cp_async_commit();
 
   const int row_a = q0 + warp * 16 + lane / 4, row_b = row_a + 8;
@@ -371,8 +381,8 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     bf16* Vs = Ks + kTile * RS;
     if (kt + 1 < kt_end) {  // the next tile into the other stage
       bf16* Kn = stage0 + ((it + 1) & 1) * STAGE;
-      cp_tile<HDK>(Kn, kb, (kt + 1) * kTile, S, KVH, kvh);
-      cp_tile<HDV>(Kn + kTile * RS, vb, (kt + 1) * kTile, S, KVH, kvh);
+      cp_tile<HDK>(Kn, kb, (kt + 1) * kTile, Skv, KVH, kvh);
+      cp_tile<HDV>(Kn + kTile * RS, vb, (kt + 1) * kTile, Skv, KVH, kvh);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -405,7 +415,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // scale, mask where this tile can hold a masked key, online softmax
     const int k0 = kt * kTile;
-    const bool edge = k0 + kTile > S || (causal && k0 + kTile - 1 > q0) ||
+    const bool edge = k0 + kTile > Skv || (causal && k0 + kTile - 1 > q0) ||
                       (window > 0 && k0 <= q0 + kTile - 1 - window) ||
                       (CHUNKED && min(k0, q0) / chunk != (max(k0, q0) + kTile - 1) / chunk);
     float mx_a = -INFINITY, mx_b = -INFINITY;
@@ -417,7 +427,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         if (edge) {
           const int col = k0 + n * 8 + (lane % 4) * 2 + (e & 1);
           const int row = e < 2 ? row_a : row_b;
-          x = key_ok<CHUNKED>(row, col, S, causal, window, chunk) ? x : -INFINITY;
+          x = key_ok<CHUNKED>(row, col, Skv, causal, window, chunk) ? x : -INFINITY;
         }
         s[n][e] = x;
       }
@@ -501,33 +511,34 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int HDK, int HDV, bool CHUNKED>
+template <int HDK, int HDV, bool CHUNKED, bool CROSS>
 cudaError_t launch_flash_tc_hd(const void* q, const void* k, const void* v, void* out, int B,
-                               int S, int H, int KVH, int causal, int window, int chunk,
-                               float scale, cudaStream_t stream) {
+                               int S, int S_kv, int H, int KVH, int causal, int window,
+                               int chunk, float scale, cudaStream_t stream) {
   const size_t smem = flash_tc_smem_bytes(HDK, HDV);
-  auto kernel = flash_tc_kernel<HDK, HDV, CHUNKED>;
+  auto kernel = flash_tc_kernel<HDK, HDV, CHUNKED, CROSS>;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
   const int nq = (S + kTile - 1) / kTile;
   kernel<<<dim3(nq, H, B), kTCThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), S, H, KVH, causal, window, chunk, scale * 1.4426950408889634f);
+      static_cast<bf16*>(out), S, S_kv, H, KVH, causal, window, chunk,
+      scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
-template <typename T, int HDK, int HDV, bool CHUNKED>
+template <typename T, int HDK, int HDV, bool CHUNKED, bool CROSS>
 cudaError_t launch_flash_hd(const void* q, const void* k, const void* v, void* out, int B,
-                            int S, int H, int KVH, int causal, int window, int chunk,
+                            int S, int S_kv, int H, int KVH, int causal, int window, int chunk,
                             float scale, cudaStream_t stream) {
   const size_t smem = flash_smem_floats(HDK, HDV) * sizeof(float);
-  auto kernel = flash_kernel<T, HDK, HDV, CHUNKED>;
+  auto kernel = flash_kernel<T, HDK, HDV, CHUNKED, CROSS>;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
   const int nq = (S + kTile - 1) / kTile;
   kernel<<<dim3(nq, H, B), kFThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), S, H, KVH, causal, window, chunk, scale);
+      static_cast<T*>(out), S, S_kv, H, KVH, causal, window, chunk, scale);
   return cudaGetLastError();
 }
 
@@ -536,22 +547,31 @@ cudaError_t launch_flash_hd(const void* q, const void* k, const void* v, void* o
 // and MLA's (96, 64)
 template <typename T>
 cudaError_t launch_flash(const void* q, const void* k, const void* v, void* out, int B, int S,
-                         int H, int KVH, int hdk, int hdv, int causal, int window, int chunk,
-                         float scale, cudaStream_t stream) {
-#define DA_FLASH_CH(K, V, C)                                                                \
+                         int S_kv, int H, int KVH, int hdk, int hdv, int causal, int window,
+                         int chunk, float scale, cudaStream_t stream) {
+#define DA_FLASH_CH(K, V, C, X)                                                             \
   if constexpr (std::is_same<T, bf16>::value)                                               \
-    return launch_flash_tc_hd<K, V, C>(q, k, v, out, B, S, H, KVH, causal, window, chunk,   \
-                                       scale, stream);                                      \
+    return launch_flash_tc_hd<K, V, C, X>(q, k, v, out, B, S, S_kv, H, KVH, causal, window, \
+                                          chunk, scale, stream);                            \
   else                                                                                      \
-    return launch_flash_hd<T, K, V, C>(q, k, v, out, B, S, H, KVH, causal, window, chunk,   \
-                                       scale, stream);
+    return launch_flash_hd<T, K, V, C, X>(q, k, v, out, B, S, S_kv, H, KVH, causal, window, \
+                                          chunk, scale, stream);
 #define DA_FLASH_HD(K, V)                                                                   \
   if (hdk == K && hdv == V) {                                                               \
     if (chunk > 0) {                                                                        \
-      DA_FLASH_CH(K, V, true)                                                               \
+      DA_FLASH_CH(K, V, true, false)                                                        \
     } else {                                                                                \
-      DA_FLASH_CH(K, V, false)                                                              \
+      DA_FLASH_CH(K, V, false, false)                                                       \
     }                                                                                       \
+  }
+  // cross attention (S_kv != S: whisper's decoder over the encoder's output)
+  // is non-causal with no window or chunk (the wrapper refuses the rest),
+  // at whisper's head dims only
+  if (S_kv != S) {
+    if (hdk == 64 && hdv == 64 && !causal && window <= 0 && chunk <= 0) {
+      DA_FLASH_CH(64, 64, false, true)
+    }
+    return cudaErrorInvalidValue;
   }
   DA_FLASH_HD(64, 64)
   DA_FLASH_HD(128, 128)
@@ -1009,14 +1029,15 @@ int da_flash_smem_bytes(int dtype, int hdk, int hdv) {
 }
 
 // Each launcher returns the cudaError_t of its launches (0 on success).
-// hdk: the query/key head dim, hdv: the value (and output) head dim; window
-// <= 0: no sliding window; chunk <= 0: no chunk mask (the wrapper refuses
-// both together).
+// S: the queries' length, S_kv: the keys' (S_kv != S only non-causal, with
+// no window or chunk, at hd 64); hdk: the query/key head dim, hdv: the
+// value (and output) head dim; window <= 0: no sliding window; chunk <= 0:
+// no chunk mask (the wrapper refuses both together).
 int da_flash_attention(int dtype, const void* q, const void* k, const void* v, void* out, int B,
-                       int S, int H, int KVH, int hdk, int hdv, int causal, int window,
-                       int chunk, float scale, void* stream) {
-  DA_DISPATCH(launch_flash, q, k, v, out, B, S, H, KVH, hdk, hdv, causal, window, chunk, scale,
-              static_cast<cudaStream_t>(stream))
+                       int S, int S_kv, int H, int KVH, int hdk, int hdv, int causal,
+                       int window, int chunk, float scale, void* stream) {
+  DA_DISPATCH(launch_flash, q, k, v, out, B, S, S_kv, H, KVH, hdk, hdv, causal, window, chunk,
+              scale, static_cast<cudaStream_t>(stream))
 }
 
 // part_o: (B, KVH, n_split, G, hd) and part_ml: (B, KVH, n_split, G, 2)

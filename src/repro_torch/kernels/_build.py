@@ -49,7 +49,7 @@ ENTRY_POINTS = {
     },
     "dense_attention": {
         "da_flash_smem_bytes": ([_I, _I, _I], _I),
-        "da_flash_attention": ([_I] + [_P] * 4 + [_I] * 9 + [_F, _P], _I),
+        "da_flash_attention": ([_I] + [_P] * 4 + [_I] * 10 + [_F, _P], _I),
         "da_decode_attention": ([_I] + [_P] * 7 + [_I] * 6 + [_F, _P], _I),
     },
     "rwkv6_scan": {

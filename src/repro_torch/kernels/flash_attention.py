@@ -3,11 +3,15 @@ and its plain PyTorch version.
 
 ``flash_attention`` ports the Pallas kernel of
 ``repro.kernels.flash_attention``: GQA attention of q (B, S, H, hd) over
-k (B, S, KVH, hd) and v (B, S, KVH, hd_v), causal or not, with an optional
+k (B, S_kv, KVH, hd) and v (B, S_kv, KVH, hd_v), causal or not, with an optional
 sliding window (the mask of ``repro.models.attention.blockwise_attention(
 attn_type=ATTN_SWA)``) or an optional chunk (the mask of
 ``blockwise_attention(attn_type=ATTN_CHUNKED_LOCAL)``: a query sees only
-keys of its own chunk); the Pallas kernel has neither. On CUDA tensors the
+keys of its own chunk); the Pallas kernel has neither. Keys of another
+length than the queries (S_kv != S: cross attention, the form of
+``repro.models.attention.blockwise_attention`` that whisper's decoder
+runs; the Pallas kernel takes S_kv = S only) go with ``causal=False`` and
+no window or chunk: every query sees every key. On CUDA tensors the
 wrapper launches the hand-written kernel in ``csrc/dense_attention.cu``
 (built on first use, see ``kernels._build``) on the current stream and
 counts the launch in its ``launches`` attribute; on CPU tensors it runs
@@ -40,16 +44,20 @@ from repro_torch.kernels.decode_attention import NEG_INF, _check, _raise_on_erro
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the (query/key, value) head-dim instantiations in csrc/dense_attention.cu
 HEAD_DIMS = ((64, 64), (128, 128), (96, 64))
+# the head dims of the cross form (S_kv != S): whisper's
+CROSS_HEAD_DIMS = (64, 64)
 
 
 def ref_flash_attention(q, k, v, causal: bool = True, scale: Optional[float] = None,
                         window: int = 0, chunk: int = 0):
-    """Plain version of ``flash_attention``. q: (B, S, H, hd); k: (B, S,
-    KVH, hd); v: (B, S, KVH, hd_v); ``window`` > 0 masks keys at or before
-    query - window, ``chunk`` > 0 keys of another chunk than the query's.
-    Returns (B, S, H, hd_v) in q's dtype."""
+    """Plain version of ``flash_attention``. q: (B, S, H, hd); k: (B, S_kv,
+    KVH, hd); v: (B, S_kv, KVH, hd_v); ``window`` > 0 masks keys at or
+    before query - window, ``chunk`` > 0 keys of another chunk than the
+    query's; S_kv != S only with neither and ``causal=False``. Returns (B,
+    S, H, hd_v) in q's dtype."""
     B, S, H, hd = q.shape
     KVH, hd_v = k.shape[2], v.shape[-1]
+    _check_cross("ref_flash_attention", S, k.shape[1], causal, window, chunk)
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     qg = q.reshape(B, S, KVH, H // KVH, hd).float()
     s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) * scale
@@ -67,16 +75,25 @@ def ref_flash_attention(q, k, v, causal: bool = True, scale: Optional[float] = N
     return o.reshape(B, S, H, hd_v).to(q.dtype)
 
 
+def _check_cross(name, S, S_kv, causal, window, chunk):
+    if S_kv != S and (causal or window > 0 or chunk > 0):
+        raise ValueError(f"{name}: keys of another length than the queries (S={S}, "
+                         f"S_kv={S_kv}) take causal=False and no window or chunk")
+
+
 def flash_attention(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
                     window: int = 0, chunk: int = 0):
     """GQA attention of every query over the keys of its row (causal: those
     at or before it; ``window`` > 0: only those after query - window;
     ``chunk`` > 0: only those of the query's chunk of ``chunk`` positions;
-    not both). q: (B, S, H, hd); k: (B, S, KVH, hd); v: (B, S, KVH, hd_v),
-    all float32 or all bfloat16. Returns (B, S, H, hd_v) in q's dtype. CUDA
-    tensors launch the kernel; CPU tensors run the plain version."""
+    not both). q: (B, S, H, hd); k: (B, S_kv, KVH, hd); v: (B, S_kv, KVH,
+    hd_v), all float32 or all bfloat16; S_kv != S (cross attention) with
+    ``causal=False`` and no window or chunk only. Returns (B, S, H, hd_v)
+    in q's dtype. CUDA tensors launch the kernel; CPU tensors run the plain
+    version."""
     if window > 0 and chunk > 0:
         raise ValueError("flash_attention: a window and a chunk together are not supported")
+    _check_cross("flash_attention", q.shape[1], k.shape[1], causal, window, chunk)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return ref_flash_attention(q, k, v, causal, scale, window, chunk)
@@ -84,9 +101,12 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: Optional[float] = No
     _check(name, q.is_cuda, f"unsupported device {q.device}")
     _check(name, q.dim() == 4 and k.dim() == 4 and v.dim() == 4, "q, k and v must be 4-D")
     B, S, H, hd = q.shape
-    KVH, hd_v = k.shape[2], v.shape[-1]
-    _check(name, tuple(k.shape) == (B, S, KVH, hd) and tuple(v.shape) == (B, S, KVH, hd_v),
-           "k must be (B, S, KVH, hd) and v (B, S, KVH, hd_v) with q's B, S and hd")
+    S_kv, KVH, hd_v = k.shape[1], k.shape[2], v.shape[-1]
+    _check(name, tuple(k.shape) == (B, S_kv, KVH, hd) and tuple(v.shape) == (B, S_kv, KVH, hd_v),
+           "k must be (B, S_kv, KVH, hd) and v (B, S_kv, KVH, hd_v) with q's B and hd")
+    _check(name, S_kv == S or (hd, hd_v) == CROSS_HEAD_DIMS,
+           f"keys of another length than the queries take head dims {CROSS_HEAD_DIMS}, got "
+           f"{(hd, hd_v)}")
     _check(name, KVH > 0 and H % KVH == 0, "H must be a multiple of KVH")
     _check(name, q.dtype in _DTYPE_CODES and k.dtype == q.dtype and v.dtype == q.dtype,
            f"q, k and v must share float32 or bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
@@ -105,11 +125,12 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: Optional[float] = No
     out = q.new_empty((B, S, H, hd_v))
     if B == 0 or S == 0:
         return out
+    _check(name, S_kv > 0, "k and v must hold at least one key")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.da_flash_attention(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, S, H, KVH, hd, hd_v, int(causal), max(int(window), 0), max(int(chunk), 0),
+            B, S, S_kv, H, KVH, hd, hd_v, int(causal), max(int(window), 0), max(int(chunk), 0),
             float(scale), stream,
         )
     _raise_on_error(name, err)

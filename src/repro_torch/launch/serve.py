@@ -16,6 +16,7 @@ occupancy comes from the components' cost models).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama4-scout-17b-a16e --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm3-4b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-1b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --pipelines --arch smollm-135m --smoke --device cpu
 
 Giving ``--app NAME`` selects the simulated mode (``serve_sim``, with
@@ -28,8 +29,9 @@ nor ``--pipelines`` is given.
 Weights are random, drawn by ``init_params`` from ``--seed``. Runs on
 ``cuda`` unless ``--device cpu`` is given (and raises without a GPU). An
 arch outside the paged contract (rwkv6-7b, hymba-1.5b, mixtral-8x22b,
-qwen2.5-3b-swa, llama4-scout-17b-a16e, minicpm3-4b) is served on the dense
-backend.
+qwen2.5-3b-swa, llama4-scout-17b-a16e, minicpm3-4b, internvl2-1b, text
+only) is served on the dense backend. whisper-large-v3 is not served: the
+engine takes no encoder frames (nor does the JAX engine).
 """
 from __future__ import annotations
 
@@ -205,7 +207,7 @@ def main(argv=None):
     ap.add_argument("--arch", default="qwen2.5-3b",
                     choices=["smollm-135m", "qwen2.5-3b", "phi3-medium-14b", "rwkv6-7b",
                              "hymba-1.5b", "mixtral-8x22b", "qwen2.5-3b-swa",
-                             "llama4-scout-17b-a16e", "minicpm3-4b"])
+                             "llama4-scout-17b-a16e", "minicpm3-4b", "internvl2-1b"])
     ap.add_argument("--smoke", action="store_true",
                     help="serve the arch's 2-layer smoke variant")
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],

@@ -1,7 +1,8 @@
 """Attention, ported from ``repro.models.attention``: GQA's
 ``qkv_project``, and for the dense backend ``blockwise_attention``
 (prefill, full, sliding-window or chunked-local, through the
-``flash_attention`` kernel), ``decode_attention`` (through the dense
+``flash_attention`` kernel; whisper's cross attention at S_kv != S too),
+``decode_attention`` (through the dense
 ``decode_attention`` kernel) and ``cache_validity`` (a full-attention
 cache, a sliding-window ring or a chunked-local ring); and multi-head
 latent attention (MLA, minicpm3): ``mla_latents``, ``mla_queries``,
@@ -45,23 +46,27 @@ def qkv_project(params, x, num_heads, num_kv_heads, head_dim):
 
 def blockwise_attention(q, k, v, *, attn_type: str = ATTN_FULL, window: int = 0,
                         chunk: int = 0, causal: bool = True):
-    """q: (B, S, H, hd); k: (B, S, KVH, hd); v: (B, S, KVH, hd_v) -> (B, S,
-    H, hd_v). Attention, causal or not, over keys of the queries' own length
-    (the ``flash_attention`` kernel), scaled by 1/sqrt(hd). ``attn_type=
-    ATTN_SWA`` with ``window`` w > 0 keeps only the keys after query - w
-    (JAX's mask ``kpos > qpos - window``);
+    """q: (B, S, H, hd); k: (B, S_kv, KVH, hd); v: (B, S_kv, KVH, hd_v) ->
+    (B, S, H, hd_v). Attention through the ``flash_attention`` kernel,
+    scaled by 1/sqrt(hd). Over keys of the queries' own length (S_kv = S),
+    causal or not: ``attn_type=ATTN_SWA`` with ``window`` w > 0 keeps only
+    the keys after query - w (JAX's mask ``kpos > qpos - window``);
     ``ATTN_CHUNKED_LOCAL`` with ``chunk`` c > 0 only the keys of the query's
     chunk (``kpos // c == qpos // c``), the model's definition at every S
     (JAX's function gets it wrong where S > c and S % c != 0: ROADMAP §3);
     ``ATTN_FULL``, or a window or chunk of 0, keeps every key, as in JAX.
-    Cross attention (S_kv != S) is not ported yet."""
-    if attn_type not in (ATTN_FULL, ATTN_SWA, ATTN_CHUNKED_LOCAL) or k.shape[1] != q.shape[1]:
+    Cross attention (S_kv != S, whisper's decoder over the encoder's
+    output) is full and non-causal: every query sees every key, the form
+    JAX asks for; a causal, windowed or chunked one raises."""
+    if attn_type not in (ATTN_FULL, ATTN_SWA, ATTN_CHUNKED_LOCAL):
+        raise NotImplementedError(f"blockwise_attention: unknown attn_type {attn_type!r}")
+    window = window if attn_type == ATTN_SWA else 0
+    chunk = chunk if attn_type == ATTN_CHUNKED_LOCAL else 0
+    if k.shape[1] != q.shape[1] and (causal or window or chunk):
         raise NotImplementedError(
-            f"blockwise_attention ports full, sliding-window and chunked-local attention with "
-            f"S_kv == S; got attn_type={attn_type!r}, S={q.shape[1]}, S_kv={k.shape[1]}")
-    return flash_attention(q, k, v, causal=causal,
-                           window=window if attn_type == ATTN_SWA else 0,
-                           chunk=chunk if attn_type == ATTN_CHUNKED_LOCAL else 0)
+            f"blockwise_attention: cross attention (S={q.shape[1]}, S_kv={k.shape[1]}) is "
+            f"full and non-causal only; got causal={causal}, window={window}, chunk={chunk}")
+    return flash_attention(q, k, v, causal=causal, window=window, chunk=chunk)
 
 
 def decode_attention(q, k_cache, v_cache, lengths):

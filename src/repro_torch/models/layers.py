@@ -101,15 +101,57 @@ def apply_rope(x, positions, theta: float):
 
 
 # ---------------------------------------------------------------------------
+# sinusoidal positions (whisper)
+# ---------------------------------------------------------------------------
+
+
+def _sinusoid(angle):
+    """Interleave sin(angle) into the even and cos(angle) into the odd
+    columns: angle (..., d_model / 2) -> (..., d_model) float32."""
+    return torch.stack([torch.sin(angle), torch.cos(angle)], dim=-1).flatten(-2)
+
+
+def _timescales(d_model: int, device):
+    """10000^(2i / d) in float32, rounded from float64: the correctly
+    rounded power JAX takes (torch's float32 pow is an ulp off in about one
+    entry in a hundred)."""
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32, device=device) / d_model
+    return torch.pow(10000.0, dim.double()).float()
+
+
+def sinusoidal_positions(seq_len: int, d_model: int, device=None):
+    """Whisper-style sinusoidal position embeddings (seq_len, d_model)
+    float32: column 2i of row p is sin(p / 10000^(2i / d)), column 2i + 1
+    its cosine. The angles are divided by the timescales in float32, as the
+    JAX function divides them."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    return _sinusoid(pos / _timescales(d_model, device)[None])
+
+
+def sinusoidal_at(pos, d_model: int):
+    """The sinusoidal embedding of each position in ``pos`` (any shape, int):
+    (*pos.shape, d_model) float32, row for row ``sinusoidal_positions``."""
+    angle = pos.float()[..., None] / _timescales(d_model, pos.device)
+    return _sinusoid(angle)
+
+
+# ---------------------------------------------------------------------------
 # feed-forward
 # ---------------------------------------------------------------------------
 
 
-def init_mlp(generator, d_model: int, d_ff: int, dtype, device, lead=()):
-    """SwiGLU weights (``w_gate``, ``w_up`` (d_model, d_ff), ``w_down``),
-    each at 1/sqrt(d_in); ``lead`` prepends the stacked layer-group axis."""
+def init_mlp(generator, d_model: int, d_ff: int, dtype, device, lead=(), act: str = "silu"):
+    """SwiGLU weights (``w_gate``, ``w_up`` (d_model, d_ff), ``w_down``), or
+    for ``act="gelu"`` (whisper) ``w_up``, a zero ``b_up``, ``w_down`` and a
+    zero ``b_down``; weights at 1/sqrt(d_in); ``lead`` prepends the stacked
+    layer-group axis."""
     mk = lambda d_in, d_out: dense_init(generator, (*lead, d_in, d_out), dtype, device)
-    return {"w_gate": mk(d_model, d_ff), "w_up": mk(d_model, d_ff), "w_down": mk(d_ff, d_model)}
+    if act == "silu":
+        return {"w_gate": mk(d_model, d_ff), "w_up": mk(d_model, d_ff),
+                "w_down": mk(d_ff, d_model)}
+    zeros = lambda n: torch.zeros((*lead, n), dtype=dtype, device=device)
+    return {"w_up": mk(d_model, d_ff), "b_up": zeros(d_ff), "w_down": mk(d_ff, d_model),
+            "b_down": zeros(d_model)}
 
 
 def apply_mlp(params, x, act: str):

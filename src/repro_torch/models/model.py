@@ -3,15 +3,17 @@
 ``prefill_packed``, ``decode_step_paged``, ``paged_cache_supported`` and,
 for its oracle steps over a gathered contiguous view, ``prefill_chunk``;
 for the dense backend ``forward``, ``prefill``, ``decode_step`` and
-``init_cache``.
+``init_cache``, which take every arch of the zoo.
 
 The paged step functions update the KV pools in place and return the
 logits; ``decode_step`` updates the dense cache in place and returns it
 with the logits. The dense functions take full-attention, sliding-window
 and chunked-local GQA stacks (with SwiGLU or MoE feed-forwards; llama4's
 period-4 stack of chunked-local and global layers), MLA stacks (minicpm3),
-RWKV-6 stacks and Hymba's hybrid stacks with their meta-token prefix
-(``dense_cache_supported``).
+RWKV-6 stacks, Hymba's hybrid stacks with their meta-token prefix,
+internvl2's patch prefix and whisper's encoder-decoder stack with its
+sinusoidal positions (``dense_cache_supported``), and the int8 dense cache
+(``kv_cache_quant``).
 """
 from __future__ import annotations
 
@@ -29,18 +31,26 @@ from repro_torch.configs.base import (
     ModelConfig,
 )
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import dense_init, embed_tokens, unembed
+from repro_torch.models.layers import (
+    dense_init,
+    embed_tokens,
+    sinusoidal_at,
+    sinusoidal_positions,
+    unembed,
+)
 from repro_torch.params import torch_dtype
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> Dict[str, Any]:
     """Random weights with the JAX ``init_params`` tree, shapes and scales
     (embedding and lm_head N(0, 0.02), projections N(0, 1/d_in), zero QKV
-    biases, unit norms; MoE layers as ``moe.init_moe``, MLA layers as
-    ``transformer.init_mla``, RWKV-6 layers as ``rwkv6.init_rwkv6``, hybrid
-    layers' SSM as ``ssm.init_ssm``, meta tokens N(0, 0.02)), drawn from
-    ``generator`` on its own device and placed on ``device``; ``blocks`` a
-    list of one tree per position in the period (``transformer.
+    and MLP biases, unit norms; MoE layers as ``moe.init_moe``, MLA layers
+    as ``transformer.init_mla``, RWKV-6 layers as ``rwkv6.init_rwkv6``,
+    hybrid layers' SSM as ``ssm.init_ssm``, meta tokens N(0, 0.02); a patch
+    prefix's ``patch_proj`` and an encoder-decoder's ``frame_proj`` (D, D)
+    at 1/sqrt(D), with the encoder's ``enc_blocks`` and ``enc_final_norm``),
+    drawn from ``generator`` on its own device and placed on ``device``;
+    ``blocks`` a list of one tree per position in the period (``transformer.
     _stack_layers``). The stacks of ``dense_cache_supported`` only."""
     dtype = torch_dtype(cfg)
     params: Dict[str, Any] = {
@@ -49,12 +59,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> Dict[st
         "blocks": tfm._stack_layers(generator, cfg, dtype, device),
         "final_norm": tfm.init_norm(cfg, dtype, device),
     }
+    square = lambda: {"w": dense_init(generator, (cfg.d_model, cfg.d_model), dtype, device)}
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": dense_init(generator, (cfg.d_model, cfg.padded_vocab),
                                              dtype, device, scale=0.02)}
     if cfg.num_meta_tokens:
         params["meta_tokens"] = dense_init(generator, (cfg.num_meta_tokens, cfg.d_model),
                                            dtype, device, scale=0.02)
+    if cfg.num_patch_tokens:
+        params["patch_proj"] = square()
+    if cfg.is_encoder_decoder:
+        params["enc_blocks"] = tfm._stack_layers(generator, cfg, dtype, device, encoder=True)
+        params["enc_final_norm"] = tfm.init_norm(cfg, dtype, device)
+        params["frame_proj"] = square()
     return params
 
 
@@ -66,35 +83,58 @@ def _pad_vocab_bias(cfg, logits):
     return logits + bias
 
 
-def _token_frontend(cfg) -> bool:
-    """The frontends the port has: token embeddings, with rope positions in
-    the layers or (attention-free stacks) no positions at all, optionally
-    behind a prefix of learned meta tokens (hymba). Patch prefixes, encoder
-    frames and sinusoidal positions are not ported yet."""
-    return not (cfg.num_patch_tokens or cfg.is_encoder_decoder) \
-        and (cfg.use_rope or cfg.attention_free)
+def _sinusoidal(cfg) -> bool:
+    """Whether the stack takes sinusoidal positions at its input (whisper:
+    an encoder-decoder, or any stack without rope that has attention), as
+    the JAX frontend adds them."""
+    return (cfg.is_encoder_decoder or not cfg.use_rope) and not cfg.attention_free
 
 
 def _embed_inputs(cfg, params, batch):
-    """Returns (x (B, S_total, D), n_prefix): the token embeddings behind
-    the ``num_meta_tokens`` meta tokens where the config has them (n_prefix
-    of them); an attention-free stack adds no positions, as the JAX
-    function."""
-    if not _token_frontend(cfg):
-        raise NotImplementedError(f"{cfg.name}: only the token frontend is ported")
+    """Returns (x (B, S_total, D), n_prefix): the token embeddings behind a
+    prefix of n_prefix non-text positions, as the JAX function builds it:
+    the batch's ``patch_embeds`` (B, P, D) through ``patch_proj`` where the
+    config has a patch prefix and the batch carries them (a batch without
+    them gets no prefix), then the ``num_meta_tokens`` meta tokens in front
+    of everything where the config has them; sinusoidal positions added
+    where the stack takes them (``_sinusoidal``). An attention-free stack
+    adds no positions."""
     x = embed_tokens(params["embed"], batch["tokens"])
-    if not cfg.num_meta_tokens:
-        return x, 0
-    meta = params["meta_tokens"].to(x.dtype).expand(x.shape[0], -1, -1)
-    return torch.cat([meta, x], dim=1), cfg.num_meta_tokens
+    n_prefix = 0
+    if cfg.num_patch_tokens and "patch_embeds" in batch:
+        patches = batch["patch_embeds"].to(x.dtype) @ params["patch_proj"]["w"]
+        x = torch.cat([patches, x], dim=1)
+        n_prefix = patches.shape[1]
+    if cfg.num_meta_tokens:
+        meta = params["meta_tokens"].to(x.dtype).expand(x.shape[0], -1, -1)
+        x = torch.cat([meta, x], dim=1)
+        n_prefix += cfg.num_meta_tokens
+    if _sinusoidal(cfg):
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.device)[None].to(x.dtype)
+    return x, n_prefix
+
+
+def _encode(cfg, params, frames):
+    """The encoder of an encoder-decoder stack: frames (B, S_enc, D) through
+    ``frame_proj``, sinusoidal positions, the encoder's layers (causal, as
+    in the JAX package: ROADMAP §3) and ``enc_final_norm``. Returns (B,
+    S_enc, D) in the model dtype."""
+    x = frames.to(torch_dtype(cfg)) @ params["frame_proj"]["w"]
+    B, Se, _ = x.shape
+    x = x + sinusoidal_positions(Se, cfg.d_model, x.device)[None].to(x.dtype)
+    positions = torch.arange(Se, dtype=torch.int32, device=x.device)[None].expand(B, Se)
+    x, _, _ = tfm.run_stack_seq(cfg, params["enc_blocks"], x, positions, encoder=True,
+                                want_cache=False)
+    return tfm.apply_norm(cfg, params["enc_final_norm"], x)
 
 
 def dense_cache_supported(cfg: ModelConfig) -> bool:
-    """Whether the port's dense backend serves this architecture: a stack of
-    ``transformer.dense_stack_supported`` (full-attention, sliding-window,
-    chunked-local or MLA layers with SwiGLU or MoE, RWKV-6 layers or hybrid
-    layers) with the token frontend (and meta tokens)."""
-    return tfm.dense_stack_supported(cfg) and _token_frontend(cfg)
+    """Whether the port's dense stacks take this architecture: the stacks
+    of ``transformer.dense_stack_supported`` (full-attention,
+    sliding-window, chunked-local or MLA layers with SwiGLU or MoE, RWKV-6
+    layers, hybrid layers, or an encoder-decoder stack), with any frontend
+    of the zoo (meta tokens, a patch prefix, encoder frames)."""
+    return tfm.dense_stack_supported(cfg)
 
 
 def has_recurrent_state(cfg: ModelConfig) -> bool:
@@ -114,21 +154,26 @@ def prefills_unpadded(cfg: ModelConfig) -> bool:
 
 
 def forward(cfg, params, batch, want_cache: bool = False, logits_mode: str = "all"):
-    """batch {"tokens": (B, S) int} -> (logits (B, S, V), aux) or, with
-    ``want_cache``, (logits, aux, caches): the serve cache of the whole
-    sequence, meta tokens included (a tuple of one entry per position in the
-    period: {k, v} of (G, B, S, KVH, hd), a sliding-window or chunked-local
+    """batch {"tokens": (B, S) int} (with "patch_embeds" (B, P, D) for a
+    patch-prefix stack, "frames" (B, S_enc, D) for an encoder-decoder) ->
+    (logits (B, S, V), aux) or, with ``want_cache``, (logits, aux, caches):
+    the serve cache of the whole sequence, prefix included (a tuple of one
+    entry per position in the period: {k, v} of (G, B, S, KVH, hd), int8
+    with scales for ``kv_cache_quant``, a sliding-window or chunked-local
     layer's K/V ring, an MLA layer's latents, an RWKV-6 stack's state and
-    token shifts, or a hybrid stack's K/V ring and SSM state, see
-    ``transformer.run_stack_seq``); aux is the sum of the MoE layers'
-    load-balance losses (zero without MoE).
-    The logits are those of the text positions (the meta prefix is
-    stripped); ``logits_mode="last"`` unembeds the last position only.
-    Pad-vocab logits are masked to -1e30."""
+    token shifts, a hybrid stack's K/V ring and SSM state, or an
+    encoder-decoder's self-attention K/V with the cross keys and values
+    {ck, cv} of the encoder's output, see ``transformer.run_stack_seq``);
+    aux is the sum of the MoE layers' load-balance losses (zero without
+    MoE). The logits are those of the text positions (the meta or patch
+    prefix is stripped); ``logits_mode="last"`` unembeds the last position
+    only. Pad-vocab logits are masked to -1e30."""
     x, n_prefix = _embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-    x, caches, aux = tfm.run_stack_seq(cfg, params["blocks"], x, positions)
+    enc_out = _encode(cfg, params, batch["frames"]) if cfg.is_encoder_decoder else None
+    x, caches, aux = tfm.run_stack_seq(cfg, params["blocks"], x, positions, enc_out,
+                                       want_cache=want_cache)
     x = tfm.apply_norm(cfg, params["final_norm"], x)
     if n_prefix:
         x = x[:, n_prefix:]
@@ -148,16 +193,28 @@ def prefill(cfg, params, batch):
     return logits[:, -1], caches
 
 
+def decode_embed(cfg, params, tokens, pos):
+    """The input of a decode step: the embeddings of ``tokens`` (B, 1), plus
+    each row's sinusoidal position at ``pos`` (B,) where the stack takes
+    them (``_sinusoidal``). (B, 1, D)."""
+    x = embed_tokens(params["embed"], tokens)
+    if _sinusoidal(cfg):
+        x = x + sinusoidal_at(pos, cfg.d_model)[:, None].to(x.dtype)
+    return x
+
+
 def decode_step(cfg, params, caches, tokens, pos):
     """One dense decode step. tokens: (B, 1) int; pos: (B,) int32 absolute
-    position of each row's new token, meta tokens included (<= Sc - 1 on a
-    full-attention cache; unused by RWKV-6). Writes the new K/V (or state)
-    into ``caches`` in place; returns (logits (B, V), caches). Pad-vocab
-    logits are masked to -1e30, as ``forward`` masks them: hymba's vocab
-    (32001) is the first the dense backend serves that is not a multiple of
-    128. The JAX function omits the mask (ROADMAP §3); for every other arch
-    served the mask is a no-op, so the port still agrees with it there."""
-    x = embed_tokens(params["embed"], tokens)
+    position of each row's new token, a meta or patch prefix included (<=
+    Sc - 1 on a full-attention cache; unused by RWKV-6). Writes the new K/V
+    (or state) into ``caches`` in place; returns (logits (B, V), caches).
+    Pad-vocab logits are masked to -1e30, as ``forward`` masks them:
+    hymba's vocab (32001) is the first the dense backend serves that is not
+    a multiple of 128, internvl2's (151655) and whisper's (51866) are not
+    either. The JAX function omits the mask (ROADMAP §3); for every other
+    arch served the mask is a no-op, so the port still agrees with it
+    there."""
+    x = decode_embed(cfg, params, tokens, pos)
     x, caches = tfm.run_stack_decode(cfg, params["blocks"], x, caches, pos)
     x = tfm.apply_norm(cfg, params["final_norm"], x)
     logits = unembed(params["embed"], params.get("lm_head"), x, cfg.tie_embeddings)
@@ -165,20 +222,22 @@ def decode_step(cfg, params, caches, tokens, pos):
 
 
 def init_cache(cfg: ModelConfig, B: int, S: int, device):
-    """Zero-initialised dense serve cache for B rows of S tokens (meta
-    tokens included) on ``device``: a tuple of one entry per position in the
-    period, each with a leading axis of G = L / p layer groups. A GQA layer's
-    {k, v} of (G, B, Sc, KVH, hd) in the config's dtype (full attention: Sc
-    = S; sliding window: a ring of Sc = min(S, window); chunked-local: a
-    ring of Sc = min(S, chunk); hybrid: the window's ring, plus the SSM's
-    conv (G, B, K-1, D) in the config's dtype and h (G, B, D, N) float32);
-    an MLA layer's {c_kv (G, B, S, kv_lora), k_rope (G, B, S, rope)}; or
-    for RWKV-6 {state (G, B, H, hd, hd) float32, x_prev_att, x_prev_ffn (G,
-    B, D) in the config's dtype}, whatever S. The int8 cache
-    (``kv_cache_quant``) is not ported yet."""
+    """Zero-initialised dense serve cache for B rows of S tokens (a meta or
+    patch prefix included) on ``device``: a tuple of one entry per position
+    in the period, each with a leading axis of G = L / p layer groups. A GQA
+    layer's {k, v} of (G, B, Sc, KVH, hd) in the config's dtype (full
+    attention: Sc = S; sliding window: a ring of Sc = min(S, window);
+    chunked-local: a ring of Sc = min(S, chunk); hybrid: the window's ring,
+    plus the SSM's conv (G, B, K-1, D) in the config's dtype and h (G, B, D,
+    N) float32), for ``kv_cache_quant`` int8 with float32 scales {k_scale,
+    v_scale} (G, B, Sc, KVH); an encoder-decoder's decoder entry adds the
+    cross keys and values {ck, cv} (G, B, encoder_seq, KVH, hd) in the
+    config's dtype; an MLA layer's {c_kv (G, B, S, kv_lora), k_rope (G, B,
+    S, rope)}; or for RWKV-6 {state (G, B, H, hd, hd) float32, x_prev_att,
+    x_prev_ffn (G, B, D) in the config's dtype}, whatever S. MLA, RWKV-6
+    and the cross entries stay in float with ``kv_cache_quant``, as in
+    JAX."""
     tfm._check_dense_stack(cfg)
-    if cfg.kv_cache_quant:
-        raise NotImplementedError("the int8 dense cache is not ported yet")
     dtype = torch_dtype(cfg)
     G = cfg.num_layers // tfm.period(cfg)
     zeros = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
@@ -188,17 +247,24 @@ def init_cache(cfg: ModelConfig, B: int, S: int, device):
         return ({"state": zeros(G, B, H, hd, hd, dt=torch.float32),
                  "x_prev_att": zeros(G, B, cfg.d_model),
                  "x_prev_ffn": zeros(G, B, cfg.d_model)},)
+    KVH, hd = cfg.num_kv_heads, cfg.head_dim
 
     def entry(kind):
         Sc = tfm.cache_len_for(cfg, kind, S)
         if kind["attn_type"] == ATTN_MLA:
             return {"c_kv": zeros(G, B, Sc, cfg.kv_lora_rank),
                     "k_rope": zeros(G, B, Sc, cfg.qk_rope_head_dim)}
-        e = {"k": zeros(G, B, Sc, cfg.num_kv_heads, cfg.head_dim),
-             "v": zeros(G, B, Sc, cfg.num_kv_heads, cfg.head_dim)}
+        kv_dt = torch.int8 if cfg.kv_cache_quant else dtype
+        e = {"k": zeros(G, B, Sc, KVH, hd, dt=kv_dt), "v": zeros(G, B, Sc, KVH, hd, dt=kv_dt)}
+        if cfg.kv_cache_quant:
+            e["k_scale"] = zeros(G, B, Sc, KVH, dt=torch.float32)
+            e["v_scale"] = zeros(G, B, Sc, KVH, dt=torch.float32)
         if kind["attn_type"] == MIXER_HYBRID:
             e["conv"] = zeros(G, B, cfg.ssm_conv - 1, cfg.d_model)
             e["h"] = zeros(G, B, cfg.d_model, cfg.ssm_state, dt=torch.float32)
+        if cfg.is_encoder_decoder:
+            e["ck"] = zeros(G, B, cfg.encoder_seq, KVH, hd)
+            e["cv"] = zeros(G, B, cfg.encoder_seq, KVH, hd)
         return e
 
     return tuple(entry(kind) for kind in tfm._kinds(cfg))
@@ -213,9 +279,11 @@ def prefill_chunk(cfg, params, caches, tokens, pos, positions=None,
     ``seg_start`` (B, C) carry a segmented prompt's rope positions and
     attention spans (``transformer._prefix_mask``). Returns (logits (B, C,
     V), caches), pad-vocab logits masked to -1e30. Full-attention GQA stacks
-    with rope positions (``paged_cache_supported``)."""
-    if not _token_frontend(cfg) or not cfg.use_rope:
-        raise NotImplementedError(f"{cfg.name}: chunked prefill takes rope token stacks only")
+    with rope positions (``paged_cache_supported``); an int8 cache
+    (``kv_cache_quant``: {k_scale, v_scale} in the entry) takes the chunk's
+    codes and is read dequantized, as in JAX."""
+    if not paged_cache_supported(cfg):
+        raise NotImplementedError(f"{cfg.name}: chunked prefill takes the paged path's stacks only")
     x = embed_tokens(params["embed"], tokens)
     x, caches = tfm.run_stack_prefix(cfg, params["blocks"], x, caches, pos, positions,
                                      seg_prefix_end, seg_start)

@@ -138,16 +138,20 @@ _PERIOD_P_KINDS = (ATTN_FULL, ATTN_CHUNKED_LOCAL)
 
 
 def dense_stack_supported(cfg: ModelConfig) -> bool:
-    """Whether the port has this layer stack: no cross attention, and either
-    a period-1 stack of RWKV-6 layers without MoE, or SwiGLU layers (whose
-    feed-forward may be MoE) of one period: full-attention, sliding-window,
-    chunked-local, MLA or hybrid (SWA attention beside an SSM) layers at
-    period 1, full-attention and chunked-local GQA layers at a longer one
-    (llama4)."""
+    """Whether the port has this layer stack: a period-1 stack of RWKV-6
+    layers without MoE; an encoder-decoder stack (whisper) of full-attention
+    layers with GELU MLPs, each decoder layer cross-attending the encoder;
+    or SwiGLU layers (whose feed-forward may be MoE) of one period:
+    full-attention, sliding-window, chunked-local, MLA or hybrid (SWA
+    attention beside an SSM) layers at period 1, full-attention and
+    chunked-local GQA layers at a longer one (llama4)."""
     p = period(cfg)
-    if cfg.is_encoder_decoder or cfg.num_layers % p:
+    if cfg.num_layers % p:
         return False
     kinds = [k["attn_type"] for k in _kinds(cfg)]
+    if cfg.is_encoder_decoder:
+        return (p == 1 and kinds == [ATTN_FULL] and cfg.act == "gelu"
+                and not layer_kind(cfg, 0)["moe"] and cfg.encoder_layers > 0)
     if MIXER_RWKV6 in kinds:
         return p == 1 and not layer_kind(cfg, 0)["moe"]
     allowed = _PERIOD1_KINDS if p == 1 else _PERIOD_P_KINDS
@@ -159,7 +163,8 @@ def _check_dense_stack(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             "the port covers stacks of full-attention, sliding-window, chunked-local, MLA "
             "or hybrid layers with SwiGLU or MoE (a period > 1 of full and chunked-local "
-            "GQA layers only), or of RWKV-6 layers, only")
+            "GQA layers only), encoder-decoder stacks of full-attention layers with GELU "
+            "MLPs, or stacks of RWKV-6 layers, only")
 
 
 def init_mla(generator, cfg: ModelConfig, dtype, device, lead=()):
@@ -178,7 +183,19 @@ def init_mla(generator, cfg: ModelConfig, dtype, device, lead=()):
             "wkv_b": mk(cfg.kv_lora_rank, H * (nope + v)), "wo": mk(H * v, D)}
 
 
-def init_layer(generator, cfg: ModelConfig, kind, dtype, device, lead=()):
+def _init_gqa(generator, cfg: ModelConfig, dtype, device, lead, bias: bool):
+    """GQA projections ``wq`` (D, H hd), ``wk``/``wv`` (D, KVH hd), ``wo``
+    (H hd, D), each at 1/sqrt(d_in), and zero QKV biases with ``bias``."""
+    D, q_dim, kv_dim = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    mk = lambda d_in, d_out: dense_init(generator, (*lead, d_in, d_out), dtype, device)
+    a = {"wq": mk(D, q_dim), "wk": mk(D, kv_dim), "wv": mk(D, kv_dim), "wo": mk(q_dim, D)}
+    if bias:
+        for name, n in (("bq", q_dim), ("bk", kv_dim), ("bv", kv_dim)):
+            a[name] = torch.zeros((*lead, n), dtype=dtype, device=device)
+    return a
+
+
+def init_layer(generator, cfg: ModelConfig, kind, dtype, device, lead=(), encoder=False):
     """One layer's params of kind ``kind`` (``lead`` = stacked group axis),
     with the init scales of the JAX package. GQA:
     1/sqrt(d_in) for every projection, zero QKV biases, unit norm scales,
@@ -186,40 +203,52 @@ def init_layer(generator, cfg: ModelConfig, kind, dtype, device, lead=()):
     MLA: ``init_mla`` in place of the GQA projections. RWKV-6: layer norms
     with bias, time and channel mixing (``rwkv6.init_rwkv6``/
     ``init_rwkv6_ffn``). Hybrid: the GQA layer plus the SSM
-    (``ssm.init_ssm``) and unit gate scales of the two branches' norms."""
+    (``ssm.init_ssm``) and unit gate scales of the two branches' norms.
+    Encoder-decoder (whisper): layer norms with bias, GELU MLPs, and in a
+    decoder layer (not ``encoder``) ``cross_norm`` and ``cross_attn`` (GQA
+    projections without bias) after the self-attention; an ``encoder``
+    layer is a full-attention one."""
     _check_dense_stack(cfg)
     if cfg.attn_type == MIXER_RWKV6:
         return {"norm1": init_norm(cfg, dtype, device, lead),
                 "rwkv": rwkv_mod.init_rwkv6(generator, cfg, dtype, device, lead),
                 "norm2": init_norm(cfg, dtype, device, lead),
                 "rwkv_ffn": rwkv_mod.init_rwkv6_ffn(generator, cfg, dtype, device, lead)}
-    D, F, q_dim, kv_dim = cfg.d_model, cfg.d_ff, cfg.q_dim, cfg.kv_dim
-    if kind["attn_type"] == ATTN_MLA:
+    D = cfg.d_model
+    at = ATTN_FULL if encoder else kind["attn_type"]
+    if at == ATTN_MLA:
         a = init_mla(generator, cfg, dtype, device, lead)
     else:
-        mk = lambda d_in, d_out: dense_init(generator, (*lead, d_in, d_out), dtype, device)
-        a = {"wq": mk(D, q_dim), "wk": mk(D, kv_dim), "wv": mk(D, kv_dim),
-             "wo": mk(q_dim, D)}
-        if cfg.qkv_bias:
-            for name, n in (("bq", q_dim), ("bk", kv_dim), ("bv", kv_dim)):
-                a[name] = torch.zeros((*lead, n), dtype=dtype, device=device)
+        a = _init_gqa(generator, cfg, dtype, device, lead, cfg.qkv_bias)
     p = {"norm1": init_norm(cfg, dtype, device, lead), "attn": a}
-    if kind["attn_type"] == MIXER_HYBRID:
+    if at == MIXER_HYBRID:
         p["ssm"] = ssm_mod.init_ssm(generator, cfg, dtype, device, lead)
         p["gate_attn"] = torch.ones((*lead, D), dtype=dtype, device=device)
         p["gate_ssm"] = torch.ones((*lead, D), dtype=dtype, device=device)
+    if kind["cross"] and not encoder:
+        p["cross_norm"] = init_norm(cfg, dtype, device, lead)
+        p["cross_attn"] = _init_gqa(generator, cfg, dtype, device, lead, False)
     p["norm2"] = init_norm(cfg, dtype, device, lead)
-    if kind["moe"]:
+    if kind["moe"] and not encoder:
         p["moe"] = moe_mod.init_moe(generator, cfg, dtype, device, lead)
     else:
-        p["mlp"] = init_mlp(generator, D, F, dtype, device, lead)
+        p["mlp"] = init_mlp(generator, D, cfg.d_ff, dtype, device, lead, cfg.act)
     return p
 
 
-def _stack_layers(generator, cfg: ModelConfig, dtype, device):
+# the kind of every encoder layer (whisper): full attention, no cross
+# attention, no MoE
+ENCODER_KIND = {"attn_type": ATTN_FULL, "moe": False, "cross": False}
+
+
+def _stack_layers(generator, cfg: ModelConfig, dtype, device, encoder=False):
     """Decoder layers stacked into period groups: a list of p trees (one per
     position in the period, of that position's kind) whose leaves carry a
-    leading axis of G = num_layers / p."""
+    leading axis of G = num_layers / p; with ``encoder`` the encoder's
+    ``encoder_layers`` layers as one tree (period 1)."""
+    if encoder:
+        return [init_layer(generator, cfg, ENCODER_KIND, dtype, device,
+                           lead=(cfg.encoder_layers,), encoder=True)]
     G = cfg.num_layers // period(cfg)
     return [init_layer(generator, cfg, kind, dtype, device, lead=(G,)) for kind in _kinds(cfg)]
 
@@ -411,32 +440,30 @@ def _prefix_mask(Sc: int, slots, seg_prefix_end=None, seg_start=None):
     return (s < seg_prefix_end[:, :, None]) | ((s >= seg_start[:, :, None]) & (s <= own))
 
 
-def apply_layer_prefix(cfg, lp, x, k_cache, v_cache, slots, *, rope, valid):
+def apply_layer_prefix(cfg, lp, x, cache, slots, *, rope, valid):
     """Chunked prefill layer: x (B, C, D) of prompt tokens at cache slots
     ``slots`` (B, C) attends the cached prefix plus itself. The chunk's K/V
-    are written into the layer's contiguous cache k/v_cache (B, Sc, KVH, hd)
-    IN PLACE before attention (``chunk_decode_attention`` under ``valid``,
-    the step's ``_prefix_mask``); ``rope``: the step's rope tables of the
-    tokens' positions. Full-attention GQA only; the int8 dense cache is not
-    ported. Returns the new x."""
-    if cfg.kv_cache_quant:
-        raise NotImplementedError("the int8 dense cache is not ported yet")
+    are written into the layer's contiguous cache entry ``cache`` ({k, v} of
+    (B, Sc, KVH, hd), with {k_scale, v_scale} (B, Sc, KVH) for the int8
+    cache; ``_write_kv``) IN PLACE before attention
+    (``chunk_decode_attention`` under ``valid``, the step's
+    ``_prefix_mask``); ``rope``: the step's rope tables of the tokens'
+    positions. Full-attention GQA only. Returns the new x."""
     q, k, v = _attn_inputs(cfg, lp, x, rope)
-    _cache_update(k_cache, k, slots)
-    _cache_update(v_cache, v, slots)
-    return _finish_layer(cfg, lp, x, attn.chunk_decode_attention(q, k_cache, v_cache, valid))
+    k_read, v_read = _write_kv(cache, k, v, slots, q.dtype)
+    return _finish_layer(cfg, lp, x, attn.chunk_decode_attention(q, k_read, v_read, valid))
 
 
 def run_stack_prefix(cfg, blocks, x, caches, pos, positions=None,
                      seg_prefix_end=None, seg_start=None):
     """Run the stack in chunked-prefill mode: x (B, C, D) written into (and
-    attending) the contiguous caches ({k, v} of (G, B, Sc, KVH, hd), updated
-    in place layer by layer) at start slot ``pos`` — an int, a 0-d tensor
-    or (B,) per-row starts (the padded fused step runs every row at its own
-    cursor). ``positions`` (B, C) are the rope positions (default: the
-    slots); ``seg_prefix_end``/``seg_start`` (B, C) the segment spans (see
-    ``_prefix_mask``). Full-attention GQA stacks of period 1. Returns (x,
-    caches)."""
+    attending) the contiguous caches ({k, v} of (G, B, Sc, KVH, hd), and the
+    int8 cache's scales, updated in place layer by layer) at start slot
+    ``pos`` — an int, a 0-d tensor or (B,) per-row starts (the padded fused
+    step runs every row at its own cursor). ``positions`` (B, C) are the
+    rope positions (default: the slots); ``seg_prefix_end``/``seg_start``
+    (B, C) the segment spans (see ``_prefix_mask``). Full-attention GQA
+    stacks of period 1. Returns (x, caches)."""
     if period(cfg) != 1 or cfg.attn_type != ATTN_FULL or cfg.is_encoder_decoder:
         raise NotImplementedError("chunked prefix prefill supports full-attention GQA stacks only")
     B, C = x.shape[:2]
@@ -449,9 +476,63 @@ def run_stack_prefix(cfg, blocks, x, caches, pos, positions=None,
     rope = _rope(cfg, positions)
     valid = _prefix_mask(Sc, slots, seg_prefix_end, seg_start)
     for g in range(entry["k"].shape[0]):
-        x = apply_layer_prefix(cfg, layer_slice(blocks[0], g), x, entry["k"][g],
-                               entry["v"][g], slots, rope=rope, valid=valid)
+        x = apply_layer_prefix(cfg, layer_slice(blocks[0], g), x, layer_slice(entry, g), slots,
+                               rope=rope, valid=valid)
     return x, caches
+
+
+# ---------------------------------------------------------------------------
+# the int8 dense cache (kv_cache_quant)
+# ---------------------------------------------------------------------------
+
+
+def quantize_kv(x):
+    """Symmetric int8 quantization with per-slot, per-KV-head absmax scales,
+    ``_quantize_kv`` of the JAX package: x (B, C, KVH, hd) -> (int8 codes
+    (B, C, KVH, hd), float32 scales (B, C, KVH)). The scale is absmax / 127
+    and each code round(x / max(scale, 1e-30)) (half to even), clipped to
+    +-127; both divisions are true divisions by a tensor (CUDA divides by a
+    Python scalar as a multiply by its reciprocal, one ulp off the quotient
+    JAX and the CPU take), so the card, the CPU and JAX agree bit for bit on
+    the same x. Each slot is written once, so no running max is kept."""
+    xf = x.float()
+    absmax = xf.abs().amax(dim=-1)
+    s = absmax / torch.full_like(absmax, 127.0)
+    q = torch.round(xf / s.clamp(min=1e-30)[..., None]).clamp(-127, 127)
+    return q.to(torch.int8), s
+
+
+def dequantize_kv(codes, scales, dtype):
+    """codes (..., KVH, hd) int8 and scales (..., KVH) float32 -> codes x
+    scales in float32, cast to ``dtype`` (``_dequantize_kv``)."""
+    return (codes.float() * scales[..., None]).to(dtype)
+
+
+def _quantized_entry(entry):
+    """The int8 form of a K/V cache entry {k, v}: int8 k/v and their
+    float32 scales k_scale/v_scale."""
+    out = {}
+    for name in ("k", "v"):
+        out[name], out[name + "_scale"] = quantize_kv(entry[name])
+    return out
+
+
+def _write_kv(cache, k, v, slots, dtype):
+    """Write new K/V k/v (B, C, KVH, hd) at slots ``slots % Sc`` (B, C) of
+    a layer's cache entry, in place; returns the cache to read, k/v (B, Sc,
+    KVH, hd). An int8 entry (``k_scale`` in it) takes the quantized codes
+    and scales (``quantize_kv``) and is read dequantized to ``dtype``,
+    whole, as the JAX function reads it."""
+    if "k_scale" not in cache:
+        _cache_update(cache["k"], k, slots)
+        _cache_update(cache["v"], v, slots)
+        return cache["k"], cache["v"]
+    for name, new in (("k", k), ("v", v)):
+        codes, scales = quantize_kv(new)
+        _cache_update(cache[name], codes, slots)
+        _cache_update(cache[name + "_scale"], scales, slots)
+    return (dequantize_kv(cache["k"], cache["k_scale"], dtype),
+            dequantize_kv(cache["v"], cache["v_scale"], dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -472,19 +553,48 @@ def _ring(t, Sc):
 def _kv_entry(cfg, attn_type, k, v):
     """A layer's K/V cache entry of a whole sequence k/v (B, S, KVH, hd):
     the sequence (full attention) or its ring of ``cache_len_for`` slots
-    (sliding-window, hybrid and chunked-local layers)."""
+    (sliding-window, hybrid and chunked-local layers); quantized to int8
+    with its scales (``_quantized_entry``) for ``kv_cache_quant``, after the
+    roll (the scales are per slot, so rolling and quantizing commute)."""
     Sc = cache_len_for(cfg, {"attn_type": attn_type}, k.shape[1])
-    return {"k": _ring(k, Sc), "v": _ring(v, Sc)}
+    entry = {"k": _ring(k, Sc), "v": _ring(v, Sc)}
+    return _quantized_entry(entry) if cfg.kv_cache_quant else entry
 
 
-def _attn_branch_seq(cfg, lp, x, rope, attn_type):
+def _attn_branch_seq(cfg, lp, x, rope, attn_type, want_cache=True):
     """norm1 -> QKV -> rope -> causal attention over the sequence, full,
     sliding-window or chunked-local (``blockwise_attention``); returns the
-    attention output and the layer's cache entry {k, v} (``_kv_entry``)."""
+    attention output and the layer's cache entry {k, v} (``_kv_entry``;
+    None without ``want_cache``)."""
     q, k, v = _attn_inputs(cfg, lp, x, rope)
     out = attn.blockwise_attention(q, k, v, attn_type=attn_type, window=cfg.window,
                                    chunk=cfg.chunk_size)
-    return out, _kv_entry(cfg, attn_type, k, v)
+    return out, _kv_entry(cfg, attn_type, k, v) if want_cache else None
+
+
+def _cross_kv(cfg, lp, enc_out):
+    """A decoder layer's cross-attention keys and values of the encoder's
+    output enc_out (B, S_enc, D): ck/cv (B, S_enc, KVH, hd) through
+    ``cross_attn``'s wk/wv (no bias)."""
+    B, Se, _ = enc_out.shape
+    p = lp["cross_attn"]
+    return ((enc_out @ p["wk"]).reshape(B, Se, cfg.num_kv_heads, cfg.head_dim),
+            (enc_out @ p["wv"]).reshape(B, Se, cfg.num_kv_heads, cfg.head_dim))
+
+
+def _cross_query(cfg, lp, x):
+    """cross_norm -> the cross-attention queries of x (B, S, D): (B, S, H,
+    hd) through ``cross_attn``'s wq (no bias)."""
+    B, S, _ = x.shape
+    xn = apply_norm(cfg, lp["cross_norm"], x)
+    return (xn @ lp["cross_attn"]["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
+
+
+def _cross_out(cfg, lp, x, c_out):
+    """The residual of the cross attention's output c_out (B, S, H, hd)
+    through ``cross_attn``'s wo."""
+    B, S = x.shape[:2]
+    return x + c_out.reshape(B, S, cfg.num_heads * cfg.head_dim) @ lp["cross_attn"]["wo"]
 
 
 def _apply_rwkv_layer(cfg, lp, x, x_prev_att=None, x_prev_ffn=None, state=None,
@@ -506,7 +616,8 @@ def _apply_hybrid_layer_seq(cfg, lp, x, rope):
     """A hybrid layer over a sequence: norm1 -> sliding-window attention and
     the SSM side by side (both from the zero state) -> their gated mix ->
     residual -> norm2 -> MLP. Returns (x, {k, v: the (B, min(S, window),
-    KVH, hd) ring, conv: (B, K-1, D), h: (B, D, N) float32}, aux)."""
+    KVH, hd) ring (int8 with its scales for ``kv_cache_quant``), conv: (B,
+    K-1, D), h: (B, D, N) float32}, aux)."""
     xn = apply_norm(cfg, lp["norm1"], x)
     q, k, v = _qkv(cfg, lp, xn, rope)
     a_out = _out_proj(cfg, lp, x, attn.blockwise_attention(q, k, v, attn_type=ATTN_SWA,
@@ -516,15 +627,21 @@ def _apply_hybrid_layer_seq(cfg, lp, x, rope):
     return x, {**_kv_entry(cfg, MIXER_HYBRID, k, v), "conv": conv_tail, "h": h}, aux
 
 
-def apply_layer_seq(cfg, lp, x, rope, kind=None):
+def apply_layer_seq(cfg, lp, x, rope, kind=None, enc_out=None, want_cache=True):
     """Sequence-mode layer of kind ``kind`` (default: position 0's) in
     whole-prompt prefill: x (B, S, D) -> (x, cache entry, aux): the entry
     {k, v} (B, S, KVH, hd) for full attention, a K/V ring of min(S, window)
     slots for sliding-window attention and of min(S, chunk) for
-    chunked-local attention, {c_kv (B, S, kv_lora), k_rope (B, S, rope)} for
-    MLA, {state (B, H, hd, hd), x_prev_att (B, D), x_prev_ffn (B, D)} for
-    RWKV-6, and for a hybrid layer the ring with the SSM's {conv, h}; aux
-    the MoE layer's load-balance loss (float32 zero without MoE)."""
+    chunked-local attention (int8 K/V with float32 scales {k_scale,
+    v_scale} (B, Sc, KVH) for ``kv_cache_quant``), {c_kv (B, S, kv_lora),
+    k_rope (B, S, rope)} for MLA, {state (B, H, hd, hd), x_prev_att (B, D),
+    x_prev_ffn (B, D)} for RWKV-6, and for a hybrid layer the ring with the
+    SSM's {conv, h}; aux the MoE layer's load-balance loss (float32 zero
+    without MoE). A decoder layer of an encoder-decoder stack attends the
+    encoder's output ``enc_out`` (B, S_enc, D) after its self-attention,
+    non-causally (``blockwise_attention`` at S_kv = S_enc), and its entry
+    gains the cross keys and values {ck, cv} (B, S_enc, KVH, hd). Without
+    ``want_cache`` (the encoder's layers) a GQA layer returns no entry."""
     at = (kind if kind is not None else layer_kind(cfg, 0))["attn_type"]
     if at == MIXER_RWKV6:
         x, cache = _apply_rwkv_layer(cfg, lp, x)
@@ -536,12 +653,19 @@ def apply_layer_seq(cfg, lp, x, rope, kind=None):
                                                cfg, rope)
         x, aux = _ffn_residual(cfg, lp, x + out)
         return x, {"c_kv": c_kv, "k_rope": k_rope[:, :, 0, :]}, aux
-    a_out, cache = _attn_branch_seq(cfg, lp, x, rope, at)
-    x, aux = _ffn_residual(cfg, lp, x + _out_proj(cfg, lp, x, a_out))
+    a_out, cache = _attn_branch_seq(cfg, lp, x, rope, at, want_cache)
+    x = x + _out_proj(cfg, lp, x, a_out)
+    if "cross_attn" in lp and enc_out is not None:
+        ck, cv = _cross_kv(cfg, lp, enc_out)
+        c_out = attn.blockwise_attention(_cross_query(cfg, lp, x), ck, cv, causal=False)
+        x = _cross_out(cfg, lp, x, c_out)
+        if want_cache:
+            cache.update(ck=ck, cv=cv)
+    x, aux = _ffn_residual(cfg, lp, x)
     return x, cache, aux
 
 
-def run_stack_seq(cfg, blocks, x, positions):
+def run_stack_seq(cfg, blocks, x, positions, enc_out=None, encoder=False, want_cache=True):
     """Run the stack over a sequence, the serving path: x (B, S, D),
     positions (B, S). A Python loop over the layer groups and, in each, the
     period's positions (JAX scans the groups, with remat and a segmented
@@ -550,22 +674,32 @@ def run_stack_seq(cfg, blocks, x, positions):
     stacked over the G groups: {k, v} of (G, B, S, KVH, hd) for full
     attention, {k, v} of (G, B, Sc, KVH, hd) for a sliding-window (Sc =
     min(S, window)) or chunked-local (Sc = min(S, chunk)) layer with
-    position p at slot p % Sc (JAX's cache rolled by S % Sc), {c_kv (G, B,
-    S, kv_lora), k_rope (G, B, S, rope)} for MLA, for RWKV-6 {state (G, B,
-    H, hd, hd) float32, x_prev_att, x_prev_ffn (G, B, D)}, for a hybrid
-    stack the ring, conv (G, B, K-1, D) and h (G, B, D, N) float32; aux the
-    sum of the layers' MoE load-balance losses (float32 zero without
-    MoE)."""
+    position p at slot p % Sc (JAX's cache rolled by S % Sc), int8 with
+    {k_scale, v_scale} (G, B, Sc, KVH) float32 for ``kv_cache_quant``, {c_kv
+    (G, B, S, kv_lora), k_rope (G, B, S, rope)} for MLA, for RWKV-6 {state
+    (G, B, H, hd, hd) float32, x_prev_att, x_prev_ffn (G, B, D)}, for a
+    hybrid stack the ring, conv (G, B, K-1, D) and h (G, B, D, N) float32,
+    and for an encoder-decoder's decoder also the cross keys and values {ck,
+    cv} (G, B, S_enc, KVH, hd) of ``enc_out``; None without ``want_cache``.
+    aux is the sum of the layers' MoE load-balance losses (float32 zero
+    without MoE). ``encoder`` runs the encoder's stack (its
+    ``encoder_layers`` full-attention layers, causal as in the JAX
+    package: ROADMAP §3)."""
     _check_dense_stack(cfg)
-    kinds = _kinds(cfg)
+    kinds = [ENCODER_KIND] if encoder else _kinds(cfg)
+    n_groups = cfg.encoder_layers if encoder else cfg.num_layers // len(kinds)
     rope = _rope(cfg, positions)
     entries = [[] for _ in kinds]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for g in range(cfg.num_layers // len(kinds)):
+    for g in range(n_groups):
         for i, kind in enumerate(kinds):
-            x, cache, a = apply_layer_seq(cfg, layer_slice(blocks[i], g), x, rope, kind)
-            entries[i].append(cache)
+            x, cache, a = apply_layer_seq(cfg, layer_slice(blocks[i], g), x, rope, kind,
+                                          enc_out, want_cache)
+            if want_cache:
+                entries[i].append(cache)
             aux = aux + a
+    if not want_cache:
+        return x, None, aux
     caches = tuple({name: torch.stack([e[name] for e in ents]) for name in ents[0]}
                    for ents in entries)
     return x, caches, aux
@@ -578,37 +712,55 @@ def _cache_update(c, new, slots):
     c[rows, slots.long() % c.shape[1]] = new.to(c.dtype)
 
 
-def _decode_attn(cfg, lp, xn, k_cache, v_cache, pos, rope, lengths):
-    """QKV of the normed input, its K/V written at slot ``pos % Sc`` (in
-    place), attention over the row's valid slots; returns (B, 1, H, hd)."""
+def _decode_attn(cfg, lp, xn, cache, pos, rope, lengths):
+    """QKV of the normed input, its K/V written at slot ``pos % Sc`` of the
+    layer's cache entry (in place; quantized into an int8 entry, which is
+    then read dequantized: ``_write_kv``), attention over the row's valid
+    slots; returns (B, 1, H, hd)."""
     q, k, v = _qkv(cfg, lp, xn, rope)
-    _cache_update(k_cache, k, pos[:, None])
-    _cache_update(v_cache, v, pos[:, None])
-    return attn.decode_attention(q, k_cache, v_cache, lengths)
+    k_read, v_read = _write_kv(cache, k, v, pos[:, None], q.dtype)
+    return attn.decode_attention(q, k_read, v_read, lengths)
 
 
-def apply_layer_decode(cfg, lp, x, k_cache, v_cache, pos, *, rope, lengths):
+def _decode_cross(cfg, lp, x, cache, cross_lengths):
+    """A decoder layer's cross attention at decode: the query of x (B, 1,
+    D) over every slot of the cross keys and values {ck, cv} (B, S_enc,
+    KVH, hd) (``cross_lengths``: S_enc for every row) through the dense
+    decode kernel, and its residual. x itself without cross attention."""
+    if "cross_attn" not in lp:
+        return x
+    c_out = attn.decode_attention(_cross_query(cfg, lp, x), cache["ck"], cache["cv"],
+                                  cross_lengths)
+    return _cross_out(cfg, lp, x, c_out)
+
+
+def apply_layer_decode(cfg, lp, x, cache, pos, *, rope, lengths, cross_lengths=None):
     """Dense decode layer: write each row's new K/V at slot ``pos % Sc`` of
-    the layer's cache (in place), then attend the row's valid slots. x: (B,
-    1, D); k/v_cache: (B, Sc, KVH, hd); pos: (B,) int32; ``rope``: the
-    step's rope tables; ``lengths`` (``decode_lengths``): min(pos + 1, Sc),
-    which is what ``cache_validity`` allows on a full-attention linear cache
-    and on a sliding-window ring of Sc <= window slots, or pos % chunk + 1
-    on a chunked-local ring. Returns the new x."""
+    the layer's cache entry ``cache`` ({k, v} (B, Sc, KVH, hd), int8 with
+    {k_scale, v_scale} for ``kv_cache_quant``; in place), then attend the
+    row's valid slots; an encoder-decoder's decoder layer then attends the
+    entry's cross keys and values (``_decode_cross``). x: (B, 1, D); pos:
+    (B,) int32; ``rope``: the step's rope tables; ``lengths``
+    (``decode_lengths``): min(pos + 1, Sc), which is what
+    ``cache_validity`` allows on a full-attention linear cache and on a
+    sliding-window ring of Sc <= window slots, or pos % chunk + 1 on a
+    chunked-local ring. Returns the new x."""
     xn = apply_norm(cfg, lp["norm1"], x)
-    a_out = _decode_attn(cfg, lp, xn, k_cache, v_cache, pos, rope, lengths)
-    return _finish_layer(cfg, lp, x, a_out)
+    a_out = _decode_attn(cfg, lp, xn, cache, pos, rope, lengths)
+    x = _decode_cross(cfg, lp, x + _out_proj(cfg, lp, x, a_out), cache, cross_lengths)
+    return _mlp_residual(cfg, lp, x)
 
 
-def apply_layer_decode_hybrid(cfg, lp, x, k_cache, v_cache, conv, h, pos, *, rope, lengths):
-    """Hybrid decode layer: the new K/V go to ring slot ``pos % Sc`` and the
-    row attends its valid slots (``lengths`` = min(pos + 1, Sc): on a ring of
-    Sc <= window slots that is the sliding window); the SSM steps from the
-    carried convolution tail ``conv`` (B, K-1, D) and state ``h`` (B, D, N),
-    both updated in place. Returns the new x."""
+def apply_layer_decode_hybrid(cfg, lp, x, cache, pos, *, rope, lengths):
+    """Hybrid decode layer: the new K/V go to ring slot ``pos % Sc`` of the
+    entry ``cache`` and the row attends its valid slots (``lengths`` =
+    min(pos + 1, Sc): on a ring of Sc <= window slots that is the sliding
+    window); the SSM steps from the carried convolution tail ``conv`` (B,
+    K-1, D) and state ``h`` (B, D, N) of the entry, both updated in place.
+    Returns the new x."""
     xn = apply_norm(cfg, lp["norm1"], x)
-    a_out = _out_proj(cfg, lp, x, _decode_attn(cfg, lp, xn, k_cache, v_cache, pos, rope,
-                                               lengths))
+    a_out = _out_proj(cfg, lp, x, _decode_attn(cfg, lp, xn, cache, pos, rope, lengths))
+    conv, h = cache["conv"], cache["h"]
     s_out, (tail, _) = ssm_mod.apply_ssm(lp["ssm"], xn, cfg, conv_tail=conv, h0=h, h_out=h)
     conv.copy_(tail)
     return _mlp_residual(cfg, lp, _hybrid_mix(cfg, lp, x, a_out, s_out))
@@ -624,12 +776,13 @@ def apply_layer_decode_rwkv(cfg, lp, x, state, x_prev_att, x_prev_ffn):
     return x
 
 
-def apply_layer_decode_mla(cfg, lp, x, c_kv, k_rope, pos, *, rope):
+def apply_layer_decode_mla(cfg, lp, x, cache, pos, *, rope):
     """MLA decode layer: the new token's latents (``mla_latents``) go to slot
-    ``pos`` of the layer's c_kv (B, Sc, kv_lora) and k_rope (B, Sc, rope)
+    ``pos`` of the entry's c_kv (B, Sc, kv_lora) and k_rope (B, Sc, rope)
     caches (in place), then the absorbed attention over slots <= pos
     (``mla_decode``). Returns the new x."""
     xn = apply_norm(cfg, lp["norm1"], x)
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
     c_new, k_new = attn.mla_latents(lp["attn"], xn, cfg, rope)
     _cache_update(c_kv, c_new, pos[:, None])
     _cache_update(k_rope, k_new[:, :, 0, :], pos[:, None])
@@ -649,31 +802,38 @@ def decode_lengths(cfg, kind, Sc: int, pos):
 
 
 def decode_inputs(cfg, caches, pos):
-    """What every layer group of a decode step at ``pos`` (B,) shares: the
-    rope tables, and each period position's ``decode_lengths`` (None for an
-    MLA entry, whose mask ``mla_decode`` builds)."""
+    """What every layer group of a decode step at ``pos`` (B,) shares:
+    {"rope": the rope tables (None without rope), "lengths": each period
+    position's ``decode_lengths`` (None for an MLA entry, whose mask
+    ``mla_decode`` builds), "cross_lengths": the cross caches' S_enc for
+    every row (the JAX function's all-valid mask; None without cross
+    attention)}."""
     lengths = [decode_lengths(cfg, kind, entry["k"].shape[2], pos) if "k" in entry else None
                for kind, entry in zip(_kinds(cfg), caches)]
-    return _rope(cfg, pos[:, None]), lengths
+    cross = None
+    if "ck" in caches[0]:
+        cross = torch.full_like(pos, caches[0]["ck"].shape[2], dtype=torch.int32)
+    return {"rope": _rope(cfg, pos[:, None]), "lengths": lengths, "cross_lengths": cross}
 
 
-def apply_group_decode(cfg, blocks, caches, g, x, pos, rope, lengths):
-    """Decode layer group g of a GQA, MLA or hybrid stack: its p layers in
-    turn, each against its own cache entry (updated in place); ``rope`` and
-    ``lengths`` from ``decode_inputs``. Returns the new x."""
+def apply_group_decode(cfg, blocks, caches, g, x, pos, inputs):
+    """Decode layer group g of a GQA, MLA, hybrid or encoder-decoder stack:
+    its p layers in turn, each against the g-th slice of its own cache
+    entry (updated in place); ``inputs`` from ``decode_inputs``. Returns
+    the new x."""
+    rope = inputs["rope"]
     for i, kind in enumerate(_kinds(cfg)):
-        lp, entry = layer_slice(blocks[i], g), caches[i]
+        lp, cache = layer_slice(blocks[i], g), layer_slice(caches[i], g)
         at = kind["attn_type"]
         if at == ATTN_MLA:
-            x = apply_layer_decode_mla(cfg, lp, x, entry["c_kv"][g], entry["k_rope"][g], pos,
-                                       rope=rope)
+            x = apply_layer_decode_mla(cfg, lp, x, cache, pos, rope=rope)
         elif at == MIXER_HYBRID:
-            x = apply_layer_decode_hybrid(cfg, lp, x, entry["k"][g], entry["v"][g],
-                                          entry["conv"][g], entry["h"][g], pos, rope=rope,
-                                          lengths=lengths[i])
+            x = apply_layer_decode_hybrid(cfg, lp, x, cache, pos, rope=rope,
+                                          lengths=inputs["lengths"][i])
         else:
-            x = apply_layer_decode(cfg, lp, x, entry["k"][g], entry["v"][g], pos, rope=rope,
-                                   lengths=lengths[i])
+            x = apply_layer_decode(cfg, lp, x, cache, pos, rope=rope,
+                                   lengths=inputs["lengths"][i],
+                                   cross_lengths=inputs["cross_lengths"])
     return x
 
 
@@ -691,7 +851,7 @@ def run_stack_decode(cfg, blocks, x, caches, pos):
             x = apply_layer_decode_rwkv(cfg, layer_slice(blocks[0], g), x, entry["state"][g],
                                         entry["x_prev_att"][g], entry["x_prev_ffn"][g])
         return x, caches
-    rope, lengths = decode_inputs(cfg, caches, pos)
+    inputs = decode_inputs(cfg, caches, pos)
     for g in range(cfg.num_layers // period(cfg)):
-        x = apply_group_decode(cfg, blocks, caches, g, x, pos, rope, lengths)
+        x = apply_group_decode(cfg, blocks, caches, g, x, pos, inputs)
     return x, caches

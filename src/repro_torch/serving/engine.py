@@ -53,7 +53,14 @@ sliding-window stack (qwen2.5-3b-swa, mixtral-8x22b) is prefilled unpadded
 as well, into a ring of min(max_seq, window) K/V slots: a bucket longer than
 the window would keep its pad tokens' keys in place of the prompt's last
 ones (ROADMAP §3). An MoE layer's feed-forward (mixtral-8x22b) is
-``models.moe``, plain torch on any device.
+``models.moe``, plain torch on any device. internvl2-1b is served text
+only, padded to its bucket, as the JAX dense engine serves it (its patch
+prefix reaches the model through the model API alone). A
+``kv_cache_quant`` config on the dense backend keeps the int8 dense cache:
+int8 K/V with per-slot, per-KV-head float32 scales, dequantized whole
+before each decode attention, as in JAX. An encoder-decoder (whisper) is
+refused with a ``ValueError``: the engine has no frames input, and the JAX
+engine cannot serve one either.
 
 The paged backend keeps the JAX engine's oracle paths: ``interleave=False``
 is the sequential loop (blocking chunked prefill at admission, one
@@ -73,8 +80,7 @@ The engine runs on ``cuda`` unless ``device="cpu"`` is passed. The
 attention wrappers launch the CUDA kernels for CUDA tensors and run their
 plain PyTorch versions for CPU tensors; ``stats()["kernel"]`` says which,
 ``stats()["kernel_impl"]`` which selector the engine was given. Arguments
-of later slices — meshes and pool layouts, an injected cache, the int8
-dense cache and the rest of the zoo on the dense backend — raise
+of later slices — meshes and pool layouts, an injected cache — raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -298,8 +304,13 @@ class GenerationEngine:
             # the stacks of dense_cache_supported
             if not dense_cache_supported(cfg):
                 raise NotImplementedError(
-                    f"{cfg.name} is outside the paged contract; the rest of the zoo "
-                    "on the dense backend is not ported yet")
+                    f"{cfg.name} is outside the paged contract and the port's dense stacks")
+            if cfg.is_encoder_decoder:
+                raise ValueError(
+                    f"{cfg.name} is an encoder-decoder: the engine takes token prompts and no "
+                    "encoder frames, so it cannot serve one, and neither can the JAX engine "
+                    "(its dense prefill calls forward without frames); use the model API "
+                    "(forward, prefill, decode_step)")
             backend = "dense"
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -356,8 +367,8 @@ class GenerationEngine:
         self.sanitizer = None
         if self.backend == "dense":
             # a row's cache holds its meta tokens too (a hybrid layer's
-            # K/V: a ring of min(max_seq + M, window) slots); init_cache
-            # raises for the int8 dense cache (cfg.kv_cache_quant)
+            # K/V: a ring of min(max_seq + M, window) slots); int8 with its
+            # scales for cfg.kv_cache_quant
             self.cache = init_cache(cfg, max_batch, max_seq + cfg.num_meta_tokens, self.device)
             return
 
@@ -1256,16 +1267,18 @@ def _merge_emitted(into: Dict[int, List[int]], more: Dict[int, List[int]]) -> No
         into.setdefault(rid, []).extend(toks)
 
 
-# cache entries with a sequence axis at dim 2: GQA K/V, MLA's latents
-_SEQUENCE_ENTRIES = ("k", "v", "c_kv", "k_rope")
+# cache entries with a sequence axis at dim 2: GQA K/V (and the int8
+# cache's scales), MLA's latents
+_SEQUENCE_ENTRIES = ("k", "v", "k_scale", "v_scale", "c_kv", "k_rope")
 
 
 def _merge_cache(batch_cache, one_cache, slot: int):
     """Write a B=1 prefill cache into row ``slot`` of the batch cache, in
     place, entry by entry (one per position in the period, each with its own
     Sc). A K/V entry (G, B, Sc, KVH, hd) or an MLA latent (G, B, Sc, n) has
-    a sequence axis at dim 2: the row's slots past the prefill are zeroed,
-    as the JAX function pads them. A ring (a sliding-window, hybrid or
+    a sequence axis at dim 2, as have the int8 cache's scales (G, B, Sc,
+    KVH): the row's slots past the prefill are zeroed, as the JAX function
+    pads them. A ring (a sliding-window, hybrid or
     chunked-local layer's) keeps position p at slot p % Sc in both caches:
     the prefill's ring is shorter than the batch's only when it has not
     wrapped, so its slots go to the same indices. A recurrent entry (RWKV-6

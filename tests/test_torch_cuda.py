@@ -1150,3 +1150,144 @@ def test_chunked_and_mla_engines_on_the_card_match_the_cpu(gpu, arch):
     mla = arch == "minicpm3-4b"
     assert ka.decode_attention.launches == (0 if mla else L * eng.steps)
     assert out["cuda"] == out["cpu"]
+
+
+# ------------- whisper's cross attention, internvl2's heads, the int8 dense cache
+@pytest.mark.parametrize("S", [1, 37, 448])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_flash_kernel_matches_plain_version(gpu, dtype, S):
+    """whisper's cross attention: S decoder queries over the encoder's 1500
+    keys (23.4 tiles of 64), non-causal, H 20 = KVH 20, hd 64, B 2."""
+    g = torch.Generator().manual_seed(S)
+    q = torch.randn((2, S, 20, 64), generator=g).to(dtype).to(gpu)
+    k, v = (torch.randn((2, 1500, 20, 64), generator=g).to(dtype).to(gpu) for _ in range(2))
+    before = kf.flash_attention.launches
+    got = kf.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert kf.flash_attention.launches == before + 1 and tuple(got.shape) == (2, S, 20, 64)
+    _close(got, kf.ref_flash_attention(q, k, v, False), slice(None), DENSE_TOL[dtype])
+    if dtype == torch.bfloat16:
+        want = kf.ref_flash_attention(q.float(), k.float(), v.float(), False)
+        _close(got, want, slice(None), BF16_OUT_TOL)
+
+
+@pytest.mark.parametrize("S,S_kv", [(64, 65), (100, 37), (5, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_flash_kernel_at_tile_edges(gpu, dtype, S, S_kv):
+    """Keys one past a tile, fewer keys than queries, one whole tile of
+    keys; GQA (8 heads over 2)."""
+    g = torch.Generator().manual_seed(S + S_kv)
+    q = torch.randn((2, S, 8, 64), generator=g).to(dtype).to(gpu)
+    k, v = (torch.randn((2, S_kv, 2, 64), generator=g).to(dtype).to(gpu) for _ in range(2))
+    got = kf.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    _close(got, kf.ref_flash_attention(q, k, v, False), slice(None), DENSE_TOL[dtype])
+
+
+def test_flash_kernel_refuses_what_the_cross_form_does_not_take(gpu):
+    q = torch.randn((1, 16, 4, 64), device=gpu)
+    kv = torch.randn((1, 40, 4, 64), device=gpu)
+    launches = kf.flash_attention.launches
+    for kw in ({"causal": True}, {"causal": False, "window": 8}, {"causal": False, "chunk": 8}):
+        with pytest.raises(ValueError):
+            kf.flash_attention(q, kv, kv, **kw)
+    q128, kv128 = torch.randn((1, 16, 4, 128), device=gpu), torch.randn((1, 40, 4, 128),
+                                                                       device=gpu)
+    with pytest.raises(ValueError):      # the cross form is instantiated at hd 64 only
+        kf.flash_attention(q128, kv128, kv128, causal=False)
+    assert kf.flash_attention.launches == launches
+
+
+@pytest.mark.parametrize("H,KVH,Sc,lengths", [
+    (20, 20, 1500, [1500] * 8),                              # whisper's cross cache: G 1
+    (20, 20, 448, [448, 1, 37, 200, 447, 64, 65, 300]),      # whisper's self-attention: G 1
+    (14, 2, 2048, [2048, 256, 257, 300, 1, 1100, 777, 290]), # internvl2: G 7
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_decode_kernel_at_single_and_seven_head_groups(gpu, dtype, H, KVH, Sc, lengths):
+    g = torch.Generator().manual_seed(Sc + H)
+    B = len(lengths)
+    q = torch.randn((B, H, 64), generator=g).to(dtype).to(gpu)
+    k, v = (torch.randn((B, Sc, KVH, 64), generator=g).to(dtype).to(gpu) for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=gpu)
+    before = ka.decode_attention.launches
+    got = ka.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert ka.decode_attention.launches == before + 1
+    _close(got, ka.ref_decode_attention(q, k, v, lens), slice(None), DENSE_TOL[dtype])
+    if dtype == torch.bfloat16:
+        want = ka.ref_decode_attention(q.float(), k.float(), v.float(), lens)
+        _close(got, want, slice(None), BF16_OUT_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_quantize_kv_on_the_card_is_exact(gpu, dtype):
+    """The int8 dense cache's quantizer on the card and on the CPU, on the
+    same K/V: codes and scales bit for bit (zero slots, .5 ties and a
+    spread of magnitudes among them)."""
+    from repro_torch.models.transformer import dequantize_kv, quantize_kv
+
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn((8, 300, 2, 64), generator=g) * torch.rand((8, 300, 2, 1), generator=g) * 20
+    x[0, :5] = 0.0
+    x[1, 0, 0] = torch.cat([torch.tensor([127.0]), torch.arange(63) - 31.5])
+    x = x.to(dtype)
+    qc, sc = quantize_kv(x)
+    qg, sg = quantize_kv(x.to(gpu))
+    torch.testing.assert_close(qg.cpu(), qc, rtol=0, atol=0)
+    torch.testing.assert_close(sg.cpu(), sc, rtol=0, atol=0)
+    torch.testing.assert_close(dequantize_kv(qg, sg, dtype).cpu(), dequantize_kv(qc, sc, dtype),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("arch,quant", [("internvl2-1b", False), ("whisper-large-v3", False),
+                                        ("smollm-135m", True)])
+def test_new_model_paths_on_the_card_match_the_cpu(gpu, arch, quant):
+    """The smoke variants in float32: internvl2 with patch embeddings and
+    whisper with frames through ``prefill`` then eight ``decode_step``
+    (teacher-forced, at absolute positions), and smollm on the int8 dense
+    cache likewise: the CPU's logits within 1e-4 (1e-3 through int8 codes)
+    and, for the kernels, one
+    flash a layer (whisper: encoder layers too, and a second, cross, one a
+    decoder layer) and one dense decode a layer and step (whisper: two)."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch, smoke_variant
+    from repro_torch.models import decode_step, init_cache, init_params, prefill
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_variant(get_arch(arch)).replace(kv_cache_quant=quant)
+    rng = np.random.default_rng(5)
+    B, Lp, n_new = 3, 21, 8
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, Lp + n_new)).astype(np.int32))
+    batch = {"tokens": tokens[:, :Lp]}
+    P = cfg.num_patch_tokens
+    if P:
+        batch["patch_embeds"] = torch.from_numpy(
+            rng.standard_normal((B, P, cfg.d_model)).astype(np.float32))
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.from_numpy(
+            rng.standard_normal((B, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        params = init_params(cfg, torch.Generator().manual_seed(0), dev)
+        kf.reset_launch_counts()
+        ka.reset_launch_counts()
+        last, pc = prefill(cfg, params, {k: t.to(dev) for k, t in batch.items()})
+        cache = init_cache(cfg, B, P + Lp + n_new, dev)
+        for name, t in pc[0].items():
+            cache[0][name][:, :, :t.shape[2]] = t
+        out = [last]
+        for i in range(n_new):
+            pos = torch.full((B,), P + Lp + i, dtype=torch.int32, device=dev)
+            step, _ = decode_step(cfg, params, cache, tokens[:, Lp + i:Lp + i + 1].to(dev), pos)
+            out.append(step)
+        logits[dev] = torch.stack(out).cpu()
+    L, enc = cfg.num_layers, cfg.encoder_layers
+    cross = 2 if cfg.is_encoder_decoder else 1
+    assert kf.flash_attention.launches == cross * L + enc
+    assert ka.decode_attention.launches == cross * L * n_new
+    # the int8 cache's codes may land one apart (the float K/V differ by
+    # summation order), which moves the smoke model's logits by ~4e-4
+    tol = 1e-3 if quant else 1e-4
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=tol, atol=tol)

@@ -119,7 +119,10 @@ def test_cache_validity_matches_jax(attn_type, Sc, pos):
 def test_unported_attention_raises():
     """The SWA and chunked-local arms are ported (held against JAX here, the
     chunked one where JAX is right: S % chunk == 0, tests/test_torch_llama4.py
-    has the rest); cross attention and the int8 dense cache still raise."""
+    has the rest); cross attention (S_kv != S) is ported in its non-causal
+    form (tests/test_torch_whisper.py), the causal form, which JAX never
+    asks for, still raises; the int8 dense cache is ported
+    (tests/test_torch_int8_dense.py)."""
     rng = np.random.default_rng(8)
     q, kv = _normal(rng, (1, 8, 4, 64)), _normal(rng, (2, 1, 8, 2, 64))
     want = jax_attn.blockwise_attention(jnp.asarray(q), jnp.asarray(kv[0]), jnp.asarray(kv[1]),
@@ -140,11 +143,14 @@ def test_unported_attention_raises():
         chunked, np.asarray(jax_attn.cache_validity(ATTN_CHUNKED_LOCAL, 24, jnp.asarray([3, 30]),
                                                     8)))
     q, kv = torch.from_numpy(q), torch.from_numpy(kv[0])
-    with pytest.raises(NotImplementedError):       # cross attention: S_kv != S
+    with pytest.raises(NotImplementedError):       # causal cross attention: S_kv != S
         attn.blockwise_attention(q, kv[:, :4], kv[:, :4])
+    with pytest.raises(NotImplementedError):       # a windowed one
+        attn.blockwise_attention(q, kv[:, :4], kv[:, :4], attn_type=ATTN_SWA, window=2,
+                                 causal=False)
     cfg = smoke_variant(get_arch("smollm-135m")).replace(kv_cache_quant=True)
-    with pytest.raises(NotImplementedError):
-        init_cache(cfg, 2, 16, "cpu")
+    entry = init_cache(cfg, 2, 16, "cpu")[0]
+    assert entry["k"].dtype == torch.int8 and tuple(entry["k_scale"].shape) == (2, 2, 16, 2)
 
 
 # ---------------------------------------------------------------------------

@@ -445,8 +445,8 @@ def test_int8_greedy_agreement_with_float(runs, weights, seed, n_blocks, long_de
 
 def test_quant_config_routes_to_int8_pools(weights):
     """A ``kv_cache_quant`` config serves on the paged backend with int8
-    pools, as in JAX; on the dense backend (the int8 dense cache) it still
-    raises."""
+    pools, as in JAX; on the dense backend it keeps the int8 dense cache
+    (held against JAX in tests/test_torch_int8_dense.py)."""
     tcfg, tparams = weights[2], weights[3]
     qcfg = tcfg.replace(kv_cache_quant=True)
     eng = GenerationEngine(qcfg, params=tparams, device="cpu", max_batch=2, max_seq=64)
@@ -455,5 +455,9 @@ def test_quant_config_routes_to_int8_pools(weights):
     r = eng.submit(np.arange(12) % 50, max_new=4)
     eng.run_until_done()
     assert r.done and len(r.out_tokens) == 4
-    with pytest.raises(NotImplementedError):
-        GenerationEngine(qcfg, device="cpu", backend="dense")
+    dense = GenerationEngine(qcfg, params=tparams, device="cpu", backend="dense", max_batch=2,
+                             max_seq=64)
+    assert dense.backend == "dense" and dense.cache[0]["k"].dtype == torch.int8
+    r = dense.submit(np.arange(12) % 50, max_new=4)
+    dense.run_until_done()
+    assert r.done and len(r.out_tokens) == 4

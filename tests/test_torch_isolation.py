@@ -119,8 +119,9 @@ def test_later_slices_raise_not_implemented():
     assert PagedKVCache(cfg, 8, 16, 4, device="cpu", sanitize=True).sanitizer is not None
     with pytest.raises(ValueError):               # the chunk kernel needs the packed layout
         GenerationEngine(cfg, device="cpu", kernel="pallas", ragged=False)
-    with pytest.raises(NotImplementedError):      # the int8 dense cache
-        GenerationEngine(cfg.replace(kv_cache_quant=True), device="cpu", backend="dense")
+    # the int8 dense cache is ported (tests/test_torch_int8_dense.py)
+    eng = GenerationEngine(cfg.replace(kv_cache_quant=True), device="cpu", backend="dense")
+    assert eng.backend == "dense" and eng.cache[0]["k"].dtype == torch.int8
     assert GenerationEngine(cfg, device="cpu", backend="dense").backend == "dense"
     # int8 pools, the host tier and swap/cost preemption are ported
     for kw in ({"preempt": "swap"}, {"preempt": "cost"}, {"kv_dtype": "int8"},
