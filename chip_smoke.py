@@ -280,13 +280,41 @@ Phases, each of which raises on failure (the script then exits non-zero):
    logits within ``logit_bound(64)`` of the no-cache oracle, a control
    (each row's cross attention over the next row's cross cache) above it.
    Reported: the same figures and the encoder's share of a prefill.
+16. The step-program audit (``analysis.step_audit.audit_engine``) on phase
+   5's qwen2.5-3b engine settings and weights at full width, bf16 pools and
+   int8 pools: every program (the ragged step, the paged decode, the
+   gather-oracle decode, the pool roundtrip) collective-free and free of
+   host syncs under ``torch.cuda.set_sync_debug_mode("error")`` (restored
+   afterwards), the int8 pools reaching both paged kernels un-upcast, the
+   cache sentinel clean (only warmed packed lengths, no kernel library
+   built during the audited steps). Then the four ``audit-*`` mutations on
+   the same engines, each caught by its check: an all-reduce in a
+   world-size-1 gloo group and an ``.item()`` inside the pool program, the
+   gather-oracle decode held to the in-kernel int8 contract, and a ragged
+   call one packed length past the warmed ones.
+17. DP replicas on one card: ``DataParallelEngineGroup(dp=2)`` of
+   qwen2.5-3b at full width on phase 5's weights (one params tree, one
+   shared pool box, ``max_batch`` 8 each) serves phase 5's prompts, 12 new
+   tokens each, routed least-loaded in two waves (``DP_WAVES``: the later
+   shared-document prompts land on replica 1), bf16 and then int8 pools.
+   (a) Without a host tier each replica is a lone engine on its share: its
+   greedy tokens equal, bit for bit, those of a lone engine (phase 5's
+   settings) serving the same prompts in the same waves. (b) With a shared
+   1024-block host tier written through: ``cross_replica_host_hits`` > 0.
+   Both: block ownership disjoint, each replica's pool drained to its
+   scratch block, the paged kernels' launches 36 a step of the group;
+   tokens/s, mean TTFT, p95 TPOT and the greedy agreement with phase 5's
+   lone engine's first 12 tokens (reported: host promotions and other
+   batch compositions change the packed lengths, and random-weight bf16
+   logits have near-ties).
 
 It prints a ``{"int8_serve": ..., "host_tier": ..., "oracle_paths": ...,
 "controller": ..., "swa_serve": ..., "mixtral_serve": ...,
 "chunk_mla_parity_max_abs_logit_diff": ..., "llama4_serve": ...,
 "minicpm3_serve": ..., "zoo_parity_max_abs_logit_diff": ...,
-"swa_int8_serve": ..., "internvl2_serve": ..., "whisper_serve": ...}`` line
-of phases 5c, 5d, 5e, 7b, 10, 11, 4f, 12, 13, 4g, 10b, 14 and 15's figures,
+"swa_int8_serve": ..., "internvl2_serve": ..., "whisper_serve": ...,
+"audit": ..., "dp": ...}`` line of phases 5c, 5d, 5e, 7b, 10, 11, 4f, 12,
+13, 4g, 10b, 14, 15, 16 and 17's figures,
 a ``{"kernels": [...]}`` line, the card's name and power limit, each
 phase's seconds and the total, and last ``{"ok": true, "device":
 {...}}``. Exits non-zero without a GPU.
@@ -4561,6 +4589,211 @@ def phase_whisper_serve(ka, kf, tk):
     return launches, figures
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the step-program audit on the card
+# ---------------------------------------------------------------------------
+
+
+def serve_engine(cfg, params, **kw):
+    """A paged engine with phase 5's settings on ``cfg`` and ``params``."""
+    from repro_torch.serving.engine import GenerationEngine
+
+    return GenerationEngine(cfg, params=params, device="cuda", max_batch=8, max_seq=2048,
+                            block_size=16, prefill_chunk_size=256, **kw)
+
+
+def phase_audit(ka, kf, tk, cfg, params):
+    """Audit phase 5's engine (bf16, then int8 pools) under the sync debug
+    mode "error", then catch the four seeded defects on the same engines.
+    Returns the launches and the figures."""
+    from repro_torch.analysis.__main__ import (
+        AUDIT_ENGINE_MUTANTS,
+        off_bucket_call,
+        one_rank_gloo,
+    )
+    from repro_torch.analysis.step_audit import StepContract, audit_engine, audit_program
+
+    mode = torch.cuda.get_sync_debug_mode()
+    reset_launches(ka, kf, tk)
+    figures, engines = {}, {}
+    for tag, kv_dtype in (("bf16", None), ("int8", "int8")):
+        eng = engines[tag] = serve_engine(cfg, params, kv_dtype=kv_dtype)
+        t0 = time.perf_counter()
+        report = audit_engine(eng)
+        sec = time.perf_counter() - t0
+        assert torch.cuda.get_sync_debug_mode() == mode
+        for line in report.render().splitlines():
+            print(f"[audit] {tag} pools: {line}", flush=True)
+        assert report.ok, report.render()
+        want = {(p, c) for p in ("fused_ragged", "decode", "decode_ref", "pool")
+                for c in ("collectives", "host-sync")} | {("fused_ragged", "cache-sentinel")}
+        if kv_dtype:
+            want |= {("fused_ragged", "int8-flow"), ("decode", "int8-flow")}
+        assert {(f.program, f.check) for f in report.findings} == want
+        figures[tag] = {"audit_s": sec, "warmed_lengths": len(eng._warm_lengths),
+                        "findings": [str(f) for f in report.findings]}
+    launches = read_launches(ka, kf, tk)
+    assert all(launches[n] > 0 for n in PAGED), launches
+
+    caught = {}
+    bf16, int8 = engines["bf16"], engines["int8"]
+    pool = StepContract("pool", max_all_reduce=0)
+    for mid, check in (("audit-collective", "collectives"), ("audit-host-sync", "host-sync")):
+        AUDIT_ENGINE_MUTANTS[mid](bf16)
+        try:
+            with one_rank_gloo() if mid == "audit-collective" else contextlib.nullcontext():
+                bad = [f for f in audit_program(bf16, pool) if not f.ok]
+        finally:
+            del bf16.step_program             # the engine's own method again
+        assert {f.check for f in bad} == {check}, (mid, bad)
+        caught[mid] = [str(f) for f in bad]
+    bad = [f for f in audit_program(int8, StepContract(
+        "decode_ref", max_all_reduce=0, require_int8_kernel_path=True)) if not f.ok]
+    assert {f.check for f in bad} == {"int8-flow"}, bad
+    caught["audit-int8-upcast"] = [str(f) for f in bad]
+    T = off_bucket_call(bf16)
+    bad = audit_engine(bf16, contracts=[]).failures()
+    assert [f.check for f in bad] == ["cache-sentinel"] and str([T]) in bad[0].detail, bad
+    caught["audit-cache-buckets"] = [str(f) for f in bad]
+    assert torch.cuda.get_sync_debug_mode() == mode
+    for mid, lines in caught.items():
+        print(f"[audit] mutation {mid} caught: {' | '.join(lines)}", flush=True)
+    figures["mutations_caught"] = caught
+    print(f"[audit] launches in the phase (warmups, audits, mutations): {launches}", flush=True)
+    del engines, bf16, int8
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, figures
+
+
+# ---------------------------------------------------------------------------
+# phase 17: DP replicas over one pool on one card
+# ---------------------------------------------------------------------------
+
+
+def owned_blocks(eng):
+    pool = eng.kv.pool
+    return set(pool.free_list) | set(pool.refcounts) | set(pool.cached)
+
+
+# phase 5's prompts in two waves (indices into them): one shared-document
+# prompt and one fresh one, then the rest ordered so that least-loaded
+# routing, which alternates from replica 0 when both are idle, sends the
+# other four shared-document prompts to replica 1, where the document's
+# blocks are a host-tier hit (replica 0 prefilled them and wrote them
+# through)
+DP_WAVES = ((0, 5), (6, 1, 7, 2, 8, 3, 9, 4))
+# new tokens a request (phase 5: 32; the first 12 are compared with its)
+DP_NEW = 12
+
+
+def serve_group(grp, prompts, max_new=DP_NEW):
+    """Submit ``prompts`` to the group wave by wave (``DP_WAVES``, routed
+    least-loaded), running it dry after each wave. Returns the requests and
+    the replica each went to (in prompt order), and the wall seconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs, owner = [None] * len(prompts), [None] * len(prompts)
+    for wave in DP_WAVES:
+        for i in wave:
+            reqs[i] = grp.submit(prompts[i], max_new=max_new)
+            owner[i] = next(k for k, e in enumerate(grp.engines)
+                            if any(x is reqs[i] for x in e.waiting))
+        grp.run_until_done()
+    torch.cuda.synchronize()
+    return reqs, owner, time.perf_counter() - t0
+
+
+def group_figures(grp, reqs, wall):
+    st = grp.stats()
+    ttft = [r.first_token_at - r.submitted_at for r in reqs]
+    gaps = [g for r in reqs for g in r.token_gaps]
+    return {"tokens_out": st["tokens_out"], "wall_s": wall, "tok_s": st["tokens_out"] / wall,
+            "ttft_mean_ms": 1e3 * float(np.mean(ttft)),
+            "tpot_p95_ms": 1e3 * float(np.percentile(gaps, 95)),
+            "steps": [s["steps"] for s in st["replicas"]],
+            "requests": [len(e.finished) for e in grp.engines],
+            "prefill_tokens": st["prefill_tokens"], "host_hit_tokens": st["host_hit_tokens"],
+            "prefix_hit_tokens": [s["prefix_hit_tokens"] for s in st["replicas"]],
+            "cross_replica_host_hits": st.get("cross_replica_host_hits", 0)}
+
+
+def check_group(grp, cfg, reqs, launches):
+    """Disjoint ownership over one box and one params tree, every request
+    done, each replica drained to its scratch block, 36 paged launches a
+    step of the group."""
+    e0, e1 = grp.engines
+    assert e0.kv._arrays is e1.kv._arrays and e0.params is e1.params
+    assert not owned_blocks(e0) & owned_blocks(e1)
+    assert all(len(r.out_tokens) == DP_NEW for r in reqs), [len(r.out_tokens) for r in reqs]
+    assert all(e.kv.pool.n_free == e.kv.pool.n_owned - 1 for e in grp.engines)
+    steps = sum(e.steps for e in grp.engines)
+    n = launches["paged_chunk_attention"] + launches["paged_decode_attention"]
+    assert n == cfg.num_layers * steps and all(launches[k] > 0 for k in PAGED), (launches, steps)
+    assert all(launches[k] == 0 for k in (*DENSE, "topk_retrieval", "rwkv6_chunked",
+                                          "ssm_scan")), launches
+
+
+def phase_dp(ka, kf, tk, cfg, params, prompts, paged_tokens):
+    """Two replicas of phase 5's engine over one pool, bf16 then int8
+    pools: (a) without a host tier, each replica's tokens against a lone
+    engine replaying its share; (b) with a shared write-through host tier,
+    the cross-replica host hits. Returns the launches and the figures."""
+    from repro_torch.serving.engine import DataParallelEngineGroup
+
+    settings = dict(dp=2, params=params, device="cuda", max_batch=8, max_seq=2048,
+                    block_size=16, prefill_chunk_size=256)
+    figures, all_launches = {}, {}
+    for tag, kv_dtype in (("bf16", None), ("int8", "int8")):
+        fig = figures[tag] = {}
+        for part, host_blocks in (("no_host_tier", None), ("host_tier", 1024)):
+            grp = DataParallelEngineGroup(cfg, kv_dtype=kv_dtype, host_blocks=host_blocks,
+                                          **settings)
+            reset_launches(ka, kf, tk)
+            reqs, owner, wall = serve_group(grp, prompts)
+            launches = all_launches[f"{tag} {part}"] = read_launches(ka, kf, tk)
+            check_group(grp, cfg, reqs, launches)
+            f = fig[part] = group_figures(grp, reqs, wall)
+            f["launches"] = {k: launches[k] for k in PAGED}
+            phase5 = [t[:DP_NEW] for t in paged_tokens]
+            f["agreement_with_phase_5"] = agreement([r.out_tokens for r in reqs], phase5)
+            f["rows_equal_phase_5"] = sum(r.out_tokens == t for r, t in zip(reqs, phase5))
+            if host_blocks is None:
+                # each replica is a lone engine on its share of the prompts
+                lone_tokens = [None] * len(prompts)
+                for rank in range(2):
+                    lone = serve_engine(cfg, params, kv_dtype=kv_dtype)
+                    for wave in DP_WAVES:
+                        got = {i: lone.submit(prompts[i], max_new=DP_NEW)
+                               for i in wave if owner[i] == rank}
+                        lone.run_until_done()
+                        for i, r in got.items():
+                            lone_tokens[i] = r.out_tokens
+                    del lone
+                equal = [r.out_tokens == t for r, t in zip(reqs, lone_tokens)]
+                assert all(equal), f"{tag}: rows {[i for i, e in enumerate(equal) if not e]} " \
+                                   "differ from the lone engine's"
+                f["rows_equal_lone_engine"] = len(equal)
+            else:
+                assert f["cross_replica_host_hits"] > 0 and f["host_hit_tokens"] > 0, f
+                f["host_store"] = grp.stats()["host_store"]
+            print(f"[dp] {cfg.name} {tag} pools, {part}: {len(reqs)} requests routed "
+                  f"{f['requests']} (owner by request {owner}), {f['tokens_out']} tokens out in "
+                  f"{wall:.3f}s = {f['tok_s']:.1f} tok/s; mean TTFT {f['ttft_mean_ms']:.1f}ms, "
+                  f"p95 TPOT {f['tpot_p95_ms']:.2f}ms; steps {f['steps']}; prefill tokens "
+                  f"{f['prefill_tokens']}; prefix-hit tokens {f['prefix_hit_tokens']}; "
+                  f"host-hit tokens {f['host_hit_tokens']}; cross-replica host hits "
+                  f"{f['cross_replica_host_hits']}; launches {f['launches']}; greedy "
+                  f"agreement with phase 5's lone engine {f['agreement_with_phase_5']:.4f} "
+                  f"({f['rows_equal_phase_5']}/{len(reqs)} rows identical)"
+                  + (f"; every row equal to a lone engine replaying its replica's share"
+                     if host_blocks is None else ""), flush=True)
+            del grp
+            gc.collect()
+            torch.cuda.empty_cache()
+    return all_launches, figures
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4666,6 +4899,11 @@ def main() -> int:
     launches["swa int8 serve"], swa_int8_figures = no_scan(
         "swa int8 serve", phase_swa_int8_serve, ka, kf, tk, params, prompts, swa_tokens,
         swa_figures)
+    launches["audit"], audit_figures = no_scan("step audit", phase_audit, ka, kf, tk, cfg,
+                                               params)
+    dp_launches, dp_figures = no_scan("dp replicas", phase_dp, ka, kf, tk, cfg, params,
+                                      prompts, paged_tokens)
+    launches.update({f"dp {k}": v for k, v in dp_launches.items()})
     del params                       # room for mixtral's ~41 GB of bf16 weights
     gc.collect()                     # engines hold reference cycles
     torch.cuda.empty_cache()
@@ -4874,7 +5112,8 @@ def main() -> int:
                       "llama4_serve": llama4_figures, "minicpm3_serve": minicpm3_figures,
                       "zoo_parity_max_abs_logit_diff": zoo_parity,
                       "swa_int8_serve": swa_int8_figures, "internvl2_serve": internvl2_figures,
-                      "whisper_serve": whisper_figures}))
+                      "whisper_serve": whisper_figures, "audit": audit_figures,
+                      "dp": dp_figures}))
     print(json.dumps({"kernels": kernels}))
     print(f"[done] {time.perf_counter() - t_start:.1f}s in all", flush=True)
     print(card)

@@ -20,7 +20,6 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 import numpy as np
-import torch
 
 from repro_torch.core.graph import record_call
 from repro_torch.core.spec import meta_of
@@ -88,6 +87,8 @@ class Retriever(Component):
 
         self._record()
         if self.index is not None:
+            import torch
+
             qv = torch.from_numpy(_embed_query(query, self.index.embeddings.shape[1]))
             scores, ids = self.index.search(qv.to(self.index.device),
                                             k=min(k, self.index.size), n_probe=self.n_probe)

@@ -48,6 +48,12 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _BLOCK_SIZE = 16
 _HEAD_DIMS = (64, 128)
 
+# Called as ``observer(name, k_pool.dtype, v_pool.dtype)`` by the two paged
+# wrappers on every call, on any device, when set: the step audit
+# (``analysis.step_audit``) uses it to see which pool dtypes reach the
+# paged kernels, since it cannot see the ctypes launches. None by default.
+observer = None
+
 
 # ---------------------------------------------------------------------------
 # plain versions
@@ -211,6 +217,8 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
     (B,) int32 valid tokens per row (>= 1). Returns (B, H, hd) in q's dtype.
     CUDA tensors launch the kernel, split across the chain
     (``decode_split``) and merged; CPU tensors run the plain version."""
+    if observer is not None:
+        observer("paged_decode_attention", k_pool.dtype, v_pool.dtype)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return ref_paged_decode_attention(q, k_pool, v_pool, block_tables,
@@ -263,6 +271,8 @@ def paged_chunk_attention(q, k_pool, v_pool, block_tables, row_of, slots,
     of a row's packed tokens on the tensor cores, listed on the card by
     ``chunk_tile_plan``'s rule and split by ``chunk_split``; f32 q: one
     block per token); CPU tensors run the plain version."""
+    if observer is not None:
+        observer("paged_chunk_attention", k_pool.dtype, v_pool.dtype)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return ref_paged_chunk_attention(q, k_pool, v_pool, block_tables,

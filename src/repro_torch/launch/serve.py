@@ -11,6 +11,8 @@ occupancy comes from the components' cost models).
         --kv-dtype int8 --preempt swap --host-blocks 64
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m --smoke --device cpu \
         --kernel reference --no-interleave --sanitize
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m --smoke --device cpu \
+        --dp 2 --host-blocks 64 --audit
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b --smoke --device cpu
@@ -32,6 +34,15 @@ arch outside the paged contract (rwkv6-7b, hymba-1.5b, mixtral-8x22b,
 qwen2.5-3b-swa, llama4-scout-17b-a16e, minicpm3-4b, internvl2-1b, text
 only) is served on the dense backend. whisper-large-v3 is not served: the
 engine takes no encoder frames (nor does the JAX engine).
+
+``--dp N`` serves through a ``DataParallelEngineGroup``: N replicas over
+block ranges of one shared pool on the one device, with one host tier
+(``--host-blocks``) they write through to. The JAX launcher refuses its
+Pallas kernels and int8 pools with ``--dp``, because its ``--dp`` builds a
+data-axis mesh; the port's replicas share one device and no mesh, so they
+take either kernel and either pool dtype. ``--audit`` runs the step-program
+contract audit (``analysis.step_audit``) on the engine, replica 0 under
+``--dp``, before any traffic, and exits on a violation.
 """
 from __future__ import annotations
 
@@ -72,7 +83,8 @@ def serve_real(arch: str, n_requests: int = 8, max_new: int = 12,
                pipeline: bool = True, smoke: bool = False, device=None,
                seed: int = 0, preempt: str = "recompute", host_blocks: int = 0,
                kv_dtype: Optional[str] = None, kernel: str = "pallas",
-               interleave: bool = True, sanitize: bool = False):
+               interleave: bool = True, sanitize: bool = False, dp: int = 1,
+               audit: bool = False):
     """Serve ``n_requests`` random prompts (4-31 tokens) on ``arch`` (its
     smoke variant with ``smoke``) and print the per-request and summary
     lines of the JAX launcher. ``kv_dtype="int8"`` stores the paged pools
@@ -82,17 +94,31 @@ def serve_real(arch: str, n_requests: int = 8, max_new: int = 12,
     ``kernel="reference"`` reads attention through the gather oracles
     instead of the paged kernels; ``interleave=False`` runs the sequential
     oracle loop; ``sanitize`` shadows the KV block lifecycle (the summary
-    prints its operation counts). Returns the engine."""
+    prints its operation counts). ``dp > 1`` serves through a
+    ``DataParallelEngineGroup`` of ``dp`` replicas over one pool (the host
+    tier shared); ``audit`` runs the step audit first (replica 0 under
+    ``dp``) and raises ``SystemExit`` on a violation. Returns the engine, or
+    the group."""
     from repro_torch.configs import get_arch, smoke_variant
-    from repro_torch.serving.engine import GenerationEngine
+    from repro_torch.serving.engine import DataParallelEngineGroup, GenerationEngine
 
     cfg = get_arch(arch)
     if smoke:
         cfg = smoke_variant(cfg)
-    eng = GenerationEngine(cfg, max_batch=4, max_seq=256, pipeline=pipeline,
-                           seed=seed, device=device, preempt=preempt,
-                           host_blocks=host_blocks or None, kv_dtype=kv_dtype,
-                           kernel=kernel, interleave=interleave, sanitize=sanitize)
+    kw = dict(max_batch=4, max_seq=256, pipeline=pipeline, seed=seed, device=device,
+              preempt=preempt, host_blocks=host_blocks or None, kv_dtype=kv_dtype,
+              kernel=kernel, interleave=interleave, sanitize=sanitize)
+    eng = DataParallelEngineGroup(cfg, dp=dp, **kw) if dp > 1 else GenerationEngine(cfg, **kw)
+    if audit:
+        # contract audit before any traffic: collective census, host-sync
+        # scan, int8 flow, cache sentinel (analysis.step_audit)
+        from repro_torch.analysis.step_audit import audit_engine
+
+        report = audit_engine(eng.engines[0] if dp > 1 else eng)
+        for line in report.render().splitlines():
+            print(f"[serve:audit] {line}")
+        if not report.ok:
+            raise SystemExit("[serve:audit] step-program contract violated")
     rng = np.random.default_rng(seed)
     reqs = [
         eng.submit(rng.integers(0, cfg.vocab_size, rng.integers(4, 32)), max_new)
@@ -104,6 +130,18 @@ def serve_real(arch: str, n_requests: int = 8, max_new: int = 12,
         chunks = f" chunks={ss.chunks_flushed}" if ss else ""
         print(f"  req {r.req_id}: {len(r.out_tokens)} tokens "
               f"ttft={1e3*(r.first_token_at - r.submitted_at):.0f}ms{chunks}")
+    if dp > 1:
+        st = eng.stats()
+        for i, rs in enumerate(st["replicas"]):
+            print(f"[serve:real] replica {i}: {rs['tokens_out']} tokens out, "
+                  f"{rs['steps']} steps, host-hit tokens {rs['host_hit_tokens']}")
+        print(f"[serve:real] {cfg.name}: dp={dp} device={st['replicas'][0]['device']} "
+              f"kernel={st['replicas'][0]['kernel']} kv={st['replicas'][0]['kv_dtype']} "
+              f"{st['tokens_out']} tokens out; cross-replica host hits "
+              f"{st.get('cross_replica_host_hits', 0)}")
+        if "host_store" in st:
+            print(f"[serve:real] host tier: {st['host_store']}")
+        return eng
     stats = eng.stats()
     mode = "pipelined" if stats["pipeline"] else "sync"
     print(f"[serve:real] {cfg.name}: device={stats['device']} backend={stats['backend']} "
@@ -257,6 +295,14 @@ def main(argv=None):
     ap.add_argument("--sanitize", action="store_true",
                     help="shadow every KV block lifecycle transition (kvsan); "
                          "a violation raises")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel replica engines with independent "
+                         "admission over block ranges of one shared pool, on "
+                         "the one device (the host tier is shared)")
+    ap.add_argument("--audit", action="store_true",
+                    help="run the step-program contract audit (collectives, "
+                         "host syncs, int8 flow, cache sentinel) at startup, "
+                         "replica 0 under --dp, and exit on any violation")
     args = ap.parse_args(argv)
     if args.app is not None:
         serve_sim(args.app, args.rate, args.duration, args.engine, args.slo, seed=args.seed)
@@ -273,7 +319,7 @@ def main(argv=None):
                device=args.device, seed=args.seed, preempt=args.preempt,
                host_blocks=args.host_blocks, kv_dtype=args.kv_dtype,
                kernel=args.kernel, interleave=not args.no_interleave,
-               sanitize=args.sanitize)
+               sanitize=args.sanitize, dp=args.dp, audit=args.audit)
 
 
 if __name__ == "__main__":

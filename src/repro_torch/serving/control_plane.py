@@ -409,7 +409,9 @@ class ControlPlane:
         decode_idx = np.full((B,), -1, np.int32)
         last_idx = np.zeros((B,), np.int32)
         tables = np.full((B, eng._view_blocks), -1, np.int32)
-        # ragged tables ship to the device RAW; the attention masks blk < 0
+        # pad-ok: ragged tables ship to the device RAW; the paged chunk
+        # kernel (and its reference path) masks blk < 0 per step itself, and
+        # packed_slots routes a write through a -1 entry to the scratch block.
         rows = eng.kv.pool.table_array([r.req_id for r in active],
                                        eng._view_blocks)
         cursor = 0

@@ -79,8 +79,11 @@ in an ``analysis.kvsan.KVSanitizer`` (``self.sanitizer``).
 The engine runs on ``cuda`` unless ``device="cpu"`` is passed. The
 attention wrappers launch the CUDA kernels for CUDA tensors and run their
 plain PyTorch versions for CPU tensors; ``stats()["kernel"]`` says which,
-``stats()["kernel_impl"]`` which selector the engine was given. Arguments
-of later slices — meshes and pool layouts, an injected cache — raise
+``stats()["kernel_impl"]`` which selector the engine was given.
+``DataParallelEngineGroup`` runs DP replicas over block ranges of one
+shared pool on one device (``kv=`` injects a replica's cache), and
+``step_program(which)`` hands each step program to the step audit
+(``analysis.step_audit``). Meshes and pool layouts (a later slice) raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -120,6 +123,7 @@ from repro_torch.params import torch_dtype
 from repro_torch.serving.paged_cache import (
     PagedKVCache,
     device_to_host,
+    gather_paged_batch,
     gather_paged_batch_dq,
     write_paged_chunk,
     write_paged_chunk_batch,
@@ -283,11 +287,16 @@ class GenerationEngine:
         is ``"pallas"`` (the hand-written paged kernels; the port's default)
         or ``"reference"`` (the gather oracles), as in the JAX engine, whose
         default is ``"reference"``; ``"pallas"`` requires ``ragged=True``.
-        The other arguments mean what they mean in the JAX engine."""
-        later = {"mesh": mesh, "pool_layout": pool_layout, "kv": kv}
+        ``kv`` injects a ``PagedKVCache`` (a DP replica's, over a block
+        range of a shared pool box): it decides the pool format, brings its
+        host store and, when ``device`` is not given, the device. The other
+        arguments mean what they mean in the JAX engine."""
+        later = {"mesh": mesh, "pool_layout": pool_layout}
         for name, value in later.items():
             if value is not None:
                 raise NotImplementedError(f"GenerationEngine({name}=...) is not ported yet")
+        if kv is not None and device is None:
+            device = kv.device
         if backend not in ("paged", "dense"):
             raise ValueError(f"unknown backend {backend!r}")
         if preempt not in ("recompute", "swap", "cost"):
@@ -383,15 +392,21 @@ class GenerationEngine:
             n_blocks = max_batch * (self.max_blocks + 1) + 1
         if kv_dtype is None and cfg.kv_cache_quant:
             kv_dtype = "int8"  # quant configs store int8 pools
+        if kv is not None:
+            self.kv = kv
+            kv_dtype = kv.kv_dtype  # the injected cache decides the pool format
+            if self.host_store is None:
+                self.host_store = kv.host_store  # a DP group's shared tier
+        else:
+            if self.host_store is None and (host_blocks or preempt in ("swap", "cost")):
+                self.host_store = HostBlockStore.for_config(
+                    cfg, host_blocks or n_blocks, block_size, kv_dtype=kv_dtype,
+                    pin=self.device.type == "cuda")
+            self.kv = PagedKVCache(cfg, n_blocks, block_size, self.max_blocks,
+                                   prefix_sharing=prefix_sharing, device=self.device,
+                                   host_store=self.host_store, kv_dtype=kv_dtype,
+                                   sanitize=sanitize)
         self.kv_dtype = kv_dtype
-        if self.host_store is None and (host_blocks or preempt in ("swap", "cost")):
-            self.host_store = HostBlockStore.for_config(
-                cfg, host_blocks or n_blocks, block_size, kv_dtype=kv_dtype,
-                pin=self.device.type == "cuda")
-        self.kv = PagedKVCache(cfg, n_blocks, block_size, self.max_blocks,
-                               prefix_sharing=prefix_sharing, device=self.device,
-                               host_store=self.host_store, kv_dtype=kv_dtype,
-                               sanitize=sanitize)
         # one sanitizer (if any) shadows the pool, the host store and the
         # copy engine's tag queue (the swap-in sync(tag) happens-before edge)
         self.sanitizer = self.kv.sanitizer
@@ -410,6 +425,10 @@ class GenerationEngine:
         self.kv.copy_engine = self._copy
         self.control = ControlPlane(self)
         self.runner = DeviceRunner(self)
+        # the packed lengths the ragged step has run, and those warmup ran:
+        # the audit's cache sentinel holds the first to the second
+        self._packed_lengths: set = set()
+        self._warm_lengths: set = set()
 
     # ------------------------------------------------------------------ API
     def submit(self, prompt, max_new: int = 16, temperature: float = 0.0,
@@ -528,10 +547,69 @@ class GenerationEngine:
             pad = torch.full((T,), -1, dtype=torch.int32, device=dev)
             toks = _substitute_packed(z, last, no_slot, last)
             self._ragged_step(tables, toks, pad, z, z, z, z, last)
+            self._warm_lengths.add(T)
             n += 1
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         return n
+
+    def step_program(self, which: str):
+        """Return ``(callable, example_args)`` for one of the engine's step
+        programs, the entry point of the step audit
+        (``analysis.step_audit``):
+
+        * ``"fused_ragged"`` — the packed mixed-batch step (``_ragged_step``,
+          the main path), against a packed buffer of
+          ``ceil(B * C / pack_align) * pack_align`` tokens.
+        * ``"fused_padded"`` — the padded fused step (``_fused_step``, the
+          oracle of the ragged one).
+        * ``"decode"`` — the live decode dispatch: the paged decode kernel
+          under ``kernel="pallas"``, else the gather oracle.
+        * ``"decode_ref"`` — always the gather-oracle decode.
+        * ``"pool"`` — a bare ``gather_paged_batch`` then
+          ``write_paged_chunk_batch`` roundtrip of the K pool (the chunk
+          scatter in isolation), returning ``(new pool, view)``.
+
+        The callables are the engine's bound step functions (they read the
+        params and pools from the engine); the example arguments are shaped
+        like real dispatches, as in the JAX engine: pad-only tables, zero
+        tokens. A call changes no request state: its writes land in the
+        scratch block (the pool program returns a new pool and leaves the
+        engine's alone). Call under ``torch.no_grad()``, as the runner does."""
+        B, C, dev = self.max_batch, self.prefill_chunk_size, self.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        tokens = torch.zeros((B, C), **i32)
+        starts = torch.zeros((B,), **i32)
+        n_valid = torch.ones((B,), **i32)
+        seg = torch.zeros((B, C), **i32)
+        if which == "fused_ragged":
+            T = -(-(B * C) // self.pack_align) * self.pack_align
+            flat = torch.zeros((T,), **i32)
+            tables = torch.full((B, self._view_blocks), -1, **i32)
+            return self._ragged_step, (tables, flat, flat, flat, flat, flat, flat,
+                                       torch.zeros((B,), **i32))
+        if which == "fused_padded":
+            tables = torch.full((B, self._view_blocks), self._null_block, **i32)
+            return self._fused_step, (tables, tokens, starts, n_valid, seg, seg, seg)
+        if which in ("decode", "decode_ref"):
+            tables = torch.full((B, self.max_blocks), self._null_block, **i32)
+            fn = self._decode_dispatch if which == "decode" else self._decode_paged
+            return fn, (tables, tokens[:, :1].contiguous(), starts)
+        if which == "pool":
+            bs, null = self.block_size, self._null_block
+
+            def roundtrip(k_pool, tables, starts, new_kv, n_valid):
+                view = gather_paged_batch(k_pool, tables)
+                out = write_paged_chunk_batch(k_pool, tables, starts, new_kv, bs, n_valid,
+                                              null)
+                return out, view
+
+            k = self.kv.k
+            G, KVH, hd = k.shape[0], k.shape[3], k.shape[4]
+            new_kv = torch.zeros((G, B, C, KVH, hd), dtype=k.dtype, device=dev)
+            tables = torch.full((B, self._view_blocks), self._null_block, **i32)
+            return roundtrip, (k, tables, starts, new_kv, n_valid)
+        raise ValueError(f"unknown step program {which!r}")
 
     # token-weighted windows below this many prompt tokens are "cold"
     hit_rate_min_tokens: int = 64
@@ -794,6 +872,7 @@ class GenerationEngine:
         ``last_idx``), so the sampler keeps its (B,) contract. Attention
         reads through the chunk kernel, or under ``kernel="reference"``
         through its gather oracle."""
+        self._packed_lengths.add(tokens.shape[0])
         logits = prefill_packed(
             self.cfg, self.params, self.kv.k, self.kv.v, tables, tokens,
             row_of, slots, positions, p_end, s_start,
@@ -905,6 +984,8 @@ class GenerationEngine:
         req.truncated = cap < len(req.prompt)
         toks = np.asarray(req.prompt[:cap], np.int32)
         pc = self.prefill_chunk_size
+        # pad-ok: prefill gathers only blocks already reserved for this
+        # request; the gathers and _chunk_dest clamp pads to block 0.
         (table,), _ = self.runner.upload(
             self.kv.pool.table_array([req.req_id], self._view_blocks)[0])
         req.prefill_cap = cap
@@ -1260,6 +1341,132 @@ class GenerationEngine:
             or req.pos >= self.max_seq - 1
         ):
             self._finalize(req)
+
+
+class DataParallelEngineGroup:
+    """DP replicas of the paged engine over ONE block pool, partitioned by
+    block range, on one device.
+
+    Each replica is a full ``GenerationEngine`` with **independent
+    admission**: its own free list over a disjoint block range
+    (``sharded_pool.block_range``), its own refcounts, prefix index, warm
+    LRU and scratch block — no cross-replica coordination on the hot path.
+    All replicas share one ``PoolArrays`` box and one params tree (the
+    weights are on the card once). Replicas do NOT share device prefix
+    blocks (each index only points into its own range), but a shared
+    ``HostBlockStore`` (``host_store=`` / ``host_blocks=``) gives them the
+    next-best thing: every replica writes its newly published prefix blocks
+    through to the host tier, so a document prefilled on replica 0 is a
+    *host hit* on replica 1 — one host->device block copy instead of a
+    re-prefill. Content-hash keys make the sharing exact, and the store's
+    ``cross_hits`` counter makes it observable
+    (``stats()["cross_replica_host_hits"]``). One ``PriorityFlusher`` and,
+    with ``sanitize=True``, one ``KVSanitizer`` span the group.
+
+    ``submit`` routes least-loaded (fewest active + queued requests);
+    ``step`` advances every replica once. A replica's greedy tokens are
+    those of a lone engine serving the same requests in the same order —
+    same params, same plans, same per-request math. (A lone engine serving
+    every replica's requests batches them differently: on the card other
+    packed lengths can round bf16 sums otherwise.) The replicas dispatch
+    onto one CUDA stream, in turn, and write
+    disjoint blocks of the shared box; an int8 pool's scatter rewrites a
+    whole layer's scales, which is safe only because the steps run in
+    stream order.
+
+    ``params`` (default: drawn from ``seed``) and ``device`` are the
+    replicas'; the other arguments are the JAX group's. ``pool_layout``
+    (replicas on a mesh) is not ported yet and raises
+    ``NotImplementedError``."""
+
+    def __init__(self, cfg, dp: int = 2, max_batch: int = 4, max_seq: int = 256,
+                 block_size: int = 16, n_blocks_per_replica: Optional[int] = None,
+                 prefix_sharing: bool = True, pool_layout: Any = None, seed: int = 0,
+                 host_store: Optional[HostBlockStore] = None,
+                 host_blocks: Optional[int] = None, kv_dtype: Optional[str] = None,
+                 sanitize: bool = False, params=None, device=None, **engine_kwargs):
+        from repro_torch.serving.sharded_pool import block_range
+
+        if dp < 1:
+            raise ValueError("dp must be >= 1")
+        if pool_layout is not None:
+            raise NotImplementedError(
+                "DataParallelEngineGroup(pool_layout=...) is not ported yet")
+        device = resolve_device(device)
+        max_blocks = -(-max_seq // block_size)
+        per = n_blocks_per_replica or (max_batch * (max_blocks + 1) + 1)
+        total = per * dp
+        if kv_dtype is None and cfg.kv_cache_quant:
+            kv_dtype = "int8"
+        if host_store is None and (host_blocks
+                                   or engine_kwargs.get("preempt") in ("swap", "cost")):
+            host_store = HostBlockStore.for_config(
+                cfg, host_blocks or total, block_size, kv_dtype=kv_dtype,
+                pin=device.type == "cuda")
+        self.host_store = host_store
+        # one shared transport: chunks from every replica's streams flush in
+        # global EDF-slack order, not per-replica order
+        self.flusher = PriorityFlusher()
+        engine_kwargs.setdefault("flusher", self.flusher)
+        self.engines: List[GenerationEngine] = []
+        # one sanitizer spans the group: a shared shadow also catches
+        # cross-replica double ownership of a block of the shared box
+        self.sanitizer = None
+        if sanitize:
+            from repro_torch.analysis.kvsan import KVSanitizer
+
+            self.sanitizer = KVSanitizer()
+        arrays = None
+        for rank in range(dp):
+            kv = PagedKVCache(
+                cfg, total, block_size, max_blocks, prefix_sharing=prefix_sharing,
+                device=device, block_range=block_range(total, dp, rank), arrays=arrays,
+                host_store=host_store, client_tag=rank, kv_dtype=kv_dtype,
+                sanitizer=self.sanitizer,
+                # write-through: siblings should host-hit a doc without
+                # waiting for the producing replica to evict it
+                host_write_through=host_store is not None,
+            )
+            eng = GenerationEngine(cfg, params=params, max_batch=max_batch, max_seq=max_seq,
+                                   seed=seed, block_size=block_size, kv=kv, device=device,
+                                   **engine_kwargs)
+            arrays = kv._arrays   # replicas 1.. attach to replica 0's box
+            params = eng.params   # and reuse its params tree
+            self.engines.append(eng)
+
+    def submit(self, prompt, max_new: int = 16, temperature: float = 0.0,
+               priority: float = 0.0) -> Request:
+        eng = min(self.engines,
+                  key=lambda e: len(e.waiting) + sum(s is not None for s in e.slots))
+        return eng.submit(prompt, max_new, temperature, priority)
+
+    def step(self) -> None:
+        for eng in self.engines:
+            if eng.waiting or any(eng.slots) or eng.pending:
+                eng.step()
+
+    def run_until_done(self, max_steps: int = 10_000) -> None:
+        while max_steps and any(e.waiting or any(e.slots) or e.pending for e in self.engines):
+            self.step()
+            max_steps -= 1
+        for eng in self.engines:
+            eng._drain_copies(full=True)
+        self.flusher.flush()
+
+    def stats(self) -> Dict[str, Any]:
+        per = [e.stats() for e in self.engines]
+        out = {
+            "dp_degree": len(self.engines),
+            "tokens_out": sum(s["tokens_out"] for s in per),
+            "prefill_tokens": sum(s["prefill_tokens"] for s in per),
+            "preemptions": sum(s["preemptions"] for s in per),
+            "host_hit_tokens": sum(s.get("host_hit_tokens", 0) for s in per),
+            "replicas": per,
+        }
+        if self.host_store is not None:
+            out["cross_replica_host_hits"] = self.host_store.cross_hits
+            out["host_store"] = self.host_store.stats()
+        return out
 
 
 def _merge_emitted(into: Dict[int, List[int]], more: Dict[int, List[int]]) -> None:

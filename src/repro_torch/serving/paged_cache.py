@@ -33,8 +33,9 @@ The gather and chunk-write functions of the oracle paths (``gather_paged*``,
 ``write_paged_chunk*``, ``paged_validity``) are functions on tensors that
 return NEW pools, as the JAX functions do; the engine's oracle steps land
 them back in the cache box. ``sanitize=True`` attaches the lifecycle
-sanitizer (``analysis.kvsan``). Mesh layouts, block ranges and injected
-pool boxes are not ported yet; the constructor raises
+sanitizer (``analysis.kvsan``). A DP replica's cache allocates from a
+block range of a pool box it shares with its siblings (``block_range``,
+``arrays``); mesh layouts are not ported yet, and the constructor raises
 ``NotImplementedError`` for them.
 """
 from __future__ import annotations
@@ -516,7 +517,7 @@ class Admission:
 
 class PoolArrays:
     """Device-side k/v pool tensors, boxed so they can be shared (DP
-    replicas over one pool are a later slice). Quantized pools carry
+    replicas over one pool: ``DataParallelEngineGroup``). Quantized pools carry
     per-(block, KV head) float32 scale pools ``k_scale``/``v_scale`` of
     shape (G, n_blocks, KVH); both are ``None`` for float pools."""
 
@@ -549,6 +550,13 @@ class PagedKVCache:
     raises ``KVSanError`` on a violation (a debug mode); ``sanitizer``
     injects one instead.
 
+    ``block_range=(lo, hi)`` restricts allocation to blocks [lo, hi) for a
+    DP replica with independent admission (``serving.sharded_pool
+    .block_range``), and ``arrays`` shares one ``PoolArrays`` box between
+    such replicas: a cache built on a quantized box is an int8 cache. Mesh
+    layouts (``layout``) are not ported yet and raise
+    ``NotImplementedError``.
+
     The legacy per-sequence API (``admit``, ``write_token``,
     ``write_prefill``, ``sequence_view``) streams K/V in without token
     identity, through the oracle paths' functions."""
@@ -559,18 +567,21 @@ class PagedKVCache:
                  host_store=None, host_write_through: bool = False,
                  client_tag=None, kv_dtype: Optional[str] = None,
                  sanitize: bool = False, sanitizer=None):
-        for name, value in (("layout", layout), ("block_range", block_range),
-                            ("arrays", arrays)):
-            if value is not None:
-                raise NotImplementedError(f"PagedKVCache({name}=...) is not ported yet")
+        if layout is not None:
+            raise NotImplementedError("PagedKVCache(layout=...) is not ported yet")
         if kv_dtype is not None and kv_dtype != "int8":
             raise ValueError(f"unsupported kv_dtype {kv_dtype!r}")
+        lo, hi = block_range if block_range is not None else (0, n_blocks)
+        if not (0 <= lo < hi <= n_blocks):
+            raise ValueError(f"block_range {(lo, hi)} outside [0, {n_blocks})")
         from repro_torch import resolve_device
         from repro_torch.models.transformer import period
 
         self.cfg = cfg
         self.block_size = block_size
         self.max_blocks = max_blocks_per_seq
+        if arrays is not None and device is None:
+            device = arrays.k.device  # a shared box decides where the pools live
         self.device = resolve_device(device)
         self.kv_dtype = kv_dtype
         G = cfg.num_layers // period(cfg)
@@ -581,6 +592,7 @@ class PagedKVCache:
         self.sanitizer = sanitizer
         self.pool = PagedPool(
             n_blocks, block_size,
+            free_list=list(range(lo, hi)),
             on_free=self._forget_block,
             keep_on_release=lambda b: b in self._block_key,
             sanitizer=sanitizer,
@@ -588,14 +600,18 @@ class PagedKVCache:
         if sanitizer is not None and host_store is not None \
                 and getattr(host_store, "sanitizer", None) is None:
             host_store.sanitizer = sanitizer
-        shape = (G, n_blocks, block_size, cfg.num_kv_heads, cfg.head_dim)
-        dt = torch.int8 if kv_dtype == "int8" else torch_dtype(cfg)
-        zeros = lambda shp, d: torch.zeros(shp, dtype=d, device=self.device)
-        scales = (None, None)
-        if kv_dtype == "int8":
-            sshape = (G, n_blocks, cfg.num_kv_heads)
-            scales = (zeros(sshape, torch.float32), zeros(sshape, torch.float32))
-        self._arrays = PoolArrays(zeros(shape, dt), zeros(shape, dt), *scales)
+        if arrays is None:
+            shape = (G, n_blocks, block_size, cfg.num_kv_heads, cfg.head_dim)
+            dt = torch.int8 if kv_dtype == "int8" else torch_dtype(cfg)
+            zeros = lambda shp, d: torch.zeros(shp, dtype=d, device=self.device)
+            scales = (None, None)
+            if kv_dtype == "int8":
+                sshape = (G, n_blocks, cfg.num_kv_heads)
+                scales = (zeros(sshape, torch.float32), zeros(sshape, torch.float32))
+            arrays = PoolArrays(zeros(shape, dt), zeros(shape, dt), *scales)
+        self._arrays = arrays
+        if self.kv_dtype is None and arrays.k_scale is not None:
+            self.kv_dtype = "int8"  # shared box from a quantized sibling
         self.lengths: Dict[int, int] = {}
         self.prefix_sharing = prefix_sharing
         self.host_store = host_store
@@ -915,6 +931,10 @@ class PagedKVCache:
     def _row(self, seq_id: int) -> torch.Tensor:
         """The sequence's block-table row (max_blocks,) int32 on the pool's
         device (-1 past its chain: the gathers clamp, validity masks)."""
+        # pad-ok: write_token writes only position lengths[seq], in a block
+        # extend_for just reserved; write_prefill's Lp tokens were reserved by
+        # the caller's allocate (and _chunk_dest clamps); sequence_view's
+        # gathers clamp pad rows and paged_validity masks them.
         return self._ids(self.pool.table_array([seq_id], self.max_blocks)[0]).int()
 
     def write_token(self, seq_id: int, k_entry, v_entry):

@@ -1291,3 +1291,127 @@ def test_new_model_paths_on_the_card_match_the_cpu(gpu, arch, quant):
     # summation order), which moves the smoke model's logits by ~4e-4
     tol = 1e-3 if quant else 1e-4
     torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=tol, atol=tol)
+
+
+# ------------------------------- the step audit and DP replicas on the card
+def _smoke_cfg(dtype):
+    from repro_torch.configs import get_arch, smoke_variant
+
+    return smoke_variant(get_arch("smollm-135m")).replace(dtype=dtype)
+
+
+def _card_engine(cfg, params=None, **kw):
+    from repro_torch.serving.engine import GenerationEngine
+
+    return GenerationEngine(cfg, params=params, device="cuda", max_batch=2, max_seq=64,
+                            prefill_chunk_size=16, token_budget=20, **kw)
+
+
+@pytest.mark.parametrize("dtype,kv_dtype", [("bfloat16", None), ("bfloat16", "int8"),
+                                            ("float32", None)])
+def test_step_audit_is_clean_on_the_card(gpu, dtype, kv_dtype):
+    """Every step program of the smoke engine, under
+    ``set_sync_debug_mode("error")``: collective-free, no host sync, the
+    int8 pools reaching both paged kernels un-upcast, only warmed packed
+    lengths and no kernel library built during the audited steps (every
+    library is built first, as ``chip_smoke.py`` builds them); the sync
+    debug mode is restored."""
+    from repro_torch.analysis.step_audit import audit_engine
+    from repro_torch.kernels._build import build_all
+
+    build_all()
+    eng = _card_engine(_smoke_cfg(dtype), kv_dtype=kv_dtype)
+    mode = torch.cuda.get_sync_debug_mode()
+    ka.reset_launch_counts()
+    report = audit_engine(eng)
+    assert report.ok, report.render()
+    assert torch.cuda.get_sync_debug_mode() == mode
+    assert ka.paged_chunk_attention.launches > 0 and ka.paged_decode_attention.launches > 0
+    flows = {f.program for f in report.findings if f.check == "int8-flow" and f.ok}
+    assert flows == ({"fused_ragged", "decode"} if kv_dtype else set())
+    sentinel = [f for f in report.findings if f.check == "cache-sentinel"][0]
+    assert "0 kernel libraries built" in sentinel.detail
+
+
+@pytest.mark.parametrize("mid,check", [("audit-collective", "collectives"),
+                                       ("audit-host-sync", "host-sync"),
+                                       ("audit-int8-upcast", "int8-flow"),
+                                       ("audit-cache-buckets", "cache-sentinel")])
+def test_audit_mutations_are_caught_on_the_card(gpu, mid, check, capsys):
+    """The four seeded defects through the CLI on the card (exit 1, the
+    expected check failing); the sync debug mode is restored."""
+    from repro_torch.analysis.__main__ import main
+    from repro_torch.kernels._build import build_all
+
+    build_all()
+    mode = torch.cuda.get_sync_debug_mode()
+    assert main(["audit", "--mutate", mid]) == 1
+    out = capsys.readouterr().out
+    failed = [ln for ln in out.splitlines() if ln.startswith("[FAIL]")]
+    assert failed and all(ln.split()[2] == check for ln in failed), out
+    assert torch.cuda.get_sync_debug_mode() == mode
+
+
+def _serve_waves(submit, run, waves, prompts):
+    out = {}
+    for wave in waves:
+        reqs = {i: submit(i, prompts[i]) for i in wave}
+        run()
+        out.update({i: r for i, r in reqs.items() if r is not None})
+    return out
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_dp_group_on_the_card_matches_lone_engines(gpu, kv_dtype):
+    """Two replicas over one pool box on the card, float32 at smoke width:
+    without a host tier each replica's greedy tokens equal, bit for bit, a
+    lone engine's replaying its share of the prompts wave by wave; with a
+    shared write-through host tier, replica 1 host-hits the document
+    replica 0 prefilled. Ownership stays disjoint and both pools drain."""
+    import numpy as np
+
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import DataParallelEngineGroup, GenerationEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _smoke_cfg("float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    rng = np.random.default_rng(0)
+    doc = rng.integers(0, cfg.vocab_size, 48)
+    prompts = [np.concatenate([doc, rng.integers(0, cfg.vocab_size, 5 + 3 * i)])
+               for i in range(4)] + [rng.integers(0, cfg.vocab_size, 20 + 7 * i)
+                                     for i in range(4)]
+    waves = ((0, 4), (5, 1, 6, 2, 7, 3))
+    kw = dict(max_batch=2, max_seq=128, prefill_chunk_size=16, token_budget=20,
+              kv_dtype=kv_dtype)
+    for host_blocks in (None, 32):
+        grp = DataParallelEngineGroup(cfg, dp=2, params=params, device="cuda",
+                                      host_blocks=host_blocks, **kw)
+        owner = {}
+
+        def submit(i, p):
+            r = grp.submit(p, max_new=8)
+            owner[i] = next(k for k, e in enumerate(grp.engines)
+                            if any(x is r for x in e.waiting))
+            return r
+
+        reqs = _serve_waves(submit, grp.run_until_done, waves, prompts)
+        e0, e1 = grp.engines
+        assert e0.kv._arrays is e1.kv._arrays and e0.params is e1.params
+        pools = [e.kv.pool for e in grp.engines]
+        owned = [set(p.free_list) | set(p.refcounts) | set(p.cached) for p in pools]
+        assert not owned[0] & owned[1]
+        assert all(p.n_free == p.n_owned - 1 for p in pools)
+        assert all(len(r.out_tokens) == 8 for r in reqs.values())
+        if host_blocks is None:
+            for rank in range(2):
+                lone = GenerationEngine(cfg, params=params, device="cuda", **kw)
+                got = _serve_waves(
+                    lambda i, p: lone.submit(p, max_new=8) if owner[i] == rank else None,
+                    lone.run_until_done, waves, prompts)
+                for i, r in got.items():
+                    assert r.out_tokens == reqs[i].out_tokens, (rank, i)
+        else:
+            st = grp.stats()
+            assert st["cross_replica_host_hits"] > 0 and st["host_hit_tokens"] > 0
+            assert grp.host_store.k.is_pinned()

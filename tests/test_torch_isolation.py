@@ -32,6 +32,9 @@ def test_imports_with_jax_and_repro_blocked():
         "import repro_torch.core.profiling, repro_torch.core.controller\n"
         "import repro_torch.launch.deploy_config\n"
         "import repro_torch.analysis, repro_torch.analysis.kvsan, repro_torch.analysis.__main__\n"
+        "import repro_torch.analysis.lint, repro_torch.analysis.step_audit\n"
+        "import repro_torch.serving.sharded_pool\n"
+        "from repro_torch.serving.engine import DataParallelEngineGroup\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -102,14 +105,18 @@ def test_later_slices_raise_not_implemented():
     from repro_torch.serving.engine import GenerationEngine
 
     cfg = smoke_variant(get_arch("smollm-135m"))
-    for kw in ({"mesh": object()}, {"pool_layout": object()}, {"kv": object()}):
+    for kw in ({"mesh": object()}, {"pool_layout": object()}):
         with pytest.raises(NotImplementedError):
             GenerationEngine(cfg, device="cpu", **kw)
     from repro_torch.serving.paged_cache import PagedKVCache
 
-    for kw in ({"layout": object()}, {"block_range": (0, 4)}, {"arrays": object()}):
+    for kw in ({"layout": object()},):
         with pytest.raises(NotImplementedError):
             PagedKVCache(cfg, 8, 16, 4, device="cpu", **kw)
+    from repro_torch.serving.engine import DataParallelEngineGroup
+
+    with pytest.raises(NotImplementedError):       # replicas on a mesh: a later slice
+        DataParallelEngineGroup(cfg, dp=2, device="cpu", pool_layout=object())
     # the paged backend's oracle paths and the sanitizer are ported
     eng = GenerationEngine(cfg, device="cpu", interleave=False)
     assert eng.backend == "paged" and not eng.interleave and eng.kernel_impl == "pallas"
