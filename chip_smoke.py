@@ -308,13 +308,41 @@ Phases, each of which raises on failure (the script then exits non-zero):
    batch compositions change the packed lengths, and random-weight bf16
    logits have near-ties).
 
+18. Training. (a) The flash backward kernel (``csrc/flash_backward.cu``)
+   against ``ref_flash_attention_backward`` on the card at qwen2.5-3b's
+   heads (H 16 over KVH 2, hd 128: B 2 and 1 at S 2048) and smollm-135m's
+   (H 9 over KVH 3, hd 64: B 8 at S 256), both at S 1, 37 and 1000 (B 2),
+   float32 and bfloat16: each gradient within ``BWD_TOL``, two calls equal
+   (no atomics), and faulted controls above the bound (dv scaled by 1 +
+   ``BWD_FAULT``; the plain version with delta dropped, against dq and
+   dk); the kernel's, its plain version's and SDPA's backward's times at
+   qwen's training microbatch (bf16, B 1, S 2048) and smollm's batch (f32,
+   B 8, S 256) beside the bound. (b) qwen2.5-3b at full width with its
+   depth cut to 2 layers, float32, B 2 x S 2048: every leaf's gradient
+   through the kernels against the same stack with the attention taken
+   through the plain version under autograd (``plain_attention``) within
+   ``STACK_BOUND``, a control (dv scaled by 1 + 2**-7) above it. (c)
+   qwen2.5-3b at full width and depth (36 layers), bf16 parameters, f32
+   AdamW moments, 6 steps of 2 x 2048 tokens from ``TokenDataset`` in 2
+   microbatches: losses finite and falling, grad norms finite, s/step,
+   tokens/s, peak memory, and the launches (flash forward 2 x 36 a
+   microbatch: remat runs each layer's forward again in the backward;
+   the backward 36; no other kernel). (d) smollm-135m at full width
+   through ``launch.train.train`` with examples/train_smollm.py --full's
+   settings (50 steps of 8 x 256, float32): loss falling, the checkpoint
+   reloaded with ``like=`` gives logits equal bit for bit. (e) Every
+   forward-only wrapper handed a grad-requiring CUDA input under grad mode
+   raises ``RuntimeError``, and the flash forms without a backward kernel
+   raise ``NotImplementedError``.
+
 It prints a ``{"int8_serve": ..., "host_tier": ..., "oracle_paths": ...,
 "controller": ..., "swa_serve": ..., "mixtral_serve": ...,
 "chunk_mla_parity_max_abs_logit_diff": ..., "llama4_serve": ...,
 "minicpm3_serve": ..., "zoo_parity_max_abs_logit_diff": ...,
 "swa_int8_serve": ..., "internvl2_serve": ..., "whisper_serve": ...,
-"audit": ..., "dp": ...}`` line of phases 5c, 5d, 5e, 7b, 10, 11, 4f, 12,
-13, 4g, 10b, 14, 15, 16 and 17's figures,
+"audit": ..., "dp": ..., "train": ..., "train_stack_gradient": ...,
+"grad_guards": ...}`` line of phases 5c, 5d, 5e, 7b, 10, 11, 4f, 12, 13,
+4g, 10b, 14, 15, 16, 17 and 18's figures,
 a ``{"kernels": [...]}`` line, the card's name and power limit, each
 phase's seconds and the total, and last ``{"ok": true, "device":
 {...}}``. Exits non-zero without a GPU.
@@ -363,6 +391,8 @@ REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention.py:90",
     "rwkv6_chunked": "src/repro/kernels/rwkv6_scan.py:76",
     "ssm_scan": "src/repro/kernels/ssm_scan.py:55",
+    # the custom_vjp backward rule of blockwise_attention (plain jnp)
+    "flash_attention_backward": "src/repro/models/attention.py:211",
 }
 SOURCES = {
     "paged_chunk_attention": "src/repro_torch/csrc/paged_attention.cu",
@@ -372,6 +402,7 @@ SOURCES = {
     "decode_attention": "src/repro_torch/csrc/dense_attention.cu",
     "rwkv6_chunked": "src/repro_torch/csrc/rwkv6_scan.cu",
     "ssm_scan": "src/repro_torch/csrc/ssm_scan.cu",
+    "flash_attention_backward": "src/repro_torch/csrc/flash_backward.cu",
 }
 
 
@@ -4794,6 +4825,374 @@ def phase_dp(ka, kf, tk, cfg, params, prompts, paged_tokens):
     return all_launches, figures
 
 
+# ---------------------------------------------------------------------------
+# phase 18: training (the flash backward kernel, a full-width stack's
+# gradient, qwen2.5-3b and smollm-135m trained at full width)
+# ---------------------------------------------------------------------------
+
+BWD_HEADS = {"qwen2.5-3b": (16, 2, 128), "smollm-135m": (9, 3, 64)}
+# (B, S) of each head set: qwen's training batch and microbatch (timed),
+# smollm's training batch (timed), and ragged S at small B
+BWD_CASES = {"qwen2.5-3b": ((2, 2048), (1, 2048), (2, 1), (2, 37), (2, 1000)),
+             "smollm-135m": ((8, 256), (2, 1), (2, 37), (2, 1000))}
+BWD_TIMED = {"qwen2.5-3b": ("bfloat16", 1, 2048), "smollm-135m": ("float32", 8, 256)}
+# (atol as a share of max(1, max |want|), rtol) of the backward kernel
+# against ref_flash_attention_backward on the same inputs: float32, the
+# summation order; bfloat16, one rounding of the f32 result apart (at most
+# 2**-7 of the value), both sides computing in f32
+BWD_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-5, 2 ** -7)}
+# the faulted controls: dv scaled by 1 + BWD_FAULT[dtype] (bf16 rounds
+# 2**-7 to one or two ulps, inside its bound, so 2**-5 there), and the
+# plain version with delta dropped against the kernel's dq and dk
+BWD_FAULT = {"float32": 2 ** -7, "bfloat16": 2 ** -5}
+# the stack check: qwen2.5-3b at full width, 2 layers, float32; each leaf's
+# |g_kernel - g_plain| / max(|g_plain|, STACK_FLOOR x the global norm) (the
+# key biases' gradient is zero in exact arithmetic: a bias shared by every
+# key of a head shifts a row's scores by one constant)
+STACK_LAYERS, STACK_B, STACK_S = 2, 2, 2048
+STACK_BOUND, STACK_FLOOR = 1e-3, 1e-3
+TRAIN_STEPS, TRAIN_B, TRAIN_S, TRAIN_MB = 6, 2, 2048, 2
+SMOLLM_STEPS, SMOLLM_B, SMOLLM_S = 50, 8, 256          # examples/train_smollm.py --full
+
+
+def backward_excess(got, want, dtype_name):
+    """The largest |got - want| over its BWD_TOL bound (> 1: outside)."""
+    share, rtol = BWD_TOL[dtype_name]
+    got, want = got.float(), want.float()
+    bound = share * max(1.0, float(want.abs().max())) + rtol * want.abs()
+    return float(((got - want).abs() / bound).max())
+
+
+def backward_work(B, S, H, KVH, hd, item):
+    """(bytes, flop) the backward must move and do: q, k, v, out and dout
+    read once, dq, dk and dv written once; five hd-deep products over each
+    (query head, visible key) pair, S (S + 1) / 2 of them a head (causal)."""
+    nbytes = item * B * S * (4 * H * hd + 4 * KVH * hd)
+    return nbytes, 5 * 2 * hd * B * H * S * (S + 1) // 2
+
+
+def phase_backward_kernel(kf):
+    """The flash backward kernel against its plain version on the card,
+    with faulted controls; times at the training shapes."""
+    import torch.nn.functional as F
+
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    rows = {}
+    for arch, (Hh, KVHh, hd) in BWD_HEADS.items():
+        for dtype_name in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype_name)
+            for Bb, S in BWD_CASES[arch]:
+                q = torch.randn((Bb, S, Hh, hd), generator=gen, device="cuda").to(dt)
+                k, v = (torch.randn((Bb, S, KVHh, hd), generator=gen, device="cuda").to(dt)
+                        for _ in range(2))
+                out = kf.flash_attention(q, k, v)
+                dout = torch.randn(out.shape, generator=gen, device="cuda").to(dt)
+                got = kf.flash_attention_backward(q, k, v, out, dout)
+                again = kf.flash_attention_backward(q, k, v, out, dout)
+                torch.cuda.synchronize()
+                want = kf.ref_flash_attention_backward(q, k, v, out, dout)
+                name = f"flash_attention_backward[{arch} heads, {dtype_name}, B={Bb}, S={S}]"
+                r = {"max_abs_err": {}, "excess": {}}
+                for g_name, a, a2, w in zip(("dq", "dk", "dv"), got, again, want):
+                    assert a.dtype == dt and torch.isfinite(a.float()).all(), (name, g_name)
+                    assert torch.equal(a, a2), f"{name}: {g_name} differs between two calls"
+                    r["max_abs_err"][g_name] = float((a.float() - w.float()).abs().max())
+                    r["excess"][g_name] = backward_excess(a, w, dtype_name)
+                    assert r["excess"][g_name] <= 1.0, (name, g_name, r)
+                scale = 1 + BWD_FAULT[dtype_name]
+                faulted = kf.ref_flash_attention_backward(q, k, v, torch.zeros_like(out), dout)
+                r["controls"] = {
+                    f"dv x (1 + {BWD_FAULT[dtype_name]:g})":
+                        backward_excess((got[2].float() * scale).to(dt), want[2], dtype_name),
+                    "delta dropped (dq)": backward_excess(got[0], faulted[0], dtype_name),
+                    "delta dropped (dk)": backward_excess(got[1], faulted[1], dtype_name)}
+                if S > 1:   # at S 1, dq and dk are zero in exact arithmetic
+                    assert all(x > 1.0 for x in r["controls"].values()), (name, r["controls"])
+                if BWD_TIMED[arch] == (dtype_name, Bb, S):
+                    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+                    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                             enable_gqa=True)
+                    dout_t = dout.transpose(1, 2)
+                    lib = lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dout_t,
+                                                      retain_graph=True)
+                    nbytes, ops = backward_work(Bb, S, Hh, KVHh, hd, q.element_size())
+                    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+                    ops_ms = ops / PEAK_OPS_S[dtype_name] * 1e3
+                    kern = lambda: kf.flash_attention_backward(q, k, v, out, dout)
+                    r.update({"ms": time_ms(kern, flush), "device_ms": device_ms(kern),
+                              "plain_ms": time_ms(
+                                  lambda: kf.ref_flash_attention_backward(q, k, v, out, dout),
+                                  flush, reps=5),
+                              "library_ms": time_ms(lib, flush),
+                              "bound_ms": max(bytes_ms, ops_ms),
+                              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                              "bytes": nbytes, "ops": ops})
+                    del lib_out, qt, kt, vt
+                rows[(arch, dtype_name, Bb, S)] = r
+                times = (f"; kernel_ms={r['ms']:.4f} device_ms={fmt_ms(r['device_ms'])} "
+                         f"plain_ms={r['plain_ms']:.4f} sdpa_backward_ms={r['library_ms']:.4f} "
+                         f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}: {r['bytes']} B, "
+                         f"{r['ops']} flop)") if "ms" in r else ""
+                errs = " ".join(f"{g}={e:.3e} ({r['excess'][g]:.3f} of bound)"
+                                for g, e in r["max_abs_err"].items())
+                ctl = ", ".join(f"{c} {x:.1f}x" for c, x in r["controls"].items())
+                print(f"[backward kernel] {name}: max_abs_err {errs} (atol share, rtol "
+                      f"{BWD_TOL[dtype_name]}); controls {ctl}{times}", flush=True)
+                del q, k, v, out, dout, got, again, want, faulted
+            torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The stack's attention through ``ref_flash_attention`` under autograd
+    (the plain version differentiated by PyTorch), for the stack check only."""
+    from repro_torch.kernels.flash_attention import ref_flash_attention
+    from repro_torch.models import attention as attn
+
+    real = attn.blockwise_attention
+    attn.blockwise_attention = lambda q, k, v, **kw: ref_flash_attention(
+        q, k, v, causal=kw.get("causal", True))
+    try:
+        yield
+    finally:
+        attn.blockwise_attention = real
+
+
+@contextlib.contextmanager
+def dv_scaled(kf, factor):
+    """The faulted control: the backward's dv scaled by ``factor``."""
+    real = kf.flash_attention_backward
+
+    def faulted(*a, **kw):
+        dq, dk, dv = real(*a, **kw)
+        return dq, dk, dv * factor
+
+    faulted.launches = real.launches     # the wrapper counts through its module name
+    kf.flash_attention_backward = faulted
+    try:
+        yield
+    finally:
+        kf.flash_attention_backward = real
+
+
+def phase_train_stack(kf):
+    """qwen2.5-3b at full width with its depth cut to STACK_LAYERS, float32:
+    the gradient of every leaf through the kernels (the flash forward, its
+    backward) against the same stack with the plain attention under
+    autograd, and a faulted control (dv scaled by 1 + 2**-7) above the
+    bound."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import loss_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 products in float32
+    cfg = get_arch("qwen2.5-3b").replace(num_layers=STACK_LAYERS)
+    params, leaves = draw_weights("train stack", cfg)
+    for p in leaves:
+        p.requires_grad_(True)
+    tokens = torch.randint(0, cfg.vocab_size, (STACK_B, STACK_S),
+                           generator=torch.Generator(device="cuda").manual_seed(5), device="cuda")
+
+    def grads(ctx):
+        with ctx:
+            total, _ = loss_fn(cfg, params, {"tokens": tokens})
+            return torch.autograd.grad(total, leaves)
+
+    kf.reset_launch_counts()
+    got = grads(contextlib.nullcontext())
+    launches = {"flash_attention": kf.flash_attention.launches,
+                "flash_attention_backward": kf.flash_attention_backward.launches}
+    assert launches == {"flash_attention": 2 * STACK_LAYERS,
+                        "flash_attention_backward": STACK_LAYERS}, launches
+    want = grads(plain_attention())
+    control = grads(dv_scaled(kf, 1 + 2 ** -7))
+    gnorm = float(torch.sqrt(sum(g.double().square().sum() for g in want)))
+    flat = _leaf_paths(params)
+
+    def rel(a, b):
+        floor = STACK_FLOOR * gnorm
+        return float((a.double() - b.double()).norm() / max(float(b.double().norm()), floor))
+
+    errs = {path: rel(a, b) for path, a, b in zip(flat, got, want)}
+    ctl = {path: rel(a, b) for path, a, b in zip(flat, control, want)}
+    worst, worst_ctl = max(errs.values()), max(ctl.values())
+    print(f"[train stack] {cfg.name} at full width, {STACK_LAYERS} layers, float32, B {STACK_B} "
+          f"x S {STACK_S}: each leaf's |g_kernel - g_plain| / max(|g_plain|, {STACK_FLOOR} x "
+          f"{gnorm:.4e}): worst {worst:.3e} of bound {STACK_BOUND} "
+          f"({max(errs, key=errs.get)}); control (dv x (1 + 2**-7)) worst {worst_ctl:.3e} "
+          f"({max(ctl, key=ctl.get)}); launches {launches}", flush=True)
+    print(f"[train stack] per leaf: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()),
+          flush=True)
+    assert worst <= STACK_BOUND, errs
+    assert worst_ctl > STACK_BOUND, ctl
+    del params, leaves, got, want, control
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"worst_rel_err": worst, "bound": STACK_BOUND, "control_worst_rel_err": worst_ctl,
+            "rel_err": errs, "launches": launches}
+
+
+def _leaf_paths(tree, prefix=""):
+    """'##'-joined paths of a params tree's leaves, in its order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in _leaf_paths(v, f"{prefix}{k}##")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree) for p in _leaf_paths(v, f"{prefix}{i}##")]
+    return [prefix[:-2]]
+
+
+def phase_train(ka, kf, tk):
+    """qwen2.5-3b at full width and depth (36 layers), bf16 parameters,
+    float32 AdamW moments: TRAIN_STEPS steps of TRAIN_B x TRAIN_S tokens in
+    TRAIN_MB microbatches; then smollm-135m at full width through the
+    launcher's ``train`` with examples/train_smollm.py --full's settings,
+    its checkpoint saved and reloaded."""
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.configs import get_arch
+    from repro_torch.data.workload import TokenDataset
+    from repro_torch.launch.train import train
+    from repro_torch.models import forward, init_params, make_train_step
+    from repro_torch.optim import AdamW, cosine_schedule
+
+    figures = {}
+    cfg = get_arch("qwen2.5-3b").replace(dtype="bfloat16")
+    params, leaves = draw_weights("train", cfg)
+    opt = AdamW(lr=cosine_schedule(3e-4, warmup=max(TRAIN_STEPS // 20, 1), total=TRAIN_STEPS))
+    state = opt.init(params)
+    step = make_train_step(cfg, opt, microbatches=TRAIN_MB)
+    data = list(TokenDataset(cfg.vocab_size, TRAIN_S, seed=0).batches(TRAIN_B, TRAIN_STEPS))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(ka, kf, tk)
+    losses, norms, walls = [], [], []
+    for tokens in data:
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, {"tokens": torch.from_numpy(tokens).cuda()})
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        walls.append(time.perf_counter() - t0)
+    launches = {**read_launches(ka, kf, tk),
+                "flash_attention_backward": kf.flash_attention_backward.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    s_step = float(np.median(walls[1:]))
+    figures["qwen2.5-3b"] = {
+        "steps": TRAIN_STEPS, "batch": TRAIN_B, "seq": TRAIN_S, "microbatches": TRAIN_MB,
+        "dtype": "bfloat16 params, float32 moments", "losses": losses, "grad_norms": norms,
+        "step_s": walls, "s_per_step": s_step, "tokens_per_s": TRAIN_B * TRAIN_S / s_step,
+        "peak_memory_gib": peak, "launches": launches}
+    print(f"[train] {cfg.name} {cfg.num_layers} layers bf16, AdamW f32 moments, {TRAIN_STEPS} steps of "
+          f"{TRAIN_B} x {TRAIN_S} tokens in {TRAIN_MB} microbatches: losses "
+          f"{[round(x, 4) for x in losses]}, grad norms {[round(x, 3) for x in norms]}; "
+          f"{s_step:.3f} s/step (median of steps 2-{TRAIN_STEPS}; first {walls[0]:.3f}), "
+          f"{TRAIN_B * TRAIN_S / s_step:.1f} tokens/s, peak memory {peak:.2f} GiB; launches "
+          f"{launches}", flush=True)
+    assert all(np.isfinite(losses)) and all(np.isfinite(norms)), (losses, norms)
+    assert losses[-1] < losses[0], losses
+    # remat runs each layer's forward twice (once forward, once again in the
+    # backward), per microbatch; the backward once
+    per_step = cfg.num_layers * TRAIN_MB
+    want = {name: 0 for name in read_launches(ka, kf, tk)}
+    want.update(flash_attention=2 * per_step * TRAIN_STEPS,
+                flash_attention_backward=per_step * TRAIN_STEPS)
+    assert launches == want, (launches, want)
+    del params, leaves, state, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # smollm-135m through the launcher, then its checkpoint
+    cfg = get_arch("smollm-135m")
+    params, _ = draw_weights("train", cfg)
+    path = str(ROOT / "build" / "chip_smoke_train" / "smollm-135m.npz")
+    reset_launches(ka, kf, tk)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = train("smollm-135m", False, SMOLLM_STEPS, SMOLLM_B, SMOLLM_S, checkpoint=path,
+                   device="cuda", params=params, log_every=10)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**read_launches(ka, kf, tk),
+                "flash_attention_backward": kf.flash_attention_backward.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    want = {name: 0 for name in read_launches(ka, kf, tk)}
+    want.update(flash_attention=2 * cfg.num_layers * SMOLLM_STEPS,
+                flash_attention_backward=cfg.num_layers * SMOLLM_STEPS)
+    assert launches == want, (launches, want)
+    like = init_params(cfg, torch.Generator(device="cuda").manual_seed(1), "cuda")
+    loaded, step_no, meta = load_checkpoint(path, like=like)
+    tokens = torch.from_numpy(next(TokenDataset(cfg.vocab_size, SMOLLM_S, seed=9).batches(
+        SMOLLM_B, 1))).cuda()
+    with torch.no_grad():
+        a, _ = forward(cfg, params, {"tokens": tokens})
+        b, _ = forward(cfg, loaded, {"tokens": tokens})
+    assert step_no == SMOLLM_STEPS and meta["arch"] == cfg.name, (step_no, meta)
+    assert torch.equal(a, b), "the reloaded checkpoint's logits differ"
+    figures["smollm-135m"] = {
+        "steps": SMOLLM_STEPS, "batch": SMOLLM_B, "seq": SMOLLM_S, "dtype": cfg.dtype,
+        "loss_first": losses[0], "loss_last": losses[-1], "wall_s": wall,
+        "s_per_step": wall / SMOLLM_STEPS,
+        "tokens_per_s": SMOLLM_B * SMOLLM_S * SMOLLM_STEPS / wall, "peak_memory_gib": peak,
+        "launches": launches, "checkpoint_logits_equal": True}
+    print(f"[train] smollm-135m at full width ({cfg.num_layers} layers, {cfg.dtype}) through "
+          f"launch.train: "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f} in {SMOLLM_STEPS} steps of {SMOLLM_B} x "
+          f"{SMOLLM_S}; {wall / SMOLLM_STEPS:.3f} s/step, "
+          f"{SMOLLM_B * SMOLLM_S * SMOLLM_STEPS / wall:.1f} tokens/s, peak memory {peak:.2f} GiB; "
+          f"launches {launches}; checkpoint reloaded with like=: logits equal bit for bit",
+          flush=True)
+    del params, loaded, like
+    gc.collect()
+    torch.cuda.empty_cache()
+    return figures
+
+
+def phase_grad_guards(ka, kf, tk):
+    """Each forward-only wrapper, handed a grad-requiring CUDA input under
+    grad mode, raises; so does a flash form without a backward kernel."""
+    from repro_torch.kernels import rwkv6_scan as kw
+    from repro_torch.kernels import ssm_scan as ks
+
+    f = lambda *s: torch.randn(*s, device="cuda")
+    i32 = lambda *s: torch.zeros(*s, dtype=torch.int32, device="cuda")
+    q3, pool = f(2, 4, 64).requires_grad_(), f(3, 16, 2, 64)
+    calls = {
+        "paged_decode_attention": lambda: ka.paged_decode_attention(
+            q3, pool, pool, i32(2, 1), i32(2) + 1),
+        "paged_chunk_attention": lambda: ka.paged_chunk_attention(
+            q3, pool, pool, i32(2, 1), i32(2), i32(2), i32(2), i32(2)),
+        "decode_attention": lambda: ka.decode_attention(q3, f(2, 16, 2, 64), f(2, 16, 2, 64),
+                                                        i32(2) + 1),
+        "flash_attention": lambda: kf.flash_attention(f(1, 8, 4, 64).requires_grad_(),
+                                                      f(1, 8, 2, 64), f(1, 8, 2, 64)),
+        "ssm_scan": lambda: ks.ssm_scan(f(1, 4, 64).requires_grad_(), f(1, 4, 64),
+                                        f(1, 4, 16), f(1, 4, 16), f(64, 16)),
+        "rwkv6_chunked": lambda: kw.rwkv6_chunked(f(1, 4, 2, 64).requires_grad_(),
+                                                  f(1, 4, 2, 64), f(1, 4, 2, 64),
+                                                  f(1, 4, 2, 64), f(2, 64)),
+        "topk_retrieval": lambda: tk.topk_retrieval(f(2, 64).requires_grad_(), f(16, 64), 4),
+    }
+    raised = {}
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            assert "forward-only" in str(e), (name, e)
+            raised[name] = "RuntimeError"
+        else:
+            raise AssertionError(f"{name}: a grad-requiring CUDA input did not raise")
+    q = f(1, 32, 4, 64).requires_grad_()
+    for form in (dict(window=16), dict(chunk=16), dict(causal=False)):
+        try:
+            kf.trainable_flash_attention(q, f(1, 32, 2, 64), f(1, 32, 2, 64), **form)
+        except NotImplementedError:
+            raised[f"trainable_flash_attention {form}"] = "NotImplementedError"
+        else:
+            raise AssertionError(f"trainable_flash_attention {form} did not raise")
+    print(f"[grad guards] {raised}", flush=True)
+    return raised
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4934,6 +5333,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches["whisper serve"], whisper_figures = no_scan("whisper serve", phase_whisper_serve, ka,
                                                          kf, tk)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bwd_rows = no_scan("flash backward kernel", phase_backward_kernel, kf)
+    stack_figures = no_scan("train stack gradient", phase_train_stack, kf)
+    train_figures = no_scan("train", phase_train, ka, kf, tk)
+    for arch in ("qwen2.5-3b", "smollm-135m"):
+        launches[f"train {arch}"] = train_figures[arch]["launches"]
+    guard_figures = no_scan("grad guards", phase_grad_guards, ka, kf, tk)
 
     kernels = []
     for name in ("paged_chunk_attention", "paged_decode_attention"):
@@ -5105,6 +5512,30 @@ def main() -> int:
                   "lengths": INTERNVL2_DECODE_CASES},
         **{f"{d}/{c}": {key2: zoo_decode_rows[(d, c)][key2] for key2 in phase_keys}
            for d in ("float32", "bfloat16") for c in INTERNVL2_DECODE_CASES}}
+    # the flash backward at qwen2.5-3b's training microbatch (bf16, B 1, S
+    # 2048); smollm-135m's batch (f32, B 8, S 256) beside it
+    r = bwd_rows[("qwen2.5-3b", *BWD_TIMED["qwen2.5-3b"])]
+    r_smollm = bwd_rows[("smollm-135m", *BWD_TIMED["smollm-135m"])]
+    timed_keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    kernels.append({
+        "name": "flash_attention_backward", "route": "cuda",
+        "source": SOURCES["flash_attention_backward"],
+        "replaces": REPLACES["flash_attention_backward"],
+        "launches": launches["train qwen2.5-3b"]["flash_attention_backward"],
+        "max_abs_err": max(r["max_abs_err"].values()), "ms": r["ms"],
+        "device_ms": r["device_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "library": "the backward of scaled_dot_product_attention(is_causal=True, "
+                   "enable_gqa=True), timed apart from its forward",
+        "smollm_batch": {key2: r_smollm[key2] for key2 in timed_keys},
+        "by_case": {f"{a}/{d}/B={b_}/S={s_}": {"max_abs_err": x["max_abs_err"],
+                                               "excess": x["excess"],
+                                               "controls": x["controls"]}
+                    for (a, d, b_, s_), x in bwd_rows.items()},
+        "stack_gradient": {k2: v2 for k2, v2 in stack_figures.items() if k2 != "rel_err"},
+        "launches_by_phase": {ph: n.get("flash_attention_backward", 0)
+                              for ph, n in launches.items()},
+    })
     print(json.dumps({"int8_serve": int8_figures, "host_tier": host_figures,
                       "oracle_paths": oracle_figures, "controller": controller_figures,
                       "swa_serve": swa_figures, "mixtral_serve": mixtral_figures,
@@ -5113,7 +5544,8 @@ def main() -> int:
                       "zoo_parity_max_abs_logit_diff": zoo_parity,
                       "swa_int8_serve": swa_int8_figures, "internvl2_serve": internvl2_figures,
                       "whisper_serve": whisper_figures, "audit": audit_figures,
-                      "dp": dp_figures}))
+                      "dp": dp_figures, "train": train_figures,
+                      "train_stack_gradient": stack_figures, "grad_guards": guard_figures}))
     print(json.dumps({"kernels": kernels}))
     print(f"[done] {time.perf_counter() - t_start:.1f}s in all", flush=True)
     print(card)

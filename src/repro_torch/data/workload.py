@@ -1,17 +1,18 @@
-"""Workload generation and the synthetic retrieval corpus, ported from
-``repro.data.workload``.
+"""Workload generation, the synthetic retrieval corpus and the synthetic
+token dataset of the training path, ported from ``repro.data.workload``.
 
 Poisson arrivals with request feature draws that mirror the paper's setup:
 LMSYS-Chat-1M-like prompt/response lengths, retrieval depth k ~ U(100, 300)
 (per prior work), and a query-complexity mix driving Adaptive-RAG's three
 paths. ``synthetic_corpus`` gives the clustered document embeddings the
-retrieval index is built over. Each returns the same values, bit for bit,
-as the reference for the same arguments.
+retrieval index is built over, ``TokenDataset`` the training batches. Each
+returns the same values, bit for bit, as the reference for the same
+arguments.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 
@@ -80,3 +81,46 @@ def synthetic_corpus(n_docs: int, dim: int, seed: int = 0) -> np.ndarray:
         emb = topics[assign[lo:hi]] + 0.3 * rng.standard_normal((hi - lo, dim)).astype(np.float32)
         out[lo:hi] = emb / (np.linalg.norm(emb, axis=1, keepdims=True) + 1e-6)
     return out
+
+
+class TokenDataset:
+    """Deterministic synthetic LM dataset with enough structure to show a
+    decreasing training loss (Zipfian unigrams + bigram correlations): the
+    reference's numpy draws in the reference's order, so its batches are
+    the reference's bit for bit.
+
+    The reference draws each token with ``rng.choice(vocab, size,
+    p=unigram)``, which builds the unigram's cdf anew at every call (a
+    pass over the vocabulary per position: 3 s a batch of 2 x 2048 tokens
+    at qwen2.5-3b's 151936). ``_choice`` takes the same draw as numpy's
+    ``Generator.choice`` does it, ``cdf.searchsorted(rng.random(size),
+    side="right")`` with ``cdf = cumsum(p) / its last entry``, from a cdf
+    built once."""
+
+    def __init__(self, vocab: int, seq_len: int, seed: int = 0):
+        self.vocab = vocab
+        self.seq_len = seq_len
+        self.seed = seed
+        rng = np.random.default_rng(seed)
+        ranks = np.arange(1, vocab + 1, dtype=np.float64)
+        self.unigram = (1.0 / ranks) / np.sum(1.0 / ranks)
+        self.shift = int(rng.integers(1, max(vocab // 2, 2)))
+        cdf = self.unigram.cumsum()
+        self._cdf = cdf / cdf[-1]
+
+    def _choice(self, rng: np.random.Generator, size) -> np.ndarray:
+        return self._cdf.searchsorted(rng.random(size), side="right")
+
+    def batches(self, batch_size: int, n_batches: int) -> Iterator[np.ndarray]:
+        """``n_batches`` int32 arrays of (batch_size, seq_len) tokens."""
+        rng = np.random.default_rng(self.seed + 1)
+        for _ in range(n_batches):
+            first = self._choice(rng, (batch_size, 1))
+            toks = [first]
+            for _t in range(1, self.seq_len):
+                prev = toks[-1]
+                follow = (prev + self.shift) % self.vocab
+                rnd = self._choice(rng, prev.shape)
+                use_bigram = rng.random(prev.shape) < 0.5
+                toks.append(np.where(use_bigram, follow, rnd))
+            yield np.concatenate(toks, axis=1).astype(np.int32)

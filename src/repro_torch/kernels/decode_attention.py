@@ -207,6 +207,19 @@ def _raise_on_error(name, err):
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
 
 
+def refuse_grad(name, *tensors):
+    """Raise where a forward-only kernel would be handed a floating input
+    that requires grad under grad mode: its output, filled through ctypes,
+    would carry no ``grad_fn``, and autograd would run on without the
+    kernel's share of the gradient. The plain versions (CPU tensors) stay
+    differentiable; the flash kernel's trainable form is
+    ``kernels.flash_attention.trainable_flash_attention``."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.is_floating_point() and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the CUDA kernel is forward-only, and an input requires "
+                           f"grad; run it under torch.no_grad() or on detached inputs")
+
+
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
                            scale: Optional[float] = None, k_scale=None,
                            v_scale=None):
@@ -225,6 +238,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
                                           lengths, scale, k_scale, v_scale)
     name = "paged_decode_attention"
     _check(name, q.is_cuda, f"unsupported device {q.device}")
+    refuse_grad(name, q, k_pool, v_pool, k_scale, v_scale)
     qc, kc, (ks, vs) = _check_common(name, q, k_pool, v_pool, block_tables,
                                      k_scale, v_scale)
     B, mb = block_tables.shape
@@ -280,6 +294,7 @@ def paged_chunk_attention(q, k_pool, v_pool, block_tables, row_of, slots,
                                          k_scale, v_scale)
     name = "paged_chunk_attention"
     _check(name, q.is_cuda, f"unsupported device {q.device}")
+    refuse_grad(name, q, k_pool, v_pool, k_scale, v_scale)
     qc, kc, (ks, vs) = _check_common(name, q, k_pool, v_pool, block_tables,
                                      k_scale, v_scale)
     T = q.shape[0]
@@ -483,6 +498,7 @@ def decode_attention(q, k_cache, v_cache, lengths, *, scale: Optional[float] = N
         return ref_decode_attention(q, k_cache, v_cache, lengths, scale)
     name = "decode_attention"
     _check(name, q.is_cuda, f"unsupported device {q.device}")
+    refuse_grad(name, q, k_cache, v_cache)
     _check(name, q.dim() == 3 and k_cache.dim() == 4, "q must be 3-D, caches 4-D")
     B, H, hd = q.shape
     Sc, KVH = k_cache.shape[1], k_cache.shape[2]

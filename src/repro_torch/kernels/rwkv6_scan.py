@@ -33,7 +33,13 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.decode_attention import _check, _raise_on_error, _scratch, _sm_count
+from repro_torch.kernels.decode_attention import (
+    _check,
+    _raise_on_error,
+    _scratch,
+    _sm_count,
+    refuse_grad,
+)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)   # the head_dim instantiations in csrc/rwkv6_scan.cu
@@ -107,6 +113,7 @@ def rwkv6_chunked(r, k, v, w, u, state0: Optional[torch.Tensor] = None, *,
         return y, state_out
     name = "rwkv6_chunked"
     _check(name, r.is_cuda, f"unsupported device {r.device}")
+    refuse_grad(name, r, k, v, w, u, state0)
     _check(name, r.dim() == 4, "r, k, v and w must be (B, S, H, hd)")
     B, S, H, hd = r.shape
     _check(name, B >= 1 and S >= 1, f"B and S must be >= 1, got {B} and {S}")

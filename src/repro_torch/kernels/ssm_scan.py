@@ -37,7 +37,13 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.decode_attention import _check, _raise_on_error, _scratch, _sm_count
+from repro_torch.kernels.decode_attention import (
+    _check,
+    _raise_on_error,
+    _scratch,
+    _sm_count,
+    refuse_grad,
+)
 from repro_torch.kernels.rwkv6_scan import even_segments
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -109,6 +115,7 @@ def ssm_scan(dt, x, bm, cm, a_log, h0: Optional[torch.Tensor] = None, *,
         return y, h_out
     name = "ssm_scan"
     _check(name, dt.is_cuda, f"unsupported device {dt.device}")
+    refuse_grad(name, dt, x, bm, cm, a_log, h0)
     _check(name, dt.dim() == 3 and bm.dim() == 3, "dt, x must be (B, S, Di), B, C (B, S, N)")
     B, S, Di = dt.shape
     N = bm.shape[-1]

@@ -29,6 +29,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels.decode_attention import refuse_grad
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 227 * 1024       # shared memory a block can use on the H100
 
@@ -137,6 +139,7 @@ def topk_retrieval(queries, docs, k: int = 16):
         return ref_topk_retrieval(queries, docs, k)
     _check(docs.is_cuda and queries.device == docs.device,
            f"unsupported devices {queries.device}, {docs.device}")
+    refuse_grad("topk_retrieval", queries, docs)
     _check(docs.dtype in _DTYPE_CODES, f"docs must be float32 or bfloat16, got {docs.dtype}")
     _check(queries.is_floating_point(), f"queries must be float, got {queries.dtype}")
     _check(docs.is_contiguous(), "docs must be contiguous")

@@ -23,7 +23,7 @@ import torch
 from repro_torch.configs.base import ATTN_CHUNKED_LOCAL, ATTN_FULL, ATTN_SWA
 from repro_torch.kernels.decode_attention import NEG_INF
 from repro_torch.kernels.decode_attention import decode_attention as decode_kernel
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, trainable_flash_attention
 from repro_torch.models.layers import apply_rope_tables, rms_norm
 
 
@@ -57,7 +57,15 @@ def blockwise_attention(q, k, v, *, attn_type: str = ATTN_FULL, window: int = 0,
     ``ATTN_FULL``, or a window or chunk of 0, keeps every key, as in JAX.
     Cross attention (S_kv != S, whisper's decoder over the encoder's
     output) is full and non-causal: every query sees every key, the form
-    JAX asks for; a causal, windowed or chunked one raises."""
+    JAX asks for; a causal, windowed or chunked one raises.
+
+    Under grad mode with an input that requires grad (training), the call
+    goes through the autograd Function ``trainable_flash_attention``, whose
+    backward is the recompute backward of the JAX ``custom_vjp``; on the
+    card that takes causal attention without a window or chunk at head dims
+    (64, 64) and (128, 128), and any other form raises
+    ``NotImplementedError``. Every other call (serving) launches the
+    forward kernel directly."""
     if attn_type not in (ATTN_FULL, ATTN_SWA, ATTN_CHUNKED_LOCAL):
         raise NotImplementedError(f"blockwise_attention: unknown attn_type {attn_type!r}")
     window = window if attn_type == ATTN_SWA else 0
@@ -66,6 +74,8 @@ def blockwise_attention(q, k, v, *, attn_type: str = ATTN_FULL, window: int = 0,
         raise NotImplementedError(
             f"blockwise_attention: cross attention (S={q.shape[1]}, S_kv={k.shape[1]}) is "
             f"full and non-causal only; got causal={causal}, window={window}, chunk={chunk}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return trainable_flash_attention(q, k, v, causal=causal, window=window, chunk=chunk)
     return flash_attention(q, k, v, causal=causal, window=window, chunk=chunk)
 
 

@@ -3,7 +3,8 @@
 ``prefill_packed``, ``decode_step_paged``, ``paged_cache_supported`` and,
 for its oracle steps over a gathered contiguous view, ``prefill_chunk``;
 for the dense backend ``forward``, ``prefill``, ``decode_step`` and
-``init_cache``, which take every arch of the zoo.
+``init_cache``, which take every arch of the zoo; and for training
+``loss_fn`` and ``make_train_step``.
 
 The paged step functions update the KV pools in place and return the
 logits; ``decode_step`` updates the dense cache in place and returns it
@@ -38,7 +39,8 @@ from repro_torch.models.layers import (
     sinusoidal_positions,
     unembed,
 )
-from repro_torch.params import torch_dtype
+from repro_torch.optim.adamw import global_norm
+from repro_torch.params import torch_dtype, tree_leaves, tree_map
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> Dict[str, Any]:
@@ -184,6 +186,65 @@ def forward(cfg, params, batch, want_cache: bool = False, logits_mode: str = "al
     if want_cache:
         return logits, aux, caches
     return logits, aux
+
+
+def loss_fn(cfg, params, batch):
+    """Mean next-token negative log-likelihood of ``batch["tokens"]`` from a
+    float32 log-softmax of the logits, plus 0.01 x the MoE load-balance
+    loss: (total, {loss, aux_loss, total})."""
+    logits, aux = forward(cfg, params, batch)
+    logits = logits[:, :-1].float()
+    targets = batch["tokens"][:, 1:].long()
+    logp = torch.log_softmax(logits, dim=-1)
+    loss = -logp.gather(-1, targets[..., None])[..., 0].mean()
+    total = loss + 0.01 * aux
+    return total, {"loss": loss, "aux_loss": aux, "total": total}
+
+
+def make_train_step(cfg, optimizer, microbatches: int = 1):
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics), as the JAX function does. The parameters become leaves that
+    require grad; the gradients of ``loss_fn`` come from
+    ``torch.autograd.grad`` (the stack recomputes each layer group in the
+    backward, see ``transformer.run_stack_seq``). ``microbatches > 1``
+    splits the batch along its first axis and accumulates the gradients in
+    float32, divided by their count; the metrics are the microbatches'
+    means. ``grad_norm`` is the global norm of those gradients, before the
+    optimizer clips them. The optimizer updates the parameters in place
+    (``optim.adamw``), so the returned params are the tensors passed in."""
+    def grads_of(leaves, params, batch):
+        total, metrics = loss_fn(cfg, params, batch)
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        return {k: v.detach() for k, v in metrics.items()}, grads
+
+    def train_step(params, opt_state, batch):
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        if microbatches <= 1:
+            metrics, grads = grads_of(leaves, params, batch)
+        else:
+            ub = {k: v.reshape(microbatches, v.shape[0] // microbatches, *v.shape[1:])
+                  for k, v in batch.items()}
+            grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
+            ms = []
+            for i in range(microbatches):
+                m, g = grads_of(leaves, params, {k: v[i] for k, v in ub.items()})
+                for acc, gi in zip(grads, g):
+                    acc.add_(gi)
+                del g
+                ms.append(m)
+            for acc in grads:
+                acc.div_(microbatches)
+            metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
+        it = iter(grads)
+        grads = tree_map(lambda _: next(it), params)
+        params, opt_state = optimizer.update(params, grads, opt_state)
+        metrics["grad_norm"] = global_norm(grads)
+        return params, opt_state, metrics
+
+    return train_step
 
 
 def prefill(cfg, params, batch):

@@ -30,12 +30,19 @@ and caches from the scan. What is the same for every layer of a step —
 the rope tables, the pool slots the new entries go to, the attention
 lengths — the stack computes once and hands to each layer (XLA hoists the
 same values out of the JAX scan).
+
+Training (``run_stack_seq`` without a cache, under grad mode, with
+parameters or input that require grad) recomputes each layer group in the
+backward (``torch.utils.checkpoint``, the counterpart of the JAX
+``jax.checkpoint(nothing_saveable)`` around the scan body), and takes each
+group's parameters from one ``unbind`` of every stacked leaf.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (
     ATTN_CHUNKED_LOCAL,
@@ -64,6 +71,7 @@ from repro_torch.models.layers import (
     rms_norm,
     rope_tables,
 )
+from repro_torch.params import tree_leaves
 from repro_torch.serving.paged_cache import (
     _quantized_scatter,
     decode_slots,
@@ -258,6 +266,17 @@ def layer_slice(tree, g: int):
     if isinstance(tree, dict):
         return {k: layer_slice(v, g) for k, v in tree.items()}
     return tree[g]
+
+
+def unbind_groups(tree, n: int):
+    """The n layer groups' params of a stacked tree, every leaf unbound once
+    along its leading axis: in the backward one ``stack`` a leaf, where
+    ``layer_slice`` per group would give each group a ``select`` whose
+    backward writes a zero tensor as large as the whole stacked leaf."""
+    if isinstance(tree, dict):
+        parts = {k: unbind_groups(v, n) for k, v in tree.items()}
+        return [{k: parts[k][g] for k in tree} for g in range(n)]
+    return list(tree.unbind(0))
 
 
 # ---------------------------------------------------------------------------
@@ -666,10 +685,12 @@ def apply_layer_seq(cfg, lp, x, rope, kind=None, enc_out=None, want_cache=True):
 
 
 def run_stack_seq(cfg, blocks, x, positions, enc_out=None, encoder=False, want_cache=True):
-    """Run the stack over a sequence, the serving path: x (B, S, D),
+    """Run the stack over a sequence (serving and training): x (B, S, D),
     positions (B, S). A Python loop over the layer groups and, in each, the
-    period's positions (JAX scans the groups, with remat and a segmented
-    scan for training, which serving does not need). Returns (x, caches,
+    period's positions (JAX scans the groups). Without a cache, while
+    training (``_training``), each group is recomputed in the backward
+    (``_run_stack_train``: JAX's remat; its segmented scan is a device for
+    the scan's saved carries, which a Python loop does not need). Returns (x, caches,
     aux): caches a tuple of one entry per position in the period, each
     stacked over the G groups: {k, v} of (G, B, S, KVH, hd) for full
     attention, {k, v} of (G, B, Sc, KVH, hd) for a sliding-window (Sc =
@@ -689,6 +710,8 @@ def run_stack_seq(cfg, blocks, x, positions, enc_out=None, encoder=False, want_c
     kinds = [ENCODER_KIND] if encoder else _kinds(cfg)
     n_groups = cfg.encoder_layers if encoder else cfg.num_layers // len(kinds)
     rope = _rope(cfg, positions)
+    if not want_cache and _training(x, blocks):
+        return _run_stack_train(cfg, blocks, x, rope, kinds, n_groups, enc_out)
     entries = [[] for _ in kinds]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g in range(n_groups):
@@ -703,6 +726,37 @@ def run_stack_seq(cfg, blocks, x, positions, enc_out=None, encoder=False, want_c
     caches = tuple({name: torch.stack([e[name] for e in ents]) for name in ents[0]}
                    for ents in entries)
     return x, caches, aux
+
+
+def _training(x, blocks) -> bool:
+    """Whether a forward builds a graph to differentiate: grad mode, and
+    the input or a parameter that requires grad."""
+    if not torch.is_grad_enabled():
+        return False
+    return x.requires_grad or any(t.requires_grad for t in tree_leaves(blocks))
+
+
+def _group_seq(cfg, lps, x, rope, kinds, enc_out):
+    """One layer group's p layers over the sequence, no cache: (x, aux)."""
+    aux = x.new_zeros((), dtype=torch.float32)
+    for lp, kind in zip(lps, kinds):
+        x, _, a = apply_layer_seq(cfg, lp, x, rope, kind, enc_out, want_cache=False)
+        aux = aux + a
+    return x, aux
+
+
+def _run_stack_train(cfg, blocks, x, rope, kinds, n_groups, enc_out):
+    """The training form of ``run_stack_seq``: each layer group recomputed
+    in the backward (non-reentrant ``checkpoint``, which saves only the
+    group's inputs), its parameters from ``unbind_groups``. The forward
+    draws no random numbers, so no RNG state is kept."""
+    groups = [unbind_groups(b, n_groups) for b in blocks]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for g in range(n_groups):
+        x, a = checkpoint(_group_seq, cfg, [grp[g] for grp in groups], x, rope, kinds, enc_out,
+                          use_reentrant=False, preserve_rng_state=False)
+        aux = aux + a
+    return x, None, aux
 
 
 def _cache_update(c, new, slots):

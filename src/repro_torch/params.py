@@ -10,7 +10,7 @@ in the period, each leaf with a leading axis of num_layers / period.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable, List
 
 import numpy as np
 import torch
@@ -41,16 +41,27 @@ def _leaf(x, dtype: torch.dtype, device) -> torch.Tensor:
     return t.to(device)
 
 
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of a tree of dicts and lists (tuples become
+    lists), with the matching leaves of the trees ``rest`` of the same
+    structure as further arguments."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """The leaves of a tree of dicts and lists, depth first, dicts in their
+    insertion order."""
+    out: List[Any] = []
+    tree_map(out.append, tree)
+    return out
+
+
 def params_from_numpy(cfg: ModelConfig, tree: Any, device) -> Any:
     """Convert a numpy-leaved ``init_params`` tree to the port's parameters
     on ``device``, floating leaves cast to ``cfg.dtype``."""
     dtype = torch_dtype(cfg)
-
-    def walk(node):
-        if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return [walk(v) for v in node]
-        return _leaf(node, dtype, device)
-
-    return walk(tree)
+    return tree_map(lambda x: _leaf(x, dtype, device), tree)

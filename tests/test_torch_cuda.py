@@ -1,8 +1,9 @@
 """The CUDA kernels (paged attention with the chunk kernel's tile plan,
-dense flash and decode attention with and without a sliding window, top-k
-retrieval, the RWKV-6 WKV recurrence, the selective scan) against their
-plain versions, on the card; the engine's int8 pools, swap, oracle paths
-and KV sanitizer, and the sliding-window and MoE stacks on the card. Marked ``cuda``: each test skips (from inside a
+dense flash and decode attention with and without a sliding window, the
+flash backward, top-k retrieval, the RWKV-6 WKV recurrence, the selective
+scan) against their plain versions, on the card; the engine's int8 pools,
+swap, oracle paths and KV sanitizer, the sliding-window and MoE stacks, and
+train steps and the forward-only wrappers' grad guards on the card. Marked ``cuda``: each test skips (from inside a
 fixture) where no GPU is visible, as in this repository's CPU runs. On a GPU
 machine:
 
@@ -1415,3 +1416,163 @@ def test_dp_group_on_the_card_matches_lone_engines(gpu, kv_dtype):
             st = grp.stats()
             assert st["cross_replica_host_hits"] > 0 and st["host_hit_tokens"] > 0
             assert grp.host_store.k.is_pinned()
+
+
+# ---------------------------------------------------------------------------
+# training: the flash backward kernel and the forward-only wrappers' guards
+# ---------------------------------------------------------------------------
+
+# (atol as a share of max(1, max |want|), rtol) of the backward kernel
+# against ref_flash_attention_backward on the same inputs: float32, the
+# summation order; bfloat16, one rounding of the f32 result to bf16 apart
+# (at most 2**-7 of the value), both sides computing in f32
+BWD_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-5, 2 ** -7)}
+
+
+def _backward_inputs(B, S, H, KVH, hd, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((B, S, H, hd), generator=g, device="cuda").to(dtype)
+    k = torch.randn((B, S, KVH, hd), generator=g, device="cuda").to(dtype)
+    v = torch.randn((B, S, KVH, hd), generator=g, device="cuda").to(dtype)
+    out = kf.flash_attention(q, k, v)
+    dout = torch.randn(out.shape, generator=g, device="cuda").to(dtype)
+    return q, k, v, out, dout
+
+
+def _backward_excess(got, want, dtype):
+    """The largest |got - want| over its bound (> 1: outside)."""
+    share, rtol = BWD_TOL[dtype]
+    got, want = got.float(), want.float()
+    bound = share * max(1.0, float(want.abs().max())) + rtol * want.abs()
+    return float(((got - want).abs() / bound).max())
+
+
+@pytest.mark.parametrize("B,S", [(2, 1), (2, 37), (2, 1000), (1, 2048), (8, 256)])
+@pytest.mark.parametrize("H,KVH,hd", [(16, 2, 128), (9, 3, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_kernel_matches_plain_version(gpu, dtype, H, KVH, hd, B, S):
+    """qwen2.5-3b's heads (G 8, hd 128) and smollm-135m's (G 3, hd 64), at
+    ragged S, the training microbatch (B 1, S 2048) and smollm's training
+    batch (B 8, S 256); deterministic (no atomics: two calls equal)."""
+    q, k, v, out, dout = _backward_inputs(B, S, H, KVH, hd, dtype)
+    before = kf.flash_attention_backward.launches
+    got = kf.flash_attention_backward(q, k, v, out, dout)
+    again = kf.flash_attention_backward(q, k, v, out, dout)
+    torch.cuda.synchronize()
+    assert kf.flash_attention_backward.launches == before + 2
+    want = kf.ref_flash_attention_backward(q, k, v, out, dout)
+    for name, a, a2, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert a.dtype == dtype and a.shape == w.shape
+        assert torch.isfinite(a.float()).all(), name
+        assert torch.equal(a, a2), name
+        assert _backward_excess(a, w, dtype) <= 1.0, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_bound_catches_faulted_controls(gpu, dtype):
+    """The bound is tight enough to see dv scaled by 1 + 2**-7 (float32;
+    bf16 rounds it to one or two ulps, so 1 + 2**-5 there) and the plain
+    version with delta dropped (dq and dk)."""
+    q, k, v, out, dout = _backward_inputs(2, 300, 16, 2, 128, dtype, seed=1)
+    dq, dk, dv = kf.flash_attention_backward(q, k, v, out, dout)
+    want = kf.ref_flash_attention_backward(q, k, v, out, dout)
+    scale = 1 + (2 ** -7 if dtype == torch.float32 else 2 ** -5)
+    assert _backward_excess((dv.float() * scale).to(dtype), want[2], dtype) > 1.0
+    faulted = kf.ref_flash_attention_backward(q, k, v, torch.zeros_like(out), dout)
+    assert _backward_excess(dq, faulted[0], dtype) > 1.0
+    assert _backward_excess(dk, faulted[1], dtype) > 1.0
+
+
+def test_trainable_flash_on_the_card_matches_autograd_of_the_plain_version(gpu):
+    """float32: the Function's gradients (both kernels) against autograd
+    through ``ref_flash_attention``."""
+    q, k, v, _, dout = _backward_inputs(2, 200, 9, 3, 64, torch.float32, seed=2)
+    a = [t.clone().requires_grad_() for t in (q, k, v)]
+    b = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = kf.trainable_flash_attention(*a)
+    assert out.grad_fn is not None
+    out.backward(dout)
+    kf.ref_flash_attention(*b).backward(dout)
+    for x, y in zip(a, b):
+        assert _backward_excess(x.grad, y.grad, torch.float32) <= 1.0
+
+
+def _guarded_calls():
+    """Each forward-only CUDA wrapper on small inputs, one of them requiring
+    grad."""
+    d = "cuda"
+    f = lambda *s: torch.randn(*s, device=d)
+    i32 = lambda *s: torch.zeros(*s, dtype=torch.int32, device=d)
+    q3 = f(2, 4, 64).requires_grad_()
+    pool = f(3, 16, 2, 64)
+    return {
+        "paged_decode_attention": lambda: ka.paged_decode_attention(
+            q3, pool, pool, i32(2, 1), i32(2) + 1),
+        "paged_chunk_attention": lambda: ka.paged_chunk_attention(
+            q3, pool, pool, i32(2, 1), i32(2), i32(2), i32(2), i32(2)),
+        "decode_attention": lambda: ka.decode_attention(q3, f(2, 16, 2, 64), f(2, 16, 2, 64),
+                                                        i32(2) + 1),
+        "flash_attention": lambda: kf.flash_attention(f(1, 8, 4, 64).requires_grad_(),
+                                                      f(1, 8, 2, 64), f(1, 8, 2, 64)),
+        "ssm_scan": lambda: ks.ssm_scan(f(1, 4, 64).requires_grad_(), f(1, 4, 64),
+                                        f(1, 4, 16), f(1, 4, 16), f(64, 16)),
+        "rwkv6_chunked": lambda: kw.rwkv6_chunked(f(1, 4, 2, 64).requires_grad_(),
+                                                  f(1, 4, 2, 64), f(1, 4, 2, 64),
+                                                  f(1, 4, 2, 64), f(2, 64)),
+        "topk_retrieval": lambda: tk.topk_retrieval(f(2, 64).requires_grad_(), f(16, 64), 4),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(["paged_decode_attention", "paged_chunk_attention",
+                                         "decode_attention", "flash_attention", "ssm_scan",
+                                         "rwkv6_chunked", "topk_retrieval"]))
+def test_forward_only_wrappers_refuse_grad_on_the_card(gpu, name):
+    """A forward-only kernel never returns a detached output under grad
+    mode: a grad-requiring CUDA input raises, and under no_grad the same
+    call runs."""
+    call = _guarded_calls()[name]
+    with pytest.raises(RuntimeError, match="forward-only"):
+        call()
+    with torch.no_grad():
+        call()
+
+
+@pytest.mark.parametrize("form", [dict(window=16), dict(chunk=16), dict(causal=False),
+                                  dict(hd=(96, 64))])
+def test_flash_forms_without_a_backward_raise_on_the_card(gpu, form):
+    hd, hd_v = form.pop("hd", (64, 64))
+    q = torch.randn(1, 32, 4, hd, device="cuda", requires_grad=True)
+    k = torch.randn(1, 32, 2, hd, device="cuda")
+    v = torch.randn(1, 32, 2, hd_v, device="cuda")
+    with pytest.raises(NotImplementedError, match="backward on the card"):
+        kf.trainable_flash_attention(q, k, v, **form)
+
+
+def test_smoke_train_steps_on_the_card_match_the_cpu(gpu):
+    """smollm-135m's smoke variant in float32, two AdamW steps with two
+    microbatches on the CPU (plain versions) and on the card (the flash
+    kernel forward twice a layer and microbatch, remat included, and the
+    backward kernel once): losses and grad norms within 1e-4."""
+    from repro_torch.models import init_params, make_train_step
+    from repro_torch.optim import AdamW, cosine_schedule
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _smoke_cfg("float32")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 4, 64), generator=torch.Generator().manual_seed(3))
+    results = {}
+    for dev in ("cpu", "cuda"):
+        params = init_params(cfg, torch.Generator().manual_seed(0), dev)
+        opt = AdamW(lr=cosine_schedule(1e-3, warmup=1, total=2))
+        state = opt.init(params)
+        step = make_train_step(cfg, opt, microbatches=2)
+        kf.reset_launch_counts()
+        out = []
+        for t in tokens:
+            params, state, m = step(params, state, {"tokens": t.to(dev)})
+            out.append((float(m["loss"]), float(m["grad_norm"])))
+        results[dev] = out
+        if dev == "cuda":
+            assert kf.flash_attention.launches == cfg.num_layers * 2 * 2 * 2
+            assert kf.flash_attention_backward.launches == cfg.num_layers * 2 * 2
+    for (l0, g0), (l1, g1) in zip(results["cpu"], results["cuda"]):
+        assert l1 == pytest.approx(l0, rel=1e-4) and g1 == pytest.approx(g0, rel=1e-4)

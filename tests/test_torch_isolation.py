@@ -35,6 +35,11 @@ def test_imports_with_jax_and_repro_blocked():
         "import repro_torch.analysis.lint, repro_torch.analysis.step_audit\n"
         "import repro_torch.serving.sharded_pool\n"
         "from repro_torch.serving.engine import DataParallelEngineGroup\n"
+        "import repro_torch.optim, repro_torch.optim.adamw, repro_torch.checkpoint\n"
+        "import repro_torch.checkpoint.io, repro_torch.launch.train\n"
+        "from repro_torch.models import loss_fn, make_train_step\n"
+        "from repro_torch.data.workload import TokenDataset\n"
+        "from repro_torch.kernels.flash_attention import FlashAttention\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
