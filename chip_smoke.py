@@ -309,19 +309,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
    logits have near-ties).
 
 18. Training. (a) The flash backward kernel (``csrc/flash_backward.cu``)
-   against ``ref_flash_attention_backward`` on the card at qwen2.5-3b's
-   heads (H 16 over KVH 2, hd 128: B 2 and 1 at S 2048) and smollm-135m's
-   (H 9 over KVH 3, hd 64: B 8 at S 256), both at S 1, 37 and 1000 (B 2),
-   float32 and bfloat16: each gradient within ``BWD_TOL``, two calls equal
-   (no atomics), and faulted controls above the bound (dv scaled by 1 +
-   ``BWD_FAULT``; the plain version with delta dropped, against dq and
-   dk); the kernel's, its plain version's and SDPA's backward's times at
-   qwen's training microbatch (bf16, B 1, S 2048) and smollm's batch (f32,
-   B 8, S 256) beside the bound. (b) qwen2.5-3b at full width with its
-   depth cut to 2 layers, float32, B 2 x S 2048: every leaf's gradient
-   through the kernels against the same stack with the attention taken
-   through the plain version under autograd (``plain_attention``) within
-   ``STACK_BOUND``, a control (dv scaled by 1 + 2**-7) above it. (c)
+   against ``ref_flash_attention_backward`` on the card in every form of
+   the forward kernel (``BWD_FORMS``): causal at qwen2.5-3b's heads (H 16
+   over KVH 2, hd 128: B 2 and 1 at S 2048) and smollm-135m's (H 9 over KVH
+   3, hd 64: B 8 at S 256); window 1024 at hymba's heads (S 1664); window
+   4096 at qwen2.5-3b-swa's (S 6000); chunk 800 at H 40 over KVH 8 (S 2048,
+   tiles straddle chunk boundaries); whisper's cross attention (B 8 x S 448
+   over 1500 keys, H 20 = KVH 20, hd 64, and S 1 and 37); minicpm3's MLA
+   head dims (96, 64) at S 2048 (H 40 = KVH 40); each at S 1, 37 and 1000
+   too, float32 and bfloat16: each gradient within ``BWD_TOL``, two calls
+   equal (no atomics), and faulted controls above the bound (dv scaled by
+   1 + ``BWD_FAULT``; the plain version with delta dropped, against dq and
+   dk); at each form's main shape in both dtypes the kernel's, its plain
+   version's and SDPA's backward's times on the same form (``is_causal``,
+   a boolean mask for a window or a chunk, none for cross) beside the
+   bound (``backward_work``: the pairs the form's mask leaves visible). (b)
+   ``STACK_CASES`` at full width with their depth cut to 2 layers (whisper:
+   2 encoder and 2 decoder layers), float32: qwen2.5-3b (B 2 x S 2048),
+   qwen2.5-3b-swa (B 1 x S 6000, so the window bites), minicpm3-4b (S 2048)
+   and whisper-large-v3 (B 2 x S 448 over 1500 frames): every leaf's
+   gradient through the kernels against the same stack with the attention
+   taken through the plain version under autograd (``plain_attention``)
+   within ``STACK_BOUND``, a control (dv scaled by 1 + 2**-7) above it. (c)
    qwen2.5-3b at full width and depth (36 layers), bf16 parameters, f32
    AdamW moments, 6 steps of 2 x 2048 tokens from ``TokenDataset`` in 2
    microbatches: losses finite and falling, grad norms finite, s/step,
@@ -332,17 +341,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
    settings (50 steps of 8 x 256, float32): loss falling, the checkpoint
    reloaded with ``like=`` gives logits equal bit for bit. (e) Every
    forward-only wrapper handed a grad-requiring CUDA input under grad mode
-   raises ``RuntimeError``, and the flash forms without a backward kernel
-   raise ``NotImplementedError``.
+   raises ``RuntimeError``, and the flash forms the forward kernel does not
+   take either (a window with a chunk, head dims (32, 32), cross attention
+   at (128, 128)) raise ``NotImplementedError``. (f) ``FORM_TRAIN``:
+   qwen2.5-3b-swa (B 1 x S 6000), minicpm3-4b (B 1 x S 2048) and
+   whisper-large-v3 (B 4 x S 448 over 1500 frames) at full width and
+   depth, bf16 parameters, f32 AdamW moments, 3 steps each from
+   ``TokenDataset`` through ``make_train_step`` in one microbatch: losses
+   and grad norms finite, s/step, tokens/s, peak memory, and the launches
+   (the backward once a step for each attention call, the forward twice).
 
 It prints a ``{"int8_serve": ..., "host_tier": ..., "oracle_paths": ...,
 "controller": ..., "swa_serve": ..., "mixtral_serve": ...,
 "chunk_mla_parity_max_abs_logit_diff": ..., "llama4_serve": ...,
 "minicpm3_serve": ..., "zoo_parity_max_abs_logit_diff": ...,
 "swa_int8_serve": ..., "internvl2_serve": ..., "whisper_serve": ...,
-"audit": ..., "dp": ..., "train": ..., "train_stack_gradient": ...,
-"grad_guards": ...}`` line of phases 5c, 5d, 5e, 7b, 10, 11, 4f, 12, 13,
-4g, 10b, 14, 15, 16, 17 and 18's figures,
+"audit": ..., "dp": ..., "train": ..., "train_forms": ...,
+"train_stack_gradient": ..., "grad_guards": ...}`` line of phases 5c, 5d,
+5e, 7b, 10, 11, 4f, 12, 13, 4g, 10b, 14, 15, 16, 17 and 18's figures,
 a ``{"kernels": [...]}`` line, the card's name and power limit, each
 phase's seconds and the total, and last ``{"ok": true, "device":
 {...}}``. Exits non-zero without a GPU.
@@ -4830,12 +4846,27 @@ def phase_dp(ka, kf, tk, cfg, params, prompts, paged_tokens):
 # gradient, qwen2.5-3b and smollm-135m trained at full width)
 # ---------------------------------------------------------------------------
 
-BWD_HEADS = {"qwen2.5-3b": (16, 2, 128), "smollm-135m": (9, 3, 64)}
-# (B, S) of each head set: qwen's training batch and microbatch (timed),
-# smollm's training batch (timed), and ragged S at small B
-BWD_CASES = {"qwen2.5-3b": ((2, 2048), (1, 2048), (2, 1), (2, 37), (2, 1000)),
-             "smollm-135m": ((8, 256), (2, 1), (2, 37), (2, 1000))}
-BWD_TIMED = {"qwen2.5-3b": ("bfloat16", 1, 2048), "smollm-135m": ("float32", 8, 256)}
+# the backward's forms: (heads (H, KVH, hd, hd_v), form, S_kv (None: S),
+# the (B, S) cases, the timed (B, S)): qwen2.5-3b's training batch and
+# microbatch and smollm-135m's training batch (causal); hymba's window 1024;
+# qwen2.5-3b-swa's window 4096; a chunk of 800 at llama4-scout's G 5 (tiles
+# straddle chunk boundaries); whisper's cross attention over 1500 frames;
+# minicpm3's MLA head dims (96, 64); each at ragged S too
+BWD_FORMS = {
+    "qwen2.5-3b": ((16, 2, 128, 128), {}, None,
+                   ((2, 2048), (1, 2048), (2, 1), (2, 37), (2, 1000)), (1, 2048)),
+    "smollm-135m": ((9, 3, 64, 64), {}, None, ((8, 256), (2, 1), (2, 37), (2, 1000)), (8, 256)),
+    "hymba window 1024": ((25, 5, 64, 64), {"window": 1024}, None,
+                          ((1, 1664), (2, 1), (2, 37), (2, 1000)), (1, 1664)),
+    "qwen2.5-3b-swa window 4096": ((16, 2, 128, 128), {"window": 4096}, None,
+                                   ((1, 6000), (2, 1), (2, 37), (2, 1000)), (1, 6000)),
+    "chunk 800": ((40, 8, 128, 128), {"chunk": 800}, None,
+                  ((1, 2048), (2, 1), (2, 37), (2, 1000)), (1, 2048)),
+    "whisper cross": ((20, 20, 64, 64), {"causal": False}, 1500,
+                      ((8, 448), (8, 1), (8, 37), (2, 1000)), (8, 448)),
+    "minicpm3 (96, 64)": ((40, 40, 96, 64), {}, None,
+                          ((1, 2048), (2, 1), (2, 37), (2, 1000)), (1, 2048)),
+}
 # (atol as a share of max(1, max |want|), rtol) of the backward kernel
 # against ref_flash_attention_backward on the same inputs: float32, the
 # summation order; bfloat16, one rounding of the f32 result apart (at most
@@ -4845,14 +4876,23 @@ BWD_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-5, 2 ** -7)}
 # 2**-7 to one or two ulps, inside its bound, so 2**-5 there), and the
 # plain version with delta dropped against the kernel's dq and dk
 BWD_FAULT = {"float32": 2 ** -7, "bfloat16": 2 ** -5}
-# the stack check: qwen2.5-3b at full width, 2 layers, float32; each leaf's
+# the stack check: each stack at full width with its depth cut to
+# STACK_LAYERS (whisper: encoder and decoder), float32; each leaf's
 # |g_kernel - g_plain| / max(|g_plain|, STACK_FLOOR x the global norm) (the
 # key biases' gradient is zero in exact arithmetic: a bias shared by every
-# key of a head shifts a row's scores by one constant)
-STACK_LAYERS, STACK_B, STACK_S = 2, 2, 2048
+# key of a head shifts a row's scores by one constant). (arch, B, S): the
+# window bites at S 6000; whisper's decoder takes 448 tokens over 1500 frames
+STACK_LAYERS = 2
+STACK_CASES = (("qwen2.5-3b", 2, 2048), ("qwen2.5-3b-swa", 1, 6000), ("minicpm3-4b", 1, 2048),
+               ("whisper-large-v3", 2, 448))
 STACK_BOUND, STACK_FLOOR = 1e-3, 1e-3
 TRAIN_STEPS, TRAIN_B, TRAIN_S, TRAIN_MB = 6, 2, 2048, 2
 SMOLLM_STEPS, SMOLLM_B, SMOLLM_S = 50, 8, 256          # examples/train_smollm.py --full
+# 18f: (arch, B, S, layers or None for the published depth), bf16
+# parameters, f32 AdamW moments, one microbatch
+FORM_TRAIN_STEPS = 3
+FORM_TRAIN = (("qwen2.5-3b-swa", 1, 6000, None), ("minicpm3-4b", 1, 2048, None),
+              ("whisper-large-v3", 4, 448, None))
 
 
 def backward_excess(got, want, dtype_name):
@@ -4863,36 +4903,62 @@ def backward_excess(got, want, dtype_name):
     return float(((got - want).abs() / bound).max())
 
 
-def backward_work(B, S, H, KVH, hd, item):
+def visible_pairs(S, S_kv, causal=True, window=0, chunk=0):
+    """The (query, key) pairs of one head the form's mask leaves visible."""
+    from repro_torch.kernels.flash_attention import hidden_mask
+
+    return int((~hidden_mask(S, S_kv, causal, window, chunk, "cuda")).sum())
+
+
+def backward_work(B, S, H, KVH, hd, item, S_kv=None, hd_v=None, **form):
     """(bytes, flop) the backward must move and do: q, k, v, out and dout
-    read once, dq, dk and dv written once; five hd-deep products over each
-    (query head, visible key) pair, S (S + 1) / 2 of them a head (causal)."""
-    nbytes = item * B * S * (4 * H * hd + 4 * KVH * hd)
-    return nbytes, 5 * 2 * hd * B * H * S * (S + 1) // 2
+    read once, dq, dk and dv written once; five products over each (query
+    head, visible key) pair, three hd deep (q.k, ds^T q, ds k) and two hd_v
+    deep (do.v, p^T do)."""
+    S_kv, hd_v = S_kv or S, hd_v or hd
+    nbytes = item * B * (2 * S * H * (hd + hd_v) + 2 * S_kv * KVH * (hd + hd_v))
+    return nbytes, 2 * (3 * hd + 2 * hd_v) * B * H * visible_pairs(S, S_kv, **form)
+
+
+def library_backward(q, k, v, dout, form):
+    """SDPA's backward on the same form, its forward run once: ``is_causal``
+    (causal), a boolean mask (a window or a chunk), none (non-causal)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import hidden_mask
+
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    causal, window, chunk = form.get("causal", True), form.get("window", 0), form.get("chunk", 0)
+    mask = (~hidden_mask(q.shape[1], k.shape[1], causal, window, chunk, "cuda")
+            if window or chunk else None)
+    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                         is_causal=causal and mask is None, enable_gqa=True)
+    dout_t = dout.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), dout_t, retain_graph=True)
 
 
 def phase_backward_kernel(kf):
-    """The flash backward kernel against its plain version on the card,
-    with faulted controls; times at the training shapes."""
-    import torch.nn.functional as F
-
+    """The flash backward kernel against its plain version on the card in
+    every form of the forward, with faulted controls; times at each form's
+    main shape beside its bound, its plain version and SDPA's backward."""
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(18)
     rows = {}
-    for arch, (Hh, KVHh, hd) in BWD_HEADS.items():
+    for form_name, ((Hh, KVHh, hd, hd_v), form, S_kv, cases, timed_at) in BWD_FORMS.items():
         for dtype_name in ("float32", "bfloat16"):
             dt = getattr(torch, dtype_name)
-            for Bb, S in BWD_CASES[arch]:
+            for Bb, S in cases:
+                Skv = S_kv or S
                 q = torch.randn((Bb, S, Hh, hd), generator=gen, device="cuda").to(dt)
-                k, v = (torch.randn((Bb, S, KVHh, hd), generator=gen, device="cuda").to(dt)
-                        for _ in range(2))
-                out = kf.flash_attention(q, k, v)
+                k = torch.randn((Bb, Skv, KVHh, hd), generator=gen, device="cuda").to(dt)
+                v = torch.randn((Bb, Skv, KVHh, hd_v), generator=gen, device="cuda").to(dt)
+                out = kf.flash_attention(q, k, v, **form)
                 dout = torch.randn(out.shape, generator=gen, device="cuda").to(dt)
-                got = kf.flash_attention_backward(q, k, v, out, dout)
-                again = kf.flash_attention_backward(q, k, v, out, dout)
+                kern = lambda: kf.flash_attention_backward(q, k, v, out, dout, **form)
+                got, again = kern(), kern()
                 torch.cuda.synchronize()
-                want = kf.ref_flash_attention_backward(q, k, v, out, dout)
-                name = f"flash_attention_backward[{arch} heads, {dtype_name}, B={Bb}, S={S}]"
+                want = kf.ref_flash_attention_backward(q, k, v, out, dout, **form)
+                name = (f"flash_attention_backward[{form_name}, {dtype_name}, B={Bb}, S={S}"
+                        f"{f', S_kv={Skv}' if Skv != S else ''}]")
                 r = {"max_abs_err": {}, "excess": {}}
                 for g_name, a, a2, w in zip(("dq", "dk", "dv"), got, again, want):
                     assert a.dtype == dt and torch.isfinite(a.float()).all(), (name, g_name)
@@ -4901,35 +4967,30 @@ def phase_backward_kernel(kf):
                     r["excess"][g_name] = backward_excess(a, w, dtype_name)
                     assert r["excess"][g_name] <= 1.0, (name, g_name, r)
                 scale = 1 + BWD_FAULT[dtype_name]
-                faulted = kf.ref_flash_attention_backward(q, k, v, torch.zeros_like(out), dout)
+                faulted = kf.ref_flash_attention_backward(q, k, v, torch.zeros_like(out), dout,
+                                                          **form)
                 r["controls"] = {
                     f"dv x (1 + {BWD_FAULT[dtype_name]:g})":
                         backward_excess((got[2].float() * scale).to(dt), want[2], dtype_name),
                     "delta dropped (dq)": backward_excess(got[0], faulted[0], dtype_name),
                     "delta dropped (dk)": backward_excess(got[1], faulted[1], dtype_name)}
-                if S > 1:   # at S 1, dq and dk are zero in exact arithmetic
+                if S > 1:   # at S 1, dq and dk are zero in exact arithmetic (self-attention)
                     assert all(x > 1.0 for x in r["controls"].values()), (name, r["controls"])
-                if BWD_TIMED[arch] == (dtype_name, Bb, S):
-                    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-                    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                             enable_gqa=True)
-                    dout_t = dout.transpose(1, 2)
-                    lib = lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dout_t,
-                                                      retain_graph=True)
-                    nbytes, ops = backward_work(Bb, S, Hh, KVHh, hd, q.element_size())
+                if (Bb, S) == timed_at:
+                    nbytes, ops = backward_work(Bb, S, Hh, KVHh, hd, q.element_size(), S_kv=Skv,
+                                                hd_v=hd_v, **form)
                     bytes_ms = nbytes / HBM_BYTES_S * 1e3
                     ops_ms = ops / PEAK_OPS_S[dtype_name] * 1e3
-                    kern = lambda: kf.flash_attention_backward(q, k, v, out, dout)
                     r.update({"ms": time_ms(kern, flush), "device_ms": device_ms(kern),
                               "plain_ms": time_ms(
-                                  lambda: kf.ref_flash_attention_backward(q, k, v, out, dout),
+                                  lambda: kf.ref_flash_attention_backward(q, k, v, out, dout,
+                                                                          **form),
                                   flush, reps=5),
-                              "library_ms": time_ms(lib, flush),
+                              "library_ms": time_ms(library_backward(q, k, v, dout, form), flush),
                               "bound_ms": max(bytes_ms, ops_ms),
                               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                               "bytes": nbytes, "ops": ops})
-                    del lib_out, qt, kt, vt
-                rows[(arch, dtype_name, Bb, S)] = r
+                rows[(form_name, dtype_name, Bb, S)] = r
                 times = (f"; kernel_ms={r['ms']:.4f} device_ms={fmt_ms(r['device_ms'])} "
                          f"plain_ms={r['plain_ms']:.4f} sdpa_backward_ms={r['library_ms']:.4f} "
                          f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}: {r['bytes']} B, "
@@ -4947,13 +5008,19 @@ def phase_backward_kernel(kf):
 @contextlib.contextmanager
 def plain_attention():
     """The stack's attention through ``ref_flash_attention`` under autograd
-    (the plain version differentiated by PyTorch), for the stack check only."""
+    (the plain version differentiated by PyTorch), in the form
+    ``blockwise_attention`` is asked for, for the stack check only."""
+    from repro_torch.configs.base import ATTN_CHUNKED_LOCAL, ATTN_FULL, ATTN_SWA
     from repro_torch.kernels.flash_attention import ref_flash_attention
     from repro_torch.models import attention as attn
 
+    def plain(q, k, v, *, attn_type=ATTN_FULL, window=0, chunk=0, causal=True):
+        return ref_flash_attention(q, k, v, causal=causal,
+                                   window=window if attn_type == ATTN_SWA else 0,
+                                   chunk=chunk if attn_type == ATTN_CHUNKED_LOCAL else 0)
+
     real = attn.blockwise_attention
-    attn.blockwise_attention = lambda q, k, v, **kw: ref_flash_attention(
-        q, k, v, causal=kw.get("causal", True))
+    attn.blockwise_attention = plain
     try:
         yield
     finally:
@@ -4978,59 +5045,74 @@ def dv_scaled(kf, factor):
 
 
 def phase_train_stack(kf):
-    """qwen2.5-3b at full width with its depth cut to STACK_LAYERS, float32:
-    the gradient of every leaf through the kernels (the flash forward, its
-    backward) against the same stack with the plain attention under
-    autograd, and a faulted control (dv scaled by 1 + 2**-7) above the
-    bound."""
+    """Each stack of STACK_CASES at full width with its depth cut to
+    STACK_LAYERS, float32: the gradient of every leaf through the kernels
+    (the flash forward, its backward) against the same stack with the plain
+    attention under autograd, and a faulted control (dv scaled by 1 +
+    2**-7) above the bound."""
     from repro_torch.configs import get_arch
     from repro_torch.models import loss_fn
 
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 products in float32
-    cfg = get_arch("qwen2.5-3b").replace(num_layers=STACK_LAYERS)
-    params, leaves = draw_weights("train stack", cfg)
-    for p in leaves:
-        p.requires_grad_(True)
-    tokens = torch.randint(0, cfg.vocab_size, (STACK_B, STACK_S),
-                           generator=torch.Generator(device="cuda").manual_seed(5), device="cuda")
+    figures = {}
+    for arch, Bb, S in STACK_CASES:
+        cfg = get_arch(arch).replace(num_layers=STACK_LAYERS)
+        if cfg.is_encoder_decoder:
+            cfg = cfg.replace(encoder_layers=STACK_LAYERS)
+        params, leaves = draw_weights("train stack", cfg)
+        for p in leaves:
+            p.requires_grad_(True)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (Bb, S), generator=gen,
+                                         device="cuda")}
+        if cfg.is_encoder_decoder:
+            batch["frames"] = torch.randn((Bb, cfg.encoder_seq, cfg.d_model), generator=gen,
+                                          device="cuda")
 
-    def grads(ctx):
-        with ctx:
-            total, _ = loss_fn(cfg, params, {"tokens": tokens})
-            return torch.autograd.grad(total, leaves)
+        def grads(ctx):
+            with ctx:
+                total, _ = loss_fn(cfg, params, batch)
+                return torch.autograd.grad(total, leaves)
 
-    kf.reset_launch_counts()
-    got = grads(contextlib.nullcontext())
-    launches = {"flash_attention": kf.flash_attention.launches,
-                "flash_attention_backward": kf.flash_attention_backward.launches}
-    assert launches == {"flash_attention": 2 * STACK_LAYERS,
-                        "flash_attention_backward": STACK_LAYERS}, launches
-    want = grads(plain_attention())
-    control = grads(dv_scaled(kf, 1 + 2 ** -7))
-    gnorm = float(torch.sqrt(sum(g.double().square().sum() for g in want)))
-    flat = _leaf_paths(params)
+        kf.reset_launch_counts()
+        got = grads(contextlib.nullcontext())
+        launches = {"flash_attention": kf.flash_attention.launches,
+                    "flash_attention_backward": kf.flash_attention_backward.launches}
+        # attention calls a forward: an encoder-decoder's encoder self, decoder
+        # self and cross attention a layer; remat runs each forward twice
+        n_attn = STACK_LAYERS * (3 if cfg.is_encoder_decoder else 1)
+        assert launches == {"flash_attention": 2 * n_attn,
+                            "flash_attention_backward": n_attn}, (arch, launches)
+        want = grads(plain_attention())
+        control = grads(dv_scaled(kf, 1 + 2 ** -7))
+        gnorm = float(torch.sqrt(sum(g.double().square().sum() for g in want)))
+        flat = _leaf_paths(params)
 
-    def rel(a, b):
-        floor = STACK_FLOOR * gnorm
-        return float((a.double() - b.double()).norm() / max(float(b.double().norm()), floor))
+        def rel(a, b):
+            floor = STACK_FLOOR * gnorm
+            return float((a.double() - b.double()).norm() / max(float(b.double().norm()), floor))
 
-    errs = {path: rel(a, b) for path, a, b in zip(flat, got, want)}
-    ctl = {path: rel(a, b) for path, a, b in zip(flat, control, want)}
-    worst, worst_ctl = max(errs.values()), max(ctl.values())
-    print(f"[train stack] {cfg.name} at full width, {STACK_LAYERS} layers, float32, B {STACK_B} "
-          f"x S {STACK_S}: each leaf's |g_kernel - g_plain| / max(|g_plain|, {STACK_FLOOR} x "
-          f"{gnorm:.4e}): worst {worst:.3e} of bound {STACK_BOUND} "
-          f"({max(errs, key=errs.get)}); control (dv x (1 + 2**-7)) worst {worst_ctl:.3e} "
-          f"({max(ctl, key=ctl.get)}); launches {launches}", flush=True)
-    print(f"[train stack] per leaf: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()),
-          flush=True)
-    assert worst <= STACK_BOUND, errs
-    assert worst_ctl > STACK_BOUND, ctl
-    del params, leaves, got, want, control
-    gc.collect()
-    torch.cuda.empty_cache()
-    return {"worst_rel_err": worst, "bound": STACK_BOUND, "control_worst_rel_err": worst_ctl,
-            "rel_err": errs, "launches": launches}
+        errs = {path: rel(a, b) for path, a, b in zip(flat, got, want)}
+        ctl = {path: rel(a, b) for path, a, b in zip(flat, control, want)}
+        worst, worst_ctl = max(errs.values()), max(ctl.values())
+        shape = (f"B {Bb} x S {S}" + (f" over {cfg.encoder_seq} frames"
+                                       if cfg.is_encoder_decoder else ""))
+        print(f"[train stack] {cfg.name} at full width, {STACK_LAYERS} layers"
+              f"{' (+ encoder)' if cfg.is_encoder_decoder else ''}, float32, {shape}: each "
+              f"leaf's |g_kernel - g_plain| / max(|g_plain|, {STACK_FLOOR} x {gnorm:.4e}): worst "
+              f"{worst:.3e} of bound {STACK_BOUND} ({max(errs, key=errs.get)}); control (dv x "
+              f"(1 + 2**-7)) worst {worst_ctl:.3e} ({max(ctl, key=ctl.get)}); launches "
+              f"{launches}", flush=True)
+        print(f"[train stack] {cfg.name} per leaf: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()), flush=True)
+        assert worst <= STACK_BOUND, (arch, errs)
+        assert worst_ctl > STACK_BOUND, (arch, ctl)
+        figures[arch] = {"batch": Bb, "seq": S, "worst_rel_err": worst, "bound": STACK_BOUND,
+                         "control_worst_rel_err": worst_ctl, "launches": launches}
+        del params, leaves, got, want, control, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return figures
 
 
 def _leaf_paths(tree, prefix=""):
@@ -5147,6 +5229,80 @@ def phase_train(ka, kf, tk):
     return figures
 
 
+def phase_train_forms(ka, kf, tk):
+    """18f: the stacks whose attention takes the backward's new forms,
+    trained at full width (depth as FORM_TRAIN gives it), bf16 parameters,
+    f32 AdamW moments, FORM_TRAIN_STEPS steps from ``TokenDataset`` through
+    ``make_train_step`` in one microbatch: qwen2.5-3b-swa (window 4096 at S
+    6000), minicpm3-4b (MLA's (96, 64)) and whisper-large-v3 (the encoder's
+    causal attention, the decoder's causal self and non-causal cross
+    attention over 1500 frames)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.workload import TokenDataset
+    from repro_torch.models import make_train_step
+    from repro_torch.optim import AdamW, cosine_schedule
+
+    figures = {}
+    for arch, Bb, S, layers in FORM_TRAIN:
+        cfg = get_arch(arch).replace(dtype="bfloat16")
+        if layers is not None:
+            print(f"[train forms] {arch}: depth cut from {cfg.num_layers} to {layers} layers "
+                  f"(80 GB)", flush=True)
+            cfg = cfg.replace(num_layers=layers)
+        params, leaves = draw_weights("train forms", cfg)
+        opt = AdamW(lr=cosine_schedule(3e-4, warmup=1, total=FORM_TRAIN_STEPS))
+        state = opt.init(params)
+        step = make_train_step(cfg, opt, microbatches=1)
+        data = list(TokenDataset(cfg.vocab_size, S, seed=0).batches(Bb, FORM_TRAIN_STEPS))
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        frames = (torch.randn((Bb, cfg.encoder_seq, cfg.d_model), generator=gen,
+                              device="cuda").bfloat16() if cfg.is_encoder_decoder else None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(ka, kf, tk)
+        losses, norms, walls = [], [], []
+        for tokens in data:
+            batch = {"tokens": torch.from_numpy(tokens).cuda()}
+            if frames is not None:
+                batch["frames"] = frames
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            walls.append(time.perf_counter() - t0)
+        launches = {**read_launches(ka, kf, tk),
+                    "flash_attention_backward": kf.flash_attention_backward.launches}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        s_step = float(np.median(walls[1:]))
+        tokens_step = Bb * S
+        n_attn = cfg.num_layers * (2 if cfg.is_encoder_decoder else 1) + (
+            cfg.encoder_layers if cfg.is_encoder_decoder else 0)
+        figures[arch] = {
+            "steps": FORM_TRAIN_STEPS, "batch": Bb, "seq": S, "layers": cfg.num_layers,
+            "encoder_layers": cfg.encoder_layers or None, "depth_cut": layers is not None,
+            "dtype": "bfloat16 params, float32 moments", "losses": losses, "grad_norms": norms,
+            "step_s": walls, "s_per_step": s_step, "tokens_per_s": tokens_step / s_step,
+            "peak_memory_gib": peak, "launches": launches}
+        print(f"[train forms] {cfg.name} {cfg.num_layers} layers"
+              f"{f' (+{cfg.encoder_layers} encoder layers, {cfg.encoder_seq} frames)' if cfg.is_encoder_decoder else ''}"
+              f" bf16, AdamW f32 moments, {FORM_TRAIN_STEPS} steps of {Bb} x {S} tokens: losses "
+              f"{[round(x, 4) for x in losses]}, grad norms {[round(x, 3) for x in norms]}; "
+              f"{s_step:.3f} s/step (median of steps 2-{FORM_TRAIN_STEPS}; first {walls[0]:.3f}), "
+              f"{tokens_step / s_step:.1f} tokens/s, peak memory {peak:.2f} GiB; launches "
+              f"{launches}", flush=True)
+        assert all(np.isfinite(losses)) and all(np.isfinite(norms)), (arch, losses, norms)
+        # the backward once a step for each attention call; remat runs each
+        # forward twice; no other kernel
+        want = {name: 0 for name in read_launches(ka, kf, tk)}
+        want.update(flash_attention=2 * n_attn * FORM_TRAIN_STEPS,
+                    flash_attention_backward=n_attn * FORM_TRAIN_STEPS)
+        assert launches == want, (arch, launches, want)
+        del params, leaves, state, step, m, frames
+        gc.collect()
+        torch.cuda.empty_cache()
+    return figures
+
+
 def phase_grad_guards(ka, kf, tk):
     """Each forward-only wrapper, handed a grad-requiring CUDA input under
     grad mode, raises; so does a flash form without a backward kernel."""
@@ -5181,14 +5337,17 @@ def phase_grad_guards(ka, kf, tk):
             raised[name] = "RuntimeError"
         else:
             raise AssertionError(f"{name}: a grad-requiring CUDA input did not raise")
-    q = f(1, 32, 4, 64).requires_grad_()
-    for form in (dict(window=16), dict(chunk=16), dict(causal=False)):
+    # the flash forms the forward kernel does not take either: a window with
+    # a chunk, head dims (32, 32), cross attention at (128, 128)
+    for form, hd, S_kv in ((dict(window=16, chunk=16), 64, 32), ({}, 32, 32),
+                           (dict(causal=False), 128, 20)):
         try:
-            kf.trainable_flash_attention(q, f(1, 32, 2, 64), f(1, 32, 2, 64), **form)
+            kf.trainable_flash_attention(f(1, 32, 4, hd).requires_grad_(), f(1, S_kv, 2, hd),
+                                         f(1, S_kv, 2, hd), **form)
         except NotImplementedError:
-            raised[f"trainable_flash_attention {form}"] = "NotImplementedError"
+            raised[f"trainable_flash_attention {form} hd {hd} S_kv {S_kv}"] = "NotImplementedError"
         else:
-            raise AssertionError(f"trainable_flash_attention {form} did not raise")
+            raise AssertionError(f"trainable_flash_attention {form} hd {hd} did not raise")
     print(f"[grad guards] {raised}", flush=True)
     return raised
 
@@ -5340,6 +5499,9 @@ def main() -> int:
     train_figures = no_scan("train", phase_train, ka, kf, tk)
     for arch in ("qwen2.5-3b", "smollm-135m"):
         launches[f"train {arch}"] = train_figures[arch]["launches"]
+    form_train_figures = no_scan("train forms", phase_train_forms, ka, kf, tk)
+    for arch, x in form_train_figures.items():
+        launches[f"train {arch}"] = x["launches"]
     guard_figures = no_scan("grad guards", phase_grad_guards, ka, kf, tk)
 
     kernels = []
@@ -5513,9 +5675,8 @@ def main() -> int:
         **{f"{d}/{c}": {key2: zoo_decode_rows[(d, c)][key2] for key2 in phase_keys}
            for d in ("float32", "bfloat16") for c in INTERNVL2_DECODE_CASES}}
     # the flash backward at qwen2.5-3b's training microbatch (bf16, B 1, S
-    # 2048); smollm-135m's batch (f32, B 8, S 256) beside it
-    r = bwd_rows[("qwen2.5-3b", *BWD_TIMED["qwen2.5-3b"])]
-    r_smollm = bwd_rows[("smollm-135m", *BWD_TIMED["smollm-135m"])]
+    # 2048); every form's timed shape in both dtypes beside it
+    r = bwd_rows[("qwen2.5-3b", "bfloat16", *BWD_FORMS["qwen2.5-3b"][4])]
     timed_keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     kernels.append({
         "name": "flash_attention_backward", "route": "cuda",
@@ -5525,14 +5686,16 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"].values()), "ms": r["ms"],
         "device_ms": r["device_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        "library": "the backward of scaled_dot_product_attention(is_causal=True, "
-                   "enable_gqa=True), timed apart from its forward",
-        "smollm_batch": {key2: r_smollm[key2] for key2 in timed_keys},
+        "library": "the backward of scaled_dot_product_attention(enable_gqa=True) on the "
+                   "same form (is_causal; a boolean mask for a window or a chunk), timed apart "
+                   "from its forward",
+        "forms": {f"{a}/{d}/B={b_}/S={s_}": {key2: x[key2] for key2 in timed_keys}
+                  for (a, d, b_, s_), x in bwd_rows.items() if "ms" in x},
         "by_case": {f"{a}/{d}/B={b_}/S={s_}": {"max_abs_err": x["max_abs_err"],
                                                "excess": x["excess"],
                                                "controls": x["controls"]}
                     for (a, d, b_, s_), x in bwd_rows.items()},
-        "stack_gradient": {k2: v2 for k2, v2 in stack_figures.items() if k2 != "rel_err"},
+        "stack_gradient": stack_figures,
         "launches_by_phase": {ph: n.get("flash_attention_backward", 0)
                               for ph, n in launches.items()},
     })
@@ -5545,6 +5708,7 @@ def main() -> int:
                       "swa_int8_serve": swa_int8_figures, "internvl2_serve": internvl2_figures,
                       "whisper_serve": whisper_figures, "audit": audit_figures,
                       "dp": dp_figures, "train": train_figures,
+                      "train_forms": form_train_figures,
                       "train_stack_gradient": stack_figures, "grad_guards": guard_figures}))
     print(json.dumps({"kernels": kernels}))
     print(f"[done] {time.perf_counter() - t_start:.1f}s in all", flush=True)

@@ -53,8 +53,9 @@ ENTRY_POINTS = {
         "da_decode_attention": ([_I] + [_P] * 7 + [_I] * 6 + [_F, _P], _I),
     },
     "flash_backward": {
-        "fb_smem_bytes": ([_I, _I], _I),
-        "fb_flash_backward": ([_I] + [_P] * 10 + [_I] * 6 + [_F, _P], _I),
+        "fb_smem_bytes": ([_I, _I, _I], _I),
+        "fb_tile_ranges": ([_I] * 5 + [_P, _P], _I),
+        "fb_flash_backward": ([_I] + [_P] * 11 + [_I] * 10 + [_F, _P], _I),
     },
     "rwkv6_scan": {
         "wkv_rwkv6": ([_I] + [_P] * 10 + [_I] * 6 + [_P], _I),

@@ -39,11 +39,16 @@ the autograd Function ``FlashAttention``, whose backward is
 ``flash_attention_backward``: the port of ``repro.models.attention.
 _flash_backward`` (the ``custom_vjp`` rule of ``blockwise_attention``). On
 CUDA tensors it launches the hand-written kernels of
-``csrc/flash_backward.cu`` (causal, head dims ``BACKWARD_HEAD_DIMS``,
-float32 or bfloat16, any S and G; any other form raises
-``NotImplementedError`` when the forward runs); on CPU tensors it runs
-``ref_flash_attention_backward``, the plain version, which takes every
-form of the forward.
+``csrc/flash_backward.cu``, which take every form the forward kernel takes
+(causal or not, a window or a chunk, cross attention at
+``CROSS_HEAD_DIMS``, the head dims of ``HEAD_DIMS``; float32 or bfloat16,
+any S and G): bfloat16 on the tensor cores, with P and dS in two bf16 parts
+as the forward's P. A form the forward does not take either raises
+``NotImplementedError`` before the forward runs. On CPU tensors it runs
+``ref_flash_attention_backward``, the plain version. The kernels' tile
+ranges follow one rule per direction, mirrored here by ``kv_tiles`` (the
+key tiles a query tile sees) and ``q_tiles`` (the query tiles that see a
+key tile), which the CPU tests hold to the plain mask.
 """
 from __future__ import annotations
 
@@ -59,25 +64,65 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = ((64, 64), (128, 128), (96, 64))
 # the head dims of the cross form (S_kv != S): whisper's
 CROSS_HEAD_DIMS = (64, 64)
-# the (query/key, value) head-dim instantiations in csrc/flash_backward.cu:
-# smollm-135m's and qwen2.5-3b's
-BACKWARD_HEAD_DIMS = ((64, 64), (128, 128))
+# rows of a query tile and of a key tile in csrc/flash_backward.cu
+TILE = 64
+
+
+def hidden_mask(S, S_kv, causal, window, chunk, device="cpu"):
+    """(S, S_kv) bool, True where the mask hides key col from query row:
+    causal, the keys after the row; ``window`` > 0, those at or before row -
+    window; ``chunk`` > 0, those of another chunk than the row's."""
+    row = torch.arange(S, device=device)[:, None]
+    col = torch.arange(S_kv, device=device)[None, :]
+    hidden = torch.zeros((S, S_kv), dtype=torch.bool, device=device)
+    if causal:
+        hidden |= col > row
+    if window > 0:
+        hidden |= col <= row - window
+    if chunk > 0:
+        hidden |= col // chunk != row // chunk
+    return hidden
+
+
+def kv_tiles(qt, S, S_kv, causal, window, chunk):
+    """The key tiles [begin, end) that query tile ``qt`` (rows qt * TILE ..
+    +TILE - 1) sees: the rule of ``KvTiles`` in csrc/flash_backward.cu (the
+    forward's ``KvRange``). Causal stops at the diagonal tile, a window starts
+    at the tile of the first row's first key, a chunk starts at the first
+    row's chunk and ends after the last row's."""
+    q0, n_kv = qt * TILE, -(-S_kv // TILE)
+    end = min(qt + 1, n_kv) if causal else n_kv
+    begin = max(q0 - window + 1, 0) // TILE if window > 0 else 0
+    if chunk > 0:
+        begin = q0 // chunk * chunk // TILE
+        last_row = min(q0 + TILE, S) - 1
+        end = min(end, -(-((last_row // chunk + 1) * chunk) // TILE))
+    return begin, end
+
+
+def q_tiles(kt, S, S_kv, causal, window, chunk):
+    """The query tiles [begin, end) that see key tile ``kt``: the rule of
+    ``QTiles`` in csrc/flash_backward.cu, the transpose of ``kv_tiles``.
+    Causal starts at the diagonal tile, a window ends at the tile of the last
+    key's last row (key + window - 1), a chunk starts at the first key's
+    chunk and ends after the last key's."""
+    k0, n_q = kt * TILE, -(-S // TILE)
+    k_last = min(k0 + TILE, S_kv) - 1
+    begin = kt if causal else 0
+    end = min((k_last + window - 1) // TILE + 1, n_q) if window > 0 else n_q
+    if chunk > 0:
+        begin = max(begin, k0 // chunk * chunk // TILE)
+        end = min(end, -(-((k_last // chunk + 1) * chunk) // TILE))
+    return begin, end
 
 
 def _masked_scores(qg, k, scale, causal, window, chunk):
     """f32 scores (B, KVH, G, S, S_kv) of the grouped queries qg (B, S, KVH,
     G, hd) over k, scaled, with -1e30 at the keys the mask hides."""
-    S = qg.shape[1]
     s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) * scale
-    if causal:
-        future = torch.ones((S, S), dtype=torch.bool, device=qg.device).triu(1)
-        s = s.masked_fill(future, NEG_INF)
-    if window > 0:
-        past = torch.ones((S, S), dtype=torch.bool, device=qg.device).tril(-window)
-        s = s.masked_fill(past, NEG_INF)
-    if chunk > 0:
-        c = torch.arange(S, device=qg.device) // chunk
-        s = s.masked_fill(c[:, None] != c[None, :], NEG_INF)
+    if causal or window > 0 or chunk > 0:
+        s = s.masked_fill(hidden_mask(qg.shape[1], k.shape[1], causal, window, chunk,
+                                      qg.device), NEG_INF)
     return s
 
 
@@ -195,22 +240,27 @@ flash_attention.launches = 0
 
 def _check_backward_form(S, S_kv, causal, window, chunk, head_dims):
     """Raise ``NotImplementedError`` for a form the backward kernels do not
-    take on the card: only causal self-attention without a window or chunk,
-    at ``BACKWARD_HEAD_DIMS``."""
-    if not causal or window > 0 or chunk > 0 or S_kv != S or head_dims not in BACKWARD_HEAD_DIMS:
+    take on the card, which are those the forward kernel does not take
+    either: a window together with a chunk, head dims outside
+    ``HEAD_DIMS``, and keys of another length than the queries that are
+    causal, windowed or chunked or at head dims other than
+    ``CROSS_HEAD_DIMS``."""
+    cross = S_kv != S and (causal or window > 0 or chunk > 0 or head_dims != CROSS_HEAD_DIMS)
+    if (window > 0 and chunk > 0) or head_dims not in HEAD_DIMS or cross:
         raise NotImplementedError(
-            f"flash attention's backward on the card takes causal self-attention without a "
-            f"window or chunk at head dims {BACKWARD_HEAD_DIMS}; got causal={causal}, "
-            f"window={window}, chunk={chunk}, S={S}, S_kv={S_kv}, head dims {head_dims}")
+            f"flash attention's backward on the card takes the forms of the forward kernel: "
+            f"a window or a chunk (not both) at head dims {HEAD_DIMS}, keys of another length "
+            f"non-causal at {CROSS_HEAD_DIMS}; got causal={causal}, window={window}, "
+            f"chunk={chunk}, S={S}, S_kv={S_kv}, head dims {head_dims}")
 
 
 def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True,
                              scale: Optional[float] = None, window: int = 0, chunk: int = 0):
     """dq, dk, dv of ``flash_attention(q, k, v)`` = ``out`` for the output
     gradient ``dout`` (B, S, H, hd_v), in the dtypes of q, k and v. CUDA
-    tensors launch the three kernels of ``csrc/flash_backward.cu`` (one
-    count in ``launches`` a call; causal only, at ``BACKWARD_HEAD_DIMS``);
-    CPU tensors run the plain version (every form)."""
+    tensors launch the kernels of ``csrc/flash_backward.cu`` (one count in
+    ``launches`` a call; every form of the forward kernel, see
+    ``_check_backward_form``); CPU tensors run the plain version."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return ref_flash_attention_backward(q, k, v, out, dout, causal, scale, window, chunk)
@@ -220,8 +270,8 @@ def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True,
     B, S, H, hd = q.shape
     S_kv, KVH, hd_v = k.shape[1], k.shape[2], v.shape[-1]
     _check_backward_form(S, S_kv, causal, window, chunk, (hd, hd_v))
-    _check(name, tuple(k.shape) == (B, S, KVH, hd) and tuple(v.shape) == (B, S, KVH, hd_v),
-           "k must be (B, S, KVH, hd) and v (B, S, KVH, hd_v) with q's B, S and hd")
+    _check(name, tuple(k.shape) == (B, S_kv, KVH, hd) and tuple(v.shape) == (B, S_kv, KVH, hd_v),
+           "k must be (B, S_kv, KVH, hd) and v (B, S_kv, KVH, hd_v) with q's B and hd")
     _check(name, tuple(out.shape) == tuple(dout.shape) == (B, S, H, hd_v),
            "out and dout must be (B, S, H, hd_v)")
     _check(name, KVH > 0 and H % KVH == 0, "H must be a multiple of KVH")
@@ -235,19 +285,27 @@ def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True,
     from repro_torch.kernels._build import load_library
 
     lib = load_library("flash_backward").lib
-    smem = lib.fb_smem_bytes(hd, hd_v)
+    smem = lib.fb_smem_bytes(_DTYPE_CODES[q.dtype], hd, hd_v)
     _check(name, smem <= 227 * 1024, f"shared memory per block {smem} B exceeds 227 KB")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if B == 0 or S == 0:
         return dq, dk, dv
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    _check(name, S_kv > 0, "k and v must hold at least one key")
+    # L and delta padded to whole query tiles; with G > 1 the dK/dV kernel
+    # writes each query head's f32 partials, (B, S_kv, H, hd) then (B, S_kv,
+    # H, hd_v), and a pass sums each group's in head order
+    n_pad = -(-S // TILE) * TILE
+    lse = torch.empty((B, H, n_pad), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
+    ws = (torch.empty(B * S_kv * H * (hd + hd_v), dtype=torch.float32, device=q.device)
+          if H > KVH else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.fb_flash_backward(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), B, S, H, KVH, hd, hd_v, float(scale), stream,
+            dv.data_ptr(), None if ws is None else ws.data_ptr(), B, S, S_kv, H, KVH, hd, hd_v,
+            int(causal), max(int(window), 0), max(int(chunk), 0), float(scale), stream,
         )
     _raise_on_error(name, err)
     flash_attention_backward.launches += 1
@@ -255,6 +313,21 @@ def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True,
 
 
 flash_attention_backward.launches = 0
+
+
+def kernel_tile_ranges(S, S_kv, causal, window, chunk):
+    """The kernels' own tile ranges (``fb_tile_ranges`` of the built
+    library: [(begin, end)] of each query tile's key tiles, then of each key
+    tile's query tiles), for the card test that holds ``kv_tiles`` and
+    ``q_tiles`` to them."""
+    from repro_torch.kernels._build import load_library
+
+    kv = torch.zeros(2 * -(-S // TILE), dtype=torch.int32)
+    qs = torch.zeros(2 * -(-S_kv // TILE), dtype=torch.int32)
+    load_library("flash_backward").lib.fb_tile_ranges(
+        S, S_kv, int(causal), int(window), int(chunk), kv.data_ptr(), qs.data_ptr())
+    pairs = lambda t: [tuple(x) for x in t.view(-1, 2).tolist()]
+    return pairs(kv), pairs(qs)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -281,9 +354,10 @@ class FlashAttention(torch.autograd.Function):
 def trainable_flash_attention(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
                               window: int = 0, chunk: int = 0):
     """``flash_attention`` under autograd (the ``FlashAttention`` Function).
-    On CUDA a form without a backward kernel (``_check_backward_form``)
-    raises ``NotImplementedError`` here, before the forward runs: it never
-    returns an output whose gradient would be lost."""
+    On CUDA a form without a backward kernel (``_check_backward_form``: one
+    the forward kernel does not take either) raises ``NotImplementedError``
+    here, before the forward runs: it never returns an output whose
+    gradient would be lost."""
     if q.is_cuda:
         _check_backward_form(q.shape[1], k.shape[1], causal, window, chunk,
                              (q.shape[-1], v.shape[-1]))

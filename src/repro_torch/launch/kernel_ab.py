@@ -9,6 +9,7 @@ tree's split targets, on one GPU.
     python -m repro_torch.launch.kernel_ab --cases scans --variants base wkv_output_only wkv_segment_only base
     python -m repro_torch.launch.kernel_ab --sweep
     python -m repro_torch.launch.kernel_ab --cases retrieval --variants base topk_no_select topk_loads_only topk_merge_only base
+    python -m repro_torch.launch.kernel_ab --cases backward --trees build/parent/src src src build/parent/src
 
 Each tree (a directory holding ``repro_torch``) or variant runs in a process
 of its own, in the order given, so that its kernels are built from its own
@@ -36,7 +37,17 @@ scan at hymba-1.5b's (Di 1600, N 16) prefilling B 1 at S 1664 and decoding
 B 8 at S 1, each from a given state (``--cases scans``); the top-k
 retrieval kernel at chip_smoke.py phase 3's timed shapes, B 32 unit-row
 queries over N 2^21 unit-row docs of d 768 in float32 and in bfloat16, k
-10 and 100 (``--cases retrieval``, not run unless named). Each process
+10 and 100 (``--cases retrieval``, not run unless named); the bf16 flash
+backward (``--cases backward``, not run unless named) at qwen2.5-3b's
+training microbatch (causal, B 1, S 2048, H 16 / KVH 2, hd 128) and at one
+case of each other form of the forward: window 1024 at S 1664 (H 25 / KVH
+5, hd 64), window 4096 at S 6000 (H 16 / KVH 2, hd 128), chunk 800 at S
+2048 (H 40 / KVH 8, hd 128), cross attention of B 8 x S 448 over 1500 keys
+(H 20 = KVH 20, hd 64) and MLA's (96, 64) at S 2048 (H 40 = KVH 40), each
+with the largest of dq's, dk's and dv's errors over chip_smoke.py's
+``BWD_TOL`` bound (a tree without the form reports it unsupported); its
+``bwd_*`` variants leave passes out (the dQ kernel, the dK/dV kernel, the
+group sum, all but the rows pass) to show what each costs. Each process
 prints one JSON line: per case the device time three times (calls queued
 behind a spin kernel, L2 warm), the largest error against the plain
 version in f32 and how many elements miss the check (attention: atol 1e-3,
@@ -88,8 +99,28 @@ _TOPK = "csrc/topk_retrieval.cu"
 _NO_SELECT = ("      const bool select = q0 + qi < B;               // warp-uniform",
               "      const bool select = false;")
 
+_BWD = "csrc/flash_backward.cu"
+_BWD_LAUNCHER = "template <typename T, int HDK, int HDV, bool CHUNKED>\ncudaError_t launch_backward_hd("
+
+
+def _bwd_skip(*kernels):
+    """An edit of the flash backward's launcher that launches none of
+    ``kernels`` (each pass's cost, from the time it saves; wrong results)."""
+    def edit(text):
+        text = text.replace(_BWD_LAUNCHER, "template <typename Kernel, typename... P>\n"
+                            "cudaError_t launch_none(Kernel, dim3, int, size_t, cudaStream_t, "
+                            "P...) { return cudaSuccess; }\n\n" + _BWD_LAUNCHER)
+        for name in kernels:
+            if f"launch({name}<" not in text:
+                raise ValueError(f"variant: {_BWD} launches no {name}")
+            text = text.replace(f"launch({name}<", f"launch_none({name}<")
+        return text
+    return edit
+
+
 # name -> edits of files of repro_torch: (file, old, new), or (file, callable
-# on its text). The flash kernel's, the chunk kernel's, then the scans'.
+# on its text). The flash kernel's, the chunk kernel's, the scans', the top-k
+# kernel's, then the flash backward's.
 VARIANTS = {
     "base": [],
     # the CUDA math library's exp2f in place of ex2.approx (every call site)
@@ -185,6 +216,22 @@ VARIANTS = {
 }
 
 
+VARIANTS.update({
+    # the flash backward without its dQ kernel, its dK/dV kernel, its group
+    # sum, or with the rows pass alone (bf16 and f32 launchers alike)
+    "bwd_no_dq": [(_BWD, _bwd_skip("fb_dq_tc_kernel", "fb_dq_kernel"))],
+    "bwd_no_dkdv": [(_BWD, _bwd_skip("fb_dkdv_tc_kernel", "fb_dkdv_kernel"))],
+    "bwd_no_sum": [(_BWD, _bwd_skip("fb_group_sum_kernel"))],
+    "bwd_rows_only": [(_BWD, _bwd_skip("fb_dkdv_tc_kernel", "fb_dkdv_kernel", "fb_dq_tc_kernel",
+                                       "fb_dq_kernel", "fb_group_sum_kernel"))],
+    # the bf16 dK/dV kernel taking a whole 64-query tile a step (its K and V
+    # fragments loaded once a tile, twice the score registers), the dQ kernel
+    # half a 64-key tile (same results)
+    "bwd_subq64": [(_BWD, "constexpr int kSubQ = 32;", "constexpr int kSubQ = 64;")],
+    "bwd_subk32": [(_BWD, "constexpr int kSubK = 64;", "constexpr int kSubK = 32;")],
+})
+
+
 def _variant_tree(name: str) -> Path:
     dst = ROOT / "build" / "kernel_ab" / name
     shutil.rmtree(dst, ignore_errors=True)
@@ -237,6 +284,49 @@ def measure(cases=("attention", "scans")) -> dict:
         out.update(_scan_cases(g))
     if "retrieval" in cases:
         out.update(_retrieval_cases(g))
+    if "backward" in cases:
+        out.update(_backward_cases(g))
+    return out
+
+
+# (name, B, S, S_kv or None, H, KVH, hd, hd_v, form) of the bf16 backward cases
+BACKWARD_CASES = (
+    ("backward_causal_S2048", 1, 2048, None, 16, 2, 128, 128, {}),
+    ("backward_window1024_S1664", 1, 1664, None, 25, 5, 64, 64, {"window": 1024}),
+    ("backward_window4096_S6000", 1, 6000, None, 16, 2, 128, 128, {"window": 4096}),
+    ("backward_chunk800_S2048", 1, 2048, None, 40, 8, 128, 128, {"chunk": 800}),
+    ("backward_cross_S448_Skv1500", 8, 448, 1500, 20, 20, 64, 64, {"causal": False}),
+    ("backward_mla_S2048", 1, 2048, None, 40, 40, 96, 64, {}),
+)
+
+
+def _backward_cases(g) -> dict:
+    import torch
+    from repro_torch.kernels import flash_attention as kf
+
+    out = {}
+    for name, B, S, S_kv, H, KVH, hd, hd_v, form in BACKWARD_CASES:
+        S_kv = S_kv or S
+        q, k, v = (torch.randn((B, n_, n, d), generator=g, device="cuda").bfloat16()
+                   for n_, n, d in ((S, H, hd), (S_kv, KVH, hd), (S_kv, KVH, hd_v)))
+        o = kf.flash_attention(q, k, v, **form)
+        do = torch.randn(o.shape, generator=g, device="cuda").bfloat16()
+        try:
+            got = kf.flash_attention_backward(q, k, v, o, do, **form)
+        except (TypeError, ValueError, NotImplementedError) as e:  # a tree without the form
+            out[name] = {"unsupported": str(e)}
+            continue
+        want = kf.ref_flash_attention_backward(q, k, v, o, do, **form)
+        excess = 0.0
+        for a, w in zip(got, want):        # chip_smoke.py's BWD_TOL["bfloat16"]
+            w = w.float()
+            bound = 1e-5 * max(1.0, float(w.abs().max())) + 2 ** -7 * w.abs()
+            excess = max(excess, float(((a.float() - w).abs() / bound).max()))
+        out[name] = {"device_ms": [_device_ms(lambda: kf.flash_attention_backward(
+                         q, k, v, o, do, **form), reps=10) for _ in range(3)],
+                     "excess": excess}
+        del q, k, v, o, do, got, want
+        torch.cuda.empty_cache()
     return out
 
 
@@ -566,7 +656,7 @@ def main(argv=None) -> int:
     ap.add_argument("--sweep", action="store_true",
                     help="this tree's split targets of the dense decode and chunk kernels, "
                          "and the scans' segment counts")
-    ap.add_argument("--cases", nargs="+", choices=("attention", "scans", "retrieval"),
+    ap.add_argument("--cases", nargs="+", choices=("attention", "scans", "retrieval", "backward"),
                     default=["attention", "scans"], help="which kernels --trees, "
                     "--variants and --sweep time")
     ap.add_argument("--child", nargs=3, metavar=("TREE", "LABEL", "CASES"),

@@ -11,10 +11,11 @@ Weights are random, drawn by ``init_params`` from ``train``'s ``seed`` (0
 from the command line), which also seeds the dataset. Runs on
 ``cuda`` unless ``--device cpu`` is given (and raises without a GPU). On the
 card the attention runs the flash kernel forward and backward, which take
-causal attention without a window or chunk at head dims (64, 64) and (128,
-128): the full-attention stacks of smollm-135m and qwen2.5-3b train there;
-the other stacks raise (their forms or kernels have no backward on the
-card). On the CPU every arch of the
+every form of the forward (causal or not, a sliding window, a chunk, cross
+attention, MLA's split head dims): the attention stacks of the zoo train
+there (smollm-135m, qwen2.5-3b and its SWA variant, minicpm3-4b,
+whisper-large-v3, ...); rwkv6-7b's WKV and hymba's selective scan have no
+backward on the card and raise under grad. On the CPU every arch of the
 zoo trains through the plain versions. It prints each logged step's loss,
 grad norm and seconds a step, on CUDA the peak memory, and asserts that the
 loss fell.

@@ -62,9 +62,10 @@ def blockwise_attention(q, k, v, *, attn_type: str = ATTN_FULL, window: int = 0,
     Under grad mode with an input that requires grad (training), the call
     goes through the autograd Function ``trainable_flash_attention``, whose
     backward is the recompute backward of the JAX ``custom_vjp``; on the
-    card that takes causal attention without a window or chunk at head dims
-    (64, 64) and (128, 128), and any other form raises
-    ``NotImplementedError``. Every other call (serving) launches the
+    card its kernels take every form the forward kernel takes (causal or
+    not, a window, a chunk, cross attention at head dims (64, 64), the head
+    dims (64, 64), (128, 128) and MLA's (96, 64)), so every attention stack
+    of the zoo trains there. Every other call (serving) launches the
     forward kernel directly."""
     if attn_type not in (ATTN_FULL, ATTN_SWA, ATTN_CHUNKED_LOCAL):
         raise NotImplementedError(f"blockwise_attention: unknown attn_type {attn_type!r}")

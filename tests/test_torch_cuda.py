@@ -1429,12 +1429,13 @@ def test_dp_group_on_the_card_matches_lone_engines(gpu, kv_dtype):
 BWD_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-5, 2 ** -7)}
 
 
-def _backward_inputs(B, S, H, KVH, hd, dtype, seed=0):
+def _backward_inputs(B, S, H, KVH, hd, dtype, seed=0, S_kv=None, hd_v=None, **form):
     g = torch.Generator(device="cuda").manual_seed(seed)
+    S_kv, hd_v = S_kv or S, hd_v or hd
     q = torch.randn((B, S, H, hd), generator=g, device="cuda").to(dtype)
-    k = torch.randn((B, S, KVH, hd), generator=g, device="cuda").to(dtype)
-    v = torch.randn((B, S, KVH, hd), generator=g, device="cuda").to(dtype)
-    out = kf.flash_attention(q, k, v)
+    k = torch.randn((B, S_kv, KVH, hd), generator=g, device="cuda").to(dtype)
+    v = torch.randn((B, S_kv, KVH, hd_v), generator=g, device="cuda").to(dtype)
+    out = kf.flash_attention(q, k, v, **form)
     dout = torch.randn(out.shape, generator=g, device="cuda").to(dtype)
     return q, k, v, out, dout
 
@@ -1466,6 +1467,77 @@ def test_flash_backward_kernel_matches_plain_version(gpu, dtype, H, KVH, hd, B, 
         assert torch.isfinite(a.float()).all(), name
         assert torch.equal(a, a2), name
         assert _backward_excess(a, w, dtype) <= 1.0, name
+
+
+# (name, B, H, KVH, hd, hd_v, S_kv or None, form): hymba's heads at window
+# 1024; qwen2.5-3b-swa's at window 4096; chunk 800 at H 40 / KVH 8 (tiles
+# straddle chunk boundaries); whisper's cross attention over 1500 frames;
+# minicpm3's (96, 64); and the non-causal self-attention forms
+BACKWARD_FORMS = [
+    ("window1024", 1, 25, 5, 64, 64, None, dict(window=1024)),
+    ("window4096", 1, 16, 2, 128, 128, None, dict(window=4096)),
+    ("chunk800", 1, 40, 8, 128, 128, None, dict(chunk=800)),
+    ("cross1500", 8, 20, 20, 64, 64, 1500, dict(causal=False)),
+    ("mla", 1, 40, 40, 96, 64, None, {}),
+    ("mla_chunk200", 1, 40, 40, 96, 64, None, dict(chunk=200)),
+    ("noncausal", 2, 9, 3, 64, 64, None, dict(causal=False)),
+    ("noncausal_window100", 2, 9, 3, 64, 64, None, dict(causal=False, window=100)),
+    ("noncausal_chunk50", 2, 16, 2, 128, 128, None, dict(causal=False, chunk=50)),
+]
+BACKWARD_FORM_S = {"window1024": 1664, "window4096": 6000, "chunk800": 2048, "cross1500": 448,
+                   "mla": 2048, "mla_chunk200": 1000}
+
+
+@pytest.mark.parametrize("S", ["main", 1, 37, 1000])
+@pytest.mark.parametrize("case", BACKWARD_FORMS, ids=lambda c: c[0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_forms_match_plain_version(gpu, dtype, case, S):
+    """Every form of the forward kernel: the kernel against its plain
+    version at the form's main shape and at ragged S, within ``BWD_TOL``;
+    deterministic (two calls equal)."""
+    name, B, H, KVH, hd, hd_v, S_kv, form = case
+    S = BACKWARD_FORM_S.get(name, 300) if S == "main" else S
+    if name == "window4096" and S != 6000:
+        B = 2
+    q, k, v, out, dout = _backward_inputs(B, S, H, KVH, hd, dtype, seed=S, S_kv=S_kv,
+                                          hd_v=hd_v, **form)
+    got = kf.flash_attention_backward(q, k, v, out, dout, **form)
+    again = kf.flash_attention_backward(q, k, v, out, dout, **form)
+    torch.cuda.synchronize()
+    want = kf.ref_flash_attention_backward(q, k, v, out, dout, **form)
+    for g_name, a, a2, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert a.dtype == dtype and a.shape == w.shape, g_name
+        assert torch.isfinite(a.float()).all(), g_name
+        assert torch.equal(a, a2), g_name
+        assert _backward_excess(a, w, dtype) <= 1.0, g_name
+
+
+@pytest.mark.parametrize("case", BACKWARD_FORMS, ids=lambda c: c[0])
+def test_flash_backward_forms_catch_faulted_controls(gpu, case):
+    """bf16 at each form: dv scaled by 1 + 2**-5 and the plain version with
+    delta dropped land above the bound."""
+    name, B, H, KVH, hd, hd_v, S_kv, form = case
+    q, k, v, out, dout = _backward_inputs(B, 300, H, KVH, hd, torch.bfloat16, seed=3,
+                                          S_kv=S_kv, hd_v=hd_v, **form)
+    dq, dk, dv = kf.flash_attention_backward(q, k, v, out, dout, **form)
+    want = kf.ref_flash_attention_backward(q, k, v, out, dout, **form)
+    assert _backward_excess((dv.float() * (1 + 2 ** -5)).bfloat16(), want[2], torch.bfloat16) > 1
+    faulted = kf.ref_flash_attention_backward(q, k, v, torch.zeros_like(out), dout, **form)
+    assert _backward_excess(dq, faulted[0], torch.bfloat16) > 1.0
+    assert _backward_excess(dk, faulted[1], torch.bfloat16) > 1.0
+
+
+@pytest.mark.parametrize("form", [(2048, 2048, 1, 0, 0), (1664, 1664, 1, 1024, 0),
+                                  (6000, 6000, 1, 4096, 0), (2048, 2048, 1, 0, 800),
+                                  (1000, 1000, 0, 0, 50), (1000, 1000, 0, 100, 0),
+                                  (448, 1500, 0, 0, 0), (37, 1500, 0, 0, 0), (1, 1, 1, 0, 0)])
+def test_backward_tile_ranges_mirror_the_kernel(gpu, form):
+    """``kv_tiles`` and ``q_tiles`` (the rule the CPU tests hold to the
+    plain mask) are the kernels' own ranges (``fb_tile_ranges``)."""
+    S, S_kv, causal, window, chunk = form
+    kv, qs = kf.kernel_tile_ranges(S, S_kv, causal, window, chunk)
+    assert kv == [kf.kv_tiles(t, *form) for t in range(len(kv))]
+    assert qs == [kf.q_tiles(t, *form) for t in range(len(qs))]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1537,15 +1609,38 @@ def test_forward_only_wrappers_refuse_grad_on_the_card(gpu, name):
         call()
 
 
-@pytest.mark.parametrize("form", [dict(window=16), dict(chunk=16), dict(causal=False),
-                                  dict(hd=(96, 64))])
+@pytest.mark.parametrize("form", [dict(window=16, chunk=16), dict(hd=(32, 32)),
+                                  dict(S_kv=20, causal=False, hd=(128, 128))])
 def test_flash_forms_without_a_backward_raise_on_the_card(gpu, form):
+    """Only the forms the forward kernel does not take either: a window
+    with a chunk, head dims outside ``HEAD_DIMS``, cross attention at head
+    dims other than ``CROSS_HEAD_DIMS``."""
     hd, hd_v = form.pop("hd", (64, 64))
+    S_kv = form.pop("S_kv", 32)
     q = torch.randn(1, 32, 4, hd, device="cuda", requires_grad=True)
-    k = torch.randn(1, 32, 2, hd, device="cuda")
-    v = torch.randn(1, 32, 2, hd_v, device="cuda")
+    k = torch.randn(1, S_kv, 2, hd, device="cuda")
+    v = torch.randn(1, S_kv, 2, hd_v, device="cuda")
     with pytest.raises(NotImplementedError, match="backward on the card"):
         kf.trainable_flash_attention(q, k, v, **form)
+
+
+@pytest.mark.parametrize("form", [dict(window=16), dict(chunk=16), dict(causal=False),
+                                  dict(hd=(96, 64)), dict(S_kv=20, causal=False)])
+def test_flash_forms_train_on_the_card(gpu, form):
+    """float32: the Function's gradients at each form the forward kernel
+    takes against autograd through ``ref_flash_attention``."""
+    hd, hd_v = form.pop("hd", (64, 64))
+    S_kv = form.pop("S_kv", 40)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    ins = [torch.randn(s, generator=g, device="cuda")
+           for s in ((1, 40, 4, hd), (1, S_kv, 2, hd), (1, S_kv, 2, hd_v))]
+    dout = torch.randn((1, 40, 4, hd_v), generator=g, device="cuda")
+    a = [t.clone().requires_grad_() for t in ins]
+    b = [t.clone().requires_grad_() for t in ins]
+    kf.trainable_flash_attention(*a, **form).backward(dout)
+    kf.ref_flash_attention(*b, **form).backward(dout)
+    for x, y in zip(a, b):
+        assert _backward_excess(x.grad, y.grad, torch.float32) <= 1.0
 
 
 def test_smoke_train_steps_on_the_card_match_the_cpu(gpu):

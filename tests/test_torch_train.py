@@ -75,6 +75,8 @@ ATTN_CASES = [
     (ATTN_CHUNKED_LOCAL, 0, 128),
     "cross",
 ]
+# MLA's head dims (96 query/key, 64 value: minicpm3's), causal
+REF_CASES = ATTN_CASES + ["mla"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -82,16 +84,21 @@ def _attention_case(case):
     """numpy q, k, v, the JAX output and the JAX gradients of sum(sin(out))
     for one case."""
     rng = np.random.default_rng(0)
+    hd_v = None
     if case == "cross":
         B, S, Skv, H, KVH, hd = 2, 256, 100, 4, 4, 32
         kw = dict(causal=False)
+    elif case == "mla":
+        B, S, Skv, H, KVH, hd, hd_v = 1, 320, 320, 4, 4, 96, 64
+        kw = dict(attn_type=ATTN_FULL)
     else:
         B, S, Skv, H, KVH, hd = 2, 512, 512, 4, 2, 32
         kw = dict(attn_type=case[0], window=case[1], chunk=case[2])
     q = rng.standard_normal((B, S, H, hd)).astype(np.float32)
     k = rng.standard_normal((B, Skv, KVH, hd)).astype(np.float32)
-    v = rng.standard_normal((B, Skv, KVH, hd)).astype(np.float32)
-    f = lambda *a: jax_attn.blockwise_attention(*a, block_q=128 if case != "cross" else 64, **kw)
+    v = rng.standard_normal((B, Skv, KVH, hd_v or hd)).astype(np.float32)
+    block_q = {"cross": 64, "mla": 64}.get(case, 128)
+    f = lambda *a: jax_attn.blockwise_attention(*a, block_q=block_q, **kw)
     out = np.asarray(f(q, k, v))
     grads = jax.grad(lambda *a: jnp.sum(jnp.sin(f(*a))), argnums=(0, 1, 2))(q, k, v)
     return (q, k, v), kw, out, tuple(np.asarray(g) for g in grads)
@@ -109,7 +116,7 @@ def test_flash_function_against_jax(case):
         np.testing.assert_allclose(t.grad.numpy(), want, **GRAD_TOL)
 
 
-@pytest.mark.parametrize("case", ATTN_CASES)
+@pytest.mark.parametrize("case", REF_CASES)
 def test_ref_backward_against_jax(case):
     inputs, kw, want_out, want_grads = _attention_case(case)
     q, k, v = (torch.from_numpy(a) for a in inputs)
@@ -125,19 +132,55 @@ def test_ref_backward_against_jax(case):
         np.testing.assert_allclose(g.numpy(), want, **GRAD_TOL)
 
 
-def test_backward_forms_on_the_card_are_checked_before_the_forward():
-    """The forms the CUDA backward does not take raise (the check runs on
-    the shapes alone, before any launch); the causal forms at the training
-    head dims pass."""
-    for form in [dict(causal=False), dict(window=64), dict(chunk=64)]:
+# (S, S_kv, causal, window, chunk, head dims): every form the forward kernel
+# takes, then those it does not (cross at (128, 128), causal cross, a
+# window with a chunk, head dims (32, 32))
+FORWARD_FORMS = [(128, 128, causal, window, chunk, dims)
+                 for dims in kf.HEAD_DIMS for causal in (True, False)
+                 for window, chunk in ((0, 0), (64, 0), (0, 64))] + [(128, 100, False, 0, 0, (64, 64))]
+FOREIGN_FORMS = [(128, 100, False, 0, 0, (128, 128)), (128, 100, True, 0, 0, (64, 64)),
+                 (128, 128, True, 64, 64, (64, 64)), (128, 128, True, 0, 0, (32, 32))]
+
+
+@pytest.mark.parametrize("form", FORWARD_FORMS + FOREIGN_FORMS,
+                         ids=lambda f: "S{}_Skv{}_causal{}_w{}_c{}_hd{}x{}".format(*f[:5], *f[5]))
+def test_backward_forms_on_the_card_are_checked_before_the_forward(form):
+    """The check runs on the shapes alone, before any launch: the forms the
+    forward kernel takes pass, the others raise."""
+    if form in FORWARD_FORMS:
+        kf._check_backward_form(*form)
+    else:
         with pytest.raises(NotImplementedError, match="backward on the card"):
-            kf._check_backward_form(128, 128, form.get("causal", True), form.get("window", 0),
-                                    form.get("chunk", 0), (128, 128))
-    for S, S_kv, dims in [(128, 100, (64, 64)), (128, 128, (96, 64)), (128, 128, (32, 32))]:
-        with pytest.raises(NotImplementedError):
-            kf._check_backward_form(S, S_kv, S == S_kv, 0, 0, dims)
-    for dims in kf.BACKWARD_HEAD_DIMS:
-        kf._check_backward_form(2048, 2048, True, 0, 0, dims)
+            kf._check_backward_form(*form)
+
+
+# (causal, window, chunk) of each self-attention form, and cross attention
+# over 1, 37 and 1500 keys
+TILE_FORMS = [(True, 0, 0), (False, 0, 0), (True, 1, 0), (True, 64, 0), (True, 100, 0),
+              (True, 1024, 0), (False, 100, 0), (True, 0, 50), (True, 0, 64), (True, 0, 800),
+              (False, 0, 50), (False, 0, 800)]
+
+
+@pytest.mark.parametrize("S", [1, 37, 64, 1000, 2048])
+@pytest.mark.parametrize("form", TILE_FORMS + ["cross"])
+def test_tile_ranges_cover_exactly_the_visible_tiles(form, S):
+    """``kv_tiles`` lists for each query tile, and ``q_tiles`` for each key
+    tile, exactly the tiles that hold a pair the plain mask leaves visible
+    (``hidden_mask``, the plain version's mask), at ragged S too."""
+    forms = ([(S_kv, False, 0, 0) for S_kv in (1, 37, 1500)] if form == "cross"
+             else [(S, *form)])
+    for S_kv, causal, window, chunk in forms:
+        visible = ~kf.hidden_mask(S, S_kv, causal, window, chunk)
+        nq, nkv = -(-S // kf.TILE), -(-S_kv // kf.TILE)
+        pad = torch.zeros((nq * kf.TILE, nkv * kf.TILE), dtype=torch.bool)
+        pad[:S, :S_kv] = visible
+        seen = pad.view(nq, kf.TILE, nkv, kf.TILE).any(3).any(1)       # (nq, nkv)
+        for qt in range(nq):
+            b, e = kf.kv_tiles(qt, S, S_kv, causal, window, chunk)
+            assert list(range(b, e)) == seen[qt].nonzero().flatten().tolist(), (qt, S_kv)
+        for kt in range(nkv):
+            b, e = kf.q_tiles(kt, S, S_kv, causal, window, chunk)
+            assert list(range(b, e)) == seen[:, kt].nonzero().flatten().tolist(), (kt, S_kv)
 
 
 def test_refuse_grad():
