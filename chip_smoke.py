@@ -327,10 +327,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``STACK_CASES`` at full width with their depth cut to 2 layers (whisper:
    2 encoder and 2 decoder layers), float32: qwen2.5-3b (B 2 x S 2048),
    qwen2.5-3b-swa (B 1 x S 6000, so the window bites), minicpm3-4b (S 2048)
-   and whisper-large-v3 (B 2 x S 448 over 1500 frames): every leaf's
-   gradient through the kernels against the same stack with the attention
-   taken through the plain version under autograd (``plain_attention``)
-   within ``STACK_BOUND``, a control (dv scaled by 1 + 2**-7) above it. (c)
+   and whisper-large-v3 (B 2 x S 448 over 1500 frames), and (h)
+   rwkv6-7b (S 2048), hymba-1.5b (S 1536 + 128 meta tokens, so its window
+   of 1024 bites), mixtral-8x22b (S 1024) and llama4-scout (S 2048, its
+   first two layers chunked-local): every leaf's gradient through the
+   kernels against the same stack with the attention and the recurrences
+   taken through their plain versions under autograd
+   (``launch.grad_check.plain_kernels``) within ``STACK_BOUND``, a control
+   (a backward's gradient scaled by 1 + 2**-7: the WKV's dv for rwkv6, the
+   scan's dC for hymba, the flash dv otherwise) above it; each kernel's forward launched twice a
+   layer (remat) and its backward once. (c)
    qwen2.5-3b at full width and depth (36 layers), bf16 parameters, f32
    AdamW moments, 6 steps of 2 x 2048 tokens from ``TokenDataset`` in 2
    microbatches: losses finite and falling, grad norms finite, s/step,
@@ -350,13 +356,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``TokenDataset`` through ``make_train_step`` in one microbatch: losses
    and grad norms finite, s/step, tokens/s, peak memory, and the launches
    (the backward once a step for each attention call, the forward twice).
+   (g) The backward kernels of the two scans
+   (``csrc/rwkv6_scan_backward.cu``, ``csrc/ssm_scan_backward.cu``) against
+   ``ref_rwkv6_chunked_backward`` and ``ref_ssm_scan_backward`` at
+   rwkv6-7b's heads (H 64, hd 64; B 1 x S 2048) and hymba-1.5b's scan (Di
+   1600, N 16; B 1 x S 2176), and at S 1, 37 and 1000, float32 and
+   bfloat16, nonzero initial states and final-state cotangents: every
+   gradient within ``BWD_TOL``, two calls equal bit for bit, the first
+   gradient scaled by 1 + ``BWD_FAULT`` outside the bound, strong decays (w
+   = 0, exp(dt A) = 0) finite and within it; the kernel's, its device and
+   its plain version's times at the main shape beside the bound
+   (``scan_backward_work``). (i) ``SCAN_TRAIN`` as (f): hymba-1.5b at full
+   depth (B 1 x S 2048), rwkv6-7b at 16 of 32 layers (S 2048),
+   mixtral-8x22b at 2 of 56 (S 1024) and llama4-scout at 1 of 48 (S 2048),
+   the depths from 12 bytes a parameter on 80 GB; the scans' kernels
+   forward twice a layer and step, their backward once.
 
 It prints a ``{"int8_serve": ..., "host_tier": ..., "oracle_paths": ...,
 "controller": ..., "swa_serve": ..., "mixtral_serve": ...,
 "chunk_mla_parity_max_abs_logit_diff": ..., "llama4_serve": ...,
 "minicpm3_serve": ..., "zoo_parity_max_abs_logit_diff": ...,
 "swa_int8_serve": ..., "internvl2_serve": ..., "whisper_serve": ...,
-"audit": ..., "dp": ..., "train": ..., "train_forms": ...,
+"audit": ..., "dp": ..., "train": ..., "train_forms": ..., "train_scans": ...,
 "train_stack_gradient": ..., "grad_guards": ...}`` line of phases 5c, 5d,
 5e, 7b, 10, 11, 4f, 12, 13, 4g, 10b, 14, 15, 16, 17 and 18's figures,
 a ``{"kernels": [...]}`` line, the card's name and power limit, each
@@ -368,6 +389,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -409,6 +431,11 @@ REPLACES = {
     "ssm_scan": "src/repro/kernels/ssm_scan.py:55",
     # the custom_vjp backward rule of blockwise_attention (plain jnp)
     "flash_attention_backward": "src/repro/models/attention.py:211",
+    # autodiff of chunked_scan (src/repro/models/layers.py:117) over the
+    # plain step of each scan (no pallas_call: JAX never trains through its
+    # Pallas scans)
+    "rwkv6_chunked_backward": "src/repro/models/rwkv6.py:82",
+    "ssm_scan_backward": "src/repro/models/ssm.py:79",
 }
 SOURCES = {
     "paged_chunk_attention": "src/repro_torch/csrc/paged_attention.cu",
@@ -419,6 +446,8 @@ SOURCES = {
     "rwkv6_chunked": "src/repro_torch/csrc/rwkv6_scan.cu",
     "ssm_scan": "src/repro_torch/csrc/ssm_scan.cu",
     "flash_attention_backward": "src/repro_torch/csrc/flash_backward.cu",
+    "rwkv6_chunked_backward": "src/repro_torch/csrc/rwkv6_scan_backward.cu",
+    "ssm_scan_backward": "src/repro_torch/csrc/ssm_scan_backward.cu",
 }
 
 
@@ -4882,17 +4911,42 @@ BWD_FAULT = {"float32": 2 ** -7, "bfloat16": 2 ** -5}
 # key biases' gradient is zero in exact arithmetic: a bias shared by every
 # key of a head shifts a row's scores by one constant). (arch, B, S): the
 # window bites at S 6000; whisper's decoder takes 448 tokens over 1500 frames
+# (18h) rwkv6-7b (no attention: the WKV kernels alone), hymba-1.5b at S
+# 1536 (+ 128 meta tokens: the window of 1024 bites), mixtral-8x22b (S 1024)
+# and llama4-scout (S 2048; its first two layers are chunked-local) join
+# them; at 8 bytes a parameter (f32 parameter and gradient) mixtral's 2
+# layers take ~43 GB and llama4's ~52 GB, so the plain gradients wait in
+# host memory while the kernels' are compared
 STACK_LAYERS = 2
 STACK_CASES = (("qwen2.5-3b", 2, 2048), ("qwen2.5-3b-swa", 1, 6000), ("minicpm3-4b", 1, 2048),
-               ("whisper-large-v3", 2, 448))
+               ("whisper-large-v3", 2, 448), ("rwkv6-7b", 1, 2048), ("hymba-1.5b", 1, 1536),
+               ("mixtral-8x22b", 1, 1024), ("llama4-scout-17b-a16e", 1, 2048))
 STACK_BOUND, STACK_FLOOR = 1e-3, 1e-3
 TRAIN_STEPS, TRAIN_B, TRAIN_S, TRAIN_MB = 6, 2, 2048, 2
 SMOLLM_STEPS, SMOLLM_B, SMOLLM_S = 50, 8, 256          # examples/train_smollm.py --full
-# 18f: (arch, B, S, layers or None for the published depth), bf16
-# parameters, f32 AdamW moments, one microbatch
+# 18f and 18i: (arch, B, S, layers or None for the published depth), bf16
+# parameters, f32 AdamW moments, one microbatch. 18i's depths from 12 bytes
+# a parameter (bf16 parameter and gradient, two f32 moments) on 80 GB:
+# hymba-1.5b whole (1.40 B parameters, ~17 GB); rwkv6-7b 16 of 32 layers
+# (0.54 B embedding and head + 16 x 0.22 B, ~49 GB; all 32 would take ~91
+# GB); mixtral-8x22b 2 of 56 (0.40 B + 2 x 2.50 B, ~65 GB); llama4-scout 1
+# of 48 (2.07 B embedding and head + 2.20 B, ~51 GB; 2 layers ~78 GB)
 FORM_TRAIN_STEPS = 3
 FORM_TRAIN = (("qwen2.5-3b-swa", 1, 6000, None), ("minicpm3-4b", 1, 2048, None),
               ("whisper-large-v3", 4, 448, None))
+SCAN_TRAIN = (("hymba-1.5b", 1, 2048, None), ("rwkv6-7b", 1, 2048, 16),
+              ("mixtral-8x22b", 1, 1024, 2), ("llama4-scout-17b-a16e", 1, 2048, 1))
+# 18g: the scans' backward kernels against their plain versions: rwkv6-7b's
+# heads (H 64, hd 64) and hymba-1.5b's scan (Di 1600, N 16); (B, S) cases,
+# the main shape first (timed): the training microbatch, S 2176 for hymba
+# (18i's 2048 tokens + 128 meta tokens); then S 1, 37 and 1000, and S 1000
+# with strong decays (w = 0 entries; exp(dt A) = 0 where dt = 80)
+WKV_BWD_HEADS = (64, 64)
+SCAN_BWD_CASES = {"rwkv6_chunked_backward": ((1, 2048), (1, 1), (1, 37), (1, 1000)),
+                  "ssm_scan_backward": ((1, 2176), (1, 1), (1, 37), (1, 1000))}
+SCAN_STRONG_S = 1000
+WKV_GRADS = ("dr", "dk", "dv", "dw", "du", "dstate0")
+SSM_GRADS = ("ddt", "dx", "dbm", "dcm", "da_log", "dh0")
 
 
 def backward_excess(got, want, dtype_name):
@@ -5005,58 +5059,224 @@ def phase_backward_kernel(kf):
     return rows
 
 
+def wkv_backward_inputs(gen, B, S, dtype, strong):
+    """rwkv6-7b's heads: r, k (0.5 N(0, 1)), v, Finch decays w = exp(-exp(z))
+    with z ~ N(0, 0.5) (``strong``: w = 0 at every third step's even keys),
+    u, state0, and the cotangents dy and dstate."""
+    H, hd = WKV_BWD_HEADS
+    rn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    r, k, v = 0.5 * rn(B, S, H, hd), 0.5 * rn(B, S, H, hd), rn(B, S, H, hd)
+    w = torch.exp(-torch.exp(0.5 * rn(B, S, H, hd)))
+    if strong:
+        w[:, ::3, :, ::2] = 0.0
+    u, state0 = 0.3 * rn(H, hd), 0.5 * rn(B, H, hd, hd)
+    return (r.to(dtype), k.to(dtype), v.to(dtype), w, u, state0, rn(B, S, H, hd),
+            rn(B, H, hd, hd))
+
+
+def ssm_backward_inputs(gen, B, S, dtype, strong):
+    """hymba-1.5b's scan (``ssm_inputs``; ``strong``: dt = 80 at every fourth
+    step, so exp(dt A) = 0 for every state), and the cotangents dy and dh."""
+    dt, x, bm, cm, a_log, h0 = ssm_inputs(gen, B, S, dtype, False)
+    if strong:
+        dt[:, ::4] = 80.0
+    dy = torch.randn((B, S, SSM_DI), generator=gen, device="cuda")
+    return dt, x, bm, cm, a_log, h0, dy, torch.randn(h0.shape, generator=gen, device="cuda")
+
+
+def scan_backward_work(name, case):
+    """(bytes, f32 flops, exponentials) of one backward call. Bytes: every
+    input read once (r, k, v or dt, x, B, C in their dtype; w, dy, the
+    initial state and its cotangent, a_log or u in f32), every gradient
+    written once. WKV: 12 flops an element of the (hd x hd) state and step
+    (the state's and the adjoint's updates, and the sums of dr, dk, dv and
+    dw over the state, 2 each), no exponential. Scan: 18 flops an element
+    of the (Di x N) state and step, an FMA counted as 2: the state
+    recomputed (dt A, (dt x) B, the FMA: 4), the adjoint g = G + C dy (2),
+    dC and dB (2 each), the lane sum of g B (2), G = a g (1), G h (1), its
+    FMAs with A and with dt (2 each); and its one exponential exp(dt A)."""
+    size = lambda t: t.numel() * t.element_size()
+    # the eight inputs; the six gradients have the shapes and dtypes of the first six
+    nbytes = sum(size(t) for t in case) + sum(size(t) for t in case[:6])
+    if name == "rwkv6_chunked_backward":
+        B, S, H, hd = case[0].shape
+        return nbytes, 12 * B * S * H * hd * hd, 0
+    B, S, Di = case[0].shape
+    elems = B * S * Di * case[2].shape[-1]
+    return nbytes, 18 * elems, elems
+
+
+def phase_scan_backward_kernels(kw, ks):
+    """18g: the backward kernels of the WKV and of the selective scan against
+    their plain versions on the card at rwkv6-7b's heads and hymba-1.5b's
+    scan (``SCAN_BWD_CASES``), float32 and bfloat16, nonzero initial states
+    and final-state cotangents: every gradient within ``BWD_TOL``, two calls
+    equal bit for bit, the first gradient scaled by 1 + ``BWD_FAULT``
+    outside the bound, strong decays finite and within it; at the main
+    shape the kernel's, its device and its plain version's times beside
+    the bound."""
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    exp_s, _, _ = sfu_rate()
+    specs = {"rwkv6_chunked_backward": (kw.rwkv6_chunked_backward,
+                                        kw.ref_rwkv6_chunked_backward, wkv_backward_inputs,
+                                        WKV_GRADS),
+             "ssm_scan_backward": (ks.ssm_scan_backward, ks.ref_ssm_scan_backward,
+                                   ssm_backward_inputs, SSM_GRADS)}
+    rows = {}
+    for name, (kern_fn, ref_fn, inputs, grad_names) in specs.items():
+        main = SCAN_BWD_CASES[name][0]
+        for dtype_name in ("float32", "bfloat16"):
+            dt_ = getattr(torch, dtype_name)
+            for Bb, S, strong in (*((b_, s_, False) for b_, s_ in SCAN_BWD_CASES[name]),
+                                  (1, SCAN_STRONG_S, True)):
+                case = inputs(gen, Bb, S, dt_, strong)
+                kern = lambda: kern_fn(*case)
+                got, again = kern(), kern()
+                torch.cuda.synchronize()
+                want = ref_fn(*case)
+                label = (f"{name}[{dtype_name}, B={Bb}, S={S}"
+                         f"{', strong decays' if strong else ''}]")
+                r = {"max_abs_err": {}, "excess": {}}
+                for g_name, a, a2, w in zip(grad_names, got, again, want):
+                    assert a.dtype == w.dtype and a.shape == w.shape, (label, g_name)
+                    assert torch.isfinite(a.float()).all(), (label, g_name, "not finite")
+                    assert torch.equal(a, a2), f"{label}: {g_name} differs between two calls"
+                    tol = dtype_name if a.dtype == dt_ else "float32"
+                    r["max_abs_err"][g_name] = float((a.float() - w.float()).abs().max())
+                    r["excess"][g_name] = backward_excess(a, w, tol)
+                    assert r["excess"][g_name] <= 1.0, (label, g_name, r)
+                fault = 1 + BWD_FAULT[dtype_name]
+                r["controls"] = {f"{grad_names[0]} x (1 + {BWD_FAULT[dtype_name]:g})":
+                                 backward_excess((got[0].float() * fault).to(dt_), want[0],
+                                                 dtype_name)}
+                assert all(x > 1.0 for x in r["controls"].values()), (label, r["controls"])
+                if (Bb, S) == main and not strong:
+                    nbytes, ops, exps = scan_backward_work(name, case)
+                    parts = {"bytes": nbytes / HBM_BYTES_S * 1e3,
+                             "operations": max(ops / PEAK_OPS_S["float32"], exps / exp_s) * 1e3}
+                    bound_by = max(parts, key=parts.get)
+                    r.update({"ms": time_ms(kern, flush), "device_ms": device_ms(kern),
+                              "plain_ms": time_ms(lambda: ref_fn(*case), flush, reps=2,
+                                                  warmup=1),
+                              "library_ms": None, "bound_ms": parts[bound_by],
+                              "bound_by": bound_by, "bytes": nbytes, "ops": ops, "exps": exps,
+                              "flop_ms": ops / PEAK_OPS_S["float32"] * 1e3,
+                              "exp_ms": exps / exp_s * 1e3})
+                rows[(name, dtype_name, Bb, S, strong)] = r
+                times = (f"; kernel_ms={r['ms']:.4f} device_ms={fmt_ms(r['device_ms'])} "
+                         f"plain_ms={r['plain_ms']:.4f} library_ms=none (no PyTorch call "
+                         f"computes it) bound_ms={r['bound_ms']:.5f} ({r['bound_by']}: "
+                         f"{r['bytes']} B = {r['bytes'] / HBM_BYTES_S * 1e3:.5f} ms, "
+                         f"{r['ops']} flop = {r['flop_ms']:.5f} ms, {r['exps']} exp = "
+                         f"{r['exp_ms']:.5f} ms)") if "ms" in r else ""
+                errs = " ".join(f"{g}={e:.3e} ({r['excess'][g]:.3f} of bound)"
+                                for g, e in r["max_abs_err"].items())
+                ctl = ", ".join(f"{c} {x:.1f}x" for c, x in r["controls"].items())
+                print(f"[scan backward kernel] {label}: max_abs_err {errs} (atol share, rtol "
+                      f"{BWD_TOL[dtype_name]}); finite; two calls equal; control {ctl}{times}",
+                      flush=True)
+                del case, got, again, want
+            torch.cuda.empty_cache()
+    return rows
+
+
 @contextlib.contextmanager
-def plain_attention():
-    """The stack's attention through ``ref_flash_attention`` under autograd
-    (the plain version differentiated by PyTorch), in the form
-    ``blockwise_attention`` is asked for, for the stack check only."""
-    from repro_torch.configs.base import ATTN_CHUNKED_LOCAL, ATTN_FULL, ATTN_SWA
-    from repro_torch.kernels.flash_attention import ref_flash_attention
-    from repro_torch.models import attention as attn
-
-    def plain(q, k, v, *, attn_type=ATTN_FULL, window=0, chunk=0, causal=True):
-        return ref_flash_attention(q, k, v, causal=causal,
-                                   window=window if attn_type == ATTN_SWA else 0,
-                                   chunk=chunk if attn_type == ATTN_CHUNKED_LOCAL else 0)
-
-    real = attn.blockwise_attention
-    attn.blockwise_attention = plain
-    try:
-        yield
-    finally:
-        attn.blockwise_attention = real
-
-
-@contextlib.contextmanager
-def dv_scaled(kf, factor):
-    """The faulted control: the backward's dv scaled by ``factor``."""
-    real = kf.flash_attention_backward
+def grad_scaled(module, name, index, factor):
+    """The faulted control: gradient ``index`` of the backward wrapper
+    ``module.name`` scaled by ``factor``."""
+    real = getattr(module, name)
 
     def faulted(*a, **kw):
-        dq, dk, dv = real(*a, **kw)
-        return dq, dk, dv * factor
+        out = list(real(*a, **kw))
+        out[index] = out[index] * factor
+        return tuple(out)
 
     faulted.launches = real.launches     # the wrapper counts through its module name
-    kf.flash_attention_backward = faulted
+    setattr(module, name, faulted)
     try:
         yield
     finally:
-        kf.flash_attention_backward = real
+        setattr(module, name, real)
 
 
-def phase_train_stack(kf):
+BACKWARD_OF = {"flash_attention": "flash_attention_backward",
+               "rwkv6_chunked": "rwkv6_chunked_backward", "ssm_scan": "ssm_scan_backward"}
+
+
+def stack_calls(cfg):
+    """Each trainable kernel's forward calls in one pass of ``cfg``'s stack:
+    the attention (an encoder-decoder's encoder self, decoder self and
+    cross attention a layer) and the WKV or the selective scan a layer."""
+    from repro_torch.configs.base import MIXER_HYBRID, MIXER_RWKV6
+
+    L = cfg.num_layers
+    if cfg.attn_type == MIXER_RWKV6:
+        return {"flash_attention": 0, "rwkv6_chunked": L, "ssm_scan": 0}
+    n_attn = L * 2 + cfg.encoder_layers if cfg.is_encoder_decoder else L
+    return {"flash_attention": n_attn, "rwkv6_chunked": 0,
+            "ssm_scan": L if cfg.attn_type == MIXER_HYBRID else 0}
+
+
+def training_launches(calls, passes):
+    """The launches of ``passes`` training passes (microbatches): remat runs
+    each forward twice, the backward once."""
+    want = {}
+    for fwd, n in calls.items():
+        want[fwd], want[BACKWARD_OF[fwd]] = 2 * n * passes, n * passes
+    return want
+
+
+def train_launches(ka, kf, tk):
+    """``read_launches`` and the three backward kernels' counts."""
+    from repro_torch.kernels import rwkv6_scan as kw
+    from repro_torch.kernels import ssm_scan as ks
+
+    return {**read_launches(ka, kf, tk),
+            "flash_attention_backward": kf.flash_attention_backward.launches,
+            "rwkv6_chunked_backward": kw.rwkv6_chunked_backward.launches,
+            "ssm_scan_backward": ks.ssm_scan_backward.launches}
+
+
+def stack_control(cfg, kf, kw, ks):
+    """The stack's faulted control (a gradient scaled by 1 + 2**-7) in the
+    kernel that the stack adds: the WKV backward's dv (rwkv6), the
+    selective-scan backward's dC (hymba; its leaves reach w_x's gradient,
+    where B and C are projected), else the flash backward's dv. (hymba's
+    da_log, ddt and dx at 1 + 2**-7 stay under the bound: A_log's gradient
+    lies under STACK_FLOOR x the global norm, and dt ~ 0.01 keeps ddt's
+    and dx's share of their leaves small.)"""
+    from repro_torch.configs.base import MIXER_HYBRID, MIXER_RWKV6
+
+    factor = 1 + 2 ** -7
+    if cfg.attn_type == MIXER_RWKV6:
+        return "wkv dv", grad_scaled(kw, "rwkv6_chunked_backward", 2, factor)
+    if cfg.attn_type == MIXER_HYBRID:
+        return "scan dC", grad_scaled(ks, "ssm_scan_backward", 3, factor)
+    return "flash dv", grad_scaled(kf, "flash_attention_backward", 2, factor)
+
+
+def phase_train_stack(ka, kf, tk):
     """Each stack of STACK_CASES at full width with its depth cut to
     STACK_LAYERS, float32: the gradient of every leaf through the kernels
-    (the flash forward, its backward) against the same stack with the plain
-    attention under autograd, and a faulted control (dv scaled by 1 +
-    2**-7) above the bound."""
+    (the flash forward and backward, the WKV's and the selective scan's)
+    against the same stack with the attention and the recurrences through
+    their plain versions under autograd, and a faulted control (a
+    backward's gradient scaled by 1 + 2**-7) above the bound. The plain
+    gradients wait in host memory while the kernels' sets are made and
+    compared leaf by leaf (two sets of mixtral's or llama4's and their
+    weights do not fit on the card together)."""
     from repro_torch.configs import get_arch
+    from repro_torch.kernels import rwkv6_scan as kw
+    from repro_torch.kernels import ssm_scan as ks
+    from repro_torch.launch.grad_check import cut_depth, leaf_paths, plain_kernels
     from repro_torch.models import loss_fn
 
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 products in float32
     figures = {}
     for arch, Bb, S in STACK_CASES:
-        cfg = get_arch(arch).replace(num_layers=STACK_LAYERS)
+        t0 = time.perf_counter()
+        cfg = cut_depth(get_arch(arch), STACK_LAYERS)
         if cfg.is_encoder_decoder:
             cfg = cfg.replace(encoder_layers=STACK_LAYERS)
         params, leaves = draw_weights("train stack", cfg)
@@ -5069,59 +5289,63 @@ def phase_train_stack(kf):
             batch["frames"] = torch.randn((Bb, cfg.encoder_seq, cfg.d_model), generator=gen,
                                           device="cuda")
 
-        def grads(ctx):
-            with ctx:
+        def grads(*ctxs):
+            with contextlib.ExitStack() as stack:
+                for c in ctxs:
+                    stack.enter_context(c)
                 total, _ = loss_fn(cfg, params, batch)
-                return torch.autograd.grad(total, leaves)
+                return list(torch.autograd.grad(total, leaves))
 
-        kf.reset_launch_counts()
-        got = grads(contextlib.nullcontext())
-        launches = {"flash_attention": kf.flash_attention.launches,
-                    "flash_attention_backward": kf.flash_attention_backward.launches}
-        # attention calls a forward: an encoder-decoder's encoder self, decoder
-        # self and cross attention a layer; remat runs each forward twice
-        n_attn = STACK_LAYERS * (3 if cfg.is_encoder_decoder else 1)
-        assert launches == {"flash_attention": 2 * n_attn,
-                            "flash_attention_backward": n_attn}, (arch, launches)
-        want = grads(plain_attention())
-        control = grads(dv_scaled(kf, 1 + 2 ** -7))
-        gnorm = float(torch.sqrt(sum(g.double().square().sum() for g in want)))
-        flat = _leaf_paths(params)
+        norm = lambda t: float(torch.linalg.vector_norm(t))
+        plain = grads(plain_kernels())
+        want_norms = [norm(g) for g in plain]
+        want = [torch.empty(g.shape, dtype=g.dtype, pin_memory=True).copy_(g) for g in plain]
+        del plain
+        gnorm = math.sqrt(sum(x * x for x in want_norms))
+        flat = leaf_paths(params)
 
-        def rel(a, b):
-            floor = STACK_FLOOR * gnorm
-            return float((a.double() - b.double()).norm() / max(float(b.double().norm()), floor))
+        def rel(got):
+            """Each leaf's relative error against the plain gradient (freed as
+            it goes)."""
+            out = {}
+            for i, (path, b, b_norm) in enumerate(zip(flat, want, want_norms)):
+                out[path] = norm(got[i] - b.cuda(non_blocking=True)) / max(
+                    b_norm, STACK_FLOOR * gnorm)
+                got[i] = None
+            return out
 
-        errs = {path: rel(a, b) for path, a, b in zip(flat, got, want)}
-        ctl = {path: rel(a, b) for path, a, b in zip(flat, control, want)}
+        reset_launches(ka, kf, tk)
+        got = grads()
+        everything = train_launches(ka, kf, tk)
+        launches = {k: v for k, v in everything.items()
+                    if k in BACKWARD_OF or k in BACKWARD_OF.values()}
+        want_launches = training_launches(stack_calls(cfg), 1)
+        assert launches == want_launches, (arch, launches, want_launches)
+        assert not any(v for k, v in everything.items() if k not in launches), everything
+        errs = rel(got)
+        ctl_name, ctl_ctx = stack_control(cfg, kf, kw, ks)
+        ctl = rel(grads(ctl_ctx))
         worst, worst_ctl = max(errs.values()), max(ctl.values())
         shape = (f"B {Bb} x S {S}" + (f" over {cfg.encoder_seq} frames"
                                        if cfg.is_encoder_decoder else ""))
         print(f"[train stack] {cfg.name} at full width, {STACK_LAYERS} layers"
               f"{' (+ encoder)' if cfg.is_encoder_decoder else ''}, float32, {shape}: each "
               f"leaf's |g_kernel - g_plain| / max(|g_plain|, {STACK_FLOOR} x {gnorm:.4e}): worst "
-              f"{worst:.3e} of bound {STACK_BOUND} ({max(errs, key=errs.get)}); control (dv x "
-              f"(1 + 2**-7)) worst {worst_ctl:.3e} ({max(ctl, key=ctl.get)}); launches "
-              f"{launches}", flush=True)
+              f"{worst:.3e} of bound {STACK_BOUND} ({max(errs, key=errs.get)}); control "
+              f"({ctl_name} x (1 + 2**-7)) worst {worst_ctl:.3e} ({max(ctl, key=ctl.get)}); "
+              f"launches {launches}; {time.perf_counter() - t0:.1f}s", flush=True)
         print(f"[train stack] {cfg.name} per leaf: "
               + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()), flush=True)
         assert worst <= STACK_BOUND, (arch, errs)
         assert worst_ctl > STACK_BOUND, (arch, ctl)
-        figures[arch] = {"batch": Bb, "seq": S, "worst_rel_err": worst, "bound": STACK_BOUND,
-                         "control_worst_rel_err": worst_ctl, "launches": launches}
-        del params, leaves, got, want, control, batch
+        figures[arch] = {"batch": Bb, "seq": S, "layers": cfg.num_layers,
+                         "worst_rel_err": worst, "bound": STACK_BOUND,
+                         "control": ctl_name, "control_worst_rel_err": worst_ctl,
+                         "launches": launches}
+        del params, leaves, want, got, batch
         gc.collect()
         torch.cuda.empty_cache()
     return figures
-
-
-def _leaf_paths(tree, prefix=""):
-    """'##'-joined paths of a params tree's leaves, in its order."""
-    if isinstance(tree, dict):
-        return [p for k, v in tree.items() for p in _leaf_paths(v, f"{prefix}{k}##")]
-    if isinstance(tree, (list, tuple)):
-        return [p for i, v in enumerate(tree) for p in _leaf_paths(v, f"{prefix}{i}##")]
-    return [prefix[:-2]]
 
 
 def phase_train(ka, kf, tk):
@@ -5154,8 +5378,7 @@ def phase_train(ka, kf, tk):
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
         walls.append(time.perf_counter() - t0)
-    launches = {**read_launches(ka, kf, tk),
-                "flash_attention_backward": kf.flash_attention_backward.launches}
+    launches = train_launches(ka, kf, tk)
     peak = torch.cuda.max_memory_allocated() / 2**30
     s_step = float(np.median(walls[1:]))
     figures["qwen2.5-3b"] = {
@@ -5173,10 +5396,8 @@ def phase_train(ka, kf, tk):
     assert losses[-1] < losses[0], losses
     # remat runs each layer's forward twice (once forward, once again in the
     # backward), per microbatch; the backward once
-    per_step = cfg.num_layers * TRAIN_MB
-    want = {name: 0 for name in read_launches(ka, kf, tk)}
-    want.update(flash_attention=2 * per_step * TRAIN_STEPS,
-                flash_attention_backward=per_step * TRAIN_STEPS)
+    want = dict.fromkeys(launches, 0)
+    want.update(training_launches({"flash_attention": cfg.num_layers}, TRAIN_MB * TRAIN_STEPS))
     assert launches == want, (launches, want)
     del params, leaves, state, step, m
     gc.collect()
@@ -5193,13 +5414,11 @@ def phase_train(ka, kf, tk):
                    device="cuda", params=params, log_every=10)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {**read_launches(ka, kf, tk),
-                "flash_attention_backward": kf.flash_attention_backward.launches}
+    launches = train_launches(ka, kf, tk)
     peak = torch.cuda.max_memory_allocated() / 2**30
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
-    want = {name: 0 for name in read_launches(ka, kf, tk)}
-    want.update(flash_attention=2 * cfg.num_layers * SMOLLM_STEPS,
-                flash_attention_backward=cfg.num_layers * SMOLLM_STEPS)
+    want = dict.fromkeys(launches, 0)
+    want.update(training_launches({"flash_attention": cfg.num_layers}, SMOLLM_STEPS))
     assert launches == want, (launches, want)
     like = init_params(cfg, torch.Generator(device="cuda").manual_seed(1), "cuda")
     loaded, step_no, meta = load_checkpoint(path, like=like)
@@ -5229,27 +5448,33 @@ def phase_train(ka, kf, tk):
     return figures
 
 
-def phase_train_forms(ka, kf, tk):
-    """18f: the stacks whose attention takes the backward's new forms,
-    trained at full width (depth as FORM_TRAIN gives it), bf16 parameters,
-    f32 AdamW moments, FORM_TRAIN_STEPS steps from ``TokenDataset`` through
-    ``make_train_step`` in one microbatch: qwen2.5-3b-swa (window 4096 at S
-    6000), minicpm3-4b (MLA's (96, 64)) and whisper-large-v3 (the encoder's
-    causal attention, the decoder's causal self and non-causal cross
-    attention over 1500 frames)."""
+def phase_train_forms(ka, kf, tk, runs=FORM_TRAIN, tag="train forms"):
+    """18f (``FORM_TRAIN``): the stacks whose attention takes the backward's
+    new forms, qwen2.5-3b-swa (window 4096 at S 6000), minicpm3-4b (MLA's
+    (96, 64)) and whisper-large-v3 (the encoder's causal attention, the
+    decoder's causal self and non-causal cross attention over 1500 frames);
+    18i (``SCAN_TRAIN``): hymba-1.5b (window 1024 beside the selective
+    scan), rwkv6-7b (the WKV), mixtral-8x22b (window 4096, MoE) and
+    llama4-scout (chunk 8192, MoE). Each at full width (depth as the runs
+    give it), bf16 parameters, f32 AdamW moments, FORM_TRAIN_STEPS steps
+    from ``TokenDataset`` through ``make_train_step`` in one microbatch:
+    losses and grad norms finite, s/step, tokens/s, peak memory, and the
+    launches (each kernel's forward twice a step, its backward once)."""
     from repro_torch.configs import get_arch
     from repro_torch.data.workload import TokenDataset
+    from repro_torch.launch.grad_check import cut_depth
     from repro_torch.models import make_train_step
     from repro_torch.optim import AdamW, cosine_schedule
 
     figures = {}
-    for arch, Bb, S, layers in FORM_TRAIN:
+    for arch, Bb, S, layers in runs:
+        t0 = time.perf_counter()
         cfg = get_arch(arch).replace(dtype="bfloat16")
         if layers is not None:
-            print(f"[train forms] {arch}: depth cut from {cfg.num_layers} to {layers} layers "
-                  f"(80 GB)", flush=True)
-            cfg = cfg.replace(num_layers=layers)
-        params, leaves = draw_weights("train forms", cfg)
+            print(f"[{tag}] {arch}: depth cut from {cfg.num_layers} to {layers} layers "
+                  f"(12 bytes a parameter on 80 GB)", flush=True)
+            cfg = cut_depth(cfg, layers)
+        params, leaves = draw_weights(tag, cfg)
         opt = AdamW(lr=cosine_schedule(3e-4, warmup=1, total=FORM_TRAIN_STEPS))
         state = opt.init(params)
         step = make_train_step(cfg, opt, microbatches=1)
@@ -5265,37 +5490,31 @@ def phase_train_forms(ka, kf, tk):
             batch = {"tokens": torch.from_numpy(tokens).cuda()}
             if frames is not None:
                 batch["frames"] = frames
-            t0 = time.perf_counter()
+            t1 = time.perf_counter()
             params, state, m = step(params, state, batch)
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
-            walls.append(time.perf_counter() - t0)
-        launches = {**read_launches(ka, kf, tk),
-                    "flash_attention_backward": kf.flash_attention_backward.launches}
+            walls.append(time.perf_counter() - t1)
+        launches = train_launches(ka, kf, tk)
         peak = torch.cuda.max_memory_allocated() / 2**30
         s_step = float(np.median(walls[1:]))
         tokens_step = Bb * S
-        n_attn = cfg.num_layers * (2 if cfg.is_encoder_decoder else 1) + (
-            cfg.encoder_layers if cfg.is_encoder_decoder else 0)
         figures[arch] = {
             "steps": FORM_TRAIN_STEPS, "batch": Bb, "seq": S, "layers": cfg.num_layers,
             "encoder_layers": cfg.encoder_layers or None, "depth_cut": layers is not None,
             "dtype": "bfloat16 params, float32 moments", "losses": losses, "grad_norms": norms,
             "step_s": walls, "s_per_step": s_step, "tokens_per_s": tokens_step / s_step,
             "peak_memory_gib": peak, "launches": launches}
-        print(f"[train forms] {cfg.name} {cfg.num_layers} layers"
+        print(f"[{tag}] {cfg.name} {cfg.num_layers} layers"
               f"{f' (+{cfg.encoder_layers} encoder layers, {cfg.encoder_seq} frames)' if cfg.is_encoder_decoder else ''}"
               f" bf16, AdamW f32 moments, {FORM_TRAIN_STEPS} steps of {Bb} x {S} tokens: losses "
               f"{[round(x, 4) for x in losses]}, grad norms {[round(x, 3) for x in norms]}; "
               f"{s_step:.3f} s/step (median of steps 2-{FORM_TRAIN_STEPS}; first {walls[0]:.3f}), "
               f"{tokens_step / s_step:.1f} tokens/s, peak memory {peak:.2f} GiB; launches "
-              f"{launches}", flush=True)
+              f"{launches}; {time.perf_counter() - t0:.1f}s", flush=True)
         assert all(np.isfinite(losses)) and all(np.isfinite(norms)), (arch, losses, norms)
-        # the backward once a step for each attention call; remat runs each
-        # forward twice; no other kernel
-        want = {name: 0 for name in read_launches(ka, kf, tk)}
-        want.update(flash_attention=2 * n_attn * FORM_TRAIN_STEPS,
-                    flash_attention_backward=n_attn * FORM_TRAIN_STEPS)
+        want = dict.fromkeys(launches, 0)
+        want.update(training_launches(stack_calls(cfg), FORM_TRAIN_STEPS))
         assert launches == want, (arch, launches, want)
         del params, leaves, state, step, m, frames
         gc.collect()
@@ -5495,12 +5714,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     bwd_rows = no_scan("flash backward kernel", phase_backward_kernel, kf)
-    stack_figures = no_scan("train stack gradient", phase_train_stack, kf)
+    scan_bwd_rows = timed("scan backward kernels", phase_scan_backward_kernels, kw, ks)
+    stack_figures = timed("train stack gradient", phase_train_stack, ka, kf, tk)
     train_figures = no_scan("train", phase_train, ka, kf, tk)
     for arch in ("qwen2.5-3b", "smollm-135m"):
         launches[f"train {arch}"] = train_figures[arch]["launches"]
     form_train_figures = no_scan("train forms", phase_train_forms, ka, kf, tk)
-    for arch, x in form_train_figures.items():
+    scan_train_figures = timed("train scans", phase_train_forms, ka, kf, tk, SCAN_TRAIN,
+                               "train scans")
+    for arch, x in {**form_train_figures, **scan_train_figures}.items():
         launches[f"train {arch}"] = x["launches"]
     guard_figures = no_scan("grad guards", phase_grad_guards, ka, kf, tk)
 
@@ -5699,6 +5921,27 @@ def main() -> int:
         "launches_by_phase": {ph: n.get("flash_attention_backward", 0)
                               for ph, n in launches.items()},
     })
+    # the scans' backward at the training microbatch of 18i (bf16): rwkv6-7b's
+    # heads at S 2048, hymba-1.5b's scan at S 2176 (128 meta tokens + 2048)
+    scan_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bytes", "ops", "exps")
+    for name, arch in (("rwkv6_chunked_backward", "rwkv6-7b"),
+                       ("ssm_scan_backward", "hymba-1.5b")):
+        Bm, Sm = SCAN_BWD_CASES[name][0]
+        r = scan_bwd_rows[(name, "bfloat16", Bm, Sm, False)]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": launches[f"train {arch}"][name],
+            "max_abs_err": max(r["max_abs_err"].values()), "ms": r["ms"],
+            "device_ms": r["device_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "library": "none: no PyTorch call computes the recurrence's backward",
+            "float32": {k: scan_bwd_rows[(name, "float32", Bm, Sm, False)][k] for k in scan_keys},
+            "by_case": {f"{d}/B={b_}/S={s_}{'/strong' if st else ''}":
+                        {"max_abs_err": x["max_abs_err"], "excess": x["excess"],
+                         "controls": x["controls"]}
+                        for (n_, d, b_, s_, st), x in scan_bwd_rows.items() if n_ == name},
+            "launches_by_phase": {ph: n.get(name, 0) for ph, n in launches.items()},
+        })
     print(json.dumps({"int8_serve": int8_figures, "host_tier": host_figures,
                       "oracle_paths": oracle_figures, "controller": controller_figures,
                       "swa_serve": swa_figures, "mixtral_serve": mixtral_figures,
@@ -5708,7 +5951,7 @@ def main() -> int:
                       "swa_int8_serve": swa_int8_figures, "internvl2_serve": internvl2_figures,
                       "whisper_serve": whisper_figures, "audit": audit_figures,
                       "dp": dp_figures, "train": train_figures,
-                      "train_forms": form_train_figures,
+                      "train_forms": form_train_figures, "train_scans": scan_train_figures,
                       "train_stack_gradient": stack_figures, "grad_guards": guard_figures}))
     print(json.dumps({"kernels": kernels}))
     print(f"[done] {time.perf_counter() - t_start:.1f}s in all", flush=True)

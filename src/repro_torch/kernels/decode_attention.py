@@ -212,8 +212,10 @@ def refuse_grad(name, *tensors):
     that requires grad under grad mode: its output, filled through ctypes,
     would carry no ``grad_fn``, and autograd would run on without the
     kernel's share of the gradient. The plain versions (CPU tensors) stay
-    differentiable; the flash kernel's trainable form is
-    ``kernels.flash_attention.trainable_flash_attention``."""
+    differentiable; the trainable forms, autograd Functions whose backward
+    is a kernel too, are ``kernels.flash_attention.
+    trainable_flash_attention``, ``kernels.rwkv6_scan.
+    trainable_rwkv6_chunked`` and ``kernels.ssm_scan.trainable_ssm_scan``."""
     if torch.is_grad_enabled() and any(
             t is not None and t.is_floating_point() and t.requires_grad for t in tensors):
         raise RuntimeError(f"{name}: the CUDA kernel is forward-only, and an input requires "

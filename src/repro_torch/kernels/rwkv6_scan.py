@@ -25,6 +25,25 @@ one kernel without segments.
 ``ref_rwkv6_chunked`` is the contract of ``repro.kernels.ref.rwkv6_ref``
 (and of ``repro.models.rwkv6.wkv_scan``): the sequential recurrence in
 float32.
+
+The backward. ``rwkv6_chunked`` is forward-only (its outputs are filled
+through ctypes), so on CUDA it refuses an input that requires grad under
+grad mode. ``trainable_rwkv6_chunked`` runs it inside the autograd Function
+``WKV6``, whose backward is ``rwkv6_chunked_backward``: the exact gradient
+of the sequential float32 recurrence, which is what JAX takes (autodiff of
+``chunked_scan`` over the ``step`` of ``repro.models.rwkv6.wkv_scan``; no
+JAX caller sets ``use_kernel``). With G_t = dL/dS_t (S_t the state after
+step t), run backward in time,
+
+    G_{t-1} = diag(w_t) G_t + r_t dy_t^T,   G_{S-1} = dstate,
+
+dr_t = S_{t-1} dy_t + u k_t (v_t . dy_t), dk_t = G_t v_t + r_t u (v_t .
+dy_t), dv_t = G_t^T k_t + (r_t . u k_t) dy_t, dw_t = rowsum(G_t * S_{t-1})
+and du = sum_t r_t k_t (v_t . dy_t). On CUDA tensors the wrapper launches
+the hand-written kernels of ``csrc/rwkv6_scan_backward.cu`` (one count in
+``launches`` a call); on CPU tensors it runs
+``ref_rwkv6_chunked_backward``, the reverse recurrence written out step by
+step.
 """
 from __future__ import annotations
 
@@ -42,7 +61,11 @@ from repro_torch.kernels.decode_attention import (
 )
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64)   # the head_dim instantiations in csrc/rwkv6_scan.cu
+_HEAD_DIMS = (32, 64)   # the head_dim instantiations in csrc/rwkv6_scan.cu and its backward
+# steps of a segment of the backward kernels (``kSeg`` in
+# csrc/rwkv6_scan_backward.cu): each block keeps its segment's states on
+# chip while it walks the segment backward
+BACKWARD_SEGMENT = 32
 
 # the time axis: at most this many steps run as one segment in the kernel
 # without staging (``kDirectMax`` in csrc/rwkv6_scan.cu); segments of at
@@ -162,6 +185,133 @@ rwkv6_chunked.launches = 0
 rwkv6_chunked.segments = None   # (n_seg, seg_len) of the last call on the card
 
 
+def ref_rwkv6_chunked_backward(r, k, v, w, u, state0, dy, dstate=None):
+    """Plain version of ``rwkv6_chunked_backward``: the gradient of
+    ``ref_rwkv6_chunked(r, k, v, w, u, state0)`` = (y, state) for the
+    cotangents ``dy`` (B, S, H, hd) and ``dstate`` (B, H, hd, hd) (None:
+    zeros), in float32, the forward states kept and the adjoint run back
+    step by step (no autograd). Returns (dr, dk, dv, dw, du in their inputs'
+    dtypes, dstate0 (B, H, hd, hd) float32, also when ``state0`` is
+    None)."""
+    B, S, H, hd = r.shape
+    state = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+             if state0 is None else state0.float())
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    uf = u.float()
+    dy = dy.float()
+    states = [state]                          # states[t] = S_{t-1}
+    for t in range(S):
+        state = wf[:, t, :, :, None] * state + kf[:, t, :, :, None] * vf[:, t, :, None, :]
+        states.append(state)
+    g = torch.zeros_like(state) if dstate is None else dstate.float()   # G_t
+    dr, dk, dv, dw = (torch.empty_like(rf) for _ in range(4))
+    du = torch.zeros((H, hd), dtype=torch.float32, device=r.device)
+    for t in range(S - 1, -1, -1):
+        r_t, k_t, v_t, w_t, dy_t = rf[:, t], kf[:, t], vf[:, t], wf[:, t], dy[:, t]
+        beta = (v_t * dy_t).sum(-1, keepdim=True)                  # v_t . dy_t
+        gamma = (r_t * uf * k_t).sum(-1, keepdim=True)             # the bonus r_t . u k_t
+        dr[:, t] = torch.einsum("bhkv,bhv->bhk", states[t], dy_t) + uf * k_t * beta
+        dk[:, t] = torch.einsum("bhkv,bhv->bhk", g, v_t) + r_t * uf * beta
+        dv[:, t] = torch.einsum("bhkv,bhk->bhv", g, k_t) + gamma * dy_t
+        dw[:, t] = (g * states[t]).sum(-1)
+        du += (r_t * k_t * beta).sum(0)
+        g = w_t[..., None] * g + r_t[..., None] * dy_t[:, :, None, :]
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype), du.to(u.dtype), g)
+
+
+def rwkv6_chunked_backward(r, k, v, w, u, state0, dy, dstate=None):
+    """dr, dk, dv, dw, du, dstate0 of ``rwkv6_chunked(r, k, v, w, u,
+    state0)`` = (y, state) for the cotangents ``dy`` (B, S, H, hd) float32
+    and ``dstate`` (B, H, hd, hd) float32 or None (zeros): the gradients in
+    their inputs' dtypes (w and u float32), dstate0 (B, H, hd, hd) float32.
+    CUDA tensors launch the kernels of ``csrc/rwkv6_scan_backward.cu`` (one
+    count in ``launches`` a call; the forward's shapes and dtypes, u
+    float32); CPU tensors run the plain version."""
+    if r.device.type == "cpu":
+        return ref_rwkv6_chunked_backward(r, k, v, w, u, state0, dy, dstate)
+    name = "rwkv6_chunked_backward"
+    _check(name, r.is_cuda, f"unsupported device {r.device}")
+    _check(name, r.dim() == 4, "r, k, v and w must be (B, S, H, hd)")
+    B, S, H, hd = r.shape
+    _check(name, B >= 1 and S >= 1, f"B and S must be >= 1, got {B} and {S}")
+    for t in (k, v, w, dy):
+        _check(name, tuple(t.shape) == (B, S, H, hd), "r, k, v, w and dy must share one shape")
+    _check(name, r.dtype in _DTYPE_CODES and k.dtype == r.dtype and v.dtype == r.dtype,
+           f"r, k and v must share float32 or bfloat16, got {r.dtype}/{k.dtype}/{v.dtype}")
+    _check(name, w.dtype == torch.float32 and dy.dtype == torch.float32,
+           f"w and dy must be float32, got {w.dtype}/{dy.dtype}")
+    _check(name, hd in _HEAD_DIMS, f"head_dim must be one of {_HEAD_DIMS}, got {hd}")
+    _check(name, tuple(u.shape) == (H, hd) and u.dtype == torch.float32,
+           "u must be (H, hd) float32")
+    for t, what in ((state0, "state0"), (dstate, "dstate")):
+        if t is not None:
+            _check(name, tuple(t.shape) == (B, H, hd, hd) and t.dtype == torch.float32,
+                   f"{what} must be (B, H, hd, hd) float32")
+    tensors = [r, k, v, w, u, dy] + [t for t in (state0, dstate) if t is not None]
+    for t in tensors:
+        _check(name, t.device == r.device, "all tensors must be on r's device")
+        _check(name, t.is_contiguous() and t.data_ptr() % 16 == 0,
+               "all tensors must be contiguous and 16-byte aligned")
+    dr, dk, dv = torch.empty_like(r), torch.empty_like(k), torch.empty_like(v)
+    dw, du = torch.empty_like(w), torch.empty_like(u)
+    dstate0 = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    n_seg = -(-S // BACKWARD_SEGMENT)      # segments of BACKWARD_SEGMENT steps, the last shorter
+    f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=r.device)
+    # the segments' start states and end adjoints (B, H, n_seg, hd, hd),
+    # their decays (B, H, n_seg, hd) and their shares of du (B, n_seg, H, hd)
+    s_slots, g_slots = f32(B, H, n_seg, hd, hd), f32(B, H, n_seg, hd, hd)
+    decay, part_u = f32(B, H, n_seg, hd), f32(B, n_seg, H, hd)
+    from repro_torch.kernels._build import load_library
+
+    lib = load_library("rwkv6_scan_backward").lib
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        err = lib.wkvb_rwkv6_backward(
+            _DTYPE_CODES[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), ptr(state0), dy.data_ptr(), ptr(dstate), dr.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dw.data_ptr(), du.data_ptr(), dstate0.data_ptr(), s_slots.data_ptr(),
+            g_slots.data_ptr(), decay.data_ptr(), part_u.data_ptr(), B, S, H, hd, n_seg, stream,
+        )
+    _raise_on_error(name, err)
+    rwkv6_chunked_backward.launches += 1
+    return dr, dk, dv, dw, du, dstate0
+
+
+rwkv6_chunked_backward.launches = 0
+
+
+class WKV6(torch.autograd.Function):
+    """``rwkv6_chunked`` with its backward (``rwkv6_chunked_backward``). The
+    forward saves its inputs; the backward recomputes the states from them.
+    u comes in float32 (``trainable_rwkv6_chunked`` casts it outside); w is
+    float32 already."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state0):
+        y, state = rwkv6_chunked(r, k, v, w, u, state0)
+        ctx.save_for_backward(r, k, v, w, u, state0)
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        r, k, v, w, u, state0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+        grads = rwkv6_chunked_backward(r, k, v, w, u, state0, dy.contiguous(),
+                                       None if dstate is None else dstate.contiguous())
+        return (*grads[:5], None if state0 is None else grads[5])
+
+
+def trainable_rwkv6_chunked(r, k, v, w, u, state0: Optional[torch.Tensor] = None):
+    """``rwkv6_chunked`` under autograd (the ``WKV6`` Function): (y, final
+    state), both float32. u is cast to float32 here, outside the Function.
+    No ``state_out``: an in-place output has no place under autograd."""
+    return WKV6.apply(r, k, v, w, u.float(), state0)
+
+
 def reset_launch_counts() -> None:
-    """Zero the wrapper's launch counter."""
+    """Zero the wrappers' launch counters."""
     rwkv6_chunked.launches = 0
+    rwkv6_chunked_backward.launches = 0

@@ -29,6 +29,23 @@ runs one kernel without segments or shared memory.
 
 ``ref_ssm_scan`` is the contract of ``repro.kernels.ref.ssm_scan_ref``: the
 sequential recurrence in float32, here continued from ``h0``.
+
+The backward. ``ssm_scan`` is forward-only: its outputs are filled through
+ctypes and carry no ``grad_fn``, so on CUDA it refuses an input that
+requires grad under grad mode. ``trainable_ssm_scan`` runs it inside the
+autograd Function ``SelectiveScan``, whose backward is
+``ssm_scan_backward``: the exact gradient of the sequential float32
+recurrence, which is what JAX takes (autodiff of ``chunked_scan`` over the
+``step`` of ``repro.models.ssm.apply_ssm``; no JAX caller sets
+``use_kernel``, so JAX never differentiates its Pallas scan). The adjoint
+g_t = dL/dh_t runs backward in time,
+
+    g_t = exp(dt_{t+1} A) g_{t+1} + C_t dy_t,   g_{S-1} = C_{S-1} dy_{S-1} + dh,
+
+and every gradient is a sum of g_t and h_{t-1} terms. On CUDA tensors the
+wrapper launches the hand-written kernels of ``csrc/ssm_scan_backward.cu``
+(one count in ``launches`` a call); on CPU tensors it runs
+``ref_ssm_scan_backward``, the reverse recurrence written out step by step.
 """
 from __future__ import annotations
 
@@ -47,7 +64,13 @@ from repro_torch.kernels.decode_attention import (
 from repro_torch.kernels.rwkv6_scan import even_segments
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_STATES = (8, 16)   # the N instantiations in csrc/ssm_scan.cu
+_STATES = (8, 16)   # the N instantiations in csrc/ssm_scan.cu and csrc/ssm_scan_backward.cu
+# steps of a segment of the backward kernels (``kSeg`` in
+# csrc/ssm_scan_backward.cu): each block keeps its segment's states on chip
+# while it walks the segment backward
+BACKWARD_SEGMENT = 16
+# channels of a backward block (``Lanes::CH``): 128 threads of N / 4 states
+_BACKWARD_BLOCK_STATES = 128 * 4
 
 # the time axis, as for the WKV kernel: at most _DIRECT_MAX steps run as one
 # segment in the kernel without shared memory (``kDirectMax`` in
@@ -165,6 +188,143 @@ ssm_scan.launches = 0
 ssm_scan.segments = None   # (n_seg, seg_len) of the last call on the card
 
 
+def ref_ssm_scan_backward(dt, x, bm, cm, a_log, h0, dy, dh=None):
+    """Plain version of ``ssm_scan_backward``: the gradient of
+    ``ref_ssm_scan(dt, x, bm, cm, a_log, h0)`` = (y, h) for the cotangents
+    ``dy`` (B, S, Di) and ``dh`` (B, Di, N) (None: zeros), in float32, the
+    forward states kept and the adjoint run back step by step (no
+    autograd). Returns (ddt, dx, dbm, dcm in their inputs' dtypes, da_log in
+    a_log's, dh0 (B, Di, N) float32, also when ``h0`` is None)."""
+    B, S, Di = dt.shape
+    N = bm.shape[-1]
+    a = -torch.exp(a_log.float())
+    h = (torch.zeros((B, Di, N), dtype=torch.float32, device=dt.device)
+         if h0 is None else h0.float())
+    dtf, xf, bf, cf = (t.float() for t in (dt, x, bm, cm))
+    dy = dy.float()
+    dtx = dtf * xf
+    hs = [h]                                  # hs[t] = h_{t-1}, hs[t + 1] = h_t
+    for t in range(S):
+        h = torch.exp(dtf[:, t, :, None] * a[None]) * h + dtx[:, t, :, None] * bf[:, t, None, :]
+        hs.append(h)
+    # g_next: the adjoint that reaches h_t from later steps (dh at the end)
+    g_next = torch.zeros_like(h) if dh is None else dh.float()
+    ddt, dx = torch.empty_like(dtf), torch.empty_like(xf)
+    dbm, dcm = torch.empty_like(bf), torch.empty_like(cf)
+    da = torch.zeros((Di, N), dtype=torch.float32, device=dt.device)
+    for t in range(S - 1, -1, -1):
+        decay = torch.exp(dtf[:, t, :, None] * a[None])
+        g = g_next + dy[:, t, :, None] * cf[:, t, None, :]       # dL/dh_t
+        dcm[:, t] = torch.einsum("bdn,bd->bn", hs[t + 1], dy[:, t])
+        dbm[:, t] = torch.einsum("bdn,bd->bn", g, dtx[:, t])
+        g_b = torch.einsum("bdn,bn->bd", g, bf[:, t])             # d(dt x)
+        g_decay = g * hs[t] * decay                                # d(dt A), per state
+        ddt[:, t] = (g_decay * a[None]).sum(-1) + xf[:, t] * g_b
+        dx[:, t] = dtf[:, t] * g_b
+        da += torch.einsum("bdn,bd->dn", g_decay, dtf[:, t])
+        g_next = decay * g
+    return (ddt.to(dt.dtype), dx.to(x.dtype), dbm.to(bm.dtype), dcm.to(cm.dtype),
+            (da * a).to(a_log.dtype), g_next)
+
+
+def ssm_scan_backward(dt, x, bm, cm, a_log, h0, dy, dh=None):
+    """ddt, dx, dbm, dcm, da_log, dh0 of ``ssm_scan(dt, x, bm, cm, a_log,
+    h0)`` = (y, h) for the cotangents ``dy`` (B, S, Di) float32 and ``dh``
+    (B, Di, N) float32 or None (zeros): the gradients in their inputs'
+    dtypes (a_log float32), dh0 (B, Di, N) float32. CUDA tensors launch the
+    kernels of ``csrc/ssm_scan_backward.cu`` (one count in ``launches`` a
+    call; the forward's shapes and dtypes, a_log float32); CPU tensors run
+    the plain version."""
+    if dt.device.type == "cpu":
+        return ref_ssm_scan_backward(dt, x, bm, cm, a_log, h0, dy, dh)
+    name = "ssm_scan_backward"
+    _check(name, dt.is_cuda, f"unsupported device {dt.device}")
+    _check(name, dt.dim() == 3 and bm.dim() == 3, "dt, x must be (B, S, Di), B, C (B, S, N)")
+    B, S, Di = dt.shape
+    N = bm.shape[-1]
+    _check(name, B >= 1 and S >= 1, f"B and S must be >= 1, got {B} and {S}")
+    _check(name, tuple(x.shape) == tuple(dy.shape) == (B, S, Di), "x and dy must have dt's shape")
+    _check(name, tuple(bm.shape) == tuple(cm.shape) == (B, S, N), "B and C must be (B, S, N)")
+    _check(name, N in _STATES, f"the state size must be one of {_STATES}, got {N}")
+    _check(name, dt.dtype in _DTYPE_CODES and all(t.dtype == dt.dtype for t in (x, bm, cm)),
+           f"dt, x, B and C must share float32 or bfloat16, got "
+           f"{dt.dtype}/{x.dtype}/{bm.dtype}/{cm.dtype}")
+    _check(name, tuple(a_log.shape) == (Di, N) and a_log.dtype == torch.float32,
+           "a_log must be (Di, N) float32")
+    _check(name, dy.dtype == torch.float32, f"dy must be float32, got {dy.dtype}")
+    for t, what in ((h0, "h0"), (dh, "dh")):
+        if t is not None:
+            _check(name, tuple(t.shape) == (B, Di, N) and t.dtype == torch.float32,
+                   f"{what} must be (B, Di, N) float32")
+    tensors = [dt, x, bm, cm, a_log, dy] + [t for t in (h0, dh) if t is not None]
+    for t in tensors:
+        _check(name, t.device == dt.device, "all tensors must be on dt's device")
+        _check(name, t.is_contiguous() and t.data_ptr() % 16 == 0,
+               "all tensors must be contiguous and 16-byte aligned")
+    ddt, dx = torch.empty_like(dt), torch.empty_like(x)
+    dbm, dcm = torch.empty_like(bm), torch.empty_like(cm)
+    da_log = torch.empty_like(a_log)
+    dh0 = torch.empty((B, Di, N), dtype=torch.float32, device=dt.device)
+    n_seg = -(-S // BACKWARD_SEGMENT)      # segments of BACKWARD_SEGMENT steps, the last shorter
+    n_cb = -(-Di // (_BACKWARD_BLOCK_STATES // N))
+    f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dt.device)
+    # the segments' start states and end adjoints (B, n_seg, Di, N), their
+    # sums of dt (B, n_seg, Di), the segments' shares of dA (B, n_seg, Di,
+    # N) and the channel blocks' shares of dB and dC (n_cb, B, S, 2N)
+    h_slots, g_slots, dsum = f32(B, n_seg, Di, N), f32(B, n_seg, Di, N), f32(B, n_seg, Di)
+    part_a, part_bc = f32(B, n_seg, Di, N), f32(n_cb, B, S, 2 * N)
+    from repro_torch.kernels._build import load_library
+
+    lib = load_library("ssm_scan_backward").lib
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(dt.device):
+        stream = torch.cuda.current_stream(dt.device).cuda_stream
+        err = lib.ssmb_selective_scan_backward(
+            _DTYPE_CODES[dt.dtype], dt.data_ptr(), x.data_ptr(), bm.data_ptr(), cm.data_ptr(),
+            a_log.data_ptr(), ptr(h0), dy.data_ptr(), ptr(dh), ddt.data_ptr(), dx.data_ptr(),
+            dbm.data_ptr(), dcm.data_ptr(), da_log.data_ptr(), dh0.data_ptr(),
+            h_slots.data_ptr(), g_slots.data_ptr(), dsum.data_ptr(), part_a.data_ptr(),
+            part_bc.data_ptr(), B, S, Di, N, n_seg, stream,
+        )
+    _raise_on_error(name, err)
+    ssm_scan_backward.launches += 1
+    return ddt, dx, dbm, dcm, da_log, dh0
+
+
+ssm_scan_backward.launches = 0
+
+
+class SelectiveScan(torch.autograd.Function):
+    """``ssm_scan`` with its backward (``ssm_scan_backward``). The forward
+    saves its inputs; the backward recomputes the states from them. a_log
+    comes in float32 (``trainable_ssm_scan`` casts it outside, so autograd
+    carries da_log back to a bf16 parameter)."""
+
+    @staticmethod
+    def forward(ctx, dt, x, bm, cm, a_log, h0):
+        y, h = ssm_scan(dt, x, bm, cm, a_log, h0)
+        ctx.save_for_backward(dt, x, bm, cm, a_log, h0)
+        ctx.set_materialize_grads(False)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        dt, x, bm, cm, a_log, h0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(dt.shape, dtype=torch.float32, device=dt.device)
+        grads = ssm_scan_backward(dt, x, bm, cm, a_log, h0, dy.contiguous(),
+                                  None if dh is None else dh.contiguous())
+        return (*grads[:5], None if h0 is None else grads[5])
+
+
+def trainable_ssm_scan(dt, x, bm, cm, a_log, h0: Optional[torch.Tensor] = None):
+    """``ssm_scan`` under autograd (the ``SelectiveScan`` Function): (y, final
+    h), both float32. a_log is cast to float32 here, outside the Function.
+    No ``h_out``: an in-place output has no place under autograd."""
+    return SelectiveScan.apply(dt, x, bm, cm, a_log.float(), h0)
+
+
 def reset_launch_counts() -> None:
-    """Zero the wrapper's launch counter."""
+    """Zero the wrappers' launch counters."""
     ssm_scan.launches = 0
+    ssm_scan_backward.launches = 0

@@ -34,7 +34,9 @@ heads (H 25 / KVH 5, hd 64, a 1024-slot ring) at the mixed step's lengths
 (``--cases attention``); the RWKV-6 WKV kernel at rwkv6-7b's heads (H 64,
 hd 64) prefilling B 1 at S 2048 and decoding B 8 at S 1, and the selective
 scan at hymba-1.5b's (Di 1600, N 16) prefilling B 1 at S 1664 and decoding
-B 8 at S 1, each from a given state (``--cases scans``); the top-k
+B 8 at S 1, each from a given state, and the two backward kernels at the
+training microbatch (WKV B 1 x S 2048, scan B 1 x S 2176; a tree without
+them reports them unsupported) (``--cases scans``); the top-k
 retrieval kernel at chip_smoke.py phase 3's timed shapes, B 32 unit-row
 queries over N 2^21 unit-row docs of d 768 in float32 and in bfloat16, k
 10 and 100 (``--cases retrieval``, not run unless named); the bf16 flash
@@ -52,7 +54,8 @@ prints one JSON line: per case the device time three times (calls queued
 behind a spin kernel, L2 warm), the largest error against the plain
 version in f32 and how many elements miss the check (attention: atol 1e-3,
 rtol 8e-3, the bf16 output rounding; scans: y and the final state at atol
-1e-4, rtol 1e-4, their unchanged tolerance; top-k: the scores' largest
+1e-4, rtol 1e-4, their unchanged tolerance, and each backward gradient at
+atol 1e-5 of its largest entry, rtol 2**-7; top-k: the scores' largest
 error, and the ids that differ from the plain version's where the plain
 scores of the two lie further apart than 1e-5, chip_smoke.py's TOPK_TOL),
 and the card's name and power limit. ``--sweep`` prints instead the dense
@@ -448,6 +451,12 @@ WKV_CASES = (("wkv_prefill_S2048", 1, 2048), ("wkv_decode_B8", 8, 1))
 SSM_DI, SSM_N = 1600, 16
 SSM_CASES = (("ssm_prefill_S1664", 1, 1664), ("ssm_decode_B8", 8, 1))
 SCAN_TOL = (1e-4, 1e-4)
+# the backward kernels at chip_smoke.py phase 18g's main shapes (the
+# training microbatch: hymba's 2048 tokens + 128 meta tokens), with
+# cotangents on y and on the final state; each gradient against the plain
+# version at atol 1e-5 x max(1, max |want|), rtol 2**-7 (BWD_TOL's bf16
+# bound: one bf16 rounding of the f32 result apart)
+SCAN_BACKWARD_CASES = (("wkv_backward_S2048", 1, 2048), ("ssm_backward_S2176", 1, 2176))
 
 
 def _wkv_inputs(g, B, S):
@@ -499,6 +508,29 @@ def _scan_calls(g):
     return calls
 
 
+def _scan_backward_calls(g):
+    """(name, kernel call, plain call) of each backward case, or (name,
+    None, None) where the tree has no backward kernel."""
+    import torch
+    from repro_torch.kernels import rwkv6_scan as kw
+    from repro_torch.kernels import ssm_scan as ks
+
+    calls = []
+    for (name, B, S), (mod, fn, inputs) in zip(
+            SCAN_BACKWARD_CASES, ((kw, "rwkv6_chunked_backward", _wkv_inputs),
+                                  (ks, "ssm_scan_backward", _ssm_inputs))):
+        if not hasattr(mod, fn):
+            calls.append((name, None, None))
+            continue
+        args = inputs(g, B, S)
+        y, st = getattr(mod, fn.removesuffix("_backward"))(*args)
+        cot = (torch.randn(y.shape, generator=g, device="cuda"),
+               torch.randn(st.shape, generator=g, device="cuda"))
+        calls.append((name, lambda a=args + cot, f=getattr(mod, fn): f(*a),
+                      lambda a=args + cot, f=getattr(mod, "ref_" + fn): f(*a)))
+    return calls
+
+
 def _scan_cases(g) -> dict:
     out = {}
     for name, kern, plain in _scan_calls(g):
@@ -507,6 +539,14 @@ def _scan_cases(g) -> dict:
         err_s, off_s = _off(st, st_ref, *SCAN_TOL)
         out[name] = {"device_ms": [_device_ms(kern) for _ in range(3)],
                      "max_abs_err": max(err_y, err_s), "n_off": off_y + off_s}
+    for name, kern, plain in _scan_backward_calls(g):
+        if kern is None:
+            out[name] = "unsupported"
+            continue
+        errs, offs = zip(*(_off(a, w.float(), 1e-5 * max(1.0, float(w.float().abs().max())),
+                                2 ** -7) for a, w in zip(kern(), plain())))
+        out[name] = {"device_ms": [_device_ms(kern) for _ in range(3)],
+                     "max_abs_err": max(errs), "n_off": sum(offs)}
     return out
 
 

@@ -12,11 +12,15 @@ from the command line), which also seeds the dataset. Runs on
 ``cuda`` unless ``--device cpu`` is given (and raises without a GPU). On the
 card the attention runs the flash kernel forward and backward, which take
 every form of the forward (causal or not, a sliding window, a chunk, cross
-attention, MLA's split head dims): the attention stacks of the zoo train
-there (smollm-135m, qwen2.5-3b and its SWA variant, minicpm3-4b,
-whisper-large-v3, ...); rwkv6-7b's WKV and hymba's selective scan have no
-backward on the card and raise under grad. On the CPU every arch of the
-zoo trains through the plain versions. It prints each logged step's loss,
+attention, MLA's split head dims), and the recurrences run the WKV and
+selective-scan kernels forward and backward (the autograd Functions
+``WKV6`` and ``SelectiveScan``): every arch of the zoo trains there
+(smollm-135m, qwen2.5-3b and its SWA variant, minicpm3-4b, whisper-large-v3,
+internvl2-1b, phi3-medium-14b, rwkv6-7b, hymba-1.5b, mixtral-8x22b,
+llama4-scout-17b-a16e), within the memory its weights leave: at 12 bytes a
+parameter (bf16 parameter and gradient, two f32 AdamW moments) rwkv6-7b,
+mixtral-8x22b and llama4-scout at their published depth do not fit one 80
+GB card (chip_smoke.py trains them at 16, 2 and 1 layers). On the CPU every arch trains through the plain versions. It prints each logged step's loss,
 grad norm and seconds a step, on CUDA the peak memory, and asserts that the
 loss fell.
 """

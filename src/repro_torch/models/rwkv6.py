@@ -7,9 +7,11 @@ Data-dependent decay linear attention [arXiv:2404.05892]:
     y_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T)
 
 with w_t = exp(-exp(decay(x_t))) from a low-rank MLP. The recurrence always
-runs through ``kernels.rwkv6_scan.rwkv6_chunked``: the CUDA kernel on the
-card, its plain sequential version (the JAX package's ``wkv_scan``) on the
-CPU. Parameters carry an optional leading layer-group axis (``lead``), as
+runs through the kernel wrappers of ``kernels.rwkv6_scan``:
+``rwkv6_chunked`` (the CUDA kernel on the card, its plain sequential
+version, the JAX package's ``wkv_scan``, on the CPU), or under grad its
+autograd Function ``trainable_rwkv6_chunked``, whose backward is a CUDA
+kernel too. Parameters carry an optional leading layer-group axis (``lead``), as
 in ``transformer.init_layer``.
 """
 from __future__ import annotations
@@ -17,7 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.rwkv6_scan import rwkv6_chunked
+from repro_torch.kernels.rwkv6_scan import rwkv6_chunked, trainable_rwkv6_chunked
 from repro_torch.models.layers import dense_init, group_norm
 
 MIX_LORA = 32      # ddlerp low-rank dim (TIME_MIX_EXTRA_DIM)
@@ -93,7 +95,9 @@ def apply_rwkv6(params, x, cfg, x_prev_last=None, state=None, state_out=None):
     H, hd, hd) float32 carry the previous token and the WKV state (zeros
     when absent: a prompt's start). ``state_out`` receives the new state
     (it may be ``state``: the decode step updates its cache slice in
-    place). Returns (out, (new x_prev_last, new state))."""
+    place). Returns (out, (new x_prev_last, new state)). Under grad mode
+    with an input or parameter that requires grad (and no ``state_out``),
+    the recurrence goes through ``trainable_rwkv6_chunked``."""
     B, S, D = x.shape
     hd = cfg.rwkv_head_dim
     H = D // hd
@@ -103,7 +107,12 @@ def apply_rwkv6(params, x, cfg, x_prev_last=None, state=None, state_out=None):
     v = (xv @ params["wv"]).reshape(B, S, H, hd)
     g = F.silu(xg @ params["wg"])
     w = _decay(params, xw).reshape(B, S, H, hd)
-    y, state = rwkv6_chunked(r, k, v, w, params["u"].float(), state, state_out=state_out)
+    wkv_in = (r, k, v, w, params["u"], state)
+    if state_out is None and torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in wkv_in):
+        y, state = trainable_rwkv6_chunked(*wkv_in)
+    else:
+        y, state = rwkv6_chunked(r, k, v, w, params["u"].float(), state, state_out=state_out)
     y = group_norm(y.reshape(B, S, D).to(x.dtype), params["ln_x"], H, eps=64e-5)
     return (y * g) @ params["wo"], (x[:, -1, :], state)
 

@@ -5,9 +5,11 @@
 
 with input-dependent dt, B and C and a causal depthwise convolution in
 front. The serve state is the convolution's tail (B, K-1, Di) and h (B, Di,
-N) float32. The recurrence always runs through ``kernels.ssm_scan.ssm_scan``:
-the CUDA kernel on the card, its plain sequential version on the CPU, from
-the carried h. Parameters carry an optional leading layer-group axis
+N) float32. The recurrence always runs through the kernel wrappers of
+``kernels.ssm_scan``: ``ssm_scan`` (the CUDA kernel on the card, its plain
+sequential version on the CPU, from the carried h), or under grad its
+autograd Function ``trainable_ssm_scan``, whose backward is a CUDA kernel
+too. Parameters carry an optional leading layer-group axis
 (``lead``), as in ``transformer.init_layer``.
 """
 from __future__ import annotations
@@ -15,7 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ssm_scan import ssm_scan
+from repro_torch.kernels.ssm_scan import ssm_scan, trainable_ssm_scan
 from repro_torch.models.layers import dense_init
 
 
@@ -62,7 +64,9 @@ def apply_ssm(params, x, cfg, conv_tail=None, h0=None, h_out=None):
     and ``h0`` (B, D, N) float32 carry the state (zeros when absent);
     ``h_out`` receives the new h (it may be ``h0``: the decode step updates
     its cache slice in place). The JAX function's default path: y cast to
-    the model dtype, plus D x, times silu(z), then the output projection."""
+    the model dtype, plus D x, times silu(z), then the output projection.
+    Under grad mode with an input or parameter that requires grad (and no
+    ``h_out``), the scan goes through ``trainable_ssm_scan``."""
     n = cfg.ssm_state
     dt_rank = max(1, x.shape[2] // 64)
     xz = x @ params["w_in"]
@@ -73,7 +77,12 @@ def apply_ssm(params, x, cfg, conv_tail=None, h0=None, h_out=None):
     dt = F.softplus(dbc[..., :dt_rank] @ params["w_dt"] + params["dt_bias"])
     bm = dbc[..., dt_rank:dt_rank + n].contiguous()
     cm = dbc[..., dt_rank + n:].contiguous()
-    y, h = ssm_scan(dt, x_c, bm, cm, params["A_log"], h0, h_out=h_out)
+    scan_in = (dt, x_c, bm, cm, params["A_log"], h0)
+    if h_out is None and torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in scan_in):
+        y, h = trainable_ssm_scan(*scan_in)
+    else:
+        y, h = ssm_scan(*scan_in, h_out=h_out)
     y = y.to(x.dtype) + params["D"] * x_c
     y = y * F.silu(z)
     return y @ params["w_out"], (new_tail, h)

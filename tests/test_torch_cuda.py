@@ -1671,3 +1671,192 @@ def test_smoke_train_steps_on_the_card_match_the_cpu(gpu):
             assert kf.flash_attention_backward.launches == cfg.num_layers * 2 * 2
     for (l0, g0), (l1, g1) in zip(results["cpu"], results["cuda"]):
         assert l1 == pytest.approx(l0, rel=1e-4) and g1 == pytest.approx(g0, rel=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# training: the backward kernels of the two scans
+# ---------------------------------------------------------------------------
+
+# the scans' backward kernels against their plain versions on the same
+# inputs hold to BWD_TOL: float32 the summation order (the carries regroup
+# the sums over the segments); bfloat16 one rounding of the f32 result to
+# bf16 apart, both sides computing in f32
+WKV_GRADS = ("dr", "dk", "dv", "dw", "du", "dstate0")
+SSM_GRADS = ("ddt", "dx", "dbm", "dcm", "da_log", "dh0")
+
+
+def _wkv_backward_case(seed, B, S, H, hd, dtype, decay=None):
+    r, k, v, w, u, state0 = _wkv_case(seed, B, S, H, hd, dtype, decay, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dy = torch.randn((B, S, H, hd), generator=g, device="cuda")
+    dstate = torch.randn((B, H, hd, hd), generator=g, device="cuda")
+    return r, k, v, w, u, state0, dy, dstate
+
+
+def _ssm_backward_case(seed, B, S, Di, N, dtype, extreme=False):
+    dt, x, bm, cm, a_log, h0 = _ssm_case(seed, B, S, Di, N, dtype, "cuda", extreme)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dy = torch.randn((B, S, Di), generator=g, device="cuda")
+    dh = torch.randn((B, Di, N), generator=g, device="cuda")
+    return dt, x, bm, cm, a_log, h0, dy, dh
+
+
+def _check_backward(wrapper, ref, case, names, dtype):
+    """The kernel against its plain version: one launch, every gradient
+    finite, in its input's dtype and within BWD_TOL, equal bits on a second
+    call. Returns the gradients."""
+    before = wrapper.launches
+    got = wrapper(*case)
+    again = wrapper(*case)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    want = ref(*case)
+    for name, a, a2, w in zip(names, got, again, want):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        assert torch.isfinite(a.float()).all(), name
+        assert torch.equal(a, a2), f"{name} differs between two calls"
+        tol_dtype = dtype if a.dtype == dtype else torch.float32
+        assert _backward_excess(a, w, tol_dtype) <= 1.0, (name, _backward_excess(a, w, tol_dtype))
+    return got, want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,hd,decay", [
+    (1, 2048, 64, 64, None),    # rwkv6-7b's training microbatch
+    (1, 1, 64, 64, None),
+    (1, 37, 64, 64, None),      # S not a multiple of the 32-step segment
+    (1, 1000, 64, 64, None),
+    (2, 100, 8, 32, None),      # the smoke variant's head_dim
+    (2, 70, 4, 64, 1e-6),       # decays near 0
+], ids=["train2048", "S1", "S37", "S1000", "hd32", "w1e-6"])
+def test_wkv_backward_kernel_matches_plain_version(gpu, dtype, B, S, H, hd, decay):
+    case = _wkv_backward_case(S + B, B, S, H, hd, dtype, decay)
+    _check_backward(kw.rwkv6_chunked_backward, kw.ref_rwkv6_chunked_backward, case, WKV_GRADS,
+                    dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Di,N,extreme", [
+    (1, 2176, 1600, 16, False),   # hymba-1.5b's training microbatch: 128 meta + 2048 tokens
+    (1, 1, 1600, 16, False),
+    (1, 37, 1600, 16, True),      # S not a multiple of the 16-step segment; extreme dt
+    (1, 1000, 1600, 16, False),
+    (2, 100, 256, 8, False),      # the smoke variant's width and state
+    (3, 70, 100, 16, True),       # Di not a multiple of the block's 32 channels
+], ids=["train2176", "S1", "S37", "S1000", "smoke", "Di100"])
+def test_ssm_backward_kernel_matches_plain_version(gpu, dtype, B, S, Di, N, extreme):
+    case = _ssm_backward_case(S + B, B, S, Di, N, dtype, extreme)
+    _check_backward(ks.ssm_scan_backward, ks.ref_ssm_scan_backward, case, SSM_GRADS, dtype)
+
+
+def test_scan_backward_kernels_where_decays_underflow(gpu):
+    """w = 0 and exp(dt A) = 0 exactly: every gradient finite and within the
+    bound of the plain version's."""
+    case = list(_wkv_backward_case(3, 1, 300, 4, 64, torch.float32))
+    case[3][:, ::3, :, ::2] = 0.0
+    _check_backward(kw.rwkv6_chunked_backward, kw.ref_rwkv6_chunked_backward, case, WKV_GRADS,
+                    torch.float32)
+    case = list(_ssm_backward_case(4, 1, 300, 256, 16, torch.float32))
+    case[0][:, ::4] = 80.0
+    case[4][:, :8] = 3.0          # A = -exp(3): dt A = -1607
+    _check_backward(ks.ssm_scan_backward, ks.ref_ssm_scan_backward, case, SSM_GRADS,
+                    torch.float32)
+
+
+@pytest.mark.parametrize("which", ["wkv", "ssm"])
+def test_scan_backward_bound_catches_faulted_controls(gpu, which):
+    """Each gradient scaled by 1 + 2**-7 falls outside the float32 bound."""
+    if which == "wkv":
+        case = _wkv_backward_case(9, 1, 200, 8, 64, torch.float32)
+        got, want = kw.rwkv6_chunked_backward(*case), kw.ref_rwkv6_chunked_backward(*case)
+    else:
+        case = _ssm_backward_case(9, 1, 200, 256, 16, torch.float32)
+        got, want = ks.ssm_scan_backward(*case), ks.ref_ssm_scan_backward(*case)
+    for a, w in zip(got, want):
+        assert _backward_excess(a * (1 + 2 ** -7), w, torch.float32) > 1.0
+
+
+def test_scan_backward_rejects_what_it_does_not_take(gpu):
+    r, k, v, w, u, s0, dy, ds = _wkv_backward_case(0, 1, 8, 2, 64, torch.float32)
+    with pytest.raises(ValueError):
+        kw.rwkv6_chunked_backward(*(x[..., :48].contiguous() for x in (r, k, v, w)), u[:, :48],
+                                  None, dy[..., :48].contiguous())
+    with pytest.raises(ValueError):
+        kw.rwkv6_chunked_backward(r.half(), k.half(), v.half(), w, u, s0, dy, ds)
+    with pytest.raises(ValueError):
+        kw.rwkv6_chunked_backward(r, k, v, w, u, s0, dy.bfloat16(), ds)
+    with pytest.raises(ValueError):
+        kw.rwkv6_chunked_backward(r, k, v, w, u.bfloat16(), s0, dy, ds)
+    dt, x, bm, cm, a_log, h0, dy, dh = _ssm_backward_case(0, 1, 8, 64, 16, torch.float32)
+    with pytest.raises(ValueError):
+        ks.ssm_scan_backward(dt, x, bm[..., :12].contiguous(), cm[..., :12].contiguous(),
+                             a_log[:, :12].contiguous(), None, dy)
+    with pytest.raises(ValueError):
+        ks.ssm_scan_backward(dt.half(), x.half(), bm.half(), cm.half(), a_log, h0, dy, dh)
+    with pytest.raises(ValueError):
+        ks.ssm_scan_backward(dt, x, bm, cm, a_log.bfloat16(), h0, dy, dh)
+    with pytest.raises(ValueError):
+        ks.ssm_scan_backward(dt, x, bm, cm, a_log, h0, dy.bfloat16(), dh)
+
+
+def test_scan_functions_on_the_card_match_autograd_of_the_plain_version(gpu):
+    """float32: ``trainable_rwkv6_chunked`` and ``trainable_ssm_scan`` (the
+    forward kernels, then the backward kernels) against autograd through
+    the plain versions, with and without an initial state."""
+    for fn, ref, case in ((kw.trainable_rwkv6_chunked, kw.ref_rwkv6_chunked,
+                           _wkv_backward_case(2, 2, 75, 4, 64, torch.float32)),
+                          (ks.trainable_ssm_scan, ks.ref_ssm_scan,
+                           _ssm_backward_case(2, 2, 75, 128, 16, torch.float32))):
+        for with_state in (True, False):
+            n = 6 if with_state else 5
+            a = [t.clone().requires_grad_() for t in case[:n]]
+            b = [t.clone().requires_grad_() for t in case[:n]]
+            y, s = fn(*a)
+            assert type(y.grad_fn).__name__ in ("WKV6Backward", "SelectiveScanBackward")
+            ((y * case[6]).sum() + (s * case[7]).sum()).backward()
+            y, s = ref(*b)
+            ((y * case[6]).sum() + (s * case[7]).sum()).backward()
+            for x1, x2 in zip(a, b):
+                assert _backward_excess(x1.grad, x2.grad, torch.float32) <= 1.0
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "hymba-1.5b"])
+def test_recurrent_smoke_stacks_train_on_the_card(gpu, arch):
+    """The smoke variant (2 layers) in float32: every leaf's gradient of
+    ``loss_fn`` on the card (the scan kernels forward twice a layer, remat
+    included, and their backward once) within 1e-3 of the CPU's (relative
+    to the leaf's norm, floored at 1e-3 of the global norm), then one AdamW
+    step on both with losses and grad norms within 1e-4."""
+    from repro_torch.configs import card_smoke_variant
+    from repro_torch.models import init_params, loss_fn, make_train_step
+    from repro_torch.optim import AdamW
+    from repro_torch.params import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = card_smoke_variant(arch).replace(dtype="float32")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 96), generator=torch.Generator().manual_seed(5))
+    grads, metrics = {}, {}
+    for dev in ("cpu", "cuda"):
+        params = init_params(cfg, torch.Generator().manual_seed(0), dev)
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        kw.reset_launch_counts()
+        ks.reset_launch_counts()
+        total, _ = loss_fn(cfg, params, {"tokens": tokens.to(dev)})
+        grads[dev] = [g.cpu() for g in torch.autograd.grad(total, leaves)]
+        if dev == "cuda":
+            fwd, bwd = ((kw.rwkv6_chunked, kw.rwkv6_chunked_backward) if arch == "rwkv6-7b"
+                        else (ks.ssm_scan, ks.ssm_scan_backward))
+            assert (fwd.launches, bwd.launches) == (2 * cfg.num_layers, cfg.num_layers)
+        for p in leaves:
+            p.requires_grad_(False)
+        opt = AdamW(lr=1e-3)
+        _, _, m = make_train_step(cfg, opt)(params, opt.init(params), {"tokens": tokens.to(dev)})
+        metrics[dev] = (float(m["loss"]), float(m["grad_norm"]))
+    norm = float(torch.sqrt(sum(g.double().square().sum() for g in grads["cpu"])))
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        err = float((a.double() - b.double()).norm()) / max(float(b.double().norm()), 1e-3 * norm)
+        assert err <= 1e-3, err
+    assert metrics["cuda"][0] == pytest.approx(metrics["cpu"][0], rel=1e-4)
+    assert metrics["cuda"][1] == pytest.approx(metrics["cpu"][1], rel=1e-4)

@@ -236,7 +236,9 @@ def test_adamw_update_against_jax(param_dtype, momentum_dtype):
     jopt = JaxAdamW(lr=jax_cosine(1e-2, warmup=2, total=3), momentum_dtype=momentum_dtype)
     opt = AdamW(lr=cosine_schedule(1e-2, warmup=2, total=3), momentum_dtype=momentum_dtype)
     jparams = {k: jnp.asarray(v).astype(jdt) for k, v in tree.items()}
-    params = {k: torch.from_numpy(v).to(tdt) for k, v in tree.items()}
+    # a copy: AdamW updates in place, and a float32 torch.from_numpy(v) would
+    # write into the numpy buffer that jnp.asarray(v) may share (zero-copy)
+    params = {k: torch.from_numpy(v.copy()).to(tdt) for k, v in tree.items()}
     jstate, state = jopt.init(jparams), opt.init(params)
     for g in grads:
         jparams, jstate = jopt.update(jparams, {k: jnp.asarray(v) for k, v in g.items()}, jstate)
