@@ -360,13 +360,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (``csrc/rwkv6_scan_backward.cu``, ``csrc/ssm_scan_backward.cu``) against
    ``ref_rwkv6_chunked_backward`` and ``ref_ssm_scan_backward`` at
    rwkv6-7b's heads (H 64, hd 64; B 1 x S 2048) and hymba-1.5b's scan (Di
-   1600, N 16; B 1 x S 2176), and at S 1, 37 and 1000, float32 and
+   1600, N 16; B 1 x S 2176), and at S 1, 37 and 1000 and about the edges
+   of the kernels' segment rules (``scan_backward_edges``), float32 and
    bfloat16, nonzero initial states and final-state cotangents: every
    gradient within ``BWD_TOL``, two calls equal bit for bit, the first
    gradient scaled by 1 + ``BWD_FAULT`` outside the bound, strong decays (w
    = 0, exp(dt A) = 0) finite and within it; the kernel's, its device and
    its plain version's times at the main shape beside the bound
-   (``scan_backward_work``). (i) ``SCAN_TRAIN`` as (f): hymba-1.5b at full
+   (``scan_backward_work``), and in the text line the kernel's own work
+   counted from its design beside the contract's
+   (``scan_backward_design_work``; not measured). (i) ``SCAN_TRAIN`` as (f): hymba-1.5b at full
    depth (B 1 x S 2048), rwkv6-7b at 16 of 32 layers (S 2048),
    mixtral-8x22b at 2 of 56 (S 1024) and llama4-scout at 1 of 48 (S 2048),
    the depths from 12 bytes a parameter on 80 GB; the scans' kernels
@@ -4939,8 +4942,9 @@ SCAN_TRAIN = (("hymba-1.5b", 1, 2048, None), ("rwkv6-7b", 1, 2048, 16),
 # 18g: the scans' backward kernels against their plain versions: rwkv6-7b's
 # heads (H 64, hd 64) and hymba-1.5b's scan (Di 1600, N 16); (B, S) cases,
 # the main shape first (timed): the training microbatch, S 2176 for hymba
-# (18i's 2048 tokens + 128 meta tokens); then S 1, 37 and 1000, and S 1000
-# with strong decays (w = 0 entries; exp(dt A) = 0 where dt = 80)
+# (18i's 2048 tokens + 128 meta tokens); then S 1, 37 and 1000, the edges of
+# the segment rules (``scan_backward_edges``), and S 1000 with strong
+# decays (w = 0 entries; exp(dt A) = 0 where dt = 80)
 WKV_BWD_HEADS = (64, 64)
 SCAN_BWD_CASES = {"rwkv6_chunked_backward": ((1, 2048), (1, 1), (1, 37), (1, 1000)),
                   "ssm_scan_backward": ((1, 2176), (1, 1), (1, 37), (1, 1000))}
@@ -5106,6 +5110,57 @@ def scan_backward_work(name, case):
     return nbytes, 18 * elems, elems
 
 
+def scan_backward_segments(kw, ks, name, dtype, B, S):
+    """(n_seg, seg_len) that the backward kernel's segment rule gives at
+    (B, S) and the main shape's width on this card."""
+    if name == "rwkv6_chunked_backward":
+        H, hd = WKV_BWD_HEADS
+        return kw.wkv_backward_segments(kw.backward_slots(0, dtype, hd), B, H, S)
+    return ks.ssm_backward_segments(ks.backward_slots(0, dtype, SSM_N), B, SSM_DI, SSM_N, S)
+
+
+def scan_backward_edges(kw, ks, name, dtype):
+    """(B, S) lengths about the edges of the backward kernel's segment rule
+    at the main shape's width on this card: one chunk plus one step, and the
+    segment the rule gives at the main length less and plus one step."""
+    Bm, Sm = SCAN_BWD_CASES[name][0]
+    chunk = (kw if name == "rwkv6_chunked_backward" else ks).BACKWARD_CHUNK
+    seg = scan_backward_segments(kw, ks, name, dtype, Bm, Sm)[1]
+    return ((Bm, chunk + 1), (Bm, seg - 1), (Bm, seg + 1))
+
+
+def scan_backward_design_work(name, case, segments):
+    """The kernels' own work for one call, beside the contract's
+    (``scan_backward_work``), from their design (csrc/*_backward.cu
+    headers), an FMA counted as 2: (tensor-core multiply-adds, their tf32
+    products, f32 operations on the CUDA cores, exponentials). WKV, per
+    element of the state and step: the local states' and adjoints' chunk
+    updates (the adjoints on all segments but the first) and the output
+    pass's S_c dY^T, G_e V^T, G_e^T K^ and adjoint update on the tensor
+    cores, each taken as 3 tf32 products (2 where bf16 v, exact in tf32, is
+    an operand); on the CUDA cores M = V dY^T (32 / hd), the checkpoint,
+    rowsum(G_e * S_c) and the adjoint's scaling (5 a chunk of 16), and per
+    key and chunk the decays (64), the forward walk (1112), the backward
+    walk (656), A's sums (136) and dv (272 an output column). Scan, per
+    element and step: 8 operations and 1 exponential in the local pass, 4
+    and 1 in the output pass's forward walk, 15 in its walk back, 1.25 in
+    the shuffle sums over lanes and 2 a chunk of 8 for the checkpoint."""
+    n_seg = segments[0]
+    if name == "rwkv6_chunked_backward":
+        B, S, H, hd = case[0].shape
+        elems = B * S * H * hd * hd
+        adjoint = (n_seg - 1) / n_seg
+        v2 = 2 if case[2].dtype == torch.bfloat16 else 3
+        macs = elems * (5 + adjoint)
+        products = elems * (v2 + 3 * adjoint + 3 + v2 + 3 + 3)
+        per_key_chunk = 64 + 1112 + 656 + 136 + 272
+        cuda = elems * (32 / hd + 5 / 16) + B * H * hd * -(-S // 16) * per_key_chunk
+        return macs, products, cuda, 0
+    B, S, Di = case[0].shape
+    elems = B * S * Di * case[2].shape[-1]
+    return 0, 0, elems * (8 + 4 + 15 + 1.25 + 2 / 8), 2 * elems
+
+
 def phase_scan_backward_kernels(kw, ks):
     """18g: the backward kernels of the WKV and of the selective scan against
     their plain versions on the card at rwkv6-7b's heads and hymba-1.5b's
@@ -5128,7 +5183,8 @@ def phase_scan_backward_kernels(kw, ks):
         main = SCAN_BWD_CASES[name][0]
         for dtype_name in ("float32", "bfloat16"):
             dt_ = getattr(torch, dtype_name)
-            for Bb, S, strong in (*((b_, s_, False) for b_, s_ in SCAN_BWD_CASES[name]),
+            edges = scan_backward_edges(kw, ks, name, dt_)
+            for Bb, S, strong in (*((b_, s_, False) for b_, s_ in SCAN_BWD_CASES[name] + edges),
                                   (1, SCAN_STRONG_S, True)):
                 case = inputs(gen, Bb, S, dt_, strong)
                 kern = lambda: kern_fn(*case)
@@ -5151,8 +5207,14 @@ def phase_scan_backward_kernels(kw, ks):
                                  backward_excess((got[0].float() * fault).to(dt_), want[0],
                                                  dtype_name)}
                 assert all(x > 1.0 for x in r["controls"].values()), (label, r["controls"])
+                r["segments"] = scan_backward_segments(kw, ks, name, dt_, Bb, S)
                 if (Bb, S) == main and not strong:
                     nbytes, ops, exps = scan_backward_work(name, case)
+                    macs, products, cuda_ops, kexps = scan_backward_design_work(
+                        name, case, r["segments"])
+                    elem_steps = exps or ops / 12   # the scan's one exp, the WKV's 12 flops
+                    work = {"tensor_core_macs": macs, "tf32_products": products,
+                            "cuda_core_ops": cuda_ops, "exps": kexps}
                     parts = {"bytes": nbytes / HBM_BYTES_S * 1e3,
                              "operations": max(ops / PEAK_OPS_S["float32"], exps / exp_s) * 1e3}
                     bound_by = max(parts, key=parts.get)
@@ -5163,19 +5225,23 @@ def phase_scan_backward_kernels(kw, ks):
                               "bound_by": bound_by, "bytes": nbytes, "ops": ops, "exps": exps,
                               "flop_ms": ops / PEAK_OPS_S["float32"] * 1e3,
                               "exp_ms": exps / exp_s * 1e3})
+                    design = {k: x / elem_steps for k, x in work.items()}
+                    contract = {"f32_ops": ops / elem_steps, "exps": exps / elem_steps}
                 rows[(name, dtype_name, Bb, S, strong)] = r
                 times = (f"; kernel_ms={r['ms']:.4f} device_ms={fmt_ms(r['device_ms'])} "
                          f"plain_ms={r['plain_ms']:.4f} library_ms=none (no PyTorch call "
                          f"computes it) bound_ms={r['bound_ms']:.5f} ({r['bound_by']}: "
                          f"{r['bytes']} B = {r['bytes'] / HBM_BYTES_S * 1e3:.5f} ms, "
                          f"{r['ops']} flop = {r['flop_ms']:.5f} ms, {r['exps']} exp = "
-                         f"{r['exp_ms']:.5f} ms)") if "ms" in r else ""
+                         f"{r['exp_ms']:.5f} ms); an element and step, the contract "
+                         f"{json.dumps(contract)}, the kernel's design count (from its "
+                         f"source, not measured) {json.dumps(design)}") if "ms" in r else ""
                 errs = " ".join(f"{g}={e:.3e} ({r['excess'][g]:.3f} of bound)"
                                 for g, e in r["max_abs_err"].items())
                 ctl = ", ".join(f"{c} {x:.1f}x" for c, x in r["controls"].items())
-                print(f"[scan backward kernel] {label}: max_abs_err {errs} (atol share, rtol "
-                      f"{BWD_TOL[dtype_name]}); finite; two calls equal; control {ctl}{times}",
-                      flush=True)
+                print(f"[scan backward kernel] {label}: segments {r['segments']}; max_abs_err "
+                      f"{errs} (atol share, rtol {BWD_TOL[dtype_name]}); finite; two calls "
+                      f"equal; control {ctl}{times}", flush=True)
                 del case, got, again, want
             torch.cuda.empty_cache()
     return rows
@@ -5923,7 +5989,8 @@ def main() -> int:
     })
     # the scans' backward at the training microbatch of 18i (bf16): rwkv6-7b's
     # heads at S 2048, hymba-1.5b's scan at S 2176 (128 meta tokens + 2048)
-    scan_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bytes", "ops", "exps")
+    scan_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bytes", "ops", "exps",
+                 "segments")
     for name, arch in (("rwkv6_chunked_backward", "rwkv6-7b"),
                        ("ssm_scan_backward", "hymba-1.5b")):
         Bm, Sm = SCAN_BWD_CASES[name][0]
@@ -5935,6 +6002,7 @@ def main() -> int:
             "device_ms": r["device_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
             "library": "none: no PyTorch call computes the recurrence's backward",
+            "segments": r["segments"],
             "float32": {k: scan_bwd_rows[(name, "float32", Bm, Sm, False)][k] for k in scan_keys},
             "by_case": {f"{d}/B={b_}/S={s_}{'/strong' if st else ''}":
                         {"max_abs_err": x["max_abs_err"], "excess": x["excess"],

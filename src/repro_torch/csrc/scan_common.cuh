@@ -1,5 +1,6 @@
-// Helpers shared by the scan kernels (rwkv6_scan.cu, ssm_scan.cu): raw
-// vector loads of f32 or bf16 inputs, widened to f32 where they are used.
+// Helpers shared by the scan kernels (rwkv6_scan.cu, ssm_scan.cu and their
+// backward): raw vector loads of f32 or bf16 inputs, widened to f32 where
+// they are used, and cp.async copies into shared memory.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,5 +45,25 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 __device__ __forceinline__ void st4(float* p, float4 x) { *reinterpret_cast<float4*>(p) = x; }
+
+// 16-byte copies from global to shared memory in flight while the thread
+// goes on (cp.async; the first src_bytes copied, the rest zero-filled):
+// committed as a group, waited on before the data is read. A thread waits
+// for its own copies only: what another thread reads needs a barrier after
+// the wait.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N committed groups of this thread are still in flight
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 }  // namespace scan

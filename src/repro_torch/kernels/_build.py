@@ -66,10 +66,12 @@ ENTRY_POINTS = {
         "ssm_output_blocks_per_sm": ([_I, _I], _I),
     },
     "rwkv6_scan_backward": {
-        "wkvb_rwkv6_backward": ([_I] + [_P] * 18 + [_I] * 5 + [_P], _I),
+        "wkvb_rwkv6_backward": ([_I] + [_P] * 20 + [_I] * 6 + [_P], _I),
+        "wkvb_output_blocks_per_sm": ([_I, _I], _I),
     },
     "ssm_scan_backward": {
-        "ssmb_selective_scan_backward": ([_I] + [_P] * 19 + [_I] * 5 + [_P], _I),
+        "ssmb_selective_scan_backward": ([_I] + [_P] * 21 + [_I] * 6 + [_P], _I),
+        "ssmb_output_blocks_per_sm": ([_I, _I], _I),
     },
 }
 SOURCES = {name: CSRC / f"{name}.cu" for name in ENTRY_POINTS}

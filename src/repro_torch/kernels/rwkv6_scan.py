@@ -43,7 +43,11 @@ and du = sum_t r_t k_t (v_t . dy_t). On CUDA tensors the wrapper launches
 the hand-written kernels of ``csrc/rwkv6_scan_backward.cu`` (one count in
 ``launches`` a call); on CPU tensors it runs
 ``ref_rwkv6_chunked_backward``, the reverse recurrence written out step by
-step.
+step. The kernels cut the time axis into segments of whole 16-step chunks
+(``wkv_backward_segments``): local passes give each chunk's state and each
+segment's adjoint from zero, and the output pass carries them across the
+segments and takes every gradient of a chunk from the state before it and
+the adjoint after it, never keeping a step's state.
 """
 from __future__ import annotations
 
@@ -62,10 +66,12 @@ from repro_torch.kernels.decode_attention import (
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)   # the head_dim instantiations in csrc/rwkv6_scan.cu and its backward
-# steps of a segment of the backward kernels (``kSeg`` in
-# csrc/rwkv6_scan_backward.cu): each block keeps its segment's states on
-# chip while it walks the segment backward
-BACKWARD_SEGMENT = 32
+# steps of a chunk of the backward kernels (``kT`` in
+# csrc/rwkv6_scan_backward.cu): a backward segment is a whole number of
+# chunks, and each chunk's gradients come from the state before it and the
+# adjoint after it
+BACKWARD_CHUNK = 16
+_BACKWARD_MIN_CHUNKS = 2
 
 # the time axis: at most this many steps run as one segment in the kernel
 # without staging (``kDirectMax`` in csrc/rwkv6_scan.cu); segments of at
@@ -92,15 +98,44 @@ def wkv_segments(slots: int, B: int, H: int, S: int):
     return even_segments(S, min(slots // (B * H), S // _MIN_SEGMENT))
 
 
+def backward_segments(slots: int, blocks: int, S: int, chunk: int, min_chunks: int):
+    """(n_seg, seg_len) of a scan's backward, from shapes alone: segments of
+    whole ``chunk``-step chunks, as many as let ``n_seg * blocks`` blocks of
+    its output pass run in one wave of the card's ``slots``, each at least
+    ``min_chunks`` chunks long (one segment where S allows no more)."""
+    n_chunk = -(-S // chunk)
+    n_seg, per = even_segments(n_chunk, max(1, min(slots // blocks, n_chunk // min_chunks)))
+    return n_seg, per * chunk
+
+
+def wkv_backward_segments(slots: int, B: int, H: int, S: int):
+    """(n_seg, seg_len) of the WKV backward: one output-pass block a (row,
+    head, segment)."""
+    return backward_segments(slots, B * H, S, BACKWARD_CHUNK, _BACKWARD_MIN_CHUNKS)
+
+
 @functools.lru_cache(maxsize=None)
-def output_slots(device_index: int, dtype: torch.dtype, hd: int) -> int:
-    """Output-pass blocks the card holds at once: its SMs times the blocks
-    an SM holds (the CUDA occupancy query)."""
+def block_slots(device_index: int, lib_name: str, fn_name: str, err_name: str,
+                dtype: torch.dtype, arg: int) -> int:
+    """Blocks of a pass the card holds at once: its SMs times the blocks an
+    SM holds (``fn_name`` of ``lib_name``, the CUDA occupancy query)."""
     from repro_torch.kernels._build import load_library
 
-    per_sm = load_library("rwkv6_scan").lib.wkv_output_blocks_per_sm(_DTYPE_CODES[dtype], hd)
-    _raise_on_error("rwkv6_chunked", max(0, -per_sm))
+    per_sm = getattr(load_library(lib_name).lib, fn_name)(_DTYPE_CODES[dtype], arg)
+    _raise_on_error(err_name, max(0, -per_sm))
     return _sm_count(device_index) * per_sm
+
+
+def backward_slots(device_index: int, dtype: torch.dtype, hd: int) -> int:
+    """Backward output-pass blocks the card holds at once."""
+    return block_slots(device_index, "rwkv6_scan_backward", "wkvb_output_blocks_per_sm",
+                       "rwkv6_chunked_backward", dtype, hd)
+
+
+def output_slots(device_index: int, dtype: torch.dtype, hd: int) -> int:
+    """Output-pass blocks the card holds at once."""
+    return block_slots(device_index, "rwkv6_scan", "wkv_output_blocks_per_sm", "rwkv6_chunked",
+                       dtype, hd)
 
 
 def ref_rwkv6_chunked(r, k, v, w, u, state0: Optional[torch.Tensor] = None):
@@ -255,23 +290,25 @@ def rwkv6_chunked_backward(r, k, v, w, u, state0, dy, dstate=None):
     dr, dk, dv = torch.empty_like(r), torch.empty_like(k), torch.empty_like(v)
     dw, du = torch.empty_like(w), torch.empty_like(u)
     dstate0 = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
-    n_seg = -(-S // BACKWARD_SEGMENT)      # segments of BACKWARD_SEGMENT steps, the last shorter
-    f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=r.device)
-    # the segments' start states and end adjoints (B, H, n_seg, hd, hd),
-    # their decays (B, H, n_seg, hd) and their shares of du (B, n_seg, H, hd)
-    s_slots, g_slots = f32(B, H, n_seg, hd, hd), f32(B, H, n_seg, hd, hd)
-    decay, part_u = f32(B, H, n_seg, hd), f32(B, n_seg, H, hd)
     from repro_torch.kernels._build import load_library
 
     lib = load_library("rwkv6_scan_backward").lib
+    n_seg, seg_len = wkv_backward_segments(backward_slots(r.device.index, r.dtype, hd), B, H, S)
+    n_chunk = -(-S // BACKWARD_CHUNK)
+    f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=r.device)
+    # each chunk's local state and its decay from its segment's start (B, H,
+    # n_chunk, ...), each segment's end state and adjoint (B, H, n_seg, hd,
+    # hd), its decay (B, H, n_seg, hd) and its share of du (B, n_seg, H, hd)
+    scratch = (f32(B, H, n_chunk, hd, hd), f32(B, H, n_chunk, hd), f32(B, H, n_seg, hd, hd),
+               f32(B, H, n_seg, hd, hd), f32(B, H, n_seg, hd), f32(B, n_seg, H, hd))
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = lib.wkvb_rwkv6_backward(
             _DTYPE_CODES[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), ptr(state0), dy.data_ptr(), ptr(dstate), dr.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), dw.data_ptr(), du.data_ptr(), dstate0.data_ptr(), s_slots.data_ptr(),
-            g_slots.data_ptr(), decay.data_ptr(), part_u.data_ptr(), B, S, H, hd, n_seg, stream,
+            dv.data_ptr(), dw.data_ptr(), du.data_ptr(), dstate0.data_ptr(),
+            *(t.data_ptr() for t in scratch), B, S, H, hd, n_seg, seg_len, stream,
         )
     _raise_on_error(name, err)
     rwkv6_chunked_backward.launches += 1

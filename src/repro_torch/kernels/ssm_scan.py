@@ -46,10 +46,13 @@ and every gradient is a sum of g_t and h_{t-1} terms. On CUDA tensors the
 wrapper launches the hand-written kernels of ``csrc/ssm_scan_backward.cu``
 (one count in ``launches`` a call); on CPU tensors it runs
 ``ref_ssm_scan_backward``, the reverse recurrence written out step by step.
+The kernels cut the time axis into segments of whole 8-step chunks
+(``ssm_backward_segments``): a local pass gives each chunk's state from its
+segment's start and each segment's adjoint, and the output pass carries
+them across the segments and walks each chunk forward, then back.
 """
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import torch
@@ -58,19 +61,21 @@ from repro_torch.kernels.decode_attention import (
     _check,
     _raise_on_error,
     _scratch,
-    _sm_count,
     refuse_grad,
 )
-from repro_torch.kernels.rwkv6_scan import even_segments
+from repro_torch.kernels.rwkv6_scan import backward_segments, block_slots, even_segments
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _STATES = (8, 16)   # the N instantiations in csrc/ssm_scan.cu and csrc/ssm_scan_backward.cu
-# steps of a segment of the backward kernels (``kSeg`` in
-# csrc/ssm_scan_backward.cu): each block keeps its segment's states on chip
-# while it walks the segment backward
-BACKWARD_SEGMENT = 16
-# channels of a backward block (``Lanes::CH``): 128 threads of N / 4 states
-_BACKWARD_BLOCK_STATES = 128 * 4
+# steps of a chunk of the backward kernels (``kT`` in
+# csrc/ssm_scan_backward.cu): a thread keeps a chunk's states and decays in
+# registers while it walks the chunk back; a backward segment is a whole
+# number of chunks
+BACKWARD_CHUNK = 8
+_BACKWARD_MIN_CHUNKS = 4
+# states of a backward block (``Lanes::CH`` channels of N): 128 threads of
+# 4 states of 2 channels
+_BACKWARD_BLOCK_STATES = 128 * 2 * 4
 
 # the time axis, as for the WKV kernel: at most _DIRECT_MAX steps run as one
 # segment in the kernel without shared memory (``kDirectMax`` in
@@ -93,15 +98,22 @@ def ssm_segments(slots: int, B: int, Di: int, N: int, S: int):
     return even_segments(S, min(slots // blocks, S // _MIN_SEGMENT))
 
 
-@functools.lru_cache(maxsize=None)
-def output_slots(device_index: int, dtype: torch.dtype, N: int) -> int:
-    """Output-pass blocks the card holds at once: its SMs times the blocks
-    an SM holds (the CUDA occupancy query)."""
-    from repro_torch.kernels._build import load_library
+def ssm_backward_segments(slots: int, B: int, Di: int, N: int, S: int):
+    """(n_seg, seg_len) of the scan's backward: ``B * ceil(Di / channels)``
+    output-pass blocks a segment."""
+    return backward_segments(slots, B * -(-Di // (_BACKWARD_BLOCK_STATES // N)), S,
+                             BACKWARD_CHUNK, _BACKWARD_MIN_CHUNKS)
 
-    per_sm = load_library("ssm_scan").lib.ssm_output_blocks_per_sm(_DTYPE_CODES[dtype], N)
-    _raise_on_error("ssm_scan", max(0, -per_sm))
-    return _sm_count(device_index) * per_sm
+
+def backward_slots(device_index: int, dtype: torch.dtype, N: int) -> int:
+    """Backward output-pass blocks the card holds at once."""
+    return block_slots(device_index, "ssm_scan_backward", "ssmb_output_blocks_per_sm",
+                       "ssm_scan_backward", dtype, N)
+
+
+def output_slots(device_index: int, dtype: torch.dtype, N: int) -> int:
+    """Output-pass blocks the card holds at once."""
+    return block_slots(device_index, "ssm_scan", "ssm_output_blocks_per_sm", "ssm_scan", dtype, N)
 
 
 def ref_ssm_scan(dt, x, bm, cm, a_log, h0: Optional[torch.Tensor] = None):
@@ -265,17 +277,21 @@ def ssm_scan_backward(dt, x, bm, cm, a_log, h0, dy, dh=None):
     dbm, dcm = torch.empty_like(bm), torch.empty_like(cm)
     da_log = torch.empty_like(a_log)
     dh0 = torch.empty((B, Di, N), dtype=torch.float32, device=dt.device)
-    n_seg = -(-S // BACKWARD_SEGMENT)      # segments of BACKWARD_SEGMENT steps, the last shorter
-    n_cb = -(-Di // (_BACKWARD_BLOCK_STATES // N))
-    f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dt.device)
-    # the segments' start states and end adjoints (B, n_seg, Di, N), their
-    # sums of dt (B, n_seg, Di), the segments' shares of dA (B, n_seg, Di,
-    # N) and the channel blocks' shares of dB and dC (n_cb, B, S, 2N)
-    h_slots, g_slots, dsum = f32(B, n_seg, Di, N), f32(B, n_seg, Di, N), f32(B, n_seg, Di)
-    part_a, part_bc = f32(B, n_seg, Di, N), f32(n_cb, B, S, 2 * N)
     from repro_torch.kernels._build import load_library
 
     lib = load_library("ssm_scan_backward").lib
+    n_seg, seg_len = ssm_backward_segments(backward_slots(dt.device.index, dt.dtype, N), B, Di,
+                                           N, S)
+    n_chunk = -(-S // BACKWARD_CHUNK)
+    n_cb = -(-Di // (_BACKWARD_BLOCK_STATES // N))
+    f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dt.device)
+    # each chunk's local state and its product of decays from its segment's
+    # start (B, n_chunk, Di, N), each segment's end state, adjoint, product
+    # of decays and share of dA (B, n_seg, Di, N), and the channel blocks'
+    # shares of dB and dC (n_cb, B, S, 2N)
+    scratch = (f32(B, n_chunk, Di, N), f32(B, n_chunk, Di, N), f32(B, n_seg, Di, N),
+               f32(B, n_seg, Di, N), f32(B, n_seg, Di, N), f32(B, n_seg, Di, N),
+               f32(n_cb, B, S, 2 * N))
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dt.device):
         stream = torch.cuda.current_stream(dt.device).cuda_stream
@@ -283,8 +299,7 @@ def ssm_scan_backward(dt, x, bm, cm, a_log, h0, dy, dh=None):
             _DTYPE_CODES[dt.dtype], dt.data_ptr(), x.data_ptr(), bm.data_ptr(), cm.data_ptr(),
             a_log.data_ptr(), ptr(h0), dy.data_ptr(), ptr(dh), ddt.data_ptr(), dx.data_ptr(),
             dbm.data_ptr(), dcm.data_ptr(), da_log.data_ptr(), dh0.data_ptr(),
-            h_slots.data_ptr(), g_slots.data_ptr(), dsum.data_ptr(), part_a.data_ptr(),
-            part_bc.data_ptr(), B, S, Di, N, n_seg, stream,
+            *(t.data_ptr() for t in scratch), B, S, Di, N, n_seg, seg_len, stream,
         )
     _raise_on_error(name, err)
     ssm_scan_backward.launches += 1

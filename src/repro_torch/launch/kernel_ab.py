@@ -10,6 +10,7 @@ tree's split targets, on one GPU.
     python -m repro_torch.launch.kernel_ab --sweep
     python -m repro_torch.launch.kernel_ab --cases retrieval --variants base topk_no_select topk_loads_only topk_merge_only base
     python -m repro_torch.launch.kernel_ab --cases backward --trees build/parent/src src src build/parent/src
+    python -m repro_torch.launch.kernel_ab --cases scans --variants base wkvb_no_local wkvb_no_output ssmb_no_local base
 
 Each tree (a directory holding ``repro_torch``) or variant runs in a process
 of its own, in the order given, so that its kernels are built from its own
@@ -49,7 +50,13 @@ case of each other form of the forward: window 1024 at S 1664 (H 25 / KVH
 with the largest of dq's, dk's and dv's errors over chip_smoke.py's
 ``BWD_TOL`` bound (a tree without the form reports it unsupported); its
 ``bwd_*`` variants leave passes out (the dQ kernel, the dK/dV kernel, the
-group sum, all but the rows pass) to show what each costs. Each process
+group sum, all but the rows pass) to show what each costs; the
+``wkvb_no_*`` and ``ssmb_no_*`` variants leave one pass of the scans'
+backward kernels out in the same way (the WKV's local pass, output pass or
+du sum; the scan's local pass, output pass or dB / dC / da_log sums), the
+``wkvb_out_no_*`` and ``ssmb_out_no_*`` variants a part of an output pass
+(the WKV's walks, tensor-core products, checkpoint loads or A's sums and
+dv; the scan's walk back or checkpoint loads). Each process
 prints one JSON line: per case the device time three times (calls queued
 behind a spin kernel, L2 warm), the largest error against the plain
 version in f32 and how many elements miss the check (attention: atol 1e-3,
@@ -77,6 +84,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -103,6 +111,8 @@ _NO_SELECT = ("      const bool select = q0 + qi < B;               // warp-unif
               "      const bool select = false;")
 
 _BWD = "csrc/flash_backward.cu"
+_WKVB = "csrc/rwkv6_scan_backward.cu"
+_SSMB = "csrc/ssm_scan_backward.cu"
 _BWD_LAUNCHER = "template <typename T, int HDK, int HDV, bool CHUNKED>\ncudaError_t launch_backward_hd("
 
 
@@ -117,6 +127,19 @@ def _bwd_skip(*kernels):
             if f"launch({name}<" not in text:
                 raise ValueError(f"variant: {_BWD} launches no {name}")
             text = text.replace(f"launch({name}<", f"launch_none({name}<")
+        return text
+    return edit
+
+
+def _skip_launches(path, *kernels):
+    """An edit of a CUDA source that launches none of ``kernels`` (each
+    ``name<...><<<...>>>(...);`` statement made ``if (false) ...``): what
+    the passes left out cost, from the time they save; wrong results."""
+    def edit(text):
+        for name in kernels:
+            text, n = re.subn(rf"(?<![\w]){name}(<[^<>;]*>)?<<<", rf"if (false) \g<0>", text)
+            if n == 0:
+                raise ValueError(f"variant: {path} launches no {name}")
         return text
     return edit
 
@@ -232,6 +255,41 @@ VARIANTS.update({
     # half a 64-key tile (same results)
     "bwd_subq64": [(_BWD, "constexpr int kSubQ = 32;", "constexpr int kSubQ = 64;")],
     "bwd_subk32": [(_BWD, "constexpr int kSubK = 64;", "constexpr int kSubK = 32;")],
+    # this tree's scans' backward kernels without one pass each: the WKV's
+    # local pass (states and adjoints), output pass or du's sum; the scan's
+    # local pass, output pass or dB / dC / da_log sums
+    "wkvb_no_local": [(_WKVB, _skip_launches(_WKVB, "wkvb_local_kernel"))],
+    "wkvb_no_output": [(_WKVB, _skip_launches(_WKVB, "wkvb_output_kernel"))],
+    "wkvb_no_du": [(_WKVB, _skip_launches(_WKVB, "wkvb_du_kernel"))],
+    "ssmb_no_local": [(_SSMB, _skip_launches(_SSMB, "ssmb_local_kernel"))],
+    "ssmb_no_output": [(_SSMB, _skip_launches(_SSMB, "ssmb_output_kernel"))],
+    "ssmb_no_reduce": [(_SSMB, _skip_launches(_SSMB, "ssmb_reduce_kernel"))],
+    # parts of the two output passes left out (wrong results): the WKV's
+    # walks inside a chunk, its tensor-core products, its checkpoint loads
+    # (each chunk from the segment's start state), A's sums and dv; the
+    # scan's walk back and its checkpoint loads
+    "wkvb_out_no_walks": [(_WKVB, "      if (fwd) {\n        // phi[l]",
+                           "      if (false) {\n        // phi[l]"),
+                          (_WKVB, "      } else {\n        // e[l] = W(i,l) r_l (l > i)",
+                           "      } else if (false) {\n        // e[l] = W(i,l) r_l (l > i)")],
+    "wkvb_out_no_products": [(_WKVB, "      for (int kk = 0; kk < HD / 8; ++kk) {\n"
+                                     "        const int c0 = 8 * kk + t4, c1 = c0 + 4;",
+                              "      for (int kk = 0; kk < 0; ++kk) {\n"
+                              "        const int c0 = 8 * kk + t4, c1 = c0 + 4;")],
+    "wkvb_out_no_ckpt": [(_WKVB, "    if (q > q_first) {\n      const size_t c = bh * n_chunk + q;",
+                          "    if (false) {\n      const size_t c = bh * n_chunk + q;")],
+    "wkvb_out_no_dv": [(_WKVB, "    for (int p = tid; p < kPairs; p += F::NT) {",
+                        "    for (int p = tid; p < 0; p += F::NT) {"),
+                       (_WKVB, "    for (int e = tid; e < tc * (HD / 4); e += F::NT) {",
+                        "    for (int e = tid; e < 0; e += F::NT) {")],
+    "ssmb_out_no_walk_back": [(_SSMB, "    for (int i = kT - 1; i >= 0; --i) {\n      const float4 dd",
+                               "    for (int i = kT - 1; i >= kT; --i) {\n      const float4 dd")],
+    "ssmb_out_no_ckpt": [(_SSMB, "      if (qc > q_first && live[e]) {", "      if (false) {")],
+    # the WKV backward in chunks of 8 steps, not 16: half the walks' work a
+    # step, twice the checkpoints (same results)
+    "wkvb_chunk8": [(_WKVB, "constexpr int kT = 16; ", "constexpr int kT = 8; "),
+                    ("kernels/rwkv6_scan.py", "BACKWARD_CHUNK = 16\n_BACKWARD_MIN_CHUNKS = 2\n",
+                     "BACKWARD_CHUNK = 8\n_BACKWARD_MIN_CHUNKS = 4\n")],
 })
 
 

@@ -1724,7 +1724,7 @@ def _check_backward(wrapper, ref, case, names, dtype):
 @pytest.mark.parametrize("B,S,H,hd,decay", [
     (1, 2048, 64, 64, None),    # rwkv6-7b's training microbatch
     (1, 1, 64, 64, None),
-    (1, 37, 64, 64, None),      # S not a multiple of the 32-step segment
+    (1, 37, 64, 64, None),      # S not a multiple of the 16-step chunk
     (1, 1000, 64, 64, None),
     (2, 100, 8, 32, None),      # the smoke variant's head_dim
     (2, 70, 4, 64, 1e-6),       # decays near 0
@@ -1739,13 +1739,60 @@ def test_wkv_backward_kernel_matches_plain_version(gpu, dtype, B, S, H, hd, deca
 @pytest.mark.parametrize("B,S,Di,N,extreme", [
     (1, 2176, 1600, 16, False),   # hymba-1.5b's training microbatch: 128 meta + 2048 tokens
     (1, 1, 1600, 16, False),
-    (1, 37, 1600, 16, True),      # S not a multiple of the 16-step segment; extreme dt
+    (1, 37, 1600, 16, True),      # S not a multiple of the 8-step chunk; extreme dt
     (1, 1000, 1600, 16, False),
     (2, 100, 256, 8, False),      # the smoke variant's width and state
-    (3, 70, 100, 16, True),       # Di not a multiple of the block's 32 channels
+    (3, 70, 100, 16, True),       # Di not a multiple of the block's 64 channels
 ], ids=["train2176", "S1", "S37", "S1000", "smoke", "Di100"])
 def test_ssm_backward_kernel_matches_plain_version(gpu, dtype, B, S, Di, N, extreme):
     case = _ssm_backward_case(S + B, B, S, Di, N, dtype, extreme)
+    _check_backward(ks.ssm_scan_backward, ks.ref_ssm_scan_backward, case, SSM_GRADS, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("edge", ["S1", "chunk-1", "chunk", "chunk+1", "seg-1", "seg", "seg+1"])
+def test_wkv_backward_kernel_at_segment_edges(gpu, dtype, edge):
+    """Lengths about the edges of ``wkv_backward_segments`` at rwkv6-7b's
+    heads (a chunk's 16 steps; the segment the rule gives at the training
+    length 2048): every gradient within BWD_TOL."""
+    B, H, hd = 1, 64, 64
+    slots = kw.backward_slots(gpu.index or 0, dtype, hd)
+    seg = kw.wkv_backward_segments(slots, B, H, 2048)[1]
+    chunk = kw.BACKWARD_CHUNK
+    S = {"S1": 1, "chunk-1": chunk - 1, "chunk": chunk, "chunk+1": chunk + 1,
+         "seg-1": seg - 1, "seg": seg, "seg+1": seg + 1}[edge]
+    case = _wkv_backward_case(S + 11, B, S, H, hd, dtype)
+    _check_backward(kw.rwkv6_chunked_backward, kw.ref_rwkv6_chunked_backward, case, WKV_GRADS,
+                    dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("edge", ["S1", "chunk-1", "chunk", "chunk+1", "seg-1", "seg", "seg+1"])
+def test_ssm_backward_kernel_at_segment_edges(gpu, dtype, edge):
+    """Lengths about the edges of ``ssm_backward_segments`` at hymba-1.5b's
+    scan (a chunk's 8 steps; the segment the rule gives at the training
+    length 2176): every gradient within BWD_TOL."""
+    B, Di, N = 1, 1600, 16
+    slots = ks.backward_slots(gpu.index or 0, dtype, N)
+    seg = ks.ssm_backward_segments(slots, B, Di, N, 2176)[1]
+    chunk = ks.BACKWARD_CHUNK
+    S = {"S1": 1, "chunk-1": chunk - 1, "chunk": chunk, "chunk+1": chunk + 1,
+         "seg-1": seg - 1, "seg": seg, "seg+1": seg + 1}[edge]
+    case = _ssm_backward_case(S + 13, B, S, Di, N, dtype)
+    _check_backward(ks.ssm_scan_backward, ks.ref_ssm_scan_backward, case, SSM_GRADS, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_backward_kernels_at_small_widths_with_strong_decays(gpu, dtype):
+    """B 2 with head_dim 32 (WKV) and N 8 (scan), several segments (S 600),
+    w = 0 at every third step's even keys and dt = 80 at every fourth step:
+    every gradient finite and within BWD_TOL."""
+    case = list(_wkv_backward_case(21, 2, 600, 4, 32, dtype))
+    case[3][:, ::3, :, ::2] = 0.0
+    _check_backward(kw.rwkv6_chunked_backward, kw.ref_rwkv6_chunked_backward, case, WKV_GRADS,
+                    dtype)
+    case = list(_ssm_backward_case(22, 2, 600, 256, 8, dtype))
+    case[0][:, ::4] = 80.0
     _check_backward(ks.ssm_scan_backward, ks.ref_ssm_scan_backward, case, SSM_GRADS, dtype)
 
 

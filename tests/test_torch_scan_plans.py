@@ -1,6 +1,8 @@
 """How the port's scan kernels cut the time axis, on the CPU (no kernel is
 launched): the segment rules of the WKV kernel (``wkv_segments``) and the
-selective scan (``ssm_segments``), and the segmented algebra both kernels
+selective scan (``ssm_segments``) and of their backward kernels
+(``wkv_backward_segments``, ``ssm_backward_segments``: whole chunks a
+segment, one wave of the output pass), and the segmented algebra both kernels
 run on the card, written out here in plain torch: a segment pass gives each
 segment's end state from a zero state (segment 0 from the given state) and
 its decay, a carry gives each segment's start state, and an output pass
@@ -88,6 +90,92 @@ def test_serve_prefill_is_split_within_one_wave(which, S, slots):
     assert n_seg * _blocks_a_segment(which) <= slots
     if S // (n_seg + 1) >= 32:
         assert (n_seg + 1) * _blocks_a_segment(which) > slots
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels' segments
+# ---------------------------------------------------------------------------
+
+# backward output-pass blocks the H100 holds at once, at 1, 2 or 3 blocks an
+# SM (the wrappers ask the CUDA occupancy query; these cover the counts)
+BWD_SLOTS = (132, 132 * 2, 132 * 3)
+WKV_TRAIN = (1, 64)           # rwkv6-7b's training microbatch: B, H (S 2048)
+SSM_TRAIN = (1, 1600, 16)     # hymba-1.5b's: B, Di, N (S 2176: 128 meta + 2048 tokens)
+
+
+def _bwd_rule(which, S, slots):
+    if which == "wkv":
+        return kw.wkv_backward_segments(slots, *WKV_TRAIN, S)
+    return ks.ssm_backward_segments(slots, *SSM_TRAIN, S)
+
+
+def _bwd_chunk(which):
+    return kw.BACKWARD_CHUNK if which == "wkv" else ks.BACKWARD_CHUNK
+
+
+def _bwd_blocks_a_segment(which):
+    """Output-pass blocks of one backward segment at the training shapes: one
+    a head (WKV), one per 1024 / N channels (the scan)."""
+    return 64 if which == "wkv" else -(-1600 // (1024 // 16))
+
+
+@pytest.mark.parametrize("slots", BWD_SLOTS)
+@pytest.mark.parametrize("which", ["wkv", "ssm"])
+@pytest.mark.parametrize("S", ["1", "2", "chunk-1", "chunk", "chunk+1", "seg-1", "seg", "seg+1",
+                               "train"])
+def test_backward_segments_cover_every_step_once(S, which, slots):
+    """Whole chunks a segment, none empty, every step in exactly one, at
+    lengths about a chunk's and a segment's edges (the segment the rule
+    gives at the training length)."""
+    chunk = _bwd_chunk(which)
+    train = 2048 if which == "wkv" else 2176
+    seg = _bwd_rule(which, train, slots)[1]
+    S = {"1": 1, "2": 2, "chunk-1": chunk - 1, "chunk": chunk, "chunk+1": chunk + 1,
+         "seg-1": seg - 1, "seg": seg, "seg+1": seg + 1, "train": train}[S]
+    n_seg, seg_len = _bwd_rule(which, S, slots)
+    assert n_seg >= 1 and seg_len >= chunk and seg_len % chunk == 0
+    covered = np.zeros(S, np.int64)
+    for j in range(n_seg):
+        s0, s1 = j * seg_len, min(S, (j + 1) * seg_len)
+        assert s1 > s0                                  # no segment is empty
+        covered[s0:s1] += 1
+    np.testing.assert_array_equal(covered, 1)
+    if n_seg > 1:                                       # _BACKWARD_MIN_CHUNKS
+        assert seg_len >= (kw._BACKWARD_MIN_CHUNKS if which == "wkv"
+                           else ks._BACKWARD_MIN_CHUNKS) * chunk
+
+
+@pytest.mark.parametrize("which", ["wkv", "ssm"])
+def test_backward_segments_are_a_function_of_shapes_alone(which):
+    """The rule reads nothing but its arguments: the same shapes and slots
+    give the same cut, one step (a single chunk) gives one segment, and a
+    batch too wide for one wave gives one segment a row."""
+    for S in (1, 37, 1000, 2048):
+        assert _bwd_rule(which, S, 264) == _bwd_rule(which, S, 264)
+    assert _bwd_rule(which, 1, 264) == (1, _bwd_chunk(which))
+    if which == "wkv":
+        assert kw.wkv_backward_segments(264, 8, 64, 2048) == (1, 2048)
+    else:
+        assert ks.ssm_backward_segments(264, 16, 1600, 16, 2176) == (1, 2176)
+
+
+@pytest.mark.parametrize("slots", BWD_SLOTS)
+@pytest.mark.parametrize("which,S", [("wkv", 2048), ("wkv", 1000), ("wkv", 513),
+                                     ("ssm", 2176), ("ssm", 1000), ("ssm", 257)])
+def test_backward_blocks_fit_one_wave(which, S, slots):
+    """At the training shapes the backward's output-pass blocks fit the card
+    at once, and segments one chunk shorter would not (where the length
+    allows that many: at most one segment per _BACKWARD_MIN_CHUNKS
+    chunks)."""
+    n_seg, seg_len = _bwd_rule(which, S, slots)
+    blocks = _bwd_blocks_a_segment(which)
+    assert n_seg * blocks <= slots
+    chunk = _bwd_chunk(which)
+    per, n_chunk = seg_len // chunk, -(-S // chunk)
+    min_chunks = kw._BACKWARD_MIN_CHUNKS if which == "wkv" else ks._BACKWARD_MIN_CHUNKS
+    shorter = -(-n_chunk // (per - 1)) if per > 1 else n_chunk + 1
+    if shorter <= n_chunk // min_chunks:     # the length allows that many
+        assert shorter * blocks > slots
 
 
 # ---------------------------------------------------------------------------
