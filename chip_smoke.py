@@ -374,6 +374,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
    mixtral-8x22b at 2 of 56 (S 1024) and llama4-scout at 1 of 48 (S 2048),
    the depths from 12 bytes a parameter on 80 GB; the scans' kernels
    forward twice a layer and step, their backward once.
+19. The dry run and tensor parallelism, last. (a) ``phase_dryrun_card``:
+   ``launch.dryrun`` on meta tensors for qwen2.5-3b (bf16, world size 1) at
+   phase 5's serve shape (decode, B 8 against a 2048-slot cache) and at
+   18c's train shape (B 2 x S 2048, 2 microbatches): its argument bytes
+   equal the bytes the same params, AdamW state, cache and inputs request
+   on the card (their blocks' ``requested_size``), and what the allocator
+   hands out is those blocks, each within the allocator's rules of its
+   request (a check of the byte count, not of the sharding policy); its
+   peak estimate beside 18c's ``max_memory_allocated``, the card's
+   ``total_memory`` beside ``kernels.work.CARD_BYTES`` (within 1 %), and
+   18c's step FLOPs over its s/step (a printed figure). (b)
+   ``phase_tp_card``: the sharded math on the one card, ``TP`` = 2 ranks
+   over gloo both on cuda:0 (``launch.mesh.run_on_ranks``; a check, not a
+   speedup): qwen2.5-3b at full width, 8 query heads over 1 KV head a
+   rank, ``kernel="reference"``, phase 5's prompts in chunks of
+   ``TP_CHUNK`` at ``TP_MAX_NEW`` tokens. The ranks' tokens equal;
+   first-token logits against a tp 1 engine on the same weights within
+   ``logit_bound(36)``; each rank's
+   audited step programs 72 all-reduces of the Megatron formula's bytes
+   and no all-gather, the pool roundtrip none; the dense decode kernel 36
+   a decode plan; a world-size-1 layout engine equal to the unsharded one
+   bit for bit.
 
 It prints a ``{"int8_serve": ..., "host_tier": ..., "oracle_paths": ...,
 "controller": ..., "swa_serve": ..., "mixtral_serve": ...,
@@ -381,8 +403,9 @@ It prints a ``{"int8_serve": ..., "host_tier": ..., "oracle_paths": ...,
 "minicpm3_serve": ..., "zoo_parity_max_abs_logit_diff": ...,
 "swa_int8_serve": ..., "internvl2_serve": ..., "whisper_serve": ...,
 "audit": ..., "dp": ..., "train": ..., "train_forms": ..., "train_scans": ...,
-"train_stack_gradient": ..., "grad_guards": ...}`` line of phases 5c, 5d,
-5e, 7b, 10, 11, 4f, 12, 13, 4g, 10b, 14, 15, 16, 17 and 18's figures,
+"train_stack_gradient": ..., "grad_guards": ..., "dryrun_card": ...,
+"tp_card": ...}`` line of phases 5c, 5d, 5e, 7b, 10, 11, 4f, 12, 13, 4g,
+10b, 14, 15, 16, 17, 18 and 19's figures,
 a ``{"kernels": [...]}`` line, the card's name and power limit, each
 phase's seconds and the total, and last ``{"ok": true, "device":
 {...}}``. Exits non-zero without a GPU.
@@ -404,11 +427,19 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_S = 3.35e12                    # H100 SXM HBM3
-PEAK_OPS_S = {"float32": 67e12,          # CUDA cores, no tensor cores
-              "tf32": 495e12,            # dense tensor-core rate
-              "bfloat16": 989e12,        # dense tensor-core rate
-              "int8": 1979e12}
+# the H100's rates and each kernel's contract work live in the package, so
+# the bounds printed here are those the dry run and the benchmark count
+from repro_torch.kernels.work import (  # noqa: E402
+    HBM_BYTES_S,
+    PEAK_OPS_S,
+    backward_work,
+    decode_work,
+    flash_work,
+    scan_backward_work,
+    ssm_work,
+    topk_work,
+    wkv_work,
+)
 # (atol, rtol) of each check, by the pools' dtype: the kernel against
 # "plain", its plain version on the same inputs, and for bf16 also against
 # "plain_f32", the plain version on the same values in float32 (f32
@@ -819,20 +850,6 @@ DECODE_LENGTHS = {"lengths": LENGTHS, "shortest_1": LENGTHS[:-1] + [1],
                   "mixed_step": MIXED_LENGTHS}
 
 
-def dense_work(kernel, q, k, causal=True, lengths=None):
-    """(bytes, flops) the function needs: q, K/V (decode: the slots below
-    each row's length) read once, the output written once; 4*hd flops per
-    query head per (query, valid key) pair."""
-    item = q.element_size()
-    if kernel == "flash_attention":
-        B, S, Hq, hd = q.shape
-        pairs = B * (S * (S + 1) // 2 if causal else S * S)
-        nbytes = (2 * q.numel() + 2 * k.numel()) * item
-    else:
-        B, Hq, hd = q.shape
-        pairs = sum(lengths)
-        nbytes = 2 * q.numel() * item + 2 * pairs * k.shape[2] * hd * item + 4 * B
-    return nbytes, 4 * hd * Hq * pairs
 
 
 def phase_dense_kernels(ka, kf):
@@ -864,7 +881,7 @@ def phase_dense_kernels(ka, kf):
                     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
                     lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                                  enable_gqa=True)
-                    r.update(timed_row(dense_work("flash_attention", q, k, causal=True),
+                    r.update(timed_row(flash_work(q, k, v, causal=True),
                                        dtype_name, flush,
                                        lambda: kf.flash_attention(q, k, v, causal=True),
                                        lambda: kf.ref_flash_attention(q, k, v, True), lib))
@@ -894,7 +911,7 @@ def phase_dense_kernels(ka, kf):
                 mask = mask[:, None, None, :]
                 lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                              enable_gqa=True)
-                r.update(timed_row(dense_work("decode_attention", q, k, lengths=lengths),
+                r.update(timed_row(decode_work(q, k, lengths),
                                    dtype_name, flush,
                                    lambda: ka.decode_attention(q, k, v, lens),
                                    lambda: ka.ref_decode_attention(q, k, v, lens), lib))
@@ -956,16 +973,6 @@ def wkv_inputs(gen, B, S, dtype, decay):
     return r.to(dtype), k.to(dtype), v.to(dtype), w, u, state0
 
 
-def wkv_work(r, state0):
-    """(bytes, flops) of one call: r, k, v (their dtype), w (f32), u and
-    state0 read once, y (f32) and the final state written once; 5 flops per
-    state element per step (the y product 2, the decay and the k v^T
-    update 3), the bonus term's O(hd) per step besides."""
-    B, S, H, hd = r.shape
-    nbytes = (3 * r.numel() * r.element_size() + r.numel() * 4 * 2 + H * hd * 4
-              + 2 * state0.numel() * 4)
-    ops = B * S * H * (5 * hd * hd + 5 * hd)
-    return nbytes, ops
 
 
 def phase_wkv_kernel(kw):
@@ -983,7 +990,8 @@ def phase_wkv_kernel(kw):
             every = slice(None)
             err = max(check_close(name + " y", y, y_ref, every, WKV_TOL),
                       check_close(name + " state", st, st_ref, every, WKV_TOL))
-            r_ = {"errs": {"plain": err}, "segments": kw.rwkv6_chunked.segments}
+            r_ = {"errs": {"plain": err},
+                  "segments": kw.wkv_segments(kw.output_slots(0, dt, WKV_HD), B, WKV_H, S)}
             if case in ("prefill", "decode") and (case == "decode" or S == 2048):
                 # the serve phase updates the state in place; here the
                 # output goes to its own buffer, so every call sees the
@@ -1053,17 +1061,6 @@ def ssm_inputs(gen, B, S, dtype, extreme):
     return dt.to(dtype), x.to(dtype), bm.to(dtype), cm.to(dtype), a_log, h0
 
 
-def ssm_work(dt, bm, h0):
-    """(bytes, f32 flops, exponentials) of one call: dt, x, B and C (their
-    dtype) read once, a_log and h0 read once, y and the final h (f32)
-    written once; 6 flops per state element per step (dt * A, (dt x) * B,
-    the FMA of h, C * h and its sum) and one exponential."""
-    B, S, Di = dt.shape
-    item = dt.element_size()
-    nbytes = (2 * dt.numel() + 2 * bm.numel()) * item + dt.numel() * 4 + Di * SSM_N * 4 \
-        + 2 * h0.numel() * 4
-    elems = B * S * Di * SSM_N
-    return nbytes, 6 * elems, elems
 
 
 def phase_ssm_kernel(ks):
@@ -1090,7 +1087,8 @@ def phase_ssm_kernel(ks):
                 errs["plain_f32"] = max(check_close(name + " y vs f32", y, y32, every, SSM_TOL),
                                         check_close(name + " h vs f32", h, h32, every, SSM_TOL))
             r_ = {"errs": errs, "dA_min": float((dt.float().max() * -SSM_N)),
-                  "segments": ks.ssm_scan.segments}
+                  "segments": ks.ssm_segments(ks.output_slots(0, dt_, SSM_N), B, SSM_DI,
+                                              SSM_N, S)}
             if case in ("prefill", "decode") and S != 37:
                 # the serve phase updates h in place; here the output goes
                 # to its own buffer, so every call sees the same h0
@@ -1131,12 +1129,6 @@ SWA_H, SWA_KVH, SWA_HD = 25, 5, 64           # hymba-1.5b's heads
 SWA_CASES = ((1664, 1024), (300, 64))        # (S, window): full width, smoke window
 
 
-def swa_work(q, k, window):
-    """(bytes, flops): q, K, V read once, the output written once; 4*hd
-    flops per query head per (query, key) pair inside the causal window."""
-    B, S, Hq, hd = q.shape
-    pairs = B * sum(min(i + 1, window) for i in range(S))
-    return (2 * q.numel() + 2 * k.numel()) * q.element_size(), 4 * hd * Hq * pairs
 
 
 def phase_swa_kernels(kf, heads=(SWA_H, SWA_KVH, SWA_HD), cases=SWA_CASES, seed=19):
@@ -1173,7 +1165,7 @@ def phase_swa_kernels(kf, heads=(SWA_H, SWA_KVH, SWA_HD), cases=SWA_CASES, seed=
                 mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
                 lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                              enable_gqa=True)
-                r.update(timed_row(swa_work(q, k, window), dtype_name, flush,
+                r.update(timed_row(flash_work(q, k, v, window=window), dtype_name, flush,
                                    lambda: kf.flash_attention(q, k, v, window=window),
                                    lambda: kf.ref_flash_attention(q, k, v, window=window), lib))
                 del qt, kt, vt, mask, lib
@@ -1234,7 +1226,7 @@ def phase_swa_decode_kernel(ka, heads=(SWA_H, SWA_KVH, SWA_HD), Sc=SWA_SC,
             lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                          enable_gqa=True)
             r = {"errs": errs}
-            r.update(timed_row(dense_work("decode_attention", q, k, lengths=lengths),
+            r.update(timed_row(decode_work(q, k, lengths),
                                dtype_name, flush, lambda: ka.decode_attention(q, k, v, lens),
                                lambda: ka.ref_decode_attention(q, k, v, lens), lib))
             rows[(dtype_name, case)] = r
@@ -1280,17 +1272,6 @@ def check_topk(name, got, want, q, docs, exact_ids):
     return err, int(diff.sum())
 
 
-def topk_work(q, docs, k):
-    """(bytes, flops, products) of the kernel's route: docs and queries
-    read once, (B, k) scores and ids written once; the products the split
-    needs on the tensor cores, 2*B*N*d flops each at the dense tf32 rate:
-    3 with float32 docs (hi*hi, hi*lo, lo*hi) and 2 with bfloat16 docs
-    (exact in tf32: the query alone is split; the kernel takes it as three
-    bf16 parts at twice the rate, the same time)."""
-    B, d = q.shape
-    nbytes = docs.numel() * docs.element_size() + q.numel() * 4 + B * k * 8
-    products = 3 if docs.dtype == torch.float32 else 2
-    return nbytes, products * 2 * B * docs.shape[0] * d, products
 
 
 def phase_topk(tk, corpus, queries):
@@ -2778,20 +2759,6 @@ L4_DECODE_CASES = {"chunk_ring": (L4_CHUNK, [8192, 1, 808, 4308, 8192, 2, 100, 4
                    "global": (16384, [12532, 9031, 1, 16384, 5000, 129, 777, 2048])}
 
 
-def chunk_pairs(S, chunk):
-    """Causal (query, key) pairs inside each query's chunk."""
-    n, r = divmod(S, chunk)
-    return n * chunk * (chunk + 1) // 2 + r * (r + 1) // 2
-
-
-def flash_work(q, k, v, pairs):
-    """(bytes, flops) of a flash call: q, K and V read once, the output
-    written once; per query head and (query, key) pair, 2 * hd flops for the
-    score and 2 * hd_v for the value product."""
-    Hq, hd, hd_v = q.shape[2], q.shape[3], v.shape[3]
-    out = q.numel() // hd * hd_v
-    nbytes = (q.numel() + k.numel() + v.numel() + out) * q.element_size()
-    return nbytes, 2 * (hd + hd_v) * Hq * pairs
 
 
 def grouped_ref(kf, q, k, v, max_kv_heads, **kw):
@@ -2859,7 +2826,7 @@ def phase_chunk_mla_kernels(ka, kf):
                     f"chunk={chunk}]")
             chunk_rows[(dtype_name, S, chunk)] = flash_case(
                 kf, name, dtype_name, q, k, v, timed_case, lib,
-                flash_work(q, k, v, chunk_pairs(S, chunk)), 1, chunk=chunk)
+                flash_work(q, k, v, chunk=chunk), 1, chunk=chunk)
             del q, k, v, qt, kt, vt, mask, lib
             torch.cuda.empty_cache()
     Hm, hdk, hdv = MLA_HEADS
@@ -2875,7 +2842,7 @@ def phase_chunk_mla_kernels(ka, kf):
             name = f"flash_attention[{dtype_name}, H={Hm}, hd={hdk}/{hdv}, S={S}, causal]"
             mla_rows[(dtype_name, S)] = flash_case(
                 kf, name, dtype_name, q, k, v, S == MLA_FLASH_CASES[0][0], lib,
-                flash_work(q, k, v, S * (S + 1) // 2), 8)
+                flash_work(q, k, v), 8)
             del q, k, v, qt, kt, vt, lib
             torch.cuda.empty_cache()
     decode_rows = {}
@@ -4121,7 +4088,7 @@ def phase_cross_kernels(ka, kf):
             name = (f"flash_attention[{dtype_name}, cross, B={B}, H={Hq}, KVH={Hkv}, hd={hd}, "
                     f"S={S}, S_kv={ENC_SEQ}]")
             cross_rows[(dtype_name, S)] = flash_case(
-                kf, name, dtype_name, q, k, v, True, lib, flash_work(q, k, v, B * S * ENC_SEQ),
+                kf, name, dtype_name, q, k, v, True, lib, flash_work(q, k, v, causal=False),
                 5, causal=False)
             del q, k, v, qt, kt, vt, lib
     for dtype_name in ("float32", "bfloat16"):
@@ -4133,7 +4100,7 @@ def phase_cross_kernels(ka, kf):
                 f"causal]")
         enc_rows[dtype_name] = flash_case(
             kf, name, dtype_name, q, k, v, True, lib,
-            flash_work(q, k, v, B * ENC_SEQ * (ENC_SEQ + 1) // 2), 5)
+            flash_work(q, k, v), 5)
         del q, k, v, qt, kt, vt, lib
     torch.cuda.empty_cache()
     decode_rows = phase_swa_decode_kernel(ka, WHISPER_HEADS, ENC_SEQ, WHISPER_DECODE_CASES,
@@ -4961,21 +4928,6 @@ def backward_excess(got, want, dtype_name):
     return float(((got - want).abs() / bound).max())
 
 
-def visible_pairs(S, S_kv, causal=True, window=0, chunk=0):
-    """The (query, key) pairs of one head the form's mask leaves visible."""
-    from repro_torch.kernels.flash_attention import hidden_mask
-
-    return int((~hidden_mask(S, S_kv, causal, window, chunk, "cuda")).sum())
-
-
-def backward_work(B, S, H, KVH, hd, item, S_kv=None, hd_v=None, **form):
-    """(bytes, flop) the backward must move and do: q, k, v, out and dout
-    read once, dq, dk and dv written once; five products over each (query
-    head, visible key) pair, three hd deep (q.k, ds^T q, ds k) and two hd_v
-    deep (do.v, p^T do)."""
-    S_kv, hd_v = S_kv or S, hd_v or hd
-    nbytes = item * B * (2 * S * H * (hd + hd_v) + 2 * S_kv * KVH * (hd + hd_v))
-    return nbytes, 2 * (3 * hd + 2 * hd_v) * B * H * visible_pairs(S, S_kv, **form)
 
 
 def library_backward(q, k, v, dout, form):
@@ -5088,26 +5040,6 @@ def ssm_backward_inputs(gen, B, S, dtype, strong):
     return dt, x, bm, cm, a_log, h0, dy, torch.randn(h0.shape, generator=gen, device="cuda")
 
 
-def scan_backward_work(name, case):
-    """(bytes, f32 flops, exponentials) of one backward call. Bytes: every
-    input read once (r, k, v or dt, x, B, C in their dtype; w, dy, the
-    initial state and its cotangent, a_log or u in f32), every gradient
-    written once. WKV: 12 flops an element of the (hd x hd) state and step
-    (the state's and the adjoint's updates, and the sums of dr, dk, dv and
-    dw over the state, 2 each), no exponential. Scan: 18 flops an element
-    of the (Di x N) state and step, an FMA counted as 2: the state
-    recomputed (dt A, (dt x) B, the FMA: 4), the adjoint g = G + C dy (2),
-    dC and dB (2 each), the lane sum of g B (2), G = a g (1), G h (1), its
-    FMAs with A and with dt (2 each); and its one exponential exp(dt A)."""
-    size = lambda t: t.numel() * t.element_size()
-    # the eight inputs; the six gradients have the shapes and dtypes of the first six
-    nbytes = sum(size(t) for t in case) + sum(size(t) for t in case[:6])
-    if name == "rwkv6_chunked_backward":
-        B, S, H, hd = case[0].shape
-        return nbytes, 12 * B * S * H * hd * hd, 0
-    B, S, Di = case[0].shape
-    elems = B * S * Di * case[2].shape[-1]
-    return nbytes, 18 * elems, elems
 
 
 def scan_backward_segments(kw, ks, name, dtype, B, S):
@@ -5648,6 +5580,293 @@ def _tensors(tree):
         yield tree
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the dry run against the card; tensor parallelism on the card
+# ---------------------------------------------------------------------------
+DRY_SHAPES = {"serve": (2048, 8, "decode"),            # phase 5: max_seq 2048, max_batch 8
+              "train": (TRAIN_S, TRAIN_B, "train")}    # 18c: B 2 x S 2048, 2 microbatches
+TP = 2
+# phase 5's prompts in chunks of 512 (half of phase 5's steps: each step's
+# 72 gloo all-reduces wait on the host) at 4 new tokens a request
+TP_MAX_NEW, TP_CHUNK = 4, 512
+
+
+def allocated_bytes(make):
+    """(bytes the caching allocator hands out for the tensors ``make()``
+    returns (``memory_allocated`` after less before), their blocks in
+    ``torch.cuda.memory_snapshot()`` as (size, requested_size) pairs, that
+    value)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    out = make()
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - before
+    ptrs = {t.untyped_storage().data_ptr() for t in _tensors(out) if t.is_cuda}
+    blocks = [(b["size"], b["requested_size"]) for seg in torch.cuda.memory_snapshot()
+              for b in seg["blocks"] if b["state"] == "active_allocated"
+              and b["address"] in ptrs]
+    return allocated, blocks, out
+
+
+def phase_dryrun_card(train_figures):
+    """19a: the dry run of qwen2.5-3b (bf16, world size 1) at phase 5's
+    serve shape (decode, B 8 against a 2048-slot cache) and at 18c's train
+    shape. Its argument bytes against what the card allocates for the same
+    params, AdamW state, cache and inputs: equal to the bytes those tensors
+    request (their blocks' ``requested_size``), and what the allocator
+    hands out equal to those blocks' sizes, each block within the
+    allocator's rules of its request (512 B rounding below 1 MiB; a larger
+    block split only when more than 1 MiB would be left, so it may keep a
+    tail of at most 1 MiB). The tensors come from ``init_params`` on both
+    sides at world size 1: this holds the dry run's byte count to the card,
+    not the sharding policy (the tests hold that to XLA's). Its peak
+    estimate beside 18c's measured peak, and the card's memory
+    (``total_memory``) beside ``kernels.work.CARD_BYTES``, which its
+    ``fits`` reads; 18c's step FLOPs over its s/step (a printed
+    figure)."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.launch import dryrun as D
+    from repro_torch.kernels.work import CARD_BYTES
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.optim import AdamW
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[dryrun card] the card's total_memory {total} B ({total / 2**30:.2f} GiB); the dry "
+          f"run's fits reads CARD_BYTES {CARD_BYTES} B ({CARD_BYTES / 2**30:.2f} GiB)",
+          flush=True)
+    assert abs(total - CARD_BYTES) <= 0.01 * CARD_BYTES, (total, CARD_BYTES)
+    cfg = get_arch("qwen2.5-3b").replace(dtype="bfloat16")
+    mesh = AbstractMesh(("data", "model"), (1, 1))
+    figures = {}
+    for tag, (S, B, kind) in DRY_SHAPES.items():
+        fn, args, specs = D.build_step(cfg, ShapeConfig(tag, S, B, kind), mesh)
+        t0 = time.perf_counter()
+        step = D.run_step(fn, args)
+        dry_s = time.perf_counter() - t0
+        meta = [t for t in _tensors(args) if t.is_meta]      # AdamW's step lives on the host
+        dry = sum(t.numel() * t.element_size() for t in meta)
+        per_device = D.argument_bytes(args, specs, {"data": 1, "model": 1})["total"]
+
+        def make():
+            params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+            if kind == "train":
+                return (params, AdamW(momentum_dtype="float32").init(params),
+                        {"tokens": torch.zeros((B, S), dtype=torch.int32, device="cuda")})
+            return (params, init_cache(cfg, B, S, "cuda"),
+                    torch.zeros((B, 1), dtype=torch.int32, device="cuda"),
+                    torch.zeros((), dtype=torch.int32, device="cuda"))
+
+        card, blocks, trees = allocated_bytes(make)
+        n_cuda = sum(1 for t in _tensors(trees) if t.is_cuda)
+        del trees
+        gc.collect()
+        torch.cuda.empty_cache()
+        requested = sum(r for _, r in blocks)
+        # the caching allocator rounds a request below 1 MiB up to 512 B, and
+        # splits a larger block only when more than 1 MiB would be left over
+        tails = [n - r for n, r in blocks if r >= 1 << 20 and n - r > 511]
+        print(f"[dryrun card] {cfg.name} {tag} (B {B} x S {S}, {kind}): dry run argument bytes "
+              f"{dry} on the card's side ({per_device} with the host's step scalar); the card's "
+              f"{len(blocks)} tensors requested {requested} B (|d| {abs(requested - dry)}) and "
+              f"were allocated {card} B, their blocks' sizes (+{card - requested}: "
+              f"{len(tails)} large blocks keep a tail, {sum(tails)} B, the rest is 512-byte "
+              f"rounding); whole step {step['flops']:.4e} FLOPs "
+              f"({step['kernel_flops']:.4e} in kernels), peak estimate "
+              f"{step['peak_bytes_est'] / 2**30:.2f} GiB; the dry run took {dry_s:.1f}s",
+              flush=True)
+        assert len(blocks) == n_cuda == len(meta), (len(blocks), n_cuda, len(meta))
+        assert requested == dry, (tag, requested, dry)
+        assert card == sum(n for n, _ in blocks), (tag, card, blocks)
+        for n, r in blocks:
+            assert 0 <= n - r <= (511 if r < 1 << 20 else (1 << 20) + 511), (tag, n, r)
+        figures[tag] = {"argument_bytes": dry, "argument_bytes_with_host": per_device,
+                        "requested_bytes": requested, "allocated_bytes": card,
+                        "blocks_with_tails": len(tails), "total_memory": total,
+                        "tensors": len(meta), "flops": step["flops"],
+                        "kernel_flops": step["kernel_flops"],
+                        "peak_bytes_est": step["peak_bytes_est"], "dry_run_s": dry_s,
+                        "kernels": step["kernels"]}
+    if train_figures is not None:
+        t = train_figures["qwen2.5-3b"]
+        peak = figures["train"]["peak_bytes_est"] / 2**30
+        rate = figures["train"]["flops"] / t["s_per_step"]
+        figures["train"].update({"measured_peak_gib": t["peak_memory_gib"],
+                                 "peak_ratio": peak / t["peak_memory_gib"],
+                                 "s_per_step": t["s_per_step"], "achieved_flop_s": rate})
+        print(f"[dryrun card] 18c: peak estimate {peak:.2f} GiB against the measured "
+              f"max_memory_allocated {t['peak_memory_gib']:.2f} GiB (ratio "
+              f"{peak / t['peak_memory_gib']:.3f}); {figures['train']['flops']:.4e} FLOPs a step "
+              f"over {t['s_per_step']:.3f} s/step = {rate / 1e12:.1f} TFLOP/s achieved "
+              f"(a printed figure, not a claim)", flush=True)
+    return figures
+
+
+def tp_rank_job(rank, mesh, device, prompts, max_new):
+    """19b, one rank: qwen2.5-3b at full width on this rank's shard
+    (``tp`` ranks; ``kernel="reference"``), the audited step programs'
+    collectives, then phase 5's prompts. Returns what the parent checks."""
+    from repro_torch.analysis.step_audit import audit_program, collective_bytes, \
+        default_contracts
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import decode_attention as ka
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import topk_retrieval as tk
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import GenerationEngine
+    from repro_torch.serving.sharded_pool import ShardedPoolLayout
+
+    cfg = get_arch("qwen2.5-3b").replace(dtype="bfloat16")
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
+    eng = GenerationEngine(cfg, params=params, device=device, max_batch=8, max_seq=2048,
+                           block_size=16, prefill_chunk_size=TP_CHUNK, kernel="reference",
+                           pool_layout=ShardedPoolLayout(mesh))
+    del params                       # the full tree: the engine holds this rank's shard
+    gc.collect()
+    torch.cuda.empty_cache()
+    audit = {}
+    for c in default_contracts(eng):
+        traces = []
+        findings = audit_program(eng, c, traces)
+        audit[c.program] = {"findings": [str(f) for f in findings],
+                            "ok": all(f.ok for f in findings),
+                            "census": [k for k, _ in traces[0].collectives],
+                            "bytes": collective_bytes(traces[0])}
+    plans = []
+    eng.control.recorded = plans
+    first = keep_first_logits(eng)
+    reset_launches(ka, kf, tk)
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new=max_new) for p in prompts]
+    eng.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = eng.stats()
+    return {"tokens": [r.out_tokens for r in reqs],
+            "first": {k: v.cpu() for k, v in first.items()},
+            "audit": audit, "launches": read_launches(ka, kf, tk), "wall_s": wall,
+            "steps": st["steps"], "decode_plans": sum(p.kind == "decode" for p in plans),
+            "tp_degree": st["tp_degree"], "pool_shape": tuple(eng.kv.k.shape),
+            "device": st["device"],
+            "packed_tokens": -(-8 * TP_CHUNK // eng.pack_align) * eng.pack_align}
+
+
+def phase_tp_card(ka, kf, tk):
+    """19b: tensor parallelism's sharded math on the one card: ``TP`` ranks
+    over gloo (``launch.mesh.run_on_ranks``) both on ``cuda:0``,
+    qwen2.5-3b at full width (8 query heads over 1 KV head a rank),
+    phase 5's prompts in chunks of ``TP_CHUNK`` at ``TP_MAX_NEW`` tokens
+    through the gather oracles.
+    Checks: the ranks' tokens equal; first-token logits against a tp 1
+    engine on the same weights within ``logit_bound``; each rank's step
+    programs 2 x 36 all-reduces of the Megatron formula's bytes and no
+    all-gather, the pool roundtrip none; a world-size-1 layout engine equal
+    to the unsharded engine bit for bit (tokens and pools)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_serving_mesh, run_on_ranks
+    from repro_torch.models.shardmap_tp import megatron_collectives
+    from repro_torch.serving.engine import GenerationEngine
+    from repro_torch.serving.sharded_pool import ShardedPoolLayout
+
+    print(f"[tp card] {TP} tensor-parallel ranks share the one card (cuda:0): this checks the "
+          f"sharded math and its collectives, it is not a speedup", flush=True)
+    cfg = get_arch_bf16("qwen2.5-3b")
+    L = cfg.num_layers
+    prompts = rag_workload(np.random.default_rng(0), cfg.vocab_size, 512, (64, 1025),
+                           5, 4, (128, 1537), (32, 256, 384, 40))
+    params, _ = draw_weights("tp card", cfg)
+    common = dict(params=params, device="cuda", max_batch=8, max_seq=2048, block_size=16,
+                  prefill_chunk_size=TP_CHUNK, kernel="reference")
+    # the unsharded engine, then a world-size-1 layout engine on the same weights
+    ref = GenerationEngine(cfg, **common)
+    ref_first = keep_first_logits(ref)
+    reset_launches(ka, kf, tk)
+    ref_reqs = [ref.submit(p, max_new=TP_MAX_NEW) for p in prompts]
+    ref.run_until_done()
+    ref_tokens = [r.out_tokens for r in ref_reqs]
+    ref_launches = read_launches(ka, kf, tk)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        one = GenerationEngine(cfg, **common, pool_layout=ShardedPoolLayout(make_serving_mesh(1)))
+        one_reqs = [one.submit(p, max_new=TP_MAX_NEW) for p in prompts]
+        one.run_until_done()
+        assert [r.out_tokens for r in one_reqs] == ref_tokens, "world-size-1 layout tokens differ"
+        assert torch.equal(one.kv.k, ref.kv.k) and torch.equal(one.kv.v, ref.kv.v), \
+            "world-size-1 layout pools differ"
+        census_one = one.audit_collectives("fused")   # its pad tokens write the scratch block
+    finally:
+        dist.destroy_process_group()
+    assert not any(v for k, v in census_one.items()), census_one
+    print(f"[tp card] world-size-1 layout engine: tokens and pools equal the unsharded "
+          f"engine's bit for bit, its fused step collective-free", flush=True)
+    del ref, one, params, common
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = run_on_ranks(tp_rank_job, TP, "cuda:0", prompts, TP_MAX_NEW)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    assert all(r["tokens"] == r0["tokens"] for r in ranks), "the ranks' tokens differ"
+    assert all(r["tp_degree"] == TP for r in ranks)
+    kvh = cfg.num_kv_heads // TP
+    assert r0["pool_shape"][3] == kvh, r0["pool_shape"]
+    agree = float(np.mean([a == b for ra, rb in zip(r0["tokens"], ref_tokens)
+                           for a, b in zip(ra, rb)]))
+    first_equal = sum(ra[0] == rb[0] for ra, rb in zip(r0["tokens"], ref_tokens))
+    bound = logit_bound(L)
+    rel = {}
+    for rid, lg in sorted(r0["first"].items()):
+        want = ref_first[rid].cpu()
+        assert bool(torch.isfinite(lg).all()), rid
+        rel[rid] = float((lg - want).abs().max() / want.abs().max())
+    worst = max(rel.values())
+    formula = {"fused_ragged": megatron_collectives(cfg, r0["packed_tokens"], 2, TP),
+               "decode": megatron_collectives(cfg, 8, 2, TP),
+               "decode_ref": megatron_collectives(cfg, 8, 2, TP),
+               "pool": {"all-reduce": 0, "all-reduce_bytes": 0}}
+    for i, r in enumerate(ranks):
+        for prog, a in r["audit"].items():
+            n_ar = sum(k == "all-reduce" for k in a["census"])
+            assert n_ar == formula[prog]["all-reduce"], (i, prog, a)
+            assert set(a["census"]) <= {"all-reduce"}, (i, prog, a)
+            assert a["bytes"].get("all-reduce", 0) == formula[prog]["all-reduce_bytes"], \
+                (i, prog, a["bytes"], formula[prog])
+            assert a["ok"], (i, prog, a["findings"])
+        assert r["launches"]["decode_attention"] == L * r["decode_plans"] > 0, r["launches"]
+        assert r["launches"]["paged_chunk_attention"] == 0, r["launches"]
+        assert r["launches"]["paged_decode_attention"] == 0, r["launches"]
+    for line in r0["audit"]["fused_ragged"]["findings"] + r0["audit"]["pool"]["findings"]:
+        print(f"[tp card] rank 0 audit: {line}", flush=True)
+    print(f"[tp card] {TP} ranks on cuda:0, {cfg.name} at full width ({cfg.num_heads // TP} "
+          f"query heads over {kvh} KV head a rank, pool shard {r0['pool_shape']}): "
+          f"{len(prompts)} requests x {TP_MAX_NEW} tokens, ranks equal; greedy tokens against "
+          f"the tp 1 engine {agree:.3f} equal ({first_equal}/{len(prompts)} first tokens); "
+          f"first-token logits max |d| / max |logit| {[round(x, 5) for x in rel.values()]}, "
+          f"worst {worst:.5f} (bound {bound:.3f}); all-reduces a step program "
+          f"{ {p: formula[p]['all-reduce'] for p in formula} } with the formula's bytes, no "
+          f"all-gather; launches a rank {r0['launches']} (tp 1: {ref_launches}); "
+          f"{r0['steps']} steps, ranks' serve wall {r0['wall_s']:.1f}s, phase spawn-to-join "
+          f"{wall:.1f}s", flush=True)
+    assert worst <= bound, (rel, bound)
+    return {"ranks": TP, "device": r0["device"], "token_agreement": agree,
+            "first_tokens_equal": first_equal, "first_logit_rel": rel, "bound": bound,
+            "all_reduce": {p: f["all-reduce"] for p, f in formula.items()},
+            "all_reduce_bytes": {p: f["all-reduce_bytes"] for p, f in formula.items()},
+            "launches": r0["launches"], "decode_plans": r0["decode_plans"],
+            "steps": r0["steps"], "serve_wall_s": r0["wall_s"], "phase_wall_s": wall,
+            "audit_rank0": r0["audit"]}
+
+
+def get_arch_bf16(name):
+    from repro_torch.configs import get_arch
+
+    return get_arch(name).replace(dtype="bfloat16")
+
+
 def timed(name, fn, *args):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -5791,6 +6010,10 @@ def main() -> int:
     for arch, x in {**form_train_figures, **scan_train_figures}.items():
         launches[f"train {arch}"] = x["launches"]
     guard_figures = no_scan("grad guards", phase_grad_guards, ka, kf, tk)
+    dryrun_figures = no_scan("dry run on the card", phase_dryrun_card, train_figures)
+    reset_launches(ka, kf, tk)
+    tp_figures = no_scan("tensor parallel on the card", phase_tp_card, ka, kf, tk)
+    launches["tp card rank 0"] = tp_figures["launches"]
 
     kernels = []
     for name in ("paged_chunk_attention", "paged_decode_attention"):
@@ -6020,7 +6243,8 @@ def main() -> int:
                       "whisper_serve": whisper_figures, "audit": audit_figures,
                       "dp": dp_figures, "train": train_figures,
                       "train_forms": form_train_figures, "train_scans": scan_train_figures,
-                      "train_stack_gradient": stack_figures, "grad_guards": guard_figures}))
+                      "train_stack_gradient": stack_figures, "grad_guards": guard_figures,
+                      "dryrun_card": dryrun_figures, "tp_card": tp_figures}))
     print(json.dumps({"kernels": kernels}))
     print(f"[done] {time.perf_counter() - t_start:.1f}s in all", flush=True)
     print(card)

@@ -10,8 +10,13 @@ tables, zero tokens; the writes land in the scratch block) under
 instruments and checks a :class:`StepContract` against what they saw:
 
 * **collectives** — a census of the ``c10d`` / ``_c10d_functional`` ops a
-  ``TorchDispatchMode`` sees during the call. An engine off any mesh (every
-  engine of the port until tensor parallelism lands) must show none.
+  ``TorchDispatchMode`` sees during the call, each with the bytes of the
+  tensors it was handed. An engine off any mesh must show none; a sharded
+  engine (``pool_layout``, tensor parallel over a "model" axis) at most 2
+  x num_layers all-reduces on its step programs (the Megatron pair, one
+  after the attention output projection and one after the MLP down
+  projection a layer), none on the bare pool roundtrip, and never an
+  all-gather.
 * **host-sync** (the JAX audit's ``callbacks``) — no host round-trip inside
   a step: the dispatch mode flags ``_local_scalar_dense`` (``.item()``,
   ``bool()``/``int()`` of a tensor), ``nonzero``, ``unique*``,
@@ -50,7 +55,7 @@ from torch.utils._pytree import tree_leaves
 __all__ = [
     "StepContract", "Finding", "AuditReport", "StepTrace", "audit_engine",
     "audit_program", "default_contracts", "cache_sentinel", "trace_step",
-    "collective_census", "find_host_syncs", "int8_kernel_flow",
+    "collective_census", "collective_bytes", "find_host_syncs", "int8_kernel_flow",
 ]
 
 _COLLECTIVE_NAMESPACES = ("c10d", "_c10d_functional")
@@ -64,8 +69,9 @@ _COLLECTIVE_KINDS = (
     ("send", "collective-permute"),
     ("recv", "collective-permute"),
 )
-# completions of functional collectives, not collectives of their own
-_COLLECTIVE_WAITS = ("waittensor",)
+# completions and autograd wrappers of functional collectives, not
+# collectives of their own
+_COLLECTIVE_WAITS = ("waittensor", "wraptensorautograd")
 
 _HOST_SYNC_OPS = frozenset({
     "_local_scalar_dense", "item", "nonzero", "_unique", "_unique2", "unique_dim",
@@ -131,6 +137,7 @@ class AuditReport:
 class StepTrace:
     """What the instruments saw during one call of a step program."""
     collectives: List[Tuple[str, str]] = field(default_factory=list)  # (kind, op)
+    collective_nbytes: List[int] = field(default_factory=list)  # each one's tensor bytes
     host_syncs: List[str] = field(default_factory=list)
     upcasts: List[str] = field(default_factory=list)
     kernel_pools: List[Tuple[str, torch.dtype, torch.dtype]] = field(default_factory=list)
@@ -160,6 +167,9 @@ class _StepProbe(TorchDispatchMode):
             kind = _collective_kind(name)
             if kind is not None:
                 self.trace.collectives.append((kind, f"{ns}.{name}"))
+                self.trace.collective_nbytes.append(sum(
+                    t.numel() * t.element_size() for t in tree_leaves((args, kwargs))
+                    if isinstance(t, torch.Tensor)))
         elif self._syncs(name, func, args, kwargs):
             self.trace.host_syncs.append(f"{ns}.{name}")
         out = func(*args, **kwargs)
@@ -197,15 +207,18 @@ class _StepProbe(TorchDispatchMode):
                     f"(whole-pool dequant outside the kernel)")
 
 
-def trace_step(fn: Callable, args: tuple, pools: Sequence[torch.Tensor] = ()) -> StepTrace:
+def trace_step(fn: Callable, args: tuple, pools: Sequence[torch.Tensor] = (),
+               sync_debug: bool = True) -> StepTrace:
     """Run ``fn(*args)`` once under the instruments, without autograd.
     ``pools``: the int8 pool tensors whose whole-pool upcasts to flag. On
-    CUDA the call runs under ``set_sync_debug_mode("error")`` (restored
-    afterwards); a sync it raises on is recorded, not propagated."""
+    CUDA (with ``sync_debug``) the call runs under
+    ``set_sync_debug_mode("error")`` (restored afterwards); a sync it raises
+    on is recorded, not propagated."""
     from repro_torch.kernels import decode_attention
 
     trace = StepTrace()
-    cuda = any(isinstance(a, torch.Tensor) and a.is_cuda for a in tree_leaves(args))
+    cuda = sync_debug and any(isinstance(a, torch.Tensor) and a.is_cuda
+                              for a in tree_leaves(args))
     prev_observer = decode_attention.observer
     decode_attention.observer = lambda name, kd, vd: trace.kernel_pools.append((name, kd, vd))
     prev_mode = None
@@ -234,6 +247,15 @@ def collective_census(trace: StepTrace) -> Dict[str, int]:
     out: Dict[str, int] = {}
     for kind, _op in trace.collectives:
         out[kind] = out.get(kind, 0) + 1
+    return out
+
+
+def collective_bytes(trace: StepTrace) -> Dict[str, int]:
+    """Collective kind -> the bytes of the tensors handed to its ops over
+    the call (an all-reduce's: the tensor reduced in place)."""
+    out: Dict[str, int] = {}
+    for (kind, _op), n in zip(trace.collectives, trace.collective_nbytes):
+        out[kind] = out.get(kind, 0) + n
     return out
 
 
@@ -290,19 +312,25 @@ def cache_sentinel(engine, warm: bool = True, libraries_built: int = 0) -> Findi
 
 
 # ----------------------------------------------------------- program audit
-def audit_program(engine, contract: StepContract) -> List[Finding]:
+def audit_program(engine, contract: StepContract,
+                  traces: Optional[List[StepTrace]] = None) -> List[Finding]:
     """Run one step program under the instruments and check its contract;
     returns findings for the collective census, the host-sync scan and (if
-    required) the int8 flow."""
+    required) the int8 flow. ``traces``, if given, receives the call's
+    ``StepTrace`` (the census with each collective's bytes). A contract
+    that allows host syncs runs without ``set_sync_debug_mode``."""
     fn, args = engine.step_program(contract.program)
     kv = engine.kv
     # the audit's own call is a probe, not a serving call: the packed
     # length it runs does not count against the sentinel
     met = set(engine._packed_lengths)
     try:
-        trace = trace_step(fn, args, pools=(kv.k, kv.v))
+        trace = trace_step(fn, args, pools=(kv.k, kv.v),
+                           sync_debug=not contract.allow_host_sync)
     finally:
         engine._packed_lengths = met
+    if traces is not None:
+        traces.append(trace)
     findings: List[Finding] = []
 
     census = collective_census(trace)
@@ -344,15 +372,27 @@ def audit_program(engine, contract: StepContract) -> List[Finding]:
 
 def default_contracts(engine) -> List[StepContract]:
     """The engine's standing contracts, derived from its configuration:
-    every program is collective-free (no engine of the port is on a mesh
-    yet); int8 engines with the paged kernels must dequantize in-kernel on
-    the kernelized programs (the fused step, the live decode)."""
+    every program is all-gather-free; off a mesh every program is
+    collective-free; on a mesh (``engine.pool_layout``) the step programs
+    may all-reduce at most 2 x num_layers times (the Megatron pair a layer)
+    and the bare pool roundtrip not at all (on the card over a gloo group,
+    whose all-reduce of a CUDA tensor waits on the stream and goes through
+    host memory, the step programs may sync); int8 engines with the paged
+    kernels must dequantize in-kernel on the kernelized programs (the fused
+    step, the live decode)."""
+    on_mesh = getattr(engine, "pool_layout", None) is not None
+    ar = 2 * engine.cfg.num_layers if on_mesh else 0
+    # a gloo group all-reduces a CUDA tensor through host memory, waiting
+    # on the stream: the sharded steps on the card sync by construction
+    gloo_sync = on_mesh and engine.device.type == "cuda" and engine._tp_group is not None
     int8k = engine.kv_dtype == "int8" and engine.kernel_impl == "pallas"
     fused = "fused_ragged" if engine.ragged else "fused_padded"
     return [
-        StepContract(fused, max_all_reduce=0, require_int8_kernel_path=int8k),
-        StepContract("decode", max_all_reduce=0, require_int8_kernel_path=int8k),
-        StepContract("decode_ref", max_all_reduce=0),
+        StepContract(fused, max_all_reduce=ar, allow_host_sync=gloo_sync,
+                     require_int8_kernel_path=int8k),
+        StepContract("decode", max_all_reduce=ar, allow_host_sync=gloo_sync,
+                     require_int8_kernel_path=int8k),
+        StepContract("decode_ref", max_all_reduce=ar, allow_host_sync=gloo_sync),
         StepContract("pool", max_all_reduce=0),
     ]
 

@@ -4,7 +4,9 @@ dense backend serves rwkv6-7b, hymba-1.5b, mixtral-8x22b,
 llama4-scout-17b-a16e, minicpm3-4b and internvl2-1b (text only); whisper-
 large-v3 runs through the model API (``forward``, ``prefill``,
 ``decode_step``), as in the JAX package, whose engine has no frames input.
-``VARIANTS`` holds qwen2.5-3b's sliding-window serving variant."""
+``VARIANTS`` holds qwen2.5-3b's sliding-window serving variant; ``SHAPES``
+the four input shapes the dry run takes each arch through
+(``arch_runs_shape``: long_500k for the sub-quadratic archs only)."""
 from repro_torch.configs import (
     hymba_1_5b,
     internvl2_1b,
@@ -17,7 +19,7 @@ from repro_torch.configs import (
     smollm_135m,
     whisper_large_v3,
 )
-from repro_torch.configs.base import ModelConfig, smoke_variant
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig, smoke_variant
 
 ARCHS = {
     "smollm-135m": smollm_135m.CONFIG,
@@ -46,6 +48,18 @@ def get_arch(name: str) -> ModelConfig:
     raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
 
 
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
+def arch_runs_shape(cfg: ModelConfig, shape: ShapeConfig) -> bool:
+    """Assignment rules: long_500k only for sub-quadratic archs; decode shapes
+    skip encoder-only archs (none assigned here)."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False
+    return True
+
+
 def card_smoke_variant(name: str) -> ModelConfig:
     """The smoke variant of arch ``name`` as the card runs it: minicpm3's at
     MLA's real head dims (64 nope + 32 rope query/key dims, 64 value dims),
@@ -57,4 +71,5 @@ def card_smoke_variant(name: str) -> ModelConfig:
     return cfg
 
 
-__all__ = ["ARCHS", "VARIANTS", "ModelConfig", "card_smoke_variant", "get_arch", "smoke_variant"]
+__all__ = ["ARCHS", "SHAPES", "VARIANTS", "ModelConfig", "ShapeConfig", "arch_runs_shape",
+           "card_smoke_variant", "get_arch", "get_shape", "smoke_variant"]

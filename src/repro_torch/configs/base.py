@@ -111,6 +111,12 @@ class ModelConfig:
         return self.attn_type == MIXER_RWKV6
 
     @property
+    def subquadratic(self) -> bool:
+        """True if the arch can serve a 500k-token context (bounded attention
+        reach or recurrent state)."""
+        return self.attn_type in (MIXER_RWKV6, MIXER_HYBRID, ATTN_SWA, ATTN_CHUNKED_LOCAL)
+
+    @property
     def is_moe(self) -> bool:
         return self.num_experts > 0
 
@@ -129,6 +135,25 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# input shapes (the JAX package's assigned four)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:

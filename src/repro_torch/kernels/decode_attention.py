@@ -14,7 +14,12 @@ the launch in its ``launches`` attribute (one per call, whatever kernels
 the call runs: the decode wrappers launch a split kernel and a merge, the
 chunk wrapper with bf16 q a tile plan, the tiles and, when it splits them,
 a merge); on CPU tensors it runs the plain version. There is no fallback
-from one to the other: a CUDA input the kernel does not take raises.
+from one to the other: a CUDA input the kernel does not take raises. On
+``meta`` tensors (the dry run) each wrapper returns an output of its
+contract's shape and dtype and counts its contract work in
+``kernels.work.META_WORK`` (every table or cache slot, since a meta tensor
+holds no lengths); it launches nothing and runs no plain version
+(``kernels.work``'s meta rule).
 
 ``ref_paged_decode_attention`` / ``ref_paged_chunk_attention`` are PyTorch
 ports of the JAX gather oracles: they materialise each query's contiguous
@@ -39,6 +44,8 @@ import math
 from typing import Optional
 
 import torch
+
+from repro_torch.kernels.work import count_meta, decode_work, paged_work
 
 NEG_INF = -1e30
 
@@ -239,7 +246,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
         return ref_paged_decode_attention(q, k_pool, v_pool, block_tables,
                                           lengths, scale, k_scale, v_scale)
     name = "paged_decode_attention"
-    _check(name, q.is_cuda, f"unsupported device {q.device}")
+    _check(name, q.is_cuda or q.is_meta, f"unsupported device {q.device}")
     refuse_grad(name, q, k_pool, v_pool, k_scale, v_scale)
     qc, kc, (ks, vs) = _check_common(name, q, k_pool, v_pool, block_tables,
                                      k_scale, v_scale)
@@ -248,6 +255,9 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
     _check(name, lengths.dtype == torch.int32 and tuple(lengths.shape) == (B,)
            and lengths.device == q.device and lengths.is_contiguous(),
            "lengths must be (B,) int32 on q's device")
+    if q.is_meta:
+        count_meta(name, *paged_work(q, k_pool, block_tables))
+        return torch.empty_like(q)
     from repro_torch.kernels._build import load_library
 
     lib = load_library("paged_attention").lib
@@ -295,7 +305,7 @@ def paged_chunk_attention(q, k_pool, v_pool, block_tables, row_of, slots,
                                          row_of, slots, p_end, s_start, scale,
                                          k_scale, v_scale)
     name = "paged_chunk_attention"
-    _check(name, q.is_cuda, f"unsupported device {q.device}")
+    _check(name, q.is_cuda or q.is_meta, f"unsupported device {q.device}")
     refuse_grad(name, q, k_pool, v_pool, k_scale, v_scale)
     qc, kc, (ks, vs) = _check_common(name, q, k_pool, v_pool, block_tables,
                                      k_scale, v_scale)
@@ -305,6 +315,9 @@ def paged_chunk_attention(q, k_pool, v_pool, block_tables, row_of, slots,
         _check(name, t.dtype == torch.int32 and tuple(t.shape) == (T,)
                and t.device == q.device and t.is_contiguous(),
                "row_of/slots/p_end/s_start must be (T,) int32 on q's device")
+    if q.is_meta:
+        count_meta(name, *paged_work(q, k_pool, block_tables))
+        return torch.empty_like(q)
     from repro_torch.kernels._build import load_library
 
     lib = load_library("paged_attention").lib
@@ -499,7 +512,7 @@ def decode_attention(q, k_cache, v_cache, lengths, *, scale: Optional[float] = N
     if q.device.type == "cpu":
         return ref_decode_attention(q, k_cache, v_cache, lengths, scale)
     name = "decode_attention"
-    _check(name, q.is_cuda, f"unsupported device {q.device}")
+    _check(name, q.is_cuda or q.is_meta, f"unsupported device {q.device}")
     refuse_grad(name, q, k_cache, v_cache)
     _check(name, q.dim() == 3 and k_cache.dim() == 4, "q must be 3-D, caches 4-D")
     B, H, hd = q.shape
@@ -516,6 +529,9 @@ def decode_attention(q, k_cache, v_cache, lengths, *, scale: Optional[float] = N
            and lengths.is_contiguous(), "lengths must be (B,) int32")
     for t in (k_cache, v_cache, lengths):
         _check(name, t.device == q.device, "all tensors must be on q's device")
+    if q.is_meta:
+        count_meta(name, *decode_work(q, k_cache, [Sc] * B))
+        return torch.empty_like(q)
     for t in (q, k_cache, v_cache):
         _check(name, t.is_contiguous() and t.data_ptr() % 16 == 0,
                "q and the caches must be contiguous and 16-byte aligned")

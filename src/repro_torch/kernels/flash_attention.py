@@ -49,6 +49,12 @@ as the forward's P. A form the forward does not take either raises
 ranges follow one rule per direction, mirrored here by ``kv_tiles`` (the
 key tiles a query tile sees) and ``q_tiles`` (the query tiles that see a
 key tile), which the CPU tests hold to the plain mask.
+
+On ``meta`` tensors (the dry run) both wrappers return outputs of their
+contract's shapes and dtypes and count their contract work in
+``kernels.work.META_WORK`` (the pairs the mask leaves visible, in closed
+form); they launch nothing and run no plain version, and a form the card
+refuses raises on meta too (``kernels.work``'s meta rule).
 """
 from __future__ import annotations
 
@@ -58,6 +64,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.decode_attention import NEG_INF, _check, _raise_on_error, refuse_grad
+from repro_torch.kernels.work import backward_work, count_meta, flash_work
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the (query/key, value) head-dim instantiations in csrc/dense_attention.cu
@@ -194,7 +201,7 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: Optional[float] = No
     if q.device.type == "cpu":
         return ref_flash_attention(q, k, v, causal, scale, window, chunk)
     name = "flash_attention"
-    _check(name, q.is_cuda, f"unsupported device {q.device}")
+    _check(name, q.is_cuda or q.is_meta, f"unsupported device {q.device}")
     refuse_grad(name, q, k, v)
     _check(name, q.dim() == 4 and k.dim() == 4 and v.dim() == 4, "q, k and v must be 4-D")
     B, S, H, hd = q.shape
@@ -211,6 +218,9 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: Optional[float] = No
            f"(head_dim, value head_dim) must be one of {HEAD_DIMS}, got {(hd, hd_v)}")
     for t in (k, v):
         _check(name, t.device == q.device, "all tensors must be on q's device")
+    if q.is_meta:
+        count_meta(name, *flash_work(q, k, v, causal, window, chunk))
+        return q.new_empty((B, S, H, hd_v))
     for t in (q, k, v):
         _check(name, t.is_contiguous() and t.data_ptr() % 16 == 0,
                "all tensors must be contiguous and 16-byte aligned")
@@ -265,7 +275,7 @@ def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True,
     if q.device.type == "cpu":
         return ref_flash_attention_backward(q, k, v, out, dout, causal, scale, window, chunk)
     name = "flash_attention_backward"
-    _check(name, q.is_cuda, f"unsupported device {q.device}")
+    _check(name, q.is_cuda or q.is_meta, f"unsupported device {q.device}")
     _check(name, q.dim() == 4 and k.dim() == 4 and v.dim() == 4, "q, k and v must be 4-D")
     B, S, H, hd = q.shape
     S_kv, KVH, hd_v = k.shape[1], k.shape[2], v.shape[-1]
@@ -280,6 +290,11 @@ def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True,
            f"{[t.dtype for t in (q, k, v, out, dout)]}")
     for t in (q, k, v, out, dout):
         _check(name, t.device == q.device, "all tensors must be on q's device")
+    if q.is_meta:
+        count_meta(name, *backward_work(B, S, H, KVH, hd, q.element_size(), S_kv=S_kv,
+                                        hd_v=hd_v, causal=causal, window=window, chunk=chunk))
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    for t in (q, k, v, out, dout):
         _check(name, t.is_contiguous() and t.data_ptr() % 16 == 0,
                "all tensors must be contiguous and 16-byte aligned")
     from repro_torch.kernels._build import load_library
@@ -358,7 +373,7 @@ def trainable_flash_attention(q, k, v, *, causal: bool = True, scale: Optional[f
     the forward kernel does not take either) raises ``NotImplementedError``
     here, before the forward runs: it never returns an output whose
     gradient would be lost."""
-    if q.is_cuda:
+    if q.is_cuda or q.is_meta:
         _check_backward_form(q.shape[1], k.shape[1], causal, window, chunk,
                              (q.shape[-1], v.shape[-1]))
     return FlashAttention.apply(q, k, v, causal, scale, window, chunk)

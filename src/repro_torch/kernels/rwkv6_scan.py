@@ -11,9 +11,13 @@ On CUDA tensors the wrapper launches the hand-written kernels in
 current stream and counts the call in its ``launches`` attribute (one per
 call, however many CUDA kernels it runs); on CPU tensors it runs
 ``ref_rwkv6_chunked``. There is no fallback from one to the
-other: a CUDA input the kernel does not take raises. The kernel takes r, k
-and v in float32 or bfloat16 (one dtype), w in float32, head_dim 32 or 64
-and any S >= 1, and honours ``state0`` (the Pallas kernel zeroes its state).
+other: a CUDA input the kernel does not take raises. On ``meta`` tensors
+(the dry run) both wrappers return outputs of their contract's shapes and
+dtypes and count their contract work in ``kernels.work.META_WORK``; they
+launch nothing and run no plain loop (``kernels.work``'s meta rule). The
+kernel takes r, k and v in float32 or bfloat16 (one dtype), w in float32,
+head_dim 32 or 64 and any S >= 1, and honours ``state0`` (the Pallas
+kernel zeroes its state).
 
 The kernel cuts the time axis into segments (``wkv_segments``): a
 segment pass gives each segment's end state from a zero state and its
@@ -63,6 +67,7 @@ from repro_torch.kernels.decode_attention import (
     _sm_count,
     refuse_grad,
 )
+from repro_torch.kernels.work import count_meta, scan_backward_work, wkv_work
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)   # the head_dim instantiations in csrc/rwkv6_scan.cu and its backward
@@ -170,7 +175,7 @@ def rwkv6_chunked(r, k, v, w, u, state0: Optional[torch.Tensor] = None, *,
         state_out.copy_(state)
         return y, state_out
     name = "rwkv6_chunked"
-    _check(name, r.is_cuda, f"unsupported device {r.device}")
+    _check(name, r.is_cuda or r.is_meta, f"unsupported device {r.device}")
     refuse_grad(name, r, k, v, w, u, state0)
     _check(name, r.dim() == 4, "r, k, v and w must be (B, S, H, hd)")
     B, S, H, hd = r.shape
@@ -190,11 +195,15 @@ def rwkv6_chunked(r, k, v, w, u, state0: Optional[torch.Tensor] = None, *,
     tensors = [r, k, v, w, u] + [t for t in (state0, state_out) if t is not None]
     for t in tensors:
         _check(name, t.device == r.device, "all tensors must be on r's device")
-        _check(name, t.is_contiguous() and t.data_ptr() % 16 == 0,
-               "all tensors must be contiguous and 16-byte aligned")
     y = torch.empty((B, S, H, hd), dtype=torch.float32, device=r.device)
     out = (state_out if state_out is not None
            else torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device))
+    if r.is_meta:
+        count_meta(name, *wkv_work(r, out))
+        return y, out
+    for t in tensors:
+        _check(name, t.is_contiguous() and t.data_ptr() % 16 == 0,
+               "all tensors must be contiguous and 16-byte aligned")
     from repro_torch.kernels._build import load_library
 
     lib = load_library("rwkv6_scan").lib
@@ -212,12 +221,10 @@ def rwkv6_chunked(r, k, v, w, u, state0: Optional[torch.Tensor] = None, *,
         )
     _raise_on_error(name, err)
     rwkv6_chunked.launches += 1
-    rwkv6_chunked.segments = (n_seg, seg_len)
     return y, out
 
 
 rwkv6_chunked.launches = 0
-rwkv6_chunked.segments = None   # (n_seg, seg_len) of the last call on the card
 
 
 def ref_rwkv6_chunked_backward(r, k, v, w, u, state0, dy, dstate=None):
@@ -265,7 +272,7 @@ def rwkv6_chunked_backward(r, k, v, w, u, state0, dy, dstate=None):
     if r.device.type == "cpu":
         return ref_rwkv6_chunked_backward(r, k, v, w, u, state0, dy, dstate)
     name = "rwkv6_chunked_backward"
-    _check(name, r.is_cuda, f"unsupported device {r.device}")
+    _check(name, r.is_cuda or r.is_meta, f"unsupported device {r.device}")
     _check(name, r.dim() == 4, "r, k, v and w must be (B, S, H, hd)")
     B, S, H, hd = r.shape
     _check(name, B >= 1 and S >= 1, f"B and S must be >= 1, got {B} and {S}")
@@ -285,11 +292,16 @@ def rwkv6_chunked_backward(r, k, v, w, u, state0, dy, dstate=None):
     tensors = [r, k, v, w, u, dy] + [t for t in (state0, dstate) if t is not None]
     for t in tensors:
         _check(name, t.device == r.device, "all tensors must be on r's device")
-        _check(name, t.is_contiguous() and t.data_ptr() % 16 == 0,
-               "all tensors must be contiguous and 16-byte aligned")
     dr, dk, dv = torch.empty_like(r), torch.empty_like(k), torch.empty_like(v)
     dw, du = torch.empty_like(w), torch.empty_like(u)
     dstate0 = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    if r.is_meta:
+        st = lambda t: dstate0 if t is None else t
+        count_meta(name, *scan_backward_work(name, (r, k, v, w, u, st(state0), dy, st(dstate))))
+        return dr, dk, dv, dw, du, dstate0
+    for t in tensors:
+        _check(name, t.is_contiguous() and t.data_ptr() % 16 == 0,
+               "all tensors must be contiguous and 16-byte aligned")
     from repro_torch.kernels._build import load_library
 
     lib = load_library("rwkv6_scan_backward").lib

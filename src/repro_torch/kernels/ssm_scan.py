@@ -11,9 +11,12 @@ On CUDA tensors the wrapper launches the hand-written kernels in
 ``csrc/ssm_scan.cu`` (built on first use, see ``kernels._build``) on the
 current stream and counts the call in its ``launches`` attribute (one per
 call, however many CUDA kernels it runs); on CPU tensors it runs
-``ref_ssm_scan``. There is no fallback from one to the
-other: a CUDA input the kernel does not take raises. The kernel takes dt, x,
-B and C in float32 or bfloat16 (one dtype), N = 16 or 8 and any S >= 1, and
+``ref_ssm_scan``. There is no fallback from one to the other: a CUDA input
+the kernel does not take raises. On ``meta`` tensors (the dry run) both
+wrappers return outputs of their contract's shapes and dtypes and count
+their contract work in ``kernels.work.META_WORK``, with no launch and no
+plain loop (``kernels.work``'s meta rule). The kernel takes dt, x, B and C
+in float32 or bfloat16 (one dtype), N = 16 or 8 and any S >= 1, and
 honours ``h0`` (the Pallas kernel zeroes its state).
 
 bf16: both versions widen dt and x to float32 and multiply them there, as the
@@ -64,6 +67,7 @@ from repro_torch.kernels.decode_attention import (
     refuse_grad,
 )
 from repro_torch.kernels.rwkv6_scan import backward_segments, block_slots, even_segments
+from repro_torch.kernels.work import count_meta, scan_backward_work, ssm_work
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _STATES = (8, 16)   # the N instantiations in csrc/ssm_scan.cu and csrc/ssm_scan_backward.cu
@@ -149,7 +153,7 @@ def ssm_scan(dt, x, bm, cm, a_log, h0: Optional[torch.Tensor] = None, *,
         h_out.copy_(h)
         return y, h_out
     name = "ssm_scan"
-    _check(name, dt.is_cuda, f"unsupported device {dt.device}")
+    _check(name, dt.is_cuda or dt.is_meta, f"unsupported device {dt.device}")
     refuse_grad(name, dt, x, bm, cm, a_log, h0)
     _check(name, dt.dim() == 3 and bm.dim() == 3, "dt, x must be (B, S, Di), B, C (B, S, N)")
     B, S, Di = dt.shape
@@ -170,11 +174,15 @@ def ssm_scan(dt, x, bm, cm, a_log, h0: Optional[torch.Tensor] = None, *,
     tensors = [dt, x, bm, cm, a_log] + [t for t in (h0, h_out) if t is not None]
     for t in tensors:
         _check(name, t.device == dt.device, "all tensors must be on dt's device")
-        _check(name, t.is_contiguous() and t.data_ptr() % 16 == 0,
-               "all tensors must be contiguous and 16-byte aligned")
     y = torch.empty((B, S, Di), dtype=torch.float32, device=dt.device)
     out = (h_out if h_out is not None
            else torch.empty((B, Di, N), dtype=torch.float32, device=dt.device))
+    if dt.is_meta:
+        count_meta(name, *ssm_work(dt, bm, out))
+        return y, out
+    for t in tensors:
+        _check(name, t.is_contiguous() and t.data_ptr() % 16 == 0,
+               "all tensors must be contiguous and 16-byte aligned")
     from repro_torch.kernels._build import load_library
 
     lib = load_library("ssm_scan").lib
@@ -192,12 +200,10 @@ def ssm_scan(dt, x, bm, cm, a_log, h0: Optional[torch.Tensor] = None, *,
         )
     _raise_on_error(name, err)
     ssm_scan.launches += 1
-    ssm_scan.segments = (n_seg, seg_len)
     return y, out
 
 
 ssm_scan.launches = 0
-ssm_scan.segments = None   # (n_seg, seg_len) of the last call on the card
 
 
 def ref_ssm_scan_backward(dt, x, bm, cm, a_log, h0, dy, dh=None):
@@ -250,7 +256,7 @@ def ssm_scan_backward(dt, x, bm, cm, a_log, h0, dy, dh=None):
     if dt.device.type == "cpu":
         return ref_ssm_scan_backward(dt, x, bm, cm, a_log, h0, dy, dh)
     name = "ssm_scan_backward"
-    _check(name, dt.is_cuda, f"unsupported device {dt.device}")
+    _check(name, dt.is_cuda or dt.is_meta, f"unsupported device {dt.device}")
     _check(name, dt.dim() == 3 and bm.dim() == 3, "dt, x must be (B, S, Di), B, C (B, S, N)")
     B, S, Di = dt.shape
     N = bm.shape[-1]
@@ -271,12 +277,17 @@ def ssm_scan_backward(dt, x, bm, cm, a_log, h0, dy, dh=None):
     tensors = [dt, x, bm, cm, a_log, dy] + [t for t in (h0, dh) if t is not None]
     for t in tensors:
         _check(name, t.device == dt.device, "all tensors must be on dt's device")
-        _check(name, t.is_contiguous() and t.data_ptr() % 16 == 0,
-               "all tensors must be contiguous and 16-byte aligned")
     ddt, dx = torch.empty_like(dt), torch.empty_like(x)
     dbm, dcm = torch.empty_like(bm), torch.empty_like(cm)
     da_log = torch.empty_like(a_log)
     dh0 = torch.empty((B, Di, N), dtype=torch.float32, device=dt.device)
+    if dt.is_meta:
+        st = lambda t: dh0 if t is None else t
+        count_meta(name, *scan_backward_work(name, (dt, x, bm, cm, a_log, st(h0), dy, st(dh))))
+        return ddt, dx, dbm, dcm, da_log, dh0
+    for t in tensors:
+        _check(name, t.is_contiguous() and t.data_ptr() % 16 == 0,
+               "all tensors must be contiguous and 16-byte aligned")
     from repro_torch.kernels._build import load_library
 
     lib = load_library("ssm_scan_backward").lib

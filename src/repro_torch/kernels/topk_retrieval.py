@@ -10,7 +10,10 @@ launches the hand-written kernel in ``csrc/topk_retrieval.cu`` (built on
 first use, see ``kernels._build``) on the current stream and counts the
 launch in ``topk_retrieval.launches``; on CPU tensors it runs the plain
 version. There is no fallback from one to the other: a CUDA input the
-kernel does not take raises ``ValueError``.
+kernel does not take raises ``ValueError``. On ``meta`` tensors (the dry
+run) it returns outputs of the contract's shapes and dtypes and counts its
+contract work in ``kernels.work.META_WORK``, with no launch and no plain
+version (``kernels.work``'s meta rule).
 
 ``ref_topk_retrieval`` is the numerics contract (``ref.topk_retrieval_ref``
 of the JAX package): one float32 matrix product, then a stable descending
@@ -30,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels.decode_attention import refuse_grad
+from repro_torch.kernels.work import count_meta, topk_work
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 227 * 1024       # shared memory a block can use on the H100
@@ -137,11 +141,16 @@ def topk_retrieval(queries, docs, k: int = 16):
     if docs.device.type == "cpu":
         _check(queries.device.type == "cpu", "queries and docs on different devices")
         return ref_topk_retrieval(queries, docs, k)
-    _check(docs.is_cuda and queries.device == docs.device,
+    _check((docs.is_cuda or docs.is_meta) and queries.device == docs.device,
            f"unsupported devices {queries.device}, {docs.device}")
     refuse_grad("topk_retrieval", queries, docs)
     _check(docs.dtype in _DTYPE_CODES, f"docs must be float32 or bfloat16, got {docs.dtype}")
     _check(queries.is_floating_point(), f"queries must be float, got {queries.dtype}")
+    if docs.is_meta:
+        nbytes, flops, _products = topk_work(queries, docs, k)
+        count_meta("topk_retrieval", nbytes, flops)
+        return (torch.empty((B, k), dtype=torch.float32, device=docs.device),
+                torch.empty((B, k), dtype=torch.int32, device=docs.device))
     _check(docs.is_contiguous(), "docs must be contiguous")
     _check(d % 8 == 0 and docs.data_ptr() % 16 == 0,
            "the kernel reads docs in 16-byte loads: d must be a multiple of 8 and "

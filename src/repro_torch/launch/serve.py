@@ -13,6 +13,8 @@ occupancy comes from the components' cost models).
         --kernel reference --no-interleave --sanitize
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m --smoke --device cpu \
         --dp 2 --host-blocks 64 --audit
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m --smoke --device cpu \
+        --tp 2
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b --smoke --device cpu
@@ -34,6 +36,14 @@ arch outside the paged contract (rwkv6-7b, hymba-1.5b, mixtral-8x22b,
 qwen2.5-3b-swa, llama4-scout-17b-a16e, minicpm3-4b, internvl2-1b, text
 only) is served on the dense backend. whisper-large-v3 is not served: the
 engine takes no encoder frames (nor does the JAX engine).
+
+``--tp N`` serves on a tensor-parallel group of N spawned ranks over gloo
+(``serve_tp``): each rank holds its shard of the weights and ``KVH / N``
+heads of every pool block, the layers all-reduce after the attention
+output and MLP down projections, and the summary prints the fused step's
+collective census; on ``cuda`` rank r takes ``cuda:r`` (N GPUs visible).
+As the JAX launcher, it refuses ``--kernel pallas`` and ``--kv-dtype
+int8`` with ``--tp``.
 
 ``--dp N`` serves through a ``DataParallelEngineGroup``: N replicas over
 block ranges of one shared pool on the one device, with one host tier
@@ -168,6 +178,58 @@ def serve_real(arch: str, n_requests: int = 8, max_new: int = 12,
     return eng
 
 
+def _serve_rank(rank, mesh, device, kw):
+    """One rank of ``serve_tp``: the engine on this rank's shard, the same
+    seeded prompts as every rank; rank 0 prints. Returns (tokens of each
+    request, the fused step's census, stats)."""
+    from repro_torch.configs import get_arch, smoke_variant
+    from repro_torch.serving.engine import GenerationEngine
+    from repro_torch.serving.sharded_pool import ShardedPoolLayout
+
+    cfg = get_arch(kw["arch"])
+    if kw["smoke"]:
+        cfg = smoke_variant(cfg)
+    eng = GenerationEngine(cfg, max_batch=4, max_seq=256, pipeline=kw["pipeline"],
+                           seed=kw["seed"], device=device, kernel="reference",
+                           pool_layout=ShardedPoolLayout(mesh))
+    census = eng.audit_collectives("fused")
+    rng = np.random.default_rng(kw["seed"])
+    reqs = [eng.submit(rng.integers(0, cfg.vocab_size, rng.integers(4, 32)), kw["max_new"])
+            for _ in range(kw["n_requests"])]
+    eng.run_until_done()
+    stats = eng.stats()
+    if rank == 0:
+        for r in reqs:
+            print(f"  req {r.req_id}: {len(r.out_tokens)} tokens "
+                  f"ttft={1e3*(r.first_token_at - r.submitted_at):.0f}ms")
+        print(f"[serve:real] {cfg.name}: tp={stats['tp_degree']} device={stats['device']} "
+              f"kernel={stats['kernel']} {stats['tokens_out']} tokens out on each rank")
+        print(f"[serve:real] fused-step collectives: "
+              f"{ {k: v for k, v in census.items() if v} }")
+    return [r.out_tokens for r in reqs], census, stats
+
+
+def serve_tp(arch: str, tp: int, n_requests: int = 8, max_new: int = 12,
+             pipeline: bool = True, smoke: bool = False, device=None, seed: int = 0):
+    """Serve ``n_requests`` random prompts on a tensor-parallel group of
+    ``tp`` ranks (``launch.mesh.run_on_ranks``: spawned processes over gloo,
+    a ``FileStore`` rendezvous): each rank holds its shard of the weights
+    and ``KVH / tp`` heads of every pool block, and the gather oracles read
+    attention (``kernel="reference"``, as the JAX engine requires on a
+    mesh). On ``cuda`` rank r takes ``cuda:r``. Prints the requests, the
+    summary and the fused step's collective census; raises unless every
+    rank gave the same tokens. Returns each rank's (tokens, census,
+    stats)."""
+    from repro_torch.launch.mesh import run_on_ranks
+
+    kw = dict(arch=arch, n_requests=n_requests, max_new=max_new, pipeline=pipeline,
+              smoke=smoke, seed=seed)
+    results = run_on_ranks(_serve_rank, tp, "cuda" if device is None else device, kw)
+    if any(res[0] != results[0][0] for res in results):
+        raise AssertionError("tensor-parallel ranks gave different tokens")
+    return results
+
+
 def serve_pipelines(arch: str = "smollm-135m", rate: float = 10.0,
                     duration: float = 2.0, *, arrival: str = "poisson",
                     session_fraction: float = 0.3, host_blocks: int = 128,
@@ -286,9 +348,10 @@ def main(argv=None):
                     help="paged KV pool storage: int8 blocks with per-block "
                          "absmax scales (the kernels dequantize as they read); "
                          "default the model dtype")
-    ap.add_argument("--kernel", default="pallas", choices=["pallas", "reference"],
-                    help="paged attention: the hand-written kernels (pallas), or "
-                         "the gather oracles (reference)")
+    ap.add_argument("--kernel", default=None, choices=["pallas", "reference"],
+                    help="paged attention: the hand-written kernels (pallas, the "
+                         "default), or the gather oracles (reference, the default "
+                         "and the only choice with --tp)")
     ap.add_argument("--no-interleave", action="store_true",
                     help="the sequential oracle loop: blocking chunked prefill at "
                          "admission, then batched decode")
@@ -303,7 +366,22 @@ def main(argv=None):
                     help="run the step-program contract audit (collectives, "
                          "host syncs, int8 flow, cache sentinel) at startup, "
                          "replica 0 under --dp, and exit on any violation")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree: N spawned ranks over gloo, each "
+                         "holding its shard of the weights and of every pool "
+                         "block's KV heads (cuda: rank r on cuda:r)")
     args = ap.parse_args(argv)
+    if args.tp > 1:
+        if args.kernel == "pallas":
+            raise SystemExit("--kernel pallas is single-device: drop --tp/--dp")
+        if args.kv_dtype:
+            raise SystemExit("--kv-dtype int8 is single-device: drop --tp/--dp")
+        if args.dp > 1:
+            raise SystemExit("--tp with --dp (a data-axis mesh) is not ported yet: ROADMAP 14c")
+        serve_tp(args.arch, args.tp, n_requests=args.n_requests, max_new=args.max_new,
+                 pipeline=not args.no_pipeline, smoke=args.smoke, device=args.device,
+                 seed=args.seed)
+        return
     if args.app is not None:
         serve_sim(args.app, args.rate, args.duration, args.engine, args.slo, seed=args.seed)
         return
@@ -318,7 +396,7 @@ def main(argv=None):
                pipeline=not args.no_pipeline, smoke=args.smoke,
                device=args.device, seed=args.seed, preempt=args.preempt,
                host_blocks=args.host_blocks, kv_dtype=args.kv_dtype,
-               kernel=args.kernel, interleave=not args.no_interleave,
+               kernel=args.kernel or "pallas", interleave=not args.no_interleave,
                sanitize=args.sanitize, dp=args.dp, audit=args.audit)
 
 

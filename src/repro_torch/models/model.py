@@ -14,7 +14,9 @@ period-4 stack of chunked-local and global layers), MLA stacks (minicpm3),
 RWKV-6 stacks, Hymba's hybrid stacks with their meta-token prefix,
 internvl2's patch prefix and whisper's encoder-decoder stack with its
 sinusoidal positions (``dense_cache_supported``), and the int8 dense cache
-(``kv_cache_quant``).
+(``kv_cache_quant``). ``abstract_params``, ``abstract_cache`` and
+``input_specs`` give the same trees on the meta device (shapes and dtypes
+only), for the dry run (``launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from repro_torch.configs.base import (
     MIXER_HYBRID,
     MIXER_RWKV6,
     ModelConfig,
+    ShapeConfig,
 )
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (
@@ -75,6 +78,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> Dict[st
         params["enc_final_norm"] = tfm.init_norm(cfg, dtype, device)
         params["frame_proj"] = square()
     return params
+
+
+def abstract_params(cfg: ModelConfig) -> Dict[str, Any]:
+    """The ``init_params`` tree on the meta device: every leaf's shape and
+    dtype, nothing drawn or allocated (the JAX package's ``jax.eval_shape``
+    of ``init_params``)."""
+    return init_params(cfg, None, "meta")
 
 
 def _pad_vocab_bias(cfg, logits):
@@ -264,7 +274,7 @@ def decode_embed(cfg, params, tokens, pos):
     return x
 
 
-def decode_step(cfg, params, caches, tokens, pos):
+def decode_step(cfg, params, caches, tokens, pos, tp_group=None):
     """One dense decode step. tokens: (B, 1) int; pos: (B,) int32 absolute
     position of each row's new token, a meta or patch prefix included (<=
     Sc - 1 on a full-attention cache; unused by RWKV-6). Writes the new K/V
@@ -274,9 +284,10 @@ def decode_step(cfg, params, caches, tokens, pos):
     a multiple of 128, internvl2's (151655) and whisper's (51866) are not
     either. The JAX function omits the mask (ROADMAP §3); for every other
     arch served the mask is a no-op, so the port still agrees with it
-    there."""
+    there. ``tp_group``: the tensor-parallel group whose rank's shard
+    ``params`` hold (None: unsharded; ``transformer.run_stack_decode``)."""
     x = decode_embed(cfg, params, tokens, pos)
-    x, caches = tfm.run_stack_decode(cfg, params["blocks"], x, caches, pos)
+    x, caches = tfm.run_stack_decode(cfg, params["blocks"], x, caches, pos, tp_group)
     x = tfm.apply_norm(cfg, params["final_norm"], x)
     logits = unembed(params["embed"], params.get("lm_head"), x, cfg.tie_embeddings)
     return _pad_vocab_bias(cfg, logits)[:, 0], caches
@@ -331,8 +342,34 @@ def init_cache(cfg: ModelConfig, B: int, S: int, device):
     return tuple(entry(kind) for kind in tfm._kinds(cfg))
 
 
+def abstract_cache(cfg: ModelConfig, B: int, S: int):
+    """``init_cache`` on the meta device: shapes and dtypes only."""
+    return init_cache(cfg, B, S, "meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """The model inputs of an assigned shape as meta tensors (the JAX
+    function's ``ShapeDtypeStruct`` stand-ins): decode one token a row;
+    otherwise the tokens, a VLM's patch embeddings taking
+    ``num_patch_tokens`` of the sequence, and an encoder-decoder's frames."""
+    B, S = shape.global_batch, shape.seq_len
+    meta = lambda *shp, dt=torch.int32: torch.empty(shp, dtype=dt, device="meta")
+    if shape.kind == "decode":
+        return {"tokens": meta(B, 1)}
+    dtype = torch_dtype(cfg)
+    batch: Dict[str, Any] = {}
+    if cfg.num_patch_tokens:
+        batch["tokens"] = meta(B, S - cfg.num_patch_tokens)
+        batch["patch_embeds"] = meta(B, cfg.num_patch_tokens, cfg.d_model, dt=dtype)
+    else:
+        batch["tokens"] = meta(B, S)
+    if cfg.is_encoder_decoder:
+        batch["frames"] = meta(B, cfg.encoder_seq, cfg.d_model, dt=dtype)
+    return batch
+
+
 def prefill_chunk(cfg, params, caches, tokens, pos, positions=None,
-                  seg_prefix_end=None, seg_start=None):
+                  seg_prefix_end=None, seg_start=None, tp_group=None):
     """Chunked prefill: C tokens (B, C) per row at cache slots ``pos ..
     pos+C-1`` (``pos`` an int, a 0-d tensor or (B,) per-row starts) run
     against the contiguous serve cache ({k, v} of (G, B, Sc, KVH, hd)),
@@ -342,12 +379,13 @@ def prefill_chunk(cfg, params, caches, tokens, pos, positions=None,
     V), caches), pad-vocab logits masked to -1e30. Full-attention GQA stacks
     with rope positions (``paged_cache_supported``); an int8 cache
     (``kv_cache_quant``: {k_scale, v_scale} in the entry) takes the chunk's
-    codes and is read dequantized, as in JAX."""
+    codes and is read dequantized, as in JAX. ``tp_group`` as for
+    ``decode_step``."""
     if not paged_cache_supported(cfg):
         raise NotImplementedError(f"{cfg.name}: chunked prefill takes the paged path's stacks only")
     x = embed_tokens(params["embed"], tokens)
     x, caches = tfm.run_stack_prefix(cfg, params["blocks"], x, caches, pos, positions,
-                                     seg_prefix_end, seg_start)
+                                     seg_prefix_end, seg_start, tp_group)
     x = tfm.apply_norm(cfg, params["final_norm"], x)
     logits = unembed(params["embed"], params.get("lm_head"), x, cfg.tie_embeddings)
     return _pad_vocab_bias(cfg, logits), caches
@@ -355,7 +393,7 @@ def prefill_chunk(cfg, params, caches, tokens, pos, positions=None,
 
 def prefill_packed(cfg, params, k_pool, v_pool, tables, tokens, row_of, slots,
                    positions, p_end, s_start, *, block_size, null_block,
-                   k_scales=None, v_scales=None, impl="pallas"):
+                   k_scales=None, v_scales=None, impl="pallas", tp_group=None):
     """Ragged fused step: T packed tokens (decode rows + prefill chunks from
     different sequences) run against the paged pools directly, writing their
     K/V in place before attending. tokens/row_of/slots/positions/p_end/
@@ -363,13 +401,14 @@ def prefill_packed(cfg, params, k_pool, v_pool, tables, tokens, row_of, slots,
     (G, n_blocks, KVH) running-max scale pools ``k_scales``/``v_scales``,
     updated in place with the pools. ``impl="pallas"`` reads attention
     through ``kernels.paged_chunk_attention`` (the kernel on the card),
-    ``"reference"`` through its gather oracle. Returns logits (T, V),
-    pad-vocab entries masked to -1e30. Requires ``paged_cache_supported``."""
+    ``"reference"`` through its gather oracle; ``tp_group`` as for
+    ``decode_step``. Returns logits (T, V), pad-vocab entries masked to
+    -1e30. Requires ``paged_cache_supported``."""
     x = embed_tokens(params["embed"], tokens[None])          # (1, T, D)
     x = tfm.run_stack_paged(
         cfg, params["blocks"], x, k_pool, v_pool, tables, row_of, slots,
         positions, p_end, s_start, block_size=block_size, null_block=null_block,
-        k_scales=k_scales, v_scales=v_scales, impl=impl,
+        k_scales=k_scales, v_scales=v_scales, impl=impl, tp_group=tp_group,
     )
     x = tfm.apply_norm(cfg, params["final_norm"], x)
     logits = unembed(params["embed"], params.get("lm_head"), x, cfg.tie_embeddings)
@@ -377,10 +416,10 @@ def prefill_packed(cfg, params, k_pool, v_pool, tables, tokens, row_of, slots,
 
 
 def decode_step_paged(cfg, params, k_pool, v_pool, tables, tokens, pos, *,
-                      block_size, null_block, k_scales=None, v_scales=None):
+                      block_size, null_block, k_scales=None, v_scales=None, tp_group=None):
     """Paged decode: one new token per row attends its block chain in place.
-    tokens: (B, 1); pos: (B,) int32; ``k_scales``/``v_scales`` as for
-    ``prefill_packed``. Returns logits (B, V). Like the JAX
+    tokens: (B, 1); pos: (B,) int32; ``k_scales``/``v_scales`` and
+    ``tp_group`` as for ``prefill_packed``. Returns logits (B, V). Like the JAX
     function, it applies no pad-vocab bias, unlike the dense ``decode_step``:
     the archs the paged path takes have vocabularies that are multiples of
     128, so there is nothing to mask, and parity with JAX holds as is."""
@@ -388,7 +427,7 @@ def decode_step_paged(cfg, params, k_pool, v_pool, tables, tokens, pos, *,
     x = tfm.run_stack_decode_paged(
         cfg, params["blocks"], x, k_pool, v_pool, tables, pos,
         block_size=block_size, null_block=null_block,
-        k_scales=k_scales, v_scales=v_scales,
+        k_scales=k_scales, v_scales=v_scales, tp_group=tp_group,
     )
     x = tfm.apply_norm(cfg, params["final_norm"], x)
     logits = unembed(params["embed"], params.get("lm_head"), x, cfg.tie_embeddings)

@@ -36,6 +36,13 @@ parameters or input that require grad) recomputes each layer group in the
 backward (``torch.utils.checkpoint``, the counterpart of the JAX
 ``jax.checkpoint(nothing_saveable)`` around the scan body), and takes each
 group's parameters from one ``unbind`` of every stacked leaf.
+
+Given a ``tp_group`` (the sharded paged engine passes its tensor-parallel
+process group to the paged and oracle steps) a layer holds one rank's
+heads and MLP columns, and its attention output projection and MLP down
+projection each end in one all-reduce over the group. Only dense
+full-attention GQA stacks take a group (``_check_tp``): any other
+projection would return a rank's partial sum.
 """
 from __future__ import annotations
 
@@ -284,33 +291,64 @@ def unbind_groups(tree, n: int):
 # ---------------------------------------------------------------------------
 
 
-def _out_proj(cfg, lp, x, a_out):
+# tensor parallelism (the sharded paged engine, serving.sharded_pool): with
+# a ``tp_group`` the layers hold a rank's heads and MLP columns, and the two
+# row-parallel projections sum their partial outputs over the group, one
+# all-reduce each (the Megatron pair); without one, none
+
+
+def _check_tp(cfg: ModelConfig, tp_group) -> None:
+    """A tensor-parallel group is taken by the stacks whose every
+    projection the Megatron pair covers: full-attention GQA decoders of
+    period 1 with a dense MLP. Anything else (MoE, MLA, hybrid, RWKV-6,
+    cross attention) raises rather than return a rank's partial sum."""
+    if tp_group is not None and (period(cfg) != 1 or cfg.attn_type != ATTN_FULL
+                                 or cfg.is_encoder_decoder or cfg.is_moe):
+        raise NotImplementedError(f"{cfg.name}: tensor-parallel layers cover dense "
+                                  f"full-attention GQA stacks only")
+
+
+def _tp_sum(y, tp_group):
+    """The partial output of a row-parallel projection summed over the
+    tensor-parallel group (in place), or ``y`` unsharded."""
+    if tp_group is None:
+        return y
+    from repro_torch.models.shardmap_tp import all_reduce
+
+    return all_reduce(y, tp_group)
+
+
+def _out_proj(cfg, lp, x, a_out, tp_group=None):
     """The attention output of x's (B, S) tokens through ``wo``: (B, S, D)
-    (the paged layers hand it (T, H, hd) for x (1, T, D))."""
+    (the paged layers hand it (T, H, hd) for x (1, T, D)); with a
+    ``tp_group`` the rank's heads' share, summed over the group."""
     B, S = x.shape[:2]
-    return a_out.reshape(B, S, cfg.num_heads * cfg.head_dim) @ lp["attn"]["wo"]
+    return _tp_sum(a_out.reshape(B, S, cfg.num_heads * cfg.head_dim) @ lp["attn"]["wo"],
+                   tp_group)
 
 
-def _ffn_residual(cfg, lp, x):
+def _ffn_residual(cfg, lp, x, tp_group=None):
     """norm2, the MLP or the MoE layer, and its residual: (x, aux), aux the
-    MoE's load-balance loss (float32 zero for an MLP)."""
+    MoE's load-balance loss (float32 zero for an MLP); with a ``tp_group``
+    the MLP's down projection summed over the group."""
     xn = apply_norm(cfg, lp["norm2"], x)
     if "moe" in lp:
         out, aux = moe_mod.apply_moe(lp["moe"], xn, cfg)
         return x + out, aux
-    return x + apply_mlp(lp["mlp"], xn, cfg.act), x.new_zeros((), dtype=torch.float32)
+    return (x + _tp_sum(apply_mlp(lp["mlp"], xn, cfg.act), tp_group),
+            x.new_zeros((), dtype=torch.float32))
 
 
-def _mlp_residual(cfg, lp, x):
+def _mlp_residual(cfg, lp, x, tp_group=None):
     """norm2, the MLP or the MoE layer, and its residual (the serving
     steps drop the MoE's aux loss, as JAX's decode, prefix and paged
     layers do)."""
-    return _ffn_residual(cfg, lp, x)[0]
+    return _ffn_residual(cfg, lp, x, tp_group)[0]
 
 
-def _finish_layer(cfg, lp, x, a_out):
+def _finish_layer(cfg, lp, x, a_out, tp_group=None):
     """Output projection, residual, norm2 and the MLP."""
-    return _mlp_residual(cfg, lp, x + _out_proj(cfg, lp, x, a_out))
+    return _mlp_residual(cfg, lp, x + _out_proj(cfg, lp, x, a_out, tp_group), tp_group)
 
 
 def _qkv(cfg, lp, xn, rope):
@@ -357,7 +395,7 @@ def _write_slots(pool_slice, sc_slice, dest, new_kv):
 
 def apply_layer_paged(cfg, lp, x, k_slice, v_slice, tables, row_of, slots,
                       p_end, s_start, *, rope, dest, k_sc=None, v_sc=None,
-                      impl="pallas"):
+                      impl="pallas", tp_group=None):
     """Ragged fused-step layer: T packed tokens (decode rows and prefill
     chunks back to back) read and write one layer's pool slice directly.
 
@@ -371,14 +409,15 @@ def apply_layer_paged(cfg, lp, x, k_slice, v_slice, tables, row_of, slots,
     writes quantize at scatter time and the kernel dequantizes. ``impl``
     picks the attention read: "pallas" the chunk kernel's wrapper (the
     hand-written kernel on the card), "reference" its gather oracle
-    ``ref_paged_chunk_attention`` on any device. Returns the new x."""
+    ``ref_paged_chunk_attention`` on any device; ``tp_group`` as for the
+    stack (``_finish_layer``). Returns the new x."""
     q, k, v = _attn_inputs(cfg, lp, x, rope)
     _write_slots(k_slice, k_sc, dest, k[0])
     _write_slots(v_slice, v_sc, dest, v[0])
     read = paged_chunk_attention if impl == "pallas" else ref_paged_chunk_attention
     a_out = read(q[0], k_slice, v_slice, tables, row_of, slots, p_end, s_start,
                  k_scale=k_sc, v_scale=v_sc)
-    return _finish_layer(cfg, lp, x, a_out)
+    return _finish_layer(cfg, lp, x, a_out, tp_group)
 
 
 def _scale_slice(scales, g):
@@ -387,14 +426,16 @@ def _scale_slice(scales, g):
 
 def run_stack_paged(cfg, blocks, x, k_pool, v_pool, tables, row_of, slots,
                     positions, p_end, s_start, *, block_size, null_block,
-                    k_scales=None, v_scales=None, impl="pallas"):
+                    k_scales=None, v_scales=None, impl="pallas", tp_group=None):
     """Run the stack in ragged fused-step mode: x (1, T, D) packed tokens
     against the full pools (G, n_blocks, bs, KVH, hd), which are updated in
     place layer by layer (with their (G, n_blocks, KVH) scale pools
     ``k_scales``/``v_scales`` for an int8 pool); ``impl`` as for
-    ``apply_layer_paged``. Returns x."""
+    ``apply_layer_paged``; ``tp_group``: this rank's tensor-parallel group
+    (None: unsharded). Returns x."""
     if period(cfg) != 1:
         raise NotImplementedError("ragged paged path requires period-1 stacks")
+    _check_tp(cfg, tp_group)
     rope = _rope(cfg, positions[None])
     dest = packed_slots(tables, row_of, slots, block_size, null_block)
     for g in range(k_pool.shape[0]):
@@ -402,12 +443,13 @@ def run_stack_paged(cfg, blocks, x, k_pool, v_pool, tables, row_of, slots,
             cfg, layer_slice(blocks[0], g), x, k_pool[g], v_pool[g], tables,
             row_of, slots, p_end, s_start, rope=rope, dest=dest,
             k_sc=_scale_slice(k_scales, g), v_sc=_scale_slice(v_scales, g), impl=impl,
+            tp_group=tp_group,
         )
     return x
 
 
 def apply_layer_decode_paged(cfg, lp, x, k_slice, v_slice, tables, lengths,
-                             *, rope, dest, k_sc=None, v_sc=None):
+                             *, rope, dest, k_sc=None, v_sc=None, tp_group=None):
     """Paged decode layer: write each row's new K/V at its ``dest`` slot of
     the pool slice (in place; quantized into an int8 slice with scales
     ``k_sc``/``v_sc``), then attend the row's chain with
@@ -419,17 +461,19 @@ def apply_layer_decode_paged(cfg, lp, x, k_slice, v_slice, tables, lengths,
     _write_slots(v_slice, v_sc, dest, v[:, 0])
     a_out = paged_decode_attention(q[:, 0].contiguous(), k_slice, v_slice,
                                    tables, lengths, k_scale=k_sc, v_scale=v_sc)
-    return _finish_layer(cfg, lp, x, a_out)
+    return _finish_layer(cfg, lp, x, a_out, tp_group)
 
 
 def run_stack_decode_paged(cfg, blocks, x, k_pool, v_pool, tables, pos, *,
-                           block_size, null_block, k_scales=None, v_scales=None):
+                           block_size, null_block, k_scales=None, v_scales=None,
+                           tp_group=None):
     """Run the stack in paged-decode mode: x (B, 1, D), pools (and an int8
     pool's scale pools) updated in place layer by layer, per-row positions
-    (B,) int32, table-backed (the plan allocates before it decodes).
-    Returns x."""
+    (B,) int32, table-backed (the plan allocates before it decodes);
+    ``tp_group`` as for ``run_stack_paged``. Returns x."""
     if period(cfg) != 1:
         raise NotImplementedError("paged decode requires period-1 stacks")
+    _check_tp(cfg, tp_group)
     rope = _rope(cfg, pos[:, None])
     dest = decode_slots(tables, pos, block_size, null_block)
     lengths = pos + 1
@@ -437,7 +481,7 @@ def run_stack_decode_paged(cfg, blocks, x, k_pool, v_pool, tables, pos, *,
         x = apply_layer_decode_paged(
             cfg, layer_slice(blocks[0], g), x, k_pool[g], v_pool[g], tables,
             lengths, rope=rope, dest=dest,
-            k_sc=_scale_slice(k_scales, g), v_sc=_scale_slice(v_scales, g),
+            k_sc=_scale_slice(k_scales, g), v_sc=_scale_slice(v_scales, g), tp_group=tp_group,
         )
     return x
 
@@ -459,7 +503,7 @@ def _prefix_mask(Sc: int, slots, seg_prefix_end=None, seg_start=None):
     return (s < seg_prefix_end[:, :, None]) | ((s >= seg_start[:, :, None]) & (s <= own))
 
 
-def apply_layer_prefix(cfg, lp, x, cache, slots, *, rope, valid):
+def apply_layer_prefix(cfg, lp, x, cache, slots, *, rope, valid, tp_group=None):
     """Chunked prefill layer: x (B, C, D) of prompt tokens at cache slots
     ``slots`` (B, C) attends the cached prefix plus itself. The chunk's K/V
     are written into the layer's contiguous cache entry ``cache`` ({k, v} of
@@ -470,21 +514,24 @@ def apply_layer_prefix(cfg, lp, x, cache, slots, *, rope, valid):
     positions. Full-attention GQA only. Returns the new x."""
     q, k, v = _attn_inputs(cfg, lp, x, rope)
     k_read, v_read = _write_kv(cache, k, v, slots, q.dtype)
-    return _finish_layer(cfg, lp, x, attn.chunk_decode_attention(q, k_read, v_read, valid))
+    return _finish_layer(cfg, lp, x, attn.chunk_decode_attention(q, k_read, v_read, valid),
+                         tp_group)
 
 
 def run_stack_prefix(cfg, blocks, x, caches, pos, positions=None,
-                     seg_prefix_end=None, seg_start=None):
+                     seg_prefix_end=None, seg_start=None, tp_group=None):
     """Run the stack in chunked-prefill mode: x (B, C, D) written into (and
     attending) the contiguous caches ({k, v} of (G, B, Sc, KVH, hd), and the
     int8 cache's scales, updated in place layer by layer) at start slot
     ``pos`` — an int, a 0-d tensor or (B,) per-row starts (the padded fused
     step runs every row at its own cursor). ``positions`` (B, C) are the
     rope positions (default: the slots); ``seg_prefix_end``/``seg_start``
-    (B, C) the segment spans (see ``_prefix_mask``). Full-attention GQA
-    stacks of period 1. Returns (x, caches)."""
+    (B, C) the segment spans (see ``_prefix_mask``); ``tp_group`` as for
+    ``run_stack_paged``. Full-attention GQA stacks of period 1. Returns
+    (x, caches)."""
     if period(cfg) != 1 or cfg.attn_type != ATTN_FULL or cfg.is_encoder_decoder:
         raise NotImplementedError("chunked prefix prefill supports full-attention GQA stacks only")
+    _check_tp(cfg, tp_group)
     B, C = x.shape[:2]
     entry = caches[0]
     Sc = entry["k"].shape[2]
@@ -496,7 +543,7 @@ def run_stack_prefix(cfg, blocks, x, caches, pos, positions=None,
     valid = _prefix_mask(Sc, slots, seg_prefix_end, seg_start)
     for g in range(entry["k"].shape[0]):
         x = apply_layer_prefix(cfg, layer_slice(blocks[0], g), x, layer_slice(entry, g), slots,
-                               rope=rope, valid=valid)
+                               rope=rope, valid=valid, tp_group=tp_group)
     return x, caches
 
 
@@ -788,7 +835,8 @@ def _decode_cross(cfg, lp, x, cache, cross_lengths):
     return _cross_out(cfg, lp, x, c_out)
 
 
-def apply_layer_decode(cfg, lp, x, cache, pos, *, rope, lengths, cross_lengths=None):
+def apply_layer_decode(cfg, lp, x, cache, pos, *, rope, lengths, cross_lengths=None,
+                       tp_group=None):
     """Dense decode layer: write each row's new K/V at slot ``pos % Sc`` of
     the layer's cache entry ``cache`` ({k, v} (B, Sc, KVH, hd), int8 with
     {k_scale, v_scale} for ``kv_cache_quant``; in place), then attend the
@@ -798,11 +846,13 @@ def apply_layer_decode(cfg, lp, x, cache, pos, *, rope, lengths, cross_lengths=N
     (``decode_lengths``): min(pos + 1, Sc), which is what
     ``cache_validity`` allows on a full-attention linear cache and on a
     sliding-window ring of Sc <= window slots, or pos % chunk + 1 on a
-    chunked-local ring. Returns the new x."""
+    chunked-local ring; ``tp_group`` as for ``run_stack_decode``. Returns
+    the new x."""
     xn = apply_norm(cfg, lp["norm1"], x)
     a_out = _decode_attn(cfg, lp, xn, cache, pos, rope, lengths)
-    x = _decode_cross(cfg, lp, x + _out_proj(cfg, lp, x, a_out), cache, cross_lengths)
-    return _mlp_residual(cfg, lp, x)
+    x = _decode_cross(cfg, lp, x + _out_proj(cfg, lp, x, a_out, tp_group), cache,
+                      cross_lengths)
+    return _mlp_residual(cfg, lp, x, tp_group)
 
 
 def apply_layer_decode_hybrid(cfg, lp, x, cache, pos, *, rope, lengths):
@@ -870,11 +920,12 @@ def decode_inputs(cfg, caches, pos):
     return {"rope": _rope(cfg, pos[:, None]), "lengths": lengths, "cross_lengths": cross}
 
 
-def apply_group_decode(cfg, blocks, caches, g, x, pos, inputs):
+def apply_group_decode(cfg, blocks, caches, g, x, pos, inputs, tp_group=None):
     """Decode layer group g of a GQA, MLA, hybrid or encoder-decoder stack:
     its p layers in turn, each against the g-th slice of its own cache
-    entry (updated in place); ``inputs`` from ``decode_inputs``. Returns
-    the new x."""
+    entry (updated in place); ``inputs`` from ``decode_inputs``;
+    ``tp_group`` as for ``run_stack_decode``. Returns the new x."""
+    _check_tp(cfg, tp_group)
     rope = inputs["rope"]
     for i, kind in enumerate(_kinds(cfg)):
         lp, cache = layer_slice(blocks[i], g), layer_slice(caches[i], g)
@@ -887,18 +938,20 @@ def apply_group_decode(cfg, blocks, caches, g, x, pos, inputs):
         else:
             x = apply_layer_decode(cfg, lp, x, cache, pos, rope=rope,
                                    lengths=inputs["lengths"][i],
-                                   cross_lengths=inputs["cross_lengths"])
+                                   cross_lengths=inputs["cross_lengths"], tp_group=tp_group)
     return x
 
 
-def run_stack_decode(cfg, blocks, x, caches, pos):
+def run_stack_decode(cfg, blocks, x, caches, pos, tp_group=None):
     """Run the stack in dense-decode mode: x (B, 1, D), per-row positions
     pos (B,) int32 (each <= Sc - 1 on a full-attention or MLA cache; a ring
     takes any; an RWKV-6 stack has no positions), caches from
     ``model.init_cache`` updated in place layer by layer, group by group.
-    Returns (x, caches). An MoE layer's capacity is that of B tokens:
-    dropless."""
+    ``tp_group``: this rank's tensor-parallel group (None: unsharded; a
+    dense full-attention GQA stack only, ``_check_tp``). Returns (x,
+    caches). An MoE layer's capacity is that of B tokens: dropless."""
     _check_dense_stack(cfg)
+    _check_tp(cfg, tp_group)
     if cfg.attn_type == MIXER_RWKV6:
         entry = caches[0]
         for g in range(cfg.num_layers):
@@ -907,5 +960,5 @@ def run_stack_decode(cfg, blocks, x, caches, pos):
         return x, caches
     inputs = decode_inputs(cfg, caches, pos)
     for g in range(cfg.num_layers // period(cfg)):
-        x = apply_group_decode(cfg, blocks, caches, g, x, pos, inputs)
+        x = apply_group_decode(cfg, blocks, caches, g, x, pos, inputs, tp_group)
     return x, caches

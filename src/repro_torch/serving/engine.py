@@ -83,8 +83,15 @@ plain PyTorch versions for CPU tensors; ``stats()["kernel"]`` says which,
 ``DataParallelEngineGroup`` runs DP replicas over block ranges of one
 shared pool on one device (``kv=`` injects a replica's cache), and
 ``step_program(which)`` hands each step program to the step audit
-(``analysis.step_audit``). Meshes and pool layouts (a later slice) raise
-``NotImplementedError``.
+(``analysis.step_audit``). ``mesh=`` / ``pool_layout=`` (a
+``serving.sharded_pool.ShardedPoolLayout`` over a "model" axis) make the
+engine one rank of a tensor-parallel group, SPMD over processes: every
+rank runs the same host logic, holds its shard of the weights and ``KVH /
+tp`` heads of every pool block, and each step program ends its layers'
+attention output and MLP down projections in one all-reduce each (the
+engine passes its group as the step functions' ``tp_group``). As in JAX, a mesh takes
+``kernel="reference"`` and float pools only; a mesh with a data axis
+raises ``NotImplementedError`` (ROADMAP 14c).
 """
 from __future__ import annotations
 
@@ -291,10 +298,16 @@ class GenerationEngine:
         range of a shared pool box): it decides the pool format, brings its
         host store and, when ``device`` is not given, the device. The other
         arguments mean what they mean in the JAX engine."""
-        later = {"mesh": mesh, "pool_layout": pool_layout}
-        for name, value in later.items():
-            if value is not None:
-                raise NotImplementedError(f"GenerationEngine({name}=...) is not ported yet")
+        on_mesh = mesh is not None or pool_layout is not None or (
+            kv is not None and kv.layout is not None)
+        if kernel == "pallas" and on_mesh:
+            raise ValueError(
+                "kernel='pallas' is single-device only: the Pallas paged kernels do not "
+                "partition under shard_map meshes yet")
+        if on_mesh and (kv_dtype is not None or cfg.kv_cache_quant):
+            raise ValueError(
+                "kv_dtype='int8' is single-device only: the parallel scale pools do not "
+                "shard over a mesh yet")
         if kv is not None and device is None:
             device = kv.device
         if backend not in ("paged", "dense"):
@@ -321,6 +334,9 @@ class GenerationEngine:
                     "(its dense prefill calls forward without frames); use the model API "
                     "(forward, prefill, decode_step)")
             backend = "dense"
+        if on_mesh and backend != "paged":
+            raise ValueError(f"a mesh shards the paged backend; {cfg.name} is served on "
+                             f"the {backend} backend")
         self.cfg = cfg
         self.device = resolve_device(device)
         if params is None:
@@ -374,6 +390,8 @@ class GenerationEngine:
         self._inflight: Optional[PlanExec] = None
         self._build_emitted: Optional[Dict[int, List[int]]] = None
         self.sanitizer = None
+        self.pool_layout = None
+        self._tp_group = None
         if self.backend == "dense":
             # a row's cache holds its meta tokens too (a hybrid layer's
             # K/V: a ring of min(max_seq + M, window) slots); int8 with its
@@ -392,6 +410,27 @@ class GenerationEngine:
             n_blocks = max_batch * (self.max_blocks + 1) + 1
         if kv_dtype is None and cfg.kv_cache_quant:
             kv_dtype = "int8"  # quant configs store int8 pools
+        if pool_layout is None and mesh is not None:
+            from repro_torch.serving.sharded_pool import ShardedPoolLayout
+
+            pool_layout = ShardedPoolLayout(mesh)
+        if kv is not None and kv.layout is not None:
+            pool_layout = kv.layout
+        # the config of the step programs' layers: a rank's heads and MLP
+        # columns on a mesh, where the weights become this rank's shard once,
+        # at construction (deployment), never a step
+        step_cfg = cfg
+        if pool_layout is not None:
+            if pool_layout.dp_degree > 1:
+                raise NotImplementedError(
+                    "a mesh with a data axis (replicas over block ranges of one sharded "
+                    "pool) is not ported yet: ROADMAP 14c")
+            pool_layout.validate(cfg)
+            self.params = pool_layout.place_params(cfg, self.params)
+            step_cfg = pool_layout.local_config(cfg)
+            self._tp_group = pool_layout.tp_group
+        self.pool_layout = pool_layout
+        self._step_cfg = step_cfg
         if kv is not None:
             self.kv = kv
             kv_dtype = kv.kv_dtype  # the injected cache decides the pool format
@@ -400,12 +439,12 @@ class GenerationEngine:
         else:
             if self.host_store is None and (host_blocks or preempt in ("swap", "cost")):
                 self.host_store = HostBlockStore.for_config(
-                    cfg, host_blocks or n_blocks, block_size, kv_dtype=kv_dtype,
+                    step_cfg, host_blocks or n_blocks, block_size, kv_dtype=kv_dtype,
                     pin=self.device.type == "cuda")
             self.kv = PagedKVCache(cfg, n_blocks, block_size, self.max_blocks,
                                    prefix_sharing=prefix_sharing, device=self.device,
-                                   host_store=self.host_store, kv_dtype=kv_dtype,
-                                   sanitize=sanitize)
+                                   layout=pool_layout, host_store=self.host_store,
+                                   kv_dtype=kv_dtype, sanitize=sanitize)
         self.kv_dtype = kv_dtype
         # one sanitizer (if any) shadows the pool, the host store and the
         # copy engine's tag queue (the swap-in sync(tag) happens-before edge)
@@ -414,7 +453,8 @@ class GenerationEngine:
         # the oracle steps run the stack over gathered float views (an int8
         # pool is dequantized by the gather, requantized by the _q writes),
         # never through the dense int8 cache
-        self._oracle_cfg = cfg.replace(kv_cache_quant=False) if cfg.kv_cache_quant else cfg
+        self._oracle_cfg = (step_cfg.replace(kv_cache_quant=False) if step_cfg.kv_cache_quant
+                            else step_cfg)
         # decode plans: the paged decode kernel, or the gather oracle
         self._decode_dispatch = (self._decode_step if kernel == "pallas"
                                  else self._decode_paged)
@@ -498,6 +538,7 @@ class GenerationEngine:
             "measured_session_hit_rate": self.measured_session_hit_rate(),
             "preempt": self.preempt,
             "kv_dtype": self.kv_dtype or self.cfg.dtype,
+            "tp_degree": self.pool_layout.tp_degree if self.pool_layout else 1,
             "kernel_impl": self.kernel_impl,
             "ragged": self.ragged,
             "fused_slot_tokens": self.fused_slot_tokens,
@@ -610,6 +651,24 @@ class GenerationEngine:
             tables = torch.full((B, self._view_blocks), self._null_block, **i32)
             return roundtrip, (k, tables, starts, new_kv, n_valid)
         raise ValueError(f"unknown step program {which!r}")
+
+    def audit_collectives(self, which: str = "fused") -> Dict[str, int]:
+        """Collective census of one call of a step program (the step audit's
+        probe, ``models.shardmap_tp.count_collectives``): ``"fused"`` (the
+        mixed step), ``"decode"`` (the gather-oracle decode) or ``"pool"``
+        (the bare pool roundtrip) -> kind -> count, and kind + "_bytes" ->
+        the bytes handed to them. On a mesh the step programs show only the
+        Megatron all-reduces, the pool roundtrip none."""
+        from repro_torch.models.shardmap_tp import count_collectives
+
+        alias = {"fused": "fused_ragged" if self.ragged else "fused_padded",
+                 "decode": "decode_ref"}
+        fn, args = self.step_program(alias.get(which, which))
+        met = set(self._packed_lengths)
+        try:
+            return count_collectives(fn, args)
+        finally:
+            self._packed_lengths = met
 
     # token-weighted windows below this many prompt tokens are "cold"
     hit_rate_min_tokens: int = 64
@@ -874,10 +933,11 @@ class GenerationEngine:
         through its gather oracle."""
         self._packed_lengths.add(tokens.shape[0])
         logits = prefill_packed(
-            self.cfg, self.params, self.kv.k, self.kv.v, tables, tokens,
+            self._step_cfg, self.params, self.kv.k, self.kv.v, tables, tokens,
             row_of, slots, positions, p_end, s_start,
             block_size=self.block_size, null_block=self._null_block,
             k_scales=self.kv.k_scale, v_scales=self.kv.v_scale, impl=self.kernel_impl,
+            tp_group=self._tp_group,
         )
         return logits[last_idx.long()]
 
@@ -885,9 +945,9 @@ class GenerationEngine:
         """Batched paged decode: each row's new K/V is scattered in place and
         its block chain streams through ``paged_decode_attention``."""
         return decode_step_paged(
-            self.cfg, self.params, self.kv.k, self.kv.v, tables, tokens, pos,
+            self._step_cfg, self.params, self.kv.k, self.kv.v, tables, tokens, pos,
             block_size=self.block_size, null_block=self._null_block,
-            k_scales=self.kv.k_scale, v_scales=self.kv.v_scale,
+            k_scales=self.kv.k_scale, v_scales=self.kv.v_scale, tp_group=self._tp_group,
         )
 
     # the oracle steps: gathered contiguous views through the dense-cache
@@ -922,7 +982,7 @@ class GenerationEngine:
         back. Returns the last valid token's logits (V,)."""
         caches = self._views(table_row[None])
         logits, caches = prefill_chunk(self._oracle_cfg, self.params, caches, tokens, start,
-                                       positions, p_end, s_start)
+                                       positions, p_end, s_start, self._tp_group)
         pc = tokens.shape[1]
         newk = caches[0]["k"][:, 0, start:start + pc]            # (G, C, KVH, hd)
         newv = caches[0]["v"][:, 0, start:start + pc]
@@ -937,7 +997,7 @@ class GenerationEngine:
         block). Returns each row's last-valid-token logits (B, V)."""
         caches = self._views(tables)
         logits, caches = prefill_chunk(self._oracle_cfg, self.params, caches, tokens, starts,
-                                       positions, p_end, s_start)
+                                       positions, p_end, s_start, self._tp_group)
         B, C = tokens.shape
         b = torch.arange(B, device=tokens.device)
         idx = starts.long()[:, None] + torch.arange(C, device=tokens.device)
@@ -952,7 +1012,7 @@ class GenerationEngine:
         dense ``decode_step`` (its attention is ``decode_attention``), the
         new entries scattered back at ``pos``. Returns logits (B, V)."""
         logits, caches = decode_step(self._oracle_cfg, self.params, self._views(tables),
-                                     tokens, pos)
+                                     tokens, pos, self._tp_group)
         b = torch.arange(tables.shape[0], device=tables.device)
         p = pos.long()
         newk = caches[0]["k"][:, b, p][:, :, None]                # (G, B, 1, KVH, hd)
@@ -1376,8 +1436,8 @@ class DataParallelEngineGroup:
 
     ``params`` (default: drawn from ``seed``) and ``device`` are the
     replicas'; the other arguments are the JAX group's. ``pool_layout``
-    (replicas on a mesh) is not ported yet and raises
-    ``NotImplementedError``."""
+    (replicas on a mesh's data axis) is not ported yet and raises
+    ``NotImplementedError`` (ROADMAP 14c)."""
 
     def __init__(self, cfg, dp: int = 2, max_batch: int = 4, max_seq: int = 256,
                  block_size: int = 16, n_blocks_per_replica: Optional[int] = None,
@@ -1391,7 +1451,8 @@ class DataParallelEngineGroup:
             raise ValueError("dp must be >= 1")
         if pool_layout is not None:
             raise NotImplementedError(
-                "DataParallelEngineGroup(pool_layout=...) is not ported yet")
+                "DataParallelEngineGroup(pool_layout=...) (replicas over block ranges of a "
+                "pool sharded over a mesh's data axis) is not ported yet: ROADMAP 14c")
         device = resolve_device(device)
         max_blocks = -(-max_seq // block_size)
         per = n_blocks_per_replica or (max_batch * (max_blocks + 1) + 1)

@@ -35,8 +35,8 @@ return NEW pools, as the JAX functions do; the engine's oracle steps land
 them back in the cache box. ``sanitize=True`` attaches the lifecycle
 sanitizer (``analysis.kvsan``). A DP replica's cache allocates from a
 block range of a pool box it shares with its siblings (``block_range``,
-``arrays``); mesh layouts are not ported yet, and the constructor raises
-``NotImplementedError`` for them.
+``arrays``); a tensor-parallel rank's cache holds its shard of the KV
+heads (``layout``, ``serving.sharded_pool.ShardedPoolLayout``).
 """
 from __future__ import annotations
 
@@ -553,9 +553,11 @@ class PagedKVCache:
     ``block_range=(lo, hi)`` restricts allocation to blocks [lo, hi) for a
     DP replica with independent admission (``serving.sharded_pool
     .block_range``), and ``arrays`` shares one ``PoolArrays`` box between
-    such replicas: a cache built on a quantized box is an int8 cache. Mesh
-    layouts (``layout``) are not ported yet and raise
-    ``NotImplementedError``.
+    such replicas: a cache built on a quantized box is an int8 cache.
+    ``layout`` (a ``serving.sharded_pool.ShardedPoolLayout``) makes the
+    pools this rank's shard, ``KVH / tp`` heads of every block (float pools
+    only, as in JAX); the host-side block metadata stays whole on every
+    rank.
 
     The legacy per-sequence API (``admit``, ``write_token``,
     ``write_prefill``, ``sequence_view``) streams K/V in without token
@@ -568,7 +570,10 @@ class PagedKVCache:
                  client_tag=None, kv_dtype: Optional[str] = None,
                  sanitize: bool = False, sanitizer=None):
         if layout is not None:
-            raise NotImplementedError("PagedKVCache(layout=...) is not ported yet")
+            layout.validate(cfg)
+            if kv_dtype is not None:
+                raise ValueError("kv_dtype='int8' is single-device only: the parallel "
+                                 "scale pools do not shard over a mesh yet")
         if kv_dtype is not None and kv_dtype != "int8":
             raise ValueError(f"unsupported kv_dtype {kv_dtype!r}")
         lo, hi = block_range if block_range is not None else (0, n_blocks)
@@ -578,6 +583,7 @@ class PagedKVCache:
         from repro_torch.models.transformer import period
 
         self.cfg = cfg
+        self.layout = layout
         self.block_size = block_size
         self.max_blocks = max_blocks_per_seq
         if arrays is not None and device is None:
@@ -601,7 +607,8 @@ class PagedKVCache:
                 and getattr(host_store, "sanitizer", None) is None:
             host_store.sanitizer = sanitizer
         if arrays is None:
-            shape = (G, n_blocks, block_size, cfg.num_kv_heads, cfg.head_dim)
+            shape = (layout.pool_shape(cfg, n_blocks, block_size) if layout is not None
+                     else (G, n_blocks, block_size, cfg.num_kv_heads, cfg.head_dim))
             dt = torch.int8 if kv_dtype == "int8" else torch_dtype(cfg)
             zeros = lambda shp, d: torch.zeros(shp, dtype=d, device=self.device)
             scales = (None, None)

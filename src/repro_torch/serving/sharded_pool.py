@@ -1,22 +1,37 @@
 """Partitions of one paged KV pool, ported from ``repro.serving.sharded_pool``.
 
+**TP (model axis, by KV head).** ``ShardedPoolLayout`` maps a paged
+engine onto a "model" axis of ``tp`` ranks, one process each, SPMD: every
+rank runs the same host logic (control plane, block tables, sampler seed)
+and holds ``KVH / tp`` heads of every pool block, its ``H / tp`` query
+heads and its slices of the weights (``place_params``, by
+``models.sharding.serve_engine_pspecs``: column-parallel QKV and MLP up
+projections, row-parallel output and down projections, the embedding and
+lm_head replicated). The block ids, refcounts, prefix index and warm LRU
+stay replicated host-side metadata, so the block-table gathers and the
+chunk scatter stay local to each rank; the only communication of a step is
+the Megatron pair, one all-reduce after the attention output projection
+and one after the MLP down projection a layer (the step functions'
+``tp_group``, ``models.transformer._tp_sum``). The JAX layout places
+shards on devices of one process under GSPMD; here each rank is a process
+of a ``torch.distributed`` group and the collectives are written out.
+
 **DP (by block range).** Data-parallel replicas own disjoint *block ranges*
 of one pool box, each replica running fully independent admission (its own
 free list, refcounts, prefix index and warm LRU). ``block_range`` computes a
 replica's slice; ``serving.engine.DataParallelEngineGroup`` wires replica
-engines to one shared ``PoolArrays`` box. Cross-replica *content* sharing
-happens one tier down: a ``serving.host_tier.HostBlockStore`` shared by the
-group mirrors every replica's published prefix blocks on the host
-(content-hash keys are replica-agnostic), so a document prefilled in one
-replica's range is a host-tier promotion, not a re-prefill, in another's.
-
-The port keeps every replica on one device: there is no mesh, so the
-block axis is not placed anywhere. ``ShardedPoolLayout`` (pools split by KV
-head over a model axis) is not ported yet.
+engines to one shared ``PoolArrays`` box on one device. Cross-replica
+*content* sharing happens one tier down: a ``serving.host_tier.
+HostBlockStore`` shared by the group mirrors every replica's published
+prefix blocks on the host, so a document prefilled in one replica's range
+is a host-tier promotion, not a re-prefill, in another's. A mesh with a
+"data" axis (the pool's block axis split over it) is not ported yet
+(ROADMAP 14c).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from dataclasses import dataclass
+from typing import Any, Optional, Tuple
 
 
 def block_range(n_blocks: int, dp_degree: int, dp_rank: int) -> Tuple[int, int]:
@@ -31,3 +46,137 @@ def block_range(n_blocks: int, dp_degree: int, dp_rank: int) -> Tuple[int, int]:
     lo = dp_rank * per
     hi = (dp_rank + 1) * per if dp_rank < dp_degree - 1 else n_blocks
     return lo, hi
+
+
+@dataclass(frozen=True)
+class ShardedPoolLayout:
+    """How a paged engine's arrays map onto a mesh (``launch.mesh.
+    make_serving_mesh``: a ``DeviceMesh`` over the process group) that
+    carries a "model" axis (TP) and may carry a "data" axis (DP; the
+    engine refuses one until ROADMAP 14c)."""
+
+    mesh: Any
+
+    @property
+    def axis_sizes(self) -> dict:
+        from repro_torch.launch.mesh import mesh_axis_sizes
+
+        return mesh_axis_sizes(self.mesh)
+
+    @property
+    def tp_degree(self) -> int:
+        return self.axis_sizes.get("model", 1)
+
+    @property
+    def dp_degree(self) -> int:
+        return self.axis_sizes.get("data", 1)
+
+    @property
+    def tp_rank(self) -> int:
+        """This process's index along the "model" axis."""
+        return self.mesh.get_local_rank("model") if self.tp_degree > 1 else 0
+
+    @property
+    def tp_group(self):
+        """The process group of this rank's "model" axis (None at tp 1)."""
+        return self.mesh.get_group("model") if self.tp_degree > 1 else None
+
+    # ----------------------------------------------------------- validation
+    def validate(self, cfg) -> None:
+        """The TP partition is explicit, never padded: reject a config whose
+        head counts don't divide the model axis instead of silently falling
+        back to replicated pools (the caller asked for sharding)."""
+        tp = self.tp_degree
+        if tp <= 1:
+            return
+        if cfg.num_kv_heads % tp:
+            raise ValueError(
+                f"sharded pool: num_kv_heads={cfg.num_kv_heads} does not "
+                f"divide the model axis ({tp}); each shard must own an equal "
+                f"slice of every block's KV heads"
+            )
+        if cfg.num_heads % tp:
+            raise ValueError(
+                f"sharded pool: num_heads={cfg.num_heads} does not divide "
+                f"the model axis ({tp}); query heads must align with the "
+                f"KV-head shards for attention to stay shard-local"
+            )
+
+    # --------------------------------------------------------------- shapes
+    def local_config(self, cfg):
+        """The config of this rank's layers: ``H / tp`` query heads over
+        ``KVH / tp`` KV heads, ``d_ff / tp`` MLP columns (head_dim kept)."""
+        tp = self.tp_degree
+        if tp <= 1:
+            return cfg
+        self.validate(cfg)
+        return cfg.replace(num_heads=cfg.num_heads // tp, num_kv_heads=cfg.num_kv_heads // tp,
+                           d_ff=cfg.d_ff // tp, head_dim=cfg.head_dim)
+
+    def pool_shape(self, cfg, n_blocks: int, block_size: int) -> Tuple[int, ...]:
+        """This rank's shard of a k or v pool: (G, n_blocks, bs, KVH / tp,
+        hd) (``models.sharding.pool_pspecs``)."""
+        from repro_torch.models.sharding import pool_pspecs, shard_shape
+        from repro_torch.models.transformer import period
+
+        G = cfg.num_layers // period(cfg)
+        full = (G, n_blocks, block_size, cfg.num_kv_heads, cfg.head_dim)
+        sizes = {k: v for k, v in self.axis_sizes.items() if k == "model"}
+        return shard_shape(full, pool_pspecs(cfg, sizes, n_blocks=n_blocks), sizes)
+
+    def entry_shape(self, cfg, B: int, S: int) -> Tuple[int, ...]:
+        """This rank's shard of a gathered view or chunk write (G, B, S,
+        KVH / tp, hd): the pool's KV-head partition, blocks and batch whole."""
+        G, _, _, kvh, hd = self.pool_shape(cfg, 1, 1)
+        return (G, B, S, kvh, hd)
+
+    # ----------------------------------------------------------- parameters
+    def param_shardings(self, cfg, params):
+        """Spec tree of the TP-resident serve params (embed / lm_head
+        replicated; ``models.sharding.serve_engine_pspecs``)."""
+        from repro_torch.models.sharding import serve_engine_pspecs
+
+        return serve_engine_pspecs(cfg, params, self.axis_sizes)
+
+    def place_params(self, cfg, params):
+        """This rank's shard of every leaf: each dimension its spec puts on
+        "model" narrowed to the rank's slice, contiguous. The QKV biases are
+        replicated in the policy (as in JAX, where the partitioner adds each
+        shard's columns); a rank adds them to its own heads' columns only,
+        so they are cut to those columns here. A feed-forward the Megatron
+        pair does not cover (a MoE layer, a row-parallel bias) raises."""
+        from repro_torch.models.sharding import spec_axes, tree_map_with_path
+
+        tp, r = self.tp_degree, self.tp_rank
+        if tp <= 1:
+            return params
+
+        def shard(path, leaf, spec):
+            if path.endswith(("moe/router", "mlp/b_down")):
+                raise NotImplementedError(f"tensor-parallel serving of {path}: the engine's "
+                                          f"Megatron pair covers dense QKV / SwiGLU layers only")
+            dims = [d for d, e in enumerate(spec) if "model" in spec_axes(e)]
+            if path.endswith(("attn/bq", "attn/bk", "attn/bv")):
+                dims = [leaf.dim() - 1]
+            for d in dims:
+                n = leaf.shape[d] // tp
+                leaf = leaf.narrow(d, r * n, n)
+            return leaf.contiguous() if dims else leaf
+
+        return tree_map_with_path(shard, params, self.param_shardings(cfg, params))
+
+
+def make_pool_layout(mesh=None, tp: Optional[int] = None,
+                     dp: int = 1) -> Optional[ShardedPoolLayout]:
+    """Build a layout from either an existing mesh or a (tp, dp) request
+    (``launch.mesh.make_serving_mesh`` over the initialised process group).
+    Returns None for the degenerate no-mesh / tp=1 / dp=1 case, so callers
+    keep the unsharded path."""
+    if mesh is not None:
+        return ShardedPoolLayout(mesh)
+    tp = tp or 1
+    if tp <= 1 and dp <= 1:
+        return None
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    return ShardedPoolLayout(make_serving_mesh(tp, dp))

@@ -641,14 +641,16 @@ def test_wkv_kernel_matches_plain_version(gpu, dtype, B, S, H, hd, decay):
 ], ids=["S1", "S33", "S255", "S257", "S1519", "S2048-w1e-6", "hd32-S100"])
 def test_wkv_kernel_at_segment_edges(gpu, dtype, B, S, H, hd, decay):
     """Lengths about the edges of ``wkv_segments``, the state updated in
-    place; the kernel's (n_seg, seg_len) is the rule's."""
+    place; the wrapper cuts S by the rule at this card's slots, whose
+    segments cover the S steps, each segment holding at least one."""
     r, k, v, w, u, state0 = _wkv_case(S + 7, B, S, H, hd, dtype, decay, gpu)
     inplace = state0.clone()
     y, st = kw.rwkv6_chunked(r, k, v, w, u, inplace, state_out=inplace)
     torch.cuda.synchronize()
     assert st is inplace
     slots = kw.output_slots(r.device.index, dtype, hd)
-    assert kw.rwkv6_chunked.segments == kw.wkv_segments(slots, B, H, S)
+    n_seg, seg_len = kw.wkv_segments(slots, B, H, S)
+    assert (n_seg - 1) * seg_len < S <= n_seg * seg_len
     y_ref, st_ref = kw.ref_rwkv6_chunked(r, k, v, w, u, state0)
     assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())
     torch.testing.assert_close(y, y_ref, atol=WKV_TOL[0], rtol=WKV_TOL[1])
@@ -760,15 +762,17 @@ def test_ssm_kernel_matches_plain_version(gpu, dtype, B, S, Di, N, extreme):
     (2, 100, 256, 8, True),       # the smoke variant's state size, 3 segments
 ], ids=["S1", "S17", "S129", "S1647", "S1664-extreme", "N8-S100"])
 def test_ssm_kernel_at_segment_edges(gpu, dtype, B, S, Di, N, extreme):
-    """Lengths about the edges of ``ssm_segments``, h updated in place; the
-    kernel's (n_seg, seg_len) is the rule's."""
+    """Lengths about the edges of ``ssm_segments``, h updated in place;
+    the wrapper cuts S by the rule at this card's slots, whose segments
+    cover the S steps, each segment holding at least one."""
     dt, x, bm, cm, a_log, h0 = _ssm_case(S + 5, B, S, Di, N, dtype, gpu, extreme)
     inplace = h0.clone()
     y, h = ks.ssm_scan(dt, x, bm, cm, a_log, inplace, h_out=inplace)
     torch.cuda.synchronize()
     assert h is inplace
     slots = ks.output_slots(dt.device.index, dtype, N)
-    assert ks.ssm_scan.segments == ks.ssm_segments(slots, B, Di, N, S)
+    n_seg, seg_len = ks.ssm_segments(slots, B, Di, N, S)
+    assert (n_seg - 1) * seg_len < S <= n_seg * seg_len
     y_ref, h_ref = ks.ref_ssm_scan(dt, x, bm, cm, a_log, h0)
     assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
     torch.testing.assert_close(y, y_ref, atol=SSM_TOL[0], rtol=SSM_TOL[1])
@@ -1907,3 +1911,75 @@ def test_recurrent_smoke_stacks_train_on_the_card(gpu, arch):
         assert err <= 1e-3, err
     assert metrics["cuda"][0] == pytest.approx(metrics["cpu"][0], rel=1e-4)
     assert metrics["cuda"][1] == pytest.approx(metrics["cpu"][1], rel=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the meta rule: a shape-only call gives the card call's shapes and dtypes
+# ---------------------------------------------------------------------------
+
+
+def _meta_like(tree):
+    if isinstance(tree, torch.Tensor):
+        return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+    return tree
+
+
+def _shapes(out):
+    outs = out if isinstance(out, tuple) else (out,)
+    return [(tuple(t.shape), t.dtype) for t in outs]
+
+
+def _meta_matches_card(fn, args, kwargs=None, name=None):
+    """``fn`` on meta copies of ``args`` returns the card call's shapes and
+    dtypes, launches nothing and counts its contract work once."""
+    from repro_torch.kernels import work
+
+    kwargs = kwargs or {}
+    card = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    launches = fn.launches
+    work.reset_meta_work()
+    meta = fn(*[_meta_like(a) for a in args], **{k: _meta_like(v) for k, v in kwargs.items()})
+    assert fn.launches == launches
+    assert all(t.is_meta for t in (meta if isinstance(meta, tuple) else (meta,)))
+    assert _shapes(meta) == _shapes(card)
+    counted = work.META_WORK[name or fn.__name__]
+    assert counted.calls == 1 and counted.nbytes > 0 and counted.flops > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_meta_branch_paged_wrappers(gpu, dtype):
+    c = _on(_case(31, 128, dtype, dtype), gpu)
+    _meta_matches_card(ka.paged_decode_attention,
+                       (c["q_dec"], c["k"], c["v"], c["tables"], c["lengths"]))
+    _meta_matches_card(ka.paged_chunk_attention,
+                       (c["q_chunk"], c["k"], c["v"], c["tables"], c["row_of"],
+                        c["slots"], c["p_end"], c["s_start"]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_meta_branch_dense_wrappers(gpu, dtype):
+    g = torch.Generator(device=gpu).manual_seed(3)
+    rnd = lambda *s: torch.randn(s, generator=g, device=gpu).to(dtype)
+    q, k, v = rnd(2, 100, 8, 64), rnd(2, 100, 2, 64), rnd(2, 100, 2, 64)
+    for form in ({"causal": True}, {"causal": True, "window": 32}, {"causal": True, "chunk": 48},
+                 {"causal": False}):
+        _meta_matches_card(kf.flash_attention, (q, k, v), form)
+        out = kf.flash_attention(q, k, v, **form)
+        _meta_matches_card(kf.flash_attention_backward, (q, k, v, out, torch.ones_like(out)),
+                           form)
+    lengths = torch.tensor([1, 100], dtype=torch.int32, device=gpu)
+    _meta_matches_card(ka.decode_attention, (rnd(2, 8, 64), k, v, lengths))
+
+
+def test_meta_branch_scans_and_topk(gpu):
+    r, k, v, w, u, state0 = _wkv_case(7, 2, 40, 4, 64, torch.bfloat16, None, gpu)
+    _meta_matches_card(kw.rwkv6_chunked, (r, k, v, w, u, state0))
+    dy = torch.randn(r.shape, device=gpu)
+    _meta_matches_card(kw.rwkv6_chunked_backward, (r, k, v, w, u.float(), state0, dy))
+    dt, x, bm, cm, a_log, h0 = _ssm_case(7, 2, 40, 64, 16, torch.bfloat16, gpu)
+    _meta_matches_card(ks.ssm_scan, (dt, x, bm, cm, a_log, h0))
+    dy = torch.randn(dt.shape, device=gpu)
+    _meta_matches_card(ks.ssm_scan_backward, (dt, x, bm, cm, a_log.float(), h0, dy))
+    q, docs = torch.randn(4, 64, device=gpu), torch.randn(1000, 64, device=gpu)
+    _meta_matches_card(tk.topk_retrieval, (q, docs), {"k": 10})

@@ -40,6 +40,9 @@ def test_imports_with_jax_and_repro_blocked():
         "from repro_torch.models import loss_fn, make_train_step\n"
         "from repro_torch.data.workload import TokenDataset\n"
         "from repro_torch.kernels.flash_attention import FlashAttention\n"
+        "import repro_torch.kernels.work, repro_torch.launch.dryrun, repro_torch.launch.mesh\n"
+        "import repro_torch.models.sharding, repro_torch.models.shardmap_tp\n"
+        "from repro_torch.serving.sharded_pool import ShardedPoolLayout, make_pool_layout\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -109,15 +112,26 @@ def test_later_slices_raise_not_implemented():
     from repro_torch.configs import get_arch, smoke_variant
     from repro_torch.serving.engine import GenerationEngine
 
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.serving.sharded_pool import ShardedPoolLayout
+
     cfg = smoke_variant(get_arch("smollm-135m"))
-    for kw in ({"mesh": object()}, {"pool_layout": object()}):
-        with pytest.raises(NotImplementedError):
+    # a mesh with a data axis is a later slice (ROADMAP 14c); a model-axis
+    # mesh is ported (tests/test_torch_tp.py) and, as JAX's, refuses the
+    # Pallas kernels
+    data_axis = AbstractMesh(("data", "model"), (2, 1))
+    for kw in ({"mesh": data_axis}, {"pool_layout": ShardedPoolLayout(data_axis)}):
+        with pytest.raises(NotImplementedError, match="14c"):
+            GenerationEngine(cfg, device="cpu", kernel="reference", **kw)
+        with pytest.raises(ValueError, match="single-device"):
             GenerationEngine(cfg, device="cpu", **kw)
     from repro_torch.serving.paged_cache import PagedKVCache
 
-    for kw in ({"layout": object()},):
-        with pytest.raises(NotImplementedError):
-            PagedKVCache(cfg, 8, 16, 4, device="cpu", **kw)
+    model_axis = ShardedPoolLayout(AbstractMesh(("model",), (2,)))
+    kv = PagedKVCache(cfg, 8, 16, 4, device="cpu", layout=model_axis)
+    assert tuple(kv.k.shape) == (cfg.num_layers, 8, 16, cfg.num_kv_heads // 2, cfg.head_dim)
+    with pytest.raises(ValueError, match="single-device"):
+        PagedKVCache(cfg, 8, 16, 4, device="cpu", layout=model_axis, kv_dtype="int8")
     from repro_torch.serving.engine import DataParallelEngineGroup
 
     with pytest.raises(NotImplementedError):       # replicas on a mesh: a later slice
