@@ -395,7 +395,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
    audited step programs 72 all-reduces of the Megatron formula's bytes
    and no all-gather, the pool roundtrip none; the dense decode kernel 36
    a decode plan; a world-size-1 layout engine equal to the unsharded one
-   bit for bit.
+   bit for bit. (c) ``phase_dp_mesh_card``: the data axis of a serving
+   mesh, a (dp 2, tp 2) mesh of 4 ranks over gloo all on cuda:0, each row
+   one replica of a ``DataParallelEngineGroup`` holding only its block
+   range of its KV head (``dp_blocks``), qwen2.5-3b at full width, phase
+   5's prompts in ``DP_WAVES`` (256-token chunks: four ranks of the gather
+   oracle at (b)'s 512 exceed the card) with a write-through host tier the
+   rows exchange. Each rank's pool shard (36, 1033, 16, 1, 128); the four
+   ranks' tokens equal; each row's first-token logits against (b)'s tp 1
+   engine within ``logit_bound(36)``; per step program 72 all-reduces of
+   the Megatron formula's bytes on the "model" group, none on the "data"
+   group, the pool roundtrip none; the dense decode kernel 36 a decode
+   plan of the row; cross-replica host hits.
 
 It prints a ``{"int8_serve": ..., "host_tier": ..., "oracle_paths": ...,
 "controller": ..., "swa_serve": ..., "mixtral_serve": ...,
@@ -404,7 +415,7 @@ It prints a ``{"int8_serve": ..., "host_tier": ..., "oracle_paths": ...,
 "swa_int8_serve": ..., "internvl2_serve": ..., "whisper_serve": ...,
 "audit": ..., "dp": ..., "train": ..., "train_forms": ..., "train_scans": ...,
 "train_stack_gradient": ..., "grad_guards": ..., "dryrun_card": ...,
-"tp_card": ...}`` line of phases 5c, 5d, 5e, 7b, 10, 11, 4f, 12, 13, 4g,
+"tp_card": ..., "dp_mesh_card": ...}`` line of phases 5c, 5d, 5e, 7b, 10, 11, 4f, 12, 13, 4g,
 10b, 14, 15, 16, 17, 18 and 19's figures,
 a ``{"kernels": [...]}`` line, the card's name and power limit, each
 phase's seconds and the total, and last ``{"ok": true, "device":
@@ -5788,6 +5799,8 @@ def phase_tp_card(ka, kf, tk):
     ref.run_until_done()
     ref_tokens = [r.out_tokens for r in ref_reqs]
     ref_launches = read_launches(ka, kf, tk)
+    reference = {"prompts": prompts, "tokens": ref_tokens,
+                 "first": {rid: v.cpu() for rid, v in ref_first.items()}}
     dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
     try:
         one = GenerationEngine(cfg, **common, pool_layout=ShardedPoolLayout(make_serving_mesh(1)))
@@ -5858,7 +5871,184 @@ def phase_tp_card(ka, kf, tk):
             "all_reduce_bytes": {p: f["all-reduce_bytes"] for p, f in formula.items()},
             "launches": r0["launches"], "decode_plans": r0["decode_plans"],
             "steps": r0["steps"], "serve_wall_s": r0["wall_s"], "phase_wall_s": wall,
-            "audit_rank0": r0["audit"]}
+            "audit_rank0": r0["audit"]}, reference
+
+
+# 19c: the data axis of a serving mesh, (dp, tp) ranks on the one card,
+# in 256-token chunks: the gather oracle's per-token K/V view at 8 x 512
+# packed tokens peaks at ~13 GB a rank (bf16 gathers and their f32
+# upcasts), and four ranks of it beside their weights exceed the card
+DP_MESH = (2, 2)
+DP_MESH_CHUNK = 256
+
+
+def dp_mesh_rank_job(rank, mesh, device, prompts, max_new):
+    """19c, one rank of a (dp, tp) mesh: qwen2.5-3b at full width, its
+    row's replica of a ``DataParallelEngineGroup`` over its block range of
+    its heads (``dp_blocks``), with a write-through host tier; the audited
+    step programs' collectives by group, then phase 5's prompts in the two
+    ``DP_WAVES`` in ``DP_MESH_CHUNK``-token chunks. Returns what the parent
+    checks."""
+    from repro_torch.analysis.step_audit import audit_program, default_contracts, group_census
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import decode_attention as ka
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import topk_retrieval as tk
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import DataParallelEngineGroup
+    from repro_torch.serving.sharded_pool import ShardedPoolLayout
+
+    cfg = get_arch("qwen2.5-3b").replace(dtype="bfloat16")
+    layout = ShardedPoolLayout(mesh, dp_blocks=True)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
+    grp = DataParallelEngineGroup(cfg, dp=layout.dp_degree, params=params, device=device,
+                                  max_batch=8, max_seq=2048, block_size=16,
+                                  prefill_chunk_size=DP_MESH_CHUNK, kernel="reference",
+                                  pool_layout=layout, host_blocks=1024)
+    del params                       # the full tree: the group holds this rank's shard
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = grp.engine
+    audit = {}
+    for c in default_contracts(eng):
+        traces = []
+        findings = audit_program(eng, c, traces)
+        audit[c.program] = {"findings": [str(f) for f in findings],
+                            "ok": all(f.ok for f in findings),
+                            "by_group": group_census(traces[0], layout)}
+    plans = []
+    eng.control.recorded = plans
+    first = keep_first_logits(eng)
+    reset_launches(ka, kf, tk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [None] * len(prompts)
+    for wave in DP_WAVES:
+        for i in wave:
+            reqs[i] = grp.submit(prompts[i], max_new=max_new)
+        grp.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = grp.stats()
+    routes = [grp.replica_of(r) for r in reqs]
+    mine = {i: first[r.req_id].cpu() for i, r in enumerate(reqs) if routes[i] == layout.dp_rank}
+    return {"row": layout.dp_rank, "column": layout.tp_rank,
+            "tokens": [r.out_tokens for r in reqs], "routes": routes, "first": mine,
+            "audit": audit, "launches": read_launches(ka, kf, tk), "wall_s": wall,
+            "steps": [s["steps"] for s in st["replicas"]],
+            "decode_plans": sum(p.kind == "decode" for p in plans),
+            "pool_shape": tuple(eng.kv.k.shape),
+            "pool_bytes": sum(t.untyped_storage().nbytes() for t in (eng.kv.k, eng.kv.v)),
+            "n_blocks": eng.kv.pool.n_blocks, "block_range": (eng.kv.pool.base,
+                                                              eng.kv.pool.base
+                                                              + eng.kv.pool.n_owned),
+            "cross_replica_host_hits": st["cross_replica_host_hits"],
+            "host_hit_tokens": st["host_hit_tokens"], "exchanges": grp.exchanges,
+            "device": str(eng.device),
+            "packed_tokens": -(-8 * DP_MESH_CHUNK // eng.pack_align) * eng.pack_align}
+
+
+def phase_dp_mesh_card(ka, kf, tk, reference):
+    """19c: the data axis of a serving mesh on the one card: a (dp 2, tp 2)
+    mesh of 4 ranks over gloo, all on ``cuda:0`` (``launch.mesh.
+    run_on_ranks``), qwen2.5-3b at full width, each row one replica of a
+    ``DataParallelEngineGroup(pool_layout=ShardedPoolLayout(mesh,
+    dp_blocks=True))`` over its block range of its KV head, serving phase
+    5's prompts in ``DP_WAVES`` at ``TP_MAX_NEW`` tokens, in
+    ``DP_MESH_CHUNK``-token chunks.
+    Checks: every rank's pool shard (36, total / 2, 16, 1, 128) and its
+    storage that shape's bytes; the four ranks' tokens equal; each row's
+    first-token logits against 19b's tp 1 engine within
+    ``logit_bound(36)``; per step program 72 all-reduces of the Megatron
+    formula's bytes on the "model" group, none on the "data" group, the
+    pool roundtrip none; ``decode_attention`` 36 a decode plan of the row,
+    no paged kernel; cross-replica host hits. Prints each rank's serve
+    wall, each replica's steps and the host-tier exchange's bytes a group
+    step."""
+    from repro_torch.launch.mesh import run_on_ranks
+    from repro_torch.models.shardmap_tp import megatron_collectives
+
+    dp, tp = DP_MESH
+    cfg = get_arch_bf16("qwen2.5-3b")
+    L = cfg.num_layers
+    prompts, ref_tokens, ref_first = (reference[k] for k in ("prompts", "tokens", "first"))
+    print(f"[dp mesh] a ({dp}, {tp}) ('data', 'model') mesh of {dp * tp} ranks shares the one "
+          f"card (cuda:0): this checks the rows' placement, math and exchanges, it is not a "
+          f"speedup", flush=True)
+    t0 = time.perf_counter()
+    ranks = run_on_ranks(dp_mesh_rank_job, tp, "cuda:0", prompts, TP_MAX_NEW, dp=dp)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    assert [(r["row"], r["column"]) for r in ranks] == [(d, m) for d in range(dp)
+                                                        for m in range(tp)]
+    assert all(r["tokens"] == r0["tokens"] and r["routes"] == r0["routes"] for r in ranks), \
+        "the ranks' tokens differ"
+    per = 8 * (2048 // 16 + 1) + 1
+    want_shape = (L, per, 16, cfg.num_kv_heads // tp, cfg.head_dim)
+    for r in ranks:
+        assert r["n_blocks"] == dp * per and r["pool_shape"] == want_shape, r["pool_shape"]
+        assert r["pool_bytes"] == 2 * math.prod(want_shape) * 2, r["pool_bytes"]
+        assert r["block_range"] == (r["row"] * per, (r["row"] + 1) * per), r["block_range"]
+    bound = logit_bound(L)
+    rel = {}
+    for r in ranks:
+        for i, lg in r["first"].items():
+            want = ref_first[i]
+            assert bool(torch.isfinite(lg).all()), i
+            rel[(r["row"], r["column"], i)] = float((lg - want).abs().max() / want.abs().max())
+    assert len({i for (_, _, i) in rel}) == len(prompts), sorted(rel)
+    worst = max(rel.values())
+    agree = agreement(r0["tokens"], ref_tokens)
+    first_equal = sum(a[0] == b[0] for a, b in zip(r0["tokens"], ref_tokens))
+    formula = {"fused_ragged": megatron_collectives(cfg, r0["packed_tokens"], 2, tp),
+               "decode": megatron_collectives(cfg, 8, 2, tp),
+               "decode_ref": megatron_collectives(cfg, 8, 2, tp),
+               "pool": {"all-reduce": 0, "all-reduce_bytes": 0}}
+    for r in ranks:
+        for prog, a in r["audit"].items():
+            model, data = a["by_group"]["model"], a["by_group"]["data"]
+            assert set(a["by_group"]) == {"model", "data"}, (r["row"], prog, a["by_group"])
+            assert model.get("all-reduce", 0) == formula[prog]["all-reduce"], (prog, model)
+            assert model.get("all-reduce_bytes", 0) == formula[prog]["all-reduce_bytes"], \
+                (prog, model, formula[prog])
+            assert set(k for k in model if not k.endswith("_bytes")) <= {"all-reduce"}, model
+            assert not data, (prog, data)
+            assert a["ok"], (r["row"], prog, a["findings"])
+        assert r["launches"]["decode_attention"] == L * r["decode_plans"] > 0, r["launches"]
+        assert r["launches"]["paged_chunk_attention"] == 0, r["launches"]
+        assert r["launches"]["paged_decode_attention"] == 0, r["launches"]
+    assert r0["cross_replica_host_hits"] > 0 and r0["host_hit_tokens"] > 0, r0
+    steps_ex = [(n, b) for n, b in r0["exchanges"] if n]
+    for line in r0["audit"]["fused_ragged"]["findings"] + r0["audit"]["pool"]["findings"]:
+        print(f"[dp mesh] rank 0 audit: {line}", flush=True)
+    print(f"[dp mesh] {dp * tp} ranks on cuda:0, {cfg.name} at full width, rows = replicas "
+          f"over block ranges ({per} of {dp * per} blocks a rank, pool shard {want_shape}, "
+          f"{r0['pool_bytes']} B k+v a rank): {len(prompts)} requests x {TP_MAX_NEW} tokens "
+          f"in waves {DP_WAVES} routed {r0['routes']}, ranks equal; greedy tokens against the "
+          f"tp 1 engine {agree:.3f} equal ({first_equal}/{len(prompts)} first tokens); "
+          f"first-token logits max |d| / max |logit| worst {worst:.5f} (bound {bound:.3f}); "
+          f"all-reduces a step program on the model group "
+          f"{ {p: formula[p]['all-reduce'] for p in formula} } with the formula's bytes, none "
+          f"on the data group; launches a rank {r0['launches']}; replica steps {r0['steps']}; "
+          f"decode plans a row {[r['decode_plans'] for r in ranks[::tp]]}; cross-replica host "
+          f"hits {r0['cross_replica_host_hits']}, host-hit tokens {r0['host_hit_tokens']}; "
+          f"host-tier exchange: {len(r0['exchanges'])} group steps, {len(steps_ex)} carried "
+          f"blocks, {[b for _, b in steps_ex]} B (blocks {[n for n, _ in steps_ex]}); "
+          f"ranks' serve wall {[round(r['wall_s'], 1) for r in ranks]} s; phase spawn-to-join "
+          f"{wall:.1f}s", flush=True)
+    assert worst <= bound, (rel, bound)
+    return {"mesh": {"data": dp, "model": tp}, "device": r0["device"], "routes": r0["routes"],
+            "token_agreement": agree, "first_tokens_equal": first_equal,
+            "first_logit_rel_worst": worst, "bound": bound, "pool_shape": want_shape,
+            "pool_bytes_a_rank": r0["pool_bytes"],
+            "all_reduce_model_group": {p: f["all-reduce"] for p, f in formula.items()},
+            "all_reduce_bytes_model_group": {p: f["all-reduce_bytes"]
+                                             for p, f in formula.items()},
+            "launches": r0["launches"], "decode_plans": [r["decode_plans"] for r in ranks],
+            "replica_steps": r0["steps"], "serve_wall_s": [r["wall_s"] for r in ranks],
+            "phase_wall_s": wall, "cross_replica_host_hits": r0["cross_replica_host_hits"],
+            "host_hit_tokens": r0["host_hit_tokens"],
+            "exchange_blocks_bytes": r0["exchanges"]}
 
 
 def get_arch_bf16(name):
@@ -6012,8 +6202,13 @@ def main() -> int:
     guard_figures = no_scan("grad guards", phase_grad_guards, ka, kf, tk)
     dryrun_figures = no_scan("dry run on the card", phase_dryrun_card, train_figures)
     reset_launches(ka, kf, tk)
-    tp_figures = no_scan("tensor parallel on the card", phase_tp_card, ka, kf, tk)
+    tp_figures, tp_reference = no_scan("tensor parallel on the card", phase_tp_card, ka, kf,
+                                       tk)
     launches["tp card rank 0"] = tp_figures["launches"]
+    reset_launches(ka, kf, tk)
+    dp_mesh_figures = no_scan("data axis of a serving mesh on the card", phase_dp_mesh_card, ka,
+                              kf, tk, tp_reference)
+    launches["dp mesh rank 0"] = dp_mesh_figures["launches"]
 
     kernels = []
     for name in ("paged_chunk_attention", "paged_decode_attention"):
@@ -6244,7 +6439,8 @@ def main() -> int:
                       "dp": dp_figures, "train": train_figures,
                       "train_forms": form_train_figures, "train_scans": scan_train_figures,
                       "train_stack_gradient": stack_figures, "grad_guards": guard_figures,
-                      "dryrun_card": dryrun_figures, "tp_card": tp_figures}))
+                      "dryrun_card": dryrun_figures, "tp_card": tp_figures,
+                      "dp_mesh_card": dp_mesh_figures}))
     print(json.dumps({"kernels": kernels}))
     print(f"[done] {time.perf_counter() - t_start:.1f}s in all", flush=True)
     print(card)

@@ -11,12 +11,19 @@ instruments and checks a :class:`StepContract` against what they saw:
 
 * **collectives** — a census of the ``c10d`` / ``_c10d_functional`` ops a
   ``TorchDispatchMode`` sees during the call, each with the bytes of the
-  tensors it was handed. An engine off any mesh must show none; a sharded
-  engine (``pool_layout``, tensor parallel over a "model" axis) at most 2
-  x num_layers all-reduces on its step programs (the Megatron pair, one
-  after the attention output projection and one after the MLP down
-  projection a layer), none on the bare pool roundtrip, and never an
-  all-gather.
+  tensors it was handed and the process group it ran on. An engine off any
+  mesh must show none; a sharded engine (``pool_layout``, tensor parallel
+  over a "model" axis) at most 2 x num_layers all-reduces on its step
+  programs (the Megatron pair, one after the attention output projection
+  and one after the MLP down projection a layer), none on the bare pool
+  roundtrip, and never an all-gather. On a mesh with a "data" axis they
+  must run on the rank's "model" group, and no collective may run on its
+  "data" group or any other (``group_census``): a replica's block gather
+  never leaves its rank. (JAX allows one data-axis all-reduce a pool read
+  there, the combine GSPMD puts after a masked local gather; without a
+  partitioner there is none. The host-tier and load exchanges of
+  ``serving.engine.DataParallelEngineGroup`` run between step programs,
+  on the host, and the audit does not see them.)
 * **host-sync** (the JAX audit's ``callbacks``) — no host round-trip inside
   a step: the dispatch mode flags ``_local_scalar_dense`` (``.item()``,
   ``bool()``/``int()`` of a tensor), ``nonzero``, ``unique*``,
@@ -55,7 +62,8 @@ from torch.utils._pytree import tree_leaves
 __all__ = [
     "StepContract", "Finding", "AuditReport", "StepTrace", "audit_engine",
     "audit_program", "default_contracts", "cache_sentinel", "trace_step",
-    "collective_census", "collective_bytes", "find_host_syncs", "int8_kernel_flow",
+    "collective_census", "collective_bytes", "group_census", "mesh_groups",
+    "find_host_syncs", "int8_kernel_flow",
 ]
 
 _COLLECTIVE_NAMESPACES = ("c10d", "_c10d_functional")
@@ -100,6 +108,9 @@ class StepContract:
                                      "collective-permute", "other")
     allow_host_sync: bool = False
     require_int8_kernel_path: bool = False
+    # on a data-axis mesh: (group name, axis) of the rank's groups; every
+    # collective must then run on its "model" group
+    axis_groups: Tuple[Tuple[str, str], ...] = ()
 
 
 @dataclass(frozen=True)
@@ -138,10 +149,26 @@ class StepTrace:
     """What the instruments saw during one call of a step program."""
     collectives: List[Tuple[str, str]] = field(default_factory=list)  # (kind, op)
     collective_nbytes: List[int] = field(default_factory=list)  # each one's tensor bytes
+    collective_groups: List[Optional[str]] = field(default_factory=list)  # each one's group
     host_syncs: List[str] = field(default_factory=list)
     upcasts: List[str] = field(default_factory=list)
     kernel_pools: List[Tuple[str, torch.dtype, torch.dtype]] = field(default_factory=list)
     sync_error: Optional[str] = None   # what set_sync_debug_mode("error") raised
+
+
+def _group_name(func, args, kwargs) -> Optional[str]:
+    """The name of the process group a collective op was handed: a
+    ``c10d`` op's boxed ``ProcessGroup``, a functional op's
+    ``group_name`` argument."""
+    import torch.distributed as dist
+
+    for i, a in enumerate(func._schema.arguments):
+        if a.name == "group_name":
+            return kwargs.get("group_name", args[i] if i < len(args) else None)
+    for t in tree_leaves((args, kwargs)):
+        if isinstance(t, torch.ScriptObject) and "ProcessGroup" in str(t._type()):
+            return dist.ProcessGroup.unbox(t).group_name
+    return None
 
 
 def _storage_ptr(t: torch.Tensor) -> int:
@@ -170,6 +197,7 @@ class _StepProbe(TorchDispatchMode):
                 self.trace.collective_nbytes.append(sum(
                     t.numel() * t.element_size() for t in tree_leaves((args, kwargs))
                     if isinstance(t, torch.Tensor)))
+                self.trace.collective_groups.append(_group_name(func, args, kwargs))
         elif self._syncs(name, func, args, kwargs):
             self.trace.host_syncs.append(f"{ns}.{name}")
         out = func(*args, **kwargs)
@@ -259,6 +287,30 @@ def collective_bytes(trace: StepTrace) -> Dict[str, int]:
     return out
 
 
+def mesh_groups(layout) -> Dict[str, str]:
+    """Group name -> axis ("model", "data") of a layout's process groups on
+    this rank (an axis of size 1 has none); empty off a mesh."""
+    if layout is None:
+        return {}
+    groups = {"model": layout.tp_group, "data": layout.dp_group}
+    return {g.group_name: axis for axis, g in groups.items() if g is not None}
+
+
+def group_census(trace: StepTrace, layout) -> Dict[str, Dict[str, int]]:
+    """Axis -> collective kind -> count over the call, and kind + "_bytes"
+    -> the bytes handed to them: the collectives on the rank's "model" and
+    "data" groups of ``layout`` (``serving.sharded_pool``), and under
+    "other" those on any other group."""
+    names = mesh_groups(layout)
+    out: Dict[str, Dict[str, int]] = {"model": {}, "data": {}}
+    for (kind, _op), n, g in zip(trace.collectives, trace.collective_nbytes,
+                                 trace.collective_groups):
+        c = out.setdefault(names.get(g, "other"), {})
+        c[kind] = c.get(kind, 0) + 1
+        c[f"{kind}_bytes"] = c.get(f"{kind}_bytes", 0) + n
+    return out
+
+
 def find_host_syncs(trace: StepTrace) -> List[str]:
     """The syncing ops the dispatch mode saw, and the sync that
     ``set_sync_debug_mode("error")`` raised on (CUDA)."""
@@ -343,11 +395,24 @@ def audit_program(engine, contract: StepContract,
     if (contract.max_all_reduce is not None
             and census.get("all-reduce", 0) > contract.max_all_reduce):
         problems.append(f"all-reduce={census['all-reduce']} > {contract.max_all_reduce}")
+    if contract.axis_groups:
+        names = dict(contract.axis_groups)
+        by_axis: Dict[str, int] = {}
+        for g in trace.collective_groups:
+            axis = names.get(g, "other")
+            by_axis[axis] = by_axis.get(axis, 0) + 1
+        for axis, n in sorted(by_axis.items()):
+            if axis != "model":
+                problems.append(f"{n} collective(s) on the {axis} group (none may run there)")
+        census_axes = " ".join(f"{a}:{n}" for a, n in sorted(by_axis.items()))
+    else:
+        census_axes = ""
     ops = sorted({op for _k, op in trace.collectives})
     findings.append(Finding(
         contract.program, "collectives", not problems,
         ("; ".join(problems) if problems else
          " ".join(f"{k}={v}" for k, v in sorted(census.items()) if v) or "collective-free")
+        + (f"; by group {census_axes}" if census_axes else "")
         + (f"; ops: {', '.join(ops)}" if ops else "")))
 
     syncs = find_host_syncs(trace)
@@ -379,8 +444,14 @@ def default_contracts(engine) -> List[StepContract]:
     whose all-reduce of a CUDA tensor waits on the stream and goes through
     host memory, the step programs may sync); int8 engines with the paged
     kernels must dequantize in-kernel on the kernelized programs (the fused
-    step, the live decode)."""
-    on_mesh = getattr(engine, "pool_layout", None) is not None
+    step, the live decode). On a mesh with a "data" axis every program's
+    collectives must run on the rank's "model" group: none on its "data"
+    group (nor on any other)."""
+    layout = getattr(engine, "pool_layout", None)
+    on_mesh = layout is not None
+    axes = {}
+    if on_mesh and layout.dp_degree > 1:
+        axes = dict(axis_groups=tuple(mesh_groups(layout).items()))
     ar = 2 * engine.cfg.num_layers if on_mesh else 0
     # a gloo group all-reduces a CUDA tensor through host memory, waiting
     # on the stream: the sharded steps on the card sync by construction
@@ -389,11 +460,11 @@ def default_contracts(engine) -> List[StepContract]:
     fused = "fused_ragged" if engine.ragged else "fused_padded"
     return [
         StepContract(fused, max_all_reduce=ar, allow_host_sync=gloo_sync,
-                     require_int8_kernel_path=int8k),
+                     require_int8_kernel_path=int8k, **axes),
         StepContract("decode", max_all_reduce=ar, allow_host_sync=gloo_sync,
-                     require_int8_kernel_path=int8k),
-        StepContract("decode_ref", max_all_reduce=ar, allow_host_sync=gloo_sync),
-        StepContract("pool", max_all_reduce=0),
+                     require_int8_kernel_path=int8k, **axes),
+        StepContract("decode_ref", max_all_reduce=ar, allow_host_sync=gloo_sync, **axes),
+        StepContract("pool", max_all_reduce=0, **axes),
     ]
 
 

@@ -26,6 +26,9 @@ cache. Per shape it reports
   Megatron schedule the sharded paged engine runs (``models.shardmap_tp.
   megatron_collectives``; archs that engine serves). GSPMD's FSDP
   schedule has no counterpart without a partitioner, and is not modelled.
+* **pool**: with ``--serve-shard`` on a serve shape, a rank's paged KV pool
+  when the mesh's "data" rows are replicas over block ranges
+  (``serving.sharded_pool.ShardedPoolLayout(dp_blocks=True).pool_shape``).
 
 Nothing is allocated or launched: every tensor lives on ``meta``, which
 the dry run passes by name (``resolve_device`` never picks it).
@@ -214,6 +217,31 @@ def serve_collectives(cfg, shape, axis_sizes) -> Dict[str, Any]:
                                                      axis_sizes.get("model", 1))}
 
 
+def serve_pool(cfg, shape, mesh, block_size: int = 16) -> Dict[str, Any]:
+    """A rank's paged KV pool at ``mesh`` under ``--serve-shard``: one
+    ``DataParallelEngineGroup`` replica a "data" row, each serving its share
+    of the batch at ``seq_len``, provisioned as the engine provisions (rows
+    x (blocks a sequence + 1) + 1 blocks a replica), the block axis over
+    "data" (``dp_blocks``) and the KV heads over "model" where they divide;
+    archs the paged engine serves."""
+    from repro_torch.serving.sharded_pool import ShardedPoolLayout
+
+    if not M.paged_cache_supported(cfg):
+        return {"modelled": False,
+                "reason": f"{cfg.name}: the paged engine serves period-1 full-attention GQA "
+                          f"stacks only"}
+    axis_sizes = mesh_axis_sizes(mesh)
+    dp = axis_sizes.get("data", 1)
+    B = shape.global_batch
+    rows = B // dp if B % dp == 0 else B
+    per = rows * (-(-shape.seq_len // block_size) + 1) + 1
+    layout = ShardedPoolLayout(mesh, dp_blocks=True)
+    local = layout.pool_shape(cfg, per * dp, block_size)
+    item = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    return {"modelled": True, "n_blocks": per * dp, "block_size": block_size,
+            "shape_per_rank": local, "bytes_per_rank": 2 * math.prod(local) * item}
+
+
 def dryrun(arch: str, shape_name: str, multi_pod: bool = False, verbose: bool = True,
            moe_mode: str = "tp", serve_shard: bool = False,
            kv_int8: bool = False) -> Dict[str, Any]:
@@ -252,6 +280,8 @@ def dryrun(arch: str, shape_name: str, multi_pod: bool = False, verbose: bool = 
                          "reason": "GSPMD's FSDP collective schedule has no counterpart "
                                    "without a partitioner"}),
     }
+    if serve_shard and shape.kind != "train":
+        out["pool"] = serve_pool(run_cfg, shape, mesh)
     if verbose:
         ws = out["whole_step"]
         print(f"[dryrun] {arch} x {shape_name} mesh={out['mesh']}: "
@@ -263,6 +293,11 @@ def dryrun(arch: str, shape_name: str, multi_pod: bool = False, verbose: bool = 
         c = out["collectives"]
         print(f"  collectives: {c}" if c["modelled"] else f"  collectives: not modelled "
               f"({c['reason']})")
+        p = out.get("pool")
+        if p is not None:
+            print(f"  pool a rank: {p['shape_per_rank']} of {p['n_blocks']} blocks, "
+                  f"{p['bytes_per_rank'] / 2**30:.2f} GiB k+v" if p["modelled"] else
+                  f"  pool: not modelled ({p['reason']})")
     return out
 
 

@@ -6,12 +6,15 @@
   only divides shapes by it.
 * ``make_serving_mesh(tp, dp)`` builds a
   ``torch.distributed.device_mesh.DeviceMesh`` over the initialised
-  process group, ("model",) for tensor parallelism; it raises, as JAX's
-  does, when the world does not hold ``tp * dp`` ranks.
+  process group, ("model",) for tensor parallelism, ("data", "model") of
+  (dp, tp) with data-parallel rows (``serving.sharded_pool``: each row one
+  replica); it raises, as JAX's does, when the world does not hold ``tp *
+  dp`` ranks.
 * ``mesh_axis_sizes`` reads axis name -> size from either kind.
 
-``run_on_ranks`` runs a job on N spawned processes over gloo, each with
-its serving mesh (``launch.serve --tp``, the tests, ``chip_smoke.py``).
+``run_on_ranks`` runs a job on ``tp * dp`` spawned processes over gloo,
+each with its serving mesh of that shape (``launch.serve --tp [--dp]``,
+the tests, ``chip_smoke.py``).
 
 ``make_production_mesh`` and ``make_serving_mesh`` are functions, never
 module-level constants, so that importing this module touches no process
@@ -83,13 +86,13 @@ def rank_device(device, rank: int, world: int):
     if dev.type == "cuda" and dev.index is None:
         n = torch.cuda.device_count()
         if n < world:
-            raise ValueError(f"tensor parallelism over {world} ranks needs {world} GPUs, "
-                             f"{n} visible")
+            raise ValueError(f"{world} ranks on cuda, one GPU a rank: needs {world} GPUs, "
+                             f"{n} visible (cuda:<i> puts every rank on one)")
         return torch.device("cuda", rank)
     return dev
 
 
-def _rank_main(rank, world, store_path, out_dir, job, device, args):
+def _rank_main(rank, world, dp, store_path, out_dir, job, device, args):
     import datetime
 
     import torch
@@ -105,29 +108,31 @@ def _rank_main(rank, world, store_path, out_dir, job, device, args):
             torch.cuda.set_device(dev)
         else:   # the ranks share the host's cores
             torch.set_num_threads(max(1, torch.get_num_threads() // world))
-        result = job(rank, make_serving_mesh(world), dev, *args)
+        result = job(rank, make_serving_mesh(world // dp, dp), dev, *args)
         torch.save(result, f"{out_dir}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
 
 
-def run_on_ranks(job, world: int, device, *args):
-    """Run ``job(rank, mesh, device, *args)`` on ``world`` processes, SPMD:
-    each a rank of a gloo group (``torch.multiprocessing``, start method
-    "spawn", rendezvous through a ``FileStore`` in a temporary directory, so
-    no network), ``mesh`` its ``make_serving_mesh(world)`` and ``device``
-    its ``rank_device``. ``job`` is a module-level function; what it
-    returns comes back through ``torch.save``. Returns the results in rank
-    order; a rank that raises raises here."""
+def run_on_ranks(job, tp: int, device, *args, dp: int = 1):
+    """Run ``job(rank, mesh, device, *args)`` on ``tp * dp`` processes,
+    SPMD: each a rank of a gloo group (``torch.multiprocessing``, start
+    method "spawn", rendezvous through a ``FileStore`` in a temporary
+    directory, so no network), ``mesh`` its ``make_serving_mesh(tp, dp)``
+    (rank r at row r // tp, column r % tp) and ``device`` its
+    ``rank_device``. ``job`` is a module-level function; what it returns
+    comes back through ``torch.save``. Returns the results in rank order;
+    a rank that raises raises here."""
     import os
     import tempfile
 
     import torch
     import torch.multiprocessing as mp
 
+    world = tp * dp
     with tempfile.TemporaryDirectory() as d:
-        mp.start_processes(_rank_main, args=(world, os.path.join(d, "store"), d, job, device,
-                                             args),
+        mp.start_processes(_rank_main, args=(world, dp, os.path.join(d, "store"), d, job,
+                                             device, args),
                            nprocs=world, join=True, start_method="spawn")
         return [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
                 for r in range(world)]

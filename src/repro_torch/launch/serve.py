@@ -15,6 +15,8 @@ occupancy comes from the components' cost models).
         --dp 2 --host-blocks 64 --audit
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m --smoke --device cpu \
         --tp 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m --smoke --device cpu \
+        --tp 2 --dp 2
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b --smoke --device cpu
@@ -43,10 +45,15 @@ heads of every pool block, the layers all-reduce after the attention
 output and MLP down projections, and the summary prints the fused step's
 collective census; on ``cuda`` rank r takes ``cuda:r`` (N GPUs visible).
 As the JAX launcher, it refuses ``--kernel pallas`` and ``--kv-dtype
-int8`` with ``--tp``.
+int8`` with ``--tp``. ``--tp T --dp N`` (``serve_tp_dp``) spawns T x N
+ranks on a (N, T) ("data", "model") mesh and serves through a
+``DataParallelEngineGroup`` whose replicas are the mesh's rows, each rank
+holding only its replica's block range of its heads (``dp_blocks``), with
+a host tier of ``--host-blocks`` a rank that the rows exchange what they
+write through; the summary prints the fused step's census by group.
 
-``--dp N`` serves through a ``DataParallelEngineGroup``: N replicas over
-block ranges of one shared pool on the one device, with one host tier
+``--dp N`` alone serves through a ``DataParallelEngineGroup``: N replicas
+over block ranges of one shared pool on the one device, with one host tier
 (``--host-blocks``) they write through to. The JAX launcher refuses its
 Pallas kernels and int8 pools with ``--dp``, because its ``--dp`` builds a
 data-axis mesh; the port's replicas share one device and no mesh, so they
@@ -230,6 +237,67 @@ def serve_tp(arch: str, tp: int, n_requests: int = 8, max_new: int = 12,
     return results
 
 
+def _serve_group_rank(rank, mesh, device, kw):
+    """One rank of ``serve_tp_dp``: its row's replica of the group, the
+    same seeded prompts submitted on every rank; rank 0 prints. Returns
+    (tokens of each request, the fused step's census by group, stats)."""
+    from repro_torch.configs import get_arch, smoke_variant
+    from repro_torch.serving.engine import DataParallelEngineGroup
+    from repro_torch.serving.sharded_pool import ShardedPoolLayout
+
+    cfg = get_arch(kw["arch"])
+    if kw["smoke"]:
+        cfg = smoke_variant(cfg)
+    layout = ShardedPoolLayout(mesh, dp_blocks=True)
+    grp = DataParallelEngineGroup(cfg, dp=layout.dp_degree, max_batch=4, max_seq=256,
+                                  pipeline=kw["pipeline"], seed=kw["seed"], device=device,
+                                  kernel="reference", pool_layout=layout,
+                                  host_blocks=kw["host_blocks"] or None)
+    census = grp.engine.audit_collectives("fused", by_group=True)
+    rng = np.random.default_rng(kw["seed"])
+    reqs = [grp.submit(rng.integers(0, cfg.vocab_size, rng.integers(4, 32)), kw["max_new"])
+            for _ in range(kw["n_requests"])]
+    grp.run_until_done()
+    st = grp.stats()
+    if rank == 0:
+        for r in reqs:
+            print(f"  req {r.req_id} on replica {grp.replica_of(r)}: {len(r.out_tokens)} "
+                  f"tokens ttft={1e3*(r.first_token_at - r.submitted_at):.0f}ms")
+        for i, rs in enumerate(st["replicas"]):
+            print(f"[serve:real] replica {i}: {rs['tokens_out']} tokens out, "
+                  f"{rs['steps']} steps, pool shard {rs['tp_degree']}-way by head, "
+                  f"host-hit tokens {rs['host_hit_tokens']}")
+        print(f"[serve:real] {cfg.name}: dp={layout.dp_degree} tp={layout.tp_degree} "
+              f"device={st['replicas'][0]['device']} {st['tokens_out']} tokens out; this "
+              f"rank's pool {tuple(grp.engine.kv.k.shape)}; cross-replica host hits "
+              f"{st.get('cross_replica_host_hits', 0)}")
+        print(f"[serve:real] fused-step collectives by group: "
+              f"{ {a: {k: v for k, v in c.items() if v} for a, c in census.items()} }")
+    return [r.out_tokens for r in reqs], census, st
+
+
+def serve_tp_dp(arch: str, tp: int, dp: int, n_requests: int = 8, max_new: int = 12,
+                pipeline: bool = True, smoke: bool = False, device=None, seed: int = 0,
+                host_blocks: int = 0):
+    """Serve ``n_requests`` random prompts on a ("data", "model") mesh of
+    ``dp`` rows of ``tp`` ranks (``launch.mesh.run_on_ranks``): each row is
+    one replica of a ``DataParallelEngineGroup``, each rank holds its
+    replica's block range of its ``KVH / tp`` heads (``dp_blocks``) and the
+    gather oracles read attention. On ``cuda`` rank r takes ``cuda:r``.
+    Prints the requests, the replicas and the fused step's census by group;
+    raises unless every rank returned the same tokens. Returns each rank's
+    (tokens, census, stats)."""
+    from repro_torch.launch.mesh import run_on_ranks
+
+    kw = dict(arch=arch, n_requests=n_requests, max_new=max_new, pipeline=pipeline,
+              smoke=smoke, seed=seed, host_blocks=host_blocks)
+    results = run_on_ranks(_serve_group_rank, tp, "cuda" if device is None else device, kw,
+                           dp=dp)
+    if any(res[0] != results[0][0] for res in results):
+        raise AssertionError("the mesh's ranks gave different tokens")
+    return results
+
+
 def serve_pipelines(arch: str = "smollm-135m", rate: float = 10.0,
                     duration: float = 2.0, *, arrival: str = "poisson",
                     session_fraction: float = 0.3, host_blocks: int = 128,
@@ -361,7 +429,8 @@ def main(argv=None):
     ap.add_argument("--dp", type=int, default=1,
                     help="data-parallel replica engines with independent "
                          "admission over block ranges of one shared pool, on "
-                         "the one device (the host tier is shared)")
+                         "the one device (the host tier is shared); with --tp, "
+                         "the rows of a (dp, tp) mesh of spawned ranks")
     ap.add_argument("--audit", action="store_true",
                     help="run the step-program contract audit (collectives, "
                          "host syncs, int8 flow, cache sentinel) at startup, "
@@ -377,7 +446,10 @@ def main(argv=None):
         if args.kv_dtype:
             raise SystemExit("--kv-dtype int8 is single-device: drop --tp/--dp")
         if args.dp > 1:
-            raise SystemExit("--tp with --dp (a data-axis mesh) is not ported yet: ROADMAP 14c")
+            serve_tp_dp(args.arch, args.tp, args.dp, n_requests=args.n_requests,
+                        max_new=args.max_new, pipeline=not args.no_pipeline, smoke=args.smoke,
+                        device=args.device, seed=args.seed, host_blocks=args.host_blocks)
+            return
         serve_tp(args.arch, args.tp, n_requests=args.n_requests, max_new=args.max_new,
                  pipeline=not args.no_pipeline, smoke=args.smoke, device=args.device,
                  seed=args.seed)

@@ -89,9 +89,11 @@ engine one rank of a tensor-parallel group, SPMD over processes: every
 rank runs the same host logic, holds its shard of the weights and ``KVH /
 tp`` heads of every pool block, and each step program ends its layers'
 attention output and MLP down projections in one all-reduce each (the
-engine passes its group as the step functions' ``tp_group``). As in JAX, a mesh takes
-``kernel="reference"`` and float pools only; a mesh with a data axis
-raises ``NotImplementedError`` (ROADMAP 14c).
+engine passes its group as the step functions' ``tp_group``). On a mesh
+with a "data" axis a lone engine is replicated over it: every row runs the
+same engine on its "model" group (a layout with ``dp_blocks=True`` is the
+group's: ``DataParallelEngineGroup``). As in JAX, a mesh takes
+``kernel="reference"`` and float pools only.
 """
 from __future__ import annotations
 
@@ -296,8 +298,10 @@ class GenerationEngine:
         default is ``"reference"``; ``"pallas"`` requires ``ragged=True``.
         ``kv`` injects a ``PagedKVCache`` (a DP replica's, over a block
         range of a shared pool box): it decides the pool format, brings its
-        host store and, when ``device`` is not given, the device. The other
-        arguments mean what they mean in the JAX engine."""
+        host store and, when ``device`` is not given, the device; with a
+        layout, ``params`` given beside it are taken as already placed (the
+        group's shard). The other arguments mean what they mean in the JAX
+        engine."""
         on_mesh = mesh is not None or pool_layout is not None or (
             kv is not None and kv.layout is not None)
         if kernel == "pallas" and on_mesh:
@@ -421,12 +425,16 @@ class GenerationEngine:
         # at construction (deployment), never a step
         step_cfg = cfg
         if pool_layout is not None:
-            if pool_layout.dp_degree > 1:
-                raise NotImplementedError(
-                    "a mesh with a data axis (replicas over block ranges of one sharded "
-                    "pool) is not ported yet: ROADMAP 14c")
             pool_layout.validate(cfg)
-            self.params = pool_layout.place_params(cfg, self.params)
+            if kv is None and pool_layout.splits_blocks(cfg, n_blocks):
+                raise ValueError(
+                    "a lone engine addresses the whole pool, and dp_blocks=True splits it over "
+                    "the data axis: serve replicas over block ranges through "
+                    "DataParallelEngineGroup, or keep the blocks whole (dp_blocks=False)")
+            # an injected cache is a group's replica: the group placed the
+            # params it passes, once for all its replicas
+            if kv is None or params is None:
+                self.params = pool_layout.place_params(cfg, self.params)
             step_cfg = pool_layout.local_config(cfg)
             self._tp_group = pool_layout.tp_group
         self.pool_layout = pool_layout
@@ -458,8 +466,9 @@ class GenerationEngine:
         # decode plans: the paged decode kernel, or the gather oracle
         self._decode_dispatch = (self._decode_step if kernel == "pallas"
                                  else self._decode_paged)
-        # reserved scratch block: swallows pad-token and unbacked writes
-        self._null_block = self.kv.pool.allocate(_NULL_SEQ, 1)[0]
+        # reserved scratch block: swallows pad-token and unbacked writes (its
+        # id as the device array's: the pool's ids rebased by its base)
+        self._null_block = self.kv.pool.allocate(_NULL_SEQ, 1)[0] - self.kv.pool.base
         # the cache's demotions and write-through copies and the engine's
         # swap-set fills drain through the copy engine between dispatches
         self.kv.copy_engine = self._copy
@@ -652,13 +661,16 @@ class GenerationEngine:
             return roundtrip, (k, tables, starts, new_kv, n_valid)
         raise ValueError(f"unknown step program {which!r}")
 
-    def audit_collectives(self, which: str = "fused") -> Dict[str, int]:
+    def audit_collectives(self, which: str = "fused", by_group: bool = False) -> Dict[str, Any]:
         """Collective census of one call of a step program (the step audit's
         probe, ``models.shardmap_tp.count_collectives``): ``"fused"`` (the
         mixed step), ``"decode"`` (the gather-oracle decode) or ``"pool"``
         (the bare pool roundtrip) -> kind -> count, and kind + "_bytes" ->
-        the bytes handed to them. On a mesh the step programs show only the
-        Megatron all-reduces, the pool roundtrip none."""
+        the bytes handed to them; with ``by_group``, that census for each of
+        the rank's "model" and "data" groups (``analysis.step_audit.
+        group_census``). On a mesh the step programs show only the Megatron
+        all-reduces, on the "model" group, and the pool roundtrip none."""
+        from repro_torch.analysis.step_audit import group_census, trace_step
         from repro_torch.models.shardmap_tp import count_collectives
 
         alias = {"fused": "fused_ragged" if self.ragged else "fused_padded",
@@ -666,6 +678,8 @@ class GenerationEngine:
         fn, args = self.step_program(alias.get(which, which))
         met = set(self._packed_lengths)
         try:
+            if by_group:
+                return group_census(trace_step(fn, args), self.pool_layout)
             return count_collectives(fn, args)
         finally:
             self._packed_lengths = met
@@ -1403,41 +1417,103 @@ class GenerationEngine:
             self._finalize(req)
 
 
+# Request fields a data-axis group copies from a replica's finished request
+# onto its stand-ins on the other rows
+_MIRRORED_FIELDS = ("out_tokens", "done", "truncated", "shared_prefix_tokens",
+                    "host_prefix_tokens", "session_shared_tokens", "session_host_tokens",
+                    "queued_steps", "submitted_at", "first_token_at", "last_token_at",
+                    "finished_at", "token_gaps", "max_token_gap", "planned", "delivered")
+
+
+class RowReplica:
+    """Replica ``index`` of a ``DataParallelEngineGroup`` on a data-axis
+    mesh, as every rank sees it: ``submit`` routes a request to that
+    replica through the group (on every rank, so that the load book and
+    the stand-in requests stay the same everywhere); every other attribute
+    is its engine's on the ranks of its row, and raises elsewhere."""
+
+    def __init__(self, group, index: int):
+        self._group = group
+        self.index = index
+
+    @property
+    def local(self) -> bool:
+        return self.index == self._group.row
+
+    def submit(self, prompt, max_new: int = 16, temperature: float = 0.0,
+               priority: float = 0.0) -> Request:
+        return self._group._submit_to(self.index, prompt, max_new, temperature, priority)
+
+    def __getattr__(self, name):
+        if name == "_group" or not self.local:
+            raise AttributeError(f"replica {self.index} runs on row {self.index} of the mesh; "
+                                 f"this rank is on row {self._group.row}: no {name!r} here")
+        return getattr(self._group.engine, name)
+
+
 class DataParallelEngineGroup:
     """DP replicas of the paged engine over ONE block pool, partitioned by
-    block range, on one device.
+    block range.
 
     Each replica is a full ``GenerationEngine`` with **independent
     admission**: its own free list over a disjoint block range
     (``sharded_pool.block_range``), its own refcounts, prefix index, warm
     LRU and scratch block — no cross-replica coordination on the hot path.
-    All replicas share one ``PoolArrays`` box and one params tree (the
-    weights are on the card once). Replicas do NOT share device prefix
-    blocks (each index only points into its own range), but a shared
-    ``HostBlockStore`` (``host_store=`` / ``host_blocks=``) gives them the
-    next-best thing: every replica writes its newly published prefix blocks
-    through to the host tier, so a document prefilled on replica 0 is a
-    *host hit* on replica 1 — one host->device block copy instead of a
-    re-prefill. Content-hash keys make the sharing exact, and the store's
-    ``cross_hits`` counter makes it observable
-    (``stats()["cross_replica_host_hits"]``). One ``PriorityFlusher`` and,
-    with ``sanitize=True``, one ``KVSanitizer`` span the group.
+    Replicas do NOT share device prefix blocks (each index only points into
+    its own range), but a shared host tier (``host_store=`` /
+    ``host_blocks=``) gives them the next-best thing: every replica writes
+    its newly published prefix blocks through to it, so a document
+    prefilled on replica 0 is a *host hit* on replica 1 — one host->device
+    block copy instead of a re-prefill. Content-hash keys make the sharing
+    exact, and the store's ``cross_hits`` counter makes it observable
+    (``stats()["cross_replica_host_hits"]``). ``submit`` routes
+    least-loaded (fewest active + queued requests); ``step`` advances every
+    busy replica once. A replica's greedy tokens are those of a lone engine
+    serving the same requests in the same order — same params, same plans,
+    same per-request math. (A lone engine serving every replica's requests
+    batches them differently: on the card other packed lengths can round
+    bf16 sums otherwise.)
 
-    ``submit`` routes least-loaded (fewest active + queued requests);
-    ``step`` advances every replica once. A replica's greedy tokens are
-    those of a lone engine serving the same requests in the same order —
-    same params, same plans, same per-request math. (A lone engine serving
-    every replica's requests batches them differently: on the card other
-    packed lengths can round bf16 sums otherwise.) The replicas dispatch
-    onto one CUDA stream, in turn, and write
-    disjoint blocks of the shared box; an int8 pool's scatter rewrites a
-    whole layer's scales, which is safe only because the steps run in
-    stream order.
+    ``pool_layout`` places the group as JAX's does, in one of three forms:
+
+    * **None**: every replica on one device over one shared ``PoolArrays``
+      box and one params tree (the weights are on the card once), one
+      ``PriorityFlusher``, one host store and, with ``sanitize=True``, one
+      ``KVSanitizer`` for the group. The replicas dispatch onto one CUDA
+      stream, in turn, and write disjoint blocks of the box; an int8
+      pool's scatter rewrites a whole layer's scales, which is safe only
+      because the steps run in stream order.
+    * **A layout of one "model" axis** (tensor parallelism): every TP rank
+      builds all ``dp`` replicas over its head shard of one box, and they
+      step in turn, each all-reducing over the layout's ``tp_group``. This
+      is JAX's group exactly: routing, plans and ``cross_replica_host_hits``
+      are JAX's.
+    * **A layout with a "data" axis** (``launch.mesh.make_serving_mesh(tp,
+      dp)``; ``dp`` must equal its size): row d of the mesh is replica d,
+      SPMD. Each rank builds only its row's engine, on the row's "model"
+      group, over its head shard of the pool, and with ``dp_blocks=True``
+      over blocks ``block_range(total, dp, d)`` only. Every rank calls
+      ``submit`` with the same arguments in the same order; the least-loaded
+      choice reads a load book that every rank holds the same, refreshed
+      after each group step by one all-gather of the replicas' (waiting +
+      active) counts over each "data" group. ``engines`` holds one
+      ``RowReplica`` a replica; a request routed to another row is a
+      stand-in whose ``out_tokens`` (and hit counts and times) arrive at the
+      end of ``run_until_done``, by an all-gather of the finished requests,
+      so every rank returns every request's tokens; its stream is flushed
+      by its own row's flusher. ``run_until_done`` loops while any row is
+      busy (a MAX all-reduce of one int); an idle row takes part in the
+      exchanges only. Each rank keeps a host store of its heads: after each
+      group step the rows of a "data" group exchange the blocks their
+      replicas put into it that step (key, owner tag, K/V), in rank order,
+      and each rank puts its peers' blocks into its own store under their
+      owner tags, so ``cross_hits`` counts as in JAX; within a group step a
+      replica sees its siblings' write-throughs of the step before (JAX
+      steps the replicas in turn in one process). ``stats()`` gathers the
+      rows' stats, so every rank returns the group's dict with JAX's keys.
 
     ``params`` (default: drawn from ``seed``) and ``device`` are the
-    replicas'; the other arguments are the JAX group's. ``pool_layout``
-    (replicas on a mesh's data axis) is not ported yet and raises
-    ``NotImplementedError`` (ROADMAP 14c)."""
+    replicas'; the other arguments are the JAX group's."""
 
     def __init__(self, cfg, dp: int = 2, max_batch: int = 4, max_seq: int = 256,
                  block_size: int = 16, n_blocks_per_replica: Optional[int] = None,
@@ -1449,40 +1525,57 @@ class DataParallelEngineGroup:
 
         if dp < 1:
             raise ValueError("dp must be >= 1")
-        if pool_layout is not None:
-            raise NotImplementedError(
-                "DataParallelEngineGroup(pool_layout=...) (replicas over block ranges of a "
-                "pool sharded over a mesh's data axis) is not ported yet: ROADMAP 14c")
         device = resolve_device(device)
         max_blocks = -(-max_seq // block_size)
         per = n_blocks_per_replica or (max_batch * (max_blocks + 1) + 1)
         total = per * dp
+        self.dp = dp
+        self.pool_layout = pool_layout
         if kv_dtype is None and cfg.kv_cache_quant:
             kv_dtype = "int8"
+        if kv_dtype is not None and pool_layout is not None:
+            raise ValueError("kv_dtype='int8' does not shard over a mesh yet")
+        # on a data-axis mesh this rank's row is its replica
+        self.row = None
+        if pool_layout is not None:
+            pool_layout.validate(cfg)
+            if pool_layout.dp_degree > 1:
+                if dp != pool_layout.dp_degree:
+                    raise ValueError(
+                        f"dp={dp} replicas on a mesh whose data axis has "
+                        f"{pool_layout.dp_degree} rows: each row is one replica")
+                self.row = pool_layout.dp_rank
         if host_store is None and (host_blocks
                                    or engine_kwargs.get("preempt") in ("swap", "cost")):
+            store_cfg = pool_layout.local_config(cfg) if pool_layout is not None else cfg
             host_store = HostBlockStore.for_config(
-                cfg, host_blocks or total, block_size, kv_dtype=kv_dtype,
+                store_cfg, host_blocks or total, block_size, kv_dtype=kv_dtype,
                 pin=device.type == "cuda")
         self.host_store = host_store
-        # one shared transport: chunks from every replica's streams flush in
-        # global EDF-slack order, not per-replica order
+        # one shared transport: chunks from every local replica's streams
+        # flush in global EDF-slack order, not per-replica order
         self.flusher = PriorityFlusher()
         engine_kwargs.setdefault("flusher", self.flusher)
-        self.engines: List[GenerationEngine] = []
-        # one sanitizer spans the group: a shared shadow also catches
-        # cross-replica double ownership of a block of the shared box
+        # one sanitizer spans the local replicas: a shared shadow also
+        # catches cross-replica double ownership of a block of a shared box
         self.sanitizer = None
         if sanitize:
             from repro_torch.analysis.kvsan import KVSanitizer
 
             self.sanitizer = KVSanitizer()
+        if pool_layout is not None:
+            # placed once: the replicas share this rank's shard
+            if params is None:
+                params = init_params(cfg, torch.Generator(device=device).manual_seed(seed),
+                                     device)
+            params = pool_layout.place_params(cfg, params)
+        built: Dict[int, GenerationEngine] = {}
         arrays = None
-        for rank in range(dp):
+        for rank in (range(dp) if self.row is None else (self.row,)):
             kv = PagedKVCache(
                 cfg, total, block_size, max_blocks, prefix_sharing=prefix_sharing,
-                device=device, block_range=block_range(total, dp, rank), arrays=arrays,
-                host_store=host_store, client_tag=rank, kv_dtype=kv_dtype,
+                device=device, layout=pool_layout, block_range=block_range(total, dp, rank),
+                arrays=arrays, host_store=host_store, client_tag=rank, kv_dtype=kv_dtype,
                 sanitizer=self.sanitizer,
                 # write-through: siblings should host-hit a doc without
                 # waiting for the producing replica to evict it
@@ -1493,31 +1586,160 @@ class DataParallelEngineGroup:
                                    **engine_kwargs)
             arrays = kv._arrays   # replicas 1.. attach to replica 0's box
             params = eng.params   # and reuse its params tree
-            self.engines.append(eng)
+            built[rank] = eng
+        if self.row is None:
+            self.engine = None
+            self.engines: List[Any] = [built[r] for r in range(dp)]
+            return
+        self.engine = built[self.row]
+        self.engines = [RowReplica(self, d) for d in range(dp)]
+        self._dp_group = pool_layout.dp_group
+        self._load = [0] * dp                  # the load book: waiting + active a replica
+        self._n_submitted = [0] * dp
+        self._submitted: List[tuple] = []      # (replica, request) in submission order
+        self._mirrored: set = set()            # local request ids already sent
+        # (host blocks, their bytes) the rows of this rank's "data" group
+        # exchanged, a group step each
+        self.exchanges: List[tuple] = []
+        if host_store is not None:
+            host_store.journal = []
 
+    # --------------------------------------------------------------- routing
     def submit(self, prompt, max_new: int = 16, temperature: float = 0.0,
                priority: float = 0.0) -> Request:
-        eng = min(self.engines,
-                  key=lambda e: len(e.waiting) + sum(s is not None for s in e.slots))
-        return eng.submit(prompt, max_new, temperature, priority)
+        if self.row is None:
+            eng = min(self.engines,
+                      key=lambda e: len(e.waiting) + sum(s is not None for s in e.slots))
+            return eng.submit(prompt, max_new, temperature, priority)
+        d = min(range(self.dp), key=lambda i: self._load[i])
+        return self._submit_to(d, prompt, max_new, temperature, priority)
+
+    def _submit_to(self, d: int, prompt, max_new, temperature, priority) -> Request:
+        """Route one request to replica ``d`` (a data-axis group): the row's
+        engine takes it, every other row keeps a stand-in."""
+        self._load[d] += 1
+        rid = self._n_submitted[d]
+        self._n_submitted[d] += 1
+        if d == self.row:
+            req = self.engine.submit(prompt, max_new, temperature, priority)
+            if req.req_id != rid:
+                raise RuntimeError("a data-axis group's engine takes its requests through the "
+                                   "group only (submit on every rank, in the same order)")
+        else:
+            tokens = prompt.tokens if isinstance(prompt, SegmentedPrompt) else prompt
+            req = Request(rid, np.atleast_1d(np.asarray(tokens, np.int32)), max_new,
+                          temperature, priority)
+            req.segprompt = prompt if isinstance(prompt, SegmentedPrompt) else None
+            req.submitted_at = time.monotonic()
+        self._submitted.append((d, req))
+        return req
+
+    def replica_of(self, req: Request) -> int:
+        """The replica a request was routed to."""
+        if self.row is None:
+            return next(i for i, e in enumerate(self.engines)
+                        if any(r is req for r in (*e.waiting, *e.slots, *e.finished)))
+        return next(d for d, r in self._submitted if r is req)
+
+    # -------------------------------------------------------------- stepping
+    @staticmethod
+    def _busy(eng) -> bool:
+        return bool(eng.waiting or any(eng.slots) or eng.pending)
 
     def step(self) -> None:
-        for eng in self.engines:
-            if eng.waiting or any(eng.slots) or eng.pending:
-                eng.step()
+        if self.row is None:
+            for eng in self.engines:
+                if self._busy(eng):
+                    eng.step()
+            return
+        if self._busy(self.engine):
+            self.engine.step()
+        self._exchange()
+
+    def _any_busy(self) -> bool:
+        if self.row is None:
+            return any(self._busy(e) for e in self.engines)
+        import torch.distributed as dist
+
+        flag = torch.tensor([int(self._busy(self.engine))])
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self._dp_group)
+        return bool(flag.item())
 
     def run_until_done(self, max_steps: int = 10_000) -> None:
-        while max_steps and any(e.waiting or any(e.slots) or e.pending for e in self.engines):
+        while max_steps and self._any_busy():
             self.step()
             max_steps -= 1
-        for eng in self.engines:
+        for eng in ([self.engine] if self.row is not None else self.engines):
             eng._drain_copies(full=True)
         self.flusher.flush()
+        if self.row is not None:
+            self._exchange()          # the write-throughs the drain landed
+            self._mirror_finished()
 
+    def _gather(self, obj) -> list:
+        """``obj`` of every row of this rank's "data" group, in row order."""
+        import torch.distributed as dist
+
+        out = [None] * self.dp
+        dist.all_gather_object(out, obj, group=self._dp_group)
+        return out
+
+    def _exchange(self) -> None:
+        """After a group step: refresh the load book from every row, and put
+        the host blocks the other rows' replicas put this step into this
+        rank's store under their owner tags."""
+        eng, store = self.engine, self.host_store
+        blocks = []
+        if store is not None:
+            for key, owner in store.journal:
+                b = store.block(key)
+                if b is not None:
+                    blocks.append((key, owner, b))
+            store.journal = []
+        load = len(eng.waiting) + sum(s is not None for s in eng.slots)
+        rows = self._gather((load, blocks))
+        self._load = [n for n, _ in rows]
+        self.exchanges.append((sum(len(b) for _, b in rows), sum(
+            t.numel() * t.element_size() for _, b in rows for _k, _o, ts in b
+            for t in ts if t is not None)))
+        if store is None:
+            return
+        store.journal = None          # a peer's block is not this replica's put
+        try:
+            for d, (_, theirs) in enumerate(rows):
+                if d == self.row:
+                    continue
+                for key, owner, (k, v, ks, vs) in theirs:
+                    store.put(key, k, v, owner=owner, k_scale=ks, v_scale=vs)
+        finally:
+            store.journal = []
+
+    def _mirror_finished(self) -> None:
+        """Send this row's newly finished requests to every row and fill
+        the stand-ins with what their replica sent."""
+        mine = {}
+        for d, req in self._submitted:
+            if d == self.row and req.done and req.req_id not in self._mirrored:
+                mine[req.req_id] = {f: getattr(req, f) for f in _MIRRORED_FIELDS}
+                self._mirrored.add(req.req_id)
+        rows = self._gather(mine)
+        for d, req in self._submitted:
+            if d != self.row and req.req_id in rows[d]:
+                for f, v in rows[d][req.req_id].items():
+                    setattr(req, f, v)
+
+    # ----------------------------------------------------------------- stats
     def stats(self) -> Dict[str, Any]:
-        per = [e.stats() for e in self.engines]
+        if self.row is None:
+            per = [e.stats() for e in self.engines]
+            hosts = None
+        else:
+            rows = self._gather((self.engine.stats(), None if self.host_store is None
+                                 else self.host_store.stats()))
+            per = [p for p, _ in rows]
+            hosts = [h for _, h in rows]
         out = {
-            "dp_degree": len(self.engines),
+            "dp_degree": self.dp,
             "tokens_out": sum(s["tokens_out"] for s in per),
             "prefill_tokens": sum(s["prefill_tokens"] for s in per),
             "preemptions": sum(s["preemptions"] for s in per),
@@ -1525,9 +1747,23 @@ class DataParallelEngineGroup:
             "replicas": per,
         }
         if self.host_store is not None:
-            out["cross_replica_host_hits"] = self.host_store.cross_hits
-            out["host_store"] = self.host_store.stats()
+            host = self.host_store.stats() if hosts is None else _merged_host_stats(
+                hosts, self.row)
+            out["cross_replica_host_hits"] = host["cross_hits"]
+            out["host_store"] = host
         return out
+
+
+def _merged_host_stats(rows: List[Dict[str, Any]], row: int) -> Dict[str, Any]:
+    """The host tier of a data-axis group as one store: the keyed blocks
+    are every row's (each rank's store holds its peers' puts too, so its
+    own counts them), the reads and swap sets each replica's own."""
+    out = dict(rows[row])
+    for k in ("hits", "cross_hits", "swap_outs", "swap_ins", "n_swapped"):
+        out[k] = sum(r[k] for r in rows)
+    out["n_free"] = rows[row]["n_free"] - (out["n_swapped"] - rows[row]["n_swapped"])
+    out["utilization"] = 1.0 - out["n_free"] / max(out["n_blocks"], 1)
+    return out
 
 
 def _merge_emitted(into: Dict[int, List[int]], more: Dict[int, List[int]]) -> None:

@@ -16,6 +16,9 @@ block, block_size, KVH, hd)``, the same segment-scoped prefix keys as
   (``restore_seq``/``drop_seq`` are the only exits).
 * **Cross-replica sharing.** Keys are content hashes, so one store can serve
   several caches; ``put``/``read`` carry an ``owner`` tag (``cross_hits``).
+  Replicas in processes of their own keep a store each and exchange the
+  blocks they put (``journal``, ``block``; ``serving.engine.
+  DataParallelEngineGroup`` on a data-axis mesh).
 
 The slabs are torch CPU tensors: numpy has no bfloat16 of its own. They are
 pinned when the store serves a CUDA pool (``pin=True``), so the pool's
@@ -71,6 +74,9 @@ class HostBlockStore:
         self._lru: Dict[bytes, None] = {}       # keyed slots, eviction order
         self._producer: Dict[bytes, Any] = {}   # key -> owner tag that demoted it
         self._swap: Dict[Any, List[int]] = {}   # swap tag -> pinned slots
+        # (key, owner) of each block ``put`` inserts while a list is set:
+        # the rows of a data-axis mesh exchange these after a group step
+        self.journal: Optional[List[Tuple[bytes, Any]]] = None
         self.puts = 0
         self.hits = 0
         self.cross_hits = 0   # promotions whose producer was a different owner
@@ -170,6 +176,8 @@ class HostBlockStore:
         self._lru[key] = None
         self._producer[key] = owner
         self.puts += 1
+        if self.journal is not None:
+            self.journal.append((key, owner))
         if self.sanitizer is not None:
             self.sanitizer.host_put(key, slot, owner)
             self.sanitizer.audit_host(self)
@@ -182,6 +190,16 @@ class HostBlockStore:
         if self.quantized:
             out += (self.k_scale[:, idx], self.v_scale[:, idx])
         return out
+
+    def block(self, key: bytes):
+        """Copies of a resident key's block, ``(k, v, k_scale, v_scale)``
+        of (G, bs, KVH, hd) and (G, KVH) (scales None for a float store),
+        without a hit or a re-heat; None when the key is not resident."""
+        slot = self._by_key.get(key)
+        if slot is None:
+            return None
+        out = self._copies([slot])
+        return tuple(t[:, 0] for t in out) + ((None, None) if len(out) == 2 else ())
 
     def read(self, keys: Sequence[bytes], owner: Any = None):
         """Batched promotion read: ``(k, v)`` stacked ``(G, len(keys), bs,

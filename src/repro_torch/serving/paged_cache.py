@@ -70,6 +70,10 @@ class PagedPool:
     on_free: Optional[Callable[[int], None]] = None             # block truly freed
     keep_on_release: Optional[Callable[[int], bool]] = None     # warm-cache policy
     n_owned: int = 0     # blocks this allocator may hand out
+    # the global id of the device array's first block: a rank that holds
+    # only its replica's block range (``ShardedPoolLayout(dp_blocks=True)``)
+    # keeps global ids here and rebases them where they meet the device
+    base: int = 0
     # optional analysis.kvsan.KVSanitizer: every state transition below
     # mirrors into its shadow machine, which raises on lifecycle violations
     sanitizer: Optional[Any] = None
@@ -174,11 +178,11 @@ class PagedPool:
         """Dense block-table rows for a batch of sequences: ``np.int32``,
         entries past a sequence's chain padded with ``-1`` (never ``0`` —
         block 0 is an ordinary block), so device consumers treat negatives
-        as absent."""
+        as absent. The ids are the device array's (rebased by ``base``)."""
         out = np.full((len(seq_ids), max_blocks), -1, dtype=np.int32)
         for i, sid in enumerate(seq_ids):
             blocks = self.tables.get(sid, [])[:max_blocks]
-            out[i, : len(blocks)] = blocks
+            out[i, : len(blocks)] = np.asarray(blocks, np.int64) - self.base
         return out
 
     def utilization(self) -> float:
@@ -557,7 +561,11 @@ class PagedKVCache:
     ``layout`` (a ``serving.sharded_pool.ShardedPoolLayout``) makes the
     pools this rank's shard, ``KVH / tp`` heads of every block (float pools
     only, as in JAX); the host-side block metadata stays whole on every
-    rank.
+    rank. A layout that splits blocks over "data" (``dp_blocks``) makes
+    them ``hi - lo`` blocks, this rank's ``block_range`` only: the host
+    metadata (free list, refcounts, prefix index, tables, the sanitizer's
+    shadow) keeps global ids, and ``table_array``, the scatters' slots and
+    the host-tier copies see them rebased by ``lo`` (``pool.base``).
 
     The legacy per-sequence API (``admit``, ``write_token``,
     ``write_prefill``, ``sequence_view``) streams K/V in without token
@@ -579,6 +587,13 @@ class PagedKVCache:
         lo, hi = block_range if block_range is not None else (0, n_blocks)
         if not (0 <= lo < hi <= n_blocks):
             raise ValueError(f"block_range {(lo, hi)} outside [0, {n_blocks})")
+        # a rank whose layout splits the block axis holds [lo, hi) only
+        local = (layout.pool_shape(cfg, n_blocks, block_size)[1] if layout is not None
+                 else n_blocks)
+        if local != n_blocks and (block_range is None or hi - lo != local):
+            raise ValueError(
+                f"this rank's pool shard holds {local} of {n_blocks} blocks (dp_blocks): the "
+                f"cache needs its replica's block_range of that size, got {block_range}")
         from repro_torch import resolve_device
         from repro_torch.models.transformer import period
 
@@ -599,6 +614,7 @@ class PagedKVCache:
         self.pool = PagedPool(
             n_blocks, block_size,
             free_list=list(range(lo, hi)),
+            base=lo if local != n_blocks else 0,
             on_free=self._forget_block,
             keep_on_release=lambda b: b in self._block_key,
             sanitizer=sanitizer,
@@ -676,9 +692,11 @@ class PagedKVCache:
         return self._arrays.k_scale is not None
 
     def _ids(self, ids) -> torch.Tensor:
-        """Block ids on the pool's device, uploaded without a sync (a
-        pageable upload would wait for the step in flight)."""
-        return host_to_device(torch.from_numpy(np.asarray(ids, np.int64)), self.device)
+        """Global block ids as the device array's (rebased by ``pool.base``),
+        on the pool's device, uploaded without a sync (a pageable upload
+        would wait for the step in flight)."""
+        return host_to_device(torch.from_numpy(np.asarray(ids, np.int64) - self.pool.base),
+                              self.device)
 
     def reset_block_scales(self, ids) -> None:
         """Zero the scales of freshly allocated blocks: a running max only
@@ -942,7 +960,8 @@ class PagedKVCache:
         # extend_for just reserved; write_prefill's Lp tokens were reserved by
         # the caller's allocate (and _chunk_dest clamps); sequence_view's
         # gathers clamp pad rows and paged_validity masks them.
-        return self._ids(self.pool.table_array([seq_id], self.max_blocks)[0]).int()
+        row = self.pool.table_array([seq_id], self.max_blocks)[0]   # already rebased
+        return host_to_device(torch.from_numpy(row), self.device)
 
     def write_token(self, seq_id: int, k_entry, v_entry):
         """k/v_entry: (G, KVH, hd) for the next position of ``seq_id``."""

@@ -17,16 +17,27 @@ shards on devices of one process under GSPMD; here each rank is a process
 of a ``torch.distributed`` group and the collectives are written out.
 
 **DP (by block range).** Data-parallel replicas own disjoint *block ranges*
-of one pool box, each replica running fully independent admission (its own
+of one pool, each replica running fully independent admission (its own
 free list, refcounts, prefix index and warm LRU). ``block_range`` computes a
-replica's slice; ``serving.engine.DataParallelEngineGroup`` wires replica
-engines to one shared ``PoolArrays`` box on one device. Cross-replica
-*content* sharing happens one tier down: a ``serving.host_tier.
-HostBlockStore`` shared by the group mirrors every replica's published
+replica's slice. ``serving.engine.DataParallelEngineGroup`` takes three
+placements. Without a layout, or with a layout of one "model" axis, every
+process builds all the replicas over one shared ``PoolArrays`` box (its
+heads of every block on a TP rank). On a ("data", "model") mesh each row of
+the mesh is one replica: rank (d, m) runs replica d's engine on its "model"
+group and, with ``dp_blocks=True``, holds only blocks ``block_range(total,
+dp, d)`` of its ``KVH / tp`` heads (``pool_shape`` divides the block axis
+where ``models.sharding.pool_pspecs`` puts it on "data"); the host-side
+block ids stay global and are rebased where they meet the device
+(``serving.paged_cache``). A replica's gather never leaves its rank, so the
+data-axis combine that GSPMD inserts in JAX has no counterpart. A lone
+engine on a data-axis mesh (``dp_blocks=False``) is JAX's placement
+replicated over "data": every row runs the same engine on its "model"
+group. Cross-replica *content* sharing happens one tier down: a
+``serving.host_tier.HostBlockStore`` mirrors every replica's published
 prefix blocks on the host, so a document prefilled in one replica's range
-is a host-tier promotion, not a re-prefill, in another's. A mesh with a
-"data" axis (the pool's block axis split over it) is not ported yet
-(ROADMAP 14c).
+is a host-tier promotion, not a re-prefill, in another's (on a data-axis
+mesh the rows exchange the blocks they wrote through after each group
+step).
 """
 from __future__ import annotations
 
@@ -52,10 +63,13 @@ def block_range(n_blocks: int, dp_degree: int, dp_rank: int) -> Tuple[int, int]:
 class ShardedPoolLayout:
     """How a paged engine's arrays map onto a mesh (``launch.mesh.
     make_serving_mesh``: a ``DeviceMesh`` over the process group) that
-    carries a "model" axis (TP) and may carry a "data" axis (DP; the
-    engine refuses one until ROADMAP 14c)."""
+    carries a "model" axis (TP) and may carry a "data" axis (DP).
+    ``dp_blocks`` splits the pool's block axis over "data": each data rank
+    then holds only its replica's block range (``DataParallelEngineGroup``;
+    a lone engine addresses the whole pool and refuses it)."""
 
     mesh: Any
+    dp_blocks: bool = False
 
     @property
     def axis_sizes(self) -> dict:
@@ -80,6 +94,22 @@ class ShardedPoolLayout:
     def tp_group(self):
         """The process group of this rank's "model" axis (None at tp 1)."""
         return self.mesh.get_group("model") if self.tp_degree > 1 else None
+
+    @property
+    def dp_rank(self) -> int:
+        """This process's index along the "data" axis: its mesh row."""
+        return self.mesh.get_local_rank("data") if self.dp_degree > 1 else 0
+
+    @property
+    def dp_group(self):
+        """The process group of the ranks with this rank's "model" index,
+        one a row (None without a "data" axis)."""
+        return self.mesh.get_group("data") if self.dp_degree > 1 else None
+
+    def splits_blocks(self, cfg, n_blocks: int) -> bool:
+        """Whether this rank holds only a block range of an ``n_blocks``
+        pool (``dp_blocks`` and a "data" axis that divides the count)."""
+        return self.pool_shape(cfg, n_blocks, 1)[1] != n_blocks
 
     # ----------------------------------------------------------- validation
     def validate(self, cfg) -> None:
@@ -114,15 +144,18 @@ class ShardedPoolLayout:
                            d_ff=cfg.d_ff // tp, head_dim=cfg.head_dim)
 
     def pool_shape(self, cfg, n_blocks: int, block_size: int) -> Tuple[int, ...]:
-        """This rank's shard of a k or v pool: (G, n_blocks, bs, KVH / tp,
-        hd) (``models.sharding.pool_pspecs``)."""
+        """This rank's shard of a k or v pool (``models.sharding.
+        pool_pspecs``): (G, n_blocks, bs, KVH / tp, hd), and with
+        ``dp_blocks`` the block axis divided by the "data" axis where it
+        divides the count (an indivisible count stays whole, as in JAX)."""
         from repro_torch.models.sharding import pool_pspecs, shard_shape
         from repro_torch.models.transformer import period
 
         G = cfg.num_layers // period(cfg)
         full = (G, n_blocks, block_size, cfg.num_kv_heads, cfg.head_dim)
-        sizes = {k: v for k, v in self.axis_sizes.items() if k == "model"}
-        return shard_shape(full, pool_pspecs(cfg, sizes, n_blocks=n_blocks), sizes)
+        sizes = self.axis_sizes
+        return shard_shape(full, pool_pspecs(cfg, sizes, dp_blocks=self.dp_blocks,
+                                             n_blocks=n_blocks), sizes)
 
     def entry_shape(self, cfg, B: int, S: int) -> Tuple[int, ...]:
         """This rank's shard of a gathered view or chunk write (G, B, S,
@@ -166,17 +199,17 @@ class ShardedPoolLayout:
         return tree_map_with_path(shard, params, self.param_shardings(cfg, params))
 
 
-def make_pool_layout(mesh=None, tp: Optional[int] = None,
-                     dp: int = 1) -> Optional[ShardedPoolLayout]:
+def make_pool_layout(mesh=None, tp: Optional[int] = None, dp: int = 1,
+                     dp_blocks: bool = False) -> Optional[ShardedPoolLayout]:
     """Build a layout from either an existing mesh or a (tp, dp) request
     (``launch.mesh.make_serving_mesh`` over the initialised process group).
-    Returns None for the degenerate no-mesh / tp=1 / dp=1 case, so callers
-    keep the unsharded path."""
+    Returns None for the degenerate no-mesh / tp=1 / dp=1 case, with or
+    without ``dp_blocks``, so callers keep the unsharded path."""
     if mesh is not None:
-        return ShardedPoolLayout(mesh)
+        return ShardedPoolLayout(mesh, dp_blocks=dp_blocks)
     tp = tp or 1
     if tp <= 1 and dp <= 1:
         return None
     from repro_torch.launch.mesh import make_serving_mesh
 
-    return ShardedPoolLayout(make_serving_mesh(tp, dp))
+    return ShardedPoolLayout(make_serving_mesh(tp, dp), dp_blocks=dp_blocks)

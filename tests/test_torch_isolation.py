@@ -109,6 +109,8 @@ def test_cuda_path_raises_without_a_gpu(monkeypatch):
 
 
 def test_later_slices_raise_not_implemented():
+    import numpy as np
+
     from repro_torch.configs import get_arch, smoke_variant
     from repro_torch.serving.engine import GenerationEngine
 
@@ -116,13 +118,16 @@ def test_later_slices_raise_not_implemented():
     from repro_torch.serving.sharded_pool import ShardedPoolLayout
 
     cfg = smoke_variant(get_arch("smollm-135m"))
-    # a mesh with a data axis is a later slice (ROADMAP 14c); a model-axis
-    # mesh is ported (tests/test_torch_tp.py) and, as JAX's, refuses the
-    # Pallas kernels
+    # a mesh with a data axis is ported (tests/test_torch_dp_mesh.py): a
+    # lone engine on it serves, replicated over "data"; as JAX's, every
+    # mesh refuses the Pallas kernels
     data_axis = AbstractMesh(("data", "model"), (2, 1))
     for kw in ({"mesh": data_axis}, {"pool_layout": ShardedPoolLayout(data_axis)}):
-        with pytest.raises(NotImplementedError, match="14c"):
-            GenerationEngine(cfg, device="cpu", kernel="reference", **kw)
+        eng = GenerationEngine(cfg, device="cpu", kernel="reference", **kw)
+        assert eng.pool_layout.dp_degree == 2 and eng._tp_group is None
+        req = eng.submit(np.arange(12), max_new=3)
+        eng.run_until_done()
+        assert req.done and len(req.out_tokens) == 3
         with pytest.raises(ValueError, match="single-device"):
             GenerationEngine(cfg, device="cpu", **kw)
     from repro_torch.serving.paged_cache import PagedKVCache
@@ -134,8 +139,13 @@ def test_later_slices_raise_not_implemented():
         PagedKVCache(cfg, 8, 16, 4, device="cpu", layout=model_axis, kv_dtype="int8")
     from repro_torch.serving.engine import DataParallelEngineGroup
 
-    with pytest.raises(NotImplementedError):       # replicas on a mesh: a later slice
-        DataParallelEngineGroup(cfg, dp=2, device="cpu", pool_layout=object())
+    # replicas on a mesh are ported: a group takes a TP-only layout
+    grp = DataParallelEngineGroup(cfg, dp=2, device="cpu", kernel="reference",
+                                  pool_layout=ShardedPoolLayout(AbstractMesh(("model",), (1,))))
+    assert len(grp.engines) == 2 and grp.row is None
+    reqs = [grp.submit(np.arange(12) + i, max_new=3) for i in range(2)]
+    grp.run_until_done()
+    assert [grp.replica_of(r) for r in reqs] == [0, 1] and all(r.done for r in reqs)
     # the paged backend's oracle paths and the sanitizer are ported
     eng = GenerationEngine(cfg, device="cpu", interleave=False)
     assert eng.backend == "paged" and not eng.interleave and eng.kernel_impl == "pallas"

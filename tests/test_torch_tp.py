@@ -12,12 +12,15 @@ ranks on the CPU) held against the JAX package.
   programs, none on the pool roundtrip, no all-gather; the step audit
   holds on every rank.
 * ``ShardedPoolLayout.validate`` rejects kv_heads=3 at tp=4; the int8 and
-  Pallas refusals carry JAX's messages; a data-axis mesh raises (ROADMAP
-  14c); ``make_pool_layout``'s degenerate case is None; a stack the
-  Megatron pair does not cover refuses a tensor-parallel group.
+  Pallas refusals carry JAX's messages; a lone engine on a data-axis
+  layout serves as the unsharded one, a group takes a TP-only layout, and
+  ``dp_blocks`` without a group is refused; ``make_pool_layout``'s
+  degenerate case is None; a stack the Megatron pair does not cover
+  refuses a tensor-parallel group.
 * the explicit TP block (``make_tp_block``) against ``tp_block_reference``
   within 1e-5, one all-reduce; the DTensor block beside it.
-* ``launch.serve --tp 2`` on the CPU and its refusals.
+* ``launch.serve --tp 2`` and ``--tp 2 --dp 2`` on the CPU and their
+  refusals.
 """
 import jax
 import numpy as np
@@ -187,11 +190,31 @@ def test_validate_and_the_data_axis():
         lay.validate(cfg.replace(num_kv_heads=3, num_heads=9))
     assert lay.pool_shape(cfg, 10, 16) == (2, 10, 16, 1, cfg.head_dim)
     assert lay.entry_shape(cfg, 3, 40) == (2, 3, 40, 1, cfg.head_dim)
-    with pytest.raises(NotImplementedError, match="14c"):
-        GenerationEngine(cfg, max_batch=2, max_seq=64, kernel="reference", device="cpu",
-                         pool_layout=ShardedPoolLayout(AbstractMesh(("data", "model"), (2, 1))))
-    with pytest.raises(NotImplementedError, match="14c"):
-        DataParallelEngineGroup(cfg, dp=2, pool_layout=lay, device="cpu")
+    # a lone engine on a (2, 1) data-axis layout is replicated over "data"
+    # (a "model" axis of one rank needs no process group): the unsharded
+    # engine's tokens; a group takes a TP-only layout (one rank here; tp 2
+    # in tests/test_torch_dp_mesh.py)
+    small = H.tp_config("smollm-135m")
+    kw = dict(max_batch=2, max_seq=64, kernel="reference", device="cpu")
+    prompts = [np.arange(20) % 97, np.arange(9) + 3]
+
+    def serve(eng):
+        reqs = [eng.submit(p, max_new=4) for p in prompts]
+        eng.run_until_done()
+        return [r.out_tokens for r in reqs]
+
+    want = serve(GenerationEngine(small, **kw))
+    data_axis = ShardedPoolLayout(AbstractMesh(("data", "model"), (2, 1)))
+    eng = GenerationEngine(small, pool_layout=data_axis, **kw)
+    assert serve(eng) == want and eng.kv.k.shape[1] == 2 * (4 + 1) + 1
+    grp = DataParallelEngineGroup(small, dp=2, pool_layout=ShardedPoolLayout(
+        AbstractMesh(("model",), (1,))), **kw)
+    assert serve(grp) == want and grp.engines[0].kv._arrays is grp.engines[1].kv._arrays
+    split = ShardedPoolLayout(data_axis.mesh, dp_blocks=True)
+    with pytest.raises(ValueError, match="DataParallelEngineGroup"):
+        GenerationEngine(small, pool_layout=split, n_blocks=12, **kw)
+    # 11 blocks do not divide over 2 rows: they stay whole, as in JAX
+    assert GenerationEngine(small, pool_layout=split, n_blocks=11, **kw).kv.k.shape[1] == 11
     assert make_pool_layout() is None
     assert make_pool_layout(tp=1) is None
     assert make_pool_layout(tp=1, dp=1) is None
@@ -231,11 +254,19 @@ def test_serve_tp_cli(capfd):
                 "--n-requests", "3", "--max-new", "4"])
     out = capfd.readouterr().out
     assert "tp=2" in out and "fused-step collectives: {'all-reduce': 4" in out
-    for extra, msg in ((["--kernel", "pallas"], "--kernel pallas is single-device"),
-                       (["--kv-dtype", "int8"], "--kv-dtype int8 is single-device")):
-        with pytest.raises(SystemExit, match=msg):
-            serve.main(["--arch", "smollm-135m", "--smoke", "--device", "cpu", "--tp", "2",
-                        *extra])
+    # a (2, 2) mesh: each row one replica over its block range
+    serve.main(["--arch", "smollm-135m", "--smoke", "--device", "cpu", "--tp", "2", "--dp",
+                "2", "--n-requests", "4", "--max-new", "4"])
+    out = capfd.readouterr().out
+    assert "dp=2 tp=2" in out and "this rank's pool (2, 69, 16, 1, 64)" in out
+    assert "collectives by group: {'model': {'all-reduce': 4, 'all-reduce_bytes': " in out
+    assert "'data': {}}" in out
+    for dp in ("1", "2"):
+        for extra, msg in ((["--kernel", "pallas"], "--kernel pallas is single-device"),
+                           (["--kv-dtype", "int8"], "--kv-dtype int8 is single-device")):
+            with pytest.raises(SystemExit, match=msg):
+                serve.main(["--arch", "smollm-135m", "--smoke", "--device", "cpu", "--tp", "2",
+                            "--dp", dp, *extra])
 
 
 def test_rank_device_takes_one_card_a_rank(monkeypatch):
