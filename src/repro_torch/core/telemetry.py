@@ -8,12 +8,21 @@ frequencies, critical paths). This module provides:
   * time-series gauges (queue depth, instance count, chunk size, pool
     utilization) sampled on events,
   * critical-path extraction over a request's spans.
+
+Those serve the simulated controller, on its own clock. The served engine
+keeps a ``Recorder`` (``GenerationEngine.telemetry``): spans and counters
+at the layer boundaries of its step, on ``clock`` (``time.perf_counter``),
+the clock its requests' stamps and the device runner's host-gap probes
+read too, and the one the ``ragbench`` client loop stamps with.
 """
 from __future__ import annotations
 
+import time
 from collections import defaultdict
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
+
+clock = time.perf_counter  # the served path's one clock
 
 
 @dataclass
@@ -103,3 +112,73 @@ class Telemetry:
         chars = " ▁▂▃▄▅▆▇█"
         span = max(hi - lo, 1e-12)
         return "".join(chars[int((v - lo) / span * (len(chars) - 1))] for v in buckets)
+
+
+class _Timed:
+    """The context manager of one span name: on exit it adds the seconds
+    and a call to the name's total and, if the span was opened while the
+    recorder was on, closes its record. A name does not nest in itself."""
+
+    __slots__ = ("rec", "name", "total", "t0", "index")
+
+    def __init__(self, rec: "Recorder", name: str):
+        self.rec, self.name = rec, name
+        self.total = rec.totals.setdefault(name, [0.0, 0])
+        self.index: Optional[int] = None
+
+    def __enter__(self):
+        rec = self.rec
+        if rec.on:
+            self.index = len(rec.spans)
+            rec.spans.append((self.name, 0.0, 0.0, rec._open[-1] if rec._open else None))
+            rec._open.append(self.index)
+        self.t0 = clock()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = clock()
+        self.total[0] += t1 - self.t0
+        self.total[1] += 1
+        i = self.index
+        if i is not None:
+            self.index = None
+            rec = self.rec
+            rec.spans[i] = (self.name, self.t0, t1, rec.spans[i][3])
+            if rec._open and rec._open[-1] == i:
+                rec._open.pop()
+        return False
+
+
+class Recorder:
+    """Hot-path spans and counters of one engine, on ``clock``.
+
+    ``totals`` (name -> [seconds, calls]) and ``counters`` (name -> int)
+    are always kept: a span costs two clock reads and two list adds, and
+    allocates nothing. ``spans`` grows only while ``on`` (off by default):
+    one ``(name, start, end, parent)`` a span, in the order they opened,
+    ``parent`` the index in ``spans`` of the span open around it (None at
+    the top). Whoever turns ``on`` takes and clears ``spans``."""
+
+    def __init__(self):
+        self.on = False
+        self.totals: Dict[str, List[float]] = {}
+        self.counters: Dict[str, int] = {}
+        self.spans: List[Tuple[str, float, float, Optional[int]]] = []
+        self._open: List[int] = []
+        self._timers: Dict[str, _Timed] = {}
+
+    def span(self, name: str) -> _Timed:
+        """``with rec.span(name):`` times the block under ``name``."""
+        t = self._timers.get(name)
+        if t is None:
+            t = self._timers[name] = _Timed(self, name)
+        return t
+
+    def count(self, name: str) -> None:
+        self.counters[name] = self.counters.get(name, 0) + 1
+
+    def snapshot(self) -> Dict[str, Dict]:
+        """A copy of the totals, as name -> (seconds, calls), and of the
+        counters."""
+        return {"totals": {k: (v[0], v[1]) for k, v in self.totals.items()},
+                "counters": dict(self.counters)}

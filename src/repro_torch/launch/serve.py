@@ -177,6 +177,12 @@ def serve_real(arch: str, n_requests: int = 8, max_new: int = 12,
         print(f"[serve:real] host gap: {1e3 * stats['host_gap_s']:.1f}ms total "
               f"over {stats['dispatches']} dispatches "
               f"(copy ops drained: {stats['copy_ops_drained']})")
+        totals, steps = stats["telemetry"]["totals"], max(stats["steps"], 1)
+        spans = " ".join(f"{name} {1e3 * totals.get(name, (0.0, 0))[0] / steps:.2f}"
+                         for name in ("plan", "plan.admit", "launch", "wait", "emit"))
+        deferred = stats["telemetry"]["counters"].get("admit.deferred_prefix", 0)
+        print(f"[serve:real] step spans, ms a step: {spans}; "
+              f"admit.deferred_prefix {deferred} of {stats['steps']} steps")
     if "host_store" in stats:
         print(f"[serve:real] host tier: {stats['host_store']}")
     if eng.sanitizer is not None:

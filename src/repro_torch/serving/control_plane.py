@@ -210,13 +210,15 @@ class ControlPlane:
     def admit(self) -> None:
         """Fill free slots from the waiting queue in policy order, allocating
         blocks only — prefill itself runs inside later plans via the
-        request's cursor."""
+        request's cursor. A stop at a request whose prefix a leader is
+        still prefilling counts as ``admit.deferred_prefix``."""
         eng = self.eng
         free = [s for s in range(eng.max_batch) if eng.slots[s] is None]
         while free and eng.waiting:
             i = eng.scheduler.select(eng.waiting)
             req = eng.waiting[i]
             if not req.swapped and eng._prefix_pending(req):
+                eng.telemetry.count("admit.deferred_prefix")
                 break  # leader still prefilling this prefix; wait to share it
             was_swapped = req.swapped  # _try_admit clears it on restore
             if not eng._try_admit(req):
@@ -236,6 +238,7 @@ class ControlPlane:
             # resumes mid-prefill or mid-decode exactly where swap-out left it
             req.slot = slot
             eng.slots[slot] = req
+            req.stamp_admitted(eng.steps)
 
     # ----------------------------------------------------------- chunk knob
     def _apply_chunk_policy(self, active: List) -> None:
@@ -256,7 +259,8 @@ class ControlPlane:
         """One step's decisions, host-side only. Returns None when there is
         nothing to run (no active slots after admission)."""
         eng = self.eng
-        self.admit()
+        with eng.telemetry.span("plan.admit"):
+            self.admit()
         eng._ensure_decode_capacity()
         active = [r for r in eng.slots if r is not None]
         self._apply_chunk_policy(active)

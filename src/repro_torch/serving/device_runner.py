@@ -18,7 +18,9 @@
 
 * **Host-gap accounting.** The wall time the device sat idle between the
   completion of one step and the dispatch of the next, measured with
-  ``Event.query()`` at build start and the blocking materializes.
+  ``Event.query()`` at build start and the blocking materializes. It
+  misses idle time inside a step; the engine's ``telemetry`` spans
+  (``launch``, ``wait``, ...) show where the host spends a step.
 
 * **Per-token step time.** ``token_time_ema``: an EMA of (materialize -
   dispatch wall time) / the plan's valid tokens, which the cost model of
@@ -28,12 +30,12 @@ On the CPU everything runs synchronously: a dispatched plan is ready at once.
 """
 from __future__ import annotations
 
-import time
-from typing import List, Optional
+from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch.core.telemetry import clock
 from repro_torch.serving.control_plane import StepPlan
 from repro_torch.serving.sampler import sample_tokens
 
@@ -89,7 +91,7 @@ class DeviceRunner:
         self._outstanding: Optional[PlanExec] = None  # newest unmaterialized
         self._idle_mark: Optional[float] = None       # when idleness observed
         self.host_gap_s = 0.0
-        self.gap_samples: List[float] = []
+        self.n_gaps = 0           # dispatches that closed a gap (0 s if busy)
         self.n_dispatched = 0
         # online per-valid-token step time (EMA over materialized plans);
         # the cost-model preemption's recompute estimate consumes it
@@ -122,24 +124,23 @@ class DeviceRunner:
         finished, the device is idle from NOW until the next dispatch."""
         if (self._outstanding is not None and self._idle_mark is None
                 and self._outstanding.is_ready()):
-            self._idle_mark = time.perf_counter()
+            self._idle_mark = clock()
 
     # ------------------------------------------------------------- dispatch
     @torch.no_grad()
     def dispatch(self, plan: StepPlan) -> PlanExec:
         eng = self.eng
-        now = time.perf_counter()
+        now = clock()
         if self._outstanding is not None and self._idle_mark is None:
             # late probe: the step may have finished mid-build; counting the
             # gap from now underestimates, never inflates, the idle time
             if self._outstanding.is_ready():
                 self._idle_mark = now
         if self._idle_mark is not None:
-            gap = max(now - self._idle_mark, 0.0)
-            self.host_gap_s += gap
-            self.gap_samples.append(gap)
+            self.host_gap_s += max(now - self._idle_mark, 0.0)
+            self.n_gaps += 1
         elif self._outstanding is not None:
-            self.gap_samples.append(0.0)  # device still busy: zero gap
+            self.n_gaps += 1  # device still busy: zero gap
         self._idle_mark = None
 
         prev = self._last.tokens if self._last is not None else self._no_prev
@@ -186,11 +187,12 @@ class DeviceRunner:
         When ``ex`` is the newest dispatched work, the device is idle from
         here until the next dispatch — start the gap clock."""
         if ex._host is None:
-            if ex.event is not None:
-                ex.event.synchronize()
+            with self.eng.telemetry.span("wait"):
+                if ex.event is not None:
+                    ex.event.synchronize()
             ex._host = ex.host.numpy().copy()
             ex.staging = None
-            t = time.perf_counter()
+            t = clock()
             if self._outstanding is ex:
                 self._outstanding = None
                 self._idle_mark = t
@@ -202,9 +204,8 @@ class DeviceRunner:
 
     # ---------------------------------------------------------------- stats
     def summary(self) -> dict:
-        gaps = self.gap_samples
         return {
             "host_gap_s": self.host_gap_s,
-            "host_gap_mean_s": float(np.mean(gaps)) if gaps else 0.0,
+            "host_gap_mean_s": self.host_gap_s / self.n_gaps if self.n_gaps else 0.0,
             "dispatches": self.n_dispatched,
         }

@@ -98,7 +98,6 @@ group's: ``DataParallelEngineGroup``). As in JAX, a mesh takes
 from __future__ import annotations
 
 import copy
-import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
@@ -109,6 +108,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.scheduler import QueuePolicy, make_policy
 from repro_torch.core.streaming import PriorityFlusher, StreamingObject
+from repro_torch.core.telemetry import Recorder, clock
 from repro_torch.models import (
     decode_step,
     decode_step_paged,
@@ -171,8 +171,12 @@ class Request:
     shared_spans: List = field(default_factory=list)  # token ranges served from cache
     swapped: bool = False            # KV chain parked in the host tier
     swap_len: int = 0                # cache length to restore on swap-in
-    queued_steps: int = 0            # engine steps spent waiting for admission
+    # stamps on telemetry.clock; admission's are the first admission's
+    # (preemption and swap-in keep them)
     submitted_at: float = 0.0
+    admitted_at: Optional[float] = None
+    submitted_step: int = 0          # the engine's step count at submission
+    admitted_step: Optional[int] = None  # and at admission
     first_token_at: Optional[float] = None
     last_token_at: Optional[float] = None
     finished_at: Optional[float] = None
@@ -187,6 +191,17 @@ class Request:
     @property
     def prefilling(self) -> bool:
         return self.slot >= 0 and self.prefill_pos < self.prefill_cap
+
+    @property
+    def queued_steps(self) -> int:
+        """Engine steps between submission and admission (0 until admitted)."""
+        return 0 if self.admitted_step is None else self.admitted_step - self.submitted_step
+
+    def stamp_admitted(self, steps: int) -> None:
+        """Stamp the first admission (``steps``: the engine's step count)."""
+        if self.admitted_at is None:
+            self.admitted_at = clock()
+            self.admitted_step = steps
 
     @property
     def prefix_hit_rate(self) -> float:
@@ -371,6 +386,8 @@ class GenerationEngine:
         self.tokens_out = 0
         self.prefill_tokens = 0
         self.preemptions = 0
+        # spans of each step and the admission counters (core.telemetry)
+        self.telemetry = Recorder()
         self.swap_outs = 0
         self.swap_ins = 0
         self.swap_out_bytes = 0          # host-tier bytes parked by swap-outs
@@ -493,7 +510,8 @@ class GenerationEngine:
             segprompt = None
         req = Request(self._next_id, prompt, max_new, temperature, priority)
         req.segprompt = segprompt
-        req.submitted_at = time.monotonic()
+        req.submitted_at = clock()
+        req.submitted_step = self.steps
         # out-of-band delivery through the shared PriorityFlusher, EDF order
         req.stream = StreamingObject(priority=priority)
         req.stream.on_chunk(self._make_chunk_cb(req))
@@ -532,6 +550,7 @@ class GenerationEngine:
             "stream_backlog": self.flusher.backlog,
             "kernel": self.kernel,
             "device": str(self.device),
+            "telemetry": self.telemetry.snapshot(),
         }
         if self.backend != "paged":
             return s
@@ -806,7 +825,7 @@ class GenerationEngine:
             # instead of wedging the queue
             req.done = True
             req.truncated = True
-            req.finished_at = time.monotonic()
+            req.finished_at = clock()
             self.finished.append(req)
             if req.stream is not None and not req.stream.closed:
                 req.stream.close()
@@ -1160,27 +1179,41 @@ class GenerationEngine:
         step (``pipeline=False``) or next step (``pipeline=True``). Returns
         the tokens whose emission LANDED this step. The dense backend and
         the sequential paged path (``interleave=False``) admit (blocking
-        whole-prompt prefill) and then run one batched decode."""
-        for r in self.waiting:
-            r.queued_steps += 1
-        if not self.interleave:
+        whole-prompt prefill) and then run one batched decode.
+
+        ``telemetry`` times each step as ``engine.step``; on the interleaved
+        path its children are ``plan`` (``ControlPlane.build_plan``, with
+        ``plan.admit``), ``launch`` (``DeviceRunner.dispatch``), ``copies``
+        (the copy engine's drain), ``wait`` (the wait for a plan's sampled
+        tokens) and ``emit`` (landing them, and the stream flush). A
+        preemption mid-build lands the inflight plan inside ``plan``."""
+        with self.telemetry.span("engine.step"):
+            if self.interleave:
+                return self._step_interleaved()
             out = self._step_sequential()
             self._drain_copies(full=True)
             self.flusher.flush()
             return out
+
+    def _step_interleaved(self) -> Dict[int, List[int]]:
+        rec = self.telemetry
         emitted: Dict[int, List[int]] = {}
         # preemption inside build may have to sync the inflight plan; its
         # emissions land in this step's result
         self._build_emitted = emitted
         try:
             self.runner.probe_idle()
-            plan = self.control.build_plan()
+            with rec.span("plan"):
+                plan = self.control.build_plan()
         finally:
             self._build_emitted = None
-        ex = self.runner.dispatch(plan) if plan is not None else None
-        if ex is not None:
+        ex = None
+        if plan is not None:
+            with rec.span("launch"):
+                ex = self.runner.dispatch(plan)
             self.steps += 1
-        self._drain_copies(full=ex is None)
+        with rec.span("copies"):
+            self._drain_copies(full=ex is None)
         prev, self._inflight = self._inflight, ex
         if prev is not None:
             _merge_emitted(emitted, self._materialize(prev))
@@ -1189,7 +1222,8 @@ class GenerationEngine:
             # before the next plan is built, so pipelining degenerates
             cur, self._inflight = self._inflight, None
             _merge_emitted(emitted, self._materialize(cur))
-        self.flusher.flush()
+        with rec.span("emit"):
+            self.flusher.flush()
         return emitted
 
     def _materialize(self, ex: PlanExec) -> Dict[int, List[int]]:
@@ -1197,12 +1231,13 @@ class GenerationEngine:
         host, write them to out_tokens + streams, finalize finishing rows."""
         toks = self.runner.materialize(ex)
         emitted: Dict[int, List[int]] = {}
-        for req, row, finishing in ex.plan.emit_rows:
-            tok = int(toks[row])
-            self._emit_token(req, tok)
-            emitted.setdefault(req.req_id, []).append(tok)
-            if finishing or tok == self.eos_token:
-                self._finalize(req)
+        with self.telemetry.span("emit"):
+            for req, row, finishing in ex.plan.emit_rows:
+                tok = int(toks[row])
+                self._emit_token(req, tok)
+                emitted.setdefault(req.req_id, []).append(tok)
+                if finishing or tok == self.eos_token:
+                    self._finalize(req)
         return emitted
 
     def _sync_inflight(self) -> None:
@@ -1258,7 +1293,7 @@ class GenerationEngine:
     def _emit_token(self, req: Request, tok: int):
         """Emission side effects of one materialized token: timestamps,
         out_tokens, counters, and the out-of-band stream write."""
-        now = time.monotonic()
+        now = clock()
         if req.first_token_at is None:
             req.first_token_at = now
         elif req.last_token_at is not None:
@@ -1278,7 +1313,7 @@ class GenerationEngine:
             return
         req.done = True
         req.finished_at = (req.last_token_at if req.last_token_at is not None
-                           else time.monotonic())
+                           else clock())
         self.finished.append(req)
         if len(self.finished) > self.max_finished:
             del self.finished[: -self.max_finished]
@@ -1346,6 +1381,7 @@ class GenerationEngine:
                     break
                 self.waiting.pop(i)
                 self.slots[slot] = req
+                req.stamp_admitted(self.steps)
                 if was_swapped:
                     # restored in place: KV, position and cursor resume as
                     # they were (sequential victims are always decode-phase)
@@ -1421,8 +1457,9 @@ class GenerationEngine:
 # onto its stand-ins on the other rows
 _MIRRORED_FIELDS = ("out_tokens", "done", "truncated", "shared_prefix_tokens",
                     "host_prefix_tokens", "session_shared_tokens", "session_host_tokens",
-                    "queued_steps", "submitted_at", "first_token_at", "last_token_at",
-                    "finished_at", "token_gaps", "max_token_gap", "planned", "delivered")
+                    "submitted_step", "admitted_step", "submitted_at", "admitted_at",
+                    "first_token_at", "last_token_at", "finished_at", "token_gaps",
+                    "max_token_gap", "planned", "delivered")
 
 
 class RowReplica:
@@ -1630,7 +1667,7 @@ class DataParallelEngineGroup:
             req = Request(rid, np.atleast_1d(np.asarray(tokens, np.int32)), max_new,
                           temperature, priority)
             req.segprompt = prompt if isinstance(prompt, SegmentedPrompt) else None
-            req.submitted_at = time.monotonic()
+            req.submitted_at = clock()
         self._submitted.append((d, req))
         return req
 
